@@ -1,0 +1,210 @@
+"""Function specs and solo-run profiles (paper §4.1, Table 3).
+
+A *function* is the scheduling unit.  Its profile is a 13-dim vector of
+solo-run resource metrics (the paper's Table 3, adapted to our TPU-serving
+deployment but kept at the same dimensionality so the predictor is
+unchanged).  Profiles are produced by ``solo_run_profile`` — a simulated
+profiling-node run against the ground-truth interference model with no
+neighbors — exactly the paper's solo-run methodology: the predictor only
+ever sees measured (simulated-measured) data, never ground-truth internals.
+
+Two function families ship:
+  * the six ServerlessBench/FunctionBench workloads used in the paper's
+    evaluation (rnn, image-resize, linpack, log-processing, chameleon,
+    gzip), and
+  * one serving function per assigned model architecture (a replica of the
+    model with its decode-step resource footprint) — the TPU adaptation.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional
+
+import numpy as np
+
+PROFILE_METRICS = (
+    "mcpu",             # CPU utilization (millicores)
+    "instructions",     # instructions retired (G/s)
+    "ipc",              # instructions per cycle
+    "ctx_switches",     # context switches (k/s)
+    "mlp",              # memory-level parallelism
+    "l1d_mpki", "l1i_mpki", "l2_mpki", "llc_mpki",
+    "dtlb_mpki", "itlb_mpki",
+    "branch_mpki",
+    "mem_bw",           # memory bandwidth (GB/s)
+)
+N_PROFILE = len(PROFILE_METRICS)
+
+
+@dataclass(frozen=True)
+class FunctionSpec:
+    """Static user-visible function configuration."""
+
+    name: str
+    cpu_req: float          # requested millicores (user config, conservative)
+    mem_req: float          # requested MB
+    saturated_rps: float    # autoscaler threshold (requests/s per instance)
+    exec_ms: float          # mean execution time of one request
+    # intrinsic resource behaviour (drives the ground-truth model);
+    # hidden from the scheduler — only solo-run profiles are observable.
+    cpu_work: float = 0.5   # fraction of cpu_req actually used at saturation
+    mem_work: float = 0.6   # fraction of mem_req actually used
+    bw_demand: float = 2.0  # GB/s at saturated load
+    cache_mb: float = 4.0   # working-set pressure on LLC (MB)
+    cpu_sens: float = 1.0   # latency sensitivity to CPU contention
+    bw_sens: float = 1.0    # ... to bandwidth contention
+    cache_sens: float = 1.0  # ... to cache contention
+
+
+def _hash_unit(name: str, salt: str) -> float:
+    h = hashlib.sha256(f"{name}:{salt}".encode()).digest()
+    return int.from_bytes(h[:8], "little") / 2**64
+
+
+# ---------------------------------------------------------------------------
+# The six paper workloads (ServerlessBench / FunctionBench)
+# ---------------------------------------------------------------------------
+
+# bw/cache footprints scale with requested CPU (a 2000-mcore slot of a
+# 48-core node packs ~24x: per-instance demands must keep requested-
+# resource packing near the calibration invariant in interference.py).
+BENCH_FUNCTIONS: Dict[str, FunctionSpec] = {
+    # name            cpu_req mem_req  rps  exec   cpu_w mem_w  bw  cache  sens(c,b,$)
+    "rnn": FunctionSpec("rnn", 2000, 1024, 20, 45.0, 0.37, 0.55, 1.4, 2.0,
+                        cpu_sens=1.2, bw_sens=1.1, cache_sens=0.9),
+    "img_resize": FunctionSpec("img_resize", 2000, 1024, 30, 30.0, 0.33,
+                               0.50, 2.0, 3.0, cpu_sens=0.9, bw_sens=1.4,
+                               cache_sens=1.2),
+    "linpack": FunctionSpec("linpack", 2000, 1024, 15, 60.0, 0.47, 0.40,
+                            0.8, 1.5, cpu_sens=1.5, bw_sens=0.7,
+                            cache_sens=1.1),
+    "log_proc": FunctionSpec("log_proc", 2000, 1024, 50, 18.0, 0.25, 0.45,
+                             1.7, 2.5, cpu_sens=0.8, bw_sens=1.2,
+                             cache_sens=1.3),
+    "chameleon": FunctionSpec("chameleon", 2000, 1024, 25, 35.0, 0.30, 0.60,
+                              1.1, 1.8, cpu_sens=1.0, bw_sens=0.9,
+                              cache_sens=1.0),
+    "gzip": FunctionSpec("gzip", 2000, 1024, 18, 52.0, 0.42, 0.35, 2.4,
+                         3.5, cpu_sens=1.1, bw_sens=1.5, cache_sens=1.4),
+}
+
+
+def arch_function(arch_name: str, param_count: int, d_model: int,
+                  n_layers: int) -> FunctionSpec:
+    """A serving-replica function derived from a model architecture.
+
+    Resource behaviour scales with model size: decode is HBM-bandwidth
+    bound (bw ~ active bytes), CPU host work scales with layers (dispatch),
+    cache pressure with d_model.  Deterministic per arch.
+    """
+    gb = param_count * 2 / 1e9  # bf16 weights
+    u = _hash_unit(arch_name, "fn")
+    return FunctionSpec(
+        name=f"serve-{arch_name}",
+        cpu_req=1000 + 500 * round(4 * u),
+        mem_req=512 + 256 * round(gb),
+        saturated_rps=max(4.0, 60.0 / (1 + gb)),
+        exec_ms=8.0 + 15.0 * gb + 10.0 * u,
+        cpu_work=0.25 + 0.2 * u,
+        mem_work=0.5 + 0.3 * _hash_unit(arch_name, "mem"),
+        bw_demand=(0.3 + min(gb, 2.0)) * (1000 + 500 * round(4 * u)) / 1000.0,
+        cache_mb=(0.5 + d_model / 4096.0) * (1000 + 500 * round(4 * u)) / 1000.0,
+        cpu_sens=0.8 + 0.6 * _hash_unit(arch_name, "cs"),
+        bw_sens=0.8 + 0.8 * _hash_unit(arch_name, "bs"),
+        cache_sens=0.7 + 0.8 * _hash_unit(arch_name, "$s"),
+    )
+
+
+def arch_functions() -> Dict[str, FunctionSpec]:
+    """One serving function per model architecture.  The architecture
+    configs arrive with the model-zoo slice of the port; until then this
+    raises rather than returning an empty population."""
+    raise NotImplementedError(
+        "arch_functions needs the model-zoo configs, which repro_torch "
+        "does not port yet")
+
+
+def synthetic_functions(n: int, seed: int = 0) -> Dict[str, FunctionSpec]:
+    """Arbitrary-size function population for scalability experiments
+    (paper Fig 15: 30 / 60 functions)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n):
+        name = f"fn{i:03d}"
+        out[name] = FunctionSpec(
+            name=name,
+            cpu_req=float(rng.choice([1000, 2000, 4000])),
+            mem_req=float(rng.choice([512, 1024, 2048])),
+            saturated_rps=float(rng.uniform(8, 60)),
+            exec_ms=float(rng.uniform(10, 80)),
+            cpu_work=float(rng.uniform(0.22, 0.55)),  # paper Fig 4: heavy over-provisioning
+            mem_work=float(rng.uniform(0.3, 0.8)),
+            cpu_sens=float(rng.uniform(0.6, 1.6)),
+            bw_sens=float(rng.uniform(0.6, 1.6)),
+            cache_sens=float(rng.uniform(0.6, 1.6)),
+        )
+        # footprints proportional to the requested-CPU slot size
+        slots = out[name].cpu_req / 1000.0
+        out[name] = replace(
+            out[name],
+            bw_demand=slots * float(rng.uniform(0.3, 1.2)),
+            cache_mb=slots * float(rng.uniform(0.5, 2.0)),
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Solo-run profiling (simulated profiling node)
+# ---------------------------------------------------------------------------
+
+
+def solo_run_profile(fn: FunctionSpec, noise_rng: Optional[np.random.Generator]
+                     = None) -> np.ndarray:
+    """13-dim observable profile vector measured at saturated solo load.
+
+    Derived from the *observable consequences* of the spec's intrinsic
+    behaviour (plus small measurement noise), mirroring a perf run on the
+    profiling node.  The predictor sees only this.
+    """
+    used_cpu = fn.cpu_req * fn.cpu_work
+    instr = used_cpu / 1000.0 * 2.8  # ~2.8 G instr/s per busy core
+    ipc = 1.1 + 0.8 / (1.0 + fn.bw_demand / 3.0)
+    ctx = 0.5 + fn.saturated_rps * 0.05
+    mlp = 2.0 + fn.bw_demand * 0.6
+    l1d = 8.0 + fn.cache_mb * 0.4
+    l1i = 1.0 + 0.2 * fn.cache_sens
+    l2 = 3.0 + fn.cache_mb * 0.5
+    llc = 0.5 + fn.cache_mb * 0.25 * fn.cache_sens
+    dtlb = 0.3 + fn.mem_work * 0.5
+    itlb = 0.05 + 0.02 * fn.cpu_sens
+    branch = 2.0 + 1.5 * fn.cpu_sens
+    bw = fn.bw_demand
+    v = np.array([used_cpu, instr, ipc, ctx, mlp, l1d, l1i, l2, llc, dtlb,
+                  itlb, branch, bw], np.float64)
+    if noise_rng is not None:
+        v = v * (1.0 + noise_rng.normal(0.0, 0.01, v.shape))
+    return v
+
+
+class ProfileStore:
+    """Profiles collected on the profiling nodes; O(n) total cost
+    (one solo run per function — the paper's scalability column)."""
+
+    def __init__(self, seed: int = 0):
+        self._rng = np.random.default_rng(seed)
+        self._profiles: Dict[str, np.ndarray] = {}
+        self._solo_lat: Dict[str, float] = {}
+        self.profiling_runs = 0
+
+    def profile(self, fn: FunctionSpec) -> np.ndarray:
+        if fn.name not in self._profiles:
+            self._profiles[fn.name] = solo_run_profile(fn, self._rng)
+            self.profiling_runs += 1
+        return self._profiles[fn.name]
+
+    def solo_latency(self, fn: FunctionSpec, ground_truth) -> float:
+        """P90 latency of a saturated solo instance (measured once)."""
+        if fn.name not in self._solo_lat:
+            self._solo_lat[fn.name] = ground_truth.solo_latency(fn)
+        return self._solo_lat[fn.name]

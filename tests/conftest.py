@@ -31,6 +31,7 @@ def pytest_configure(config):
         "markers",
         "slow: large-cluster / long-trace tests kept out of tier-1; run "
         "with RUN_SLOW=1 (scripts/verify.sh --full)")
+    config.addinivalue_line("markers", "cuda_only: needs a CUDA card; the test skips itself without one")
 
 
 def _on_tpu() -> bool:
