@@ -117,12 +117,13 @@ def arch_function(arch_name: str, param_count: int, d_model: int,
 
 
 def arch_functions() -> Dict[str, FunctionSpec]:
-    """One serving function per model architecture.  The architecture
-    configs arrive with the model-zoo slice of the port; until then this
-    raises rather than returning an empty population."""
-    raise NotImplementedError(
-        "arch_functions needs the model-zoo configs, which repro_torch "
-        "does not port yet")
+    from ..configs import get_config, list_archs
+    out = {}
+    for a in list_archs():
+        cfg = get_config(a)
+        f = arch_function(a, cfg.param_count(), cfg.d_model, cfg.n_layers)
+        out[f.name] = f
+    return out
 
 
 def synthetic_functions(n: int, seed: int = 0) -> Dict[str, FunctionSpec]:

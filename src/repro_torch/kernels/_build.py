@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: sources of the port's kernels, by library name
-SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu"}
+SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
+                           "flash_attention": "flash_attention.cu",
+                           "rglru_scan": "rglru_scan.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -33,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
 #: C signatures: name -> (argtypes, restype); every entry point returns
 #: its cudaGetLastError() as an int
@@ -45,6 +48,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # log_target, device, stream
         "rfr_capacity_sweep": ([_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                 _I, _I, _I, _P], _I),
+    },
+    "flash_attention": {
+        # q, k, v, o, bh, s, d, group, is_bf16, causal, kind, window,
+        # softcap, stream
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _D, _P], _I),
+    },
+    "rglru_scan": {
+        # a, b, h0 (or null), h, batch, s, w, stream
+        "rglru_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
 }
 
@@ -117,6 +130,13 @@ def build_log(name: str) -> str:
     that left no log."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def check_launch(err: int, kernel: str):
+    """Raise when an entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronise would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

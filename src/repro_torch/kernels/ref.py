@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the port's kernels (the RFR half of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``
+without the SSD scan, which arrives with its own slice).
 
 Each function here computes what its hand-written kernel computes, with
 the same arithmetic in the same order, on tensors of any device.  The
 kernel wrappers fall back to them only for tensors that lie on the CPU;
 on the card they are the yardstick the kernels are checked against.
+
+``flash_attention_ref`` and ``rglru_scan_ref`` repeat the reference's
+oracles: full materialised softmax attention, and the serial recurrence
+h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
+each rounded, as the scan kernel does).
 
 The forest layout is the complete-tree one of ``core.predictor``:
 
@@ -22,10 +27,62 @@ by one ulp to the other side.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 #: numpy's pairwise-summation block (``PW_BLOCKSIZE``)
 PW_BLOCK = 128
+
+#: the reference's finite mask value (bf16-safe large negative)
+NEG_INF = -2.3819763e38
+
+
+def attention_mask(S: int, causal: bool, kind: str, window: int,
+                   device) -> torch.Tensor:
+    """(S, S) bool: which key each query may attend to."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(S, device=device)[None, :]
+    valid = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        valid &= qp >= kp
+    if kind == "local":
+        valid &= (qp - kp) < window
+    elif kind == "chunked":
+        valid &= torch.div(qp, window, rounding_mode="floor") == \
+            torch.div(kp, window, rounding_mode="floor")
+    return valid
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, kind: str = "global",
+                        window: int = 0, softcap: float = 0.0
+                        ) -> torch.Tensor:
+    """q, k, v: (BH, S, D). Full materialised softmax attention in f32;
+    the output in q's dtype."""
+    BH, S, D = q.shape
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = attention_mask(S, causal, kind, window, q.device)
+    s = torch.where(valid[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Serial recurrence h_t = a_t h_{t-1} + b_t.  a, b: (B, S, W) f32;
+    h0: (B, W) f32 or None.  Returns h (B, S, W)."""
+    B, S, W = a.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    out = torch.empty_like(a)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
 
 
 def forest_depth(feat: torch.Tensor) -> int:

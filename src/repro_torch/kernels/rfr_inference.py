@@ -57,11 +57,6 @@ def _check_input(name: str, a: torch.Tensor, ndim: int):
                          "CPU or a CUDA device")
 
 
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def rfr_forest_apply(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
                      leaf: torch.Tensor) -> torch.Tensor:
     """x: (N, F) f32; feat (T, 2^D-1) int32; thr (T, 2^D-1) f32; leaf
@@ -80,7 +75,7 @@ def rfr_forest_apply(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
                                leaf.data_ptr(), out.data_ptr(), n, f,
                                feat.shape[0], depth, x.device.index or 0,
                                stream)
-    _raise_on(err, "rfr_forest_apply")
+    _build.check_launch(err, "rfr_forest_apply")
     rfr_forest_apply.launches += 1
     return out
 
@@ -119,7 +114,7 @@ def rfr_capacity_sweep(x: torch.Tensor, bounds: torch.Tensor,
                                  leaf.data_ptr(), out.data_ptr(), s, m, r, f,
                                  feat.shape[0], depth, int(log_target),
                                  x.device.index or 0, stream)
-    _raise_on(err, "rfr_capacity_sweep")
+    _build.check_launch(err, "rfr_capacity_sweep")
     rfr_capacity_sweep.launches += 1
     return out
 

@@ -143,3 +143,125 @@ def test_device_drain_on_card_matches_numpy_host():
     assert dev._dev_caps.is_cuda
     assert [sorted((fn, e.capacity) for fn, e in n.table.items())
             for n in nodes] == want
+
+
+# ---------------------------------------------------------------------------
+# The LM kernels: flash attention and the RG-LRU scan.  Tolerances: f32
+# 1e-5 (the kernel's online softmax sums in another order than the plain
+# version's materialised one); bf16 2e-2 relative (the kernel rounds p to
+# bf16 before P.V, as the TPU kernel does; the plain version keeps p in
+# f32); the scan exactly (both round a multiply, then an add, per step).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(seed, B, S, Hq, Hkv, D, dtype, device, scale=1.0):
+    rng = np.random.default_rng(seed)
+    mk = lambda h: torch.from_numpy(
+        (rng.standard_normal((B, S, h, D)) * scale).astype(np.float32)
+    ).to(device=device, dtype=dtype)
+    return mk(Hq), mk(Hkv), mk(Hkv)
+
+
+def test_lm_wrappers_on_cpu_launch_nothing():
+    q, k, v = _qkv(0, 1, 40, 4, 2, 16, torch.float32, "cpu")
+    a = torch.rand(2, 30, 8)
+    n0 = flash_attention.launches, rglru_scan.launches
+    ops.attention_op(q, k, v, kind="local", window=8)
+    ops.rglru_op(a, torch.randn(2, 30, 8), torch.randn(2, 8))
+    assert (flash_attention.launches, rglru_scan.launches) == n0
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,window,causal,softcap", [
+    ("global", 0, True, 0.0), ("local", 32, True, 0.0),
+    ("chunked", 32, True, 0.0), ("global", 0, True, 20.0),
+    ("global", 0, False, 0.0), ("local", 48, False, 0.0)])
+@pytest.mark.parametrize("S", [64, 100, 257])
+def test_flash_kernel_matches_plain(S, kind, window, causal, softcap,
+                                    dtype):
+    dev = _card()
+    q, k, v = _qkv(S, 2, S, 4, 2, 32, dtype, dev,
+                   scale=4.0 if softcap else 1.0)
+    kw = dict(causal=causal, kind=kind, window=window, softcap=softcap)
+    n0 = flash_attention.launches
+    got = ops.attention_op(q, k, v, **kw)
+    plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1000, 2048])
+def test_flash_kernel_serving_shape(S, dtype):
+    """recurrentgemma's local layers: MQA 10:1, head dim 256, window
+    2,048."""
+    dev = _card()
+    q, k, v = _qkv(7, 1, S, 10, 1, 256, dtype, dev)
+    kw = dict(causal=True, kind="local", window=2048)
+    got = ops.attention_op(q, k, v, **kw)
+    plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(2, 100, 96), (1, 3000, 2560),
+                                   (4, 37, 130)])
+def test_rglru_kernel_matches_plain(B, S, W, with_h0):
+    dev = _card()
+    rng = np.random.default_rng(S + W)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, W)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((B, S, W)).astype(
+        np.float32)).to(dev)
+    h0 = (torch.from_numpy(rng.standard_normal((B, W)).astype(np.float32))
+          .to(dev) if with_h0 else None)
+    n0 = rglru_scan.launches
+    got = ops.rglru_op(a, b, h0)
+    plain = ops.rglru_op(a, b, h0, use_kernel=False)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == n0 + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+
+
+@pytest.mark.cuda_only
+def test_smoke_model_on_card_kernels_match_plain():
+    """The recurrentgemma smoke model on the card: prefill through the
+    kernels equals prefill through the plain versions (f32: 1e-4 on
+    logits), and a prefill launches one flash kernel per local layer and
+    one scan per recurrent layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    dev = _card()
+    cfg = get_smoke_config("recurrentgemma-2b")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 40))).to(dev)
+    kinds = cfg.layer_kinds()
+    n0 = flash_attention.launches, rglru_scan.launches
+    got, _ = model_lib.prefill(cfg, params, {"tokens": toks}, 64)
+    assert (flash_attention.launches - n0[0],
+            rglru_scan.launches - n0[1]) == (kinds.count("local"),
+                                             kinds.count("recurrent"))
+    plain, _ = model_lib.prefill(cfg, params, {"tokens": toks}, 64,
+                                 use_kernel=False)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
