@@ -37,7 +37,11 @@ Phases (each one failing makes the script exit non-zero):
      non-causal masks; ``rglru_scan`` exactly equal at (1, 3000, 2560)
      with and without h0 and at (4, 1000, 2560); each timed beside its
      plain version, and attention beside ``scaled_dot_product_attention``
-     with the same boolean mask;
+     with the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving
+     shapes (B = 1, 80 heads of 64, d_state 128, one B/C group, S = 512,
+     1,000, 2,048, 3,001, bf16 and f32, with and without h0) against its
+     plain version at the kernel's chunk of 64 (f32: 1e-4 of the largest
+     |y| and of the state's norm; bf16: 2e-2), timed beside it;
   5. serving recurrentgemma-2b at its published width (random weights
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
@@ -46,7 +50,14 @@ Phases (each one failing makes the script exit non-zero):
      versions must give prefill logits within 2e-2 of the largest
      |logit|, and the same first token wherever the top-2 margin is
      above that;
-  6. one JSON line describing all four kernels, then the device line.
+  6. serving mamba2-2.7b at its published width and depth (phase 5's
+     model freed first): the same engine, 8 requests (prompts of 512,
+     1,000, 2,048 and 3,001 tokens, two each; 3,001 is prime, so the
+     kernel's last chunk is ragged), 16 new tokens.  Every prefill must
+     launch 64 ``ssd_scan`` kernels and nothing else; the plain run's
+     prefill logits, SSM states and first tokens are held to it as in
+     phase 5;
+  7. one JSON line describing all five kernels, then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -67,7 +78,8 @@ SOURCE = CSRC + "rfr_inference.cu"
 REPLACES = {"rfr_forest_apply": "src/repro/kernels/rfr_inference.py:72",
             "rfr_capacity_sweep": "src/repro/kernels/rfr_inference.py:130",
             "flash_attention": "src/repro/kernels/flash_attention.py:77",
-            "rglru_scan": "src/repro/kernels/rglru_scan.py:39"}
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:39",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
 #: NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside tensor cores,
 #: bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
@@ -83,8 +95,17 @@ SERVE_PROMPTS = (512, 1000, 2048, 3000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4096, 16
 #: phase 5, kernels against plain on the whole model in bf16: the
 #: prefill's last-position logits within 2e-2 of the largest |logit|,
-#: and each recurrent layer's final state within 2e-2 in norm
+#: and each recurrent or SSM layer's final state within 2e-2 in norm
+#: (phases 5 and 6)
 LOGIT_TOL = 2e-2
+#: mamba2-2.7b: 80 SSM heads of 64, d_state 128, one B/C group; the SSD
+#: kernel against its plain version at the kernel's chunk: f32 1e-4 of
+#: the largest |y| and of the state's norm (the same arithmetic summed in
+#: other orders), bf16 2e-2 (both compute in f32 from the same bf16
+#: values, y is rounded to bf16 once)
+SSM_ARCH = "mamba2-2.7b"
+SSM_PROMPTS = (512, 1000, 2048, 3001)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PRED_TOL = 1e-6
 SCENARIO = dict(n_functions=24, duration_s=180, target_nodes=1024, seed=0)
 DRAIN_NODES = 4096
@@ -646,12 +667,68 @@ def hold_scan(a, b, h0):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+def ssd_bound(bsz: int, heads: int, groups: int, s: int, p: int, n: int,
+              dtype, with_h0: bool):
+    """x and y, dA and dt, the grouped B and C read or written once, h0
+    read and the final state written in f32; operations at the kernel's
+    chunk of 64: 2N (C B^T) and 2P (M x) per row pair the causal mask
+    keeps within a chunk, 2NP (C h^T) and 2NP (the state update) per
+    row, at the peak rate for the inputs' type."""
+    import torch
+    from repro_torch.kernels.ssd_scan import CHUNK
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (esize * (2 * bsz * heads * s * p + 2 * bsz * groups * s * n)
+              + 4 * 2 * bsz * heads * s
+              + 4 * bsz * heads * p * n * (2 if with_h0 else 1))
+    pairs = sum(c * (c + 1) // 2 for c in
+                (min(CHUNK, s - c0) for c0 in range(0, s, CHUNK)))
+    ops = bsz * heads * (2 * pairs * (n + p) + 4 * s * n * p)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound(nbytes, ops, peak)
+
+
+def hold_ssd(x, dA, dt, Bm, Cm, h0, timed: bool):
+    """ssd_scan against its plain version at the kernel's chunk; with
+    `timed`, both timed and the bound computed.  Returns a dict of the
+    measurements."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan
+
+    def plain():
+        return ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
+
+    y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
+    yp, hp = plain()
+    torch.cuda.synchronize()
+    bsz, heads, s, p = x.shape
+    dt_name = str(x.dtype).split(".")[-1]
+    tol = SSD_TOL[dt_name]
+    err = float((y.float() - yp.float()).abs().max())
+    y_scale = float(yp.float().abs().max())
+    h_err = float((h - hp).norm() / hp.norm())
+    what = f"ssd_scan S={s} {dt_name} h0={h0 is not None}"
+    check(bool(torch.isfinite(y.float()).all()), f"{what}: y not finite")
+    check(err <= tol * y_scale, f"{what}: max_abs_err {err} of {y_scale}")
+    check(h_err <= tol, f"{what}: state differs by {h_err} in norm")
+    out = {"max_abs_err": err, "y_scale": y_scale, "h_err": h_err}
+    if timed:
+        out["ms"] = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm, h0))
+        out["plain_ms"] = time_ms(plain)
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = ssd_bound(
+            bsz, heads, Bm.shape[1], s, p, Bm.shape[3], x.dtype,
+            h0 is not None)
+    return out
+
+
 def phase4_lm_kernels():
-    """Both LM kernels against their plain versions on the card: flash
+    """The LM kernels against their plain versions on the card: flash
     attention at the serving shapes (B = 1, 10 query heads, 1 kv head,
     D = 256, local window 2,048) and at small shapes for the other masks;
-    the scan at the serving widths.  Returns the measurements of the
-    largest serving shapes, for the kernels line."""
+    the RG-LRU scan at the serving widths; the SSD scan at mamba2-2.7b's
+    serving shapes.  Returns the measurements of the largest serving
+    shapes, for the kernels line."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -701,13 +778,49 @@ def phase4_lm_kernels():
               f"({m['bound_by']})")
         if (bsz, s, with_h0) == (1, 3000, False):
             serve["rglru_scan"] = dict(m, shape=[bsz, s, w])
+    heads, p, n = 80, 64, 128
+    A = -torch.linspace(1.0, 16.0, heads, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in SSM_PROMPTS:
+            for with_h0 in (False, True):
+                dt = torch.nn.functional.softplus(randn(1, heads, s) - 2.0)
+                args = (randn(1, heads, s, p, dtype=dtype),
+                        dt * A[None, :, None], dt,
+                        randn(1, 1, s, n, dtype=dtype),
+                        randn(1, 1, s, n, dtype=dtype),
+                        randn(1, heads, p, n) if with_h0 else None)
+                m = hold_ssd(*args, timed=not with_h0)
+                dt_name = str(dtype).split(".")[-1]
+                line = (f"phase4 ssd_scan B=1 H={heads} G=1 S={s} P={p} "
+                        f"N={n} {dt_name} h0={with_h0}: max_abs_err "
+                        f"{m['max_abs_err']:.3g} of max |y| "
+                        f"{m['y_scale']:.3g}, state err {m['h_err']:.3g} "
+                        "in norm")
+                if not with_h0:
+                    line += (f", kernel {m['ms']:.4f} ms, plain "
+                             f"{m['plain_ms']:.4f} ms, bound "
+                             f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
+                print(line)
+                if (s, dtype, with_h0) == (max(SSM_PROMPTS), torch.bfloat16,
+                                           False):
+                    serve["ssd_scan"] = dict(m, shape=[1, heads, s, p, n])
     return serve
 
 
+def lm_kernels():
+    """The LM kernels' wrappers, by name (each counts its launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "ssd_scan": ssd_scan}
+
+
 class PrefillRecorder:
-    """Keeps each prefill's last-position logits and its recurrent
-    layers' final states h (on the host, f32), in the order the engine
-    admits requests.  Wraps the name the serving engine calls."""
+    """Keeps each prefill's last-position logits, its recurrent or SSM
+    layers' final states h (on the host, f32) and the LM kernels it
+    launched, in the order the engine admits requests.  Wraps the name
+    the serving engine calls."""
 
     def __init__(self):
         from repro_torch.models import model as model_lib
@@ -715,9 +828,14 @@ class PrefillRecorder:
         self.orig = model_lib.prefill
         self.logits = []
         self.states = []
+        self.launches = []
+        kernels = lm_kernels()
 
         def rec(*args, **kw):
+            n0 = {k: f.launches for k, f in kernels.items()}
             logits, cache = self.orig(*args, **kw)
+            self.launches.append({k: f.launches - n0[k]
+                                  for k, f in kernels.items()})
             self.logits.append(logits[0].float().cpu())
             self.states.append([c["h"][0].float().cpu() for c in cache
                                 if "h" in c])
@@ -734,8 +852,6 @@ def _serve(cfg, params, prompts, use_kernel: bool):
     drained; returns (requests, prefill logits, launches, seconds, peak
     bytes)."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN, use_kernel=use_kernel)
@@ -745,7 +861,9 @@ def _serve(cfg, params, prompts, use_kernel: bool):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = PrefillRecorder()
-    flash_attention.launches = rglru_scan.launches = 0
+    kernels = lm_kernels()
+    for f in kernels.values():
+        f.launches = 0
     try:
         t0 = time.perf_counter()
         done = eng.drain()
@@ -753,13 +871,12 @@ def _serve(cfg, params, prompts, use_kernel: bool):
         wall = time.perf_counter() - t0
     finally:
         rec.close()
-    launches = {"flash_attention": flash_attention.launches,
-                "rglru_scan": rglru_scan.launches}
+    launches = {k: f.launches for k, f in kernels.items()}
     return (sorted(done, key=lambda r: r.rid), rec, launches, wall,
             torch.cuda.max_memory_allocated())
 
 
-def profile_serving(cfg, params, prompt):
+def profile_serving(cfg, params, prompt, phase: str):
     """One prefill of `prompt` into a fresh instance and one decode step,
     under torch.profiler (host and device activity): wall time, device
     busy share, and the largest entries by device and by host time.  A
@@ -784,47 +901,52 @@ def profile_serving(cfg, params, prompt):
         dev = [e for e in rows if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in dev) / 1e6
         if busy <= 0:
-            print(f"phase5 profile {label}: device time not measured")
+            print(f"{phase} profile {label}: device time not measured")
             continue
         top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
         host = [e for e in rows if e.device_type == DeviceType.CPU]
         top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
-        print(f"phase5 profile {label} (prompt {len(prompt)}, profiled "
+        print(f"{phase} profile {label} (prompt {len(prompt)}, profiled "
               f"{wall * 1e3:.1f} ms): device busy {busy * 1e3:.2f} ms, "
               f"idle share {1 - busy / wall:.4f}; {len(host)} host op "
               f"kinds, {sum(e.count for e in host)} host op calls")
-        print("phase5 profile   device: " + "; ".join(
+        print(f"{phase} profile   device: " + "; ".join(
             f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} "
             f"ms" for e in top_dev))
-        print("phase5 profile   host: " + "; ".join(
+        print(f"{phase} profile   host: " + "; ".join(
             f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
             for e in top_host))
 
 
-def phase5_serving():
-    """recurrentgemma-2b at its published width on the card, random
-    weights from a seeded generator: one ServingEngine instance (4 slots,
-    max_len 4,096) serves 8 requests, with the kernels and then with
-    their plain versions; the prefills' logits must agree."""
+def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
+                     per_prefill: dict, layers_label: str):
+    """`arch` at its published width on the card, random f32 weights from
+    a seeded generator, computed in the config's dtype: one
+    ServingEngine instance (4 slots, max_len 4,096) serves two requests
+    of each prompt length, with the kernels and then with their plain
+    versions.  Each prefill must launch `per_prefill` kernels; the
+    prefills' logits, final states and first tokens must agree.  Returns
+    the kernels' launches in the kernels' run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
-    cfg = get_config(SERVE_ARCH)
-    kinds = cfg.layer_kinds()
-    n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
+    label = phase.replace("phase", "phase ")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
-    print(f"phase5 {SERVE_ARCH}: {cfg.param_count():,} parameters "
-          f"(f32, computed in {cfg.dtype}), {n_local} local + {n_rec} "
-          f"recurrent layers, init {time.perf_counter() - t0:.2f} s, "
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{phase} {arch}: {n_params:,} parameters (f32, computed in "
+          f"{cfg.dtype}; the config's estimate {cfg.param_count():,}), "
+          f"{cfg.n_layers} layers ({layers_label}), d_model {cfg.d_model}, "
+          f"init {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_PROMPTS for _ in range(2)]
+               for n in prompt_lengths for _ in range(2)]
     # warm-up (cuBLAS handles, the kernels' first launch), not counted
     warm = ServingEngine(cfg, params, slots=1, max_len=SERVE_MAX_LEN)
     warm.scale_up(1)
@@ -835,34 +957,37 @@ def phase5_serving():
     done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True)
     check(len(done) == len(prompts)
           and all(len(r.tokens) == SERVE_MAX_NEW for r in done),
-          "phase 5: not every request finished with max_new tokens")
-    want = {"flash_attention": n_local * len(prompts),
-            "rglru_scan": n_rec * len(prompts)}
-    print(f"phase5 launches (kernels run): {launches}, expected {want} "
-          f"({n_local} flash and {n_rec} scans per prefill)")
-    check(launches == want, f"phase 5 launches {launches} != {want}")
+          f"{label}: not every request finished with max_new tokens")
+    want = {k: n * len(prompts) for k, n in per_prefill.items()}
+    print(f"{phase} launches (kernels run): {launches}, expected {want} "
+          f"({per_prefill} per prefill)")
+    check(launches == want, f"{label} launches {launches} != {want}")
+    check(rec_k.launches == [per_prefill] * len(prompts),
+          f"{label}: launches per prefill {rec_k.launches}")
     prefill_ms = [1e3 * (r.t_first_token - r.t_admit) for r in done]
     for r, ms in zip(done, prefill_ms):
-        print(f"phase5 request {r.rid}: prompt {len(r.prompt)}, prefill "
+        print(f"{phase} request {r.rid}: prompt {len(r.prompt)}, prefill "
               f"{ms:.2f} ms, latency {r.latency_ms:.2f} ms, tokens "
               f"{r.tokens[:4]}...")
     n_dec = sum(len(r.tokens) - 1 for r in done)
     dec_s = wall - sum(prefill_ms) / 1e3
-    print(f"phase5 drain {wall:.3f} s: prefill {sum(prefill_ms):.2f} ms "
+    print(f"{phase} drain {wall:.3f} s: prefill {sum(prefill_ms):.2f} ms "
           f"total, decode {n_dec} tokens in {dec_s:.3f} s = "
           f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
           f"{peak / 2**30:.3f} GiB")
 
-    profile_serving(cfg, params, prompts[-1])
+    profile_serving(cfg, params, prompts[-1], phase)
 
     done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
                                                   False)
-    check(launches_p == {"flash_attention": 0, "rglru_scan": 0},
-          f"phase 5: the plain run launched kernels {launches_p}")
+    check(not any(launches_p.values()),
+          f"{label}: the plain run launched kernels {launches_p}")
     check(len(rec_k.logits) == len(rec_p.logits) == len(prompts),
-          "phase 5: a prefill was not recorded")
+          f"{label}: a prefill was not recorded")
     worst, worst_h, n_checked = 0.0, 0.0, 0
     for i, (lk, lp) in enumerate(zip(rec_k.logits, rec_p.logits)):
+        check(bool(torch.isfinite(lk).all()),
+              f"{label} prefill {i}: logits not finite")
         scale = float(lp.abs().max())
         err = float((lk - lp).abs().max())
         worst = max(worst, err / scale)
@@ -870,26 +995,81 @@ def phase5_serving():
         margin = float(top2[0] - top2[1])
         tol = LOGIT_TOL * scale
         same = int(lk.argmax()) == int(lp.argmax())
-        print(f"phase5 prefill {i} (prompt {len(prompts[i])}): logits "
+        print(f"{phase} prefill {i} (prompt {len(prompts[i])}): logits "
               f"max_abs_err {err:.4f} of max |logit| {scale:.2f} "
               f"(tol {tol:.4f}); top-2 margin {margin:.4f}; first token "
               f"same={same}")
-        check(err <= tol, f"phase 5 prefill {i}: logits differ by {err}")
-        # the scan's output itself: each recurrent layer's final state,
-        # relative in norm (the logits are dominated by the embedding)
+        check(err <= tol, f"{label} prefill {i}: logits differ by {err}")
+        # the scan's output itself: each recurrent or SSM layer's final
+        # state, relative in norm (the logits are dominated by the
+        # embedding)
         h_err = max(float((hk - hp).norm() / hp.norm())
                     for hk, hp in zip(rec_k.states[i], rec_p.states[i]))
         worst_h = max(worst_h, h_err)
-        check(h_err <= LOGIT_TOL, f"phase 5 prefill {i}: recurrent states "
-              f"differ by {h_err} in norm")
+        check(h_err <= LOGIT_TOL, f"{label} prefill {i}: states differ by "
+              f"{h_err} in norm")
         if margin > tol:
             n_checked += 1
-            check(same, f"phase 5 prefill {i}: first token differs")
-    print(f"phase5 plain run: drain {wall_p:.3f} s; worst logits error "
-          f"{worst:.5f} of max |logit|; worst recurrent-state error "
-          f"{worst_h:.5f} in norm over {n_rec} layers; first token checked "
+            check(same, f"{label} prefill {i}: first token differs")
+    # how the state error grows with depth: bf16 rounding of each layer's
+    # output, which the two runs do at other places, adds up layer by layer
+    n_layers = len(rec_k.states[0])
+    by_depth = [max(float((rec_k.states[i][j] - rec_p.states[i][j]).norm()
+                          / rec_p.states[i][j].norm())
+                    for i in range(len(prompts))) for j in range(n_layers)]
+    marks = sorted({0, n_layers // 4, n_layers // 2, n_layers - 1})
+    print(f"{phase} state error by layer (worst over prefills): " + "; ".join(
+        f"layer {j + 1} {by_depth[j]:.5f}" for j in marks))
+    print(f"{phase} plain run: drain {wall_p:.3f} s; worst logits error "
+          f"{worst:.5f} of max |logit|; worst state error {worst_h:.5f} in "
+          f"norm over {len(rec_k.states[0])} layers; first token checked "
           f"on {n_checked} of {len(prompts)} prefills")
     return launches
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase5_serving():
+    """recurrentgemma-2b: 8 flash and 18 RG-LRU scan launches per
+    prefill."""
+    from repro_torch.configs import get_config
+    kinds = get_config(SERVE_ARCH).layer_kinds()
+    n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
+    return serve_full_width(
+        "phase5", SERVE_ARCH, SERVE_PROMPTS, 5,
+        {"flash_attention": n_local, "rglru_scan": n_rec, "ssd_scan": 0},
+        f"{n_local} local + {n_rec} recurrent")
+
+
+def phase6_ssm_serving():
+    """mamba2-2.7b, after phase 5's model is freed: 64 SSD scan launches
+    per prefill."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase6 before init: {torch.cuda.memory_allocated() / 2**30:.3f} "
+          "GiB allocated")
+    cfg = get_config(SSM_ARCH)
+    n_ssm = cfg.layer_kinds().count("ssm")
+    check(n_ssm == cfg.n_layers == 64 and cfg.d_model == 2560,
+          f"phase 6: {SSM_ARCH} is {cfg.n_layers} layers ({n_ssm} SSM) of "
+          f"{cfg.d_model}")
+    return serve_full_width(
+        "phase6", SSM_ARCH, SSM_PROMPTS, 6,
+        {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": n_ssm},
+        f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
+        f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
 
 
 def main() -> int:
@@ -928,12 +1108,15 @@ def main() -> int:
         device_share("c", "cuda", "device")
         lm = phase4_lm_kernels()
         serve_launches = phase5_serving()
-        for name in ("flash_attention", "rglru_scan"):
+        ssm_launches = phase6_ssm_serving()
+        for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
+            launches = (ssm_launches if name == "ssd_scan"
+                        else serve_launches)[name]
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": CSRC + name + ".cu", "replaces": REPLACES[name],
-                "launches": serve_launches[name],
+                "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],

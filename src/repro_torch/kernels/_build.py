@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: sources of the port's kernels, by library name
 SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention": "flash_attention.cu",
-                           "rglru_scan": "rglru_scan.cu"}
+                           "rglru_scan": "rglru_scan.cu",
+                           "ssd_scan": "ssd_scan.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -58,6 +59,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     "rglru_scan": {
         # a, b, h0 (or null), h, batch, s, w, stream
         "rglru_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    },
+    "ssd_scan": {
+        # x, dA, dt, Bm, Cm, h0 (or null), y, hout, batch, heads, groups,
+        # s, p, n, is_bf16, stream
+        "ssd_scan_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _P], _I),
     },
 }
 

@@ -5,7 +5,7 @@ the CPU), ``use_kernel=False`` through the plain PyTorch version on the
 tensors' own device."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -13,6 +13,7 @@ from . import ref
 from .flash_attention import flash_attention
 from .rfr_inference import rfr_capacity_sweep, rfr_forest_apply
 from .rglru_scan import rglru_scan
+from .ssd_scan import ssd_scan
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,6 +48,29 @@ def rglru_op(a: torch.Tensor, b: torch.Tensor,
     if use_kernel:
         return rglru_scan(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)
+
+
+def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           Bm: torch.Tensor, Cm: torch.Tensor,
+           h0: Optional[torch.Tensor] = None, *, chunk: int = 256,
+           use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (B, S, H, P); dt (B, S, H) f32 post-softplus; A (H,)
+    f32 negative; Bm, Cm (B, S, G, N) with G dividing H (G = H is the
+    reference's repeated layout); h0 (B, H, P, N) f32 or None.  Returns
+    (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) f32).
+
+    The kernel reads group h // (H / G) itself and tiles the sequence by
+    its own chunk; the plain version takes `chunk` rows at a time."""
+    xt = x.transpose(1, 2).contiguous()
+    dtt = dt.transpose(1, 2).contiguous()
+    dA = dtt * A[None, :, None]
+    Bt = Bm.transpose(1, 2).contiguous()
+    Ct = Cm.transpose(1, 2).contiguous()
+    if use_kernel:
+        y, h = ssd_scan(xt, dA, dtt, Bt, Ct, h0)
+    else:
+        y, h = ref.ssd_scan_ref(xt, dA, dtt, Bt, Ct, h0, chunk=chunk)
+    return y.transpose(1, 2), h
 
 
 def rfr_op(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,

@@ -1,5 +1,4 @@
-"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``
-without the SSD scan, which arrives with its own slice).
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``).
 
 Each function here computes what its hand-written kernel computes, with
 the same arithmetic in the same order, on tensors of any device.  The
@@ -9,7 +8,9 @@ on the card they are the yardstick the kernels are checked against.
 ``flash_attention_ref`` and ``rglru_scan_ref`` repeat the reference's
 oracles: full materialised softmax attention, and the serial recurrence
 h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
-each rounded, as the scan kernel does).
+each rounded, as the scan kernel does).  ``ssd_scan_ref`` is the SSD
+scan in its chunked form, as the kernel computes it (the reference's
+oracle steps token by token, which is the same function).
 
 The forest layout is the complete-tree one of ``core.predictor``:
 
@@ -28,7 +29,7 @@ by one ulp to the other side.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -83,6 +84,53 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None, chunk: int = 256
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD scan, chunk by chunk, in f32.
+
+    x (B, H, S, P); dA, dt (B, H, S) f32; Bm, Cm (B, G, S, N) with G
+    dividing H (head h reads group h // (H / G)); h0 (B, H, P, N) f32 or
+    None (zeros).  Per chunk of `chunk` rows (the last one ragged):
+
+        y = ((C B^T) * L * dt) x + exp(cum) * (C h^T),
+            L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
+        h <- exp(cum_last) h + x^T (B * w),  w = exp(cum_last - cum) * dt
+
+    with cum the within-chunk cumulative sum of dA.  Returns (y in x's
+    dtype, final state (B, H, P, N) f32)."""
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    rep = H // Bm.shape[1]
+    if rep > 1:
+        Bm = Bm.repeat_interleave(rep, dim=1)
+        Cm = Cm.repeat_interleave(rep, dim=1)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    y = torch.empty_like(x)
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        xc = x[:, :, c0:c1].float()
+        dtc = dt[:, :, c0:c1].float()
+        Bc = Bm[:, :, c0:c1].float()
+        Cc = Cm[:, :, c0:c1].float()
+        cum = torch.cumsum(dA[:, :, c0:c1].float(), dim=-1)      # (B,H,c)
+        seg = cum[..., :, None] - cum[..., None, :]
+        lower = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
+                           device=x.device).tril()
+        # exp only where i >= j: above the diagonal seg > 0 may overflow
+        L = torch.exp(seg.masked_fill(~lower, float("-inf")))
+        M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
+        yc = M @ xc + torch.exp(cum)[..., None] * (Cc @ h.transpose(-1, -2))
+        last = cum[..., -1:]
+        w = torch.exp(last - cum) * dtc
+        h = (h * torch.exp(last)[..., None]
+             + xc.transpose(-1, -2) @ (Bc * w[..., None]))
+        y[:, :, c0:c1] = yc.to(x.dtype)
+    return y, h
 
 
 def forest_depth(feat: torch.Tensor) -> int:

@@ -1,5 +1,6 @@
-"""The LM model zoo (port of ``repro.models``): the recurrentgemma slice —
-dense attention (global / local / chunked) and RG-LRU layers."""
+"""The LM model zoo (port of ``repro.models``): dense attention (global /
+local / chunked) and RG-LRU layers (recurrentgemma), and Mamba-2 SSD
+layers (mamba2)."""
 from .convert import params_from_numpy
 from .model import (apply_blocks, block_structure, decode_step, final_hidden,
                     forward, init_cache, init_params, layer_specs,

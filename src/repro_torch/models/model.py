@@ -17,9 +17,10 @@ Param layout::
 A cache is a list of per-layer dicts with the batch on axis 0.  Decode
 updates it in place and returns it.
 
-This slice brings the dense-MLP attention and RG-LRU layers
-(recurrentgemma); SSM, MoE and MLA layers and the audio / vision
-frontends raise ``NotImplementedError`` naming the slice that brings them.
+The port brings the dense-MLP attention and RG-LRU layers
+(recurrentgemma) and the Mamba-2 SSD layers (mamba2); MoE and MLA layers
+and the audio / vision frontends raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -32,11 +33,10 @@ from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
 from . import attention as attn
 from . import rglru as rglru_mod
+from . import ssd as ssd_mod
 from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
                      rmsnorm_init, unembed)
 
-SSM_SLICE = ("SSM (Mamba-2 SSD) layers are not ported yet: they arrive "
-             "with the mamba2-2.7b serving slice and its ssd_scan kernel")
 MOE_SLICE = ("MoE layers are not ported yet: they arrive with a later "
              "slice of the LM model zoo (ROADMAP Queue A item 7)")
 FRONTEND_SLICE = ("audio / vision frontends are not ported yet: they "
@@ -118,16 +118,15 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec):
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise for the parts of a config this slice does not port.  Every
-    entry point calls it, so below it a layer is attention (global,
-    local or chunked, not MLA) or recurrent, with a dense MLP."""
+    """Raise for the parts of a config the port does not bring yet.
+    Every entry point calls it, so below it a layer is attention (global,
+    local or chunked, not MLA) or recurrent, with a dense MLP, or an SSM
+    block."""
     if cfg.frontend is not None:
         raise NotImplementedError(FRONTEND_SLICE)
     if cfg.moe is not None:
         raise NotImplementedError(MOE_SLICE)
     kinds = set(cfg.layer_kinds())
-    if "ssm" in kinds:
-        raise NotImplementedError(SSM_SLICE)
     if cfg.mla is not None and kinds & {"global", "local", "chunked"}:
         raise NotImplementedError(attn.MLA_SLICE)
 
@@ -142,6 +141,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     d = cfg.d_model
     dev = gen.device
     p: dict[str, Any] = {"pre_norm": rmsnorm_init(d, dev, param_dtype)}
+    if spec.kind == "ssm":
+        p["ssd"] = ssd_mod.ssd_init(gen, d, cfg.ssd, param_dtype)
+        return p  # mamba2 block has no separate FFN / second norm
     if spec.kind == "recurrent":
         p["rglru"] = rglru_mod.rglru_init(gen, d, cfg.n_heads, cfg.rglru,
                                           param_dtype)
@@ -163,7 +165,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random parameters on `device` (the card unless the caller names
     another), drawn from `generator` (a fresh one seeded 0 on that device
     when None).  Matmul weights and norm scales are `param_dtype`; the
-    RG-LRU ``a_param`` stays f32."""
+    RG-LRU ``a_param`` and the SSD's ``A_log``, ``D`` and ``dt_bias`` stay
+    f32."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -195,6 +198,14 @@ def params_device(params) -> torch.device:
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device):
+    if spec.kind == "ssm":
+        s = cfg.ssd
+        d = cfg.d_model
+        conv_ch = s.d_inner(d) + 2 * s.n_groups * s.d_state
+        return {"h": torch.zeros((batch, s.n_heads(d), s.head_dim,
+                                  s.d_state), dtype=dtype, device=device),
+                "conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
+                                    dtype=dtype, device=device)}
     if spec.kind == "recurrent":
         r = cfg.rglru
         w = r.lru_width or cfg.d_model
@@ -235,6 +246,18 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
     eps = cfg.norm_eps
     h = rmsnorm(params["pre_norm"], x, eps)
     new_cache = cache
+    if spec.kind == "ssm":
+        if mode == "forward":
+            y = ssd_mod.ssd_forward(params["ssd"], h, cfg.ssd, eps,
+                                    use_kernel=use_kernel)
+        elif mode == "prefill":
+            y, new_cache = ssd_mod.ssd_forward(
+                params["ssd"], h, cfg.ssd, eps, return_state=True,
+                use_kernel=use_kernel)
+        else:
+            y, new_cache = ssd_mod.ssd_decode(params["ssd"], h, cache,
+                                              cfg.ssd, eps)
+        return x + y, new_cache  # no FFN half
     if spec.kind == "recurrent":
         if mode == "forward":
             y = rglru_mod.rglru_forward(params["rglru"], h, cfg.n_heads,

@@ -6,7 +6,12 @@ Tolerances: f32 1e-5 (both sides compute in f32, summing in other
 orders); bf16 2e-2 relative (the Pallas kernel rounds p to bf16 before
 P.V, the plain version keeps it in f32, and the output is rounded to
 bf16); the scan 1e-5 (the reference's serial scan, and its Pallas kernel,
-against the port's serial loop)."""
+against the port's serial loop).  The SSD scan 2e-4, as the reference's
+own kernel test holds its Pallas kernel to its oracle: chunked against
+token by token, sums of up to N + chunk products in other orders and
+exp of differences of cumulative sums; bf16 inputs 2e-2 relative (both
+compute in f32 from the same bf16 values, the output is rounded to
+bf16)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,9 +21,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.rglru_scan import rglru_scan as jscan
+from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -160,3 +167,148 @@ def test_rglru_scan_rejects_what_the_kernel_does_not_take():
         rglru_scan(a, torch.zeros(2, 8, 5))
     with pytest.raises(ValueError):
         rglru_scan(a, a, torch.zeros(2, 5))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_TOL = 2e-4
+
+
+def _ssd_inputs(seed, B, H, S, P, N, G=None):
+    """x, dA (negative), dt (positive), Bm, Cm, h0 as numpy f32; Bm and
+    Cm with G groups (H when None)."""
+    rng = np.random.default_rng(seed)
+    G = G or H
+    sp = lambda a: np.log1p(np.exp(a))
+    x = rng.standard_normal((B, H, S, P)).astype(np.float32)
+    dA = (-sp(rng.standard_normal((B, H, S)))).astype(np.float32)
+    dt = sp(rng.standard_normal((B, H, S))).astype(np.float32)
+    Bm = rng.standard_normal((B, G, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, G, S, N)).astype(np.float32)
+    h0 = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    return x, dA, dt, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S,chunk", [(64, 16), (128, 32), (96, 32),
+                                     (37, 8),     # prime: a ragged chunk
+                                     (100, 32)])  # ragged, 4 chunks
+def test_ssd_scan_matches_pallas_and_ref(S, chunk, with_h0):
+    """The plain chunked version at the Pallas kernel's chunk and the
+    wrapper (at the kernel's own chunk) against the Pallas kernel in
+    interpret mode and the reference's token-by-token oracle.  The
+    Pallas kernel shrinks its chunk until it divides S (to 1 at S = 37);
+    the port takes a ragged last chunk."""
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(S + chunk, 2, 3, S, 8, 16)
+    if not with_h0:
+        h0 = None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    args_t = [t(a) for a in (x, dA, dt, Bm, Cm, h0)]
+    args_j = [j(a) for a in (x, dA, dt, Bm, Cm, h0)]
+    y_plain, h_plain = ref.ssd_scan_ref(*args_t, chunk=chunk)
+    y_wrap, h_wrap = ssd_scan(*args_t)
+    assert y_wrap.dtype == torch.float32 and h_wrap.dtype == torch.float32
+    assert h_wrap.shape == (2, 3, 8, 16)
+    y_ref, h_ref = jref.ssd_scan_ref(*args_j)
+    y_pal, h_pal = jssd(*args_j, chunk=chunk, interpret=True)
+    for y, h in ((y_plain, h_plain), (y_wrap, h_wrap)):
+        for yw, hw in ((y_ref, h_ref), (y_pal, h_pal)):
+            _close(y, yw, SSD_TOL)
+            _close(h, hw, SSD_TOL)
+
+
+def test_ssd_scan_chains_state():
+    """Two halves chained through h0 equal one pass, and the reference's
+    oracle over the whole sequence (``test_kernels.py``'s chaining case,
+    with a split inside a chunk)."""
+    x, dA, dt, Bm, Cm, _ = _ssd_inputs(8, 1, 2, 70, 4, 8)
+    args = [torch.from_numpy(a) for a in (x, dA, dt, Bm, Cm)]
+    y_full, h_full = ssd_scan(*args)
+    half = 29
+    first = [a[:, :, :half].contiguous() for a in args]
+    second = [a[:, :, half:].contiguous() for a in args]
+    y1, h1 = ssd_scan(*first)
+    y2, h2 = ssd_scan(*second, h1)
+    _close(torch.cat([y1, y2], dim=2), y_full, SSD_TOL)
+    _close(h2, h_full, SSD_TOL)
+    y_ref, h_ref = jref.ssd_scan_ref(*(jnp.asarray(a)
+                                       for a in (x, dA, dt, Bm, Cm)))
+    _close(y2, np.asarray(y_ref)[:, :, half:], SSD_TOL)
+    _close(h2, h_ref, SSD_TOL)
+
+
+def test_ssd_scan_bf16_inputs():
+    """bf16 x, B and C: y comes back in bf16, the state in f32, both
+    close to the Pallas kernel on the same bf16 values."""
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(9, 2, 2, 48, 8, 16)
+    (jx, tx), (jB, tB), (jC, tC) = (_pair(a, "bfloat16") for a in (x, Bm, Cm))
+    tdA, tdt, th0 = (torch.from_numpy(a) for a in (dA, dt, h0))
+    y, h = ssd_scan(tx, tdA, tdt, tB, tC, th0)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    y_pal, h_pal = jssd(jx, jnp.asarray(dA), jnp.asarray(dt), jB, jC,
+                        jnp.asarray(h0), chunk=16, interpret=True)
+    assert y_pal.dtype == jnp.bfloat16
+    tol = TOL["bfloat16"]
+    scale = float(np.abs(_np(y_pal)).max())
+    np.testing.assert_allclose(_np(y), _np(y_pal), atol=tol * scale,
+                               rtol=tol)
+    np.testing.assert_allclose(_np(h), _np(h_pal), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("H,G", [(4, 4), (4, 2), (6, 1)])
+def test_ssd_op_matches_reference_op(H, G):
+    """``ops.ssd_op`` in the model layout, B and C given per group (the
+    kernel reads group h // (H / G)), against the reference's ``ssd_op``
+    given them repeated to every head, Pallas and jnp paths."""
+    rng = np.random.default_rng(H * 10 + G)
+    Bsz, S, P, N = 2, 40, 8, 16
+    x = rng.standard_normal((Bsz, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bsz, S, H)))).astype(
+        np.float32)
+    A = -np.linspace(1.0, 4.0, H).astype(np.float32)
+    Bg = rng.standard_normal((Bsz, S, G, N)).astype(np.float32)
+    Cg = rng.standard_normal((Bsz, S, G, N)).astype(np.float32)
+    h0 = rng.standard_normal((Bsz, H, P, N)).astype(np.float32)
+    Bh, Ch = (np.repeat(a, H // G, axis=2) for a in (Bg, Cg))
+    t = torch.from_numpy
+    for use_kernel in (True, False):
+        y, h = ops.ssd_op(t(x), t(dt), t(A), t(Bg), t(Cg), t(h0), chunk=16,
+                          use_kernel=use_kernel)
+        assert y.shape == (Bsz, S, H, P) and h.shape == (Bsz, H, P, N)
+        yr, hr = ops.ssd_op(t(x), t(dt), t(A), t(Bh), t(Ch), t(h0),
+                            chunk=16, use_kernel=use_kernel)
+        _close(y, yr, SSD_TOL)
+        _close(h, hr, SSD_TOL)
+        for use_pallas in (False, True):
+            yj, hj = jops.ssd_op(*(jnp.asarray(a) for a in
+                                   (x, dt, A, Bh, Ch, h0)), chunk=16,
+                                 use_pallas=use_pallas, interpret=True)
+            _close(y, yj, SSD_TOL)
+            _close(h, hj, SSD_TOL)
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take():
+    x, dA, dt, Bm, Cm, h0 = (torch.from_numpy(a) for a in
+                             _ssd_inputs(0, 1, 4, 8, 4, 8))
+    with pytest.raises(ValueError, match="group"):
+        ssd_scan(x, dA, dt, Bm[:, :3].contiguous(), Cm[:, :3].contiguous())
+    with pytest.raises(ValueError, match="d_state"):
+        big = torch.zeros(1, 4, 8, 129)
+        ssd_scan(x, dA, dt, big, big)
+    with pytest.raises(TypeError):
+        ssd_scan(x.double(), dA, dt, Bm.double(), Cm.double())
+    with pytest.raises(TypeError):
+        ssd_scan(x, dA, dt, Bm.bfloat16(), Cm.bfloat16())
+    with pytest.raises(TypeError):
+        ssd_scan(x, dA.double(), dt, Bm, Cm)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dA[:, :, :5], dt, Bm, Cm)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dA, dt, Bm, Cm, h0[:, :, :3])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dA, dt,
+                 Bm, Cm)

@@ -1,6 +1,7 @@
-"""The port's recurrentgemma model against the JAX package's on the same
-weights (``params_from_numpy`` of the reference's ``init_params``), on
-the CPU, and the port's copy of the configs against the reference's.
+"""The port's recurrentgemma and mamba2 models against the JAX package's
+on the same weights (``params_from_numpy`` of the reference's
+``init_params``), on the CPU, and the port's copy of the configs against
+the reference's.
 
 Tolerance on logits: 1e-4 absolute and relative, f32 (smoke configs run
 in f32; the port's serial scan and flash-style attention sum in another
@@ -20,6 +21,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.core import profiles as tprofiles
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import model as tmodel
 from repro_torch.models import params_from_numpy
 
@@ -63,8 +65,8 @@ def _jax_layers(cfg, tree):
     return out + list(tree["tail"])
 
 
-def test_converted_params_cover_the_reference(both):
-    jcfg, jp, tcfg, tp = both
+def _check_conversion(jcfg, jp, tcfg, tp):
+    """Every leaf of every layer converted, values and dtypes kept."""
     layers = _jax_layers(jcfg, jp)
     assert len(tp["layers"]) == len(layers) == tcfg.n_layers
     for tl, jl in zip(tp["layers"], layers):
@@ -73,7 +75,12 @@ def test_converted_params_cover_the_reference(both):
         flat_j = jax.tree_util.tree_flatten_with_path(jl)[0]
         assert [p for p, _ in flat_t] == [p for p, _ in flat_j]
         for (_, a), (_, b) in zip(flat_t, flat_j):
+            assert a.dtype == np.asarray(b).dtype
             np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_converted_params_cover_the_reference(both):
+    _check_conversion(*both)
 
 
 def test_init_params_shapes_match_the_reference(both):
@@ -208,7 +215,8 @@ def test_rglru_state_carries_across_a_split_prompt(both):
                                         *args, state=jstate))
 
 
-@pytest.mark.parametrize("arch,what", [("mamba2-2.7b", "ssd_scan"),
+@pytest.mark.parametrize("arch,what", [("internvl2-2b", "frontends"),
+                                       ("hubert-xlarge", "frontends"),
                                        ("deepseek-v2-236b", "MoE"),
                                        ("llama4-maverick-400b-a17b", "MoE")])
 def test_unported_layers_raise_naming_their_slice(arch, what):
@@ -244,3 +252,131 @@ def test_arch_functions_equal_the_reference():
     assert sorted(got) == sorted(want)
     for name in want:
         assert dataclasses.asdict(got[name]) == dataclasses.asdict(want[name])
+
+
+# ---------------------------------------------------------------------------
+# mamba2: SSD layers only (the smoke config made two layers deep, so the
+# cache and the per-layer conversion are a list of more than one)
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-2.7b"
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    jcfg = jbase.get_smoke_config(MAMBA).replace(n_layers=2)
+    tcfg = tbase.get_smoke_config(MAMBA).replace(n_layers=2)
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def test_mamba_converted_params_cover_the_reference(mamba):
+    """Every ``ssd`` leaf of every layer converted, values and dtypes
+    kept; the port's own init has the same tree of shapes and dtypes,
+    with A_log, D and dt_bias f32 under bf16 weights."""
+    jcfg, jp, tcfg, tp = mamba
+    _check_conversion(*mamba)
+    assert sorted(tp["layers"][0]["ssd"]) == sorted(
+        ["w_in", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm",
+         "w_out"])
+    shapes = lambda p: jax.tree.map(lambda t: (tuple(t.shape), t.dtype), p)
+    own = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    assert shapes(own) == shapes(tp)
+    half = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), "cpu",
+                              param_dtype=torch.bfloat16)
+    ssd = half["layers"][1]["ssd"]
+    assert {k: ssd[k].dtype for k in ("A_log", "D", "dt_bias")} == \
+        dict.fromkeys(("A_log", "D", "dt_bias"), torch.float32)
+    assert ssd["w_in"].dtype == torch.bfloat16
+
+
+def test_mamba_forward_matches_reference(mamba):
+    jcfg, jp, tcfg, tp = mamba
+    toks = _tokens(jcfg, 2, 37, 0)      # 37: a ragged last chunk
+    want = jmodel.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    got = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == (2, 37, tcfg.vocab_size)
+    _close(got, want)
+
+
+def test_mamba_prefill_and_decode_match_reference(mamba):
+    """Prefill logits and every layer's cache (the SSM state h in the
+    compute dtype and the conv tail), then 4 decode steps' logits and
+    greedy tokens, against the reference."""
+    jcfg, jp, tcfg, tp = mamba
+    B, S0, n_dec = 2, 21, 4
+    toks = _tokens(jcfg, B, S0, 1)
+    jl, jc = jmodel.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, 32)
+    n0 = ssd_scan.launches
+    tl, tc = tmodel.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)
+                                       .long()}, 32)
+    assert ssd_scan.launches == n0      # CPU: the plain version
+    _close(tl, jl)
+    jlayers = _jax_layers(jcfg, jc)
+    assert len(tc) == len(jlayers) == 2
+    for t_layer, j_layer in zip(tc, jlayers):
+        assert sorted(t_layer) == sorted(j_layer) == ["conv", "h"]
+        for key in t_layer:
+            assert tuple(t_layer[key].shape) == j_layer[key].shape
+            assert str(t_layer[key].dtype).split(".")[-1] == \
+                str(j_layer[key].dtype)
+            _close(t_layer[key], j_layer[key])
+    jtok = np.asarray(jnp.argmax(jl, -1), np.int32)
+    ttok = tl.argmax(-1).numpy().astype(np.int32)
+    jdecode = _jax_decode(jcfg)
+    for i in range(n_dec):
+        np.testing.assert_array_equal(ttok, jtok)
+        pos = S0 + i
+        jl, jc = jdecode(jp, jnp.asarray(jtok),
+                         jnp.full((B,), pos, jnp.int32), jc)
+        tl, tc = tmodel.decode_step(tcfg, tp, torch.from_numpy(ttok).long(),
+                                    torch.full((B,), pos), tc)
+        _close(tl, jl)
+        jtok = np.asarray(jnp.argmax(jl, -1), np.int32)
+        ttok = tl.argmax(-1).numpy().astype(np.int32)
+    np.testing.assert_array_equal(ttok, jtok)
+    for t_layer, j_layer in zip(tc, _jax_layers(jcfg, jc)):
+        for key in t_layer:
+            _close(t_layer[key], j_layer[key])
+
+
+@pytest.mark.parametrize("S0,n_dec", [(2, 6), (16, 8), (29, 4)])
+def test_mamba_prefill_decode_matches_own_forward(mamba, S0, n_dec):
+    """Teacher forcing: prefill(S0) + decode of the next tokens equals
+    the port's own full forward at those positions.  S0 = 2 is shorter
+    than the conv's tail of 3 (the tail is zero-padded)."""
+    _, _, tcfg, tp = mamba
+    B = 2
+    S = S0 + n_dec
+    toks = torch.from_numpy(_tokens(tcfg, B, S, 2)).long()
+    full = tmodel.forward(tcfg, tp, {"tokens": toks})
+    lg, cache = tmodel.prefill(tcfg, tp, {"tokens": toks[:, :S0]}, S)
+    _close(lg, full[:, S0 - 1])
+    for i in range(S0, S):
+        lg, cache = tmodel.decode_step(tcfg, tp, toks[:, i],
+                                       torch.full((B,), i), cache)
+        _close(lg, full[:, i])
+
+
+def test_ssd_state_carries_across_a_split_prompt(mamba):
+    """``ssd_forward`` given the state of a first part of the prompt
+    continues the conv and the scan (the kernel's h0): the two parts
+    equal the port's one pass and the reference's ``ssd_forward`` over
+    the whole prompt."""
+    from repro.models import ssd as jssd
+    from repro_torch.models import ssd as tssd
+    jcfg, jp, tcfg, tp = mamba
+    tparams = tp["layers"][0]["ssd"]
+    jparams = _jax_layers(jcfg, jp)[0]["ssd"]
+    x = np.random.default_rng(4).standard_normal(
+        (2, 30, tcfg.d_model)).astype(np.float32)
+    tx = torch.from_numpy(x)
+    whole = tssd.ssd_forward(tparams, tx, tcfg.ssd)
+    first, state = tssd.ssd_forward(tparams, tx[:, :11], tcfg.ssd,
+                                    return_state=True)
+    second = tssd.ssd_forward(tparams, tx[:, 11:], tcfg.ssd,
+                              state={k: v.clone() for k, v in state.items()})
+    _close(torch.cat([first, second], dim=1), whole)
+    _close(torch.cat([first, second], dim=1),
+           jssd.ssd_forward(jparams, jnp.asarray(x), jcfg.ssd))

@@ -171,10 +171,14 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype, device, scale=1.0):
 def test_lm_wrappers_on_cpu_launch_nothing():
     q, k, v = _qkv(0, 1, 40, 4, 2, 16, torch.float32, "cpu")
     a = torch.rand(2, 30, 8)
-    n0 = flash_attention.launches, rglru_scan.launches
+    n0 = flash_attention.launches, rglru_scan.launches, ssd_scan.launches
     ops.attention_op(q, k, v, kind="local", window=8)
     ops.rglru_op(a, torch.randn(2, 30, 8), torch.randn(2, 8))
-    assert (flash_attention.launches, rglru_scan.launches) == n0
+    ops.ssd_op(torch.randn(1, 30, 4, 8), torch.rand(1, 30, 4),
+               -torch.rand(4), torch.randn(1, 30, 2, 16),
+               torch.randn(1, 30, 2, 16))
+    assert (flash_attention.launches, rglru_scan.launches,
+            ssd_scan.launches) == n0
 
 
 @pytest.mark.cuda_only
@@ -265,3 +269,81 @@ def test_smoke_model_on_card_kernels_match_plain():
                                  use_kernel=False)
     np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan.  Tolerances, against the plain version at the kernel's
+# chunk of 64 (the same arithmetic, summed in other orders): f32 1e-4 of
+# the largest |y| and of the state's norm; bf16 2e-2 (both compute in f32
+# from the same bf16 values; y is rounded to bf16 once).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan  # noqa: E402
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ssd_case(seed, B, H, G, S, P, N, dtype, with_h0, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(
+        np.ascontiguousarray(a, np.float32)).to(device=device, dtype=dt)
+    sp = lambda a: np.log1p(np.exp(a))
+    dt = sp(rng.standard_normal((B, H, S)) - 2.0)
+    A = -np.linspace(1.0, 16.0, H)
+    return (t(rng.standard_normal((B, H, S, P)), dtype),
+            t(dt * A[None, :, None]), t(dt),
+            t(rng.standard_normal((B, G, S, N)), dtype),
+            t(rng.standard_normal((B, G, S, N)), dtype),
+            t(rng.standard_normal((B, H, P, N))) if with_h0 else None)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N", [
+    (2, 3, 3, 37, 8, 16),        # small, prime S: one ragged chunk
+    (2, 4, 2, 200, 40, 100),     # grouped B/C, P and N off the tiles
+    (1, 8, 1, 129, 64, 128),     # one row past two chunks
+    (1, 80, 1, 3001, 64, 128),   # mamba2-2.7b's serving shape, prime S
+])
+def test_ssd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0):
+    dev = _card()
+    x, dA, dt, Bm, Cm, h0 = _ssd_case(S + N, B, H, G, S, P, N, dtype,
+                                      with_h0, dev)
+    n0 = ssd_scan.launches
+    y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
+    yp, hp = ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    assert bool(torch.isfinite(y.float()).all())
+    y_err = float((y.float() - yp.float()).abs().max())
+    assert y_err <= tol * float(yp.float().abs().max())
+    assert float((h - hp).norm()) <= tol * float(hp.norm())
+
+
+@pytest.mark.cuda_only
+def test_mamba_smoke_model_on_card_kernels_match_plain():
+    """The mamba2 smoke model, two layers, on the card: prefill through
+    the kernel equals prefill through the plain version (f32: 1e-4 on
+    logits and states), one scan launched per layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    dev = _card()
+    cfg = get_smoke_config("mamba2-2.7b").replace(n_layers=2)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 77))).to(dev)
+    n0 = ssd_scan.launches
+    got, cache = model_lib.prefill(cfg, params, {"tokens": toks}, 96)
+    assert ssd_scan.launches - n0 == 2
+    plain, pcache = model_lib.prefill(cfg, params, {"tokens": toks}, 96,
+                                      use_kernel=False)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    for c, pc in zip(cache, pcache):
+        np.testing.assert_allclose(c["h"].cpu().numpy(),
+                                   pc["h"].cpu().numpy(), atol=1e-4,
+                                   rtol=1e-4)

@@ -1,8 +1,9 @@
 """The port's serving engine on the recurrentgemma smoke config, on the
 CPU: the five cases of ``tests/test_serving.py`` (continuous batching,
 cache splicing, dual-staged data-plane semantics), the same greedy
-tokens as the JAX package's engine on the same weights, and no quiet
-fallback to the CPU when the card is asked for and missing."""
+tokens as the JAX package's engine on the same weights (recurrentgemma
+and mamba2), the SSM state spliced into a slot, and no quiet fallback to
+the CPU when the card is asked for and missing."""
 import jax
 import numpy as np
 import pytest
@@ -13,7 +14,8 @@ from repro.models import model as jmodel
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import init_cache, init_params, params_from_numpy
+from repro_torch.models import (init_cache, init_params, params_from_numpy,
+                                prefill)
 from repro_torch.serving.engine import (Request, ServingEngine,
                                         ServingInstance)
 
@@ -108,27 +110,64 @@ def test_instance_slot_reuse(setup):
     assert inst.admit(_req(2, cfg, max_new=2))  # slot reusable
 
 
-def test_greedy_tokens_match_reference_engine():
-    """Both engines, one instance of two slots, the reference's weights,
-    prompts longer and shorter than the smoke window of 16: the same
-    greedy tokens for every request."""
-    jcfg = jax_smoke_config(ARCH)
+def _greedy_tokens_of_both_engines(arch, lengths):
+    """Both engines, one instance of two slots, the reference's weights:
+    the greedy tokens of every request, (JAX, port)."""
+    jcfg = jax_smoke_config(arch)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     params = params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                device="cpu")
     prompts = [np.random.default_rng(s).integers(
         0, cfg.vocab_size, n).astype(np.int32)
-        for s, n in ((1, 9), (2, 30), (3, 17))]
+        for s, n in zip((1, 2, 3), lengths)]
     jeng = JServingEngine(jcfg, jp, slots=2, max_len=64)
     teng = _engine(cfg, params, slots=2, max_len=64)
     for eng, req in ((jeng, JRequest), (teng, Request)):
         eng.scale_up(1)
         for i, p in enumerate(prompts):
             eng.submit(req(i, p.copy(), 6))
-    want = {r.rid: r.tokens for r in jeng.drain()}
-    got = {r.rid: r.tokens for r in teng.drain()}
+    return ({r.rid: r.tokens for r in jeng.drain()},
+            {r.rid: r.tokens for r in teng.drain()})
+
+
+def test_greedy_tokens_match_reference_engine():
+    """recurrentgemma, prompts longer and shorter than the smoke window of
+    16: the same greedy tokens for every request."""
+    want, got = _greedy_tokens_of_both_engines(ARCH, (9, 30, 17))
     assert got == want
+
+
+def test_mamba2_greedy_tokens_match_reference_engine():
+    """mamba2, prompts that leave a ragged last chunk of the smoke chunk
+    of 8: the same greedy tokens for every request."""
+    want, got = _greedy_tokens_of_both_engines("mamba2-2.7b", (13, 17, 21))
+    assert got == want
+
+
+def test_spliced_ssm_state_equals_a_batch_one_prefill():
+    """mamba2, two layers: admitting a request into slot 1 of a busy
+    instance copies every layer's SSM state h and conv tail into that
+    slot's rows, equal to a batch-1 prefill of the prompt, and leaves
+    slot 0's rows as they were."""
+    cfg = get_smoke_config("mamba2-2.7b").replace(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    inst = ServingInstance(cfg, params, slots=2, max_len=64, device="cpu")
+    assert inst.admit(_req(0, cfg, n=11, max_new=4))
+    before = [{k: v[0].clone() for k, v in layer.items()}
+              for layer in inst.cache]
+    req = _req(1, cfg, n=19, max_new=4)
+    assert inst.admit(req)
+    _, want = prefill(cfg, params, {"tokens": torch.from_numpy(
+        req.prompt[None].astype(np.int64))}, 64)
+    assert len(inst.cache) == len(want) == 2
+    for layer, one, kept in zip(inst.cache, want, before):
+        assert sorted(layer) == ["conv", "h"]
+        for key in layer:
+            torch.testing.assert_close(layer[key][1], one[key][0], rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(layer[key][0], kept[key], rtol=0,
+                                       atol=0)
 
 
 @pytest.fixture()
