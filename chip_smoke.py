@@ -17,8 +17,16 @@ Phases (each one failing makes the script exit non-zero):
      N = 1, 255, 256, 257, 200000 (max abs error <= 1e-6 on predictions
      around 1 — an f32 mean of at most 64 leaves — and bitwise equal to
      the numpy host oracle); ``rfr_capacity_sweep`` exactly equal, both
-     ``log_target`` values, random +-inf bounds, M = 16 and 40; each
-     timed with CUDA events (median of 20) beside its plain version;
+     ``log_target`` values, random +-inf bounds, M = 16 and 40, and with
+     the device drain's padding (-inf rows past each scenario's m_max,
+     +inf rows past its R, failures at m = 0) at M = 1, 24, 40 and
+     T = 5, 24, 33, 130 (depth 6) and 64 (depth 10), and with m_max on
+     a pass boundary over many scenarios, launched 20 times; each timed
+     beside its plain version with CUDA events (median of 20; every
+     kernel's ``ms`` is the host's and the device's time of a call, as the
+     wrapper is called, and its ``device_ms`` the device's alone, of calls
+     queued behind a device-side wait), the sweep's bound over the rows
+     its inputs need (m at most the capacity, bound not -inf);
   2. a capacity drain over 4,096 nodes from a 24-pattern pool
      (m_max = 16): the device drain on the CUDA kernel and the host
      drain on numpy must give identical capacity tables;
@@ -28,13 +36,22 @@ Phases (each one failing makes the script exit non-zero):
      engine with the host drain, (c) on the CUDA engine with the device
      drain.  (b) and (c) must equal (a) in every outcome that does not
      read the wall clock, and each kernel must have launched during its
-     run; then (b) and (c) once more under the profiler;
+     run; the sweep calls' shape distribution; both kernels timed at the
+     largest and the median call shape of the run; then (b) and (c) once
+     more under the profiler;
   4. the LM kernels against their plain versions on the card:
-     ``flash_attention`` at recurrentgemma-2b's serving shapes (10 query
-     heads, 1 kv head, D = 256, local window 2,048, S = 512, 1,000,
-     2,048, 3,000, bf16 and f32; tolerance f32 1e-5, bf16 2e-2
-     relative) and at small shapes for the global, chunked, softcap and
-     non-causal masks; ``rglru_scan`` exactly equal at (1, 3000, 2560)
+     ``flash_attention`` (the path function printed; every line names
+     the kernel that ran, which must be the one ``path`` names) at
+     recurrentgemma-2b's serving shapes (10 query heads, 1 kv head,
+     D = 256, local window 2,048, S = 512, 1,000, 2,048, 3,000, bf16 on
+     the tensor-core kernel, no slower than sdpa, with the CUDA-core
+     kernel held and timed beside it, and f32 on the CUDA-core kernel;
+     tolerance f32 1e-5, bf16 2^-6 relative plus 2^-8 of the softmax's
+     average of |v|, so a kv tile dropped or added fails) and at small
+     shapes (BH 8,
+     G 2, S 333) for the global, chunked, softcap and non-causal masks:
+     D = 64 in bf16 and f32, D = 128 in bf16, and D = 32 in bf16 (the
+     CUDA-core kernel); ``rglru_scan`` exactly equal at (1, 3000, 2560)
      with and without h0 and at (4, 1000, 2560); each timed beside its
      plain version, and attention beside ``scaled_dot_product_attention``
      with the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving
@@ -46,7 +63,9 @@ Phases (each one failing makes the script exit non-zero):
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
      tokens, two each, 16 new tokens).  Every prefill must launch 8
-     flash and 18 scan kernels; the same requests through the plain
+     flash kernels, all on the tensor-core path, and 18 scan kernels;
+     the profiled prefill prints its flash kernels' device time beside
+     the CUDA-core kernel's phase-4 time; the same requests through the plain
      versions must give prefill logits within 2e-2 of the largest
      |logit|, and the same first token wherever the top-2 margin is
      above that;
@@ -57,7 +76,9 @@ Phases (each one failing makes the script exit non-zero):
      launch 64 ``ssd_scan`` kernels and nothing else; the plain run's
      prefill logits, SSM states and first tokens are held to it as in
      phase 5;
-  7. one JSON line describing all five kernels, then the device line.
+  7. the f32 flash path's times on a line of their own; one JSON line
+     describing all five kernels (flash attention's entry is the bf16
+     serving path's kernel), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -74,6 +95,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = CSRC + "rfr_inference.cu"
+#: the source of each LM kernel's entry in the kernels line: flash
+#: attention's is the tensor-core kernel that serves bf16 at D = 256
+SOURCES = {"flash_attention": "flash_attention_wgmma.cu",
+           "rglru_scan": "rglru_scan.cu", "ssd_scan": "ssd_scan.cu"}
 #: the TPU kernels these replace (def lines)
 REPLACES = {"rfr_forest_apply": "src/repro/kernels/rfr_inference.py:72",
             "rfr_capacity_sweep": "src/repro/kernels/rfr_inference.py:130",
@@ -85,10 +110,16 @@ REPLACES = {"rfr_forest_apply": "src/repro/kernels/rfr_inference.py:72",
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-#: flash attention against its plain version: f32 1e-5 (online against
-#: materialised softmax, other summation order); bf16 2e-2 relative (the
-#: kernel rounds p to bf16 before P.V, the plain version keeps it f32)
-ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: flash attention against its plain version, elementwise: f32 within
+#: 1e-5 absolute plus 1e-5 relative (online against materialised
+#: softmax, other summation order); bf16 within 2^-6 of |out| (two to four bf16 ulps:
+#: the kernel and the plain version each round the output once) plus
+#: 2^-8 of the same softmax's average of |v| (the kernel rounds each p to
+#: bf16, a relative error of at most 2^-9, where the plain version keeps
+#: p in f32).  At the serving shapes an output averages some 2,000 values
+#: of |v| about 0.8 to |out| about 0.03, so one kv tile of 32 keys
+#: dropped or added moves outputs by many times that
+ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -8)}
 #: recurrentgemma-2b's local layers: MQA, head dim 256, window 2,048
 SERVE_ARCH = "recurrentgemma-2b"
 SERVE_PROMPTS = (512, 1000, 2048, 3000)
@@ -107,6 +138,10 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (512, 1000, 2048, 3001)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PRED_TOL = 1e-6
+#: GPU clock cycles of the wait a timed call is queued behind: about 2 ms
+#: at the H100's 1.98 GHz boost clock, far above a kernel wrapper's host
+#: time
+QUEUE_CYCLES = 4_000_000
 SCENARIO = dict(n_functions=24, duration_s=180, target_nodes=1024, seed=0)
 DRAIN_NODES = 4096
 DRAIN_M_MAX = 16
@@ -122,8 +157,19 @@ def check(cond: bool, what: str):
         raise PhaseFailed(what)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
+def time_ms(fn, reps: int = 20, queued: bool = False) -> float:
+    """Median time of one call, by CUDA events, after a warm-up.
+
+    By default the card idles while the host runs the call (a wrapper's
+    checks, allocation, the ctypes call, the launch), so the time is the
+    host's and the device's together, as a caller meets it: every
+    kernel's ``ms``; a call of a few microseconds on the card reads some
+    20-40 us.  With `queued` each call is enqueued behind a device-side
+    wait of QUEUE_CYCLES, so the start event fires after the host has
+    enqueued the whole call and the events time the device's work alone:
+    every kernel's ``device_ms``.  A call whose host part outlasts the
+    wait (a plain version's Python loop) reads its host time either
+    way."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -131,6 +177,8 @@ def time_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -160,11 +208,25 @@ def forest_bound(n: int, f: int, feat):
                  n * t * (depth + 1) + n)
 
 
-def sweep_bound(shape, feat, log_target: bool):
+def sweep_rows(bounds, caps):
+    """(rows the inputs need, padded rows): a scenario's capacity c is
+    its first failing m (0-based), so the rows with m <= c decide it; of
+    those, a row whose bound is -inf fails without a descent."""
+    import torch
+    s, m, r = bounds.shape
+    m_idx = torch.arange(m, device=bounds.device)[None, :, None]
+    upto = (m_idx <= caps.to(bounds.device)[:, None, None]).expand(s, m, r)
+    return int((upto & (bounds != float("-inf"))).sum()), s * m * r
+
+
+def sweep_bound(shape, feat, log_target: bool, rows: int):
+    """The least time for the sweep over `rows` descended rows: each read
+    once (features and bound), the forest read once, the capacities
+    written once; per row T*(D+1) operations of the descent and mean, a
+    compare, and the exp under log_target."""
     s, m, r, f = shape
     t, nn = feat.shape
     depth = (nn + 1).bit_length() - 1
-    rows = s * m * r
     per_row = t * (depth + 1) + 1 + 1 + (1 if log_target else 0)
     return bound(rows * f * 4 + rows * 4 + forest_bytes(feat) + s * 4,
                  rows * per_row)
@@ -172,7 +234,8 @@ def sweep_bound(shape, feat, log_target: bool):
 
 def hold_forest(x, feat, thr, leaf):
     """rfr_forest_apply against its plain version on these inputs, and
-    both timed: (max abs error, kernel ms, plain ms, bound ms, bound by)."""
+    both timed: (max abs error, kernel ms, kernel device ms, plain ms,
+    bound ms, bound by)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rfr_inference import rfr_forest_apply
@@ -182,13 +245,16 @@ def hold_forest(x, feat, thr, leaf):
     err = float((got - plain).abs().max())
     check(err <= PRED_TOL, f"rfr_forest_apply N={x.shape[0]}: {err}")
     return (err, time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf)),
+            time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf),
+                    queued=True),
             time_ms(lambda: ref.rfr_forest_ref(x, feat, thr, leaf)),
             *forest_bound(x.shape[0], x.shape[1], feat))
 
 
 def hold_sweep(x, bounds, feat, thr, leaf, log_target):
     """rfr_capacity_sweep against its plain version (exactly) on these
-    inputs, and both timed, as ``hold_forest``."""
+    inputs, and both timed: (max abs error, kernel ms, kernel device ms,
+    plain ms, bound ms, bound by, rows needed, padded rows)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rfr_inference import rfr_capacity_sweep
@@ -198,12 +264,16 @@ def hold_sweep(x, bounds, feat, thr, leaf, log_target):
     torch.cuda.synchronize()
     err = float((got - plain).abs().max())
     check(err == 0, f"rfr_capacity_sweep {tuple(x.shape)}: {err}")
+    rows, padded = sweep_rows(bounds, plain)
     return (err,
             time_ms(lambda: rfr_capacity_sweep(*args,
                                                log_target=log_target)),
+            time_ms(lambda: rfr_capacity_sweep(*args, log_target=log_target),
+                    queued=True),
             time_ms(lambda: ref.rfr_capacity_sweep_ref(
                 *args, log_target=log_target)),
-            *sweep_bound(tuple(x.shape), feat, log_target))
+            *sweep_bound(tuple(x.shape), feat, log_target, rows),
+            rows, padded)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +327,7 @@ class Recorder:
         self.orig = (ops.rfr_forest_apply, ops.rfr_capacity_sweep)
         self.forest = None      # (x, feat, thr, leaf)
         self.sweep = None       # (x, bounds, feat, thr, leaf, log_target)
+        self.sweep_by_shape = {}  # shape -> its first call's inputs
         self.forest_calls = []
         self.sweep_calls = []
         apply_fn, sweep_fn = self.orig
@@ -269,11 +340,14 @@ class Recorder:
             return apply_fn(x, feat, thr, leaf)
 
         def rec_sweep(x, bounds, feat, thr, leaf, *, log_target=False):
-            self.sweep_calls.append(tuple(x.shape))
-            if x.is_cuda and (self.sweep is None
-                              or x.numel() > self.sweep[0].numel()):
-                self.sweep = (x.clone(), bounds.clone(), feat, thr, leaf,
-                              log_target)
+            shape = tuple(x.shape)
+            self.sweep_calls.append(shape)
+            if x.is_cuda and shape not in self.sweep_by_shape:
+                self.sweep_by_shape[shape] = (x.clone(), bounds.clone(), feat,
+                                              thr, leaf, log_target)
+                if (self.sweep is None
+                        or x.numel() > self.sweep[0].numel()):
+                    self.sweep = self.sweep_by_shape[shape]
             return sweep_fn(x, bounds, feat, thr, leaf,
                             log_target=log_target)
 
@@ -344,9 +418,11 @@ def phase1_kernels(world):
             check(bitwise, f"rfr_forest_apply {name} N={n} != numpy")
             if n == 200_000:
                 k = time_ms(lambda: rfr_forest_apply(xt, *fo))
+                kd = time_ms(lambda: rfr_forest_apply(xt, *fo), queued=True)
                 p = time_ms(lambda: ref.rfr_forest_ref(xt, *fo))
                 b, by = forest_bound(n, f, fo[0])
-                timings[f"rfr_forest_apply {name} N={n}"] = (k, p, b, by)
+                timings[f"rfr_forest_apply {name} N={n}"] = (k, kd, p, b,
+                                                              by)
 
     world_fo = core.RandomForestRegressor(device=dev).load_arrays(
         a.feat, a.thr, a.leaf).device_arrays()
@@ -377,14 +453,80 @@ def phase1_kernels(world):
             if m == 16 and log_target:
                 k = time_ms(lambda: rfr_capacity_sweep(
                     xs, bt, *world_fo, log_target=True))
+                kd = time_ms(lambda: rfr_capacity_sweep(
+                    xs, bt, *world_fo, log_target=True), queued=True)
                 pl = time_ms(lambda: ref.rfr_capacity_sweep_ref(
                     xs, bt, *world_fo, log_target=True))
-                b, by = sweep_bound(tuple(xs.shape), world_fo[0], True)
+                rows, _ = sweep_rows(bt, plain)
+                b, by = sweep_bound(tuple(xs.shape), world_fo[0], True, rows)
                 timings[f"rfr_capacity_sweep world S={s} M={m} R={r}"] = (
-                    k, pl, b, by)
-    for key, (k, p, b, by) in timings.items():
-        print(f"phase1 time {key}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-              f"bound {b:.5f} ms ({by})")
+                    k, kd, pl, b, by)
+    phase1_padded_sweeps(rng, dev)
+    for key, (k, kd, p, b, by) in timings.items():
+        print(f"phase1 time {key}: kernel {k:.4f} ms (device {kd:.4f} ms), "
+              f"plain {p:.4f} ms, bound {b:.5f} ms ({by})")
+
+
+def phase1_padded_sweeps(rng, dev):
+    """rfr_capacity_sweep with the device drain's padding, exactly equal
+    to its plain version: -inf rows past each scenario's m_max, +inf rows
+    past its R, a failure at m = 0 in every fifth scenario; T = 5 (the
+    lanes' partial sums all 0), 24, 33 (a tail of one tree) and 130
+    (numpy's pairwise split above 128 trees) at depth 6, and T = 64 at
+    depth 10 (the forest read from device memory).  Then m_max on a pass
+    boundary: a block takes 64 rows a pass, 8 values of m at R = 8, so
+    m_max = 8 or 16 makes whole passes of -inf rows, which fail without a
+    descent while the pass is under way; 4,096 scenarios, 20 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rfr_inference import rfr_capacity_sweep
+    s, r, f = 300, 8, 31
+    for t, depth in ((5, 6), (24, 6), (33, 6), (130, 6), (64, 10)):
+        forest = [torch.from_numpy(a).to(dev)
+                  for a in _random_forest(rng, t, depth, f)]
+        for m in (1, 24, 40):
+            x = rng.standard_normal((s, m, r, f)).astype(np.float32)
+            bounds = rng.uniform(-0.4, 0.8, (s, m, r)).astype(np.float32)
+            for i in range(s):
+                bounds[i, :, int(rng.integers(1, r + 1)):] = np.inf
+                bounds[i, int(rng.integers(0, m + 1)):, :] = -np.inf
+                if i % 5 == 0:
+                    bounds[i, 0, 0] = -5.0
+            args = (torch.from_numpy(x).to(dev),
+                    torch.from_numpy(bounds).to(dev), *forest)
+            for log_target in (False, True):
+                got = rfr_capacity_sweep(*args, log_target=log_target)
+                plain = ref.rfr_capacity_sweep_ref(*args,
+                                                   log_target=log_target)
+                torch.cuda.synchronize()
+                same = torch.equal(got, plain)
+                rows, padded = sweep_rows(args[1], plain)
+                print(f"phase1 rfr_capacity_sweep padded T={t} D={depth} "
+                      f"S={s} M={m} R={r} log_target={log_target}: "
+                      f"equal={same}, rows needed {rows} of {padded}")
+                check(same, f"rfr_capacity_sweep padded T={t} M={m} "
+                      f"log={log_target}")
+    s, m = 4096, 24
+    forest = [torch.from_numpy(a).to(dev)
+              for a in _random_forest(rng, 24, 8, f)]
+    x = torch.from_numpy(rng.standard_normal((s, m, r, f)).astype(
+        np.float32)).to(dev)
+    bounds = rng.uniform(0.3, 1.5, (s, m, r)).astype(np.float32)
+    bounds[0::2, 8:] = -np.inf
+    bounds[1::2, 16:] = -np.inf
+    early = np.arange(0, s, 7)
+    bounds[early, rng.integers(0, 8, early.size),
+           rng.integers(0, r, early.size)] = -1.0
+    args = (x, torch.from_numpy(bounds).to(dev), *forest)
+    plain = ref.rfr_capacity_sweep_ref(*args)
+    same = sum(torch.equal(rfr_capacity_sweep(*args), plain)
+               for _ in range(20))
+    caps = torch.bincount(plain.long()).tolist()
+    print(f"phase1 rfr_capacity_sweep m_max on a pass boundary S={s} M={m} "
+          f"R={r} T=24 D=8: equal in {same} of 20 launches; capacities "
+          f"{caps}")
+    check(same == 20, "rfr_capacity_sweep with m_max on a pass boundary")
 
 
 def _pattern_nodes(specs, n_nodes: int, seed: int):
@@ -450,9 +592,11 @@ def phase2_drain(world):
           f"(host rows {host.stats.rows_built}), tables_equal={got == want}")
     check(got == want, "phase 2: device-drain tables differ from numpy")
     check(rec.sweep is not None, "phase 2 never reached the sweep kernel")
-    _err, k, p, b, by = hold_sweep(*rec.sweep)
+    _err, k, kd, p, b, by, rows, padded = hold_sweep(*rec.sweep)
     print(f"phase2 time rfr_capacity_sweep {tuple(rec.sweep[0].shape)}: "
-          f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.6f} ms ({by})")
+          f"kernel {k:.4f} ms (device {kd:.4f} ms), "
+          f"plain {p:.4f} ms, bound {b:.6f} ms ({by}) over the {rows} rows "
+          f"the inputs need of {padded} padded")
 
 
 def _main_path_sim(label: str, engine: str, drain: str):
@@ -520,11 +664,39 @@ def phase3_main_path():
     check(l_c["rfr_capacity_sweep"] > 0, "run (c) never launched the sweep "
           "kernel")
     fc = sorted(rec.forest_calls)
-    sc = rec.sweep_calls
     print(f"phase3 shapes: forest calls {len(fc)}, N median "
-          f"{fc[len(fc) // 2] if fc else 0} max {fc[-1] if fc else 0}; "
-          f"sweep calls {len(sc)}, largest {max(sc, key=lambda s: s[0] * s[1] * s[2]) if sc else None}")
+          f"{fc[len(fc) // 2] if fc else 0} max {fc[-1] if fc else 0}")
+    print_sweep_shapes(rec.sweep_calls)
     return rec, l_b, l_c
+
+
+def sweep_rank(shape) -> tuple:
+    """Order of sweep call shapes: by padded rows S*M*R, then the shape."""
+    return (shape[0] * shape[1] * shape[2], shape)
+
+
+def print_sweep_shapes(calls):
+    """The distribution of the sweep calls' (S, M, R, F) shapes."""
+    from collections import Counter
+    if not calls:
+        print("phase3 sweep shapes: no calls")
+        return
+    n = len(calls)
+    ranked = sorted(calls, key=sweep_rank)
+
+    def pct(vals, q):
+        vals = sorted(vals)
+        return vals[min(n - 1, int(q * n))]
+
+    def counts(axis):
+        return dict(sorted(Counter(c[axis] for c in calls).items()))
+
+    s_vals = [c[0] for c in calls]
+    print(f"phase3 sweep shapes: {n} calls, {len(set(calls))} distinct; "
+          f"median {ranked[n // 2]}, largest {ranked[-1]}; S p10 "
+          f"{pct(s_vals, 0.1)} p50 {pct(s_vals, 0.5)} p90 {pct(s_vals, 0.9)} "
+          f"max {max(s_vals)}; M {counts(1)}; R {counts(2)}; most common "
+          f"{Counter(calls).most_common(5)}")
 
 
 def device_share(label: str, engine: str, drain: str):
@@ -563,28 +735,42 @@ def main_path_kernels(rec, l_b, l_c):
     check(rec.forest is not None and rec.sweep is not None,
           "main path left no kernel inputs on the card")
     x, feat, thr, leaf = rec.forest
-    err_f, ms_f, pms_f, b_f, by_f = hold_forest(x, feat, thr, leaf)
+    err_f, ms_f, dms_f, pms_f, b_f, by_f = hold_forest(x, feat, thr, leaf)
     n_med = sorted(rec.forest_calls)[len(rec.forest_calls) // 2]
-    _e, ms_m, pms_m, b_m, _by = hold_forest(x[:n_med], feat, thr, leaf)
+    _e, ms_m, dms_m, pms_m, b_m, _by = hold_forest(x[:n_med], feat, thr,
+                                                   leaf)
     xs = rec.sweep[0]
-    err_s, ms_s, pms_s, b_s, by_s = hold_sweep(*rec.sweep)
+    (err_s, ms_s, dms_s, pms_s, b_s, by_s, rows_s,
+     pad_s) = hold_sweep(*rec.sweep)
+    med = sorted(rec.sweep_calls, key=sweep_rank)[len(rec.sweep_calls) // 2]
+    _e, ms_sm, dms_sm, pms_sm, b_sm, _by, rows_sm, pad_sm = hold_sweep(
+        *rec.sweep_by_shape[med])
     print(f"main-path shapes: rfr_forest_apply N={x.shape[0]} F="
-          f"{x.shape[1]}: kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, "
-          f"bound {b_f:.6f} ms; median call N={n_med}: kernel {ms_m:.4f} "
-          f"ms, plain {pms_m:.4f} ms, bound {b_m:.6f} ms; "
-          f"rfr_capacity_sweep {tuple(xs.shape)}: kernel {ms_s:.4f} ms, "
-          f"plain {pms_s:.4f} ms, bound {b_s:.6f} ms")
+          f"{x.shape[1]}: kernel {ms_f:.4f} ms (device {dms_f:.4f} ms), "
+          f"plain {pms_f:.4f} ms, bound {b_f:.6f} ms; median call "
+          f"N={n_med}: kernel {ms_m:.4f} ms (device {dms_m:.4f} ms), plain "
+          f"{pms_m:.4f} ms, bound {b_m:.6f} ms")
+    print(f"main-path shapes: rfr_capacity_sweep largest {tuple(xs.shape)}: "
+          f"kernel {ms_s:.4f} ms (device {dms_s:.4f} ms), plain "
+          f"{pms_s:.4f} ms, bound {b_s:.6f} ms ({by_s}; rows needed "
+          f"{rows_s} of {pad_s} padded); median call {med}: kernel "
+          f"{ms_sm:.4f} ms (device {dms_sm:.4f} ms), plain {pms_sm:.4f} ms, "
+          f"bound {b_sm:.6f} ms (rows needed {rows_sm} of {pad_sm} padded)")
     return [
         {"name": "rfr_forest_apply", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["rfr_forest_apply"],
          "launches": l_b["rfr_forest_apply"], "max_abs_err": err_f,
          "ms": ms_f, "plain_ms": pms_f, "bound_ms": b_f, "bound_by": by_f,
-         "library_ms": None, "shape": list(x.shape)},
+         "library_ms": None, "shape": list(x.shape), "device_ms": dms_f,
+         "median_shape": [n_med, x.shape[1]], "median_ms": ms_m,
+         "median_device_ms": dms_m},
         {"name": "rfr_capacity_sweep", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["rfr_capacity_sweep"],
          "launches": l_c["rfr_capacity_sweep"], "max_abs_err": err_s,
          "ms": ms_s, "plain_ms": pms_s, "bound_ms": b_s, "bound_by": by_s,
-         "library_ms": None, "shape": list(xs.shape)},
+         "library_ms": None, "shape": list(xs.shape), "device_ms": dms_s,
+         "median_shape": list(med), "median_ms": ms_sm,
+         "median_device_ms": dms_sm},
     ]
 
 
@@ -604,44 +790,95 @@ def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
     return bound(nbytes, 4 * bh * d * pairs, peak)
 
 
+def simt_flash(q, k, v, kw):
+    """The CUDA-core kernel of csrc/flash_attention.cu called directly, so
+    that it can be held and timed at shapes where the wrapper takes the
+    tensor-core path; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KINDS
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    err = _build.load("flash_attention").flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+        bh // k.shape[0], int(q.dtype == torch.bfloat16),
+        int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
+        int(kw.get("window", 0)), float(kw.get("softcap", 0.0)),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "flash_attention (simt, direct)")
+    return out
+
+
 def hold_flash(q, k, v, kw, with_library: bool):
     """flash_attention on (BH, S, D) tensors against its plain version
     (k and v repeated, materialised softmax), both timed; the library
     yardstick is scaled_dot_product_attention with the same boolean mask.
-    Returns a dict of the measurements."""
+    The wrapper must launch the kernel that ``path`` names; where that is
+    the tensor-core kernel, the CUDA-core kernel is held and timed beside
+    it.  Returns a dict of the measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, path
     bh, s, d = q.shape
     group = bh // k.shape[0]
+    dt = str(q.dtype).split(".")[-1]
+    first, second = ATTN_TOL[dt]
 
-    def plain():
+    def plain(values=v):
         return ref.flash_attention_ref(q, k.repeat_interleave(group, 0),
-                                       v.repeat_interleave(group, 0), **kw)
+                                       values.repeat_interleave(group, 0),
+                                       **kw)
 
+    def held(got, want, what):
+        want = want.float()
+        diff = (got.float() - want).abs()
+        err = float(diff.max())
+        if dt == "bfloat16":
+            allowed = first * want.abs() + second * plain(v.abs()).float()
+        else:
+            allowed = first + second * want.abs()
+        worst = float((diff / allowed).max())
+        check(worst <= 1.0, f"flash_attention ({what}) S={s} D={d} {dt} "
+              f"{kw}: max_abs_err {err}, the worst element at {worst:.3g} "
+              f"of its allowance")
+        return err, worst
+
+    n0 = dict(flash_attention.launches_by_path)
     got = flash_attention(q, k, v, **kw)
+    ran = [p for p, n in flash_attention.launches_by_path.items()
+           if n != n0[p]]
     want = plain()
     torch.cuda.synchronize()
-    dt = str(q.dtype).split(".")[-1]
-    tol = ATTN_TOL[dt]
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    check(bool((diff <= tol + tol * want.float().abs()).all()),
-          f"flash_attention S={s} {dt} {kw}: max_abs_err {err}")
+    check(ran == [path(q.dtype, d)], f"flash_attention S={s} D={d} {dt}: "
+          f"ran {ran}, path says {path(q.dtype, d)}")
+    err, worst = held(got, want, ran[0])
     mask = ref.attention_mask(s, kw.get("causal", True),
                               kw.get("kind", "global"), kw.get("window", 0),
                               q.device)
     pairs = int(mask.sum())
-    out = {"max_abs_err": err, "pairs": pairs}
+    out = {"max_abs_err": err, "worst": worst, "pairs": pairs,
+           "path": ran[0]}
     if with_library:
         out["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw))
+        out["device_ms"] = time_ms(lambda: flash_attention(q, k, v, **kw),
+                                   queued=True)
+        if ran[0] == "wgmma":
+            out["simt_err"], out["simt_worst"] = held(
+                simt_flash(q, k, v, kw), want, "simt")
+            out["simt_ms"] = time_ms(lambda: simt_flash(q, k, v, kw))
+            out["simt_device_ms"] = time_ms(lambda: simt_flash(q, k, v, kw),
+                                            queued=True)
         out["plain_ms"] = time_ms(plain)
         q4 = q.view(1, bh, s, d)
         k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
         v4 = v.view(1, -1, s, d).expand(1, bh, s, d)
-        out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask))
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        out["library_ms"] = time_ms(library)
+        out["library_device_ms"] = time_ms(library, queued=True)
         out["bound_ms"], out["bound_by"] = flash_bound(
             bh, k.shape[0], s, d, q.dtype, pairs)
     return out
@@ -662,6 +899,7 @@ def hold_scan(a, b, h0):
     nbytes = 3 * n * 4 + (0 if h0 is None else h0.numel() * 4)
     b_ms, by = bound(nbytes, 2 * n)
     return {"max_abs_err": err, "ms": time_ms(lambda: rglru_scan(a, b, h0)),
+            "device_ms": time_ms(lambda: rglru_scan(a, b, h0), queued=True),
             "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b, h0),
                                 reps=5),
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
@@ -714,6 +952,8 @@ def hold_ssd(x, dA, dt, Bm, Cm, h0, timed: bool):
     out = {"max_abs_err": err, "y_scale": y_scale, "h_err": h_err}
     if timed:
         out["ms"] = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm, h0))
+        out["device_ms"] = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm, h0),
+                                   queued=True)
         out["plain_ms"] = time_ms(plain)
         out["library_ms"] = None
         out["bound_ms"], out["bound_by"] = ssd_bound(
@@ -729,13 +969,18 @@ def phase4_lm_kernels():
     the RG-LRU scan at the serving widths; the SSD scan at mamba2-2.7b's
     serving shapes.  Returns the measurements of the largest serving
     shapes, for the kernels line."""
+    import inspect
     import torch
+    from repro_torch.kernels.flash_attention import path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    print("phase4 flash_attention chooses its kernel by dtype and head dim "
+          "alone:\n" + "".join(f"phase4 | {line}" for line in
+                                inspect.getsourcelines(path)[0]).rstrip())
     serve = {}
     for dtype in (torch.bfloat16, torch.float32):
         for s in SERVE_PROMPTS:
@@ -744,27 +989,49 @@ def phase4_lm_kernels():
             kw = dict(causal=True, kind="local", window=2048)
             m = hold_flash(q, k, v, kw, with_library=True)
             dt = str(dtype).split(".")[-1]
+            simt = (f", simt kernel {m['simt_ms']:.4f} ms (device "
+                    f"{m['simt_device_ms']:.4f} ms, max_abs_err "
+                    f"{m['simt_err']:.3g}, {m['simt_worst']:.3g} of the "
+                    "allowance)" if "simt_ms" in m else "")
             print(f"phase4 flash_attention BH=10 G=10 S={s} D=256 local "
-                  f"2048 {dt}: max_abs_err {m['max_abs_err']:.3g}, kernel "
-                  f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, sdpa "
-                  f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
-                  f"({m['bound_by']}), pairs {m['pairs']}")
-            if s == max(SERVE_PROMPTS) and dtype == torch.bfloat16:
-                serve["flash_attention"] = dict(m, shape=[10, s, 256])
-    for dtype in (torch.bfloat16, torch.float32):
-        for kw in (dict(causal=True, kind="global"),
-                   dict(causal=True, kind="chunked", window=128),
-                   dict(causal=True, kind="global", softcap=50.0),
-                   dict(causal=False, kind="global"),
-                   dict(causal=False, kind="local", window=96)):
-            scale = 8.0 if kw.get("softcap") else 1.0
-            q = randn(8, 333, 64, dtype=dtype) * scale
-            k = randn(4, 333, 64, dtype=dtype) * scale
-            v = randn(4, 333, 64, dtype=dtype)
-            m = hold_flash(q, k, v, kw, with_library=False)
-            print(f"phase4 flash_attention BH=8 G=2 S=333 D=64 {kw} "
-                  f"{str(dtype).split('.')[-1]}: max_abs_err "
-                  f"{m['max_abs_err']:.3g}")
+                  f"2048 {dt} path={m['path']}: max_abs_err "
+                  f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the "
+                  f"allowance), kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms){simt}, plain "
+                  f"{m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms "
+                  f"(device {m['library_device_ms']:.4f} ms), bound "
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
+                  f"{m['pairs']}")
+            if dtype == torch.bfloat16:
+                check(m["path"] == "wgmma"
+                      and m["ms"] <= m["library_ms"]
+                      and m["device_ms"] <= m["library_device_ms"],
+                      f"flash_attention S={s} bf16: path {m['path']}, "
+                      f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms) "
+                      f"against sdpa {m['library_ms']:.4f} ms (device "
+                      f"{m['library_device_ms']:.4f} ms)")
+            if s == max(SERVE_PROMPTS):
+                key = ("flash_attention" if dtype == torch.bfloat16
+                       else "flash_attention f32")
+                serve[key] = dict(m, shape=[10, s, 256])
+    masks = (dict(causal=True, kind="global"),
+             dict(causal=True, kind="chunked", window=128),
+             dict(causal=True, kind="global", softcap=50.0),
+             dict(causal=False, kind="global"),
+             dict(causal=False, kind="local", window=96))
+    small = [(torch.bfloat16, 64, kw) for kw in masks]
+    small += [(torch.float32, 64, kw) for kw in masks]
+    small += [(torch.bfloat16, 128, kw) for kw in masks]
+    small += [(torch.bfloat16, 32, masks[0])]
+    for dtype, d, kw in small:
+        scale = 8.0 if kw.get("softcap") else 1.0
+        q = randn(8, 333, d, dtype=dtype) * scale
+        k = randn(4, 333, d, dtype=dtype) * scale
+        v = randn(4, 333, d, dtype=dtype)
+        m = hold_flash(q, k, v, kw, with_library=False)
+        print(f"phase4 flash_attention BH=8 G=2 S=333 D={d} {kw} "
+              f"{str(dtype).split('.')[-1]} path={m['path']}: max_abs_err "
+              f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the allowance)")
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False)):
@@ -773,7 +1040,8 @@ def phase4_lm_kernels():
         h0 = randn(bsz, w) if with_h0 else None
         m = hold_scan(a, b, h0)
         print(f"phase4 rglru_scan ({bsz}, {s}, {w}) h0={with_h0}: "
-              f"max_abs_err {m['max_abs_err']}, kernel {m['ms']:.4f} ms, "
+              f"max_abs_err {m['max_abs_err']}, kernel {m['ms']:.4f} ms "
+              f"(device {m['device_ms']:.4f} ms), "
               f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
               f"({m['bound_by']})")
         if (bsz, s, with_h0) == (1, 3000, False):
@@ -797,7 +1065,8 @@ def phase4_lm_kernels():
                         f"{m['y_scale']:.3g}, state err {m['h_err']:.3g} "
                         "in norm")
                 if not with_h0:
-                    line += (f", kernel {m['ms']:.4f} ms, plain "
+                    line += (f", kernel {m['ms']:.4f} ms (device "
+                             f"{m['device_ms']:.4f} ms), plain "
                              f"{m['plain_ms']:.4f} ms, bound "
                              f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
                 print(line)
@@ -807,13 +1076,27 @@ def phase4_lm_kernels():
     return serve
 
 
-def lm_kernels():
-    """The LM kernels' wrappers, by name (each counts its launches)."""
+def lm_counts() -> dict:
+    """The LM kernel wrappers' launch counts, flash attention's also by
+    path ("flash_attention.wgmma", "flash_attention.simt")."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
-    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
-            "ssd_scan": ssd_scan}
+    counts = {"flash_attention": flash_attention.launches}
+    for p, n in flash_attention.launches_by_path.items():
+        counts[f"flash_attention.{p}"] = n
+    counts["rglru_scan"] = rglru_scan.launches
+    counts["ssd_scan"] = ssd_scan.launches
+    return counts
+
+
+def reset_lm_counts():
+    import repro_torch.kernels.flash_attention as flash_module
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    flash_module.reset_launches()
+    rglru_scan.launches = 0
+    ssd_scan.launches = 0
 
 
 class PrefillRecorder:
@@ -829,13 +1112,12 @@ class PrefillRecorder:
         self.logits = []
         self.states = []
         self.launches = []
-        kernels = lm_kernels()
 
         def rec(*args, **kw):
-            n0 = {k: f.launches for k, f in kernels.items()}
+            n0 = lm_counts()
             logits, cache = self.orig(*args, **kw)
-            self.launches.append({k: f.launches - n0[k]
-                                  for k, f in kernels.items()})
+            self.launches.append({k: n - n0[k]
+                                  for k, n in lm_counts().items()})
             self.logits.append(logits[0].float().cpu())
             self.states.append([c["h"][0].float().cpu() for c in cache
                                 if "h" in c])
@@ -861,9 +1143,7 @@ def _serve(cfg, params, prompts, use_kernel: bool):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = PrefillRecorder()
-    kernels = lm_kernels()
-    for f in kernels.values():
-        f.launches = 0
+    reset_lm_counts()
     try:
         t0 = time.perf_counter()
         done = eng.drain()
@@ -871,16 +1151,19 @@ def _serve(cfg, params, prompts, use_kernel: bool):
         wall = time.perf_counter() - t0
     finally:
         rec.close()
-    launches = {k: f.launches for k, f in kernels.items()}
+    launches = lm_counts()
     return (sorted(done, key=lambda r: r.rid), rec, launches, wall,
             torch.cuda.max_memory_allocated())
 
 
-def profile_serving(cfg, params, prompt, phase: str):
+def profile_serving(cfg, params, prompt, phase: str, flash_ref_ms=None):
     """One prefill of `prompt` into a fresh instance and one decode step,
     under torch.profiler (host and device activity): wall time, device
-    busy share, and the largest entries by device and by host time.  A
-    measurement only; prints "not measured" without device time."""
+    busy share, and the largest entries by device and by host time; the
+    flash kernels' device time in the prefill, beside `flash_ref_ms` (the
+    CUDA-core kernel's phase-4 time at the same shape, times the launches)
+    where given.  A measurement only; prints "not measured" without
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -916,10 +1199,20 @@ def profile_serving(cfg, params, prompt, phase: str):
         print(f"{phase} profile   host: " + "; ".join(
             f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
             for e in top_host))
+        flash = [e for e in dev if "flash" in e.key]
+        if label == "prefill" and flash:
+            ref_text = ("" if flash_ref_ms is None else
+                        f"; the CUDA-core kernel at this shape in phase 4, "
+                        f"times the launches: {flash_ref_ms:.2f} ms")
+            print(f"{phase} profile   flash: " + "; ".join(
+                f"{e.key[:40]} x{e.count}" for e in flash) + ", device "
+                f"{sum(e.self_device_time_total for e in flash) / 1e3:.2f} "
+                f"ms{ref_text}")
 
 
 def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
-                     per_prefill: dict, layers_label: str):
+                     per_prefill: dict, layers_label: str,
+                     flash_ref_ms=None):
     """`arch` at its published width on the card, random f32 weights from
     a seeded generator, computed in the config's dtype: one
     ServingEngine instance (4 slots, max_len 4,096) serves two requests
@@ -976,7 +1269,7 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
           f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
           f"{peak / 2**30:.3f} GiB")
 
-    profile_serving(cfg, params, prompts[-1], phase)
+    profile_serving(cfg, params, prompts[-1], phase, flash_ref_ms)
 
     done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
                                                   False)
@@ -1038,16 +1331,17 @@ def _leaves(tree):
         yield tree
 
 
-def phase5_serving():
-    """recurrentgemma-2b: 8 flash and 18 RG-LRU scan launches per
-    prefill."""
+def phase5_serving(flash_ref_ms: float):
+    """recurrentgemma-2b: 8 flash launches per prefill, all on the
+    tensor-core path (bf16, head dim 256), and 18 RG-LRU scans."""
     from repro_torch.configs import get_config
     kinds = get_config(SERVE_ARCH).layer_kinds()
     n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
     return serve_full_width(
         "phase5", SERVE_ARCH, SERVE_PROMPTS, 5,
-        {"flash_attention": n_local, "rglru_scan": n_rec, "ssd_scan": 0},
-        f"{n_local} local + {n_rec} recurrent")
+        {"flash_attention": n_local, "flash_attention.wgmma": n_local,
+         "flash_attention.simt": 0, "rglru_scan": n_rec, "ssd_scan": 0},
+        f"{n_local} local + {n_rec} recurrent", n_local * flash_ref_ms)
 
 
 def phase6_ssm_serving():
@@ -1067,7 +1361,8 @@ def phase6_ssm_serving():
           f"{cfg.d_model}")
     return serve_full_width(
         "phase6", SSM_ARCH, SSM_PROMPTS, 6,
-        {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": n_ssm},
+        {"flash_attention": 0, "flash_attention.wgmma": 0,
+         "flash_attention.simt": 0, "rglru_scan": 0, "ssd_scan": n_ssm},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
 
@@ -1107,7 +1402,8 @@ def main() -> int:
         device_share("b", "cuda", "host")
         device_share("c", "cuda", "device")
         lm = phase4_lm_kernels()
-        serve_launches = phase5_serving()
+        serve_launches = phase5_serving(
+            lm["flash_attention"]["simt_device_ms"])
         ssm_launches = phase6_ssm_serving()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
@@ -1115,12 +1411,22 @@ def main() -> int:
                         else serve_launches)[name]
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": CSRC + name + ".cu", "replaces": REPLACES[name],
+                "source": CSRC + SOURCES[name], "replaces": REPLACES[name],
                 "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "device_ms": m["device_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                 "shape": m["shape"]})
+            if name == "flash_attention":
+                kernels[-1]["path"] = m["path"]
+        f32 = lm["flash_attention f32"]
+        print(f"flash_attention f32 path={f32['path']} "
+              f"({CSRC}flash_attention.cu) at {f32['shape']}: kernel "
+              f"{f32['ms']:.4f} ms (device {f32['device_ms']:.4f} ms), plain "
+              f"{f32['plain_ms']:.4f} ms, sdpa {f32['library_ms']:.4f} ms "
+              f"(device {f32['library_device_ms']:.4f} ms), bound {f32['bound_ms']:.5f} ms "
+              f"({f32['bound_by']}), max_abs_err {f32['max_abs_err']:.3g}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

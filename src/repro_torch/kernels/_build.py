@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: sources of the port's kernels, by library name
 SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention": "flash_attention.cu",
+                           "flash_attention_wgmma": "flash_attention_wgmma.cu",
                            "rglru_scan": "rglru_scan.cu",
                            "ssd_scan": "ssd_scan.cu"}
 
@@ -55,6 +56,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # softcap, stream
         "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _D, _P], _I),
+    },
+    "flash_attention_wgmma": {
+        # q, k, v, o, bh, s, d, group, causal, kind, window, softcap,
+        # stream
+        "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _D, _P], _I),
     },
     "rglru_scan": {
         # a, b, h0 (or null), h, batch, s, w, stream

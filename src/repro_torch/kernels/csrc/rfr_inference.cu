@@ -25,11 +25,43 @@
 // from unrelated nodes, so the loads serialise on shared-memory banks.
 //
 // What the design does about that:
-//   * each block copies the forest into shared memory once and keeps it
-//     there while it walks many rows (grid-stride), so the forest is
-//     read from device memory once per resident block, not per row;
-//   * one thread owns one row and walks its trees in order, so many
+//   * rfr_forest_apply: each block copies the forest into shared memory
+//     once and keeps it there while it walks many rows (grid-stride), so
+//     the forest is read from device memory once per resident block; one
+//     thread owns one row and walks its trees in order, so many
 //     independent chains are in flight per SM to hide the latency;
+//   * rfr_capacity_sweep shortens the chain of each row and skips the
+//     rows that cannot change the result:
+//       - eight lanes per row: lane j walks trees j, j+8, j+16, ... in
+//         order, which is exactly numpy's partial sum r[j]; an xor
+//         butterfly at offsets 1, 2, 4 forms ((r0+r1)+(r2+r3))+((r4+r5)+
+//         (r6+r7)) in every lane (IEEE addition commutes, so each lane's
+//         bits are the same), and the T mod 8 tail trees, one per lane,
+//         are added in order.  At T = 24 and depth 8 a row's dependent
+//         chain is 24 levels, not 192.  Below 8 trees every partial sum
+//         is 0 and the tail is all the trees, which is numpy's order
+//         there; above 128 the lanes sum each of numpy's pairwise blocks;
+//       - the forest is staged as 8-byte nodes (feature, threshold bits),
+//         so each level is one shared load of its split, and each pass's
+//         rows (F floats each) and bounds are copied into shared memory
+//         (cp.async, coalesced) while the previous pass descends, so each
+//         level's feature read is a shared load;
+//       - a block takes one scenario at a time and its rows in ascending
+//         m, one pass at a time: 64 rows in blocks of 512 threads,
+//         eight lanes a row.  A row whose
+//         bound is -inf fails without a descent: !(pred <= -inf) holds for
+//         every pred, NaN included.  A row whose m is at or past the
+//         scenario's first failure found so far (read from shared memory
+//         after the previous pass's barrier) is skipped, and the scenario
+//         ends once a whole pass would be: the capacity is the smallest
+//         failing m, and a row at or past a failing m cannot lower it.
+//         Rows with +inf bounds still descend (a NaN prediction fails
+//         them).  The device drain pads each scenario's m past its own
+//         m_max with -inf rows, so the sweep stops at min(first failure,
+//         m_max) instead of descending every padded row;
+//   * launch planning (device attributes, the shared-memory opt-in and the
+//     occupancy) is done once per device and per (kernel, shared-memory
+//     size), not per call;
 //   * forests above the 227 KB a block can hold in shared memory (depth
 //     9 and up at 64 trees) are read from global memory by the same
 //     code: right, not fast.
@@ -47,10 +79,16 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPwBlock = 128;      // numpy's PW_BLOCKSIZE
+constexpr int kLanes = 8;          // lanes per row of the lane-split sweep
 constexpr int kDefaultSmemLimit = 48 * 1024;  // above it, opt in per kernel
 
 struct Forest {
@@ -81,42 +119,119 @@ __device__ __forceinline__ float tree_leaf(const Forest& fo,
   return fo.leaf[(long long)t * (nn + 1) + (idx - nn)];
 }
 
+// The forest with each split packed into one 8-byte node: (feature,
+// threshold bits), so a level is one load of its split.
+struct PackedForest {
+  const int2* node;   // (T, NN)
+  const float* leaf;  // (T, NN + 1)
+  int n_trees;
+  int depth;
+};
+
+__device__ __forceinline__ float packed_leaf(const PackedForest& pf,
+                                             const float* __restrict__ xrow, int t) {
+  const int nn = (1 << pf.depth) - 1;
+  const int2* node = pf.node + t * nn;
+  int idx = 0;
+  for (int d = 0; d < pf.depth; ++d) {
+    const int2 nd = node[idx];
+    idx = 2 * idx + 1 + (xrow[nd.x] >= __int_as_float(nd.y) ? 1 : 0);
+  }
+  return pf.leaf[t * (nn + 1) + (idx - nn)];
+}
+
+// One row's trees: trees(t) is tree t's leaf value for the row.
+struct GlobalTrees {
+  const Forest& fo;
+  const float* __restrict__ xrow;
+  __device__ __forceinline__ float operator()(int t) const { return tree_leaf(fo, xrow, t); }
+};
+struct PackedTrees {
+  const PackedForest& pf;
+  const float* __restrict__ xrow;
+  __device__ __forceinline__ float operator()(int t) const { return packed_leaf(pf, xrow, t); }
+};
+
 // numpy's pairwise_sum for n <= 128 over trees lo .. lo+n-1.
-__device__ float block_sum(const Forest& fo, const float* __restrict__ xrow,
-                           int lo, int n) {
+template <class Trees>
+__device__ float block_sum(const Trees& trees, int lo, int n) {
   if (n < 8) {
     float res = 0.0f;
-    for (int i = 0; i < n; ++i) res += tree_leaf(fo, xrow, lo + i);
+    for (int i = 0; i < n; ++i) res += trees(lo + i);
     return res;
   }
   float r[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) r[j] = tree_leaf(fo, xrow, lo + j);
+  for (int j = 0; j < 8; ++j) r[j] = trees(lo + j);
   int i = 8;
   const int stop = n - n % 8;
   for (; i < stop; i += 8) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] += tree_leaf(fo, xrow, lo + i + j);
+    for (int j = 0; j < 8; ++j) r[j] += trees(lo + i + j);
   }
   float res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
-  for (; i < n; ++i) res += tree_leaf(fo, xrow, lo + i);
+  for (; i < n; ++i) res += trees(lo + i);
   return res;
 }
 
 // numpy's pairwise_sum above one block: split at a multiple of 8.
-__device__ float pairwise_sum(const Forest& fo, const float* __restrict__ xrow,
-                              int lo, int n) {
-  if (n <= kPwBlock) return block_sum(fo, xrow, lo, n);
+template <class Trees>
+__device__ float pairwise_sum(const Trees& trees, int lo, int n) {
+  if (n <= kPwBlock) return block_sum(trees, lo, n);
   int n2 = n / 2;
   n2 -= n2 % 8;
-  return pairwise_sum(fo, xrow, lo, n2) + pairwise_sum(fo, xrow, lo + n2, n - n2);
+  return pairwise_sum(trees, lo, n2) + pairwise_sum(trees, lo + n2, n - n2);
 }
 
-__device__ __forceinline__ float predict_row(const Forest& fo,
-                                             const float* __restrict__ xrow) {
-  const float sum = fo.n_trees <= kPwBlock ? block_sum(fo, xrow, 0, fo.n_trees)
-                                           : pairwise_sum(fo, xrow, 0, fo.n_trees);
-  return sum / (float)fo.n_trees;
+// The tree mean of one row, walked by one thread.
+template <class Trees>
+__device__ __forceinline__ float tree_mean(const Trees& trees, int n_trees) {
+  const float sum = n_trees <= kPwBlock ? block_sum(trees, 0, n_trees)
+                                        : pairwise_sum(trees, 0, n_trees);
+  return sum / (float)n_trees;
+}
+
+// numpy's pairwise_sum for n <= 128 over trees lo .. lo+n-1, by the
+// row's eight lanes: lane j keeps numpy's partial sum r[j] over trees
+// lo+j, lo+j+8, ... below the last multiple of 8; the butterfly forms
+// ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)) in every lane; the n mod 8 tail
+// trees, one per lane, are then added in order.  For n < 8 every r[j] is
+// 0 and the tail is the n trees added to 0 in order, as in numpy (and
+// block_sum).  `mask` names the row's eight lanes, an aligned group of
+// the warp.
+template <class Trees>
+__device__ __forceinline__ float lane_block_sum(const Trees& trees, int lo, int n, int lane,
+                                                unsigned mask) {
+  const int stop = n - n % 8;
+  float r = lane < stop ? trees(lo + lane) : 0.0f;
+  for (int t = lane + 8; t < stop; t += 8) r += trees(lo + t);
+  r += __shfl_xor_sync(mask, r, 1);
+  r += __shfl_xor_sync(mask, r, 2);
+  r += __shfl_xor_sync(mask, r, 4);
+  const int tail = n - stop;
+  const float tv = lane < tail ? trees(lo + stop + lane) : 0.0f;
+  for (int i = 0; i < tail; ++i) r += __shfl_sync(mask, tv, i, kLanes);
+  return r;
+}
+
+// numpy's pairwise_sum above one block, by the row's eight lanes together.
+template <class Trees>
+__device__ float lane_pairwise_sum(const Trees& trees, int lo, int n, int lane,
+                                   unsigned mask) {
+  if (n <= kPwBlock) return lane_block_sum(trees, lo, n, lane, mask);
+  int n2 = n / 2;
+  n2 -= n2 % 8;
+  return lane_pairwise_sum(trees, lo, n2, lane, mask) +
+         lane_pairwise_sum(trees, lo + n2, n - n2, lane, mask);
+}
+
+// The tree mean of one row, walked by its eight lanes.
+template <class Trees>
+__device__ __forceinline__ float lane_mean(const Trees& trees, int n_trees, int lane,
+                                           unsigned mask) {
+  const float sum = n_trees <= kPwBlock ? lane_block_sum(trees, 0, n_trees, lane, mask)
+                                        : lane_pairwise_sum(trees, 0, n_trees, lane, mask);
+  return sum / (float)n_trees;
 }
 
 // Copy the forest into shared memory (when it fits) and return the copy;
@@ -145,75 +260,227 @@ forest_apply_kernel(const float* __restrict__ x, Forest g,
   const Forest fo = stage_forest(g, smem, in_smem);
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n;
        row += (long long)gridDim.x * blockDim.x) {
-    out[row] = predict_row(fo, x + row * f);
+    out[row] = tree_mean(GlobalTrees{fo, x + row * f}, fo.n_trees);
   }
 }
 
-// Each block iteration takes `per_iter` consecutive scenarios and scores
-// all of their M*R rows, one row per thread.  A failing row lowers its
-// scenario's first failing m with atomicMin; the capacity is that m.
-// atomicMin is order-free, so the result does not depend on how the
-// scenarios are split across blocks or iterations, and M may be any size.
-__global__ void __launch_bounds__(kThreads)
+// A sweep block: 512 threads, eight lanes a row, 64 rows a pass.
+constexpr int kSweepThreads = 512;
+constexpr int kSweepRows = kSweepThreads / kLanes;
+
+// Bytes of the sweep's shared memory: the packed forest when it goes
+// there, two buffers of one pass's rows and bounds, and the scenario's
+// first failing m.
+__host__ __device__ inline long long sweep_forest_bytes(int n_trees, int depth) {
+  const long long nn = (1LL << depth) - 1;
+  return n_trees * (8 * nn + 4 * (nn + 1));
+}
+__host__ __device__ inline long long sweep_extra_bytes(int rows, int f) {
+  return 2 * 4LL * rows * (f + 1) + 16;
+}
+
+// Asynchronous 4-byte copies from device to shared memory (cp.async):
+// a pass's rows and bounds are copied while the previous pass descends.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One block takes one scenario at a time (grid-stride over scenarios)
+// and its M*R rows in ascending (m, r) order, kSweepRows rows a pass; pass p + 1's rows and bounds are copied into the second buffer
+// while pass p descends.  A failing row lowers the scenario's first
+// failing m with atomicMin; the capacity is that m.  The skips, and why
+// each leaves the result unchanged:
+//   * bound -inf: the row fails whatever it predicts (!(pred <= -inf)
+//     holds for every pred, NaN included), so it needs no descent;
+//   * m at or past the first failure found so far (read after the
+//     previous pass's barrier, so every earlier atomicMin is visible):
+//     atomicMin with such an m is a no-op, so the row need not be
+//     evaluated; since rows come in ascending m, once the first row of a
+//     pass is past it, so is every later row, and the scenario ends.
+//     Every thread reads first_fail before the pass's second barrier and
+//     no thread lowers it before that barrier, so all read the same value
+//     and leave the loop together.
+// Rows with +inf bounds still descend: a NaN prediction fails them.
+template <bool PACKED>
+__global__ void __launch_bounds__(kSweepThreads)
 capacity_sweep_kernel(const float* __restrict__ x,
                       const float* __restrict__ bounds, Forest g,
                       int* __restrict__ out, long long s, int m, int r, int f,
-                      int per_iter, bool log_target, bool in_smem) {
+                      bool log_target) {
+  constexpr int kRows = kSweepRows;
   extern __shared__ float smem[];
-  const Forest fo = stage_forest(g, smem, in_smem);
-  int* first_fail =
-      reinterpret_cast<int*>(smem + (in_smem ? forest_floats(g.n_trees, g.depth) : 0));
-  const long long rows_per_s = (long long)m * r;
-  for (long long s0 = (long long)blockIdx.x * per_iter; s0 < s;
-       s0 += (long long)gridDim.x * per_iter) {
-    const int n_s = (int)(s - s0 < per_iter ? s - s0 : per_iter);
-    for (int i = threadIdx.x; i < n_s; i += blockDim.x) first_fail[i] = m;
-    __syncthreads();
-    const long long base = s0 * rows_per_s;
-    const long long n_rows = n_s * rows_per_s;
-    for (long long i = threadIdx.x; i < n_rows; i += blockDim.x) {
-      const long long row = base + i;
-      float pred = predict_row(fo, x + row * f);
-      if (log_target) pred = expf(pred);
-      if (!(pred <= bounds[row])) {
-        const int local_s = (int)(i / rows_per_s);
-        const int mi = (int)((i % rows_per_s) / r);
-        atomicMin(&first_fail[local_s], mi);
+  const int nn = (1 << g.depth) - 1;
+  const int n_nodes = g.n_trees * nn;
+  const int n_leaf = g.n_trees * (nn + 1);
+  int2* s_node = reinterpret_cast<int2*>(smem);
+  float* s_leaf = reinterpret_cast<float*>(s_node + n_nodes);
+  float* s_rows = PACKED ? s_leaf + n_leaf : smem;  // 2 buffers of kRows * f
+  float* s_bnd = s_rows + 2 * kRows * f;            // 2 buffers of kRows
+  int* first_fail = reinterpret_cast<int*>(s_bnd + 2 * kRows);
+  if (PACKED) {
+    // kBatch loads of each array in flight per thread before their
+    // stores: a copy one element at a time waits a device-memory latency
+    // per element, some 25 us for the 73 KB forest of 24 trees at depth 8
+    constexpr int kBatch = 8;
+    for (int i0 = threadIdx.x; i0 < n_leaf; i0 += kBatch * kSweepThreads) {
+      int fv[kBatch];
+      float tv[kBatch], lv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kSweepThreads;
+        fv[u] = i < n_nodes ? g.feat[i] : 0;
+        tv[u] = i < n_nodes ? g.thr[i] : 0.0f;
+        lv[u] = i < n_leaf ? g.leaf[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kSweepThreads;
+        if (i < n_nodes) s_node[i] = make_int2(fv[u], __float_as_int(tv[u]));
+        if (i < n_leaf) s_leaf[i] = lv[u];
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_s; i += blockDim.x) out[s0 + i] = first_fail[i];
-    __syncthreads();
+  }
+  const PackedForest pf{s_node, s_leaf, g.n_trees, g.depth};
+
+  const int lr = threadIdx.x / kLanes;  // this thread's row in a pass
+  const int lane = threadIdx.x % kLanes;
+  const unsigned mask = 0xffu << ((threadIdx.x % 32) & ~7);
+  const long long per_s = (long long)m * r;
+  const long long n_pass = (per_s + kRows - 1) / kRows;
+  for (long long sc = blockIdx.x; sc < s; sc += gridDim.x) {
+    const float* xs = x + sc * per_s * f;
+    const float* bs = bounds + sc * per_s;
+    // copy pass p's rows and bounds into buffer p % 2
+    auto fetch = [&](long long p) {
+      const long long p0 = p * kRows;
+      const int n_rows = (int)(per_s - p0 < kRows ? per_s - p0 : kRows);
+      float* rows = s_rows + (p % 2) * kRows * f;
+      float* bnd = s_bnd + (p % 2) * kRows;
+      for (int i = threadIdx.x; i < n_rows * f; i += kSweepThreads)
+        copy_async4(rows + i, xs + p0 * f + i);
+      for (int i = threadIdx.x; i < n_rows; i += kSweepThreads)
+        copy_async4(bnd + i, bs + p0 + i);
+    };
+    if (threadIdx.x == 0) *first_fail = m;
+    fetch(0);
+    for (long long p = 0; p < n_pass; ++p) {
+      copy_async_wait();
+      __syncthreads();  // pass p has landed; pass p - 1's failures are visible
+      const int ff = *first_fail;
+      const long long p0 = p * kRows;
+      // a barrier between every read of first_fail and this pass's atomicMin
+      if (__syncthreads_or(p0 / r >= ff)) break;
+      if (p + 1 < n_pass) fetch(p + 1);  // into the buffer pass p - 1 used
+      const long long row = p0 + lr;
+      if (row < per_s) {
+        const int mi = (int)(row / r);
+        bool fail = false;
+        if (mi < ff) {
+          const float bnd = s_bnd[(p % 2) * kRows + lr];
+          if (bnd == -INFINITY) {
+            fail = true;
+          } else {
+            const float* xrow = s_rows + (p % 2) * kRows * f + lr * f;
+            float pred;
+            if constexpr (PACKED)
+              pred = lane_mean(PackedTrees{pf, xrow}, g.n_trees, lane, mask);
+            else
+              pred = lane_mean(GlobalTrees{g, xrow}, g.n_trees, lane, mask);
+            if (log_target) pred = expf(pred);
+            fail = !(pred <= bnd);
+          }
+        }
+        if (fail && lane == 0) atomicMin(first_fail, mi);
+      }
+    }
+    copy_async_wait();
+    __syncthreads();  // every thread has read first_fail; no copy in flight
+    if (threadIdx.x == 0) out[sc] = *first_fail;
   }
 }
 
-// Dynamic shared memory for a launch, whether the forest goes into it,
-// and the grid: every block that can be resident at once, at most one
-// per work item.
-template <typename Kernel>
-cudaError_t plan_launch(Kernel kernel, int device, int n_trees, int depth,
-                        long long extra_bytes, long long work_items,
-                        size_t* smem_bytes, bool* in_smem, int* grid) {
-  int optin = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const long long forest_bytes = 4 * forest_floats(n_trees, depth);
-  *in_smem = forest_bytes + extra_bytes <= optin;
-  *smem_bytes = (size_t)((*in_smem ? forest_bytes : 0) + extra_bytes);
-  if (*smem_bytes > (size_t)kDefaultSmemLimit) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)*smem_bytes);
-    if (err != cudaSuccess) return err;
+// Launch planning, cached: per device its SM count and shared-memory
+// opt-in; per (kernel, device) the largest dynamic shared memory opted
+// into so far (raised, never lowered, so every size planned before stays
+// launchable); per (kernel, device, shared-memory size) the occupancy.
+struct Plan {
+  int optin = 0;
+  int n_sm = 0;
+};
+std::mutex plan_mu;
+std::map<int, Plan> device_plans;
+std::map<std::pair<const void*, int>, size_t> kernel_optin;
+std::map<std::tuple<const void*, int, size_t>, int> kernel_plans;  // -> blocks per SM
+
+cudaError_t device_plan(int device, Plan* plan) {
+  std::lock_guard<std::mutex> lock(plan_mu);
+  auto it = device_plans.find(device);
+  if (it != device_plans.end()) {
+    *plan = it->second;
+    return cudaSuccess;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      *smem_bytes);
+  Plan p;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&p.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  const long long resident = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
+  err = cudaDeviceGetAttribute(&p.n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  device_plans[device] = p;
+  *plan = p;
+  return cudaSuccess;
+}
+
+// The grid for `kernel` with `smem_bytes` of dynamic shared memory: every
+// block that can be resident at once, at most one per work item.
+template <typename Kernel>
+cudaError_t plan_grid(Kernel kernel, int threads, int device, const Plan& plan,
+                      size_t smem_bytes, long long work_items, int* grid) {
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(plan_mu);
+    const auto key = std::make_tuple((const void*)kernel, device, smem_bytes);
+    auto it = kernel_plans.find(key);
+    if (it != kernel_plans.end()) {
+      per_sm = it->second;
+    } else {
+      cudaError_t err;
+      size_t& optin = kernel_optin[std::make_pair((const void*)kernel, device)];
+      if (smem_bytes > (size_t)kDefaultSmemLimit && smem_bytes > optin) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes);
+        if (err != cudaSuccess) return err;
+        optin = smem_bytes;
+      }
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                          smem_bytes);
+      if (err != cudaSuccess) return err;
+      kernel_plans[key] = per_sm;
+    }
+  }
+  const long long resident = (long long)plan.n_sm * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(work_items < resident ? work_items : resident);
   return cudaSuccess;
+}
+
+template <bool PACKED>
+cudaError_t launch_sweep(const float* x, const float* bounds, const Forest& g, int* out,
+                         long long s, int m, int r, int f, bool log_target, int device,
+                         const Plan& plan, cudaStream_t stream) {
+  const size_t smem = (size_t)((PACKED ? sweep_forest_bytes(g.n_trees, g.depth) : 0) +
+                               sweep_extra_bytes(kSweepRows, f));
+  int grid = 0;
+  cudaError_t err = plan_grid(capacity_sweep_kernel<PACKED>, kSweepThreads, device, plan,
+                              smem, s, &grid);
+  if (err != cudaSuccess) return err;
+  capacity_sweep_kernel<PACKED><<<grid, kSweepThreads, smem, stream>>>(x, bounds, g, out, s,
+                                                                      m, r, f, log_target);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -222,12 +489,15 @@ extern "C" int rfr_forest_apply(const float* x, const int* feat, const float* th
                                 const float* leaf, float* out, long long n, int f,
                                 int n_trees, int depth, int device, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  size_t smem = 0;
-  bool in_smem = false;
-  int grid = 0;
+  Plan plan;
+  cudaError_t err = device_plan(device, &plan);
+  if (err != cudaSuccess) return (int)err;
+  const long long forest_bytes = 4 * forest_floats(n_trees, depth);
+  const bool in_smem = forest_bytes <= plan.optin;
+  const size_t smem = in_smem ? (size_t)forest_bytes : 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  cudaError_t err = plan_launch(forest_apply_kernel, device, n_trees, depth, 0,
-                                blocks, &smem, &in_smem, &grid);
+  int grid = 0;
+  err = plan_grid(forest_apply_kernel, kThreads, device, plan, smem, blocks, &grid);
   if (err != cudaSuccess) return (int)err;
   const Forest g{feat, thr, leaf, n_trees, depth};
   forest_apply_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, g, out, n, f,
@@ -239,19 +509,17 @@ extern "C" int rfr_capacity_sweep(const float* x, const float* bounds, const int
                                   const float* thr, const float* leaf, int* out,
                                   long long s, int m, int r, int f, int n_trees,
                                   int depth, int log_target, int device, void* stream) {
-  const long long rows_per_s = (long long)m * r;
-  if (s <= 0 || rows_per_s <= 0) return (int)cudaSuccess;
-  const int per_iter =
-      rows_per_s >= kThreads ? 1 : (int)(kThreads / rows_per_s);
-  size_t smem = 0;
-  bool in_smem = false;
-  int grid = 0;
-  const long long work = (s + per_iter - 1) / per_iter;
-  cudaError_t err = plan_launch(capacity_sweep_kernel, device, n_trees, depth,
-                                4LL * per_iter, work, &smem, &in_smem, &grid);
+  if (s <= 0 || (long long)m * r <= 0) return (int)cudaSuccess;
+  Plan plan;
+  cudaError_t err = device_plan(device, &plan);
   if (err != cudaSuccess) return (int)err;
   const Forest g{feat, thr, leaf, n_trees, depth};
-  capacity_sweep_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, bounds, g, out, s, m, r, f, per_iter, log_target != 0, in_smem);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool packed =
+      sweep_forest_bytes(n_trees, depth) + sweep_extra_bytes(kSweepRows, f) <= plan.optin;
+  if (packed)
+    err = launch_sweep<true>(x, bounds, g, out, s, m, r, f, log_target != 0, device, plan, st);
+  else
+    err = launch_sweep<false>(x, bounds, g, out, s, m, r, f, log_target != 0, device, plan, st);
+  return (int)err;
 }

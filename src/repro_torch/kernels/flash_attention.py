@@ -1,5 +1,8 @@
-"""Flash attention forward: the wrapper around the Hopper kernel in
-``csrc/flash_attention.cu``.
+"""Flash attention forward: the wrapper around the two Hopper kernels,
+``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 128 or 256, on
+the tensor cores) and ``csrc/flash_attention.cu`` (every other case, on
+the CUDA cores in f32).  ``path(dtype, D)`` names the one that runs; the
+choice depends on the dtype and the head dim alone.
 
 Layout: q (BH, S, D); k and v (BH / G, S, D) — batch and heads merged
 with heads inner, so query row ``bh`` attends with kv row ``bh // G``
@@ -8,11 +11,13 @@ the output is in q's dtype.  Masks: causal, ``local`` (keys within
 ``window`` of the query) and ``chunked`` (aligned chunks of ``window``),
 with an optional tanh softcap on the scores.
 
-Given CUDA tensors the wrapper launches the kernel on PyTorch's current
-stream and adds one to ``flash_attention.launches``; a launch the runtime
-refuses raises.  Given CPU tensors it computes the same function with the
-plain version (``ref.flash_attention_ref``, after repeating k and v) and
-launches nothing.
+Given CUDA tensors the wrapper launches the kernel of its path on
+PyTorch's current stream and adds one to ``flash_attention.launches`` and
+to ``flash_attention.launches_by_path[path]``; a build or launch that
+fails raises, and nothing falls back to the other kernel.  Given CPU
+tensors it computes the same function with the plain version
+(``ref.flash_attention_ref``, after repeating k and v) and launches
+nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +27,18 @@ from . import _build, ref
 
 KINDS = {"global": 0, "local": 1, "chunked": 2}
 MAX_HEAD_DIM = 256
+#: head dims of the tensor-core path: whole 64-column (128-byte) blocks
+#: up to the 256 columns one wgmma accumulator holds
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def path(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that computes attention of `dtype` with head dim
+    `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS) or
+    "simt" (f32, and bf16 at any other D)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
@@ -74,16 +91,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _build.load("flash_attention")
+    kernel = path(q.dtype, D)
+    if kernel == "wgmma":
+        # the tensor maps need 16-byte aligned bases
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            if a.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
-            D, group, int(q.dtype == torch.bfloat16), int(causal),
-            KINDS[kind], int(window), float(softcap), stream)
-    _build.check_launch(err, "flash_attention")
+        if kernel == "wgmma":
+            lib = _build.load("flash_attention_wgmma")
+            err = lib.flash_attention_wgmma_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                S, D, group, int(causal), KINDS[kind], int(window),
+                float(softcap), stream)
+        else:
+            err = _build.load("flash_attention").flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                S, D, group, int(q.dtype == torch.bfloat16), int(causal),
+                KINDS[kind], int(window), float(softcap), stream)
+    _build.check_launch(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = {"wgmma": 0, "simt": 0}
+
+
+def reset_launches():
+    """Zero the launch counts, the total and each path's."""
+    flash_attention.launches = 0
+    for key in flash_attention.launches_by_path:
+        flash_attention.launches_by_path[key] = 0

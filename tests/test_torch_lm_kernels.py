@@ -24,6 +24,7 @@ from repro.kernels.rglru_scan import rglru_scan as jscan
 from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import path as flash_path
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -100,6 +101,43 @@ def test_attention_op_grouped_heads(B, Hq, Hkv):
         want = jops.attention_op(jq, jk, jv, kind="local", window=24,
                                  use_pallas=use_pallas, interpret=True)
         _close(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 48, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_path_depends_on_dtype_and_head_dim_alone(dtype, D):
+    """bf16 at head dims 64, 128 and 256 takes the tensor-core kernel;
+    f32, and bf16 at any other head dim (the zoo's smoke configs use 16
+    and 24), take the CUDA-core kernel.  (f16 is refused by the wrapper
+    before a path is chosen.)"""
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
+            else "simt")
+    assert flash_path(dtype, D) == want
+
+
+@pytest.mark.parametrize("kind,window,causal", [
+    ("global", 0, True), ("local", 40, True), ("chunked", 32, True),
+    ("local", 40, False)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_plain_bf16_at_head_dims_64_128_matches_pallas(
+        D, kind, window, causal):
+    """The plain version, which the wrapper takes on CPU tensors, at the
+    tensor-core kernel's head dims in bf16 and a ragged S, against the
+    Pallas kernel in interpret mode and the reference oracle: the function
+    that kernel is held to on the card.  The kernel itself runs only in
+    the cuda_only tests and chip_smoke."""
+    rng = np.random.default_rng(D + window)
+    BH, S = 2, 100
+    q, k, v = (rng.standard_normal((BH, S, D)).astype(np.float32)
+               for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
+    kw = dict(causal=causal, kind=kind, window=window)
+    got = flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    tol = TOL["bfloat16"]
+    _close(got, jref.flash_attention_ref(jq, jk, jv, **kw), tol)
+    _close(got, jflash(jq, jk, jv, interpret=True, **kw), tol)
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():

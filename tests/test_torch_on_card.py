@@ -107,6 +107,80 @@ def test_sweep_kernel_matches_plain(M, log_target):
 
 
 @pytest.mark.cuda_only
+@pytest.mark.parametrize("T", [5, 24, 33, 130])
+@pytest.mark.parametrize("M", [1, 24, 40])
+def test_sweep_kernel_with_drain_padding_matches_plain(M, T):
+    """The device drain's padding: -inf rows past each scenario's m_max
+    (the kernel fails them without a descent and stops there), +inf rows
+    past its R (they still descend), and failures at m = 0; T = 5 (the
+    lanes' partial sums all 0), 24, 33 (a tail of one tree) and 130
+    (numpy's pairwise split above 128 trees)."""
+    dev = _card()
+    rng = np.random.default_rng(M * 1000 + T)
+    S, R, F = 200, 6, 31
+    x = rng.standard_normal((S, M, R, F)).astype(np.float32)
+    feat, thr, leaf = _forest(rng, T, 6, F)
+    bounds = rng.uniform(-0.4, 0.8, (S, M, R)).astype(np.float32)
+    for s in range(S):
+        m_max = int(rng.integers(0, M + 1))
+        bounds[s, :, int(rng.integers(1, R + 1)):] = np.inf
+        bounds[s, m_max:, :] = -np.inf
+        if s % 4 == 0:
+            bounds[s, 0, int(rng.integers(0, R))] = -10.0
+    args = _t(x, bounds, feat, thr, leaf, device=dev)
+    for log_target in (False, True):
+        got = rfr_capacity_sweep(*args, log_target=log_target)
+        plain = ref.rfr_capacity_sweep_ref(*args, log_target=log_target)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("log_target", [False, True])
+def test_sweep_kernel_m_max_on_a_pass_boundary_repeated(log_target):
+    """A block takes 64 rows a pass, 8 values of m at R = 8, so m_max = 8
+    or 16 makes a whole pass of -inf rows: they fail without a descent,
+    lowering the scenario's first failure while the pass is under way.
+    Every block must still leave the pass together.  Many scenarios a
+    block and many launches in a row, each equal to the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    S, M, R, F = 4096, 24, 8, 31
+    x = rng.standard_normal((S, M, R, F)).astype(np.float32)
+    feat, thr, leaf = _forest(rng, 24, 8, F)
+    bounds = rng.uniform(0.3, 1.5, (S, M, R)).astype(np.float32)
+    if log_target:
+        bounds = np.exp(bounds)
+    for s in range(S):
+        bounds[s, (8, 16)[s % 2]:, :] = -np.inf
+        if s % 7 == 0:
+            bounds[s, int(rng.integers(0, 8)), int(rng.integers(0, R))] = -1.0
+    args = _t(x, bounds, feat, thr, leaf, device=dev)
+    plain = ref.rfr_capacity_sweep_ref(*args, log_target=log_target)
+    want = plain.cpu().numpy()
+    assert set(np.unique(want)) > {8, 16}
+    for _ in range(50):
+        got = rfr_capacity_sweep(*args, log_target=log_target)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda_only
+def test_sweep_kernel_alternating_forest_sizes():
+    """The launch plan is cached per shared-memory size: a forest needing
+    more shared memory, then one needing less (still above the 48 KB
+    default), then the larger again must all launch and agree."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    x, bounds = _t(*_sweep_case(22, 64, 24, 4, 24, 8, 31)[:2], device=dev)
+    forests = {t: _t(*_forest(rng, t, 8, 31), device=dev) for t in (64, 24)}
+    for t in (64, 24, 64, 24):
+        got = rfr_capacity_sweep(x, bounds, *forests[t])
+        plain = ref.rfr_capacity_sweep_ref(x, bounds, *forests[t])
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+
+
+@pytest.mark.cuda_only
 def test_device_drain_on_card_matches_numpy_host():
     _card()
     specs = core.synthetic_functions(5, seed=2)
@@ -160,6 +234,17 @@ from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+def _assert_bf16_attention_close(got, plain, plain_abs_v):
+    """bf16 held to its own scale as well: within 2^-6 of |out| (the
+    output rounded once on each side) plus 2^-8 of the softmax's average
+    of |v| (the kernel rounds each p to bf16, the plain version keeps it
+    f32), so a kv tile dropped or added fails where 2e-2 would not."""
+    want = plain.float()
+    allowed = 2.0 ** -6 * want.abs() + 2.0 ** -8 * plain_abs_v.float()
+    worst = float(((got.float() - want).abs() / allowed).max())
+    assert worst <= 1.0, f"worst element at {worst:.3g} of its allowance"
+
+
 def _qkv(seed, B, S, Hq, Hkv, D, dtype, device, scale=1.0):
     rng = np.random.default_rng(seed)
     mk = lambda h: torch.from_numpy(
@@ -172,13 +257,18 @@ def test_lm_wrappers_on_cpu_launch_nothing():
     q, k, v = _qkv(0, 1, 40, 4, 2, 16, torch.float32, "cpu")
     a = torch.rand(2, 30, 8)
     n0 = flash_attention.launches, rglru_scan.launches, ssd_scan.launches
+    by_path = dict(flash_attention.launches_by_path)
     ops.attention_op(q, k, v, kind="local", window=8)
+    # bf16 at head dim 64: the tensor-core path's shape, on CPU tensors
+    ops.attention_op(*_qkv(1, 1, 40, 4, 2, 64, torch.bfloat16, "cpu"),
+                     kind="local", window=8)
     ops.rglru_op(a, torch.randn(2, 30, 8), torch.randn(2, 8))
     ops.ssd_op(torch.randn(1, 30, 4, 8), torch.rand(1, 30, 4),
                -torch.rand(4), torch.randn(1, 30, 2, 16),
                torch.randn(1, 30, 2, 16))
     assert (flash_attention.launches, rglru_scan.launches,
             ssd_scan.launches) == n0
+    assert flash_attention.launches_by_path == by_path
 
 
 @pytest.mark.cuda_only
@@ -188,22 +278,32 @@ def test_lm_wrappers_on_cpu_launch_nothing():
     ("chunked", 32, True, 0.0), ("global", 0, True, 20.0),
     ("global", 0, False, 0.0), ("local", 48, False, 0.0)])
 @pytest.mark.parametrize("S", [64, 100, 257])
-def test_flash_kernel_matches_plain(S, kind, window, causal, softcap,
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
                                     dtype):
+    """bf16 at D = 64 and 128 runs the tensor-core kernel, everything
+    else the CUDA-core kernel; the launch counts show which ran."""
     dev = _card()
-    q, k, v = _qkv(S, 2, S, 4, 2, 32, dtype, dev,
+    q, k, v = _qkv(S, 2, S, 4, 2, D, dtype, dev,
                    scale=4.0 if softcap else 1.0)
     kw = dict(causal=causal, kind=kind, window=window, softcap=softcap)
     n0 = flash_attention.launches
+    by_path = dict(flash_attention.launches_by_path)
     got = ops.attention_op(q, k, v, **kw)
     plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
+    ran = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    by_path[ran] += 1
+    assert flash_attention.launches_by_path == by_path
     assert got.dtype == dtype and got.shape == q.shape
     tol = ATTN_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                plain.float().cpu().numpy(), atol=tol,
                                rtol=tol)
+    if dtype == torch.bfloat16:
+        _assert_bf16_attention_close(
+            got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
 
 
 @pytest.mark.cuda_only
@@ -222,6 +322,9 @@ def test_flash_kernel_serving_shape(S, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                plain.float().cpu().numpy(), atol=tol,
                                rtol=tol)
+    if dtype == torch.bfloat16:
+        _assert_bf16_attention_close(
+            got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
 
 
 @pytest.mark.cuda_only

@@ -113,6 +113,66 @@ def test_pairwise_tree_mean_is_numpy_bitwise(T):
                                   vals.mean(axis=1).view(np.int32))
 
 
+def _lane_block_sum(vals: np.ndarray) -> np.ndarray:
+    """The sweep kernel's sum of at most 128 trees by a row's eight
+    lanes, emulated in f32 numpy: lane j keeps a partial sum over trees
+    j, j+8, j+16, ... below n - n % 8 (0 where there are none, as for
+    n < 8); an xor butterfly at offsets 1, 2, 4 adds each lane's partner
+    (lane j takes r[j] + r[j ^ off]); the n % 8 tail trees are then added
+    in order."""
+    n = vals.shape[1]
+    stop = n - n % 8
+    r = np.zeros((vals.shape[0], 8), np.float32)
+    if stop:
+        r = vals[:, :8].copy()
+        for t in range(8, stop, 8):
+            r = r + vals[:, t:t + 8]
+    for off in (1, 2, 4):
+        r = r + r[:, np.arange(8) ^ off]
+    # every lane holds the same bits: IEEE addition commutes
+    assert (r.view(np.int32) == r[:, :1].view(np.int32)).all()
+    res = r[:, 0]
+    for t in range(stop, n):
+        res = res + vals[:, t]
+    return res
+
+
+def _lane_pairwise_sum(vals: np.ndarray) -> np.ndarray:
+    """Above 128 trees the lanes follow numpy's split at a multiple of 8
+    and sum each block as ``_lane_block_sum``."""
+    n = vals.shape[1]
+    if n <= 128:
+        return _lane_block_sum(vals)
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _lane_pairwise_sum(vals[:, :n2]) + _lane_pairwise_sum(vals[:, n2:])
+
+
+def _lane_split_mean(vals: np.ndarray) -> np.ndarray:
+    """The capacity sweep kernel's tree mean, emulated in f32 numpy."""
+    return _lane_pairwise_sum(vals) / np.float32(vals.shape[1])
+
+
+@pytest.mark.parametrize("T", [1, 5, 7, 8, 24, 33, 128, 130, 300])
+def test_lane_split_tree_mean_is_numpy_bitwise(T):
+    """The sweep kernel's eight-lane order is numpy's pairwise order at
+    every T: lane j's strided sum is numpy's partial sum r[j], and the
+    butterfly forms ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)); below 8 trees the
+    partial sums are 0 and the trees are added in order, and above 128
+    the lanes sum each of numpy's pairwise blocks.  So the tree mean
+    equals ``ref.pairwise_sum`` and numpy's ``mean(axis=1)`` bit for
+    bit."""
+    rng = np.random.default_rng(100 + T)
+    vals = (rng.standard_normal((60, T))
+            * rng.uniform(0.1, 100.0, (60, 1))).astype(np.float32)
+    got = _lane_split_mean(vals)
+    assert got.dtype == np.float32
+    want = (ref.pairwise_sum(torch.from_numpy(vals)) / T).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  vals.mean(axis=1).view(np.int32))
+
+
 def test_rfr_forest_rejects_bad_inputs():
     rng = np.random.default_rng(5)
     feat, thr, leaf = _forest(rng, 3, 3, 4)
