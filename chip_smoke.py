@@ -29,7 +29,11 @@ Phases (each one failing makes the script exit non-zero):
      its inputs need (m at most the capacity, bound not -inf);
   2. a capacity drain over 4,096 nodes from a 24-pattern pool
      (m_max = 16): the device drain on the CUDA kernel and the host
-     drain on numpy must give identical capacity tables;
+     drain on numpy must give identical capacity tables; then the same
+     over 1,024 nodes of worlds built from the diurnal-shift,
+     azure-sparse and coldstart-churn traces at seeds 1-3 (the sweep's
+     expf against numpy's float32 exp: a differing table is printed and
+     fails);
   3. the control plane's main path: burst-storm, 24 functions, 180 s,
      1,024 target nodes, seed 0, the Jiagu scheduler, run (a) on the
      numpy engine with the host drain (the oracle), (b) on the CUDA
@@ -39,26 +43,35 @@ Phases (each one failing makes the script exit non-zero):
      run; the sweep calls' shape distribution; both kernels timed at the
      largest and the median call shape of the run; then (b) and (c) once
      more under the profiler;
-  4. the LM kernels against their plain versions on the card:
-     ``flash_attention`` (the path function printed; every line names
-     the kernel that ran, which must be the one ``path`` names) at
+  4. the LM kernels against their plain versions on the card (both path
+     functions printed; every line names the kernel that ran, which must
+     be the one ``path`` names): ``flash_attention`` at
      recurrentgemma-2b's serving shapes (10 query heads, 1 kv head,
-     D = 256, local window 2,048, S = 512, 1,000, 2,048, 3,000, bf16 on
-     the tensor-core kernel, no slower than sdpa, with the CUDA-core
-     kernel held and timed beside it, and f32 on the CUDA-core kernel;
-     tolerance f32 1e-5, bf16 2^-6 relative plus 2^-8 of the softmax's
-     average of |v|, so a kv tile dropped or added fails) and at small
-     shapes (BH 8,
-     G 2, S 333) for the global, chunked, softcap and non-causal masks:
-     D = 64 in bf16 and f32, D = 128 in bf16, and D = 32 in bf16 (the
-     CUDA-core kernel); ``rglru_scan`` exactly equal at (1, 3000, 2560)
-     with and without h0 and at (4, 1000, 2560); each timed beside its
-     plain version, and attention beside ``scaled_dot_product_attention``
-     with the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving
-     shapes (B = 1, 80 heads of 64, d_state 128, one B/C group, S = 512,
-     1,000, 2,048, 3,001, bf16 and f32, with and without h0) against its
-     plain version at the kernel's chunk of 64 (f32: 1e-4 of the largest
-     |y| and of the state's norm; bf16: 2e-2), timed beside it;
+     D = 256, local window 2,048, S = 512, 1,000, 2,048, 3,000), bf16 on
+     the wgmma kernel and f32 on the 3xTF32 kernel, each no slower than
+     sdpa in ``ms`` and ``device_ms``, with the CUDA-core kernel held and
+     timed beside both (tolerance f32 1e-5 absolute plus 1e-5 relative,
+     bf16 2^-6 relative plus 2^-8 of the softmax's average of |v|, so a
+     kv tile dropped or added fails); f32 bounds at the TF32 rate, the
+     CUDA cores' 67 TFLOP/s beside; at small shapes (BH 8, G 2, S 333)
+     for the global, chunked, softcap and non-causal masks: D = 64 in
+     bf16 and f32, D = 128 in bf16, and D = 32 in bf16 (the CUDA-core
+     kernel, and f32 with a softcap), the f32 cases also printed against
+     a float64 evaluation, with f32 softcap 20 and 50 (q, k scaled by 4
+     and 8) at D = 64, 128, 256: the 3xTF32 kernel, the CUDA-core kernel
+     and the plain version each against float64; ``rglru_scan``
+     exactly equal at (1, 3000, 2560) with and
+     without h0 and at (4, 1000, 2560); each timed beside its plain
+     version, and attention beside ``scaled_dot_product_attention`` with
+     the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving shapes
+     (B = 1, 80 heads of 64, d_state 128, one B/C group, S = 512, 1,000,
+     2,048, 3,001, bf16 on the wgmma kernel and f32 on the CUDA-core
+     kernel, with and without h0) against its plain version at the
+     kernels' chunk of 64 (f32: 1e-4 of the largest |y| and of the
+     state's norm; bf16: 2e-2), the CUDA-core kernel held and timed
+     beside the wgmma one, which must be no slower, and at S = 3,001
+     ``ops.ssd_op`` in the model's layout timed beside the kernel alone
+     (the transposes around the call);
   5. serving recurrentgemma-2b at its published width (random weights
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
@@ -73,12 +86,15 @@ Phases (each one failing makes the script exit non-zero):
      model freed first): the same engine, 8 requests (prompts of 512,
      1,000, 2,048 and 3,001 tokens, two each; 3,001 is prime, so the
      kernel's last chunk is ragged), 16 new tokens.  Every prefill must
-     launch 64 ``ssd_scan`` kernels and nothing else; the plain run's
-     prefill logits, SSM states and first tokens are held to it as in
-     phase 5;
+     launch 64 ``ssd_scan`` kernels, all on the wgmma path, and nothing
+     else; the plain run's prefill logits, SSM states and first tokens
+     are held to it as in phase 5, each layer's state error printed as a
+     share of its limit;
   7. the f32 flash path's times on a line of their own; one JSON line
      describing all five kernels (flash attention's entry is the bf16
-     serving path's kernel), then the device line.
+     serving path's kernel, with the f32 path's under "f32"; the SSD
+     scan's is the wgmma kernel; each redesigned kernel carries the
+     CUDA-core kernel's times beside its own), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -95,10 +111,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = CSRC + "rfr_inference.cu"
-#: the source of each LM kernel's entry in the kernels line: flash
-#: attention's is the tensor-core kernel that serves bf16 at D = 256
+#: the source of each LM kernel's entry in the kernels line: the kernel
+#: that serves it (flash attention in bf16 at D = 256, the SSD scan in
+#: bf16 at P = 64, N = 128); the f32 attention kernel rides in flash
+#: attention's entry under "f32"
 SOURCES = {"flash_attention": "flash_attention_wgmma.cu",
-           "rglru_scan": "rglru_scan.cu", "ssd_scan": "ssd_scan.cu"}
+           "flash_attention f32": "flash_attention_tf32.cu",
+           "rglru_scan": "rglru_scan.cu", "ssd_scan": "ssd_scan_wgmma.cu"}
 #: the TPU kernels these replace (def lines)
 REPLACES = {"rfr_forest_apply": "src/repro/kernels/rfr_inference.py:72",
             "rfr_capacity_sweep": "src/repro/kernels/rfr_inference.py:130",
@@ -106,10 +125,14 @@ REPLACES = {"rfr_forest_apply": "src/repro/kernels/rfr_inference.py:72",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:39",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
 #: NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside tensor cores,
-#: bf16 dense tensor-core rate
+#: bf16 and TF32 dense tensor-core rates.  The matrix products of f32
+#: inputs (attention, the SSD scan) are bounded at the TF32 rate: a
+#: kernel that computes them on the tensor cores at f32 accuracy (3xTF32)
+#: can beat the CUDA cores' 67 TFLOP/s, so that figure is no bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.7e12
 #: flash attention against its plain version, elementwise: f32 within
 #: 1e-5 absolute plus 1e-5 relative (online against materialised
 #: softmax, other summation order); bf16 within 2^-6 of |out| (two to four bf16 ulps:
@@ -137,6 +160,12 @@ LOGIT_TOL = 2e-2
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (512, 1000, 2048, 3001)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase 2's second drain: device-drain capacity tables against the numpy
+#: host drain on worlds of other traces and seeds (the sweep's expf and
+#: numpy's float32 exp differ by an ulp on many inputs)
+SETTLE_TRACES = ("diurnal-shift", "azure-sparse", "coldstart-churn")
+SETTLE_SEEDS = (1, 2, 3)
+SETTLE_NODES = 1024
 PRED_TOL = 1e-6
 #: GPU clock cycles of the wait a timed call is queued behind: about 2 ms
 #: at the H100's 1.98 GHz boost clock, far above a kernel wrapper's host
@@ -554,27 +583,31 @@ def _pattern_nodes(specs, n_nodes: int, seed: int):
     return nodes
 
 
-def phase2_drain(world):
+def _drains(world, nodes, m_max: int):
+    """The nodes' capacity tables from the numpy host drain and from the
+    device drain on the CUDA sweep kernel (each node's table as sorted
+    (function, capacity) pairs, the nodes in order); returns (host
+    tables, device tables, host service, device service, recorder of the
+    sweep's inputs, host seconds, device seconds)."""
     import torch
     import repro_torch.core as core
 
-    def tables(nodes):
+    def tables():
         out = [sorted((fn, e.capacity) for fn, e in n.table.items())
                for n in nodes]
         for n in nodes:
             n.table.clear()
         return out
 
-    nodes = _pattern_nodes(world.scenario.specs, DRAIN_NODES, DRAIN_NODES)
     args = (world.predictor, world.store, world.qos, world.scenario.specs)
-    host = core.PredictionService(*args, core.EngineConfig(m_max=DRAIN_M_MAX),
+    host = core.PredictionService(*args, core.EngineConfig(m_max=m_max),
                                   engine="numpy")
     t0 = time.perf_counter()
     host.update_nodes(nodes)
     host_s = time.perf_counter() - t0
-    want = tables(nodes)
+    want = tables()
     dev = core.PredictionService(
-        *args, core.EngineConfig(m_max=DRAIN_M_MAX, drain="device"),
+        *args, core.EngineConfig(m_max=m_max, drain="device"),
         engine="cuda")
     rec = Recorder()
     try:
@@ -584,7 +617,13 @@ def phase2_drain(world):
         dev_s = time.perf_counter() - t0
     finally:
         rec.close()
-    got = tables(nodes)
+    return want, tables(), host, dev, rec, host_s, dev_s
+
+
+def phase2_drain(world):
+    nodes = _pattern_nodes(world.scenario.specs, DRAIN_NODES, DRAIN_NODES)
+    want, got, host, dev, rec, host_s, dev_s = _drains(world, nodes,
+                                                       DRAIN_M_MAX)
     st = dev.stats
     print(f"phase2 drain {DRAIN_NODES} nodes m_max={DRAIN_M_MAX}: "
           f"S={st.unique_solves} rows={st.rows_built} "
@@ -597,6 +636,37 @@ def phase2_drain(world):
           f"kernel {k:.4f} ms (device {kd:.4f} ms), "
           f"plain {p:.4f} ms, bound {b:.6f} ms ({by}) over the {rows} rows "
           f"the inputs need of {padded} padded")
+    phase2_other_worlds()
+
+
+def phase2_other_worlds():
+    """Does the sweep's expf (the predictor's log target) ever flip a
+    capacity where numpy's float32 exp decides it?  Device-drain tables
+    against the numpy host drain on worlds of three more traces, three
+    seeds each (SETTLE_NODES pattern nodes, m_max 16, each world's own
+    forest); a table that differs is printed node by node with both
+    capacities, and fails the phase."""
+    import repro_torch.core as core
+    for trace in SETTLE_TRACES:
+        for seed in SETTLE_SEEDS:
+            scn = core.make_scenario(trace, n_functions=24, duration_s=180,
+                                     target_nodes=256, seed=seed)
+            world = core.scenario_world(scn, engine="numpy")
+            nodes = _pattern_nodes(world.scenario.specs, SETTLE_NODES, seed)
+            want, got, _h, dev, rec, _hs, dev_s = _drains(world, nodes,
+                                                          DRAIN_M_MAX)
+            diff = [(i, w, g) for i, (w, g) in enumerate(zip(want, got))
+                    if w != g]
+            print(f"phase2 drain {trace} seed {seed}: {SETTLE_NODES} nodes, "
+                  f"S={dev.stats.unique_solves} rows={dev.stats.rows_built} "
+                  f"sweep launches {len(rec.sweep_calls)}, device "
+                  f"{dev_s * 1e3:.2f} ms, tables_equal={not diff}")
+            for i, w, g in diff[:10]:
+                print(f"phase2   node {i}: numpy {w}, device {g}")
+            check(rec.sweep is not None,
+                  f"phase 2 {trace} seed {seed} never reached the sweep")
+            check(not diff, f"phase 2 {trace} seed {seed}: {len(diff)} "
+                  "device-drain tables differ from numpy")
 
 
 def _main_path_sim(label: str, engine: str, drain: str):
@@ -779,20 +849,51 @@ def main_path_kernels(rec, l_b, l_c):
 # ---------------------------------------------------------------------------
 
 
-def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
+def matmul_peak(dtype) -> float:
+    """The card's dense tensor-core rate for products of `dtype` inputs:
+    bf16, or TF32 for f32 (the rate an f32-accurate 3xTF32 kernel draws
+    on; the CUDA cores' 67 TFLOP/s is printed beside as the old bound)."""
+    import torch
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S
+
+
+def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int,
+                peak=None):
     """q, k, v read once and o written once; 4*D operations (two
     multiply-adds, for q.k and p.v) per query-key pair the mask keeps, at
-    the peak rate for the inputs' type."""
+    the tensor-core rate for the inputs' type (or `peak`)."""
     import torch
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * bh + 2 * bh_kv) * s * d * esize
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    return bound(nbytes, 4 * bh * d * pairs, peak)
+    return bound(nbytes, 4 * bh * d * pairs, peak or matmul_peak(dtype))
+
+
+def tf32_flash(q, k, v, kw):
+    """The 3xTF32 kernel of csrc/flash_attention_tf32.cu called directly
+    (f32, D in 64, 128, 256), also where the wrapper keeps the case on the
+    CUDA-core kernel; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KINDS
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention_tf32")
+    mask = (int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
+            int(kw.get("window", 0)))
+    splits = lib.flash_attention_tf32_splits(bh, s, d, *mask)
+    part = torch.empty(splits * bh * s * (d + 2), device=q.device)
+    err = lib.flash_attention_tf32_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        part.data_ptr(), bh, s, d, bh // k.shape[0], *mask,
+        float(kw.get("softcap", 0.0)), splits,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "flash_attention (tf32, direct)")
+    return out
 
 
 def simt_flash(q, k, v, kw):
     """The CUDA-core kernel of csrc/flash_attention.cu called directly, so
-    that it can be held and timed at shapes where the wrapper takes the
+    that it can be held and timed at shapes where the wrapper takes a
     tensor-core path; not counted in the wrapper's launches."""
     import torch
     from repro_torch.kernels import _build
@@ -814,7 +915,7 @@ def hold_flash(q, k, v, kw, with_library: bool):
     (k and v repeated, materialised softmax), both timed; the library
     yardstick is scaled_dot_product_attention with the same boolean mask.
     The wrapper must launch the kernel that ``path`` names; where that is
-    the tensor-core kernel, the CUDA-core kernel is held and timed beside
+    a tensor-core kernel, the CUDA-core kernel is held and timed beside
     it.  Returns a dict of the measurements."""
     import torch
     import torch.nn.functional as F
@@ -850,8 +951,9 @@ def hold_flash(q, k, v, kw, with_library: bool):
            if n != n0[p]]
     want = plain()
     torch.cuda.synchronize()
-    check(ran == [path(q.dtype, d)], f"flash_attention S={s} D={d} {dt}: "
-          f"ran {ran}, path says {path(q.dtype, d)}")
+    want_path = path(q.dtype, d, kw.get("softcap", 0.0))
+    check(ran == [want_path], f"flash_attention S={s} D={d} {dt}: "
+          f"ran {ran}, path says {want_path}")
     err, worst = held(got, want, ran[0])
     mask = ref.attention_mask(s, kw.get("causal", True),
                               kw.get("kind", "global"), kw.get("window", 0),
@@ -859,11 +961,18 @@ def hold_flash(q, k, v, kw, with_library: bool):
     pairs = int(mask.sum())
     out = {"max_abs_err": err, "worst": worst, "pairs": pairs,
            "path": ran[0]}
+    if ran[0] == "tf32":
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.flash_attention import KINDS
+        out["kv_shares"] = _build.load(
+            "flash_attention_tf32").flash_attention_tf32_splits(
+                bh, s, d, int(kw.get("causal", True)),
+                KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
     if with_library:
         out["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw))
         out["device_ms"] = time_ms(lambda: flash_attention(q, k, v, **kw),
                                    queued=True)
-        if ran[0] == "wgmma":
+        if ran[0] != "simt":
             out["simt_err"], out["simt_worst"] = held(
                 simt_flash(q, k, v, kw), want, "simt")
             out["simt_ms"] = time_ms(lambda: simt_flash(q, k, v, kw))
@@ -881,7 +990,41 @@ def hold_flash(q, k, v, kw, with_library: bool):
         out["library_device_ms"] = time_ms(library, queued=True)
         out["bound_ms"], out["bound_by"] = flash_bound(
             bh, k.shape[0], s, d, q.dtype, pairs)
+        if q.dtype == torch.float32:
+            out["cuda_core_bound_ms"], _ = flash_bound(
+                bh, k.shape[0], s, d, q.dtype, pairs, F32_OPS_PER_S)
     return out
+
+
+def f64_shares(q, k, v, kw) -> str:
+    """f32 attention's worst element against the same function in
+    float64, as a share of the f32 tolerance (1e-5 absolute plus 1e-5
+    relative), for the 3xTF32 kernel (called directly where the wrapper
+    would not take it), the CUDA-core kernel and the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    group = q.shape[0] // k.shape[0]
+    kr, vr = (a.double().repeat_interleave(group, 0) for a in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.double(), kr) / q.shape[-1] ** 0.5
+    if kw.get("softcap"):
+        s = torch.tanh(s / kw["softcap"]) * kw["softcap"]
+    mask = ref.attention_mask(q.shape[1], kw.get("causal", True),
+                              kw.get("kind", "global"), kw.get("window", 0),
+                              q.device)
+    s = torch.where(mask[None], s, torch.full_like(s, ref.NEG_INF))
+    want = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), vr)
+
+    def share(got):
+        return float(((got.double() - want).abs()
+                      / (1e-5 + 1e-5 * want.abs())).max())
+
+    plain = share(ref.flash_attention_ref(
+        q, k.repeat_interleave(group, 0), v.repeat_interleave(group, 0),
+        **kw))
+    return (f"3xTF32 kernel {share(tf32_flash(q, k, v, kw)):.3g}, CUDA-core "
+            f"kernel {share(simt_flash(q, k, v, kw)):.3g}, plain "
+            f"{plain:.3g} of the tolerance")
 
 
 def hold_scan(a, b, h0):
@@ -906,12 +1049,12 @@ def hold_scan(a, b, h0):
 
 
 def ssd_bound(bsz: int, heads: int, groups: int, s: int, p: int, n: int,
-              dtype, with_h0: bool):
+              dtype, with_h0: bool, peak=None):
     """x and y, dA and dt, the grouped B and C read or written once, h0
-    read and the final state written in f32; operations at the kernel's
+    read and the final state written in f32; operations at the kernels'
     chunk of 64: 2N (C B^T) and 2P (M x) per row pair the causal mask
     keeps within a chunk, 2NP (C h^T) and 2NP (the state update) per
-    row, at the peak rate for the inputs' type."""
+    row, at the tensor-core rate for the inputs' type (or `peak`)."""
     import torch
     from repro_torch.kernels.ssd_scan import CHUNK
     esize = torch.empty((), dtype=dtype).element_size()
@@ -921,45 +1064,104 @@ def ssd_bound(bsz: int, heads: int, groups: int, s: int, p: int, n: int,
     pairs = sum(c * (c + 1) // 2 for c in
                 (min(CHUNK, s - c0) for c0 in range(0, s, CHUNK)))
     ops = bsz * heads * (2 * pairs * (n + p) + 4 * s * n * p)
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    return bound(nbytes, ops, peak)
+    return bound(nbytes, ops, peak or matmul_peak(dtype))
+
+
+def simt_ssd(x, dA, dt, Bm, Cm, h0):
+    """The CUDA-core kernel of csrc/ssd_scan.cu called directly, so that it
+    can be held and timed at shapes where the wrapper takes the
+    tensor-core path; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    bsz, heads, s, p = x.shape
+    groups, n = Bm.shape[1], Bm.shape[3]
+    y = torch.empty_like(x)
+    h = torch.empty((bsz, heads, p, n), dtype=torch.float32, device=x.device)
+    err = _build.load("ssd_scan").ssd_scan_fwd(
+        x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h.data_ptr(), bsz, heads, groups, s, p, n,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "ssd_scan (simt, direct)")
+    return y, h
 
 
 def hold_ssd(x, dA, dt, Bm, Cm, h0, timed: bool):
-    """ssd_scan against its plain version at the kernel's chunk; with
-    `timed`, both timed and the bound computed.  Returns a dict of the
+    """ssd_scan against its plain version at the kernels' chunk; the
+    wrapper must launch the kernel that ``path`` names, and where that is
+    the tensor-core kernel the CUDA-core kernel is held beside it.  With
+    `timed`, each timed and the bound computed.  Returns a dict of the
     measurements."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan
+    from repro_torch.kernels.ssd_scan import CHUNK, path, ssd_scan
 
     def plain():
         return ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
 
-    y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
-    yp, hp = plain()
-    torch.cuda.synchronize()
     bsz, heads, s, p = x.shape
     dt_name = str(x.dtype).split(".")[-1]
-    tol = SSD_TOL[dt_name]
-    err = float((y.float() - yp.float()).abs().max())
-    y_scale = float(yp.float().abs().max())
-    h_err = float((h - hp).norm() / hp.norm())
     what = f"ssd_scan S={s} {dt_name} h0={h0 is not None}"
-    check(bool(torch.isfinite(y.float()).all()), f"{what}: y not finite")
-    check(err <= tol * y_scale, f"{what}: max_abs_err {err} of {y_scale}")
-    check(h_err <= tol, f"{what}: state differs by {h_err} in norm")
-    out = {"max_abs_err": err, "y_scale": y_scale, "h_err": h_err}
+    n0 = dict(ssd_scan.launches_by_path)
+    y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
+    ran = [k for k, n in ssd_scan.launches_by_path.items() if n != n0[k]]
+    yp, hp = plain()
+    torch.cuda.synchronize()
+    want_path = path(x.dtype, p, Bm.shape[3])
+    check(ran == [want_path], f"{what}: ran {ran}, path says {want_path}")
+    tol = SSD_TOL[dt_name]
+    y_scale = float(yp.float().abs().max())
+
+    def held(y, h, kernel):
+        err = float((y.float() - yp.float()).abs().max())
+        h_err = float((h - hp).norm() / hp.norm())
+        check(bool(torch.isfinite(y.float()).all()),
+              f"{what} ({kernel}): y not finite")
+        check(err <= tol * y_scale, f"{what} ({kernel}): max_abs_err {err} "
+              f"of {y_scale}")
+        check(h_err <= tol, f"{what} ({kernel}): state differs by {h_err} "
+              "in norm")
+        return err, h_err
+
+    err, h_err = held(y, h, ran[0])
+    out = {"max_abs_err": err, "y_scale": y_scale, "h_err": h_err,
+           "path": ran[0]}
+    if ran[0] != "simt":
+        out["simt_err"], out["simt_h_err"] = held(
+            *simt_ssd(x, dA, dt, Bm, Cm, h0), "simt")
     if timed:
         out["ms"] = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm, h0))
         out["device_ms"] = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm, h0),
                                    queued=True)
+        if ran[0] != "simt":
+            out["simt_ms"] = time_ms(lambda: simt_ssd(x, dA, dt, Bm, Cm, h0))
+            out["simt_device_ms"] = time_ms(
+                lambda: simt_ssd(x, dA, dt, Bm, Cm, h0), queued=True)
         out["plain_ms"] = time_ms(plain)
         out["library_ms"] = None
-        out["bound_ms"], out["bound_by"] = ssd_bound(
-            bsz, heads, Bm.shape[1], s, p, Bm.shape[3], x.dtype,
-            h0 is not None)
+        shape = (bsz, heads, Bm.shape[1], s, p, Bm.shape[3], x.dtype,
+                 h0 is not None)
+        out["bound_ms"], out["bound_by"] = ssd_bound(*shape)
+        if x.dtype == torch.float32:
+            out["cuda_core_bound_ms"], _ = ssd_bound(*shape, F32_OPS_PER_S)
     return out
+
+
+def ssd_layout_cost(x, dA, dt, Bm, Cm, A):
+    """What the model's layout costs around the scan: ``ops.ssd_op`` on
+    (B, S, H, .) tensors (its transposes to the kernel's layout and dA =
+    dt A, then the kernel) against the kernel alone on tensors already
+    in its layout; printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    xm, dtm = x.transpose(1, 2).contiguous(), dt.transpose(1, 2).contiguous()
+    Bmm, Cmm = Bm.transpose(1, 2).contiguous(), Cm.transpose(1, 2).contiguous()
+    op = time_ms(lambda: ops.ssd_op(xm, dtm, A, Bmm, Cmm), queued=True)
+    alone = time_ms(lambda: ssd_scan(x, dA, dt, Bm, Cm), queued=True)
+    print(f"phase4 ssd_scan layout S={x.shape[2]} {str(x.dtype)[6:]}: "
+          f"ops.ssd_op in the model's layout device {op:.4f} ms, the "
+          f"kernel alone {alone:.4f} ms: the transposes and dt A cost "
+          f"{op - alone:.4f} ms a layer")
 
 
 def phase4_lm_kernels():
@@ -972,15 +1174,17 @@ def phase4_lm_kernels():
     import inspect
     import torch
     from repro_torch.kernels.flash_attention import path
+    from repro_torch.kernels.ssd_scan import path as ssd_path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    print("phase4 flash_attention chooses its kernel by dtype and head dim "
-          "alone:\n" + "".join(f"phase4 | {line}" for line in
-                                inspect.getsourcelines(path)[0]).rstrip())
+    for name, fn in (("flash_attention", path), ("ssd_scan", ssd_path)):
+        print(f"phase4 {name} chooses its kernel by dtype and shape alone:\n"
+              + "".join(f"phase4 | {line}" for line in
+                        inspect.getsourcelines(fn)[0]).rstrip())
     serve = {}
     for dtype in (torch.bfloat16, torch.float32):
         for s in SERVE_PROMPTS:
@@ -993,23 +1197,30 @@ def phase4_lm_kernels():
                     f"{m['simt_device_ms']:.4f} ms, max_abs_err "
                     f"{m['simt_err']:.3g}, {m['simt_worst']:.3g} of the "
                     "allowance)" if "simt_ms" in m else "")
+            old_bound = (f"; at the CUDA cores' 67 TFLOP/s "
+                         f"{m['cuda_core_bound_ms']:.5f} ms"
+                         if "cuda_core_bound_ms" in m else "")
+            shares = (f" ({m['kv_shares']} kv shares)" if "kv_shares" in m
+                      else "")
             print(f"phase4 flash_attention BH=10 G=10 S={s} D=256 local "
-                  f"2048 {dt} path={m['path']}: max_abs_err "
+                  f"2048 {dt} path={m['path']}{shares}: max_abs_err "
                   f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the "
                   f"allowance), kernel {m['ms']:.4f} ms (device "
                   f"{m['device_ms']:.4f} ms){simt}, plain "
                   f"{m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms "
                   f"(device {m['library_device_ms']:.4f} ms), bound "
-                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
-                  f"{m['pairs']}")
-            if dtype == torch.bfloat16:
-                check(m["path"] == "wgmma"
-                      and m["ms"] <= m["library_ms"]
-                      and m["device_ms"] <= m["library_device_ms"],
-                      f"flash_attention S={s} bf16: path {m['path']}, "
-                      f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms) "
-                      f"against sdpa {m['library_ms']:.4f} ms (device "
-                      f"{m['library_device_ms']:.4f} ms)")
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}{old_bound}), "
+                  f"pairs {m['pairs']}")
+            # both tensor-core paths serve these shapes and must not lose
+            # to the library call in either measure
+            want = "wgmma" if dtype == torch.bfloat16 else "tf32"
+            check(m["path"] == want
+                  and m["ms"] <= m["library_ms"]
+                  and m["device_ms"] <= m["library_device_ms"],
+                  f"flash_attention S={s} {dt}: path {m['path']}, "
+                  f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms) "
+                  f"against sdpa {m['library_ms']:.4f} ms (device "
+                  f"{m['library_device_ms']:.4f} ms)")
             if s == max(SERVE_PROMPTS):
                 key = ("flash_attention" if dtype == torch.bfloat16
                        else "flash_attention f32")
@@ -1029,9 +1240,24 @@ def phase4_lm_kernels():
         k = randn(4, 333, d, dtype=dtype) * scale
         v = randn(4, 333, d, dtype=dtype)
         m = hold_flash(q, k, v, kw, with_library=False)
+        exact = (", from float64: " + f64_shares(q, k, v, kw)
+                 if dtype == torch.float32 else "")
         print(f"phase4 flash_attention BH=8 G=2 S=333 D={d} {kw} "
               f"{str(dtype).split('.')[-1]} path={m['path']}: max_abs_err "
-              f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the allowance)")
+              f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the allowance)"
+              f"{exact}")
+    # f32 with a softcap (scores of magnitude 16 and 64): the plain
+    # version's own rounding is of the tolerance's size or above, which is
+    # why path() keeps these on the CUDA-core kernel; the 3xTF32 kernel's
+    # error beside it (printed, not held)
+    for d in (64, 128, 256):
+        for cap, scale in ((20.0, 4.0), (50.0, 8.0)):
+            kw = dict(causal=True, kind="global", softcap=cap)
+            q, k = randn(8, 333, d) * scale, randn(4, 333, d) * scale
+            v = randn(4, 333, d)
+            print(f"phase4 flash_attention BH=8 G=2 S=333 D={d} {kw} "
+                  f"float32 x{scale:g}, from float64: "
+                  f"{f64_shares(q, k, v, kw)}")
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False)):
@@ -1060,25 +1286,44 @@ def phase4_lm_kernels():
                 m = hold_ssd(*args, timed=not with_h0)
                 dt_name = str(dtype).split(".")[-1]
                 line = (f"phase4 ssd_scan B=1 H={heads} G=1 S={s} P={p} "
-                        f"N={n} {dt_name} h0={with_h0}: max_abs_err "
-                        f"{m['max_abs_err']:.3g} of max |y| "
+                        f"N={n} {dt_name} h0={with_h0} path={m['path']}: "
+                        f"max_abs_err {m['max_abs_err']:.3g} of max |y| "
                         f"{m['y_scale']:.3g}, state err {m['h_err']:.3g} "
                         "in norm")
+                if "simt_err" in m:
+                    line += (f" (simt kernel: {m['simt_err']:.3g}, state "
+                             f"{m['simt_h_err']:.3g})")
                 if not with_h0:
                     line += (f", kernel {m['ms']:.4f} ms (device "
-                             f"{m['device_ms']:.4f} ms), plain "
-                             f"{m['plain_ms']:.4f} ms, bound "
-                             f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
+                             f"{m['device_ms']:.4f} ms)")
+                    if "simt_ms" in m:
+                        line += (f", simt kernel {m['simt_ms']:.4f} ms "
+                                 f"(device {m['simt_device_ms']:.4f} ms, "
+                                 f"{m['simt_device_ms'] / m['device_ms']:.2f}"
+                                 "x the new)")
+                    line += (f", plain {m['plain_ms']:.4f} ms, bound "
+                             f"{m['bound_ms']:.5f} ms ({m['bound_by']}")
+                    if "cuda_core_bound_ms" in m:
+                        line += (f"; at the CUDA cores' 67 TFLOP/s "
+                                 f"{m['cuda_core_bound_ms']:.5f} ms")
+                    line += ")"
                 print(line)
+                if "simt_device_ms" in m:
+                    check(m["device_ms"] <= m["simt_device_ms"],
+                          f"ssd_scan S={s} {dt_name}: the tensor-core "
+                          f"kernel {m['device_ms']:.4f} ms, slower than the "
+                          f"CUDA-core kernel {m['simt_device_ms']:.4f} ms")
                 if (s, dtype, with_h0) == (max(SSM_PROMPTS), torch.bfloat16,
                                            False):
                     serve["ssd_scan"] = dict(m, shape=[1, heads, s, p, n])
+                    ssd_layout_cost(*args[:5], A)
     return serve
 
 
 def lm_counts() -> dict:
-    """The LM kernel wrappers' launch counts, flash attention's also by
-    path ("flash_attention.wgmma", "flash_attention.simt")."""
+    """The LM kernel wrappers' launch counts, flash attention's and the
+    SSD scan's also by path ("flash_attention.wgmma", "ssd_scan.simt",
+    ...)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1087,16 +1332,18 @@ def lm_counts() -> dict:
         counts[f"flash_attention.{p}"] = n
     counts["rglru_scan"] = rglru_scan.launches
     counts["ssd_scan"] = ssd_scan.launches
+    for p, n in ssd_scan.launches_by_path.items():
+        counts[f"ssd_scan.{p}"] = n
     return counts
 
 
 def reset_lm_counts():
     import repro_torch.kernels.flash_attention as flash_module
+    import repro_torch.kernels.ssd_scan as ssd_module
     from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.ssd_scan import ssd_scan
     flash_module.reset_launches()
+    ssd_module.reset_launches()
     rglru_scan.launches = 0
-    ssd_scan.launches = 0
 
 
 class PrefillRecorder:
@@ -1199,6 +1446,18 @@ def profile_serving(cfg, params, prompt, phase: str, flash_ref_ms=None):
         print(f"{phase} profile   host: " + "; ".join(
             f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
             for e in top_host))
+        if label == "prefill":
+            # device time by the host op that launched it
+            ops = sorted((e for e in host if e.self_device_time_total > 0),
+                         key=lambda e: -e.self_device_time_total)[:6]
+            print(f"{phase} profile   device time by op: " + "; ".join(
+                f"{e.key[:24]} x{e.count} "
+                f"{e.self_device_time_total / 1e3:.2f} ms" for e in ops))
+            ssd = [e for e in dev if "ssd_" in e.key]
+            if ssd:
+                print(f"{phase} profile   ssd: " + "; ".join(
+                    f"{e.key[:40]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.2f} ms" for e in ssd))
         flash = [e for e in dev if "flash" in e.key]
         if label == "prefill" and flash:
             ref_text = ("" if flash_ref_ms is None else
@@ -1313,6 +1572,9 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     marks = sorted({0, n_layers // 4, n_layers // 2, n_layers - 1})
     print(f"{phase} state error by layer (worst over prefills): " + "; ".join(
         f"layer {j + 1} {by_depth[j]:.5f}" for j in marks))
+    print(f"{phase} state error by layer as a share of the {LOGIT_TOL} "
+          "limit, layers 1 to " f"{n_layers}: " + " ".join(
+              f"{e / LOGIT_TOL:.3f}" for e in by_depth))
     print(f"{phase} plain run: drain {wall_p:.3f} s; worst logits error "
           f"{worst:.5f} of max |logit|; worst state error {worst_h:.5f} in "
           f"norm over {len(rec_k.states[0])} layers; first token checked "
@@ -1340,13 +1602,16 @@ def phase5_serving(flash_ref_ms: float):
     return serve_full_width(
         "phase5", SERVE_ARCH, SERVE_PROMPTS, 5,
         {"flash_attention": n_local, "flash_attention.wgmma": n_local,
-         "flash_attention.simt": 0, "rglru_scan": n_rec, "ssd_scan": 0},
+         "flash_attention.tf32": 0, "flash_attention.simt": 0,
+         "rglru_scan": n_rec, "ssd_scan": 0, "ssd_scan.wgmma": 0,
+         "ssd_scan.simt": 0},
         f"{n_local} local + {n_rec} recurrent", n_local * flash_ref_ms)
 
 
 def phase6_ssm_serving():
     """mamba2-2.7b, after phase 5's model is freed: 64 SSD scan launches
-    per prefill."""
+    per prefill, all on the tensor-core path (bf16, head dim 64, d_state
+    128)."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1362,7 +1627,9 @@ def phase6_ssm_serving():
     return serve_full_width(
         "phase6", SSM_ARCH, SSM_PROMPTS, 6,
         {"flash_attention": 0, "flash_attention.wgmma": 0,
-         "flash_attention.simt": 0, "rglru_scan": 0, "ssd_scan": n_ssm},
+         "flash_attention.tf32": 0, "flash_attention.simt": 0,
+         "rglru_scan": 0, "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm,
+         "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
 
@@ -1418,15 +1685,30 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                 "shape": m["shape"]})
-            if name == "flash_attention":
-                kernels[-1]["path"] = m["path"]
+            # the path that ran and, for the redesigned kernels, the
+            # CUDA-core kernel they replace on it, timed in this run
+            for key in ("path", "simt_ms", "simt_device_ms"):
+                if key in m:
+                    kernels[-1][key] = m[key]
         f32 = lm["flash_attention f32"]
+        flash = next(k for k in kernels if k["name"] == "flash_attention")
+        flash["f32"] = {
+            "source": CSRC + SOURCES["flash_attention f32"],
+            **{key: f32[key] for key in (
+                "path", "shape", "max_abs_err", "ms", "device_ms",
+                "simt_ms", "simt_device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by",
+                "cuda_core_bound_ms")}}
         print(f"flash_attention f32 path={f32['path']} "
-              f"({CSRC}flash_attention.cu) at {f32['shape']}: kernel "
-              f"{f32['ms']:.4f} ms (device {f32['device_ms']:.4f} ms), plain "
-              f"{f32['plain_ms']:.4f} ms, sdpa {f32['library_ms']:.4f} ms "
-              f"(device {f32['library_device_ms']:.4f} ms), bound {f32['bound_ms']:.5f} ms "
-              f"({f32['bound_by']}), max_abs_err {f32['max_abs_err']:.3g}")
+              f"({CSRC}{SOURCES['flash_attention f32']}) at {f32['shape']}: "
+              f"kernel {f32['ms']:.4f} ms (device {f32['device_ms']:.4f} ms), "
+              f"CUDA-core kernel {f32['simt_ms']:.4f} ms (device "
+              f"{f32['simt_device_ms']:.4f} ms), plain {f32['plain_ms']:.4f} "
+              f"ms, sdpa {f32['library_ms']:.4f} ms (device "
+              f"{f32['library_device_ms']:.4f} ms), bound "
+              f"{f32['bound_ms']:.5f} ms ({f32['bound_by']}, TF32 rate; "
+              f"{f32['cuda_core_bound_ms']:.5f} ms at 67 TFLOP/s), "
+              f"max_abs_err {f32['max_abs_err']:.3g}")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, loaded with ``ctypes``.
-The library lands in ``build/kernels/`` at the repository root, named by
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built when the package is
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``build/kernels/`` at the repository root, named by a hash of
+its source, the headers and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  Nothing is built when the package is
 imported: the first call that needs a kernel builds it, and a build that
 fails raises with the compiler's output.
 
@@ -28,8 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention": "flash_attention.cu",
                            "flash_attention_wgmma": "flash_attention_wgmma.cu",
+                           "flash_attention_tf32": "flash_attention_tf32.cu",
                            "rglru_scan": "rglru_scan.cu",
-                           "ssd_scan": "ssd_scan.cu"}
+                           "ssd_scan": "ssd_scan.cu",
+                           "ssd_scan_wgmma": "ssd_scan_wgmma.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -63,6 +66,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _D, _P], _I),
     },
+    "flash_attention_tf32": {
+        # q, k, v, o, part (scratch or null), bh, s, d, group, causal,
+        # kind, window, softcap, splits, stream
+        "flash_attention_tf32_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _D, _I, _P], _I),
+        # bh, s, d, causal, kind, window -> the kv shares fwd takes
+        "flash_attention_tf32_splits": ([_I, _I, _I, _I, _I, _I], _I),
+    },
     "rglru_scan": {
         # a, b, h0 (or null), h, batch, s, w, stream
         "rglru_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -72,6 +83,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # s, p, n, is_bf16, stream
         "ssd_scan_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _I, _P], _I),
+    },
+    "ssd_scan_wgmma": {
+        # x, dA, dt, Bm, Cm, h0 (or null), y, hout, hin scratch, batch,
+        # heads, groups, s, stream
+        "ssd_scan_wgmma_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _P], _I),
     },
 }
 
@@ -94,9 +111,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of `name`, named by a hash of its source, the shared
+    headers it may include and the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -20,8 +20,10 @@
 // query-key pair against 2*D bytes of q, k, v and o per query row, so the
 // bytes bound is far below the operations bound: it is compute-bound.
 // This first kernel does its products on the CUDA cores in f32 (67
-// TFLOP/s at most), not on the tensor cores (989 TFLOP/s bf16 dense);
-// wgmma with TMA-fed tiles is the later work that closes that gap.
+// TFLOP/s at most), not on the tensor cores.  It now serves only the
+// head dims that the tensor-core kernels do not take (D not 64, 128 or
+// 256: flash_attention_wgmma.cu has bf16 there, flash_attention_tf32.cu
+// f32), and stays callable at every shape as their yardstick.
 //
 // What the design does:
 //   * one block of 256 threads per (bh, tile of 64 query rows); the block

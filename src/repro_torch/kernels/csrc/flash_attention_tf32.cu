@@ -1,0 +1,610 @@
+// Forward attention with an online softmax on Hopper's tensor cores at f32
+// accuracy (sm_90a): the f32 path for head dims 64, 128 and 256.
+//
+// Replaces, for f32 inputs with D in {64, 128, 256}, the Pallas TPU kernel
+// `flash_attention` (`_kernel`) of src/repro/kernels/flash_attention.py:
+//   q (BH, S, D), k and v (BH / G, S, D), f32 -> o (BH, S, D) f32,
+// with causal, `local` (sliding window) and `chunked` (aligned chunks of
+// `window` keys) masks and an optional tanh softcap on the scores.  Query
+// row bh reads kv row bh / G, so MQA and GQA need no repeat of k and v.
+// bf16 inputs take flash_attention_wgmma.cu, other head dims the CUDA-core
+// kernel of flash_attention.cu; the wrapper picks the path from dtype, D
+// and the softcap: f32 with a softcap also stays on the CUDA-core kernel,
+// whose q.k sums round as the plain version's do (at softcapped scores the
+// f32 rounding of a score moves the output by about the f32 tolerance, so
+// this kernel, summing in another order, can differ from the plain
+// version by more while being about as close to the exact function).  The
+// softcap is implemented here all the same.
+//
+// Arithmetic: both products run on the tensor cores in TF32 with three
+// terms (3xTF32).  Each f32 operand x is split into hi = tf32(x) (round to
+// nearest, the low 13 bits zero) and lo = tf32(x - hi), and a product is
+// lo_a hi_b + hi_a lo_b + hi_a hi_b summed in f32: the dropped lo_a lo_b
+// and the rounding of lo leave some 2^-23 of the product, where plain TF32
+// (hi_a hi_b) would leave 2^-11, far outside the f32 tolerance of 1e-5.
+// Every operand is rounded to TF32 by this code before the tensor core
+// reads it, so how the hardware treats the low 13 bits does not matter.
+// Then as the Pallas kernel: s = (q.k) * (1/sqrt(D)); softcap s = tanh(s /
+// c) * c, before the mask; masked scores take the finite value
+// -2.3819763e38 and keys past S take -inf; the running (m, l, acc) are
+// f32; p stays f32 (split like any operand) for P.V; o = acc / max(l,
+// 1e-30).
+//
+// What bounds it on this card.  At the serving shapes (D = 256, a local
+// window of 2,048, S up to 3,000) the work is 4*D operations per unmasked
+// query-key pair, three times over in 3xTF32, against 2*D*4 bytes of q, k,
+// v and o per query row: it is bound by the tensor cores' TF32 rate (495
+// TFLOP/s dense).  The earlier kernel ran both products on the CUDA cores
+// in f32 (67 TFLOP/s at most) and lost to scaled_dot_product_attention.
+//
+// Why mma.sync (m16n8k8, TF32) and not wgmma.  wgmma reads TF32 operands
+// only K-major from shared memory (the transpose bit is for 16-bit types),
+// so V would have to be transposed on its way in, and an operand read from
+// shared memory must already be split there: K and V twice over, hi and
+// lo.  At D = 256 an f32 q tile of 64 rows is 64 KB; hi and lo tiles of
+// even 32 keys of K and of the transposed V add 128 KB, which leaves no
+// room for a second stage in the 227 KB of an SM.  mma.sync takes both
+// operands from registers: K and V are staged once, as f32, and each warp
+// splits the values it loads; V's B fragment is read straight from its
+// rows, and the score accumulator serves as P's A fragment with no
+// shuffle, by pairing logical k = t with key 2t and k = t + 4 with key
+// 2t + 1 (the same pairing is used for V's rows).
+//
+// What the design does:
+//   * one block of eight warps per (bh, tile of 64 query rows): two warps
+//     for each 16 rows, one for each half of a kv tile's keys.  A warp's
+//     scores (16 x BK / 2) and its share of the output (16 x D, 128 floats
+//     a thread at D = 256) stay in registers; the pair meets once a tile
+//     (a named barrier) to agree on the rows' running maximum, and its two
+//     outputs and sums are added at the end.  Four warps, one a row group,
+//     left an SM with one warp on each scheduler;
+//   * the large terms of Q K^T are summed on the tensor cores four products
+//     at a time and added in f32, and P V one kv tile at a time: summed on
+//     the tensor cores over all of D, Q K^T missed the f32 tolerance
+//     several times over at softcap 50 with scores of magnitude 64;
+//   * the split rounds with integer operations, not cvt.rna.tf32.f32,
+//     which issues at a quarter of their rate and held a first version
+//     far below the tensor cores' TF32 rate;
+//   * q, then K and V tiles of BK keys (32 at D = 256 and 128, 64 at D =
+//     64), arrive by cp.async into a two-stage ring: the next kv tile is
+//     in flight while this one's products run.  Rows are padded to D + 4
+//     floats, so every fragment load of a warp falls on distinct banks;
+//     keys and queries past S are zero-filled;
+//   * kv tiles that the mask hides from every row of the q tile are
+//     skipped, and tiles that it shows whole to every row skip the
+//     per-element mask; q tiles are launched longest first;
+//   * at D = 256 an SM holds one block, and a causal grid's longest q
+//     tiles would run on alone (at S = 512, 80 blocks of 2 to 16 kv
+//     tiles on 132 SMs).  So each q tile's kv tiles may be split into up
+//     to 8 shares (blockIdx.z), chosen so that no block holds more than
+//     half an SM's fair share of the tiles (flash_attention_tf32_splits
+//     tells the caller how many, to size the scratch); each share writes
+//     its unnormalised output, maximum and sum, and a second launch joins
+//     them.
+//
+// Interface: plain C, bound from Python with ctypes.  The entry point
+// launches on the caller's stream, allocates nothing, does not
+// synchronise, and returns a CUDA error code (0 on success).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kRowGroups = 4;  // of 16 query rows
+constexpr int kThreads = 32 * 2 * kRowGroups;  // two warps a row group
+constexpr int kPad = 4;        // floats of padding per staged row
+constexpr int kSMs = 132;      // the H100's SMs: one block each at D = 256
+constexpr int kMaxSplits = 8;
+constexpr float kNegInf = -2.3819763e38f;
+
+enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
+
+template <int D, int BK>
+struct Layout {
+  static constexpr int kRow = D + kPad;                // floats per staged row
+  static constexpr int kQ = kBQ * kRow;                // floats of the q tile
+  static constexpr int kTile = BK * kRow;              // floats of a K or V tile
+  static constexpr size_t kBytes = 4 * (size_t)(kQ + 4 * kTile);  // q, 2 K, 2 V
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when `valid` is false (src is then
+// not read, but stays a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// f32 rounded to TF32 (the low 13 bits zero) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 does, in two integer operations (the
+// conversion instruction issues at a quarter of their rate)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as TF32 high and low parts: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b over k = 4 (A: rows g, g + 8 at column t; B: row t, column g)
+__device__ __forceinline__ void mma_tf32_k4(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// Whether key kp is visible from query qp under the mask.
+__device__ __forceinline__ bool visible(int qp, int kp, int causal, int kind, int window) {
+  bool ok = !causal || qp >= kp;
+  if (kind == kLocal) ok = ok && (qp - kp) < window;
+  else if (kind == kChunked) ok = ok && (qp / window) == (kp / window);
+  return ok;
+}
+
+// The kv tiles of BK keys that any row of the q tile starting at q0 may
+// see: n_tiles tiles from key k_first.
+__host__ __device__ inline void kv_tiles(int q0, int S, int BK, int causal, int kind,
+                                         int window, int& k_first, int& n_tiles) {
+  const int q_last = min(q0 + kBQ, S) - 1;
+  int lo = 0, hi = S;
+  if (causal) hi = q_last + 1;
+  if (kind == kLocal) {
+    lo = max(0, q0 - window + 1);
+  } else if (kind == kChunked) {
+    lo = (q0 / window) * window;
+    hi = min(hi, (q_last / window + 1) * window);
+  }
+  k_first = (lo / BK) * BK;
+  n_tiles = (hi - k_first + BK - 1) / BK;
+}
+
+// With a kv split (split_tiles > 0), block z of a q tile takes its kv
+// tiles [z split_tiles, (z + 1) split_tiles) and writes its unnormalised
+// output, running maximum and sum to `part` instead of o: (splits, BH, S,
+// D) outputs, then (splits, BH, S) maxima, then (splits, BH, S) sums.
+template <int D, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S, int group,
+                  float scale, int causal, int kind, int window, float softcap,
+                  int split_tiles, float* __restrict__ part) {
+  using L = Layout<D, BK>;
+  constexpr int R = L::kRow;
+  constexpr int KH = BK / 2;  // keys of a tile per warp
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = sq + L::kQ;            // stage st: sk + st * kTile
+  float* sv = sk + 2 * L::kTile;
+  __shared__ float red[2][2][kBQ];   // [tile parity][key half][row]: row maxima
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % kRowGroups;  // rows 16 rg .. 16 rg + 15
+  const int kh = warp / kRowGroups;  // keys kh KH .. kh KH + KH - 1 of a tile
+  const int bh = blockIdx.x;
+  const int kvh = bh / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
+  const float* qb = q + (long long)bh * S * D;
+  const float* kb = k + (long long)kvh * S * D;
+  const float* vb = v + (long long)kvh * S * D;
+
+  int k_first, n_tiles;
+  kv_tiles(q0, S, BK, causal, kind, window, k_first, n_tiles);
+  if (split_tiles > 0) {  // this block's share of the kv tiles
+    const int first = blockIdx.z * split_tiles;
+    if (first >= n_tiles) return;  // the combine reads no empty share
+    k_first += first * BK;
+    n_tiles = min(split_tiles, n_tiles - first);
+  }
+
+  constexpr int kVec = D / 4;  // 16-byte pieces of a row
+  auto load_rows = [&](float* dst, const float* src, int row0, int rows) {
+    for (int e = tid; e < rows * kVec; e += kThreads) {
+      const int r = e / kVec, c = e % kVec;
+      const bool in = row0 + r < S;
+      cp_async16(dst + r * R + 4 * c, src + (long long)(in ? row0 + r : 0) * D + 4 * c, in);
+    }
+  };
+  auto load_kv = [&](int st, int k0) {
+    load_rows(sk + st * L::kTile, kb, k0, BK);
+    load_rows(sv + st * L::kTile, vb, k0, BK);
+  };
+
+  load_rows(sq, qb, q0, kBQ);
+  if (n_tiles > 0) load_kv(0, k_first);
+  cp_async_commit();
+
+  const int rq = 16 * rg + g;  // this thread's rows: rq, rq + 8
+  const int qp0 = q0 + rq, qp1 = qp0 + 8;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // l over this warp's keys
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    const int k0 = k_first + it * BK;
+    if (it + 1 < n_tiles) load_kv(st ^ 1, k0 + BK);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = sk + st * L::kTile + kh * KH * R;
+    const float* vs = sv + st * L::kTile + kh * KH * R;
+
+    // S = Q K^T over this warp's keys: A = q rows (row, d), B = K rows
+    // (key, d).  The large terms hi_q hi_k are summed from zero on the
+    // tensor cores four products at a time (m16n8k4: the k8 fragments'
+    // two halves) and added to s in f32 with Kahan's compensation, so
+    // neither the tensor core's rounding of its sums nor s's own grows
+    // with D; the small terms, 2^-11 of those, and the compensation
+    // accumulate on the tensor cores.
+    float s[KH / 8][4], small[KH / 8][4];
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* qa = sq + rq * R + 8 * kk + t;
+      uint32_t ahi[4], alo[4];
+      split_tf32(qa[0], ahi[0], alo[0]);
+      split_tf32(qa[8 * R], ahi[1], alo[1]);
+      split_tf32(qa[4], ahi[2], alo[2]);
+      split_tf32(qa[8 * R + 4], ahi[3], alo[3]);
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n) {
+        const float* kr = ks + (8 * n + g) * R + 8 * kk + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kr[0], bh0, bl0);
+        split_tf32(kr[4], bh1, bl1);
+        float big0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, big1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32_k4(big0, ahi[0], ahi[1], bh0);
+        mma_tf32_k4(big1, ahi[2], ahi[3], bh1);
+        mma_tf32(small[n], alo, bh0, bh1);
+        mma_tf32(small[n], ahi, bl0, bl1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // Kahan: the add's rounding error joins the small terms
+          const float y = big0[e] + big1[e];
+          const float sum = s[n][e] + y;
+          small[n][e] += (s[n][e] - sum) + y;
+          s[n][e] = sum;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += small[n][e];
+
+    // scale, softcap, then the mask (whole tiles the mask shows to every
+    // row skip it; keys past S always take -inf)
+    const int q_hi = q0 + kBQ - 1;
+    bool whole = k0 + BK <= S;
+    if (causal) whole = whole && k0 + BK - 1 <= q0;
+    if (kind == kLocal) whole = whole && q_hi - k0 < window;
+    else if (kind == kChunked)
+      whole = whole && q0 / window == q_hi / window && k0 / window == q0 / window &&
+              (k0 + BK - 1) / window == q0 / window;
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+        if (!whole) {
+          const int kp = k0 + kh * KH + 8 * n + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          if (!visible(qp, kp, causal, kind, window)) x = kNegInf;
+          if (kp >= S) x = -INFINITY;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax: a row's four threads are lanes 4g .. 4g+3 of this
+    // warp, its other half of the keys is the warp kRowGroups away
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    if (t == 0) {
+      red[st][kh][rq] = mx0;
+      red[st][kh][rq + 8] = mx1;
+    }
+    // the two warps of these rows meet (named barrier 1 + rg, 64 threads);
+    // red[st] is written again two tiles later, after the next meeting
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+    mx0 = fmaxf(mx0, red[st][kh ^ 1][rq]);
+    mx1 = fmaxf(mx1, red[st][kh ^ 1][rq + 8]);
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // expf, not exp2f of a product with log2(e): that product's rounding
+    // would move p by some 2^-24 of |s - m|, up to 6e-6 at softcap 50
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n) {
+      s[n][0] = expf(s[n][0] - mn0);
+      s[n][1] = expf(s[n][1] - mn0);
+      s[n][2] = expf(s[n][2] - mn1);
+      s[n][3] = expf(s[n][3] - mn1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+
+    // O = O alpha + P V over this warp's keys.  P's A fragment is the
+    // score accumulator of keys 8n .. 8n+7 as it stands, reading logical
+    // k = t as key 2t and k = t + 4 as key 2t + 1; V's B fragment takes
+    // rows 2t and 2t + 1 to match.  Each column tile's product is summed
+    // from zero on the tensor cores and folded into O in f32.
+    uint32_t phi[KH / 8][4], plo[KH / 8][4];
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n) {
+      split_tf32(s[n][0], phi[n][0], plo[n][0]);  // row rq,     key 2t
+      split_tf32(s[n][2], phi[n][1], plo[n][1]);  // row rq + 8, key 2t
+      split_tf32(s[n][1], phi[n][2], plo[n][2]);  // row rq,     key 2t + 1
+      split_tf32(s[n][3], phi[n][3], plo[n][3]);  // row rq + 8, key 2t + 1
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n) {
+        const float* vr = vs + (8 * n + 2 * t) * R + 8 * j + g;
+        mma_3xtf32(part, phi[n], plo[n], vr[0], vr[R]);
+      }
+      acc[j][0] = fmaf(acc[j][0], al0, part[0]);
+      acc[j][1] = fmaf(acc[j][1], al0, part[1]);
+      acc[j][2] = fmaf(acc[j][2], al1, part[2]);
+      acc[j][3] = fmaf(acc[j][3], al1, part[3]);
+    }
+
+    // every warp is done with this stage before it is refilled
+    __syncthreads();
+  }
+
+  // the second key half's O and l join the first's through shared memory
+  // (the K/V ring is free): both scaled by the same running maxima
+  float* xo = sk;  // [row group][D / 2 values][lane]
+  float* xl = sk + kRowGroups * (D / 2) * 32;
+  if (kh == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xo[(rg * (D / 2) + 4 * j + e) * 32 + lane] = acc[j][e];
+    xl[(rg * 2) * 32 + lane] = l0;
+    xl[(rg * 2 + 1) * 32 + lane] = l1;
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += xo[(rg * (D / 2) + 4 * j + e) * 32 + lane];
+  l0 += xl[(rg * 2) * 32 + lane];
+  l1 += xl[(rg * 2 + 1) * 32 + lane];
+  if (split_tiles > 0) {
+    const long long rows = (long long)gridDim.x * S;  // BH * S
+    const long long r = blockIdx.z * rows + (long long)bh * S;
+    float* po = part + r * D;
+    float* pm = part + gridDim.z * rows * D + r;
+    float* pl = pm + gridDim.z * rows;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (qp0 < S)
+        *reinterpret_cast<float2*>(po + (long long)qp0 * D + c) =
+            make_float2(acc[j][0], acc[j][1]);
+      if (qp1 < S)
+        *reinterpret_cast<float2*>(po + (long long)qp1 * D + c) =
+            make_float2(acc[j][2], acc[j][3]);
+    }
+    if (t == 0 && qp0 < S) {
+      pm[qp0] = m0;
+      pl[qp0] = l0;
+    }
+    if (t == 0 && qp1 < S) {
+      pm[qp1] = m1;
+      pl[qp1] = l1;
+    }
+    return;
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  float* ob = o + (long long)bh * S * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (qp0 < S)
+      *reinterpret_cast<float2*>(ob + (long long)qp0 * D + c) =
+          make_float2(acc[j][0] / d0, acc[j][1] / d0);
+    if (qp1 < S)
+      *reinterpret_cast<float2*>(ob + (long long)qp1 * D + c) =
+          make_float2(acc[j][2] / d1, acc[j][3] / d1);
+  }
+}
+
+// The kv split's shares of each query row joined: o = sum_z e^(m_z - m)
+// acc_z / max(sum_z e^(m_z - m) l_z, 1e-30), m the largest m_z, over the
+// shares that held kv tiles.  One warp per row.
+template <int BK>
+__global__ void __launch_bounds__(256)
+flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o, int bh_rows, int S,
+                   int D, int splits, int split_tiles, int causal, int kind, int window) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;  // bh * S + qp
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)bh_rows * S) return;
+  const int qp = (int)(row % S);
+  int k_first, n_tiles;
+  kv_tiles(qp / kBQ * kBQ, S, BK, causal, kind, window, k_first, n_tiles);
+  const int n = min(splits, (n_tiles + split_tiles - 1) / split_tiles);
+  const long long rows = (long long)bh_rows * S;
+  const float* pm = part + splits * rows * D + row;
+  const float* pl = pm + splits * rows;
+  float m = pm[0];
+  for (int z = 1; z < n; ++z) m = fmaxf(m, pm[z * rows]);
+  float l = 0.0f;
+  for (int z = 0; z < n; ++z) l += expf(pm[z * rows] - m) * pl[z * rows];
+  const float inv_den = 1.0f / fmaxf(l, 1e-30f);
+  for (int c = lane; c < D; c += 32) {
+    float acc = 0.0f;
+    for (int z = 0; z < n; ++z) acc += expf(pm[z * rows] - m) * part[(z * rows + row) * D + c];
+    o[row * D + c] = acc * inv_den;
+  }
+}
+
+// The kv tiles of the longest q tile, and the shares to cut each q tile's
+// kv range into: enough that no block holds more than half of an SM's fair
+// share of all the grid's kv tiles (the longest q tiles would otherwise run
+// on alone: at S = 512, 80 blocks of 2 to 16 tiles on 132 SMs), at most 8.
+template <int BK>
+void plan(int bh, int s, int causal, int kind, int window, int& most, int& splits) {
+  long long total = 0;
+  most = 1;
+  for (int q0 = 0; q0 < s; q0 += kBQ) {
+    int k_first, n_tiles;
+    kv_tiles(q0, s, BK, causal, kind, window, k_first, n_tiles);
+    total += n_tiles;
+    most = max(most, n_tiles);
+  }
+  const double share = fmax((double)bh * total / (2 * kSMs), 1.0);
+  splits = min(kMaxSplits, max(1, (int)ceil(most / share)));
+}
+
+template <int D, int BK>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* part,
+                   int bh, int s, int group, int causal, int kind, int window, float softcap,
+                   int splits, cudaStream_t stream) {
+  const int smem = (int)Layout<D, BK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tf32_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int n_q = (s + kBQ - 1) / kBQ;
+  int most, planned;
+  plan<BK>(bh, s, causal, kind, window, most, planned);
+  if (splits != planned) return cudaErrorInvalidValue;  // the scratch was sized for it
+  const int split_tiles = splits > 1 ? (most + splits - 1) / splits : 0;
+  flash_tf32_kernel<D, BK><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
+      q, k, v, o, s, group, scale, causal, kind, window, softcap, split_tiles,
+      split_tiles > 0 ? part : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split_tiles == 0) return err;
+  const long long rows = (long long)bh * s;
+  flash_tf32_combine<BK><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      part, o, bh, s, D, splits, split_tiles, causal, kind, window);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Keys per kv tile, by head dim: 32 at D = 256 and 128 (q and a two-stage
+// ring take 195 KB at D = 256, 99 KB at D = 128: two blocks an SM), 64 at
+// D = 64.
+
+// The number of kv shares flash_attention_tf32_fwd takes for this call
+// (1: no split), or 0 for a head dim it does not take.
+extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int causal, int kind,
+                                           int window) {
+  if (bh <= 0 || s <= 0) return 1;
+  int most, splits;
+  switch (d) {
+    case 64:
+      plan<64>(bh, s, causal, kind, window, most, splits);
+      return splits;
+    case 128:
+    case 256:
+      plan<32>(bh, s, causal, kind, window, most, splits);
+      return splits;
+    default:
+      return 0;
+  }
+}
+
+// q, o: (bh, s, d) f32; k, v: (bh / group, s, d) f32; contiguous, 16-byte
+// aligned, on the current device; d in {64, 128, 256}.  kind: 0 global, 1
+// local, 2 chunked.  splits is flash_attention_tf32_splits' answer; above
+// 1 each q tile's kv tiles are cut into that many shares, one block each,
+// joined by a second launch, and `part` is scratch of splits * bh * s *
+// (d + 2) floats (else unused).
+extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void* v, void* o,
+                                        void* part, int bh, int s, int d, int group,
+                                        int causal, int kind, int window, double softcap,
+                                        int splits, void* stream) {
+  if (bh <= 0 || s <= 0) return (int)cudaSuccess;
+  if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float cap = (float)softcap;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  float* pf = static_cast<float*>(part);
+  switch (d) {
+    case 64:
+      return (int)launch<64, 64>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+                                 cap, splits, st);
+    case 128:
+      return (int)launch<128, 32>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+                                  cap, splits, st);
+    case 256:
+      return (int)launch<256, 32>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+                                  cap, splits, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -20,8 +20,10 @@
 // written once, about 67 MB at S = 3,001) and the operations bound are of
 // one size, some 0.01-0.02 ms each.  This first kernel does its products
 // on the CUDA cores in f32 from shared memory (67 TFLOP/s at most, and
-// shared-memory loads before that), not on the tensor cores; wgmma with
-// TMA-fed chunks is the later work that closes the gap.
+// shared-memory loads before that), not on the tensor cores.  It now
+// serves f32 and the shapes other than P = 64, N = 128 (bf16 there runs
+// on ssd_scan_wgmma.cu), and stays callable at every shape as that
+// kernel's yardstick.
 //
 // What the design does:
 //   * one block of 256 threads per (batch, head, tile of 32 state rows

@@ -1,8 +1,10 @@
-"""Flash attention forward: the wrapper around the two Hopper kernels,
+"""Flash attention forward: the wrapper around the three Hopper kernels,
 ``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 128 or 256, on
-the tensor cores) and ``csrc/flash_attention.cu`` (every other case, on
-the CUDA cores in f32).  ``path(dtype, D)`` names the one that runs; the
-choice depends on the dtype and the head dim alone.
+the tensor cores), ``csrc/flash_attention_tf32.cu`` (f32 at those head
+dims without a softcap, on the tensor cores in 3xTF32) and
+``csrc/flash_attention.cu`` (every other case, on the CUDA cores in f32).
+``path(dtype, D, softcap)`` names the one that runs; the choice depends
+on the dtype, the head dim and whether there is a softcap alone.
 
 Layout: q (BH, S, D); k and v (BH / G, S, D) — batch and heads merged
 with heads inner, so query row ``bh`` attends with kv row ``bh // G``
@@ -23,21 +25,32 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, _scratch, ref
 
 KINDS = {"global": 0, "local": 1, "chunked": 2}
 MAX_HEAD_DIM = 256
-#: head dims of the tensor-core path: whole 64-column (128-byte) blocks
+#: head dims of the tensor-core paths: whole 64-column (128-byte) blocks
 #: up to the 256 columns one wgmma accumulator holds
 WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
-def path(dtype: torch.dtype, head_dim: int) -> str:
+def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
     """The kernel that computes attention of `dtype` with head dim
-    `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS) or
-    "simt" (f32, and bf16 at any other D)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS), "tf32"
+    (f32, D in WGMMA_HEAD_DIMS, no softcap) or "simt" (any other D, and
+    f32 with a softcap).
+
+    f32 with a softcap stays on the CUDA-core kernel, which sums q.k in
+    the plain version's order: at softcapped scores (tens in magnitude)
+    the f32 rounding of a score moves the output by about the f32
+    tolerance, so the 3xTF32 kernel, which sums in another order, differs
+    from the plain version by up to several times the tolerance while
+    being as close to the function evaluated in float64 (chip_smoke
+    phase 4 prints all three against float64)."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        return "simt" if softcap else "tf32"
     return "simt"
 
 
@@ -91,9 +104,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    kernel = path(q.dtype, D)
-    if kernel == "wgmma":
-        # the tensor maps need 16-byte aligned bases
+    kernel = path(q.dtype, D, softcap)
+    if kernel != "simt":
+        # the tensor maps and 16-byte copies need 16-byte aligned bases
         for name, a in (("q", q), ("k", k), ("v", v)):
             if a.data_ptr() % 16:
                 raise ValueError(f"{name} is not 16-byte aligned")
@@ -105,6 +118,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
                 S, D, group, int(causal), KINDS[kind], int(window),
                 float(softcap), stream)
+        elif kernel == "tf32":
+            lib = _build.load("flash_attention_tf32")
+            # kv shares of each q tile (the kernel's choice from the grid)
+            # and their outputs, maxima and sums in f32
+            splits = lib.flash_attention_tf32_splits(
+                BH, S, D, int(causal), KINDS[kind], int(window))
+            part = (_scratch.scratch(q.device, stream,
+                                     splits * BH * S * (D + 2) * 4)
+                    if splits > 1 else None)
+            err = lib.flash_attention_tf32_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if part is None else part.data_ptr(), BH, S, D, group,
+                int(causal), KINDS[kind], int(window), float(softcap),
+                splits, stream)
         else:
             err = _build.load("flash_attention").flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
@@ -117,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_path = {"wgmma": 0, "simt": 0}
+flash_attention.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 
 
 def reset_launches():

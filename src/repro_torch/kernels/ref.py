@@ -9,8 +9,10 @@ on the card they are the yardstick the kernels are checked against.
 oracles: full materialised softmax attention, and the serial recurrence
 h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
 each rounded, as the scan kernel does).  ``ssd_scan_ref`` is the SSD
-scan in its chunked form, as the kernel computes it (the reference's
-oracle steps token by token, which is the same function).
+scan in its chunked state-passing form, as the tensor-core kernel
+computes it (the reference's oracle steps token by token, which is the
+same function).  ``tf32_split`` is the operand split of the f32
+attention kernel's 3xTF32 products.
 
 The forest layout is the complete-tree one of ``core.predictor``:
 
@@ -90,18 +92,21 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor,
                  h0: Optional[torch.Tensor] = None, chunk: int = 256
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba-2 SSD scan, chunk by chunk, in f32.
+    """Mamba-2 SSD scan in the state-passing form, in f32.
 
     x (B, H, S, P); dA, dt (B, H, S) f32; Bm, Cm (B, G, S, N) with G
     dividing H (head h reads group h // (H / G)); h0 (B, H, P, N) f32 or
-    None (zeros).  Per chunk of `chunk` rows (the last one ragged):
+    None (zeros).  The sequence is cut into chunks of `chunk` rows, the
+    last one zero-padded (dA = 0 keeps cum at its last row, dt = 0 gives
+    the padding no weight).  With cum the within-chunk cumulative sum of
+    dA, as the tensor-core kernel computes it:
 
-        y = ((C B^T) * L * dt) x + exp(cum) * (C h^T),
+        w = exp(cum_last - cum) * dt,  dS_c = x^T (B * w)   every chunk
+        h_c = exp(cum_last) h_{c-1} + dS_c,  h_{-1} = h0     the pass
+        y = ((C B^T) * L * dt) x + exp(cum) * (C h_{c-1}^T)  every chunk
             L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
-        h <- exp(cum_last) h + x^T (B * w),  w = exp(cum_last - cum) * dt
 
-    with cum the within-chunk cumulative sum of dA.  Returns (y in x's
-    dtype, final state (B, H, P, N) f32)."""
+    Returns (y in x's dtype, final state (B, H, P, N) f32)."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
     rep = H // Bm.shape[1]
@@ -110,27 +115,52 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         Cm = Cm.repeat_interleave(rep, dim=1)
     h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
-    y = torch.empty_like(x)
-    for c0 in range(0, S, chunk):
-        c1 = min(c0 + chunk, S)
-        xc = x[:, :, c0:c1].float()
-        dtc = dt[:, :, c0:c1].float()
-        Bc = Bm[:, :, c0:c1].float()
-        Cc = Cm[:, :, c0:c1].float()
-        cum = torch.cumsum(dA[:, :, c0:c1].float(), dim=-1)      # (B,H,c)
-        seg = cum[..., :, None] - cum[..., None, :]
-        lower = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
-                           device=x.device).tril()
-        # exp only where i >= j: above the diagonal seg > 0 may overflow
-        L = torch.exp(seg.masked_fill(~lower, float("-inf")))
-        M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
-        yc = M @ xc + torch.exp(cum)[..., None] * (Cc @ h.transpose(-1, -2))
-        last = cum[..., -1:]
-        w = torch.exp(last - cum) * dtc
-        h = (h * torch.exp(last)[..., None]
-             + xc.transpose(-1, -2) @ (Bc * w[..., None]))
-        y[:, :, c0:c1] = yc.to(x.dtype)
-    return y, h
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunks(a: torch.Tensor) -> torch.Tensor:
+        """(B, H, S, ...) f32 -> (B, H, nc, chunk, ...), zero-padded."""
+        a = a.float()
+        if pad:
+            a = torch.cat([a, a.new_zeros((B, H, pad) + a.shape[3:])], dim=2)
+        return a.reshape((B, H, nc, chunk) + a.shape[3:])
+
+    xc, Bc, Cc = chunks(x), chunks(Bm), chunks(Cm)
+    dtc = chunks(dt)
+    cum = torch.cumsum(chunks(dA), dim=-1)                    # (B,H,nc,c)
+    last = cum[..., -1:]
+    w = torch.exp(last - cum) * dtc
+    dS = xc.transpose(-1, -2) @ (Bc * w[..., None])           # (B,H,nc,P,N)
+    decay = torch.exp(last)[..., None]                        # (B,H,nc,1,1)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, :, c] * h + dS[:, :, c]
+    h_in = torch.stack(h_in, dim=2)                           # (B,H,nc,P,N)
+    seg = cum[..., :, None] - cum[..., None, :]
+    lower = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).tril()
+    # exp only where i >= j: above the diagonal seg > 0 may overflow
+    L = torch.exp(seg.masked_fill(~lower, float("-inf")))
+    M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
+    y = M @ xc + torch.exp(cum)[..., None] * (Cc @ h_in.transpose(-1, -2))
+    y = y.reshape(B, H, nc * chunk, P)[:, :, :S]
+    return y.to(x.dtype), h
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does; finite inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x as hi = tf32(x) and lo = x - hi, exactly (hi + lo == x).  The
+    f32 tensor-core kernel feeds hi and tf32(lo) to the tensor core and
+    sums lo_a hi_b + hi_a lo_b + hi_a hi_b (3xTF32)."""
+    hi = tf32_round(x)
+    return hi, x.float() - hi
 
 
 def forest_depth(feat: torch.Tensor) -> int:

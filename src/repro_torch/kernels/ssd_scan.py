@@ -1,5 +1,8 @@
-"""Mamba-2 SSD chunked scan: the wrapper around the Hopper kernel in
-``csrc/ssd_scan.cu``.
+"""Mamba-2 SSD chunked scan: the wrapper around the two Hopper kernels,
+``csrc/ssd_scan_wgmma.cu`` (bf16 with head dim 64 and d_state 128, the
+served shape, on the tensor cores) and ``csrc/ssd_scan.cu`` (every other
+case, on the CUDA cores in f32).  ``path(dtype, P, N)`` names the one
+that runs; the choice depends on the dtype and the shape alone.
 
 Layout, as the Pallas kernel's: x (B, H, S, P); dA and dt (B, H, S) f32;
 Bm and Cm (B, G, S, N) with G dividing H — head h reads group
@@ -8,13 +11,16 @@ the Pallas layout); h0 (B, H, P, N) f32 or None (zeros).  x, Bm and Cm
 are all f32 or all bf16, N is at most 128.  Returns (y (B, H, S, P) in
 x's dtype, final state (B, H, P, N) f32).
 
-The kernel walks the sequence in chunks of ``CHUNK`` rows whatever the
-caller's chunk: the SSD is the same function for any chunking, and 64
-rows is what fits shared memory.  Given CUDA tensors the wrapper launches
-the kernel on PyTorch's current stream and adds one to
-``ssd_scan.launches``; a launch the runtime refuses raises.  Given CPU
-tensors it computes the same function with the plain version
-(``ref.ssd_scan_ref`` at the kernel's chunk) and launches nothing.
+Both kernels take chunks of ``CHUNK`` rows whatever the caller's chunk:
+the SSD is the same function for any chunking, and 64 rows is one
+warpgroup's M.  Given CUDA tensors the wrapper launches the kernel of its
+path on PyTorch's current stream (the tensor-core path is two launches,
+the pass over the chunks and the output, counted as one call) and adds
+one to ``ssd_scan.launches`` and to ``ssd_scan.launches_by_path[path]``;
+a launch the runtime refuses raises, and nothing falls back to the other
+kernel.  Given CPU tensors it computes the same function with the plain
+version (``ref.ssd_scan_ref`` at the kernels' chunk) and launches
+nothing.
 """
 from __future__ import annotations
 
@@ -22,13 +28,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, ref
+from . import _build, _scratch, ref
 
 #: rows per chunk inside the kernel
 CHUNK = 64
-#: the largest d_state the kernel takes
+#: the largest d_state the kernels take
 MAX_STATE = 128
+#: (head dim, d_state) of the tensor-core path: mamba2's served shape
+WGMMA_SHAPE = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def path(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
+    """The kernel that computes the scan of `dtype` at this head dim and
+    d_state on the card: "wgmma" (bf16 at WGMMA_SHAPE) or "simt" (f32,
+    and bf16 at any other shape)."""
+    if dtype == torch.bfloat16 and (head_dim, d_state) == WGMMA_SHAPE:
+        return "wgmma"
+    return "simt"
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
@@ -80,17 +97,40 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
              if h0 is None else h0.clone())
         return y, h
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    lib = _build.load("ssd_scan")
+    h0_ptr = None if h0 is None else h0.data_ptr()
+    kernel = path(x.dtype, P, N)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h.data_ptr(), B, H, G, S, P, N,
-            int(x.dtype == torch.bfloat16), stream)
-    _build.check_launch(err, "ssd_scan")
+        if kernel == "wgmma":
+            # the tensor maps need 16-byte aligned bases
+            for name, a in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+                if a.data_ptr() % 16:
+                    raise ValueError(f"{name} is not 16-byte aligned")
+            # the state entering each chunk, bf16 high and low parts:
+            # (B, H, ceil(S / CHUNK), 2, P, N)
+            hin = _scratch.scratch(dev, stream,
+                                   B * H * -(-S // CHUNK) * 2 * P * N * 2)
+            err = _build.load("ssd_scan_wgmma").ssd_scan_wgmma_fwd(
+                x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), h0_ptr, y.data_ptr(), h.data_ptr(),
+                hin.data_ptr(), B, H, G, S, stream)
+        else:
+            err = _build.load("ssd_scan").ssd_scan_fwd(
+                x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), h0_ptr, y.data_ptr(), h.data_ptr(), B, H, G,
+                S, P, N, int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(err, f"ssd_scan ({kernel})")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_path[kernel] += 1
     return y, h
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_path = {"wgmma": 0, "simt": 0}
+
+
+def reset_launches():
+    """Zero the launch counts, the total and each path's."""
+    ssd_scan.launches = 0
+    for key in ssd_scan.launches_by_path:
+        ssd_scan.launches_by_path[key] = 0

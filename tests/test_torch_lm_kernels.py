@@ -22,11 +22,12 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.rglru_scan import rglru_scan as jscan
 from repro.kernels.ssd_scan import ssd_scan as jssd
+from repro.models.ssd import ssd_chunked
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import path as flash_path
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -107,13 +108,27 @@ def test_attention_op_grouped_heads(B, Hq, Hkv):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_path_depends_on_dtype_and_head_dim_alone(dtype, D):
-    """bf16 at head dims 64, 128 and 256 takes the tensor-core kernel;
-    f32, and bf16 at any other head dim (the zoo's smoke configs use 16
-    and 24), take the CUDA-core kernel.  (f16 is refused by the wrapper
-    before a path is chosen.)"""
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
-            else "simt")
+    """Head dims 64, 128 and 256 take a tensor-core kernel: bf16 the
+    wgmma one, f32 the 3xTF32 one; any other head dim (the zoo's smoke
+    configs use 16 and 24) takes the CUDA-core kernel.  (f16 is refused by
+    the wrapper before a path is chosen.)"""
+    if D in (64, 128, 256):
+        want = "wgmma" if dtype == torch.bfloat16 else "tf32"
+    else:
+        want = "simt"
     assert flash_path(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_flash_path_keeps_f32_with_a_softcap_on_cuda_cores(dtype, D):
+    """A softcap moves f32 at the tensor-core head dims to the CUDA-core
+    kernel (its q.k sums round as the plain version's do) and leaves bf16
+    and every other head dim where they were."""
+    want = flash_path(dtype, D)
+    if dtype == torch.float32 and D in (64, 128, 256):
+        want = "simt"
+    assert flash_path(dtype, D, 30.0) == want
 
 
 @pytest.mark.parametrize("kind,window,causal", [
@@ -212,6 +227,17 @@ def test_rglru_scan_rejects_what_the_kernel_does_not_take():
 # ---------------------------------------------------------------------------
 
 SSD_TOL = 2e-4
+#: the state-passing plain version against the Pallas kernel and the JAX
+#: model's ``ssd_chunked``, all f32: 1e-5 of the largest |y| (and of the
+#: largest |h| for the state) plus 1e-5 relative; the same function,
+#: summed in other orders and chunkings
+SSD_SCALE_TOL = 1e-5
+
+
+def _close_scaled(got, want, tol=SSD_SCALE_TOL):
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
 
 
 def _ssd_inputs(seed, B, H, S, P, N, G=None):
@@ -256,6 +282,8 @@ def test_ssd_scan_matches_pallas_and_ref(S, chunk, with_h0):
         for yw, hw in ((y_ref, h_ref), (y_pal, h_pal)):
             _close(y, yw, SSD_TOL)
             _close(h, hw, SSD_TOL)
+        _close_scaled(y, y_pal)
+        _close_scaled(h, h_pal)
 
 
 def test_ssd_scan_chains_state():
@@ -327,6 +355,84 @@ def test_ssd_op_matches_reference_op(H, G):
                                  use_pallas=use_pallas, interpret=True)
             _close(y, yj, SSD_TOL)
             _close(h, hj, SSD_TOL)
+        yc, hc = ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bh, Ch)),
+                             16, jnp.asarray(h0))
+        _close_scaled(y, yc)
+        _close_scaled(h, hc)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S,chunk", [(37, 16),    # prime: ragged chunks
+                                     (64, 64),    # one whole chunk
+                                     (130, 32)])  # two kernel chunks + 2
+def test_ssd_state_passing_matches_jax_chunked(S, chunk, G, with_h0):
+    """The state-passing plain version (chunk-local products, the pass in
+    time, the output), at the caller's chunk and at the kernels' own
+    (through the wrapper on CPU tensors), against the JAX model's
+    ``ssd_chunked`` and the Pallas kernel in interpret mode, in the model
+    layout: G = 1 and G = H groups, h0 given and absent, ragged chunks."""
+    rng = np.random.default_rng(S * 10 + G + 100 * with_h0)
+    Bsz, H, P, N = 2, 4, 8, 16
+    x = rng.standard_normal((Bsz, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bsz, S, H)))).astype(
+        np.float32)
+    A = -np.linspace(0.5, 3.0, H).astype(np.float32)
+    Bg = rng.standard_normal((Bsz, S, G, N)).astype(np.float32)
+    Cg = rng.standard_normal((Bsz, S, G, N)).astype(np.float32)
+    h0 = (rng.standard_normal((Bsz, H, P, N)).astype(np.float32)
+          if with_h0 else None)
+    Bh, Ch = (np.repeat(a, H // G, axis=2) for a in (Bg, Cg))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    yc, hc = ssd_chunked(*(j(a) for a in (x, dt, A, Bh, Ch)), chunk, j(h0))
+    yp, hp = jops.ssd_op(*(j(a) for a in (x, dt, A, Bh, Ch, h0)),
+                         chunk=chunk, use_pallas=True, interpret=True)
+    args = [t(a) for a in (x, dt, A, Bg, Cg, h0)]
+    for use_kernel in (False, True):     # chunk, then the kernels' CHUNK
+        y, h = ops.ssd_op(*args, chunk=chunk, use_kernel=use_kernel)
+        assert y.shape == (Bsz, S, H, P) and h.shape == (Bsz, H, P, N)
+        for yw, hw in ((yc, hc), (yp, hp)):
+            _close_scaled(y, yw)
+            _close_scaled(h, hw)
+    # the wrapper is the plain version at the kernels' chunk
+    xt, dtt = t(x).transpose(1, 2).contiguous(), t(dt).transpose(1, 2)
+    y64, h64 = ref.ssd_scan_ref(xt, (dtt * t(A)[None, :, None]).contiguous(),
+                                dtt.contiguous(),
+                                t(Bg).transpose(1, 2).contiguous(),
+                                t(Cg).transpose(1, 2).contiguous(), t(h0),
+                                chunk=CHUNK)
+    _close(y, y64.transpose(1, 2), 0.0)
+    _close(h, h64, 0.0)
+
+
+def test_tf32_split_is_exact_and_three_products_hold_f32():
+    """The f32 attention kernel's operand split: hi + lo == x bitwise, hi
+    has TF32's 10 mantissa bits, and lo_a hi_b + hi_a lo_b + hi_a hi_b
+    (lo rounded to TF32, as the tensor core reads it) is within 2^-20 of
+    the exact product of the f32 values, relative, where hi_a hi_b alone
+    is not."""
+    rng = np.random.default_rng(16)
+    a = (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+         ).astype(np.float32)
+    b = (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+         ).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    (ha, la), (hb, lb) = ref.tf32_split(ta), ref.tf32_split(tb)
+    assert torch.equal((ha + la).view(torch.int32), ta.view(torch.int32))
+    assert not bool((ha.view(torch.int32) & 0x1FFF).any())
+    assert bool((la.abs() <= ha.abs() * 2.0 ** -11).all())
+    la, lb = ref.tf32_round(la), ref.tf32_round(lb)
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    d = lambda x: x.numpy().astype(np.float64)
+    three = d(la) * d(hb) + d(ha) * d(lb) + d(ha) * d(hb)
+    assert np.max(np.abs(three - exact) / np.abs(exact)) <= 2.0 ** -20
+    assert np.max(np.abs(d(ha) * d(hb) - exact) / np.abs(exact)) > 2.0 ** -14
+    # round to nearest, ties away from zero, as cvt.rna.tf32.f32
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                        1.0 + 2.0 ** -12], dtype=torch.float32)
+    assert ref.tf32_round(tie).tolist() == [1.0 + 2.0 ** -10,
+                                            -(1.0 + 2.0 ** -10), 1.0]
 
 
 def test_ssd_scan_rejects_what_the_kernel_does_not_take():

@@ -253,22 +253,46 @@ def _qkv(seed, B, S, Hq, Hkv, D, dtype, device, scale=1.0):
     return mk(Hq), mk(Hkv), mk(Hkv)
 
 
+def test_scratch_is_kept_per_stream_and_grown():
+    """The wrappers' scratch: a call asking for no more than the buffer
+    holds gets it back, a larger one grows it, another stream gets its
+    own."""
+    from repro_torch.kernels import _scratch
+    dev = torch.device("cpu")
+    a = _scratch.scratch(dev, 11, 1000)
+    assert a.numel() >= 1000 and a.dtype == torch.uint8
+    assert _scratch.scratch(dev, 11, 500).data_ptr() == a.data_ptr()
+    b = _scratch.scratch(dev, 11, 5000)
+    assert b.numel() >= 5000
+    assert _scratch.scratch(dev, 11, 4000).data_ptr() == b.data_ptr()
+    assert _scratch.scratch(dev, 12, 100).data_ptr() != b.data_ptr()
+
+
 def test_lm_wrappers_on_cpu_launch_nothing():
     q, k, v = _qkv(0, 1, 40, 4, 2, 16, torch.float32, "cpu")
     a = torch.rand(2, 30, 8)
     n0 = flash_attention.launches, rglru_scan.launches, ssd_scan.launches
     by_path = dict(flash_attention.launches_by_path)
+    ssd_by_path = dict(ssd_scan.launches_by_path)
     ops.attention_op(q, k, v, kind="local", window=8)
     # bf16 at head dim 64: the tensor-core path's shape, on CPU tensors
     ops.attention_op(*_qkv(1, 1, 40, 4, 2, 64, torch.bfloat16, "cpu"),
+                     kind="local", window=8)
+    # f32 at head dim 64: the 3xTF32 path's shape, on CPU tensors
+    ops.attention_op(*_qkv(2, 1, 40, 4, 2, 64, torch.float32, "cpu"),
                      kind="local", window=8)
     ops.rglru_op(a, torch.randn(2, 30, 8), torch.randn(2, 8))
     ops.ssd_op(torch.randn(1, 30, 4, 8), torch.rand(1, 30, 4),
                -torch.rand(4), torch.randn(1, 30, 2, 16),
                torch.randn(1, 30, 2, 16))
+    # bf16 at head dim 64, d_state 128: the SSD tensor-core path's shape
+    ops.ssd_op(torch.randn(1, 30, 4, 64).bfloat16(), torch.rand(1, 30, 4),
+               -torch.rand(4), torch.randn(1, 30, 1, 128).bfloat16(),
+               torch.randn(1, 30, 1, 128).bfloat16())
     assert (flash_attention.launches, rglru_scan.launches,
             ssd_scan.launches) == n0
     assert flash_attention.launches_by_path == by_path
+    assert ssd_scan.launches_by_path == ssd_by_path
 
 
 @pytest.mark.cuda_only
@@ -278,11 +302,13 @@ def test_lm_wrappers_on_cpu_launch_nothing():
     ("chunked", 32, True, 0.0), ("global", 0, True, 20.0),
     ("global", 0, False, 0.0), ("local", 48, False, 0.0)])
 @pytest.mark.parametrize("S", [64, 100, 257])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
 def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
                                     dtype):
-    """bf16 at D = 64 and 128 runs the tensor-core kernel, everything
-    else the CUDA-core kernel; the launch counts show which ran."""
+    """D = 64, 128 and 256 run a tensor-core kernel (bf16 the wgmma one,
+    f32 without a softcap the 3xTF32 one, its kv range split here: the
+    grids are small), D = 32 and f32 with a softcap the CUDA-core kernel;
+    the launch counts show which ran."""
     dev = _card()
     q, k, v = _qkv(S, 2, S, 4, 2, D, dtype, dev,
                    scale=4.0 if softcap else 1.0)
@@ -293,7 +319,12 @@ def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
     plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
-    ran = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    if D in (64, 128, 256) and dtype == torch.bfloat16:
+        ran = "wgmma"
+    elif D in (64, 128, 256) and not softcap:
+        ran = "tf32"
+    else:
+        ran = "simt"
     by_path[ran] += 1
     assert flash_attention.launches_by_path == by_path
     assert got.dtype == dtype and got.shape == q.shape
@@ -308,14 +339,18 @@ def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1000, 2048])
+@pytest.mark.parametrize("S", [1000, 2048, 512, 3000])
 def test_flash_kernel_serving_shape(S, dtype):
     """recurrentgemma's local layers: MQA 10:1, head dim 256, window
-    2,048."""
+    2,048; bf16 on the wgmma kernel, f32 on the 3xTF32 one (its kv range
+    split at S = 512 and 1,000)."""
     dev = _card()
     q, k, v = _qkv(7, 1, S, 10, 1, 256, dtype, dev)
     kw = dict(causal=True, kind="local", window=2048)
+    by_path = dict(flash_attention.launches_by_path)
     got = ops.attention_op(q, k, v, **kw)
+    by_path["wgmma" if dtype == torch.bfloat16 else "tf32"] += 1
+    assert flash_attention.launches_by_path == by_path
     plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
     torch.cuda.synchronize()
     tol = ATTN_TOL[dtype]
@@ -325,6 +360,34 @@ def test_flash_kernel_serving_shape(S, dtype):
     if dtype == torch.bfloat16:
         _assert_bf16_attention_close(
             got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kind,window", [("global", 0), ("local", 100)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_f32_kernel_within_tolerance_of_float64(D, kind, window):
+    """The 3xTF32 kernel against attention evaluated in float64 (the
+    function itself, not the plain version's f32 rounding): within a
+    tenth of the f32 tolerance (1e-6 absolute plus 1e-6 relative), where
+    plain TF32 products (10 mantissa bits) would miss the tolerance
+    itself."""
+    dev = _card()
+    rng = np.random.default_rng(D + window)
+    mk = lambda rows: torch.from_numpy(
+        rng.standard_normal((rows, 333, D)).astype(np.float32)).to(dev)
+    q, k, v = mk(8), mk(4), mk(4)
+    kw = dict(causal=True, kind=kind, window=window)
+    by_path = dict(flash_attention.launches_by_path)
+    got = flash_attention(q, k, v, **kw)
+    by_path["tf32"] += 1
+    assert flash_attention.launches_by_path == by_path
+    kr, vr = (a.double().repeat_interleave(2, 0) for a in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.double(), kr) / D ** 0.5
+    mask = ref.attention_mask(333, True, kind, window, dev)
+    s = torch.where(mask[None], s, torch.full_like(s, ref.NEG_INF))
+    want = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), vr)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.cpu().numpy(), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.cuda_only
@@ -382,6 +445,7 @@ def test_smoke_model_on_card_kernels_match_plain():
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -408,16 +472,27 @@ def _ssd_case(seed, B, H, G, S, P, N, dtype, with_h0, device):
     (2, 4, 2, 200, 40, 100),     # grouped B/C, P and N off the tiles
     (1, 8, 1, 129, 64, 128),     # one row past two chunks
     (1, 80, 1, 3001, 64, 128),   # mamba2-2.7b's serving shape, prime S
+    (2, 8, 2, 200, 64, 128),     # grouped B/C at the served widths
+    (1, 4, 4, 64, 64, 128),      # G = H, one whole chunk
+    (1, 6, 3, 1, 64, 128),       # one token
 ])
 def test_ssd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0):
+    """bf16 at P = 64, N = 128 runs the tensor-core kernel, everything
+    else the CUDA-core kernel; the launch counts show which ran."""
     dev = _card()
     x, dA, dt, Bm, Cm, h0 = _ssd_case(S + N, B, H, G, S, P, N, dtype,
                                       with_h0, dev)
     n0 = ssd_scan.launches
+    by_path = dict(ssd_scan.launches_by_path)
     y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
     yp, hp = ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 1
+    ran = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
+           else "simt")
+    assert ssd_path(dtype, P, N) == ran
+    by_path[ran] += 1
+    assert ssd_scan.launches_by_path == by_path
     assert y.dtype == dtype and h.dtype == torch.float32
     tol = SSD_TOL[dtype]
     assert bool(torch.isfinite(y.float()).all())
