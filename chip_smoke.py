@@ -11,12 +11,16 @@ Phases (each one failing makes the script exit non-zero):
   0. the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once)
      and print the build time and what ptxas reports;
-  1. each forest kernel against its plain PyTorch version on the card:
-     ``rfr_forest_apply`` with the Jiagu world's forest and random
-     forests of 64 trees at depth 8 and 10 (the global-memory path) at
-     N = 1, 255, 256, 257, 200000 (max abs error <= 1e-6 on predictions
-     around 1 — an f32 mean of at most 64 leaves — and bitwise equal to
-     the numpy host oracle); ``rfr_capacity_sweep`` exactly equal, both
+  1. the device time of an empty kernel launched through the forest
+     library's ctypes path (the floor of every call); each forest kernel
+     against its plain PyTorch version on the card: ``rfr_forest_apply``
+     with the Jiagu world's forest and random forests of 64 trees at
+     depth 8 and 10 (the global-memory path) at N = 1, 20, 255, 256, 257,
+     9,372, 200,000 (max abs error <= 1e-6 on predictions around 1 — an
+     f32 mean of at most 64 leaves — and bitwise equal to the numpy host
+     oracle), the first forest kernel (one thread a row) held the same
+     way and timed beside it at every N, the new one's device time no
+     larger; ``rfr_capacity_sweep`` exactly equal, both
      ``log_target`` values, random +-inf bounds, M = 16 and 40, and with
      the device drain's padding (-inf rows past each scenario's m_max,
      +inf rows past its R, failures at m = 0) at M = 1, 24, 40 and
@@ -41,10 +45,11 @@ Phases (each one failing makes the script exit non-zero):
      drain.  (b) and (c) must equal (a) in every outcome that does not
      read the wall clock, and each kernel must have launched during its
      run; the sweep calls' shape distribution; both kernels timed at the
-     largest and the median call shape of the run; then (b) and (c) once
-     more under the profiler;
-  4. the LM kernels against their plain versions on the card (both path
-     functions printed; every line names the kernel that ran, which must
+     largest and the median call shape of the run, the first forest
+     kernel beside the new one; then (b) and (c) once more under the
+     profiler, with the forest and sweep kernels' device time in all;
+  4. the LM kernels against their plain versions on the card (the three
+     path functions printed; every line names the kernel that ran, which must
      be the one ``path`` names): ``flash_attention`` at
      recurrentgemma-2b's serving shapes (10 query heads, 1 kv head,
      D = 256, local window 2,048, S = 512, 1,000, 2,048, 3,000), bf16 on
@@ -59,10 +64,11 @@ Phases (each one failing makes the script exit non-zero):
      kernel, and f32 with a softcap), the f32 cases also printed against
      a float64 evaluation, with f32 softcap 20 and 50 (q, k scaled by 4
      and 8) at D = 64, 128, 256: the 3xTF32 kernel, the CUDA-core kernel
-     and the plain version each against float64; ``rglru_scan``
-     exactly equal at (1, 3000, 2560) with and
-     without h0 and at (4, 1000, 2560); each timed beside its plain
-     version, and attention beside ``scaled_dot_product_attention`` with
+     and the plain version each against float64; ``rglru_scan`` on the
+     TMA path exactly equal at (1, 3000, 2560) with and without h0 and at
+     (4, 1000, 2560), as is the first scan kernel (one thread a channel),
+     both timed, the TMA kernel's device time no larger than the first's;
+     each timed beside its plain version, and attention beside ``scaled_dot_product_attention`` with
      the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving shapes
      (B = 1, 80 heads of 64, d_state 128, one B/C group, S = 512, 1,000,
      2,048, 3,001, bf16 on the wgmma kernel and f32 on the CUDA-core
@@ -76,9 +82,11 @@ Phases (each one failing makes the script exit non-zero):
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
      tokens, two each, 16 new tokens).  Every prefill must launch 8
-     flash kernels, all on the tensor-core path, and 18 scan kernels;
+     flash kernels, all on the tensor-core path, and 18 scan kernels, all
+     on the TMA path;
      the profiled prefill prints its flash kernels' device time beside
-     the CUDA-core kernel's phase-4 time; the same requests through the plain
+     the CUDA-core kernel's phase-4 time, and its scan kernels' beside
+     the first scan kernel's; the same requests through the plain
      versions must give prefill logits within 2e-2 of the largest
      |logit|, and the same first token wherever the top-2 margin is
      above that;
@@ -93,8 +101,9 @@ Phases (each one failing makes the script exit non-zero):
   7. the f32 flash path's times on a line of their own; one JSON line
      describing all five kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32"; the SSD
-     scan's is the wgmma kernel; each redesigned kernel carries the
-     CUDA-core kernel's times beside its own), then the device line.
+     scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
+     redesigned kernel carries the first kernel's times beside its own),
+     then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -167,6 +176,10 @@ SETTLE_TRACES = ("diurnal-shift", "azure-sparse", "coldstart-churn")
 SETTLE_SEEDS = (1, 2, 3)
 SETTLE_NODES = 1024
 PRED_TOL = 1e-6
+#: phase 1's forest batch sizes: one row, the control plane's median call,
+#: either side of a block of the first kernel (256 rows), its largest call,
+#: and a large batch
+FOREST_N = (1, 20, 255, 256, 257, 9372, 200_000)
 #: GPU clock cycles of the wait a timed call is queued behind: about 2 ms
 #: at the H100's 1.98 GHz boost clock, far above a kernel wrapper's host
 #: time
@@ -261,23 +274,78 @@ def sweep_bound(shape, feat, log_target: bool, rows: int):
                  rows * per_row)
 
 
-def hold_forest(x, feat, thr, leaf):
-    """rfr_forest_apply against its plain version on these inputs, and
-    both timed: (max abs error, kernel ms, kernel device ms, plain ms,
-    bound ms, bound by)."""
+def v1_forest(x, feat, thr, leaf):
+    """The first forest kernel of csrc/rfr_inference.cu (one thread a
+    row) called directly, so that it can be held and timed beside the
+    wrapper's; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    err = _build.load("rfr_inference").rfr_forest_apply_v1(
+        x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], feat.shape[0],
+        ref.forest_depth(feat), x.device.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "rfr_forest_apply_v1")
+    return out
+
+
+def empty_launch_ms() -> float:
+    """Device time of an empty kernel launched through the forest
+    library's ctypes path, queued as every ``device_ms`` is: the floor
+    no kernel call can pass."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load("rfr_inference")
+    return time_ms(lambda: _build.check_launch(
+        lib.rfr_empty(torch.cuda.current_stream().cuda_stream), "rfr_empty"),
+        queued=True)
+
+
+def hold_forest(x, feat, thr, leaf, want=None, plain_timed=True):
+    """rfr_forest_apply against its plain version (and, given `want`,
+    bitwise against the numpy oracle's predictions) on these inputs, the
+    first kernel held beside it the same way; both kernels timed, the new
+    one's device time no larger than the first's (the narrowest margin,
+    at 200,000 rows of the depth-10 forest in device memory, was
+    1.08-1.11x over four runs on an H100 80GB HBM3 at 700 W; every other
+    shape 1.7x or more).  Returns a dict of the
+    measurements (the plain version's time and the bound with
+    `plain_timed`)."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.rfr_inference import rfr_forest_apply
+    what = f"rfr_forest_apply N={x.shape[0]} T={feat.shape[0]}"
     got = rfr_forest_apply(x, feat, thr, leaf)
+    old = v1_forest(x, feat, thr, leaf)
     plain = ref.rfr_forest_ref(x, feat, thr, leaf)
     torch.cuda.synchronize()
     err = float((got - plain).abs().max())
-    check(err <= PRED_TOL, f"rfr_forest_apply N={x.shape[0]}: {err}")
-    return (err, time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf)),
-            time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf),
-                    queued=True),
-            time_ms(lambda: ref.rfr_forest_ref(x, feat, thr, leaf)),
-            *forest_bound(x.shape[0], x.shape[1], feat))
+    v1_err = float((old - plain).abs().max())
+    check(err <= PRED_TOL and v1_err <= PRED_TOL,
+          f"{what}: {err} (first kernel {v1_err})")
+    out = {"max_abs_err": err, "v1_err": v1_err}
+    if want is not None:
+        out["numpy_bitwise"] = (np.array_equal(got.cpu().numpy(), want),
+                                np.array_equal(old.cpu().numpy(), want))
+        check(all(out["numpy_bitwise"]), f"{what} != numpy (new, first: "
+              f"{out['numpy_bitwise']})")
+    out["ms"] = time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf))
+    out["device_ms"] = time_ms(lambda: rfr_forest_apply(x, feat, thr, leaf),
+                               queued=True)
+    out["v1_ms"] = time_ms(lambda: v1_forest(x, feat, thr, leaf))
+    out["v1_device_ms"] = time_ms(lambda: v1_forest(x, feat, thr, leaf),
+                                  queued=True)
+    check(out["device_ms"] <= out["v1_device_ms"],
+          f"{what}: device {out['device_ms']:.4f} ms, slower than the first "
+          f"kernel's {out['v1_device_ms']:.4f} ms")
+    if plain_timed:
+        out["plain_ms"] = time_ms(lambda: ref.rfr_forest_ref(x, feat, thr,
+                                                             leaf))
+        out["bound_ms"], out["bound_by"] = forest_bound(x.shape[0],
+                                                        x.shape[1], feat)
+    return out
 
 
 def hold_sweep(x, bounds, feat, thr, leaf, log_target):
@@ -416,8 +484,8 @@ def phase1_kernels(world):
     import torch
     import repro_torch.core as core
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rfr_inference import (rfr_capacity_sweep,
-                                                   rfr_forest_apply)
+    from repro_torch.kernels.rfr_inference import (forest_path,
+                                                   rfr_capacity_sweep)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     a = world.predictor.model.arrays
@@ -425,33 +493,32 @@ def phase1_kernels(world):
     forests = [("world T=24 D=8", (a.feat, a.thr, a.leaf), X_world.shape[1]),
                ("random T=64 D=8", _random_forest(rng, 64, 8, 31), 31),
                ("random T=64 D=10", _random_forest(rng, 64, 10, 31), 31)]
+    print(f"phase1 empty kernel through the same ctypes path: device "
+          f"{empty_launch_ms():.4f} ms")
     timings = {}
     for name, arrays, f in forests:
         oracle = core.RandomForestRegressor(device=dev).load_arrays(*arrays)
         fo = oracle.device_arrays()
-        for n in (1, 255, 256, 257, 200_000):
+        where = forest_path(fo[0].shape[0], ref.forest_depth(fo[0]))
+        for n in FOREST_N:
             if name.startswith("world"):
                 x = X_world[rng.integers(0, len(X_world), n)]
             else:
                 x = rng.standard_normal((n, f)).astype(np.float32)
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            got = rfr_forest_apply(xt, *fo)
-            plain = ref.rfr_forest_ref(xt, *fo)
-            torch.cuda.synchronize()
-            err = float((got - plain).abs().max())
-            bitwise = np.array_equal(got.cpu().numpy(),
-                                     oracle.predict(x, engine="numpy"))
-            print(f"phase1 rfr_forest_apply {name} N={n}: max_abs_err="
-                  f"{err:.3g} numpy_bitwise={bitwise}")
-            check(err <= PRED_TOL, f"rfr_forest_apply {name} N={n}: {err}")
-            check(bitwise, f"rfr_forest_apply {name} N={n} != numpy")
-            if n == 200_000:
-                k = time_ms(lambda: rfr_forest_apply(xt, *fo))
-                kd = time_ms(lambda: rfr_forest_apply(xt, *fo), queued=True)
-                p = time_ms(lambda: ref.rfr_forest_ref(xt, *fo))
-                b, by = forest_bound(n, f, fo[0])
-                timings[f"rfr_forest_apply {name} N={n}"] = (k, kd, p, b,
-                                                              by)
+            m = hold_forest(xt, *fo, want=oracle.predict(x, engine="numpy"),
+                            plain_timed=n == max(FOREST_N))
+            print(f"phase1 rfr_forest_apply {name} ({where}) N={n}: "
+                  f"max_abs_err={m['max_abs_err']:.3g} numpy_bitwise="
+                  f"{m['numpy_bitwise'][0]} (first kernel "
+                  f"{m['numpy_bitwise'][1]}), kernel {m['ms']:.4f} ms "
+                  f"(device {m['device_ms']:.4f} ms), first kernel "
+                  f"{m['v1_ms']:.4f} ms (device {m['v1_device_ms']:.4f} ms, "
+                  f"{m['v1_device_ms'] / m['device_ms']:.2f}x the new)")
+            if n == max(FOREST_N):
+                timings[f"rfr_forest_apply {name} N={n}"] = (
+                    m["ms"], m["device_ms"], m["plain_ms"], m["bound_ms"],
+                    m["bound_by"])
 
     world_fo = core.RandomForestRegressor(device=dev).load_arrays(
         a.feat, a.thr, a.leaf).device_arrays()
@@ -796,30 +863,39 @@ def device_share(label: str, engine: str, drain: str):
           f"share {1 - busy_s / wall:.4f}; largest: " + "; ".join(
               f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f}"
               f" ms" for e in top))
+    for kernel in ("forest_apply_kernel", "capacity_sweep_kernel"):
+        mine = [e for e in rows if kernel in e.key]
+        if mine:
+            print(f"phase3 device ({label}): {kernel} x"
+                  f"{sum(e.count for e in mine)}, device "
+                  f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
+                  "ms in all")
 
 
 def main_path_kernels(rec, l_b, l_c):
     """Both kernels against their plain versions on the largest inputs
     the main path gave them, timed; the kernels JSON entries.  The
-    forest kernel is also timed at the median call's row count."""
+    forest kernel is also timed at the median call's row count, the
+    first forest kernel beside it at both."""
     check(rec.forest is not None and rec.sweep is not None,
           "main path left no kernel inputs on the card")
     x, feat, thr, leaf = rec.forest
-    err_f, ms_f, dms_f, pms_f, b_f, by_f = hold_forest(x, feat, thr, leaf)
+    big = hold_forest(x, feat, thr, leaf)
     n_med = sorted(rec.forest_calls)[len(rec.forest_calls) // 2]
-    _e, ms_m, dms_m, pms_m, b_m, _by = hold_forest(x[:n_med], feat, thr,
-                                                   leaf)
+    med_f = hold_forest(x[:n_med], feat, thr, leaf)
     xs = rec.sweep[0]
     (err_s, ms_s, dms_s, pms_s, b_s, by_s, rows_s,
      pad_s) = hold_sweep(*rec.sweep)
     med = sorted(rec.sweep_calls, key=sweep_rank)[len(rec.sweep_calls) // 2]
     _e, ms_sm, dms_sm, pms_sm, b_sm, _by, rows_sm, pad_sm = hold_sweep(
         *rec.sweep_by_shape[med])
-    print(f"main-path shapes: rfr_forest_apply N={x.shape[0]} F="
-          f"{x.shape[1]}: kernel {ms_f:.4f} ms (device {dms_f:.4f} ms), "
-          f"plain {pms_f:.4f} ms, bound {b_f:.6f} ms; median call "
-          f"N={n_med}: kernel {ms_m:.4f} ms (device {dms_m:.4f} ms), plain "
-          f"{pms_m:.4f} ms, bound {b_m:.6f} ms")
+    for label, m, n in (("largest", big, x.shape[0]), ("median", med_f,
+                                                          n_med)):
+        print(f"main-path shapes: rfr_forest_apply {label} call N={n} F="
+              f"{x.shape[1]}: kernel {m['ms']:.4f} ms (device "
+              f"{m['device_ms']:.4f} ms), first kernel {m['v1_ms']:.4f} ms "
+              f"(device {m['v1_device_ms']:.4f} ms), plain "
+              f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms")
     print(f"main-path shapes: rfr_capacity_sweep largest {tuple(xs.shape)}: "
           f"kernel {ms_s:.4f} ms (device {dms_s:.4f} ms), plain "
           f"{pms_s:.4f} ms, bound {b_s:.6f} ms ({by_s}; rows needed "
@@ -829,11 +905,17 @@ def main_path_kernels(rec, l_b, l_c):
     return [
         {"name": "rfr_forest_apply", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["rfr_forest_apply"],
-         "launches": l_b["rfr_forest_apply"], "max_abs_err": err_f,
-         "ms": ms_f, "plain_ms": pms_f, "bound_ms": b_f, "bound_by": by_f,
-         "library_ms": None, "shape": list(x.shape), "device_ms": dms_f,
-         "median_shape": [n_med, x.shape[1]], "median_ms": ms_m,
-         "median_device_ms": dms_m},
+         "launches": l_b["rfr_forest_apply"],
+         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+         "bound_by": big["bound_by"], "library_ms": None,
+         "shape": list(x.shape), "device_ms": big["device_ms"],
+         "v1_ms": big["v1_ms"], "v1_device_ms": big["v1_device_ms"],
+         "median_shape": [n_med, x.shape[1]], "median_ms": med_f["ms"],
+         "median_device_ms": med_f["device_ms"],
+         "median_v1_ms": med_f["v1_ms"],
+         "median_v1_device_ms": med_f["v1_device_ms"],
+         "median_bound_ms": med_f["bound_ms"]},
         {"name": "rfr_capacity_sweep", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["rfr_capacity_sweep"],
          "launches": l_c["rfr_capacity_sweep"], "max_abs_err": err_s,
@@ -1027,25 +1109,59 @@ def f64_shares(q, k, v, kw) -> str:
             f"{plain:.3g} of the tolerance")
 
 
+def first_scan(a, b, h0):
+    """The first kernel of csrc/rglru_scan.cu, one thread a channel,
+    called directly so that it can be held and timed beside the
+    wrapper's; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    bsz, s, w = a.shape
+    out = torch.empty_like(a)
+    lib = _build.load("rglru_scan")
+    err = lib.rglru_scan_fwd(
+        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+        out.data_ptr(), bsz, s, w, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "rglru_scan (first kernel)")
+    return out
+
+
 def hold_scan(a, b, h0):
-    """rglru_scan against its plain version (exactly), both timed."""
+    """rglru_scan against its plain version and the first kernel, each
+    exactly; the wrapper must take the kernel ``path`` names, and on the
+    TMA path its device time must be no larger than the first kernel's.
+    All timed; returns a dict of the measurements."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan import path, rglru_scan
+    what = f"rglru_scan {tuple(a.shape)} h0={h0 is not None}"
+    n0 = dict(rglru_scan.launches_by_path)
     got = rglru_scan(a, b, h0)
+    ran = [k for k, n in rglru_scan.launches_by_path.items() if n != n0[k]]
     want = ref.rglru_scan_ref(a, b, h0)
+    first = first_scan(a, b, h0)
     torch.cuda.synchronize()
+    check(ran == [path(*a.shape)], f"{what}: ran {ran}, path says "
+          f"{path(*a.shape)}")
     err = float((got - want).abs().max())
-    check(err == 0, f"rglru_scan {tuple(a.shape)} h0={h0 is not None}: "
-          f"{err}")
+    out = {"path": ran[0], "max_abs_err": err,
+           "simt_err": float((first - want).abs().max())}
+    check(err == 0 and out["simt_err"] == 0,
+          f"{what}: max_abs_err {err}, first kernel {out['simt_err']}")
     n = a.numel()
     nbytes = 3 * n * 4 + (0 if h0 is None else h0.numel() * 4)
-    b_ms, by = bound(nbytes, 2 * n)
-    return {"max_abs_err": err, "ms": time_ms(lambda: rglru_scan(a, b, h0)),
-            "device_ms": time_ms(lambda: rglru_scan(a, b, h0), queued=True),
-            "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b, h0),
-                                reps=5),
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * n)
+    out["ms"] = time_ms(lambda: rglru_scan(a, b, h0))
+    out["device_ms"] = time_ms(lambda: rglru_scan(a, b, h0), queued=True)
+    out["simt_ms"] = time_ms(lambda: first_scan(a, b, h0))
+    out["simt_device_ms"] = time_ms(lambda: first_scan(a, b, h0),
+                                    queued=True)
+    if ran[0] == "tma":
+        check(out["device_ms"] <= out["simt_device_ms"],
+              f"{what}: device {out['device_ms']:.4f} ms, slower than the "
+              f"first kernel's {out['simt_device_ms']:.4f} ms")
+    out["plain_ms"] = time_ms(lambda: ref.rglru_scan_ref(a, b, h0), reps=5)
+    out["library_ms"] = None
+    return out
 
 
 def ssd_bound(bsz: int, heads: int, groups: int, s: int, p: int, n: int,
@@ -1174,6 +1290,7 @@ def phase4_lm_kernels():
     import inspect
     import torch
     from repro_torch.kernels.flash_attention import path
+    from repro_torch.kernels.rglru_scan import path as scan_path
     from repro_torch.kernels.ssd_scan import path as ssd_path
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1181,8 +1298,9 @@ def phase4_lm_kernels():
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for name, fn in (("flash_attention", path), ("ssd_scan", ssd_path)):
-        print(f"phase4 {name} chooses its kernel by dtype and shape alone:\n"
+    for name, fn in (("flash_attention", path), ("rglru_scan", scan_path),
+                     ("ssd_scan", ssd_path)):
+        print(f"phase4 {name} chooses its kernel by its arguments alone:\n"
               + "".join(f"phase4 | {line}" for line in
                         inspect.getsourcelines(fn)[0]).rstrip())
     serve = {}
@@ -1265,11 +1383,16 @@ def phase4_lm_kernels():
         b = randn(bsz, s, w)
         h0 = randn(bsz, w) if with_h0 else None
         m = hold_scan(a, b, h0)
-        print(f"phase4 rglru_scan ({bsz}, {s}, {w}) h0={with_h0}: "
-              f"max_abs_err {m['max_abs_err']}, kernel {m['ms']:.4f} ms "
-              f"(device {m['device_ms']:.4f} ms), "
-              f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
+        print(f"phase4 rglru_scan ({bsz}, {s}, {w}) h0={with_h0} "
+              f"path={m['path']}: max_abs_err {m['max_abs_err']} (first "
+              f"kernel {m['simt_err']}), kernel {m['ms']:.4f} ms (device "
+              f"{m['device_ms']:.4f} ms), first kernel "
+              f"{m['simt_ms']:.4f} ms (device {m['simt_device_ms']:.4f} ms, "
+              f"{m['simt_device_ms'] / m['device_ms']:.2f}x the new), plain "
+              f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} ms "
               f"({m['bound_by']})")
+        check(m["path"] == "tma", f"rglru_scan ({bsz}, {s}, {w}): path "
+              f"{m['path']}")
         if (bsz, s, with_h0) == (1, 3000, False):
             serve["rglru_scan"] = dict(m, shape=[bsz, s, w])
     heads, p, n = 80, 64, 128
@@ -1321,9 +1444,8 @@ def phase4_lm_kernels():
 
 
 def lm_counts() -> dict:
-    """The LM kernel wrappers' launch counts, flash attention's and the
-    SSD scan's also by path ("flash_attention.wgmma", "ssd_scan.simt",
-    ...)."""
+    """The LM kernel wrappers' launch counts, each also by path
+    ("flash_attention.wgmma", "rglru_scan.tma", "ssd_scan.simt", ...)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1331,6 +1453,8 @@ def lm_counts() -> dict:
     for p, n in flash_attention.launches_by_path.items():
         counts[f"flash_attention.{p}"] = n
     counts["rglru_scan"] = rglru_scan.launches
+    for p, n in rglru_scan.launches_by_path.items():
+        counts[f"rglru_scan.{p}"] = n
     counts["ssd_scan"] = ssd_scan.launches
     for p, n in ssd_scan.launches_by_path.items():
         counts[f"ssd_scan.{p}"] = n
@@ -1339,11 +1463,10 @@ def lm_counts() -> dict:
 
 def reset_lm_counts():
     import repro_torch.kernels.flash_attention as flash_module
+    import repro_torch.kernels.rglru_scan as scan_module
     import repro_torch.kernels.ssd_scan as ssd_module
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    flash_module.reset_launches()
-    ssd_module.reset_launches()
-    rglru_scan.launches = 0
+    for module in (flash_module, scan_module, ssd_module):
+        module.reset_launches()
 
 
 class PrefillRecorder:
@@ -1403,14 +1526,14 @@ def _serve(cfg, params, prompts, use_kernel: bool):
             torch.cuda.max_memory_allocated())
 
 
-def profile_serving(cfg, params, prompt, phase: str, flash_ref_ms=None):
+def profile_serving(cfg, params, prompt, phase: str, first_ms=None):
     """One prefill of `prompt` into a fresh instance and one decode step,
     under torch.profiler (host and device activity): wall time, device
     busy share, and the largest entries by device and by host time; the
-    flash kernels' device time in the prefill, beside `flash_ref_ms` (the
-    CUDA-core kernel's phase-4 time at the same shape, times the launches)
-    where given.  A measurement only; prints "not measured" without
-    device time."""
+    flash and RG-LRU scan kernels' device time in the prefill, each
+    beside `first_ms[name]` (the first kernel's phase-4 device time at
+    the same shape, times the launches) where given.  A measurement only;
+    prints "not measured" without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1458,20 +1581,22 @@ def profile_serving(cfg, params, prompt, phase: str, flash_ref_ms=None):
                 print(f"{phase} profile   ssd: " + "; ".join(
                     f"{e.key[:40]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.2f} ms" for e in ssd))
-        flash = [e for e in dev if "flash" in e.key]
-        if label == "prefill" and flash:
-            ref_text = ("" if flash_ref_ms is None else
-                        f"; the CUDA-core kernel at this shape in phase 4, "
-                        f"times the launches: {flash_ref_ms:.2f} ms")
-            print(f"{phase} profile   flash: " + "; ".join(
-                f"{e.key[:40]} x{e.count}" for e in flash) + ", device "
-                f"{sum(e.self_device_time_total for e in flash) / 1e3:.2f} "
+        for name, key in (("flash", "flash"), ("scan", "rglru")):
+            mine = [e for e in dev if key in e.key]
+            if label != "prefill" or not mine:
+                continue
+            first = (first_ms or {}).get(name)
+            ref_text = ("" if first is None else
+                        f"; the first kernel at this shape in phase 4, "
+                        f"times the launches: {first:.2f} ms")
+            print(f"{phase} profile   {name}: " + "; ".join(
+                f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
+                f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 f"ms{ref_text}")
 
 
 def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
-                     per_prefill: dict, layers_label: str,
-                     flash_ref_ms=None):
+                     per_prefill: dict, layers_label: str, first_ms=None):
     """`arch` at its published width on the card, random f32 weights from
     a seeded generator, computed in the config's dtype: one
     ServingEngine instance (4 slots, max_len 4,096) serves two requests
@@ -1528,7 +1653,7 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
           f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
           f"{peak / 2**30:.3f} GiB")
 
-    profile_serving(cfg, params, prompts[-1], phase, flash_ref_ms)
+    profile_serving(cfg, params, prompts[-1], phase, first_ms)
 
     done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
                                                   False)
@@ -1593,9 +1718,11 @@ def _leaves(tree):
         yield tree
 
 
-def phase5_serving(flash_ref_ms: float):
+def phase5_serving(flash_first_ms: float, scan_first_ms: float):
     """recurrentgemma-2b: 8 flash launches per prefill, all on the
-    tensor-core path (bf16, head dim 256), and 18 RG-LRU scans."""
+    tensor-core path (bf16, head dim 256), and 18 RG-LRU scans, all on
+    the TMA path.  The first kernels' phase-4 device times at the longest
+    prompt, times the launches, stand beside the profiled prefill's."""
     from repro_torch.configs import get_config
     kinds = get_config(SERVE_ARCH).layer_kinds()
     n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
@@ -1603,9 +1730,11 @@ def phase5_serving(flash_ref_ms: float):
         "phase5", SERVE_ARCH, SERVE_PROMPTS, 5,
         {"flash_attention": n_local, "flash_attention.wgmma": n_local,
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
-         "rglru_scan": n_rec, "ssd_scan": 0, "ssd_scan.wgmma": 0,
+         "rglru_scan": n_rec, "rglru_scan.tma": n_rec,
+         "rglru_scan.simt": 0, "ssd_scan": 0, "ssd_scan.wgmma": 0,
          "ssd_scan.simt": 0},
-        f"{n_local} local + {n_rec} recurrent", n_local * flash_ref_ms)
+        f"{n_local} local + {n_rec} recurrent",
+        {"flash": n_local * flash_first_ms, "scan": n_rec * scan_first_ms})
 
 
 def phase6_ssm_serving():
@@ -1628,8 +1757,8 @@ def phase6_ssm_serving():
         "phase6", SSM_ARCH, SSM_PROMPTS, 6,
         {"flash_attention": 0, "flash_attention.wgmma": 0,
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
-         "rglru_scan": 0, "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm,
-         "ssd_scan.simt": 0},
+         "rglru_scan": 0, "rglru_scan.tma": 0, "rglru_scan.simt": 0,
+         "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
 
@@ -1670,7 +1799,8 @@ def main() -> int:
         device_share("c", "cuda", "device")
         lm = phase4_lm_kernels()
         serve_launches = phase5_serving(
-            lm["flash_attention"]["simt_device_ms"])
+            lm["flash_attention"]["simt_device_ms"],
+            lm["rglru_scan"]["simt_device_ms"])
         ssm_launches = phase6_ssm_serving()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
@@ -1686,7 +1816,7 @@ def main() -> int:
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                 "shape": m["shape"]})
             # the path that ran and, for the redesigned kernels, the
-            # CUDA-core kernel they replace on it, timed in this run
+            # first kernel they replace on it, timed in this run
             for key in ("path", "simt_ms", "simt_device_ms"):
                 if key in m:
                     kernels[-1][key] = m[key]

@@ -46,9 +46,15 @@ _D = ctypes.c_double
 #: its cudaGetLastError() as an int
 SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     "rfr_inference": {
-        # x, feat, thr, leaf, out, n, f, n_trees, depth, device, stream
-        "rfr_forest_apply": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-                             _I),
+        # x, feat, thr, leaf, out, n, f, n_trees, depth, in_smem, device,
+        # stream
+        "rfr_forest_apply": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                              _P], _I),
+        # the first design, one thread a row: the same without in_smem
+        "rfr_forest_apply_v1": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                 _P], _I),
+        # stream: an empty kernel
+        "rfr_empty": ([_P], _I),
         # x, bounds, feat, thr, leaf, out, s, m, r, f, n_trees, depth,
         # log_target, device, stream
         "rfr_capacity_sweep": ([_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
@@ -75,8 +81,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "flash_attention_tf32_splits": ([_I, _I, _I, _I, _I, _I], _I),
     },
     "rglru_scan": {
-        # a, b, h0 (or null), h, batch, s, w, stream
+        # both: a, b, h0 (or null), h, batch, s, w, stream
         "rglru_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "rglru_scan_tma_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
     "ssd_scan": {
         # x, dA, dt, Bm, Cm, h0 (or null), y, hout, batch, heads, groups,

@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu): mbarriers, TMA loads
-// through 3-d tensor maps, wgmma descriptors for the 128-byte swizzle,
-// and the bf16 warpgroup MMAs those kernels issue.  Each kernel source is
+// Hopper building blocks shared by the port's TMA-fed kernels
+// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu, rglru_scan.cu): mbarriers,
+// TMA loads through 3-d tensor maps, wgmma descriptors for the 128-byte
+// swizzle, and the bf16 warpgroup MMAs the tensor-core kernels issue.  Each kernel source is
 // its own translation unit and library; this header is included by each
 // (everything here has internal linkage).
 #pragma once
@@ -28,6 +28,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival on the barrier (no bytes).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // Wait for the barrier's phase of the given parity.  A phase that never

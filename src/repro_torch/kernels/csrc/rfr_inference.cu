@@ -20,51 +20,56 @@
 // the inputs read once, both kernels are memory-bound: the forest is
 // 72 KiB at the control plane's 24 trees of depth 8, and a row is 124
 // bytes.  What limits them in practice is latency: every level is a
-// dependent chain (shared-memory load of the split, a load of the row's
-// feature, a compare), T*D of them per row, and rows of a warp gather
-// from unrelated nodes, so the loads serialise on shared-memory banks.
+// dependent chain (a shared-memory load of the split, a load of the
+// row's feature, a compare), T*D of them per row, rows of a warp gather
+// from unrelated nodes, and a block must copy the forest into shared
+// memory before its first level.
 //
-// What the design does about that:
-//   * rfr_forest_apply: each block copies the forest into shared memory
-//     once and keeps it there while it walks many rows (grid-stride), so
-//     the forest is read from device memory once per resident block; one
-//     thread owns one row and walks its trees in order, so many
-//     independent chains are in flight per SM to hide the latency;
-//   * rfr_capacity_sweep shortens the chain of each row and skips the
-//     rows that cannot change the result:
-//       - eight lanes per row: lane j walks trees j, j+8, j+16, ... in
-//         order, which is exactly numpy's partial sum r[j]; an xor
-//         butterfly at offsets 1, 2, 4 forms ((r0+r1)+(r2+r3))+((r4+r5)+
-//         (r6+r7)) in every lane (IEEE addition commutes, so each lane's
-//         bits are the same), and the T mod 8 tail trees, one per lane,
-//         are added in order.  At T = 24 and depth 8 a row's dependent
-//         chain is 24 levels, not 192.  Below 8 trees every partial sum
-//         is 0 and the tail is all the trees, which is numpy's order
-//         there; above 128 the lanes sum each of numpy's pairwise blocks;
-//       - the forest is staged as 8-byte nodes (feature, threshold bits),
-//         so each level is one shared load of its split, and each pass's
-//         rows (F floats each) and bounds are copied into shared memory
-//         (cp.async, coalesced) while the previous pass descends, so each
-//         level's feature read is a shared load;
-//       - a block takes one scenario at a time and its rows in ascending
-//         m, one pass at a time: 64 rows in blocks of 512 threads,
-//         eight lanes a row.  A row whose
-//         bound is -inf fails without a descent: !(pred <= -inf) holds for
-//         every pred, NaN included.  A row whose m is at or past the
-//         scenario's first failure found so far (read from shared memory
-//         after the previous pass's barrier) is skipped, and the scenario
-//         ends once a whole pass would be: the capacity is the smallest
-//         failing m, and a row at or past a failing m cannot lower it.
-//         Rows with +inf bounds still descend (a NaN prediction fails
-//         them).  The device drain pads each scenario's m past its own
-//         m_max with -inf rows, so the sweep stops at min(first failure,
-//         m_max) instead of descending every padded row;
+// What the design does about that (both kernels share it):
+//   * eight lanes per row: lane j walks trees j, j+8, j+16, ... in order,
+//     which is exactly numpy's partial sum r[j]; an xor butterfly at
+//     offsets 1, 2, 4 forms ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)) in every
+//     lane (IEEE addition commutes, so each lane's bits are the same),
+//     and the T mod 8 tail trees, one per lane, are added in order.  At
+//     T = 24 and depth 8 a row's dependent chain is 24 levels, not 192.
+//     Below 8 trees every partial sum is 0 and the tail is all the trees,
+//     which is numpy's order there; above 128 the lanes sum each of
+//     numpy's pairwise blocks;
+//   * the forest is staged as 8-byte nodes (feature, threshold bits), so
+//     each level is one shared load of its split, with eight loads of
+//     each array in flight per thread (one at a time, a copy waits a
+//     device-memory latency per element: some 25 us for the 73 KB
+//     forest);
+//   * a block of 512 threads takes 64 rows a pass; each pass's rows (F
+//     floats each) are copied into shared memory (cp.async, coalesced)
+//     while the previous pass descends, so each level's feature read is a
+//     shared load;
+//   * rfr_forest_apply walks its passes grid-stride, one block per pass
+//     up to the blocks the card holds at once;
+//   * rfr_capacity_sweep takes one scenario a block at a time and its
+//     rows in ascending m, a pass at a time, and skips the rows that
+//     cannot change the result.  A row whose bound is -inf fails without
+//     a descent: !(pred <= -inf) holds for every pred, NaN included.  A
+//     row whose m is at or past the scenario's first failure found so
+//     far (read from shared memory after the previous pass's barrier) is
+//     skipped, and the scenario ends once a whole pass would be: the
+//     capacity is the smallest failing m, and a row at or past a failing
+//     m cannot lower it.  Rows with +inf bounds still descend (a NaN
+//     prediction fails them).  The device drain pads each scenario's m
+//     past its own m_max with -inf rows, so the sweep stops at min(first
+//     failure, m_max) instead of descending every padded row;
 //   * launch planning (device attributes, the shared-memory opt-in and the
 //     occupancy) is done once per device and per (kernel, shared-memory
 //     size), not per call;
-//   * forests above the 227 KB a block can hold in shared memory (depth
-//     9 and up at 64 trees) are read from global memory by the same
-//     code: right, not fast.
+//   * forests above the shared memory a block can hold (depth 9 and up at
+//     64 trees) are read from global memory by the same code: right, not
+//     fast.  rfr_forest_apply is told which by its caller (the choice
+//     depends on the forest's bytes alone); a forest kernel whose rows do
+//     not fit beside the forest reads them from global memory.
+//
+// rfr_forest_apply_v1 is the first design, kept to be timed beside the
+// new one: one thread per row walks all T*D levels, and each block copies
+// the forest into shared memory one element at a time per thread.
 //
 // Numerics.  The T leaves are summed in numpy's pairwise order (eight
 // interleaved partial sums per block of at most 128 values, halved
@@ -86,9 +91,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // a block of rfr_forest_apply_v1
 constexpr int kPwBlock = 128;      // numpy's PW_BLOCKSIZE
-constexpr int kLanes = 8;          // lanes per row of the lane-split sweep
+constexpr int kLanes = 8;          // lanes per row of the lane-split kernels
 constexpr int kDefaultSmemLimit = 48 * 1024;  // above it, opt in per kernel
 
 struct Forest {
@@ -234,8 +239,11 @@ __device__ __forceinline__ float lane_mean(const Trees& trees, int n_trees, int 
   return sum / (float)n_trees;
 }
 
-// Copy the forest into shared memory (when it fits) and return the copy;
-// otherwise return the global arrays unchanged.
+// --- the first design (rfr_forest_apply_v1), kept to be timed beside the
+// new forest kernel: one thread per row ---
+
+// Copy the forest into shared memory (when it fits) one element at a time
+// per thread and return the copy; otherwise return the global arrays.
 __device__ Forest stage_forest(const Forest& g, float* smem, bool in_smem) {
   if (!in_smem) return g;
   const int nn = (1 << g.depth) - 1;
@@ -254,8 +262,8 @@ __device__ Forest stage_forest(const Forest& g, float* smem, bool in_smem) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-forest_apply_kernel(const float* __restrict__ x, Forest g,
-                    float* __restrict__ out, long long n, int f, bool in_smem) {
+forest_apply_v1_kernel(const float* __restrict__ x, Forest g,
+                       float* __restrict__ out, long long n, int f, bool in_smem) {
   extern __shared__ float smem[];
   const Forest fo = stage_forest(g, smem, in_smem);
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n;
@@ -264,38 +272,116 @@ forest_apply_kernel(const float* __restrict__ x, Forest g,
   }
 }
 
-// A sweep block: 512 threads, eight lanes a row, 64 rows a pass.
-constexpr int kSweepThreads = 512;
-constexpr int kSweepRows = kSweepThreads / kLanes;
+// --- the lane-split kernels ---
 
-// Bytes of the sweep's shared memory: the packed forest when it goes
-// there, two buffers of one pass's rows and bounds, and the scenario's
-// first failing m.
-__host__ __device__ inline long long sweep_forest_bytes(int n_trees, int depth) {
+// A block: 512 threads, eight lanes a row, 64 rows a pass.
+constexpr int kPassThreads = 512;
+constexpr int kPassRows = kPassThreads / kLanes;
+
+// Bytes of shared memory: the packed forest, and two buffers of one
+// pass's rows (the sweep adds their bounds and the scenario's first
+// failing m).
+__host__ __device__ inline long long packed_forest_bytes(int n_trees, int depth) {
   const long long nn = (1LL << depth) - 1;
   return n_trees * (8 * nn + 4 * (nn + 1));
 }
-__host__ __device__ inline long long sweep_extra_bytes(int rows, int f) {
-  return 2 * 4LL * rows * (f + 1) + 16;
+__host__ __device__ inline long long rows_bytes(int f) { return 2 * 4LL * kPassRows * f; }
+__host__ __device__ inline long long sweep_extra_bytes(int f) {
+  return rows_bytes(f) + 2 * 4LL * kPassRows + 16;
+}
+
+// Copy the forest into shared memory as packed nodes and leaves: kBatch
+// loads of each array in flight per thread before their stores.
+__device__ void stage_packed(const Forest& g, int2* s_node, float* s_leaf) {
+  constexpr int kBatch = 8;
+  const int nn = (1 << g.depth) - 1;
+  const int n_nodes = g.n_trees * nn;
+  const int n_leaf = g.n_trees * (nn + 1);
+  for (int i0 = threadIdx.x; i0 < n_leaf; i0 += kBatch * kPassThreads) {
+    int fv[kBatch];
+    float tv[kBatch], lv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kPassThreads;
+      fv[u] = i < n_nodes ? g.feat[i] : 0;
+      tv[u] = i < n_nodes ? g.thr[i] : 0.0f;
+      lv[u] = i < n_leaf ? g.leaf[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kPassThreads;
+      if (i < n_nodes) s_node[i] = make_int2(fv[u], __float_as_int(tv[u]));
+      if (i < n_leaf) s_leaf[i] = lv[u];
+    }
+  }
 }
 
 // Asynchronous 4-byte copies from device to shared memory (cp.async):
-// a pass's rows and bounds are copied while the previous pass descends.
+// a pass's rows are copied while the previous pass descends.
 __device__ __forceinline__ void copy_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int count) {
+  for (int i = threadIdx.x; i < count; i += kPassThreads) copy_async4(dst + i, src + i);
+}
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// One block walks passes blockIdx.x, blockIdx.x + gridDim.x, ... of 64
+// rows; pass i + 1's rows are copied into the second buffer while pass i
+// descends (when stage_rows; otherwise each lane reads its row's features
+// from device memory).  PACKED: the forest is staged in shared memory.
+template <bool PACKED>
+__global__ void __launch_bounds__(kPassThreads)
+forest_apply_kernel(const float* __restrict__ x, Forest g, float* __restrict__ out,
+                    long long n, int f, bool stage_rows) {
+  extern __shared__ float smem[];
+  const int nn = (1 << g.depth) - 1;
+  const int n_nodes = g.n_trees * nn;
+  int2* s_node = reinterpret_cast<int2*>(smem);
+  float* s_leaf = reinterpret_cast<float*>(s_node + n_nodes);
+  float* s_rows = PACKED ? s_leaf + n_nodes + g.n_trees : smem;  // 2 buffers
+  if (PACKED) stage_packed(g, s_node, s_leaf);
+  const PackedForest pf{s_node, s_leaf, g.n_trees, g.depth};
+
+  const int lr = threadIdx.x / kLanes;  // this thread's row in a pass
+  const int lane = threadIdx.x % kLanes;
+  const unsigned mask = 0xffu << ((threadIdx.x % 32) & ~7);
+  const long long n_pass = (n + kPassRows - 1) / kPassRows;
+  auto fetch = [&](long long p, int buf) {
+    const long long p0 = p * kPassRows;
+    const int n_rows = (int)(n - p0 < kPassRows ? n - p0 : kPassRows);
+    copy_async(s_rows + buf * kPassRows * f, x + p0 * f, n_rows * f);
+  };
+  if (stage_rows) fetch(blockIdx.x, 0);  // the grid holds at most n_pass blocks
+  int buf = 0;
+  for (long long p = blockIdx.x; p < n_pass; p += gridDim.x, buf ^= 1) {
+    if (stage_rows) copy_async_wait();
+    __syncthreads();  // pass p (and the forest) landed; every thread left pass p - grid
+    if (stage_rows && p + gridDim.x < n_pass) fetch(p + gridDim.x, buf ^ 1);
+    const long long row = p * kPassRows + lr;
+    if (row < n) {
+      const float* xrow = stage_rows ? s_rows + (buf * kPassRows + lr) * f : x + row * f;
+      float pred;
+      if constexpr (PACKED)
+        pred = lane_mean(PackedTrees{pf, xrow}, g.n_trees, lane, mask);
+      else
+        pred = lane_mean(GlobalTrees{g, xrow}, g.n_trees, lane, mask);
+      if (lane == 0) out[row] = pred;
+    }
+  }
+}
+
 // One block takes one scenario at a time (grid-stride over scenarios)
-// and its M*R rows in ascending (m, r) order, kSweepRows rows a pass; pass p + 1's rows and bounds are copied into the second buffer
-// while pass p descends.  A failing row lowers the scenario's first
-// failing m with atomicMin; the capacity is that m.  The skips, and why
-// each leaves the result unchanged:
+// and its M*R rows in ascending (m, r) order, kPassRows rows a pass; pass
+// p + 1's rows and bounds are copied into the second buffer while pass p
+// descends.  A failing row lowers the scenario's first failing m with
+// atomicMin; the capacity is that m.  The skips, and why each leaves the
+// result unchanged:
 //   * bound -inf: the row fails whatever it predicts (!(pred <= -inf)
 //     holds for every pred, NaN included), so it needs no descent;
 //   * m at or past the first failure found so far (read after the
@@ -308,12 +394,12 @@ __device__ __forceinline__ void copy_async_wait() {
 //     and leave the loop together.
 // Rows with +inf bounds still descend: a NaN prediction fails them.
 template <bool PACKED>
-__global__ void __launch_bounds__(kSweepThreads)
+__global__ void __launch_bounds__(kPassThreads)
 capacity_sweep_kernel(const float* __restrict__ x,
                       const float* __restrict__ bounds, Forest g,
                       int* __restrict__ out, long long s, int m, int r, int f,
                       bool log_target) {
-  constexpr int kRows = kSweepRows;
+  constexpr int kRows = kPassRows;
   extern __shared__ float smem[];
   const int nn = (1 << g.depth) - 1;
   const int n_nodes = g.n_trees * nn;
@@ -323,29 +409,7 @@ capacity_sweep_kernel(const float* __restrict__ x,
   float* s_rows = PACKED ? s_leaf + n_leaf : smem;  // 2 buffers of kRows * f
   float* s_bnd = s_rows + 2 * kRows * f;            // 2 buffers of kRows
   int* first_fail = reinterpret_cast<int*>(s_bnd + 2 * kRows);
-  if (PACKED) {
-    // kBatch loads of each array in flight per thread before their
-    // stores: a copy one element at a time waits a device-memory latency
-    // per element, some 25 us for the 73 KB forest of 24 trees at depth 8
-    constexpr int kBatch = 8;
-    for (int i0 = threadIdx.x; i0 < n_leaf; i0 += kBatch * kSweepThreads) {
-      int fv[kBatch];
-      float tv[kBatch], lv[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kSweepThreads;
-        fv[u] = i < n_nodes ? g.feat[i] : 0;
-        tv[u] = i < n_nodes ? g.thr[i] : 0.0f;
-        lv[u] = i < n_leaf ? g.leaf[i] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kSweepThreads;
-        if (i < n_nodes) s_node[i] = make_int2(fv[u], __float_as_int(tv[u]));
-        if (i < n_leaf) s_leaf[i] = lv[u];
-      }
-    }
-  }
+  if (PACKED) stage_packed(g, s_node, s_leaf);
   const PackedForest pf{s_node, s_leaf, g.n_trees, g.depth};
 
   const int lr = threadIdx.x / kLanes;  // this thread's row in a pass
@@ -360,12 +424,8 @@ capacity_sweep_kernel(const float* __restrict__ x,
     auto fetch = [&](long long p) {
       const long long p0 = p * kRows;
       const int n_rows = (int)(per_s - p0 < kRows ? per_s - p0 : kRows);
-      float* rows = s_rows + (p % 2) * kRows * f;
-      float* bnd = s_bnd + (p % 2) * kRows;
-      for (int i = threadIdx.x; i < n_rows * f; i += kSweepThreads)
-        copy_async4(rows + i, xs + p0 * f + i);
-      for (int i = threadIdx.x; i < n_rows; i += kSweepThreads)
-        copy_async4(bnd + i, bs + p0 + i);
+      copy_async(s_rows + (p % 2) * kRows * f, xs + p0 * f, n_rows * f);
+      copy_async(s_bnd + (p % 2) * kRows, bs + p0, n_rows);
     };
     if (threadIdx.x == 0) *first_fail = m;
     fetch(0);
@@ -404,6 +464,9 @@ capacity_sweep_kernel(const float* __restrict__ x,
     if (threadIdx.x == 0) out[sc] = *first_fail;
   }
 }
+
+// An empty kernel: what a launch through this library costs the card.
+__global__ void empty_kernel() {}
 
 // Launch planning, cached: per device its SM count and shared-memory
 // opt-in; per (kernel, device) the largest dynamic shared memory opted
@@ -469,25 +532,59 @@ cudaError_t plan_grid(Kernel kernel, int threads, int device, const Plan& plan,
 }
 
 template <bool PACKED>
+cudaError_t launch_forest(const float* x, const Forest& g, float* out, long long n, int f,
+                          int device, const Plan& plan, cudaStream_t stream) {
+  const long long forest = PACKED ? packed_forest_bytes(g.n_trees, g.depth) : 0;
+  const bool stage_rows = forest + rows_bytes(f) <= plan.optin;
+  const size_t smem = (size_t)(forest + (stage_rows ? rows_bytes(f) : 0));
+  int grid = 0;
+  cudaError_t err = plan_grid(forest_apply_kernel<PACKED>, kPassThreads, device, plan, smem,
+                              (n + kPassRows - 1) / kPassRows, &grid);
+  if (err != cudaSuccess) return err;
+  forest_apply_kernel<PACKED><<<grid, kPassThreads, smem, stream>>>(x, g, out, n, f,
+                                                                   stage_rows);
+  return cudaGetLastError();
+}
+
+template <bool PACKED>
 cudaError_t launch_sweep(const float* x, const float* bounds, const Forest& g, int* out,
                          long long s, int m, int r, int f, bool log_target, int device,
                          const Plan& plan, cudaStream_t stream) {
-  const size_t smem = (size_t)((PACKED ? sweep_forest_bytes(g.n_trees, g.depth) : 0) +
-                               sweep_extra_bytes(kSweepRows, f));
+  const size_t smem = (size_t)((PACKED ? packed_forest_bytes(g.n_trees, g.depth) : 0) +
+                               sweep_extra_bytes(f));
   int grid = 0;
-  cudaError_t err = plan_grid(capacity_sweep_kernel<PACKED>, kSweepThreads, device, plan,
+  cudaError_t err = plan_grid(capacity_sweep_kernel<PACKED>, kPassThreads, device, plan,
                               smem, s, &grid);
   if (err != cudaSuccess) return err;
-  capacity_sweep_kernel<PACKED><<<grid, kSweepThreads, smem, stream>>>(x, bounds, g, out, s,
-                                                                      m, r, f, log_target);
+  capacity_sweep_kernel<PACKED><<<grid, kPassThreads, smem, stream>>>(x, bounds, g, out, s,
+                                                                     m, r, f, log_target);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// in_smem: stage the forest in shared memory (the caller's choice, by the
+// forest's bytes; a forest above the block's opt-in fails to launch).
 extern "C" int rfr_forest_apply(const float* x, const int* feat, const float* thr,
                                 const float* leaf, float* out, long long n, int f,
-                                int n_trees, int depth, int device, void* stream) {
+                                int n_trees, int depth, int in_smem, int device,
+                                void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  Plan plan;
+  cudaError_t err = device_plan(device, &plan);
+  if (err != cudaSuccess) return (int)err;
+  const Forest g{feat, thr, leaf, n_trees, depth};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (in_smem)
+    err = launch_forest<true>(x, g, out, n, f, device, plan, st);
+  else
+    err = launch_forest<false>(x, g, out, n, f, device, plan, st);
+  return (int)err;
+}
+
+extern "C" int rfr_forest_apply_v1(const float* x, const int* feat, const float* thr,
+                                   const float* leaf, float* out, long long n, int f,
+                                   int n_trees, int depth, int device, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   Plan plan;
   cudaError_t err = device_plan(device, &plan);
@@ -497,11 +594,16 @@ extern "C" int rfr_forest_apply(const float* x, const int* feat, const float* th
   const size_t smem = in_smem ? (size_t)forest_bytes : 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   int grid = 0;
-  err = plan_grid(forest_apply_kernel, kThreads, device, plan, smem, blocks, &grid);
+  err = plan_grid(forest_apply_v1_kernel, kThreads, device, plan, smem, blocks, &grid);
   if (err != cudaSuccess) return (int)err;
   const Forest g{feat, thr, leaf, n_trees, depth};
-  forest_apply_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, g, out, n, f,
-                                                                      in_smem);
+  forest_apply_v1_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, g, out, n, f,
+                                                                         in_smem);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rfr_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
@@ -516,7 +618,7 @@ extern "C" int rfr_capacity_sweep(const float* x, const float* bounds, const int
   const Forest g{feat, thr, leaf, n_trees, depth};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool packed =
-      sweep_forest_bytes(n_trees, depth) + sweep_extra_bytes(kSweepRows, f) <= plan.optin;
+      packed_forest_bytes(n_trees, depth) + sweep_extra_bytes(f) <= plan.optin;
   if (packed)
     err = launch_sweep<true>(x, bounds, g, out, s, m, r, f, log_target != 0, device, plan, st);
   else

@@ -5,27 +5,43 @@
 //   a, b (B, S, W) f32, h0 (B, W) f32 or none -> h (B, S, W) f32,
 //   h_t = a_t * h_{t-1} + b_t,  h_{-1} = h0 (zeros when absent).
 // Each step is a multiply and then an add, each rounded to f32 (no fused
-// multiply-add), so the result is bitwise the plain PyTorch loop's.
+// multiply-add), in time order, so the result is bitwise the plain
+// PyTorch loop's.
 //
 // What bounds it on this card: bytes.  A step does two flops per channel
 // and moves 12 bytes (a and b read, h written), so the least time is
-// 12*B*S*W bytes over the 3.35 TB/s of device memory.
+// 12*B*S*W bytes over the 3.35 TB/s of device memory: 27.5 us at
+// (1, 3000, 2560).  The dependent chain of a channel, a multiply and an
+// add a step (some 8-10 cycles), is 3,000 steps there: 15-18 us, under
+// the bytes.  What keeps a simple kernel far from the bound is too few
+// bytes in flight: by Little's law the card needs some 3 MB in flight
+// (3.35 TB/s times ~1 us) to stream at its rate.
 //
-// What the design does: the recurrence is serial in time and independent
-// across the B*W channels, so one thread owns one channel and walks the
-// sequence; neighbouring threads own neighbouring w, so each step's loads
-// and stores coalesce across a warp.  The loads of U = 8 steps are issued
-// before their arithmetic, so they are in flight together instead of each
-// waiting behind the previous step's h.  At B = 1 and W = 2,560 that is
-// only 2,560 threads, 20 blocks of 128: the card is far from full, and a
-// chunked scan over time (per-chunk (prod a, partial h) then a carry pass)
-// is the later work that fills it.
+// The TMA kernel (rglru_tma_kernel, W % 4 == 0): one block per tile of 32
+// channels of one batch row, 80 blocks at W = 2,560 (16 channels a block,
+// 160 blocks, was the slower on the H100).  Its producer warp has one lane
+// issue TMA loads of (32 channels x 64 steps) boxes of a and b into a ring
+// of four stages in shared memory (64 KB: some 5 MB in flight across the
+// card); its scan warp walks the sequence in time order, lane c owning
+// channel c, reads each step's a and b from the ring, writes h straight to
+// device memory (one coalesced row of 32 floats a step, off the dependent
+// chain) and frees each stage with a second barrier.  The tensor map needs
+// a row stride that is a multiple of 16 bytes; the ragged edges of W and S
+// are read as zeros and never written.
 //
-// Interface: plain C, bound from Python with ctypes.  The entry point
+// The first design (rglru_scan_kernel, every other W): one thread per
+// channel walks the sequence with the loads of 8 steps in flight; at
+// B = 1 and W = 2,560 that is 20 blocks of 128 threads, some 160 KB in
+// flight across the card.
+//
+// Interface: plain C, bound from Python with ctypes.  Each entry point
 // launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
-#include <cuda_runtime.h>
+#include <mutex>
+#include <set>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -61,6 +77,116 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// The TMA kernel's shared memory: a ring of stages, each (kSteps x kTile)
+// of a then of b, then a full and an empty barrier per stage; 128 bytes of
+// slack to align the ring.
+struct Ring {
+  static constexpr int kTile = 32;                // channels a block: one warp's lanes
+  static constexpr int kSteps = 64;               // time steps a stage: the box's rows
+  static constexpr int kStages = 4;               // 64 KB
+  static constexpr int kFloats = kSteps * kTile;  // one array's share of a stage
+  static constexpr uint32_t kStageBytes = 2 * kFloats * 4;
+  static constexpr uint32_t kBytes = kStages * kStageBytes + 2 * kStages * 8 + 128;
+};
+
+__global__ void __launch_bounds__(64)
+rglru_tma_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                 const float* __restrict__ h0, float* __restrict__ h, int S, int W,
+                 int tiles_w) {
+  using L = Ring;
+  constexpr int C = L::kTile;
+  extern __shared__ unsigned char raw[];
+  float* ring = reinterpret_cast<float*>(raw + ((128 - (smem_u32(raw) & 127)) & 127));
+  const uint32_t full = smem_u32(ring + L::kStages * 2 * L::kFloats);  // stage k at +8k
+  const uint32_t empty = full + 8 * L::kStages;
+  const int bi = blockIdx.x / tiles_w;
+  const int w0 = (blockIdx.x % tiles_w) * C;
+  const int n_stage = (S + L::kSteps - 1) / L::kSteps;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < L::kStages; ++k) {
+      mbar_init(full + 8 * k, 1);
+      mbar_init(empty + 8 * k, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
+      for (int i = 0; i < n_stage; ++i) {
+        const int k = i % L::kStages;
+        if (i >= L::kStages) mbar_wait(empty + 8 * k, (i / L::kStages - 1) & 1);
+        const uint32_t dst = smem_u32(ring + k * 2 * L::kFloats);
+        mbar_expect_tx(full + 8 * k, L::kStageBytes);
+        tma_load_3d(dst, &ma, full + 8 * k, w0, i * L::kSteps, bi);
+        tma_load_3d(dst + L::kFloats * 4, &mb, full + 8 * k, w0, i * L::kSteps, bi);
+      }
+    }
+    return;
+  }
+
+  // the scan warp: lane c owns channel w0 + c, in time order
+  const bool live = w0 + lane < W;
+  float hv = h0 != nullptr && live ? h0[(long long)bi * W + w0 + lane] : 0.0f;
+  float* hp = h + (long long)bi * S * W + w0 + lane;
+  for (int i = 0; i < n_stage; ++i) {
+    const int k = i % L::kStages;
+    mbar_wait(full + 8 * k, (i / L::kStages) & 1);
+    const float* as = ring + k * 2 * L::kFloats + lane;
+    const float* bs = as + L::kFloats;
+    float* hs = hp + (long long)i * L::kSteps * W;
+    const int steps = S - i * L::kSteps < L::kSteps ? S - i * L::kSteps : L::kSteps;
+    if (live) {
+      if (steps == L::kSteps) {
+#pragma unroll
+        for (int t = 0; t < L::kSteps; ++t) {
+          hv = __fadd_rn(__fmul_rn(as[t * C], hv), bs[t * C]);
+          hs[(long long)t * W] = hv;
+        }
+      } else {
+        for (int t = 0; t < steps; ++t) {
+          hv = __fadd_rn(__fmul_rn(as[t * C], hv), bs[t * C]);
+          hs[(long long)t * W] = hv;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * k);  // every lane has read stage k
+  }
+}
+
+// A (batch, s, w) f32 tensor as a 3-d map (w, s, batch), read in boxes of
+// (tile channels, steps rows); what lies past an edge reads as zero.
+bool encode_f32(EncodeTiled enc, CUtensorMap* map, const float* ptr, int batch, int s, int w,
+                int tile, int steps) {
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)s, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)w * 4, (cuuint64_t)s * w * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)tile, (cuuint32_t)steps, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The ring's shared memory is above the default 48 KB: opt in once per
+// device.
+std::mutex optin_mu;
+std::set<int> opted_in;
+
+cudaError_t opt_in_smem() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(optin_mu);
+  if (opted_in.count(device)) return cudaSuccess;
+  err = cudaFuncSetAttribute(rglru_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Ring::kBytes);
+  if (err == cudaSuccess) opted_in.insert(device);
+  return err;
+}
+
 }  // namespace
 
 // a, b, h: (batch, s, w) f32 contiguous; h0: (batch, w) f32 contiguous or
@@ -72,5 +198,26 @@ extern "C" int rglru_scan_fwd(const float* a, const float* b, const float* h0, f
   const long long blocks = (channels + kThreads - 1) / kThreads;
   rglru_scan_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       a, b, h0, h, s, w, channels);
+  return (int)cudaGetLastError();
+}
+
+// The TMA kernel.  As rglru_scan_fwd, and a and b 16-byte aligned with
+// w % 4 == 0.
+extern "C" int rglru_scan_tma_fwd(const float* a, const float* b, const float* h0, float* h,
+                                  int batch, int s, int w, void* stream) {
+  using L = Ring;
+  if (batch <= 0 || s <= 0 || w <= 0) return (int)cudaSuccess;
+  if (w % 4) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap ma, mb;
+  if (!encode_f32(enc, &ma, a, batch, s, w, L::kTile, L::kSteps) ||
+      !encode_f32(enc, &mb, b, batch, s, w, L::kTile, L::kSteps))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = opt_in_smem();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_w = (w + L::kTile - 1) / L::kTile;
+  rglru_tma_kernel<<<batch * tiles_w, 64, L::kBytes, (cudaStream_t)stream>>>(ma, mb, h0, h, s,
+                                                                            w, tiles_w);
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,37 @@ stream and adds one to its ``launches`` count; a launch the runtime
 refuses raises.  Given CPU tensors it computes the same function with
 the plain version in ``ref`` and launches nothing.  Empty shapes return
 zeros without a launch on either device.
+
+``forest_path(T, D)`` names where ``rfr_forest_apply``'s kernel reads the
+forest from: "shared" (copied into shared memory by each block) or
+"global" (device memory, for forests above ``FOREST_SMEM_BYTES``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build, ref
+
+#: the packed forest's share of a block's shared memory on sm_90 (232,448
+#: bytes): 192 KiB, which holds 64 trees of depth 8; the 35,840 bytes left
+#: hold two passes of 64 rows of up to 70 features (the kernel reads wider
+#: rows from device memory)
+FOREST_SMEM_BYTES = 192 * 1024
+
+
+def packed_forest_bytes(n_trees: int, depth: int) -> int:
+    """Bytes of the forest as the kernels stage it: an 8-byte node
+    (feature, threshold) per split and a 4-byte leaf."""
+    nn = (1 << depth) - 1
+    return n_trees * (8 * nn + 4 * (nn + 1))
+
+
+def forest_path(n_trees: int, depth: int) -> str:
+    """"shared" where the packed forest fits FOREST_SMEM_BYTES, else
+    "global": the choice depends on the forest's bytes alone."""
+    if packed_forest_bytes(n_trees, depth) <= FOREST_SMEM_BYTES:
+        return "shared"
+    return "global"
 
 
 def _check_forest(feat: torch.Tensor, thr: torch.Tensor,
@@ -71,10 +96,11 @@ def rfr_forest_apply(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     lib = _build.load("rfr_inference")
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    in_smem = forest_path(feat.shape[0], depth) == "shared"
     err = lib.rfr_forest_apply(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
                                leaf.data_ptr(), out.data_ptr(), n, f,
-                               feat.shape[0], depth, x.device.index or 0,
-                               stream)
+                               feat.shape[0], depth, int(in_smem),
+                               x.device.index or 0, stream)
     _build.check_launch(err, "rfr_forest_apply")
     rfr_forest_apply.launches += 1
     return out

@@ -1,12 +1,17 @@
 """RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t: the wrapper around
-the Hopper kernel in ``csrc/rglru_scan.cu``.
+the two Hopper kernels in ``csrc/rglru_scan.cu``, the TMA-fed
+channel-tiled scan (``path`` "tma": W a multiple of 4, which the tensor
+map's 16-byte row stride needs) and the one-thread-per-channel scan
+("simt": every other W).  Both compute each step as a multiply and then
+an add, each rounded, in time order: bitwise the plain version.
 
 a, b: (B, S, W) f32; h0: (B, W) f32 or None (zeros).  Returns h
-(B, S, W) f32.  Given CUDA tensors the wrapper launches the kernel on
-PyTorch's current stream and adds one to ``rglru_scan.launches``; a
-launch the runtime refuses raises.  Given CPU tensors it computes the
-same function with the plain version (``ref.rglru_scan_ref``) and
-launches nothing.
+(B, S, W) f32.  Given CUDA tensors the wrapper launches the kernel of
+its path on PyTorch's current stream and adds one to
+``rglru_scan.launches`` and to ``rglru_scan.launches_by_path[path]``; a
+build or launch that fails raises, and nothing falls back to the other
+kernel.  Given CPU tensors it computes the same function with the plain
+version (``ref.rglru_scan_ref``) and launches nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +20,14 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+
+
+def path(batch: int, s: int, w: int) -> str:
+    """The kernel that scans (batch, s, w) on the card: "tma" where w is
+    a multiple of 4 and no extent is 0, else "simt"."""
+    if batch >= 1 and s >= 1 and w >= 1 and w % 4 == 0:
+        return "tma"
+    return "simt"
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
@@ -46,15 +59,33 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
+    kernel = path(B, S, W)
     lib = _build.load("rglru_scan")
+    h0_ptr = None if h0 is None else h0.data_ptr()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(),
-                                 None if h0 is None else h0.data_ptr(),
-                                 out.data_ptr(), B, S, W, stream)
-    _build.check_launch(err, "rglru_scan")
+        if kernel == "tma":
+            # the tensor maps need 16-byte aligned bases
+            for name, t in (("a", a), ("b", b)):
+                if t.data_ptr() % 16:
+                    raise ValueError(f"{name} is not 16-byte aligned")
+            err = lib.rglru_scan_tma_fwd(a.data_ptr(), b.data_ptr(), h0_ptr,
+                                         out.data_ptr(), B, S, W, stream)
+        else:
+            err = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(), h0_ptr,
+                                     out.data_ptr(), B, S, W, stream)
+    _build.check_launch(err, f"rglru_scan ({kernel})")
     rglru_scan.launches += 1
+    rglru_scan.launches_by_path[kernel] += 1
     return out
 
 
 rglru_scan.launches = 0
+rglru_scan.launches_by_path = {"tma": 0, "simt": 0}
+
+
+def reset_launches():
+    """Zero the launch counts, the total and each path's."""
+    rglru_scan.launches = 0
+    for key in rglru_scan.launches_by_path:
+        rglru_scan.launches_by_path[key] = 0

@@ -26,6 +26,7 @@ from repro.models.ssd import ssd_chunked
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import path as flash_path
+from repro_torch.kernels.rglru_scan import path as scan_path
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan
 
@@ -210,6 +211,23 @@ def test_rglru_scan_chains_state():
     second = rglru_scan(a[:, S // 2:].contiguous(), b[:, S // 2:].contiguous(),
                         full[:, S // 2 - 1].contiguous())
     _close(second, full[:, S // 2:], 0.0)
+
+
+@pytest.mark.parametrize("B,S,W,want", [(1, 3000, 2560, "tma"),
+                                        (4, 1000, 2560, "tma"),
+                                        (1, 1, 2560, "tma"),
+                                        (1, 3000, 2562, "simt"),
+                                        (2, 257, 8, "tma"),
+                                        (2, 257, 1, "simt"),
+                                        (1, 1, 8, "tma"),
+                                        (1, 1, 2562, "simt")])
+def test_rglru_path_takes_tma_where_rows_are_16_byte_multiples(B, S, W,
+                                                              want):
+    """The TMA kernel's tensor map needs a row stride that is a multiple
+    of 16 bytes: W % 4 == 0 takes it (recurrentgemma's 2,560 among them),
+    every other W the one-thread-per-channel kernel; S = 1 is a TMA
+    shape too (one stage, read past its end as zeros)."""
+    assert scan_path(B, S, W) == want
 
 
 def test_rglru_scan_rejects_what_the_kernel_does_not_take():

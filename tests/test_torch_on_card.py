@@ -94,6 +94,58 @@ def test_forest_kernel_matches_plain(N, T, depth, F):
                                   _numpy_mean_predict(x, *forest))
 
 
+def _first_forest_kernel(x, feat, thr, leaf):
+    """The first forest kernel (one thread a row), called directly."""
+    from repro_torch.kernels import _build
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    err = _build.load("rfr_inference").rfr_forest_apply_v1(
+        x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], feat.shape[0],
+        ref.forest_depth(feat), x.device.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "rfr_forest_apply_v1")
+    return out
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("T,depth", [(5, 6), (24, 8), (33, 7), (130, 6),
+                                     (64, 10)])
+@pytest.mark.parametrize("N", [1, 20, 63, 64, 65, 9372, 200_000])
+def test_lane_split_forest_kernel_is_numpy_bitwise(N, T, depth):
+    """The lane-split forest kernel at batch sizes around its 64-row pass
+    and the control plane's median (20) and largest (9,372) calls; T = 5
+    (the lanes' partial sums all 0), 24, 33 (a tail of one tree), 130
+    (numpy's pairwise split above 128 trees) in shared memory and 64
+    trees of depth 10 from device memory: bitwise the numpy oracle and
+    the first kernel, one launch a call."""
+    dev = _card()
+    rng = np.random.default_rng(N + 7 * T + depth)
+    x = rng.standard_normal((N, 31)).astype(np.float32)
+    forest = _forest(rng, T, depth, 31)
+    args = _t(x, *forest, device=dev)
+    n0 = rfr_forest_apply.launches
+    got = rfr_forest_apply(*args)
+    assert rfr_forest_apply.launches == n0 + 1
+    first = _first_forest_kernel(*args)
+    torch.cuda.synchronize()
+    want = _numpy_mean_predict(x, *forest)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(first.cpu().numpy(), want)
+
+
+@pytest.mark.cuda_only
+def test_forest_kernel_reads_wide_rows_from_device_memory():
+    """Rows too wide for two passes beside a 192 KiB forest (F = 200)
+    are read from device memory, bitwise as narrow ones."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((300, 200)).astype(np.float32)
+    forest = _forest(rng, 64, 8, 200)
+    got = rfr_forest_apply(*_t(x, *forest, device=dev))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _numpy_mean_predict(x, *forest))
+
+
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("log_target", [False, True])
 @pytest.mark.parametrize("M", [6, 16, 40])
@@ -273,6 +325,7 @@ def test_lm_wrappers_on_cpu_launch_nothing():
     a = torch.rand(2, 30, 8)
     n0 = flash_attention.launches, rglru_scan.launches, ssd_scan.launches
     by_path = dict(flash_attention.launches_by_path)
+    scan_by_path = dict(rglru_scan.launches_by_path)
     ssd_by_path = dict(ssd_scan.launches_by_path)
     ops.attention_op(q, k, v, kind="local", window=8)
     # bf16 at head dim 64: the tensor-core path's shape, on CPU tensors
@@ -292,6 +345,7 @@ def test_lm_wrappers_on_cpu_launch_nothing():
     assert (flash_attention.launches, rglru_scan.launches,
             ssd_scan.launches) == n0
     assert flash_attention.launches_by_path == by_path
+    assert rglru_scan.launches_by_path == scan_by_path
     assert ssd_scan.launches_by_path == ssd_by_path
 
 
@@ -409,6 +463,51 @@ def test_rglru_kernel_matches_plain(B, S, W, with_h0):
     torch.cuda.synchronize()
     assert rglru_scan.launches == n0 + 1
     np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+
+
+def _first_scan(a, b, h0):
+    """The first kernel of csrc/rglru_scan.cu, one thread a channel,
+    called directly (not counted in the wrapper's launches)."""
+    from repro_torch.kernels import _build
+    bsz, s, w = a.shape
+    out = torch.empty_like(a)
+    lib = _build.load("rglru_scan")
+    err = lib.rglru_scan_fwd(
+        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+        out.data_ptr(), bsz, s, w, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "rglru_scan (first kernel)")
+    return out
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(1, 3000, 2560), (4, 1000, 2560),
+                                   (1, 1, 2560), (2, 257, 48), (3, 65, 8),
+                                   (1, 130, 2562)])
+def test_rglru_tma_kernel_is_exactly_the_serial_loop(B, S, W, with_h0):
+    """The scan on its path (TMA where W % 4 == 0; W = 2,562 on the first
+    kernel) at the serving widths, one step, S not a multiple of the
+    64-step stage and W not a multiple of the 32-channel tile: exactly the
+    plain loop and the first kernel; one launch a call, on the path
+    ``path`` names."""
+    from repro_torch.kernels.rglru_scan import path
+    dev = _card()
+    rng = np.random.default_rng(B * S + W)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, W)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((B, S, W)).astype(
+        np.float32)).to(dev)
+    h0 = (torch.from_numpy(rng.standard_normal((B, W)).astype(np.float32))
+          .to(dev) if with_h0 else None)
+    kernel = path(B, S, W)
+    assert kernel == ("simt" if W % 4 else "tma")
+    n0, by0 = rglru_scan.launches, dict(rglru_scan.launches_by_path)
+    got = rglru_scan(a, b, h0)
+    assert rglru_scan.launches == n0 + 1
+    assert rglru_scan.launches_by_path[kernel] == by0[kernel] + 1
+    want = ops.rglru_op(a, b, h0, use_kernel=False).cpu().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(_first_scan(a, b, h0).cpu().numpy(), want)
 
 
 @pytest.mark.cuda_only

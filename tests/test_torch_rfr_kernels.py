@@ -19,7 +19,10 @@ from repro.kernels import ref as jref
 from repro.kernels.rfr_inference import rfr_capacity_sweep as j_sweep
 from repro.kernels.rfr_inference import rfr_forest_apply as j_apply
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.rfr_inference import (rfr_capacity_sweep,
+from repro_torch.kernels.rfr_inference import (FOREST_SMEM_BYTES,
+                                               forest_path,
+                                               packed_forest_bytes,
+                                               rfr_capacity_sweep,
                                                rfr_forest_apply)
 
 PRED_TOL = 1e-6
@@ -101,6 +104,23 @@ def test_rfr_forest_apply_partial_blocks(N, block_n):
     np.testing.assert_allclose(got, want, atol=PRED_TOL, rtol=PRED_TOL)
 
 
+@pytest.mark.parametrize("T,depth,want", [(24, 8, "shared"),
+                                          (64, 8, "shared"),
+                                          (64, 10, "global")])
+def test_forest_path_depends_on_forest_bytes_alone(T, depth, want):
+    """The forest kernel stages the packed forest (an 8-byte node per
+    split, a 4-byte leaf) in shared memory up to FOREST_SMEM_BYTES and
+    reads a larger one from device memory; the choice takes the tree
+    count and depth, nothing of the rows.  The control plane's 24 trees
+    of depth 8 and 64 trees of depth 8 (196,096 bytes) go to shared
+    memory, 64 trees of depth 10 (785,920 bytes) do not."""
+    nn = (1 << depth) - 1
+    assert packed_forest_bytes(T, depth) == T * (8 * nn + 4 * (nn + 1))
+    assert forest_path(T, depth) == want
+    assert (want == "shared") == (packed_forest_bytes(T, depth)
+                                  <= FOREST_SMEM_BYTES)
+
+
 @pytest.mark.parametrize("T", [1, 7, 8, 24, 33, 130, 300])
 def test_pairwise_tree_mean_is_numpy_bitwise(T):
     """The tree mean is numpy's ``mean(axis=1)`` bit for bit, for tree
@@ -114,8 +134,8 @@ def test_pairwise_tree_mean_is_numpy_bitwise(T):
 
 
 def _lane_block_sum(vals: np.ndarray) -> np.ndarray:
-    """The sweep kernel's sum of at most 128 trees by a row's eight
-    lanes, emulated in f32 numpy: lane j keeps a partial sum over trees
+    """The kernels' sum of at most 128 trees by a row's eight lanes,
+    emulated in f32 numpy: lane j keeps a partial sum over trees
     j, j+8, j+16, ... below n - n % 8 (0 where there are none, as for
     n < 8); an xor butterfly at offsets 1, 2, 4 adds each lane's partner
     (lane j takes r[j] + r[j ^ off]); the n % 8 tail trees are then added
@@ -149,14 +169,15 @@ def _lane_pairwise_sum(vals: np.ndarray) -> np.ndarray:
 
 
 def _lane_split_mean(vals: np.ndarray) -> np.ndarray:
-    """The capacity sweep kernel's tree mean, emulated in f32 numpy."""
+    """The tree mean of both kernels (the forest kernel and the capacity
+    sweep), emulated in f32 numpy."""
     return _lane_pairwise_sum(vals) / np.float32(vals.shape[1])
 
 
 @pytest.mark.parametrize("T", [1, 5, 7, 8, 24, 33, 128, 130, 300])
 def test_lane_split_tree_mean_is_numpy_bitwise(T):
-    """The sweep kernel's eight-lane order is numpy's pairwise order at
-    every T: lane j's strided sum is numpy's partial sum r[j], and the
+    """The kernels' eight-lane order is numpy's pairwise order at every
+    T: lane j's strided sum is numpy's partial sum r[j], and the
     butterfly forms ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)); below 8 trees the
     partial sums are 0 and the trees are added in order, and above 128
     the lanes sum each of numpy's pairwise blocks.  So the tree mean
