@@ -98,7 +98,23 @@ Phases (each one failing makes the script exit non-zero):
      else; the plain run's prefill logits, SSM states and first tokens
      are held to it as in phase 5, each layer's state error printed as a
      share of its limit;
-  7. the f32 flash path's times on a line of their own; one JSON line
+  7. the platform facade (``repro_torch.platform``): (a) the port's
+     ``smoke()`` on the card (every registered scheduler built from
+     manifest dicts, 30 ticks, 8 target nodes), then the same manifests
+     on engine "numpy", every scheduler's outcome equal and the
+     harvesting-vs-k8s QoS gate of ``smoke()`` holding; (b) phase 3's
+     scenario through ``Platform.build`` in 4 cells with admission on,
+     one world shared and reseeded: jiagu on numpy (the oracle), jiagu
+     on "cuda" (must launch the forest kernel) and the device-drain
+     jiagu on "cuda" (must launch the sweep), equal in every outcome,
+     the per-SLO-class violation rates and every node's table, with
+     admission conservation within 1e-6; (c) the "learned" stack at the
+     same size, one cell, its policy (the numpy init normalised over
+     ``tests/data/policy_traces.jsonl``) installed from a PolicyStore in
+     a temporary directory: every scored batch on the card within 1e-5
+     of ``np_scores``, the same argmax wherever the top-2 margin exceeds
+     that, no stale serve;
+  8. the f32 flash path's times on a line of their own; one JSON line
      describing all five kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32"; the SSD
      scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
@@ -185,6 +201,18 @@ FOREST_N = (1, 20, 255, 256, 257, 9372, 200_000)
 #: time
 QUEUE_CYCLES = 4_000_000
 SCENARIO = dict(n_functions=24, duration_s=180, target_nodes=1024, seed=0)
+#: phase 7 (b): the control plane's own size through Platform.build,
+#: sharded into cells, admission on; per-function conservation of
+#: admitted = served + dropped + queued within CONSERVATION_TOL
+PLATFORM_CELLS = 4
+CONSERVATION_TOL = 1e-6
+#: phase 7 (c): the learned scorer's policy is the numpy init (hidden
+#: width, seed) normalised over the checked-in decision traces, the
+#: same dict the CPU tests serve; its scores on the card within
+#: SCORE_TOL of np_scores (f32 products, TF32 off)
+POLICY_TRACES = "tests/data/policy_traces.jsonl"
+POLICY_HIDDEN, POLICY_SEED = 16, 3
+SCORE_TOL = 1e-5
 DRAIN_NODES = 4096
 DRAIN_M_MAX = 16
 N_PATTERNS = 24
@@ -390,6 +418,12 @@ def outcome(res, sim) -> dict:
         "sched": (s.decisions, s.fast, s.slow, s.failed, s.instances_placed),
         "scaling": (c.real_cold_starts, c.logical_cold_starts, c.releases,
                     c.evictions, c.migrations),
+        # the admission axis (empty without a controller)
+        "class_requests": dict(res.class_requests),
+        "class_violation_rates": {k: v / res.class_requests[k]
+                                  for k, v in res.class_violations.items()},
+        "dropped_requests": res.dropped_requests,
+        "queue_depth_peak": res.queue_depth_peak,
         # node ids come from a process-wide counter: compare in id order
         "tables": [sorted((fn, e.capacity)
                           for fn, e in sim.cluster.nodes[i].table.items())
@@ -1763,6 +1797,262 @@ def phase6_ssm_serving():
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the platform facade
+# ---------------------------------------------------------------------------
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.rfr_inference import (rfr_capacity_sweep,
+                                                   rfr_forest_apply)
+    return {"rfr_forest_apply": rfr_forest_apply.launches,
+            "rfr_capacity_sweep": rfr_capacity_sweep.launches}
+
+
+def _controllers(sim) -> list:
+    """A run's admission controllers, one per cell."""
+    cells = getattr(sim, "cells", None)
+    if cells is None:
+        return [sim.admission]
+    return [c.autoscaler.admission for c in cells]
+
+
+def _differing(got: dict, want: dict) -> list:
+    return [k for k in want if got[k] != want[k]]
+
+
+def phase7_smoke():
+    """(a) The port's smoke() (every registered scheduler from manifest
+    dicts, 30 ticks, 8 target nodes) on the card, then the same
+    manifests on engine "numpy": every scheduler's outcome equal.  Each
+    run's launches are counted from 0 (the run is wrapped to read
+    them); the numpy runs launch nothing."""
+    import torch
+    from repro_torch.core import platform as core_platform
+    from repro_torch.kernels.rfr_inference import reset_launches
+    cls = core_platform.Platform
+    runs = []
+    orig_run = cls.run
+
+    def counted_run(self, duration_s=None):
+        reset_launches()
+        res = orig_run(self, duration_s)
+        torch.cuda.synchronize()
+        runs.append((self.config, outcome(res, self.simulation),
+                     _launches()))
+        return res
+
+    cls.run = counted_run
+    try:
+        t0 = time.perf_counter()
+        core_platform.smoke()
+        wall_card = time.perf_counter() - t0
+        card, runs = runs, []
+        t0 = time.perf_counter()
+        scenario = world = None
+        for cfg, _out, _l in card:
+            manifest = cfg.to_dict()
+            check(manifest["prediction"]["engine"] is None,
+                  "phase 7: smoke() set an engine")
+            manifest["prediction"]["engine"] = "numpy"
+            plat = cls.build(scenario=scenario, config=manifest,
+                             world=world)
+            scenario, world = plat.scenario, plat.world
+            world.gt.reseed()
+            plat.run()
+        wall_numpy = time.perf_counter() - t0
+    finally:
+        cls.run = orig_run
+    check(len(runs) == len(card) > 0, "phase 7: smoke runs missing")
+    for (cfg, out, launches), (_c, want, l_np) in zip(card, runs):
+        name = cfg.scheduler.name
+        diff = _differing(out, want)
+        print(f"phase7 smoke {name}: density {out['density']!r}, "
+              f"qos_violation_rate {out['qos_violation_rate']!r}, sched "
+              f"{out['sched']}, launches {launches}; engine numpy: "
+              f"differing fields {diff or 'none'}")
+        check(not diff, f"phase 7 smoke {name}: the card's run differs "
+              f"from numpy in {diff}")
+        check(not any(l_np.values()), f"phase 7 smoke {name}: the numpy "
+              "run launched a kernel")
+    total = {k: sum(l[k] for _c, _o, l in card) for k in card[0][2]}
+    print(f"phase7 smoke: {len(card)} schedulers, card {wall_card:.2f} s, "
+          f"numpy {wall_numpy:.2f} s, launches on the card {total}")
+    check(total["rfr_forest_apply"] > 0,
+          "phase 7 smoke never launched the forest kernel")
+
+
+def phase7_control_plane():
+    """(b) SCENARIO through Platform.build in PLATFORM_CELLS cells with
+    admission on, on one shared world (reseeded before each run): b1
+    jiagu on engine numpy (the oracle), b2 the same on engine "cuda",
+    b3 jiagu-device-drain on "cuda".  b2 and b3 equal b1 in every
+    outcome and every node's table; conservation within
+    CONSERVATION_TOL; b2 launches the forest kernel, b3 the sweep."""
+    import torch
+    from repro_torch.core.platform import Platform
+    from repro_torch.kernels.rfr_inference import reset_launches
+    base = {"scenario": {"kind": "burst-storm", **SCENARIO},
+            "cells": {"count": PLATFORM_CELLS},
+            "admission": {"enabled": True}}
+    runs = {}
+    scenario = world = None
+    for label, name, engine, drain in (
+            ("b1", "jiagu", "numpy", "host"),
+            ("b2", "jiagu", "cuda", "host"),
+            ("b3", "jiagu-device-drain", "cuda", "device")):
+        manifest = {**base, "scheduler": {"name": name},
+                    "prediction": {"engine": engine}}
+        t0 = time.perf_counter()
+        plat = Platform.build(scenario=scenario, config=manifest,
+                              world=world)
+        build_s = time.perf_counter() - t0
+        scenario, world = plat.scenario, plat.world
+        sim = plat.simulation
+        check(len(sim.cells) == PLATFORM_CELLS,
+              f"phase 7 {label}: {len(sim.cells)} cells")
+        check(all(s.cfg.drain == drain and s.inference_engine == engine
+                  for s in sim.services()),
+              f"phase 7 {label}: a cell's service is not {engine}/{drain}")
+        world.gt.reseed()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = plat.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launches()
+        out = outcome(res, sim)
+        worst = max(c.conservation_error() for c in _controllers(sim))
+        print(f"phase7 run ({label}) {name} engine={engine} drain={drain} "
+              f"cells={PLATFORM_CELLS} admission on: build {build_s:.2f} s, "
+              f"run {run_s:.2f} s, density {out['density']!r}, "
+              f"qos_violation_rate {out['qos_violation_rate']!r}, "
+              f"nodes_peak {out['nodes_peak']}, sched {out['sched']}, "
+              f"scaling {out['scaling']}, class rates "
+              f"{out['class_violation_rates']}, dropped "
+              f"{out['dropped_requests']!r}, conservation error {worst:.3g}"
+              f", launches {launches}")
+        check(res.ticks == SCENARIO["duration_s"] and res.sched.decisions,
+              f"phase 7 {label}: the run did not schedule")
+        check(out["class_requests"], f"phase 7 {label}: admission idle")
+        check(worst < CONSERVATION_TOL,
+              f"phase 7 {label}: conservation error {worst}")
+        runs[label] = (out, launches)
+    oracle, l_b1 = runs["b1"]
+    check(not any(l_b1.values()), "phase 7 b1 (numpy) launched a kernel")
+    for label in ("b2", "b3"):
+        got = runs[label][0]
+        diff = _differing(got, oracle)
+        n_tables = sum(x != y for x, y in zip(got["tables"],
+                                               oracle["tables"]))
+        print(f"phase7 run ({label}) vs oracle (b1): differing fields "
+              f"{diff or 'none'}; nodes with differing tables {n_tables} "
+              f"of {len(oracle['tables'])}")
+        check(not diff, f"phase 7 {label} differs from b1 in {diff}")
+    check(runs["b2"][1]["rfr_forest_apply"] > 0,
+          "phase 7 b2 never launched the forest kernel")
+    check(runs["b3"][1]["rfr_capacity_sweep"] > 0,
+          "phase 7 b3 never launched the sweep kernel")
+    return scenario, world, {label: l for label, (_o, l) in runs.items()}
+
+
+def phase7_learned(scenario, world):
+    """(c) The learned stack at SCENARIO's size, one cell, on the card:
+    the policy installed from a PolicyStore in a temporary directory,
+    each scored batch recorded and held to np_scores (SCORE_TOL, the
+    same argmax wherever the top-2 margin exceeds it); no stale
+    serve."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.platform import Platform
+    from repro_torch.kernels.rfr_inference import reset_launches
+    from repro_torch.policy import (PolicyStore, forward, init_params,
+                                    load_traces, matrices, normalization,
+                                    np_scores)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 7 (c): TF32 matmuls are on; the scores need full f32")
+    ds = load_traces(str(ROOT / POLICY_TRACES))
+    x_all, mask, _y = matrices(ds)
+    policy = init_params(ds.n_features, POLICY_HIDDEN, POLICY_SEED)
+    policy["mu"], policy["sd"] = normalization(x_all, mask)
+    batches = []        # (rows, scores, host-inclusive seconds)
+    with tempfile.TemporaryDirectory() as store:
+        PolicyStore(store).save(policy, epoch=0, mode="init",
+                                feature_names=ds.feature_names)
+        plat = Platform.build(scenario=scenario, world=world, config={
+            "scenario": {"kind": "burst-storm", **SCENARIO},
+            "scheduler": {"name": "learned"},
+            "prediction": {"engine": "cuda"}, "policy": {"store": store}})
+        scorer = plat.scheduler.learned_scorer
+        check(scorer.policy is not None
+              and scorer._weights["w1"].is_cuda,
+              "phase 7 (c): the policy is not on the card")
+        inner = scorer.scores
+
+        def recorded(rows):
+            t0 = time.perf_counter()
+            out = inner(rows)
+            batches.append((rows, out, time.perf_counter() - t0))
+            return out
+
+        scorer.scores = recorded
+        world.gt.reseed()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = plat.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = _launches()
+    check(batches, "phase 7 (c): the learned scorer scored no batch")
+    out = outcome(res, plat.simulation)
+    worst, flips, clear, np_s = 0.0, 0, 0, []
+    for rows, got, _s in batches:
+        t0 = time.perf_counter()
+        want = np_scores(policy, rows)
+        np_s.append(time.perf_counter() - t0)
+        worst = max(worst, float(np.abs(got - want).max()))
+        if len(want) > 1:
+            top2 = np.sort(want)[-2:]
+            if top2[1] - top2[0] > SCORE_TOL:
+                clear += 1
+                flips += int(got.argmax() != want.argmax())
+    n_rows = sum(len(r) for r, _g, _s in batches)
+    # the forward alone at the median batch's rows, its input already on
+    # the card: host and device, then the device's work alone
+    rows = sorted((r for r, _g, _s in batches), key=len)[len(batches) // 2]
+    x = torch.from_numpy(rows).cuda()
+    fwd_ms = time_ms(lambda: forward(scorer._weights, x))
+    fwd_dev_ms = time_ms(lambda: forward(scorer._weights, x), queued=True)
+    print(f"phase7 learned: run {run_s:.2f} s, density {out['density']!r}, "
+          f"qos_violation_rate {out['qos_violation_rate']!r}, nodes_peak "
+          f"{out['nodes_peak']}, sched {out['sched']}, scaling "
+          f"{out['scaling']}, launches {launches}; scorer "
+          f"{scorer.stats.snapshot()}; {len(batches)} batches, {n_rows} "
+          f"rows (largest {max(len(r) for r, _g, _s in batches)}"
+          f"), worst |score - np_scores| {worst:.3g} (limit {SCORE_TOL}), "
+          f"argmax differs in {flips} of {clear} batches with a top-2 "
+          f"margin above it; per batch, median: card "
+          f"{statistics.median(s for _r, _g, s in batches) * 1e3:.4f} ms "
+          f"(host-inclusive), np_scores {statistics.median(np_s) * 1e3:.4f}"
+          f" ms; forward alone at the median batch ({len(rows)} rows, on "
+          f"the card): {fwd_ms:.4f} ms (device {fwd_dev_ms:.4f} ms)")
+    check(worst <= SCORE_TOL, f"phase 7 (c): scores {worst} from numpy")
+    check(flips == 0, f"phase 7 (c): argmax differs in {flips} batches")
+    check(scorer.stats.stale_serves == 0, "phase 7 (c): stale serves")
+    check(launches["rfr_forest_apply"] > 0,
+          "phase 7 (c) never launched the forest kernel")
+    return launches
+
+
+def phase7_platform():
+    phase7_smoke()
+    scenario, world, launches = phase7_control_plane()
+    launches["c"] = phase7_learned(scenario, world)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1802,6 +2092,7 @@ def main() -> int:
             lm["flash_attention"]["simt_device_ms"],
             lm["rglru_scan"]["simt_device_ms"])
         ssm_launches = phase6_ssm_serving()
+        platform_launches = phase7_platform()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -1820,6 +2111,12 @@ def main() -> int:
             for key in ("path", "simt_ms", "simt_device_ms"):
                 if key in m:
                     kernels[-1][key] = m[key]
+        # launches of each forest kernel in phase 7's runs (b2 and c
+        # launch the forest kernel, b3 the sweep)
+        for k in kernels[:2]:
+            k["platform_launches"] = {
+                label: l[k["name"]] for label, l in platform_launches.items()
+                if label != "b1"}
         f32 = lm["flash_attention f32"]
         flash = next(k for k in kernels if k["name"] == "flash_attention")
         flash["f32"] = {

@@ -1,14 +1,17 @@
 """Jiagu's core, ported: pre-decision scheduling + dual-staged scaling
 (the paper's contribution), the RFR predictor with its torch and CUDA
-inference engines, the prediction service, and the cluster simulator.
-
-Cells, harvesting and the platform facade of ``repro.core`` are not
-ported yet."""
+inference engines, the prediction service, the cluster simulator and
+its cell-sharded event core, the harvesting scheduler, and the
+K8s/Gsight/Owl baselines.  The platform facade over all of it is
+``core.platform`` (``repro_torch.platform``)."""
 from .autoscaler import (Autoscaler, ScalingConfig, ScalingMetrics,
                          SchedulerCapacityProvider)
 from .capacity import QOS_MULT, QoSStore, capacity_of, update_capacity_table
+from .cells import (CapacityExchange, Cell, CellRouter, CellSimulation,
+                    cell_scenario_simulation)
 from .cluster import CapEntry, Cluster, FuncState, Node
 from .events import EventHub, JsonlObserver, Observer
+from .harvesting import HarvestingScheduler
 from .interference import GroundTruth, NodeResources
 from .metrics import Reservoir
 from .pipeline import (CandidatePass, DecisionContext, DecisionTrace,
@@ -65,8 +68,10 @@ __all__ = [
     "BENCH_FUNCTIONS", "FunctionSpec", "ProfileStore", "arch_functions",
     "synthetic_functions", "FAST_PATH_MS", "REROUTE_MS", "BaseScheduler",
     "GsightScheduler", "JiaguScheduler", "K8sScheduler", "OwlScheduler",
+    "Cell", "CellRouter", "CellSimulation", "CapacityExchange",
+    "cell_scenario_simulation",
     "SimConfig", "SimResult", "Simulation", "generate_dataset", "Trace",
-    "JsonlObserver", "LocalityRouter",
+    "JsonlObserver", "LocalityRouter", "HarvestingScheduler",
     "CandidatePass", "DecisionContext", "DecisionTrace", "TraceBinding",
     "SchedulingPipeline", "PipelineHostMixin", "PipelineJiaguScheduler",
     "PipelineGsightScheduler", "PipelineK8sScheduler",
@@ -76,5 +81,6 @@ __all__ = [
     "azure_sparse_trace", "NodeClass", "Scenario", "ScenarioWorld",
     "STANDARD_NODE", "LARGE_NODE", "SCENARIO_KINDS", "build_simulation",
     "make_scenario", "scenario_functions", "scenario_simulation",
-    "scenario_suite", "scenario_world", "zipf_weights",
+    "scenario_suite", "scenario_world", "scale_trace_to_nodes",
+    "zipf_weights",
 ]

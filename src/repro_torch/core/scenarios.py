@@ -26,6 +26,7 @@ which is the safe direction for QoS.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -402,13 +403,11 @@ def build_simulation(specs: Dict[str, FunctionSpec], trace: Trace,
     forces it for any scheduler — the greedy picker defaults make the
     release / logical-cold-start machinery meaningful for all of them.
     ``router``/``events`` plug the routing policy and observer hub.
-    ``admission`` is not ported yet: anything but ``None`` (the
-    default, the exact pre-admission control plane) raises.
+    ``admission`` takes an ``AdmissionConfig`` (or any object with its
+    fields, e.g. the platform's ``AdmissionSection``) and attaches an
+    ``AdmissionController`` to the simulation and autoscaler; ``None``
+    — the default — builds the exact pre-admission control plane.
     """
-    if admission is not None:
-        raise NotImplementedError(
-            "admission control is not yet ported to repro_torch; "
-            "build with admission=None")
     entry = scheduler_entry(scheduler)
     sched = build_scheduler(scheduler, SchedulerBuildContext(
         cluster=cluster, store=store, qos=qos, specs=specs,
@@ -438,6 +437,20 @@ def build_simulation(specs: Dict[str, FunctionSpec], trace: Trace,
     sim = Simulation(specs, trace, sched, aut, gt, store, qos,
                      predictor=predictor, cfg=cfg, router=router,
                      events=events)
+    if admission is not None:
+        # late import: core stays importable without the admission
+        # package on the path, and admission-off builds never touch it
+        from ..admission import AdmissionConfig, AdmissionController
+        adm_cfg = admission if isinstance(admission, AdmissionConfig) \
+            else AdmissionConfig(**{
+                f.name: getattr(admission, f.name)
+                for f in dataclasses.fields(AdmissionConfig)
+                if hasattr(admission, f.name)})
+        ctl = AdmissionController(specs, adm_cfg, store=store)
+        sim.admission = ctl
+        # the autoscaler drives the end-of-tick vertical pass and
+        # stamps decision traces with queue context (schema v3)
+        aut.admission = ctl
     return sim
 
 

@@ -624,3 +624,86 @@ def test_mamba_smoke_model_on_card_kernels_match_plain():
         np.testing.assert_allclose(c["h"].cpu().numpy(),
                                    pc["h"].cpu().numpy(), atol=1e-4,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The platform facade on the card: engine "cuda" against engine "numpy"
+# on the same manifest, exactly; the learned scorer's scores within 1e-5
+# of numpy's.
+# ---------------------------------------------------------------------------
+
+
+def _device_drain_jiagu(ctx):
+    """Jiagu with a device-drain PredictionService already attached."""
+    sched = core.JiaguScheduler(ctx.cluster, ctx.store, ctx.qos,
+                                ctx.predictor, m_max=ctx.m_max)
+    sched.attach_service(core.PredictionService(
+        ctx.predictor, ctx.store, ctx.qos, ctx.specs,
+        core.EngineConfig(m_max=ctx.m_max, retrain_every=ctx.retrain_every,
+                          learned_shape_margin=ctx.learned_shape_margin,
+                          drain="device"),
+        schema=ctx.schema_version))
+    return sched
+
+
+def _outcome(res, sim):
+    s, c = res.sched, res.scaling
+    return (res.density, res.qos_violation_rate, res.requests,
+            res.violated_requests, res.nodes_peak,
+            (s.decisions, s.fast, s.slow, s.failed, s.instances_placed),
+            (c.real_cold_starts, c.logical_cold_starts, c.releases,
+             c.evictions, c.migrations),
+            dict(res.class_requests), dict(res.class_violations),
+            [sorted((fn, e.capacity)
+                    for fn, e in sim.cluster.nodes[i].table.items())
+             for i in sorted(sim.cluster.nodes)])
+
+
+@pytest.mark.cuda_only
+def test_platform_on_card_equals_numpy_and_launches_both_kernels():
+    _card()
+    from repro_torch.kernels.rfr_inference import reset_launches
+    from repro_torch.platform import Platform, register_scheduler
+    register_scheduler("jiagu-device-drain", _device_drain_jiagu,
+                       needs_predictor=True, dual_staged_default=True,
+                       overwrite=True)
+    base = {"scenario": {"kind": "burst-storm", "n_functions": 8,
+                         "duration_s": 60, "target_nodes": 64, "seed": 0},
+            "prediction": {"n_train": 300, "n_trees": 8},
+            "cells": {"count": 2}, "admission": {"enabled": True}}
+    runs, world, scenario = {}, None, None
+    for name, engine in (("jiagu", "numpy"), ("jiagu", "cuda"),
+                         ("jiagu-device-drain", "cuda")):
+        m = {**base, "scheduler": {"name": name},
+             "prediction": {**base["prediction"], "engine": engine}}
+        plat = Platform.build(scenario=scenario, config=m, world=world)
+        scenario, world = plat.scenario, plat.world
+        world.gt.reseed()
+        reset_launches()
+        res = plat.run()
+        runs[name, engine] = (_outcome(res, plat.simulation),
+                              rfr_forest_apply.launches,
+                              rfr_capacity_sweep.launches)
+    want, f0, s0 = runs["jiagu", "numpy"]
+    assert (f0, s0) == (0, 0)
+    got, f1, _s1 = runs["jiagu", "cuda"]
+    assert got == want and f1 > 0
+    got, _f2, s2 = runs["jiagu-device-drain", "cuda"]
+    assert got == want and s2 > 0
+
+
+@pytest.mark.cuda_only
+def test_learned_scorer_on_card_matches_numpy():
+    from repro_torch.policy import LearnedScorer, init_params, np_scores
+    dev = _card()
+    rng = np.random.default_rng(5)
+    policy = init_params(14, 32, seed=1)
+    policy["mu"] = rng.standard_normal(14).astype(np.float32)
+    policy["sd"] = rng.uniform(0.5, 2.0, 14).astype(np.float32)
+    scorer = LearnedScorer(policy, epoch=0)
+    assert scorer._weights["w1"].device.type == dev.type
+    for n in (1, 7, 64, 1025):
+        rows = rng.standard_normal((n, 14)).astype(np.float32)
+        np.testing.assert_allclose(scorer.scores(rows),
+                                   np_scores(policy, rows), rtol=0,
+                                   atol=1e-5)

@@ -88,9 +88,32 @@ def test_world_matches_reference():
             getattr(pw.predictor.model.arrays, name))
 
 
-def test_admission_not_ported_raises():
-    scn = port_core.make_scenario("burst-storm", **SCENARIO)
-    world = port_core.scenario_world(scn, n_train=200, engine="numpy")
-    with pytest.raises(NotImplementedError):
-        port_core.scenario_simulation(scn, "jiagu", world=world,
-                                      admission=object())
+def test_admission_matches_reference():
+    """Queue-backed admission on both packages' shims: the same outcomes
+    and tables, the same per-SLO-class requests and violations, and
+    per-function conservation within 1e-6."""
+    from repro.admission import AdmissionConfig as RefAdmission
+    from repro_torch.admission import AdmissionConfig as PortAdmission
+    rs = ref_core.make_scenario("burst-storm", **SCENARIO)
+    ref = ref_core.scenario_simulation(
+        rs, "jiagu", world=ref_core.scenario_world(rs, n_train=300),
+        admission=RefAdmission(enabled=True, vertical=True))
+    want_res = ref.run()
+    ps = port_core.make_scenario("burst-storm", **SCENARIO)
+    sim = port_core.scenario_simulation(
+        ps, "jiagu", world=port_core.scenario_world(
+            ps, n_train=300, engine="torch", device="cpu"),
+        admission=PortAdmission(enabled=True, vertical=True))
+    assert sim.admission is not None and sim.autoscaler.admission is not None
+    res = sim.run()
+    got, want = outcome(res, sim), outcome(want_res, ref)
+    for key in want:
+        assert got[key] == want[key], key
+    assert res.class_requests and res.class_requests == \
+        want_res.class_requests
+    assert res.class_violations == want_res.class_violations
+    assert (res.dropped_requests, res.queue_depth_peak, res.vertical_grows,
+            res.vertical_shrinks) == (
+        want_res.dropped_requests, want_res.queue_depth_peak,
+        want_res.vertical_grows, want_res.vertical_shrinks)
+    assert sim.admission.conservation_error() < 1e-6
