@@ -113,13 +113,43 @@ Phases (each one failing makes the script exit non-zero):
      ``tests/data/policy_traces.jsonl``) installed from a PolicyStore in
      a temporary directory: every scored batch on the card within 1e-5
      of ``np_scores``, the same argmax wherever the top-2 margin exceeds
-     that, no stale serve;
-  8. the f32 flash path's times on a line of their own; one JSON line
-     describing all five kernels (flash attention's entry is the bf16
-     serving path's kernel, with the f32 path's under "f32"; the SSD
-     scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
-     redesigned kernel carries the first kernel's times beside its own),
-     then the device line.
+     that, no stale serve; the batches replayed and split into the copy
+     in, the forward and the copy out with its synchronisation (CUDA
+     events, medians by batch length);
+  8. training: (a) the two backward kernels against their plain versions
+     at the serving shapes: ``flash_attention_bwd`` at BH 10, 1 kv head,
+     D 256, local 2,048, causal, S = 512, 1,000, 2,048, 3,000 in bf16, 512
+     and 1,000 in f32, and S = 1,000 bf16 with a softcap of 50 (each of
+     dq, dk, dv within BWD_TOL, its worst element printed as a share of
+     its allowance), timed beside its plain version and sdpa's backward
+     (forward and backward through ``torch.autograd.grad`` minus the
+     forward, same bool mask); ``rglru_scan_bwd`` exactly its plain
+     reverse loop at (1, 3,000, 2,560) with and without h0, (4, 1,000,
+     2,560) and (2, 1,000, 2,562) (the one-thread-a-channel path);
+     (b) recurrentgemma-2b at its published width and depth, f32 master
+     weights and moments computed in bf16, remat on, B 1, S 3,000,
+     TokenPipeline seed 0, 8 steps of ``make_train_step`` with the
+     AdamWConfig the reference's ``train_loop`` builds for 8 steps
+     (warmup 1, cosine over 8), no checkpoint (the state is some 43 GB):
+     every loss finite, the last below the first, 8 attention and 18
+     scan backward launches a step; step time, tokens/s, peak memory and
+     one profiled step; (c) the same width at one period (rec, rec,
+     local), S 1,024, bf16: every gradient leaf through the kernels
+     against the plain versions within GRAD_TOL in norm; (d) the
+     fail/resume drill on the card at the smoke config (fail at 6,
+     resume from step 4, finish at 10; a resumed run's steps 4-7 within
+     rtol 1e-4 of the straight run's); (e) the policy fit at
+     TrainConfig(hidden=16, epochs=30, seed=0) on the card and on the
+     CPU, both timed: each step's loss within 1e-4, every train and
+     holdout decision the same, save at most one a split that is a tie
+     on the CPU fit (TIE_TOL), the raw agreements printed;
+  9. the f32 flash path's times on a line of their own; one JSON line
+     describing the five kernels and the two backward kernels (flash
+     attention's entry is the bf16 serving path's kernel, with the f32
+     path's under "f32"; the SSD scan's is the wgmma kernel, the RG-LRU
+     scan's the TMA kernel; each redesigned kernel carries the first
+     kernel's times beside its own; the backward kernels' launches are
+     phase 8 (b)'s), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -185,6 +215,30 @@ LOGIT_TOL = 2e-2
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (512, 1000, 2048, 3001)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase 8: recurrentgemma-2b trained at full width and depth on the
+#: serving shape's longest prompt (past the 2,048 window), B 1; (c) one
+#: period at the same width, S 1,024
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 3000, 1, 8
+PERIOD_SEQ = 1024
+#: the attention backward against its plain version (the same f32
+#: formula summed in other orders): each gradient within (relative, of
+#: the tensor's largest |value|); bf16 gradients may round to
+#: neighbouring bf16 values (2^-7 apart), f32 ones differ in the sums'
+#: order.  A key tile of 32 dropped or added moves a row's dq by a few
+#: hundredths of the largest
+BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+#: phase 8 (c): each gradient leaf through the kernels against the plain
+#: versions, relative in norm, bf16 compute: the forward kernel rounds p
+#: to bf16 before P.V where the plain version keeps f32, which moves the
+#: activations by ~2^-9 and every gradient after them
+GRAD_TOL = 5e-2
+#: phase 8 (e): two candidates whose scores on the CPU fit lie within
+#: this share of the larger (a few f32 ulps at the fixture's scores) are a
+#: tie that rounding breaks; at most MAX_TIE_FLIPS decisions a split may
+#: differ so
+TIE_TOL = 1e-6
+MAX_TIE_FLIPS = 1
 #: phase 2's second drain: device-drain capacity tables against the numpy
 #: host drain on worlds of other traces and seeds (the sweep's expf and
 #: numpy's float32 exp differ by an ulp on many inputs)
@@ -2038,6 +2092,7 @@ def phase7_learned(scenario, world):
           f"(host-inclusive), np_scores {statistics.median(np_s) * 1e3:.4f}"
           f" ms; forward alone at the median batch ({len(rows)} rows, on "
           f"the card): {fwd_ms:.4f} ms (device {fwd_dev_ms:.4f} ms)")
+    scorer_split(scorer._weights, [r for r, _g, _s in batches])
     check(worst <= SCORE_TOL, f"phase 7 (c): scores {worst} from numpy")
     check(flips == 0, f"phase 7 (c): argmax differs in {flips} batches")
     check(scorer.stats.stale_serves == 0, "phase 7 (c): stale serves")
@@ -2046,11 +2101,551 @@ def phase7_learned(scenario, world):
     return launches
 
 
+def scorer_split(weights, batches):
+    """The learned scorer's batch, replayed on the run's batches and split
+    as ``LearnedScorer.scores`` does the work: the copy in
+    (``torch.from_numpy(rows).to(device)``), the forward, and the copy
+    out with its synchronisation (``.cpu().numpy()``), each between CUDA
+    events recorded around it, so host and device together, as the
+    scorer meets them.  Medians overall and by batch length; printed."""
+    import torch
+    from repro_torch.policy import forward
+    dev = weights["w1"].device
+    parts = []                     # (rows, copy in, forward, copy out) ms
+    for rows in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        x = torch.from_numpy(rows).to(dev)
+        ev[1].record()
+        y = forward(weights, x)
+        ev[2].record()
+        y.cpu().numpy()
+        ev[3].record()
+        ev[3].synchronize()
+        parts.append((len(rows),) + tuple(ev[i].elapsed_time(ev[i + 1])
+                                          for i in range(3)))
+
+    def line(sel):
+        if not sel:
+            return "none"
+        med = [statistics.median(p[i] for p in sel) for i in (1, 2, 3)]
+        return (f"{len(sel)} batches: copy in {med[0]:.4f} ms, forward "
+                f"{med[1]:.4f} ms, copy out and sync {med[2]:.4f} ms "
+                f"(sum {sum(med):.4f})")
+
+    print(f"phase7 learned scorer batch split, median, {line(parts)}")
+    for lo, hi in ((1, 64), (65, 256), (257, 512), (513, 1024),
+                   (1025, 1 << 30)):
+        sel = [p for p in parts if lo <= p[0] <= hi]
+        if sel:
+            print(f"phase7 learned scorer split, batches of {lo}-"
+                  f"{min(hi, max(p[0] for p in sel))} rows: {line(sel)}")
+
+
 def phase7_platform():
     phase7_smoke()
     scenario, world, launches = phase7_control_plane()
     launches["c"] = phase7_learned(scenario, world)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
+    """q, o, dO and k, v read once, dq, dk, dv written once; 10*D
+    operations (five products of 2*D: s, dp, dv, dq, dk) per query-key
+    pair the mask keeps, at the tensor-core rate for the inputs' type."""
+    import torch
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (4 * bh + 4 * bh_kv) * s * d * esize
+    return bound(nbytes, 10 * bh * d * pairs, matmul_peak(dtype))
+
+
+def hold_flash_bwd(q, k, v, kw, timed: bool):
+    """flash_attention_bwd against its plain version on the forward
+    kernel's output and a random dO: each of dq, dk, dv within BWD_TOL
+    (its worst element printed as a share of its allowance).  With
+    `timed`, the kernel, its plain version and sdpa's backward (forward
+    and backward through torch.autograd.grad, minus its forward, with
+    the same boolean mask) timed, and the bound.  Returns a dict."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    bh, s, d = q.shape
+    dt = str(q.dtype).split(".")[-1]
+    rel, of_max = BWD_TOL[dt]
+    o = flash_attention(q, k, v, **kw)
+    do = torch.randn(q.shape, device=q.device,
+                     generator=torch.Generator(device=q.device).manual_seed(
+                         s)).to(q.dtype)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    check(flash_attention_bwd.launches == n0 + 1,
+          "flash_attention_bwd did not count its launch")
+    out = {"errors": {}, "max_abs_err": 0.0}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()),
+              f"flash_attention_bwd S={s} {dt} {kw}: {name} not finite")
+        diff = (g - w).abs()
+        worst = float((diff / (rel * w.abs() + of_max * float(
+            w.abs().max()))).max())
+        err = float(diff.max())
+        out["errors"][name] = (err, worst)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        check(worst <= 1.0, f"flash_attention_bwd S={s} D={d} {dt} {kw}: "
+              f"{name} max_abs_err {err}, the worst element at {worst:.3g} "
+              "of its allowance")
+    if not timed:
+        return out
+    mask = ref.attention_mask(s, kw.get("causal", True),
+                              kw.get("kind", "global"), kw.get("window", 0),
+                              q.device)
+    out["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, **kw))
+    out["device_ms"] = time_ms(
+        lambda: flash_attention_bwd(q, k, v, o, do, **kw), queued=True)
+    out["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, do, **kw), reps=5)
+    q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
+    k4 = k.view(1, -1, s, d).expand(1, bh, s, d).detach().requires_grad_(True)
+    v4 = v.view(1, -1, s, d).expand(1, bh, s, d).detach().requires_grad_(True)
+    do4 = do.view(1, bh, s, d)
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def library_both():
+        return torch.autograd.grad(library_fwd(), (q4, k4, v4), do4)
+
+    both = time_ms(library_both, reps=10)
+    fwd = time_ms(library_fwd, reps=10)
+    out["library_ms"] = both - fwd
+    out["library_both_ms"] = both
+    out["pairs"] = int(mask.sum())
+    out["bound_ms"], out["bound_by"] = flash_bwd_bound(
+        bh, k.shape[0], s, d, q.dtype, out["pairs"])
+    return out
+
+
+def hold_scan_bwd(a, b, h0, timed: bool):
+    """rglru_scan_bwd against its plain reverse loop, exactly (da, db and
+    dh0), on the wrapper's path; with `timed` the kernel and its plain
+    version timed, and the bound (a, h, dh read, da, db written)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import path, rglru_scan, rglru_scan_bwd
+    what = f"rglru_scan_bwd {tuple(a.shape)} h0={h0 is not None}"
+    h = rglru_scan(a, b, h0)
+    dh = torch.randn(a.shape, device=a.device,
+                     generator=torch.Generator(device=a.device).manual_seed(
+                         a.shape[1]))
+    n0 = dict(rglru_scan_bwd.launches_by_path)
+    got = rglru_scan_bwd(a, h, dh, h0, with_dh0=True)
+    ran = [p for p, n in rglru_scan_bwd.launches_by_path.items()
+           if n != n0[p]]
+    want = ref.rglru_scan_bwd_ref(a, h, dh, h0)
+    torch.cuda.synchronize()
+    check(ran == [path(*a.shape)], f"{what}: ran {ran}, path says "
+          f"{path(*a.shape)}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err == 0, f"{what}: max_abs_err {err}, not the serial loop")
+    out = {"path": ran[0], "max_abs_err": err}
+    if timed:
+        n = a.numel()
+        extra = 0 if h0 is None else 2 * h0.numel() * 4
+        out["bound_ms"], out["bound_by"] = bound(5 * n * 4 + extra, 3 * n)
+        out["ms"] = time_ms(lambda: rglru_scan_bwd(a, h, dh, h0))
+        out["device_ms"] = time_ms(lambda: rglru_scan_bwd(a, h, dh, h0),
+                                   queued=True)
+        out["plain_ms"] = time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh,
+                                                                 h0), reps=3)
+        out["library_ms"] = None
+    return out
+
+
+def phase8_bwd_kernels():
+    """(a) The two backward kernels against their plain versions at the
+    serving shapes; returns the measurements for the kernels line."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    serve = {}
+    cases = [(torch.bfloat16, s, {}) for s in SERVE_PROMPTS]
+    cases += [(torch.float32, s, {}) for s in (512, 1000)]
+    cases += [(torch.bfloat16, 1000, {"softcap": 50.0})]
+    for dtype, s, extra in cases:
+        kw = dict(causal=True, kind="local", window=2048, **extra)
+        scale = 8.0 if extra else 1.0
+        q = randn(10, s, 256, dtype=dtype) * scale
+        k = randn(1, s, 256, dtype=dtype) * scale
+        v = randn(1, s, 256, dtype=dtype)
+        m = hold_flash_bwd(q, k, v, kw, timed=not extra)
+        dt = str(dtype).split(".")[-1]
+        errs = "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
+                         for n, (e, w) in m["errors"].items())
+        line = (f"phase8 flash_attention_bwd BH=10 G=10 S={s} D=256 local "
+                f"2048{' softcap 50' if extra else ''} {dt}: {errs}")
+        if "ms" in m:
+            line += (f"; kernel {m['ms']:.4f} ms (device "
+                     f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} "
+                     f"ms, sdpa backward {m['library_ms']:.4f} ms (forward "
+                     f"and backward {m['library_both_ms']:.4f}), bound "
+                     f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
+                     f"{m['pairs']} a head")
+        print(line)
+        if (dtype, s, extra) == (torch.bfloat16, max(SERVE_PROMPTS), {}):
+            serve["flash_attention_bwd"] = dict(m, shape=[10, s, 256])
+    for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
+                                 ((1, 3000, 2560), True),
+                                 ((4, 1000, 2560), False),
+                                 ((2, 1000, 2562), True)):
+        a = torch.rand((bsz, s, w), generator=gen, device=dev) * 0.5 + 0.5
+        m = hold_scan_bwd(a, randn(bsz, s, w),
+                          randn(bsz, w) if with_h0 else None,
+                          timed=w % 4 == 0)
+        line = (f"phase8 rglru_scan_bwd ({bsz}, {s}, {w}) h0={with_h0} "
+                f"path={m['path']}: max_abs_err {m['max_abs_err']}")
+        if "ms" in m:
+            line += (f", kernel {m['ms']:.4f} ms (device "
+                     f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} "
+                     f"ms, bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
+        print(line)
+        if (bsz, s, w, with_h0) == (1, 3000, 2560, False):
+            serve["rglru_scan_bwd"] = dict(m, shape=[bsz, s, w])
+    return serve
+
+
+def train_counts() -> dict:
+    """The forward and backward launch counts of the train step's two
+    kernels."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "rglru_scan": rglru_scan.launches,
+            "rglru_scan_bwd": rglru_scan_bwd.launches,
+            "ssd_scan": lm_counts()["ssd_scan"]}
+
+
+def profile_train_step(bundle, state, batch):
+    """One train step under torch.profiler: wall time, device busy and
+    idle share, the largest device entries and the backward kernels'
+    device time.  Returns the state; prints "not measured" without
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _m = bundle.fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if busy <= 0:
+        print("phase8 profile train step: device time not measured")
+        return state
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    host = [e for e in rows if e.device_type == DeviceType.CPU]
+    print(f"phase8 profile train step (profiled {wall * 1e3:.1f} ms): "
+          f"device busy {busy * 1e3:.2f} ms, idle share "
+          f"{1 - busy / wall:.4f}; {sum(e.count for e in host)} host op "
+          "calls")
+    print("phase8 profile   device: " + "; ".join(
+        f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+        for e in top))
+    ops = sorted((e for e in host if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    print("phase8 profile   device time by op: " + "; ".join(
+        f"{e.key[:28]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+        for e in ops))
+    for key in ("attn_bwd", "rglru_bwd", "flash", "rglru_tma", "gemm"):
+        mine = [e for e in dev if key in e.key.lower()]
+        if mine:
+            print(f"phase8 profile   {key}: " + "; ".join(
+                f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
+                f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
+                "ms")
+    return state
+
+
+def phase8_train_full_width():
+    """(b) recurrentgemma-2b at its published width and depth: bf16
+    compute, f32 master weights and moments, remat on, B 1, S 3,000,
+    TokenPipeline seed 0, TRAIN_STEPS steps through make_train_step and
+    no checkpoint.  Returns the backward kernels' launches in the run."""
+    import gc
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state, put_batch
+    from repro_torch.models.model import block_structure
+    from repro_torch.optim import AdamWConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    kinds = cfg.layer_kinds()
+    n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
+    # remat runs the body's periods forward a second time in the backward;
+    # the head and tail layers run forward once
+    head, period, n_periods, _ = block_structure(cfg)
+    body = kinds[len(head):len(head) + n_periods * len(period)]
+    fwd_local = n_local + body.count("local")
+    fwd_rec = n_rec + body.count("recurrent")
+    shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    t0 = time.perf_counter()
+    state = build_state(cfg, opt_cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    print(f"phase8 {TRAIN_ARCH}: {n_params:,} parameters, f32 weights and "
+          f"moments, computed in {cfg.dtype}; {cfg.n_layers} layers "
+          f"({n_local} local + {n_rec} recurrent), B {TRAIN_BATCH}, S "
+          f"{TRAIN_SEQ}; state built in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
+          f"{opt_cfg}")
+    bundle = make_train_step(cfg, shape, opt_cfg, remat=True,
+                             device="cuda")
+    pipe = TokenPipeline(cfg, shape, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = put_batch(pipe.batch(i), "cuda")
+        t0 = time.perf_counter()
+        state, m = bundle.fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        print(f"phase8 step {i}: loss {loss:.4f}, grad_norm "
+              f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
+              f"{times[-1] * 1e3:.1f} ms")
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": fwd_local * TRAIN_STEPS,
+            "flash_attention_bwd": n_local * TRAIN_STEPS,
+            "rglru_scan": fwd_rec * TRAIN_STEPS,
+            "rglru_scan_bwd": n_rec * TRAIN_STEPS, "ssd_scan": 0}
+    steady = statistics.median(times[1:])
+    print(f"phase8 train launches: {counts}; expected {want} (the "
+          f"forwards once a layer and again in each of the {n_periods} "
+          f"recomputed periods)")
+    print(f"phase8 train: losses {[round(x, 4) for x in losses]}; step "
+          f"time first {times[0] * 1e3:.1f} ms, median of the rest "
+          f"{steady * 1e3:.1f} ms = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
+          f"phase 8 (b): a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 8 (b): the loss did not fall: "
+          f"{losses}")
+    check({k: counts[k] for k in want} == want,
+          f"phase 8 (b) launches {counts}, expected {want}")
+    state = profile_train_step(
+        bundle, state, put_batch(pipe.batch(TRAIN_STEPS), "cuda"))
+    del state, bundle
+    return counts
+
+
+def phase8_period_grads():
+    """(c) recurrentgemma-2b's width at one period (rec, rec, local), S
+    1,024, bf16 compute: every gradient leaf through the kernels against
+    the plain versions, relative in norm within GRAD_TOL."""
+    import gc
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import put_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.optim.adamw import leaves_with_path
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=3, pattern_tail=())
+    shape = InputShape("phase8c", PERIOD_SEQ, 1, "train")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    named = leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    batch = put_batch(TokenPipeline(cfg, shape, seed=0).batch(0), "cuda")
+    grads, losses = [], []
+    for use_kernel in (True, False):
+        n0 = train_counts()
+        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                    use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(loss, leaves))
+        losses.append(float(loss))
+        d = {k: v - n0[k] for k, v in train_counts().items()}
+        print(f"phase8 period grads use_kernel={use_kernel}: launches {d}")
+        want = ((d["flash_attention_bwd"], d["rglru_scan_bwd"]) == (1, 2)
+                and d["flash_attention"] >= 1 and d["rglru_scan"] >= 2
+                if use_kernel else not any(d.values()))
+        check(want, f"phase 8 (c) use_kernel={use_kernel}: launches {d}")
+    errs = []
+    for (path, _), gk, gp in zip(named, *grads):
+        e = float((gk.float() - gp.float()).norm()
+                  / gp.float().norm().clamp_min(1e-30))
+        errs.append(("/".join(p.strip("[]'") for p in path), e))
+    worst = max(e for _, e in errs)
+    print(f"phase8 period grads ({cfg.n_layers} layers of width "
+          f"{cfg.d_model}, S {PERIOD_SEQ}, bf16): loss kernels "
+          f"{losses[0]:.5f}, plain {losses[1]:.5f}; each leaf's relative "
+          f"error in norm (limit {GRAD_TOL}): " + "; ".join(
+              f"{n} {e:.2e}" for n, e in errs))
+    print(f"phase8 period grads: worst leaf {worst:.3e}")
+    check(worst <= GRAD_TOL, f"phase 8 (c): a gradient leaf differs by "
+          f"{worst} in norm")
+    check(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
+          f"phase 8 (c): losses {losses}")
+
+
+def phase8_drill():
+    """(d) the fail/resume drill on the card at the smoke config: train
+    10 steps, fail at 6, resume from the step-4 checkpoint and finish;
+    then the straight 8-step run against a resumed one, steps 4-7 within
+    rtol 1e-4."""
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.distributed import InjectedFailure
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import AdamWConfig
+    cfg = get_smoke_config(TRAIN_ARCH)
+    shape = InputShape("t", 64, 2, "train")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/ckpt"
+        try:
+            train_loop(cfg, shape, steps=10, ckpt_dir=ckpt, save_every=4,
+                       fail_at=6, quiet=True, device="cuda")
+            check(False, "phase 8 (d): the injected failure did not fire")
+        except InjectedFailure:
+            pass
+        check(latest_step(ckpt) == 4, f"phase 8 (d): latest step "
+              f"{latest_step(ckpt)} after the failure")
+        _s, history = train_loop(cfg, shape, steps=10, ckpt_dir=ckpt,
+                                 resume=True, save_every=4, quiet=True,
+                                 device="cuda")
+        check(len(history) == 6 and np.isfinite(history[-1])
+              and latest_step(ckpt) == 10,
+              f"phase 8 (d): resumed {len(history)} steps, latest "
+              f"{latest_step(ckpt)}")
+        oc = AdamWConfig(total_steps=8, warmup_steps=1)
+        _s, straight = train_loop(cfg, shape, steps=8, quiet=True,
+                                  opt_cfg=oc, device="cuda")
+        ckpt2 = f"{tmp}/ckpt2"
+        train_loop(cfg, shape, steps=4, ckpt_dir=ckpt2, save_every=4,
+                   quiet=True, opt_cfg=oc, device="cuda")
+        _s, resumed = train_loop(cfg, shape, steps=8, ckpt_dir=ckpt2,
+                                 resume=True, quiet=True, opt_cfg=oc,
+                                 device="cuda")
+    worst = float(np.max(np.abs(np.array(straight[4:]) - np.array(resumed))
+                         / np.abs(np.array(resumed))))
+    print(f"phase8 drill: failed at step 6, resumed from 4, finished at "
+          f"10 (losses {[round(x, 4) for x in history]}); straight "
+          f"{[round(x, 5) for x in straight[4:]]} against resumed "
+          f"{[round(x, 5) for x in resumed]}: worst relative difference "
+          f"{worst:.3g} (limit 1e-4); {time.perf_counter() - t0:.2f} s")
+    check(worst <= 1e-4, f"phase 8 (d): resumed losses differ by {worst}")
+
+
+def phase8_policy_fit():
+    """(e) the policy fit on the card against the same fit on the CPU:
+    each step's loss within 1e-4, and every train and holdout decision
+    the same on both, save where the card's pick and the CPU's are a
+    tie on the CPU fit: their scores there within TIE_TOL of each other
+    (relative to the larger), so rounding decides.  At most MAX_TIE_FLIPS
+    such decisions a split may differ.  The fixture's 13 train decisions
+    hold one such pair, 2.4e-7 apart, which the CPU fit breaks one way
+    and any change of summation order (the card's, or the init moved by
+    1e-7) the other, 1/13 of the agreement.  The raw agreements are
+    printed beside."""
+    import numpy as np
+    import torch
+    import repro_torch.policy.train as train_mod
+    from repro_torch.policy import (TrainConfig, load_traces, matrices,
+                                    np_scores, split, train_policy)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 8 (e): TF32 matmuls are on; the fit needs full f32")
+    tr, ho = split(load_traces(str(ROOT / POLICY_TRACES)))
+    cfg = TrainConfig(hidden=16, epochs=30, seed=0)
+    C = max(tr.max_candidates, ho.max_candidates, 1)
+    orig_step = train_mod._step
+    out = {}
+    for device in ("cuda", "cpu"):
+        losses = []
+
+        def recording(*args):
+            res = orig_step(*args)
+            losses.append(float(res[1]))
+            return res
+
+        train_mod._step = recording
+        try:
+            t0 = time.perf_counter()
+            policy, m = train_policy(tr, ho, cfg, device=device)
+            out[device] = (policy, m, time.perf_counter() - t0, losses)
+        finally:
+            train_mod._step = orig_step
+    (pc, mc, tc, lc), (ph, mh, th, lh) = out["cuda"], out["cpu"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    print(f"phase8 policy fit ({len(tr)} train, {len(ho)} holdout "
+          f"decisions, {cfg}): card {tc:.3f} s, CPU {th:.3f} s, "
+          f"{len(lc)} steps each, worst step loss difference {worst:.3g} "
+          f"(limit 1e-4), final loss {mc['loss']:.6f} against "
+          f"{mh['loss']:.6f}")
+    check(len(lc) == len(lh) and worst <= 1e-4,
+          f"phase 8 (e): step losses differ by {worst}")
+    for name, ds in (("train", tr), ("holdout", ho)):
+        X, mask, y = matrices(ds, n_candidates=C)
+        sc = np_scores(pc, X) - 1e9 * (1.0 - mask)
+        sh = np_scores(ph, X) - 1e9 * (1.0 - mask)
+        rows = np.arange(len(y))
+        pick_c, pick_h = sc.argmax(-1), sh.argmax(-1)
+        # the CPU fit's scores of the two picks: a tie if within TIE_TOL
+        hi, lo = sh[rows, pick_h], sh[rows, pick_c]
+        gap = (hi - lo) / np.maximum(1.0, np.abs(hi))
+        differ = pick_c != pick_h
+        flips = differ & (gap <= TIE_TOL)
+        print(f"phase8 policy fit {name}: raw agreement card "
+              f"{mc[name + '_agreement']:.4f}, CPU "
+              f"{mh[name + '_agreement']:.4f}; {int(differ.sum())} of "
+              f"{len(y)} decisions differ, {int(flips.sum())} of them ties "
+              f"on the CPU fit (gaps {gap[differ].tolist()}, tolerance "
+              f"{TIE_TOL}); the rest the same")
+        check(not (differ & ~flips).any() and flips.sum() <= MAX_TIE_FLIPS,
+              f"phase 8 (e): {name} decisions {rows[differ].tolist()} "
+              f"differ between the card and the CPU, relative gaps "
+              f"{gap[differ].tolist()} on the CPU fit")
+
+
+def phase8_training():
+    t0 = time.perf_counter()
+    serve = phase8_bwd_kernels()
+    counts = phase8_train_full_width()
+    phase8_period_grads()
+    phase8_drill()
+    phase8_policy_fit()
+    print(f"phase8 total {time.perf_counter() - t0:.1f} s")
+    return serve, counts
 
 
 def main() -> int:
@@ -2093,6 +2688,7 @@ def main() -> int:
             lm["rglru_scan"]["simt_device_ms"])
         ssm_launches = phase6_ssm_serving()
         platform_launches = phase7_platform()
+        train, train_launches = phase8_training()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -2111,6 +2707,25 @@ def main() -> int:
             for key in ("path", "simt_ms", "simt_device_ms"):
                 if key in m:
                     kernels[-1][key] = m[key]
+        # the backward kernels: no TPU kernel has a backward (XLA
+        # differentiates the reference's jnp paths); `replaces` names the
+        # Pallas kernel whose function they differentiate
+        for name, source, fwd, jnp_path in (
+                ("flash_attention_bwd", "flash_attention_bwd.cu",
+                 "flash_attention",
+                 "src/repro/models/attention.py:118 blockwise_attention"),
+                ("rglru_scan_bwd", "rglru_scan.cu", "rglru_scan",
+                 "src/repro/models/rglru.py:69 lru_scan")):
+            m = train[name]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": CSRC + source, "replaces": REPLACES[fwd],
+                "differentiates": jnp_path + " (XLA autodiff)",
+                "launches": train_launches[name],
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"], "shape": m["shape"]})
         # launches of each forest kernel in phase 7's runs (b2 and c
         # launch the forest kernel, b3 the sweep)
         for k in kernels[:2]:

@@ -30,6 +30,7 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention": "flash_attention.cu",
                            "flash_attention_wgmma": "flash_attention_wgmma.cu",
                            "flash_attention_tf32": "flash_attention_tf32.cu",
+                           "flash_attention_bwd": "flash_attention_bwd.cu",
                            "rglru_scan": "rglru_scan.cu",
                            "ssd_scan": "ssd_scan.cu",
                            "ssd_scan_wgmma": "ssd_scan_wgmma.cu"}
@@ -80,10 +81,21 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # bh, s, d, causal, kind, window -> the kv shares fwd takes
         "flash_attention_tf32_splits": ([_I, _I, _I, _I, _I, _I], _I),
     },
+    "flash_attention_bwd": {
+        # q, k, v, o, dout, dq, dk, dv, lse and delta scratch, bh, s, d,
+        # group, is_bf16, causal, kind, window, softcap, stream
+        "flash_attention_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _D, _P], _I),
+    },
     "rglru_scan": {
         # both: a, b, h0 (or null), h, batch, s, w, stream
         "rglru_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
         "rglru_scan_tma_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # both backward: a, h, dh, h0 (or null), da, db, dh0 (or null),
+        # batch, s, w, stream
+        "rglru_scan_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "rglru_scan_tma_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                               _I),
     },
     "ssd_scan": {
         # x, dA, dt, Bm, Cm, h0 (or null), y, hout, batch, heads, groups,

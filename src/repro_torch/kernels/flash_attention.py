@@ -148,7 +148,89 @@ flash_attention.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 
 
 def reset_launches():
-    """Zero the launch counts, the total and each path's."""
+    """Zero the launch counts, the total and each path's, and the
+    backward's."""
     flash_attention.launches = 0
     for key in flash_attention.launches_by_path:
         flash_attention.launches_by_path[key] = 0
+    flash_attention_bwd.launches = 0
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, do: torch.Tensor, kind: str, window: int):
+    group = _check(q, k, v, kind, window)
+    for name, a in (("o", o), ("do", do)):
+        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
+            raise ValueError(f"{name} {tuple(a.shape)} {a.dtype} on "
+                             f"{a.device} does not match q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return group
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, kind: str = "global",
+                        window: int = 0, softcap: float = 0.0):
+    """Gradients of ``flash_attention``: q, o (its output), do (the loss's
+    gradient by o) (BH, S, D); k, v (BH / G, S, D) -> (dq, dk, dv) in the
+    inputs' dtype, dk and dv summed over each kv row's G query rows."""
+    group = _check_bwd(q, k, v, o, do, kind, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                           kind=kind, window=window,
+                                           softcap=softcap)
+    BH, S, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    # per-row log-sum-exp and D_i = rowsum(dO * O), f32
+    stats = torch.empty((2, BH, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _build.load("flash_attention_bwd").flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), BH, S, D, group,
+            int(q.dtype == torch.bfloat16), int(causal), KINDS[kind],
+            int(window), float(softcap), stream)
+    _build.check_launch(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its hand-written gradient: the forward
+    kernel, then ``flash_attention_bwd`` on the saved q, k, v and output
+    (the row statistics are recomputed, so the forward kernels and
+    serving's outputs stay as they are)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kind, window, softcap):
+        o = flash_attention(q, k, v, causal=causal, kind=kind,
+                            window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = dict(causal=causal, kind=kind, window=window,
+                        softcap=softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, kind: str = "global",
+                       window: int = 0, softcap: float = 0.0
+                       ) -> torch.Tensor:
+    """``flash_attention`` that autograd differentiates with the backward
+    kernel (its plain version on CPU tensors)."""
+    return FlashAttentionFn.apply(q, k, v, causal, kind, window,
+                                  float(softcap))

@@ -2,7 +2,11 @@
 ``repro.kernels.ops``: ``use_kernel=True`` goes through the hand-written
 kernel's wrapper (which takes the plain version itself for tensors on
 the CPU), ``use_kernel=False`` through the plain PyTorch version on the
-tensors' own device."""
+tensors' own device.  Attention and the RG-LRU scan go through their
+``torch.autograd.Function``s, so a train step differentiates them with
+the hand-written backward kernels; without gradients they launch what
+the forward wrappers launch.  ``use_kernel=False`` is differentiated by
+autograd through the plain versions."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,9 +14,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention_fn
 from .rfr_inference import rfr_capacity_sweep, rfr_forest_apply
-from .rglru_scan import rglru_scan
+from .rglru_scan import rglru_scan_fn
 from .ssd_scan import ssd_scan
 
 
@@ -35,7 +39,7 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qm = q.transpose(1, 2).reshape(B * Hq, S, D).contiguous()
     km = k.transpose(1, 2).reshape(B * k.shape[2], S, D).contiguous()
     vm = v.transpose(1, 2).reshape(B * v.shape[2], S, D).contiguous()
-    fn = flash_attention if use_kernel else ref.flash_attention_ref
+    fn = flash_attention_fn if use_kernel else ref.flash_attention_ref
     out = fn(qm, km, vm, causal=causal, kind=kind, window=window,
              softcap=softcap)
     return out.reshape(B, Hq, S, D).transpose(1, 2)
@@ -46,7 +50,7 @@ def rglru_op(a: torch.Tensor, b: torch.Tensor,
              use_kernel: bool = True) -> torch.Tensor:
     """a, b: (B, S, W) f32 -> h (B, S, W)."""
     if use_kernel:
-        return rglru_scan(a, b, h0)
+        return rglru_scan_fn(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)
 
 

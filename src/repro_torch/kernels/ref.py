@@ -8,7 +8,10 @@ on the card they are the yardstick the kernels are checked against.
 ``flash_attention_ref`` and ``rglru_scan_ref`` repeat the reference's
 oracles: full materialised softmax attention, and the serial recurrence
 h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
-each rounded, as the scan kernel does).  ``ssd_scan_ref`` is the SSD
+each rounded, as the scan kernel does).  ``flash_attention_bwd_ref`` and
+``rglru_scan_bwd_ref`` are their gradients written out as formulas (the
+reference has no backward kernel: XLA differentiates its jnp paths), the
+yardsticks of the two backward kernels.  ``ssd_scan_ref`` is the SSD
 scan in its chunked state-passing form, as the tensor-core kernel
 computes it (the reference's oracle steps token by token, which is the
 same function).  ``tf32_split`` is the operand split of the f32
@@ -86,6 +89,82 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            kind: str = "global", window: int = 0,
+                            softcap: float = 0.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Gradients of ``flash_attention_ref`` in f32, written out.  q, o, do:
+    (BH, S, D); k, v: (BH / G, S, D), query row bh reading kv row bh // G.
+    With s the scaled (and softcapped, t = tanh(s / c)) masked scores,
+    p = softmax(s) and D_i = rowsum(dO * O):
+
+        dv = p^T dO              dp = dO v^T
+        ds = p (dp - D_i) (1 - t^2 with a softcap)
+        dq = ds k / sqrt(D)      dk = ds^T q / sqrt(D)
+
+    dk and dv summed over each kv row's G query rows.  Returns (dq, dk,
+    dv) in the inputs' dtype."""
+    BH, S, D = q.shape
+    group = BH // k.shape[0]
+    kr = k.float().repeat_interleave(group, dim=0)
+    vr = v.float().repeat_interleave(group, dim=0)
+    qf, dof = q.float(), do.float()
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqd,bkd->bqk", qf, kr) * scale
+    t = None
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    valid = attention_mask(S, causal, kind, window, q.device)
+    s = torch.where(valid[None], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vr)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kr) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    if group > 1:
+        dk = dk.reshape(-1, group, S, D).sum(dim=1)
+        dv = dv.reshape(-1, group, S, D).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of ``rglru_scan_ref`` as a serial reverse scan: with h its
+    output and dh the gradient of the loss by h, in reverse time order
+
+        g_t = dh_t + a_{t+1} g_{t+1}   (g past the end 0, a past it 0)
+        db_t = g_t,  da_t = g_t h_{t-1}  (h_{-1} = h0 or zeros)
+        dh0 = a_0 g_0
+
+    each step a multiply and then an add, each rounded, as the backward
+    kernel does.  a, h, dh: (B, S, W) f32.  Returns (da, db, dh0)."""
+    B, S, W = a.shape
+    zeros = torch.zeros((B, W), dtype=torch.float32, device=a.device)
+    da = torch.empty_like(a)
+    db = torch.empty_like(a)
+    g = zeros
+    a_next = zeros
+    for t in range(S - 1, -1, -1):
+        g = dh[:, t] + a_next * g
+        db[:, t] = g
+        if t > 0:
+            h_prev = h[:, t - 1]
+        else:
+            h_prev = zeros if h0 is None else h0.float()
+        da[:, t] = g * h_prev
+        a_next = a[:, t]
+    return da, db, a_next * g
 
 
 def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,

@@ -12,6 +12,13 @@ its path on PyTorch's current stream and adds one to
 build or launch that fails raises, and nothing falls back to the other
 kernel.  Given CPU tensors it computes the same function with the plain
 version (``ref.rglru_scan_ref``) and launches nothing.
+
+The gradient: ``rglru_scan_bwd`` wraps the same source's backward
+kernels, the two paths run in reverse time (bitwise
+``ref.rglru_scan_bwd_ref``), adding one to ``rglru_scan_bwd.launches`` and to
+``rglru_scan_bwd.launches_by_path[path]``; on CPU tensors it is the plain
+version.  ``RGLRUScanFn`` is the ``torch.autograd.Function`` that pairs
+the forward kernel with it; ``rglru_scan_fn`` applies it.
 """
 from __future__ import annotations
 
@@ -84,8 +91,86 @@ rglru_scan.launches = 0
 rglru_scan.launches_by_path = {"tma": 0, "simt": 0}
 
 
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, with_dh0: bool = False):
+    """Gradients of ``rglru_scan``: a, h (its output), dh (the loss's
+    gradient by h): (B, S, W) f32; h0: (B, W) f32 or None.  Returns (da,
+    db, dh0), dh0 None unless `with_dh0`."""
+    if a.dim() != 3:
+        raise ValueError(f"a must be (B, S, W), got {tuple(a.shape)}")
+    B, S, W = a.shape
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"a is on {a.device}: the port runs on the CPU or a "
+                         "CUDA device")
+    for name, t in (("a", a), ("h", h), ("dh", dh)):
+        _check(name, t, (B, S, W), a.device)
+    if h0 is not None:
+        _check("h0", h0, (B, W), a.device)
+    if a.device.type == "cpu":
+        da, db, dh0 = ref.rglru_scan_bwd_ref(a, h, dh, h0)
+        return da, db, dh0 if with_dh0 else None
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = (torch.empty((B, W), dtype=torch.float32, device=a.device)
+           if with_dh0 else None)
+    if a.numel() == 0:
+        if dh0 is not None:
+            dh0.zero_()
+        return da, db, dh0
+    kernel = path(B, S, W)
+    lib = _build.load("rglru_scan")
+    args = (a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+            None if h0 is None else h0.data_ptr(), da.data_ptr(),
+            db.data_ptr(), None if dh0 is None else dh0.data_ptr(), B, S, W)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if kernel == "tma":
+            for name, t in (("a", a), ("h", h), ("dh", dh)):
+                if t.data_ptr() % 16:
+                    raise ValueError(f"{name} is not 16-byte aligned")
+            err = lib.rglru_scan_tma_bwd(*args, stream)
+        else:
+            err = lib.rglru_scan_bwd(*args, stream)
+    _build.check_launch(err, f"rglru_scan_bwd ({kernel})")
+    rglru_scan_bwd.launches += 1
+    rglru_scan_bwd.launches_by_path[kernel] += 1
+    return da, db, dh0
+
+
+rglru_scan_bwd.launches = 0
+rglru_scan_bwd.launches_by_path = {"tma": 0, "simt": 0}
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """``rglru_scan`` with its hand-written gradient: the forward kernel,
+    then ``rglru_scan_bwd`` on the saved a, h0 and output h."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, h = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd(a, h, dh.contiguous(), h0,
+                                     with_dh0=ctx.needs_input_grad[2])
+        return da, db, dh0
+
+
+def rglru_scan_fn(a: torch.Tensor, b: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``rglru_scan`` that autograd differentiates with the backward kernel
+    (its plain version on CPU tensors)."""
+    return RGLRUScanFn.apply(a, b, h0)
+
+
 def reset_launches():
-    """Zero the launch counts, the total and each path's."""
+    """Zero the launch counts, the total and each path's, and the
+    backward's."""
     rglru_scan.launches = 0
     for key in rglru_scan.launches_by_path:
         rglru_scan.launches_by_path[key] = 0
+    rglru_scan_bwd.launches = 0
+    for key in rglru_scan_bwd.launches_by_path:
+        rglru_scan_bwd.launches_by_path[key] = 0

@@ -1,7 +1,8 @@
 """The LM model zoo (port of ``repro.models``): dense attention (global /
 local / chunked) and RG-LRU layers (recurrentgemma), and Mamba-2 SSD
 layers (mamba2)."""
-from .convert import params_from_numpy
+from .convert import (params_from_numpy, params_to_numpy,
+                      train_state_from_numpy)
 from .model import (apply_blocks, block_structure, decode_step, final_hidden,
                     forward, init_cache, init_params, layer_specs,
                     logits_from_hidden, prefill)
@@ -9,5 +10,6 @@ from .model import (apply_blocks, block_structure, decode_step, final_hidden,
 __all__ = [
     "apply_blocks", "block_structure", "decode_step", "final_hidden",
     "forward", "init_cache", "init_params", "layer_specs",
-    "logits_from_hidden", "params_from_numpy", "prefill",
+    "logits_from_hidden", "params_from_numpy", "params_to_numpy", "prefill",
+    "train_state_from_numpy",
 ]

@@ -5,7 +5,10 @@ The reference stores the periodic body of the model stacked per pattern
 position (``body["p0"]`` holds every period's first layer on a leading
 axis); the port keeps one dict per layer in layer order.  Random init
 cannot be reproduced across frameworks, so this is how the port and the
-reference are held to the same weights.
+reference are held to the same weights.  ``params_to_numpy`` is the
+inverse (the port's per-layer list stacked back into the reference's
+tree), and ``train_state_from_numpy`` carries a whole train state, the
+AdamW moments laid out as the parameters.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
+from ..optim.adamw import OptState
 from .model import block_structure, check_supported
 
 
@@ -50,3 +54,61 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     if "lm_head" in tree:
         out["lm_head"] = _map(to_t, tree["lm_head"])
     return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """numpy has no bf16: bf16 leaves come back as f32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, params):
+    """The port's parameters (or any tree laid out like them, such as
+    gradients or AdamW moments) as the reference's tree of numpy arrays:
+    ``head`` and ``tail`` lists, ``body["p{i}"]`` stacked over the
+    periods on a leading axis.  bf16 leaves come back as f32."""
+    check_supported(cfg)
+    head_s, period_s, n_periods, tail_s = block_structure(cfg)
+    layers = [_map(_to_numpy, p) for p in params["layers"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers, config has "
+                         f"{cfg.n_layers}")
+    n_head, P = len(head_s), len(period_s)
+    body = {}
+    for pi in range(P):
+        per = [layers[n_head + j * P + pi] for j in range(n_periods)]
+        body[f"p{pi}"] = _zip_map(lambda *leaves: np.stack(leaves), per)
+    out = {"embed": _map(_to_numpy, params["embed"]),
+           "final_norm": _map(_to_numpy, params["final_norm"]),
+           "head": layers[:n_head], "body": body,
+           "tail": layers[len(layers) - len(tail_s):] if tail_s else []}
+    if "lm_head" in params:
+        out["lm_head"] = _map(_to_numpy, params["lm_head"])
+    return out
+
+
+def _zip_map(fn, trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_zip_map(fn, [t[i] for t in trees]) for i in range(len(first))]
+    return fn(*trees)
+
+
+def train_state_from_numpy(cfg: ModelConfig, state, device=None):
+    """The reference's train state ``{"params", "opt": OptState(m, v,
+    step)}`` with numpy leaves -> the port's, on `device` (the card
+    unless the caller names another): the parameters and both moments
+    unstacked as ``params_from_numpy`` does, the step a 0-d int32
+    tensor."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    m, v, step = (opt.m, opt.v, opt.step) if hasattr(opt, "m") else (
+        opt["m"], opt["v"], opt["step"])
+    return {"params": params_from_numpy(cfg, state["params"], dev),
+            "opt": OptState(m=params_from_numpy(cfg, m, dev),
+                            v=params_from_numpy(cfg, v, dev),
+                            step=torch.tensor(int(np.asarray(step)),
+                                              dtype=torch.int32,
+                                              device=dev))}

@@ -17,6 +17,12 @@ Param layout::
 A cache is a list of per-layer dicts with the batch on axis 0.  Decode
 updates it in place and returns it.
 
+Training goes through ``final_hidden`` (``models.steps.loss_fn``): with
+``remat`` each period of the body runs under ``torch.utils.checkpoint``
+(non-reentrant), the reference's ``jax.checkpoint`` of a period, so only
+the periods' inputs are kept for the backward and each period's forward
+runs again inside it.
+
 The port brings the dense-MLP attention and RG-LRU layers
 (recurrentgemma) and the Mamba-2 SSD layers (mamba2); MoE and MLA layers
 and the audio / vision frontends raise ``NotImplementedError`` naming the
@@ -28,6 +34,7 @@ import math
 from typing import Any, List, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
@@ -306,9 +313,16 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 
 def apply_blocks(cfg: ModelConfig, params, x, positions, mode: str,
                  cache=None, pos=None, cache_len: int = 0,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, remat: bool = False):
     """Run all layers in order.  Returns (x, new_cache); new_cache is
-    None in "forward" mode."""
+    None in "forward" mode.  `remat` ("forward" mode only) recomputes
+    each period of the body in the backward instead of keeping its
+    activations; the head and tail layers run as they are, as in the
+    reference."""
+    if remat:
+        if mode != "forward":
+            raise ValueError("remat applies to the forward (train) mode")
+        return _apply_remat(cfg, params, x, positions, use_kernel), None
     new_cache = [] if mode != "forward" else None
     for i, spec in enumerate(layer_specs(cfg)):
         c = cache[i] if cache is not None else None
@@ -319,11 +333,32 @@ def apply_blocks(cfg: ModelConfig, params, x, positions, mode: str,
     return x, new_cache
 
 
-def final_hidden(cfg: ModelConfig, params, batch, use_kernel: bool = True):
-    """Full sequence -> final hidden states."""
+def _apply_remat(cfg: ModelConfig, params, x, positions, use_kernel: bool):
+    head, period, n_periods, tail = block_structure(cfg)
+    specs = layer_specs(cfg)
+    layers = params["layers"]
+
+    def run(x, lo, hi):
+        for i in range(lo, hi):
+            x, _ = block_apply(cfg, specs[i], layers[i], x, positions,
+                               "forward", use_kernel=use_kernel)
+        return x
+
+    x = run(x, 0, len(head))
+    for j in range(n_periods):
+        lo = len(head) + j * len(period)
+        x = torch.utils.checkpoint.checkpoint(run, x, lo, lo + len(period),
+                                              use_reentrant=False)
+    return run(x, len(specs) - len(tail), len(specs))
+
+
+def final_hidden(cfg: ModelConfig, params, batch, use_kernel: bool = True,
+                 remat: bool = False):
+    """Full sequence -> final hidden states; `remat` as in
+    ``apply_blocks``."""
     x, positions = embed_inputs(cfg, params, batch)
     x, _ = apply_blocks(cfg, params, x, positions, "forward",
-                        use_kernel=use_kernel)
+                        use_kernel=use_kernel, remat=remat)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 

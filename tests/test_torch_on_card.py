@@ -707,3 +707,232 @@ def test_learned_scorer_on_card_matches_numpy():
         np.testing.assert_allclose(scorer.scores(rows),
                                    np_scores(policy, rows), rtol=0,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels.  Attention against its plain version
+# (``ref.flash_attention_bwd_ref``, the same f32 formula summed in other
+# orders): each gradient within 1e-5 of |want| plus 1e-4 of the tensor's
+# largest |value| in f32; in bf16 within 2^-7 of |want| (the two f32 sums
+# may round to neighbouring bf16 values) plus 1e-4 of the largest, so a
+# key tile dropped or added fails.  The RG-LRU scan's backward is exactly
+# its serial reverse loop.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd, flash_attention_fn)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan_bwd, rglru_scan_fn)
+
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+def _assert_grads_close(got, want, dtype, what=""):
+    rel, of_max = BWD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        allowed = rel * w.abs() + of_max * float(w.abs().max())
+        worst = float(((g - w).abs() / allowed).max())
+        assert worst <= 1.0, f"{what} {name}: {worst:.3g} of its allowance"
+
+
+def _bwd_case(seed, BH, G, S, D, dtype, dev, kw, scale=1.0):
+    """(BH, S, D) q, o, dO and (BH / G, S, D) k, v on the card; o is the
+    forward kernel's output."""
+    rng = np.random.default_rng(seed)
+    mk = lambda rows, s=1.0: torch.from_numpy(
+        (rng.standard_normal((rows, S, D)) * s).astype(np.float32)).to(
+            device=dev, dtype=dtype)
+    q, k, v = mk(BH, scale), mk(BH // G, scale), mk(BH // G)
+    do = mk(BH)
+    return q, k, v, flash_attention(q, k, v, **kw), do
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, kind="global"), dict(causal=True, kind="local",
+                                           window=32),
+    dict(causal=True, kind="chunked", window=32),
+    dict(causal=True, kind="global", softcap=20.0),
+    dict(causal=False, kind="global"),
+    dict(causal=False, kind="local", window=48)],
+    ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("S", [37, 100, 257])
+@pytest.mark.parametrize("D", [16, 64, 256])
+def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype):
+    """Ragged S (query rows and keys past S in the last tile), GQA 2:1,
+    every mask; one launch a call."""
+    dev = _card()
+    scale = 4.0 if kw.get("softcap") else 1.0
+    q, k, v, o, do = _bwd_case(D + S, 4, 2, S, D, dtype, dev, kw, scale)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(got, want, dtype, f"D={D} S={S} {kw}")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 256])
+def test_flash_bwd_kernel_rows_that_see_only_their_own_key(D, dtype):
+    """Window 1: every row sees its own key and the rest of each tile is
+    masked out, so p = 1 on the diagonal: dv is dO exactly, and dq and dk
+    are 0 up to the rounding of dp - D_i (D_i = dO . o with o = v in
+    exact arithmetic), far below the other tests' scale."""
+    dev = _card()
+    kw = dict(causal=True, kind="local", window=1)
+    q, k, v, o, do = _bwd_case(D, 4, 2, 100, D, dtype, dev, kw)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    want_dv = do.float().reshape(2, 2, 100, D).sum(dim=1).to(dtype)
+    np.testing.assert_allclose(dv.float().cpu().numpy(),
+                               want_dv.float().cpu().numpy(),
+                               rtol=BWD_TOL[dtype][0], atol=1e-6)
+    scale = float(do.float().abs().max() * v.float().abs().max()
+                  * k.float().abs().max())
+    for g in (dq, dk):
+        assert float(g.float().abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 512),
+                                     (torch.bfloat16, 1000),
+                                     (torch.bfloat16, 2048),
+                                     (torch.bfloat16, 3000),
+                                     (torch.float32, 512),
+                                     (torch.float32, 1000)])
+def test_flash_bwd_kernel_serving_shape(S, dtype):
+    """recurrentgemma's local layers: MQA 10:1 (dK/dV sum the ten query
+    heads of the one kv head), head dim 256, window 2,048: the first and
+    last key tiles of each window are partial."""
+    dev = _card()
+    kw = dict(causal=True, kind="local", window=2048)
+    q, k, v, o, do = _bwd_case(S, 10, 10, S, 256, dtype, dev, kw)
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, dtype, f"S={S}")
+
+
+@pytest.mark.cuda_only
+def test_flash_bwd_kernel_is_deterministic():
+    """No atomics: two runs give bitwise the same gradients."""
+    dev = _card()
+    kw = dict(causal=True, kind="local", window=2048)
+    q, k, v, o, do = _bwd_case(5, 10, 10, 1000, 256, torch.bfloat16, dev,
+                               kw)
+    first = flash_attention_bwd(q, k, v, o, do, **kw)
+    second = flash_attention_bwd(q, k, v, o, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_op_grads_through_the_kernels(dtype):
+    """autograd through ``ops.attention_op`` in the model's layout: the
+    forward and backward kernels, one launch each, against autograd
+    through the plain versions."""
+    dev = _card()
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(3, 2, 96, 4, 1, 64, dtype, dev))
+    kw = dict(causal=True, kind="local", window=40)
+    do = torch.randn(q.shape, device=dev).to(dtype)
+    n0 = flash_attention.launches, flash_attention_bwd.launches
+    got = torch.autograd.grad(ops.attention_op(q, k, v, **kw), (q, k, v), do)
+    assert (flash_attention.launches - n0[0],
+            flash_attention_bwd.launches - n0[1]) == (1, 1)
+    want = torch.autograd.grad(ops.attention_op(q, k, v, use_kernel=False,
+                                                **kw), (q, k, v), do)
+    torch.cuda.synchronize()
+    # the kernel's forward rounds p to bf16 before P.V and the plain
+    # version does not, so its output (and D_i) differs by ~2^-9
+    rel, of_max = BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= (
+            4 * rel + of_max if dtype == torch.bfloat16 else
+            rel + of_max) * scale
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(1, 3000, 2560), (4, 1000, 2560),
+                                   (1, 1, 2560), (2, 257, 48), (3, 65, 8),
+                                   (1, 130, 2562), (2, 100, 30)])
+def test_rglru_bwd_kernel_is_exactly_the_serial_loop(B, S, W, with_h0):
+    """The reverse scan on its path (TMA where W % 4 == 0, else one
+    thread a channel): da, db and dh0 bitwise the plain reverse loop."""
+    from repro_torch.kernels.rglru_scan import path
+    dev = _card()
+    rng = np.random.default_rng(B * S + W + 1)
+    mk = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, W)).astype(
+        np.float32)).to(dev)
+    h0 = mk(B, W) if with_h0 else None
+    h = rglru_scan(a, mk(B, S, W), h0)
+    dh = mk(B, S, W)
+    kernel = path(B, S, W)
+    n0, by0 = rglru_scan_bwd.launches, dict(rglru_scan_bwd.launches_by_path)
+    da, db, dh0 = rglru_scan_bwd(a, h, dh, h0, with_dh0=True)
+    assert rglru_scan_bwd.launches == n0 + 1
+    assert rglru_scan_bwd.launches_by_path[kernel] == by0[kernel] + 1
+    want = ref.rglru_scan_bwd_ref(a, h, dh, h0)
+    for got, w in zip((da, db, dh0), want):
+        np.testing.assert_array_equal(got.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda_only
+def test_rglru_scan_fn_grads_on_card():
+    dev = _card()
+    a = (torch.rand(2, 70, 64, device=dev) * 0.5 + 0.5).requires_grad_(True)
+    b = torch.randn(2, 70, 64, device=dev, requires_grad=True)
+    h0 = torch.randn(2, 64, device=dev, requires_grad=True)
+    dh = torch.randn(2, 70, 64, device=dev)
+    got = torch.autograd.grad(rglru_scan_fn(a, b, h0), (a, b, h0), dh)
+    want = torch.autograd.grad(ref.rglru_scan_ref(a, b, h0), (a, b, h0), dh)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda_only
+def test_smoke_train_step_on_card_kernels_match_plain():
+    """One train step of the recurrentgemma smoke model on the card (f32,
+    remat on): the loss and every gradient leaf through the kernels
+    within 1e-4 of its largest element through the plain versions; one
+    backward launch a local layer and a recurrent layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.optim.adamw import leaves_with_path
+    dev = _card()
+    cfg = get_smoke_config("recurrentgemma-2b")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = [p.requires_grad_(True) for _, p in leaves_with_path(params)]
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "targets")}
+    out = []
+    for use_kernel in (True, False):
+        n0 = flash_attention_bwd.launches, rglru_scan_bwd.launches
+        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                    use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, leaves)
+        kinds = cfg.layer_kinds()
+        want = ((kinds.count("local"), kinds.count("recurrent"))
+                if use_kernel else (0, 0))
+        assert (flash_attention_bwd.launches - n0[0],
+                rglru_scan_bwd.launches - n0[1]) == want
+        out.append((float(loss), grads))
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4)
+    for g, w in zip(out[0][1], out[1][1]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())

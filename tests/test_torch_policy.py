@@ -4,8 +4,9 @@ torch ``forward`` against the reference's ``np_scores`` and jnp
 ``forward`` on the matrices of ``tests/data/policy_traces.jsonl``, the
 ``PolicyStore`` round trip, and the ``"learned"`` stack served from a
 store with its hot swap across a live retrain.  The policy is the
-numpy init with ``mu``/``sd`` from ``normalization`` (training is not
-ported yet); the port serves it on the CPU."""
+numpy init with ``mu``/``sd`` from ``normalization``; the port serves it
+on the CPU.  The fit itself is held to the reference's in
+``test_torch_training.py``."""
 import copy
 import os
 
@@ -183,6 +184,4 @@ def test_scorer_stage_serves_on_the_forest_device():
     stage = get_stage("scorer", "learned")(plat.scheduler)
     assert isinstance(stage, LearnedScorer) and stage.device == "cpu"
     assert plat.scheduler.learned_scorer.device == "cpu"
-    assert sorted(port_policy.__all__) == sorted(
-        n for n in ref_policy.__all__
-        if n not in ("TrainConfig", "train_policy"))
+    assert sorted(port_policy.__all__) == sorted(ref_policy.__all__)
