@@ -118,12 +118,17 @@ Phases (each one failing makes the script exit non-zero):
      events, medians by batch length);
   8. training: (a) the two backward kernels against their plain versions
      at the serving shapes: ``flash_attention_bwd`` at BH 10, 1 kv head,
-     D 256, local 2,048, causal, S = 512, 1,000, 2,048, 3,000 in bf16, 512
-     and 1,000 in f32, and S = 1,000 bf16 with a softcap of 50 (each of
-     dq, dk, dv within BWD_TOL, its worst element printed as a share of
-     its allowance), timed beside its plain version and sdpa's backward
-     (forward and backward through ``torch.autograd.grad`` minus the
-     forward, same bool mask); ``rglru_scan_bwd`` exactly its plain
+     D 256, local 2,048, causal, S = 512, 1,000, 2,048, 3,000 in bf16 (the
+     tensor-core kernel of ``flash_attention_bwd_wgmma.cu``, reading the
+     forward's lse, which is held within LSE_TOL of the plain lse; the
+     first kernel held on the same inputs and timed beside it; two calls
+     at S = 3,000 bitwise equal; no slower than sdpa's backward in ``ms``),
+     512 and 1,000 in f32 (the first kernel), and S = 1,000 bf16 with a
+     softcap of 50 (each of dq, dk, dv within BWD_TOL, its worst element
+     printed as a share of its allowance; the path each ran must be the
+     one ``bwd_path`` names), timed beside its plain version and sdpa's
+     backward (forward and backward through ``torch.autograd.grad`` minus
+     the forward, same bool mask); ``rglru_scan_bwd`` exactly its plain
      reverse loop at (1, 3,000, 2,560) with and without h0, (4, 1,000,
      2,560) and (2, 1,000, 2,562) (the one-thread-a-channel path);
      (b) recurrentgemma-2b at its published width and depth, f32 master
@@ -131,9 +136,10 @@ Phases (each one failing makes the script exit non-zero):
      TokenPipeline seed 0, 8 steps of ``make_train_step`` with the
      AdamWConfig the reference's ``train_loop`` builds for 8 steps
      (warmup 1, cosine over 8), no checkpoint (the state is some 43 GB):
-     every loss finite, the last below the first, 8 attention and 18
-     scan backward launches a step; step time, tokens/s, peak memory and
-     one profiled step; (c) the same width at one period (rec, rec,
+     every loss finite, the last below the first, 8 attention (all on
+     the wgmma path) and 18 scan backward launches a step; step time,
+     tokens/s, peak memory and one profiled step, with the attention
+     backward's device time by launch; (c) the same width at one period (rec, rec,
      local), S 1,024, bf16: every gradient leaf through the kernels
      against the plain versions within GRAD_TOL in norm; (d) the
      fail/resume drill on the card at the smoke config (fail at 6,
@@ -148,7 +154,8 @@ Phases (each one failing makes the script exit non-zero):
      attention's entry is the bf16 serving path's kernel, with the f32
      path's under "f32"; the SSD scan's is the wgmma kernel, the RG-LRU
      scan's the TMA kernel; each redesigned kernel carries the first
-     kernel's times beside its own; the backward kernels' launches are
+     kernel's times beside its own, the attention backward's too (its
+     entry is the wgmma kernel); the backward kernels' launches are
      phase 8 (b)'s), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
@@ -157,6 +164,7 @@ port is not beside this script.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -228,6 +236,11 @@ PERIOD_SEQ = 1024
 #: order.  A key tile of 32 dropped or added moves a row's dq by a few
 #: hundredths of the largest
 BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+#: the bf16 forward's row log-sum-exp (which the tensor-core backward
+#: reads) against the plain one, absolute: the same f32 scores summed in
+#: another order; one key of a 2,048-key window dropped or added moves a
+#: row's lse by about 5e-4
+LSE_TOL = 1e-4
 #: phase 8 (c): each gradient leaf through the kernels against the plain
 #: versions, relative in norm, bf16 compute: the forward kernel rounds p
 #: to bf16 before P.V where the plain version keeps f32, which moves the
@@ -2164,53 +2177,112 @@ def flash_bwd_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
     return bound(nbytes, 10 * bh * d * pairs, matmul_peak(dtype))
 
 
-def hold_flash_bwd(q, k, v, kw, timed: bool):
+def simt_flash_bwd(q, k, v, o, do, kw):
+    """The first backward kernel (csrc/flash_attention_bwd.cu: row
+    statistics, dQ and dK/dV on the CUDA cores) called directly, so that
+    it can be held and timed on the bf16 inputs the wrapper sends to the
+    tensor-core kernel; not counted in the wrapper's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KINDS
+    bh, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, bh, s), dtype=torch.float32, device=q.device)
+    err = _build.load("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), bh, s, d,
+        bh // k.shape[0], int(q.dtype == torch.bfloat16),
+        int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
+        int(kw.get("window", 0)), float(kw.get("softcap", 0.0)),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "flash_attention_bwd (simt, direct)")
+    return dq, dk, dv
+
+
+def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     """flash_attention_bwd against its plain version on the forward
     kernel's output and a random dO: each of dq, dk, dv within BWD_TOL
-    (its worst element printed as a share of its allowance).  With
-    `timed`, the kernel, its plain version and sdpa's backward (forward
-    and backward through torch.autograd.grad, minus its forward, with
-    the same boolean mask) timed, and the bound.  Returns a dict."""
+    (its worst element printed as a share of its allowance), on the path
+    ``bwd_path`` names; on the wgmma path the forward's lse within
+    LSE_TOL of the plain lse, and the first kernel held on the same
+    inputs.  With `twice`, a second call bitwise equal to the first.
+    With `timed`, the kernel (and on the wgmma path the first kernel),
+    its plain version and sdpa's backward (forward and backward through
+    torch.autograd.grad, minus its forward, with the same boolean mask)
+    timed, and the bound.  Returns a dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_path,
+                                                     flash_attention,
                                                      flash_attention_bwd)
     bh, s, d = q.shape
     dt = str(q.dtype).split(".")[-1]
+    what = f"flash_attention_bwd S={s} D={d} {dt} {kw}"
     rel, of_max = BWD_TOL[dt]
-    o = flash_attention(q, k, v, **kw)
+    kernel = bwd_path(q.dtype, d, kw.get("softcap", 0.0))
+    out = {"errors": {}, "max_abs_err": 0.0, "path": kernel}
+    if kernel == "wgmma":
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - ref.flash_attention_lse_ref(q, k, **kw))
+                        .abs().max())
+        out["lse_err"] = lse_err
+        check(lse_err <= LSE_TOL, f"{what}: the forward's lse is "
+              f"{lse_err} from the plain lse (limit {LSE_TOL})")
+    else:
+        o, lse = flash_attention(q, k, v, **kw), None
     do = torch.randn(q.shape, device=q.device,
                      generator=torch.Generator(device=q.device).manual_seed(
                          s)).to(q.dtype)
-    n0 = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    n0 = dict(flash_attention_bwd.launches_by_path)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    check(flash_attention_bwd.launches == n0 + 1,
-          "flash_attention_bwd did not count its launch")
-    out = {"errors": {}, "max_abs_err": 0.0}
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        g, w = g.float(), w.float()
-        check(bool(torch.isfinite(g).all()),
-              f"flash_attention_bwd S={s} {dt} {kw}: {name} not finite")
-        diff = (g - w).abs()
-        worst = float((diff / (rel * w.abs() + of_max * float(
-            w.abs().max()))).max())
-        err = float(diff.max())
-        out["errors"][name] = (err, worst)
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        check(worst <= 1.0, f"flash_attention_bwd S={s} D={d} {dt} {kw}: "
-              f"{name} max_abs_err {err}, the worst element at {worst:.3g} "
-              "of its allowance")
+    ran = [p for p, n in flash_attention_bwd.launches_by_path.items()
+           if n != n0[p]]
+    check(ran == [kernel], f"{what}: ran {ran}, bwd_path says {kernel}")
+
+    def held(grads, label):
+        errors = {}
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()),
+                  f"{what} ({label}): {name} not finite")
+            diff = (g - w).abs()
+            worst = float((diff / (rel * w.abs() + of_max * float(
+                w.abs().max()))).max())
+            err = float(diff.max())
+            errors[name] = (err, worst)
+            check(worst <= 1.0, f"{what} ({label}): {name} max_abs_err "
+                  f"{err}, the worst element at {worst:.3g} of its "
+                  "allowance")
+        return errors
+
+    out["errors"] = held(got, kernel)
+    out["max_abs_err"] = max(e for e, _ in out["errors"].values())
+    if twice:
+        again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        out["bitwise_twice"] = same
+        check(same, f"{what}: two calls differ")
+    if kernel != "simt":
+        out["simt_errors"] = held(simt_flash_bwd(q, k, v, o, do, kw),
+                                  "simt")
     if not timed:
         return out
     mask = ref.attention_mask(s, kw.get("causal", True),
                               kw.get("kind", "global"), kw.get("window", 0),
                               q.device)
-    out["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, **kw))
+    out["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse,
+                                                    **kw))
     out["device_ms"] = time_ms(
-        lambda: flash_attention_bwd(q, k, v, o, do, **kw), queued=True)
+        lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw), queued=True)
+    if kernel != "simt":
+        out["simt_ms"] = time_ms(lambda: simt_flash_bwd(q, k, v, o, do, kw),
+                                 reps=5)
+        out["simt_device_ms"] = time_ms(
+            lambda: simt_flash_bwd(q, k, v, o, do, kw), reps=5, queued=True)
     out["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
         q, k, v, o, do, **kw), reps=5)
     q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
@@ -2290,20 +2362,41 @@ def phase8_bwd_kernels():
         q = randn(10, s, 256, dtype=dtype) * scale
         k = randn(1, s, 256, dtype=dtype) * scale
         v = randn(1, s, 256, dtype=dtype)
-        m = hold_flash_bwd(q, k, v, kw, timed=not extra)
+        m = hold_flash_bwd(q, k, v, kw, timed=not extra,
+                           twice=s == max(SERVE_PROMPTS))
         dt = str(dtype).split(".")[-1]
-        errs = "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
-                         for n, (e, w) in m["errors"].items())
+
+        def errs(errors):
+            return "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
+                             for n, (e, w) in errors.items())
+
         line = (f"phase8 flash_attention_bwd BH=10 G=10 S={s} D=256 local "
-                f"2048{' softcap 50' if extra else ''} {dt}: {errs}")
+                f"2048{' softcap 50' if extra else ''} {dt} "
+                f"path={m['path']}: {errs(m['errors'])}")
+        if "lse_err" in m:
+            line += (f"; forward lse max_abs_err {m['lse_err']:.3g} (limit "
+                     f"{LSE_TOL})")
+        if "bitwise_twice" in m:
+            line += f"; two calls bitwise equal {m['bitwise_twice']}"
+        if "simt_errors" in m:
+            line += f"; [first kernel: {errs(m['simt_errors'])}]"
         if "ms" in m:
             line += (f"; kernel {m['ms']:.4f} ms (device "
-                     f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} "
+                     f"{m['device_ms']:.4f} ms)")
+            if "simt_ms" in m:
+                line += (f" [first kernel {m['simt_ms']:.4f} ms, device "
+                         f"{m['simt_device_ms']:.4f} ms]")
+            line += (f", plain {m['plain_ms']:.4f} "
                      f"ms, sdpa backward {m['library_ms']:.4f} ms (forward "
                      f"and backward {m['library_both_ms']:.4f}), bound "
                      f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
                      f"{m['pairs']} a head")
         print(line)
+        if "ms" in m and m["path"] == "wgmma":
+            check(m["ms"] <= m["library_ms"],
+                  f"phase 8 (a): flash_attention_bwd S={s} {dt} "
+                  f"{m['ms']:.4f} ms, slower than sdpa's backward "
+                  f"{m['library_ms']:.4f} ms")
         if (dtype, s, extra) == (torch.bfloat16, max(SERVE_PROMPTS), {}):
             serve["flash_attention_bwd"] = dict(m, shape=[10, s, 256])
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
@@ -2381,6 +2474,16 @@ def profile_train_step(bundle, state, batch):
                 f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
                 f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 "ms")
+    # the attention backward's device time by launch (the four kernels
+    # of the wgmma path: D_i, dK/dV, dQ, the shares' sum)
+    bwd = sorted((e for e in dev if "attn_bwd" in e.key.lower()),
+                 key=lambda e: -e.self_device_time_total)
+    if bwd:
+        print("phase8 profile   attention backward by launch: " + "; ".join(
+            f"{re.search(r'attn_bwd_[a-z]+', e.key).group(0)} x{e.count} "
+            f"{e.self_device_time_total / 1e3:.3f} ms "
+            f"({e.self_device_time_total / 1e3 / e.count:.4f} ms each)"
+            for e in bwd))
     return state
 
 
@@ -2394,6 +2497,7 @@ def phase8_train_full_width():
     from repro_torch.configs import InputShape, get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import build_state, put_batch
     from repro_torch.models.model import block_structure
     from repro_torch.optim import AdamWConfig
@@ -2438,15 +2542,18 @@ def phase8_train_full_width():
               f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
               f"{times[-1] * 1e3:.1f} ms")
     counts = train_counts()
+    by_path = dict(flash_attention_bwd.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": fwd_local * TRAIN_STEPS,
             "flash_attention_bwd": n_local * TRAIN_STEPS,
             "rglru_scan": fwd_rec * TRAIN_STEPS,
             "rglru_scan_bwd": n_rec * TRAIN_STEPS, "ssd_scan": 0}
     steady = statistics.median(times[1:])
+    want_path = {"wgmma": n_local * TRAIN_STEPS, "simt": 0}
     print(f"phase8 train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
-          f"recomputed periods)")
+          f"recomputed periods); attention backward by path {by_path}, "
+          f"expected {want_path}")
     print(f"phase8 train: losses {[round(x, 4) for x in losses]}; step "
           f"time first {times[0] * 1e3:.1f} ms, median of the rest "
           f"{steady * 1e3:.1f} ms = "
@@ -2458,6 +2565,8 @@ def phase8_train_full_width():
           f"{losses}")
     check({k: counts[k] for k in want} == want,
           f"phase 8 (b) launches {counts}, expected {want}")
+    check(by_path == want_path, f"phase 8 (b): attention backward "
+          f"launches by path {by_path}, expected {want_path}")
     state = profile_train_step(
         bundle, state, put_batch(pipe.batch(TRAIN_STEPS), "cuda"))
     del state, bundle
@@ -2711,7 +2820,7 @@ def main() -> int:
         # differentiates the reference's jnp paths); `replaces` names the
         # Pallas kernel whose function they differentiate
         for name, source, fwd, jnp_path in (
-                ("flash_attention_bwd", "flash_attention_bwd.cu",
+                ("flash_attention_bwd", "flash_attention_bwd_wgmma.cu",
                  "flash_attention",
                  "src/repro/models/attention.py:118 blockwise_attention"),
                 ("rglru_scan_bwd", "rglru_scan.cu", "rglru_scan",
@@ -2726,6 +2835,13 @@ def main() -> int:
                 "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "shape": m["shape"]})
+            # the path that ran and, for the redesigned attention
+            # backward, the first kernel's times on the same inputs
+            for key in ("path", "simt_ms", "simt_device_ms"):
+                if key in m:
+                    kernels[-1][key] = m[key]
+            if "simt_ms" in m:
+                kernels[-1]["simt_source"] = CSRC + "flash_attention_bwd.cu"
         # launches of each forest kernel in phase 7's runs (b2 and c
         # launch the forest kernel, b3 the sweep)
         for k in kernels[:2]:

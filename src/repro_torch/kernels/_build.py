@@ -31,6 +31,8 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention_wgmma": "flash_attention_wgmma.cu",
                            "flash_attention_tf32": "flash_attention_tf32.cu",
                            "flash_attention_bwd": "flash_attention_bwd.cu",
+                           "flash_attention_bwd_wgmma":
+                               "flash_attention_bwd_wgmma.cu",
                            "rglru_scan": "rglru_scan.cu",
                            "ssd_scan": "ssd_scan.cu",
                            "ssd_scan_wgmma": "ssd_scan_wgmma.cu"}
@@ -68,10 +70,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
                                  _I, _D, _P], _I),
     },
     "flash_attention_wgmma": {
-        # q, k, v, o, bh, s, d, group, causal, kind, window, softcap,
-        # stream
-        "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _D, _P], _I),
+        # q, k, v, o, lse (or null), bh, s, d, group, causal, kind, window,
+        # softcap, stream
+        "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _D, _P], _I),
     },
     "flash_attention_tf32": {
         # q, k, v, o, part (scratch or null), bh, s, d, group, causal,
@@ -86,6 +88,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # group, is_bf16, causal, kind, window, softcap, stream
         "flash_attention_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _D, _P], _I),
+    },
+    "flash_attention_bwd_wgmma": {
+        # bh, s, d, group, causal, kind, window -> the dK/dV shares
+        "flash_attention_bwd_wgmma_shares": ([_I, _I, _I, _I, _I, _I, _I],
+                                             _I),
+        # q, k, v, o, dout, lse, dq, dk, dv, delta and partials scratch,
+        # bh, s, d, group, shares, causal, kind, window, softcap, stream
+        "flash_attention_bwd_wgmma": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+                                       _P], _I),
     },
     "rglru_scan": {
         # both: a, b, h0 (or null), h, batch, s, w, stream

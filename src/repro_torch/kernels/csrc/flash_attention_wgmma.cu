@@ -16,7 +16,11 @@
 // mask; masked scores take the finite value -2.3819763e38 and keys past S
 // take -inf; the running (m, l, acc) are f32, l sums the f32 p, p is
 // rounded to bf16 before P.V, which accumulates in f32; o = acc / max(l,
-// 1e-30) is written in bf16.
+// 1e-30) is written in bf16.  When a gradient will be taken the caller
+// also asks for each row's log-sum-exp, lse = m + log(max(l, 1e-30)) in
+// f32, natural-log units (the scores stay unscaled by log2(e), which only
+// the exp2f calls apply), written beside o: the backward
+// (flash_attention_bwd_wgmma.cu) reads it instead of recomputing it.
 //
 // What bounds it on this card.  At the serving shapes (D = 256, a local
 // window of 2,048, S up to 3,000) the work is 4*D operations per unmasked
@@ -103,8 +107,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   int S, int group, float scale, int causal, int kind, int window,
-                   float softcap) {
+                   float* __restrict__ lse, int S, int group, float scale, int causal,
+                   int kind, int window, float softcap) {
   using L = Layout<D, BK>;
   constexpr int kCols = D / kColBlock;  // 128-byte column blocks per row
   extern __shared__ uint8_t smem_raw[];
@@ -283,6 +287,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // each row's log-sum-exp for the backward, when asked for: a row's four
+  // threads hold the same m and l, the first writes them
+  if (lse != nullptr && cq == 0) {
+    if (qp0 < S) lse[(long long)bh * S + qp0] = m0 + logf(d0);
+    if (qp1 < S) lse[(long long)bh * S + qp1] = m1 + logf(d1);
+  }
   __nv_bfloat16* ob = o + (long long)bh * S * D;
   if (qp0 < S) {
 #pragma unroll
@@ -302,8 +312,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 
 template <int D, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                   int group, int causal, int kind, int window, float softcap,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                   int s, int group, int causal, int kind, int window, float softcap,
                    cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -319,8 +329,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const float scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid(bh, (s + kBQ - 1) / kBQ);
   flash_wgmma_kernel<D, BK><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, group, scale, causal, kind, window,
-      softcap);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, group, scale, causal, kind,
+      window, softcap);
   return cudaGetLastError();
 }
 
@@ -328,7 +338,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 // q, o: (bh, s, d) bf16; k, v: (bh / group, s, d) bf16; contiguous, 16-byte
 // aligned, on the current device; d in {64, 128, 256}.  kind: 0 global, 1
-// local, 2 chunked.
+// local, 2 chunked.  lse: null, or (bh, s) f32 that takes each row's
+// log-sum-exp of its scaled, softcapped, masked scores (natural log:
+// m + log(max(l, 1e-30))), which the backward of
+// flash_attention_bwd_wgmma.cu reads; serving passes null.
 //
 // Keys per kv tile, by head dim: 32 at D = 256 and 128 (at D = 256, Q and
 // a two-stage ring of 32-key tiles take 97 KB, so two blocks share an SM,
@@ -336,20 +349,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 // D = 64.  Both sizes were timed at the serving shape on the H100; these
 // were the faster.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
-                                         void* o, int bh, int s, int d, int group,
-                                         int causal, int kind, int window, double softcap,
-                                         void* stream) {
+                                         void* o, float* lse, int bh, int s, int d,
+                                         int group, int causal, int kind, int window,
+                                         double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float cap = (float)softcap;
   switch (d) {
     case 64:
-      return (int)launch<64, 64>(q, k, v, o, bh, s, group, causal, kind, window, cap, st);
+      return (int)launch<64, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
+                                 st);
     case 128:
-      return (int)launch<128, 32>(q, k, v, o, bh, s, group, causal, kind, window, cap, st);
+      return (int)launch<128, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
+                                 st);
     case 256:
-      return (int)launch<256, 32>(q, k, v, o, bh, s, group, causal, kind, window, cap, st);
+      return (int)launch<256, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
+                                 st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the port's TMA-fed kernels
-// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu, rglru_scan.cu): mbarriers,
-// TMA loads through 3-d tensor maps, wgmma descriptors for the 128-byte
-// swizzle, and the bf16 warpgroup MMAs the tensor-core kernels issue.  Each kernel source is
-// its own translation unit and library; this header is included by each
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
+// ssd_scan_wgmma.cu, rglru_scan.cu): mbarriers, TMA loads through 3-d
+// tensor maps, wgmma descriptors for the 128-byte swizzle, the bf16
+// warpgroup MMAs the tensor-core kernels issue, and the split of f32
+// values into bf16 high and low parts.  Each kernel source is its own
+// translation unit and library; this header is included by each
 // (everything here has internal linkage).
 #pragma once
 
@@ -228,6 +230,16 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as bf16 high and low parts (v - hi rounded again), packed in
+// pairs: hi + lo carries about 16 bits of each f32 value.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint (no link

@@ -146,15 +146,6 @@ __device__ __forceinline__ float sw_at(const uint8_t* tile, int r, int c) {
   return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(r, c)));
 }
 
-// v as bf16 high and low parts (v - hi rounded again), packed in pairs.
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // Inclusive warp scan of the chunk's 64 dA values, two a lane (rows lane
 // and 32 + lane); returns the chunk's total in every lane.
 __device__ __forceinline__ float warp_cumsum(float& v0, float& v1, int lane) {

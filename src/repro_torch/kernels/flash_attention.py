@@ -19,9 +19,23 @@ to ``flash_attention.launches_by_path[path]``; a build or launch that
 fails raises, and nothing falls back to the other kernel.  Given CPU
 tensors it computes the same function with the plain version
 (``ref.flash_attention_ref``, after repeating k and v) and launches
-nothing.
+nothing.  With ``return_lse`` it also returns each row's log-sum-exp
+(BH, S) f32, which the bf16 kernel writes beside o (the plain
+``ref.flash_attention_lse_ref`` on the CPU).
+
+The backward, ``flash_attention_bwd``, has two kernels:
+``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D in WGMMA_HEAD_DIMS, on
+the tensor cores, reading the forward's lse) and
+``csrc/flash_attention_bwd.cu`` (every other case, on the CUDA cores in
+f32, recomputing the lse); ``bwd_path(dtype, D, softcap)`` names the one
+that runs, and ``flash_attention_bwd.launches_by_path`` counts each.
+``FlashAttentionFn`` asks the forward for the lse when a gradient will
+be taken on the wgmma path.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
@@ -51,6 +65,17 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
         if dtype == torch.bfloat16:
             return "wgmma"
         return "simt" if softcap else "tf32"
+    return "simt"
+
+
+def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
+    """The kernel that computes the attention backward of `dtype` with
+    head dim `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS,
+    with or without a softcap; it reads the forward's lse) or "simt"
+    (every other case: f32 on the CUDA cores, its own lse)."""
+    del softcap  # both kernels take every softcap
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
     return "simt"
 
 
@@ -91,20 +116,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kind: str = "global",
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """q (BH, S, D), k and v (BH / G, S, D) -> (BH, S, D) in q's dtype."""
+                    window: int = 0, softcap: float = 0.0,
+                    return_lse: bool = False):
+    """q (BH, S, D), k and v (BH / G, S, D) -> (BH, S, D) in q's dtype;
+    with `return_lse`, (out, lse) with lse each row's log-sum-exp (BH, S)
+    f32.  On the card only the wgmma path writes the lse: asking for it
+    on another path raises."""
     group = _check(q, k, v, kind, window)
+    mask = dict(causal=causal, kind=kind, window=window, softcap=softcap)
     if q.device.type == "cpu":
+        lse = (ref.flash_attention_lse_ref(q, k, **mask) if return_lse
+               else None)
         if group > 1:
             k = k.repeat_interleave(group, dim=0)
             v = v.repeat_interleave(group, dim=0)
-        return ref.flash_attention_ref(q, k, v, causal=causal, kind=kind,
-                                       window=window, softcap=softcap)
+        out = ref.flash_attention_ref(q, k, v, **mask)
+        return (out, lse) if return_lse else out
     BH, S, D = q.shape
-    out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
     kernel = path(q.dtype, D, softcap)
+    if return_lse and kernel != "wgmma":
+        raise ValueError(f"the {kernel} forward writes no lse: only the "
+                         "wgmma path (bf16, D in WGMMA_HEAD_DIMS) does")
+    out = torch.empty_like(q)
+    lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel() == 0:
+        return (out, lse) if return_lse else out
     if kernel != "simt":
         # the tensor maps and 16-byte copies need 16-byte aligned bases
         for name, a in (("q", q), ("k", k), ("v", v)):
@@ -115,9 +152,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kernel == "wgmma":
             lib = _build.load("flash_attention_wgmma")
             err = lib.flash_attention_wgmma_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                S, D, group, int(causal), KINDS[kind], int(window),
-                float(softcap), stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), BH, S, D, group,
+                int(causal), KINDS[kind], int(window), float(softcap),
+                stream)
         elif kernel == "tf32":
             lib = _build.load("flash_attention_tf32")
             # kv shares of each q tile (the kernel's choice from the grid)
@@ -140,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_launch(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[kernel] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
@@ -154,6 +192,8 @@ def reset_launches():
     for key in flash_attention.launches_by_path:
         flash_attention.launches_by_path[key] = 0
     flash_attention_bwd.launches = 0
+    for key in flash_attention_bwd.launches_by_path:
+        flash_attention_bwd.launches_by_path[key] = 0
 
 
 def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,58 +210,118 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, kind: str = "global",
-                        window: int = 0, softcap: float = 0.0):
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: Optional[torch.Tensor] = None, *,
+                        causal: bool = True,
+                        kind: str = "global", window: int = 0,
+                        softcap: float = 0.0):
     """Gradients of ``flash_attention``: q, o (its output), do (the loss's
-    gradient by o) (BH, S, D); k, v (BH / G, S, D) -> (dq, dk, dv) in the
-    inputs' dtype, dk and dv summed over each kv row's G query rows."""
+    gradient by o) (BH, S, D); k, v (BH / G, S, D); lse the forward's row
+    log-sum-exp (BH, S) f32 -> (dq, dk, dv) in the inputs' dtype, dk and
+    dv summed over each kv row's G query rows.  The wgmma path needs lse
+    and raises without it; the simt path and the plain version (CPU
+    tensors) compute their own and ignore it."""
     group = _check_bwd(q, k, v, o, do, kind, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                            kind=kind, window=window,
                                            softcap=softcap)
     BH, S, D = q.shape
+    kernel = bwd_path(q.dtype, D, softcap)
+    if kernel == "wgmma":
+        if lse is None:
+            raise ValueError("the wgmma backward reads the forward's lse: "
+                             "pass flash_attention(..., return_lse=True)'s")
+        if (lse.shape != (BH, S) or lse.dtype != torch.float32
+                or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on "
+                             f"{lse.device} is not a contiguous ({BH}, {S}) "
+                             f"float32 tensor on {q.device}")
+        for name, a in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if a.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    # per-row log-sum-exp and D_i = rowsum(dO * O), f32
-    stats = torch.empty((2, BH, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _build.load("flash_attention_bwd").flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), BH, S, D, group,
-            int(q.dtype == torch.bfloat16), int(causal), KINDS[kind],
-            int(window), float(softcap), stream)
-    _build.check_launch(err, "flash_attention_bwd")
+        if kernel == "wgmma":
+            lib = _build.load("flash_attention_bwd_wgmma")
+            # each key tile's work is split into `shares` blocks, whose
+            # f32 dK and dV partials a last launch sums in order; the
+            # scratch holds them, then D_i (BH, S) f32
+            shares = _bwd_shares(q.device.index, BH, S, D, group,
+                                 int(causal), KINDS[kind], int(window))
+            n_part = 2 * shares * k.numel()
+            buf = _scratch.scratch(q.device, stream, (n_part + BH * S) * 4)
+            part = buf.data_ptr()
+            err = lib.flash_attention_bwd_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), part + n_part * 4, part, BH, S, D, group,
+                shares, int(causal), KINDS[kind], int(window),
+                float(softcap), stream)
+        else:
+            # per-row log-sum-exp and D_i = rowsum(dO * O), f32
+            stats = torch.empty((2, BH, S), dtype=torch.float32,
+                                device=q.device)
+            err = _build.load("flash_attention_bwd").flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                stats[0].data_ptr(), stats[1].data_ptr(), BH, S, D, group,
+                int(q.dtype == torch.bfloat16), int(causal), KINDS[kind],
+                int(window), float(softcap), stream)
+    _build.check_launch(err, f"flash_attention_bwd ({kernel})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_path[kernel] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_path = {"wgmma": 0, "simt": 0}
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_shares(device_index: int, *args: int) -> int:
+    """The wgmma backward's dK/dV share count for (bh, s, d, group,
+    causal, kind, window) on the current device (it reads the SM count
+    and the kernel's occupancy), kept per shape."""
+    shares = _build.load(
+        "flash_attention_bwd_wgmma").flash_attention_bwd_wgmma_shares(*args)
+    if shares <= 0:
+        raise RuntimeError(f"flash_attention_bwd (wgmma): no share count "
+                           f"for {args}")
+    return shares
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its hand-written gradient: the forward
-    kernel, then ``flash_attention_bwd`` on the saved q, k, v and output
-    (the row statistics are recomputed, so the forward kernels and
-    serving's outputs stay as they are)."""
+    kernel, then ``flash_attention_bwd`` on the saved q, k, v, output and,
+    on the wgmma backward path, the forward's row log-sum-exp.  The lse
+    is asked for only when a gradient will be taken, so serving's calls
+    write none; under ``torch.utils.checkpoint`` the recomputed forward
+    writes it again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kind, window, softcap):
-        o = flash_attention(q, k, v, causal=causal, kind=kind,
-                            window=window, softcap=softcap)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.mask = dict(causal=causal, kind=kind, window=window,
-                        softcap=softcap)
+        mask = dict(causal=causal, kind=kind, window=window,
+                    softcap=softcap)
+        want_lse = (any(ctx.needs_input_grad[:3])
+                    and bwd_path(q.dtype, q.shape[-1], softcap) == "wgmma")
+        if want_lse:
+            o, lse = flash_attention(q, k, v, return_lse=True, **mask)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = flash_attention(q, k, v, **mask)
+            ctx.save_for_backward(q, k, v, o)
+        ctx.mask = mask
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, *lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         lse[0] if lse else None,
                                          **ctx.mask)
         return dq, dk, dv, None, None, None, None
 

@@ -11,7 +11,8 @@ h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
 each rounded, as the scan kernel does).  ``flash_attention_bwd_ref`` and
 ``rglru_scan_bwd_ref`` are their gradients written out as formulas (the
 reference has no backward kernel: XLA differentiates its jnp paths), the
-yardsticks of the two backward kernels.  ``ssd_scan_ref`` is the SSD
+yardsticks of the backward kernels; ``flash_attention_lse_ref`` is the
+row log-sum-exp the bf16 forward kernel writes for its backward.  ``ssd_scan_ref`` is the SSD
 scan in its chunked state-passing form, as the tensor-core kernel
 computes it (the reference's oracle steps token by token, which is the
 same function).  ``tf32_split`` is the operand split of the f32
@@ -75,6 +76,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(valid[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, kind: str = "global",
+                            window: int = 0, softcap: float = 0.0
+                            ) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled (and softcapped)
+    masked scores, natural log, in f32: q (BH, S, D), k (BH / G, S, D),
+    query row bh reading kv row bh // G -> (BH, S).  What the bf16
+    forward kernel writes for the backward when a gradient will be
+    taken."""
+    BH, S, D = q.shape
+    kr = k.float().repeat_interleave(BH // k.shape[0], dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kr) / math.sqrt(D)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = attention_mask(S, causal, kind, window, q.device)
+    s = torch.where(valid[None], s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1)
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,

@@ -715,16 +715,23 @@ def test_learned_scorer_on_card_matches_numpy():
 # orders): each gradient within 1e-5 of |want| plus 1e-4 of the tensor's
 # largest |value| in f32; in bf16 within 2^-7 of |want| (the two f32 sums
 # may round to neighbouring bf16 values) plus 1e-4 of the largest, so a
-# key tile dropped or added fails.  The RG-LRU scan's backward is exactly
-# its serial reverse loop.
+# key tile dropped or added fails.  bf16 at head dims 64, 128, 256 runs
+# on the tensor-core kernel (``bwd_path`` "wgmma"), which reads the
+# forward kernel's lse; f32 and other head dims on the first kernel
+# ("simt").  The forward's lse against the plain one within LSE_TOL.  The
+# RG-LRU scan's backward is exactly its serial reverse loop.
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_bwd, flash_attention_fn)
+    bwd_path, flash_attention_bwd, flash_attention_fn)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan_bwd, rglru_scan_fn)
 
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+#: the bf16 forward's lse against the plain one, absolute: the same f32
+#: scores summed in another order (a few 1e-6 at softcapped scores of
+#: tens); one key of a 2,048-key window dropped moves it by ~5e-4
+LSE_TOL = 1e-4
 
 
 def _assert_grads_close(got, want, dtype, what=""):
@@ -738,46 +745,116 @@ def _assert_grads_close(got, want, dtype, what=""):
 
 
 def _bwd_case(seed, BH, G, S, D, dtype, dev, kw, scale=1.0):
-    """(BH, S, D) q, o, dO and (BH / G, S, D) k, v on the card; o is the
-    forward kernel's output."""
+    """(BH, S, D) q, o, dO and (BH / G, S, D) k, v on the card, and the
+    lse; o is the forward kernel's output, the lse the forward's on the
+    wgmma backward path (None on the simt one, which computes its own)."""
     rng = np.random.default_rng(seed)
     mk = lambda rows, s=1.0: torch.from_numpy(
         (rng.standard_normal((rows, S, D)) * s).astype(np.float32)).to(
             device=dev, dtype=dtype)
     q, k, v = mk(BH, scale), mk(BH // G, scale), mk(BH // G)
     do = mk(BH)
-    return q, k, v, flash_attention(q, k, v, **kw), do
+    if bwd_path(dtype, D, kw.get("softcap", 0.0)) == "wgmma":
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    else:
+        o, lse = flash_attention(q, k, v, **kw), None
+    return q, k, v, o, do, lse
 
 
-@pytest.mark.cuda_only
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kw", [
-    dict(causal=True, kind="global"), dict(causal=True, kind="local",
-                                           window=32),
-    dict(causal=True, kind="chunked", window=32),
-    dict(causal=True, kind="global", softcap=20.0),
-    dict(causal=False, kind="global"),
-    dict(causal=False, kind="local", window=48)],
-    ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
-@pytest.mark.parametrize("S", [37, 100, 257])
-@pytest.mark.parametrize("D", [16, 64, 256])
-def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype):
-    """Ragged S (query rows and keys past S in the last tile), GQA 2:1,
-    every mask; one launch a call."""
-    dev = _card()
-    scale = 4.0 if kw.get("softcap") else 1.0
-    q, k, v, o, do = _bwd_case(D + S, 4, 2, S, D, dtype, dev, kw, scale)
+def _bwd_launch(q, k, v, o, do, lse, kw):
+    """flash_attention_bwd, checking that it launched once, on the path
+    ``bwd_path`` names."""
+    kernel = bwd_path(q.dtype, q.shape[-1], kw.get("softcap", 0.0))
     n0 = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    by0 = dict(flash_attention_bwd.launches_by_path)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == n0 + 1
+    assert flash_attention_bwd.launches_by_path == {
+        p: n + (p == kernel) for p, n in by0.items()}
+    return got
+
+
+BWD_MASKS = [dict(causal=True, kind="global"),
+             dict(causal=True, kind="local", window=32),
+             dict(causal=True, kind="chunked", window=32),
+             dict(causal=True, kind="global", softcap=20.0),
+             dict(causal=False, kind="global"),
+             dict(causal=False, kind="local", window=48)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("BH,G", [(4, 2), (10, 10)], ids=["gqa2", "mqa10"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", BWD_MASKS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("S", [37, 100, 257])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype, BH, G):
+    """Ragged S (query rows and keys past S in the last tile), GQA 2:1
+    and MQA 10:1 (dK and dV summed over the group's query heads; on the
+    tensor-core path split into shares), every mask; one launch a call,
+    on its path: f32 and D = 16 on the first kernel, bf16 at D = 64, 128,
+    256 on the tensor-core one, which reads the forward's lse."""
+    dev = _card()
+    scale = 4.0 if kw.get("softcap") else 1.0
+    q, k, v, o, do, lse = _bwd_case(D + S + G - 2, BH, G, S, D, dtype, dev,
+                                    kw, scale)
+    got = _bwd_launch(q, k, v, o, do, lse, kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-    _assert_grads_close(got, want, dtype, f"D={D} S={S} {kw}")
+    _assert_grads_close(got, want, dtype, f"D={D} S={S} G={G} {kw}")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kw", BWD_MASKS + [
+    dict(causal=True, kind="local", window=2048, softcap=50.0)],
+    ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_forward_lse_matches_plain(D, kw):
+    """The bf16 forward's lse (written only when asked) against the plain
+    one, and the output the same with and without it."""
+    dev = _card()
+    scale = 8.0 if kw.get("softcap") else 1.0
+    q, k, v = (t.transpose(1, 2).reshape(-1, 300, D).contiguous() for t in
+               _qkv(D, 1, 300, 10, 1, D, torch.bfloat16, dev, scale))
+    n0 = flash_attention.launches_by_path["wgmma"]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    plain = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["wgmma"] == n0 + 2
+    assert torch.equal(out, plain)
+    want = ref.flash_attention_lse_ref(q, k, **kw)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda_only
+def test_flash_lse_refused_off_the_wgmma_path_and_required_on_it():
+    """The wgmma backward without the forward's lse raises (nothing falls
+    back); the f32 forward, which writes no lse, refuses to return one;
+    the simt backward takes no lse."""
+    dev = _card()
+    kw = dict(causal=True, kind="local", window=32)
+    q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 64, torch.bfloat16, dev,
+                                    kw)
+    n0 = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, do, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, do, lse[:, :50].contiguous(), **kw)
+    assert flash_attention_bwd.launches == n0
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention(q.float(), k.float(), v.float(), return_lse=True,
+                        **kw)
+    q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 64, torch.float32, dev,
+                                    kw)
+    assert lse is None
+    _bwd_launch(q, k, v, o, do, None, kw)
 
 
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 64, 256])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_flash_bwd_kernel_rows_that_see_only_their_own_key(D, dtype):
     """Window 1: every row sees its own key and the rest of each tile is
     masked out, so p = 1 on the diagonal: dv is dO exactly, and dq and dk
@@ -785,9 +862,8 @@ def test_flash_bwd_kernel_rows_that_see_only_their_own_key(D, dtype):
     exact arithmetic), far below the other tests' scale."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=1)
-    q, k, v, o, do = _bwd_case(D, 4, 2, 100, D, dtype, dev, kw)
-    dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
+    q, k, v, o, do, lse = _bwd_case(D, 4, 2, 100, D, dtype, dev, kw)
+    dq, dk, dv = _bwd_launch(q, k, v, o, do, lse, kw)
     want_dv = do.float().reshape(2, 2, 100, D).sum(dim=1).to(dtype)
     np.testing.assert_allclose(dv.float().cpu().numpy(),
                                want_dv.float().cpu().numpy(),
@@ -811,22 +887,25 @@ def test_flash_bwd_kernel_serving_shape(S, dtype):
     last key tiles of each window are partial."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=2048)
-    q, k, v, o, do = _bwd_case(S, 10, 10, S, 256, dtype, dev, kw)
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    q, k, v, o, do, lse = _bwd_case(S, 10, 10, S, 256, dtype, dev, kw)
+    got = _bwd_launch(q, k, v, o, do, lse, kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, dtype, f"S={S}")
 
 
 @pytest.mark.cuda_only
-def test_flash_bwd_kernel_is_deterministic():
-    """No atomics: two runs give bitwise the same gradients."""
+@pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 1000),
+                                     (torch.bfloat16, 3000),
+                                     (torch.float32, 1000)])
+def test_flash_bwd_kernel_is_deterministic(dtype, S):
+    """No atomics: two runs give bitwise the same gradients, on both
+    paths (the wgmma one sums its dK/dV shares in a fixed order)."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=2048)
-    q, k, v, o, do = _bwd_case(5, 10, 10, 1000, 256, torch.bfloat16, dev,
-                               kw)
-    first = flash_attention_bwd(q, k, v, o, do, **kw)
-    second = flash_attention_bwd(q, k, v, o, do, **kw)
+    q, k, v, o, do, lse = _bwd_case(5, 10, 10, S, 256, dtype, dev, kw)
+    first = _bwd_launch(q, k, v, o, do, lse, kw)
+    second = _bwd_launch(q, k, v, o, do, lse, kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

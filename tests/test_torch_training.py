@@ -56,7 +56,8 @@ from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      plan_elastic_mesh)
 from repro_torch.distributed.steps import _like
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_fn)
 from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
@@ -402,7 +403,8 @@ MASKS = [dict(causal=True, kind="local", window=8),
          dict(causal=False, kind="global"),
          dict(causal=True, kind="chunked", window=8),
          dict(causal=True, kind="global", softcap=5.0),
-         dict(causal=False, kind="local", window=5, softcap=3.0)]
+         dict(causal=False, kind="local", window=5, softcap=3.0),
+         dict(causal=True, kind="chunked", window=8, softcap=2.0)]
 
 
 def _attn_inputs(seed, BH=4, G=2, S=37, D=16):
@@ -505,6 +507,126 @@ def test_autograd_functions_on_cpu_take_the_plain_backward():
             rglru_scan.launches, rglru_scan_bwd.launches) == n0
     da, db, dh0 = rglru_scan_bwd(a, h.detach(), dh)
     assert dh0 is None
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
+        dtype, D, softcap):
+    """bf16 at head dims 64, 128 and 256 takes the tensor-core backward,
+    softcap or not; f32 and every other head dim the CUDA-core one."""
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
+            else "simt")
+    assert bwd_path(dtype, D, softcap) == want
+
+
+def _lse_f64(q, k, kw):
+    """Row log-sum-exp of the scaled, softcapped, masked scores in
+    float64 numpy (k repeated to q's rows)."""
+    BH, S, D = q.shape
+    kr = np.repeat(k.astype(np.float64), BH // k.shape[0], axis=0)
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64), kr) / np.sqrt(D)
+    if kw.get("softcap"):
+        s = np.tanh(s / kw["softcap"]) * kw["softcap"]
+    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+    keep = np.ones((S, S), bool)
+    if kw.get("causal", True):
+        keep &= qp >= kp
+    if kw.get("kind") == "local":
+        keep &= (qp - kp) < kw["window"]
+    elif kw.get("kind") == "chunked":
+        keep &= qp // kw["window"] == kp // kw["window"]
+    s = np.where(keep[None], s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("kw", MASKS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+def test_plain_lse_matches_float64(kw, group):
+    """``ref.flash_attention_lse_ref`` (what the bf16 forward kernel
+    writes for its backward, and what the CPU wrapper returns) against a
+    float64 log-sum-exp, within 1e-5 (f32 scores of 16 products)."""
+    q, k, _v, _do = _attn_inputs(11, G=group)
+    want = _lse_f64(q, k, kw)
+    got = ref.flash_attention_lse_ref(_t(q), _t(k), **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    out, lse = flash_attention(_t(q), _t(k), _t(_v), return_lse=True, **kw)
+    assert torch.equal(lse, got)
+    assert torch.equal(out, flash_attention(_t(q), _t(k), _t(_v), **kw))
+
+
+@pytest.mark.parametrize("dtype,D,lse_saved", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 16, False),
+    (torch.float32, 64, False)])
+def test_flash_attention_fn_saves_lse_only_when_a_gradient_is_needed(
+        monkeypatch, dtype, D, lse_saved):
+    """The forward asks for the lse only when a gradient will be taken on
+    the wgmma backward path (bf16 at the tensor-core head dims), so
+    serving's calls write none; on CPU tensors it is the plain lse and
+    nothing launches."""
+    q, k, v, do = _attn_inputs(12, D=D)
+    kw = dict(causal=True, kind="local", window=8, softcap=5.0)
+    asked = []
+    real = tflash.flash_attention
+
+    def recording(*args, **kwargs):
+        asked.append(kwargs.get("return_lse", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tflash, "flash_attention", recording)
+    n0 = (flash_attention.launches, flash_attention_bwd.launches,
+          dict(flash_attention.launches_by_path),
+          dict(flash_attention_bwd.launches_by_path))
+    qt, kt, vt = (_t(a).to(dtype) for a in (q, k, v))
+    with torch.no_grad():
+        flash_attention_fn(qt, kt, vt, **kw)
+    flash_attention_fn(qt, kt, vt, **kw)      # no input needs a gradient
+    assert asked == [False, False]
+    qg, kg, vg = (a.clone().requires_grad_(True) for a in (qt, kt, vt))
+    o = flash_attention_fn(qg, kg, vg, **kw)
+    assert asked[-1] == lse_saved
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == (5 if lse_saved else 4)
+    if lse_saved:
+        assert torch.equal(saved[4], ref.flash_attention_lse_ref(qt, kt,
+                                                                 **kw))
+    got = torch.autograd.grad(o, (qg, kg, vg), _t(do).to(dtype))
+    want = ref.flash_attention_bwd_ref(qt, kt, vt, o.detach(),
+                                       _t(do).to(dtype), **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (flash_attention.launches, flash_attention_bwd.launches,
+            dict(flash_attention.launches_by_path),
+            dict(flash_attention_bwd.launches_by_path)) == n0
+
+
+@pytest.mark.parametrize("kw", [MASKS[0], MASKS[5], MASKS[7]],
+                         ids=lambda kw: "-".join(f"{k}{v}"
+                                                 for k, v in kw.items()))
+def test_flash_attention_fn_grads_match_jax(kw):
+    """Autograd through ``flash_attention_fn`` (the kernels' dispatch, on
+    the CPU their plain versions) at a tensor-core head dim, MQA 4:1,
+    against ``jax.grad`` of the reference's oracle with k and v repeated,
+    within 1e-4 of each gradient's largest element."""
+    q, k, v, do = _attn_inputs(13, G=4, D=64)
+    qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad(flash_attention_fn(qt, kt, vt, **kw),
+                              (qt, kt, vt), _t(do))
+
+    def jloss(q, k, v):
+        out = jref.flash_attention_ref(q, jnp.repeat(k, 4, 0),
+                                       jnp.repeat(v, 4, 0), **kw)
+        return jnp.sum(out * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    for name, a, b in zip("qkv", got, want):
+        b = np.asarray(b)
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= GRAD_TOL * float(np.abs(b).max()), (name, err)
 
 
 def test_serving_outputs_unchanged_by_the_autograd_dispatch(smoke):
