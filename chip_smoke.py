@@ -116,32 +116,44 @@ Phases (each one failing makes the script exit non-zero):
      that, no stale serve; the batches replayed and split into the copy
      in, the forward and the copy out with its synchronisation (CUDA
      events, medians by batch length);
-  8. training: (a) the two backward kernels against their plain versions
-     at the serving shapes: ``flash_attention_bwd`` at BH 10, 1 kv head,
-     D 256, local 2,048, causal, S = 512, 1,000, 2,048, 3,000 in bf16 (the
-     tensor-core kernel of ``flash_attention_bwd_wgmma.cu``, reading the
-     forward's lse, which is held within LSE_TOL of the plain lse; the
-     first kernel held on the same inputs and timed beside it; two calls
-     at S = 3,000 bitwise equal; no slower than sdpa's backward in ``ms``),
-     512 and 1,000 in f32 (the first kernel), and S = 1,000 bf16 with a
-     softcap of 50 (each of dq, dk, dv within BWD_TOL, its worst element
-     printed as a share of its allowance; the path each ran must be the
-     one ``bwd_path`` names), timed beside its plain version and sdpa's
-     backward (forward and backward through ``torch.autograd.grad`` minus
-     the forward, same bool mask); ``rglru_scan_bwd`` exactly its plain
-     reverse loop at (1, 3,000, 2,560) with and without h0, (4, 1,000,
-     2,560) and (2, 1,000, 2,562) (the one-thread-a-channel path);
-     (b) recurrentgemma-2b at its published width and depth, f32 master
-     weights and moments computed in bf16, remat on, B 1, S 3,000,
-     TokenPipeline seed 0, 8 steps of ``make_train_step`` with the
-     AdamWConfig the reference's ``train_loop`` builds for 8 steps
-     (warmup 1, cosine over 8), no checkpoint (the state is some 43 GB):
-     every loss finite, the last below the first, 8 attention (all on
-     the wgmma path) and 18 scan backward launches a step; step time,
-     tokens/s, peak memory and one profiled step, with the attention
-     backward's device time by launch; (c) the same width at one period (rec, rec,
-     local), S 1,024, bf16: every gradient leaf through the kernels
-     against the plain versions within GRAD_TOL in norm; (d) the
+  8. training: (a) the three backward kernels against their plain
+     versions at the serving shapes: ``flash_attention_bwd`` at BH 10, 1
+     kv head, D 256, local 2,048, causal, S = 512, 1,000, 2,048, 3,000 in
+     bf16 (the tensor-core kernel of ``flash_attention_bwd_wgmma.cu``) and
+     in f32 (the 3xTF32 kernel of ``flash_attention_bwd_tf32.cu``), each
+     reading its forward's lse, which is held within LSE_TOL of the plain
+     lse; the first kernel held on the same inputs and timed beside it;
+     two calls at S = 3,000 bitwise equal; no slower than sdpa's backward
+     in ``ms``), and S = 1,000 bf16 with a softcap of 50 (each of dq, dk,
+     dv within BWD_TOL, its worst element printed as a share of its
+     allowance; the path each ran must be the one ``bwd_path`` names),
+     timed beside its plain version and sdpa's backward (forward and
+     backward through ``torch.autograd.grad`` minus the forward, same
+     bool mask); ``rglru_scan_bwd`` exactly its plain reverse loop at (1,
+     3,000, 2,560) with and without h0, (4, 1,000, 2,560) and (2, 1,000,
+     2,562) (the one-thread-a-channel path); ``ssd_scan_bwd`` against
+     ``ref.ssd_scan_bwd_ref`` at mamba2-2.7b's shapes (B 1, 80 heads of
+     64, d_state 128, one group, S = 512, 1,000, 2,048, 3,001) in bf16
+     and f32, without and with h0 and a gradient by the final state, then
+     grouped B/C (G 2) and a shape off the served one (each gradient
+     within SSD_TOL of its largest |value|; two calls at S = 3,001
+     bitwise equal), timed beside its plain version;
+     (b) recurrentgemma-2b, then mamba2-2.7b, at its published width and
+     depth, f32 master weights and moments computed in bf16, remat on, B
+     1, S 3,000, TokenPipeline seed 0, 8 steps of ``make_train_step``
+     with the AdamWConfig the reference's ``train_loop`` builds for 8
+     steps (warmup 1, cosine over 8), no checkpoint (the state is some 43
+     GB): every loss finite, the last below the first, the launches
+     exact (recurrentgemma: 8 attention backward launches a step, all on
+     the wgmma path, and 18 scan backward launches; mamba2: 64 SSD
+     backward launches a step and 128 SSD forwards, all on the wgmma
+     path, remat recomputing each); step time, tokens/s, peak memory and
+     one profiled step, with the backward kernels' device time by
+     launch; (c) one period of each at the same width (rec, rec, local;
+     one SSM layer), S 1,024, bf16: every gradient leaf through the
+     kernels against the plain versions within GRAD_TOL in norm, the
+     launches exact, no leaf zero through the kernels where the plain
+     versions' is not, and mamba2's A_log and dt_bias non-zero; (d) the
      fail/resume drill on the card at the smoke config (fail at 6,
      resume from step 4, finish at 10; a resumed run's steps 4-7 within
      rtol 1e-4 of the straight run's); (e) the policy fit at
@@ -149,14 +161,15 @@ Phases (each one failing makes the script exit non-zero):
      CPU, both timed: each step's loss within 1e-4, every train and
      holdout decision the same, save at most one a split that is a tie
      on the CPU fit (TIE_TOL), the raw agreements printed;
-  9. the f32 flash path's times on a line of their own; one JSON line
-     describing the five kernels and the two backward kernels (flash
-     attention's entry is the bf16 serving path's kernel, with the f32
-     path's under "f32"; the SSD scan's is the wgmma kernel, the RG-LRU
-     scan's the TMA kernel; each redesigned kernel carries the first
-     kernel's times beside its own, the attention backward's too (its
-     entry is the wgmma kernel); the backward kernels' launches are
-     phase 8 (b)'s), then the device line.
+  9. the f32 flash path's times and the f32 attention backward's on
+     lines of their own; one JSON line describing the five kernels and
+     the three backward kernels (flash attention's entry is the bf16
+     serving path's kernel, with the f32 path's under "f32"; the SSD
+     scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
+     redesigned kernel carries the first kernel's times beside its own,
+     the attention backward's too (its entry is the wgmma kernel, the
+     3xTF32 one under "f32"); the backward kernels' launches are phase 8
+     (b)'s), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -223,12 +236,17 @@ LOGIT_TOL = 2e-2
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (512, 1000, 2048, 3001)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: phase 8: recurrentgemma-2b trained at full width and depth on the
-#: serving shape's longest prompt (past the 2,048 window), B 1; (c) one
-#: period at the same width, S 1,024
+#: phase 8: recurrentgemma-2b and mamba2-2.7b trained at full width and
+#: depth on the serving shape's longest prompt (past recurrentgemma's
+#: 2,048 window; 46 whole chunks of 64 and a ragged one of 56 for the SSD
+#: scan), B 1; (c) one period of each at the same width, S 1,024
 TRAIN_ARCH = SERVE_ARCH
+TRAIN_ARCHS = (SERVE_ARCH, SSM_ARCH)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 3000, 1, 8
 PERIOD_SEQ = 1024
+#: phase 8 (a): the SSD backward kernel's gradients, in the order it
+#: returns them, each held to SSD_TOL of its largest |value|
+SSD_GRADS = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
 #: the attention backward against its plain version (the same f32
 #: formula summed in other orders): each gradient within (relative, of
 #: the tensor's largest |value|); bf16 gradients may round to
@@ -1067,7 +1085,7 @@ def tf32_flash(q, k, v, kw):
     part = torch.empty(splits * bh * s * (d + 2), device=q.device)
     err = lib.flash_attention_tf32_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        part.data_ptr(), bh, s, d, bh // k.shape[0], *mask,
+        part.data_ptr(), None, bh, s, d, bh // k.shape[0], *mask,
         float(kw.get("softcap", 0.0)), splits,
         torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "flash_attention (tf32, direct)")
@@ -2180,8 +2198,8 @@ def flash_bwd_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
 def simt_flash_bwd(q, k, v, o, do, kw):
     """The first backward kernel (csrc/flash_attention_bwd.cu: row
     statistics, dQ and dK/dV on the CUDA cores) called directly, so that
-    it can be held and timed on the bf16 inputs the wrapper sends to the
-    tensor-core kernel; not counted in the wrapper's launches."""
+    it can be held and timed on the bf16 and f32 inputs the wrapper sends
+    to the tensor-core kernels; not counted in the wrapper's launches."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import KINDS
@@ -2204,17 +2222,18 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     """flash_attention_bwd against its plain version on the forward
     kernel's output and a random dO: each of dq, dk, dv within BWD_TOL
     (its worst element printed as a share of its allowance), on the path
-    ``bwd_path`` names; on the wgmma path the forward's lse within
-    LSE_TOL of the plain lse, and the first kernel held on the same
-    inputs.  With `twice`, a second call bitwise equal to the first.
-    With `timed`, the kernel (and on the wgmma path the first kernel),
-    its plain version and sdpa's backward (forward and backward through
-    torch.autograd.grad, minus its forward, with the same boolean mask)
-    timed, and the bound.  Returns a dict."""
+    ``bwd_path`` names; on the tensor-core paths (wgmma, tf32) the
+    forward's lse within LSE_TOL of the plain lse, and the first kernel
+    held on the same inputs.  With `twice`, a second call bitwise equal
+    to the first.  With `timed`, the kernel (and on the tensor-core paths
+    the first kernel), its plain version and sdpa's backward (forward and
+    backward through torch.autograd.grad, minus its forward, with the
+    same boolean mask) timed, and the bound.  Returns a dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (bwd_path,
+    from repro_torch.kernels.flash_attention import (LSE_BWD_PATHS,
+                                                     bwd_path,
                                                      flash_attention,
                                                      flash_attention_bwd)
     bh, s, d = q.shape
@@ -2223,7 +2242,7 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     rel, of_max = BWD_TOL[dt]
     kernel = bwd_path(q.dtype, d, kw.get("softcap", 0.0))
     out = {"errors": {}, "max_abs_err": 0.0, "path": kernel}
-    if kernel == "wgmma":
+    if kernel in LSE_BWD_PATHS:
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         lse_err = float((lse - ref.flash_attention_lse_ref(q, k, **kw))
                         .abs().max())
@@ -2342,8 +2361,81 @@ def hold_scan_bwd(a, b, h0, timed: bool):
     return out
 
 
+def ssd_bwd_bound(bsz: int, heads: int, groups: int, s: int, p: int,
+                  n: int, dtype, with_h0: bool, with_dh: bool,
+                  with_dh0: bool):
+    """x, dy and dx, the grouped B, C, dB and dC in the inputs' type; dA,
+    dt, ddA, ddt, and h0, dh and dh0 (each when the call reads or writes
+    it) in f32, each read or written once; operations at the kernels' chunk of 64: per row pair
+    the causal mask keeps within a chunk, 6N (C B^T, R B, R^T C) and 4P
+    (dy x^T, W^T dy), per row 10NP (the chunk's two state terms, h_in^T
+    dy, g^T x, g B), at the tensor-core rate for the inputs' type."""
+    import torch
+    from repro_torch.kernels.ssd_scan import CHUNK
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (esize * (3 * bsz * heads * s * p + 4 * bsz * groups * s * n)
+              + 4 * 4 * bsz * heads * s
+              + 4 * bsz * heads * p * n * (with_h0 + with_dh + with_dh0))
+    pairs = sum(c * (c + 1) // 2 for c in
+                (min(CHUNK, s - c0) for c0 in range(0, s, CHUNK)))
+    ops = bsz * heads * (pairs * (6 * n + 4 * p) + 10 * s * n * p)
+    return bound(nbytes, ops, matmul_peak(dtype))
+
+
+def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
+    """ssd_scan_bwd against its plain version (``ref.ssd_scan_bwd_ref`` at
+    the kernels' chunk) on the forward's inputs `args`, dy and dh (None:
+    zeros): each of dx, ddA, ddt, dB, dC and dh0 finite and within
+    SSD_TOL of its largest |value|, one launch a call.  With `twice`, a
+    second call bitwise equal to the first.  With `timed`, the kernel and
+    its plain version timed, and the bound (no PyTorch call computes the
+    same function).  Returns a dict."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan_bwd
+    x, Bm, h0 = args[0], args[3], args[5]
+    bsz, heads, s, p = x.shape
+    groups, n = Bm.shape[1], Bm.shape[3]
+    dt_name = str(x.dtype).split(".")[-1]
+    what = (f"ssd_scan_bwd B={bsz} H={heads} G={groups} S={s} P={p} N={n} "
+            f"{dt_name} h0={h0 is not None} dh={dh is not None}")
+    n0 = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
+    torch.cuda.synchronize()
+    check(ssd_scan_bwd.launches == n0 + 1,
+          f"{what}: {ssd_scan_bwd.launches - n0} launches")
+    tol = SSD_TOL[dt_name]
+    out = {"errors": {}}
+    for name, g, w in zip(SSD_GRADS, got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{what}: {name} not finite")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        out["errors"][name] = (err, err / max(scale, 1e-30))
+        check(err <= tol * scale, f"{what}: {name} max_abs_err {err} of "
+              f"{scale} (limit {tol} of it)")
+    out["max_abs_err"] = max(e for e, _ in out["errors"].values())
+    if twice:
+        again = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        out["bitwise_twice"] = same
+        check(same, f"{what}: two calls differ")
+    if timed:
+        # the timed calls ask for no dh0, as training's do without h0
+        out["ms"] = time_ms(lambda: ssd_scan_bwd(*args, dy, dh))
+        out["device_ms"] = time_ms(lambda: ssd_scan_bwd(*args, dy, dh),
+                                   queued=True)
+        out["plain_ms"] = time_ms(lambda: ref.ssd_scan_bwd_ref(
+            *args, dy, dh, chunk=CHUNK), reps=5)
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = ssd_bwd_bound(
+            bsz, heads, groups, s, p, n, x.dtype, h0 is not None,
+            dh is not None, with_dh0=False)
+    return out
+
+
 def phase8_bwd_kernels():
-    """(a) The two backward kernels against their plain versions at the
+    """(a) The three backward kernels against their plain versions at the
     serving shapes; returns the measurements for the kernels line."""
     import torch
     dev = torch.device("cuda")
@@ -2353,8 +2445,8 @@ def phase8_bwd_kernels():
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     serve = {}
-    cases = [(torch.bfloat16, s, {}) for s in SERVE_PROMPTS]
-    cases += [(torch.float32, s, {}) for s in (512, 1000)]
+    cases = [(dtype, s, {}) for dtype in (torch.bfloat16, torch.float32)
+             for s in SERVE_PROMPTS]
     cases += [(torch.bfloat16, 1000, {"softcap": 50.0})]
     for dtype, s, extra in cases:
         kw = dict(causal=True, kind="local", window=2048, **extra)
@@ -2392,13 +2484,15 @@ def phase8_bwd_kernels():
                      f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
                      f"{m['pairs']} a head")
         print(line)
-        if "ms" in m and m["path"] == "wgmma":
+        if "ms" in m and m["path"] != "simt":
             check(m["ms"] <= m["library_ms"],
                   f"phase 8 (a): flash_attention_bwd S={s} {dt} "
                   f"{m['ms']:.4f} ms, slower than sdpa's backward "
                   f"{m['library_ms']:.4f} ms")
-        if (dtype, s, extra) == (torch.bfloat16, max(SERVE_PROMPTS), {}):
-            serve["flash_attention_bwd"] = dict(m, shape=[10, s, 256])
+        if s == max(SERVE_PROMPTS) and not extra:
+            key = ("flash_attention_bwd" if dtype == torch.bfloat16
+                   else "flash_attention_bwd f32")
+            serve[key] = dict(m, shape=[10, s, 256])
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False),
@@ -2416,27 +2510,66 @@ def phase8_bwd_kernels():
         print(line)
         if (bsz, s, w, with_h0) == (1, 3000, 2560, False):
             serve["rglru_scan_bwd"] = dict(m, shape=[bsz, s, w])
+    # the SSD scan's backward at mamba2-2.7b's shapes (80 heads of 64,
+    # d_state 128, one group), with h0 and a gradient by the final state
+    # (a chunked prefill's) and without (training's); then grouped B and C
+    # and a shape off the served one
+    ssd_cases = [(dtype, (1, 80, 1, s, 64, 128), with_h0)
+                 for dtype in (torch.bfloat16, torch.float32)
+                 for s in SSM_PROMPTS for with_h0 in (False, True)]
+    ssd_cases += [(torch.bfloat16, (2, 8, 2, 1000, 64, 128), True),
+                  (torch.float32, (1, 24, 3, 777, 40, 100), True)]
+    for dtype, (bsz, heads, groups, s, p, n), with_h0 in ssd_cases:
+        A = -torch.linspace(1.0, 16.0, heads, device=dev)
+        dt = torch.nn.functional.softplus(randn(bsz, heads, s) - 2.0)
+        args = (randn(bsz, heads, s, p, dtype=dtype), dt * A[None, :, None],
+                dt, randn(bsz, groups, s, n, dtype=dtype),
+                randn(bsz, groups, s, n, dtype=dtype),
+                randn(bsz, heads, p, n) if with_h0 else None)
+        served = (bsz, heads, groups, p, n) == (1, 80, 1, 64, 128)
+        m = hold_ssd_bwd(args, randn(bsz, heads, s, p, dtype=dtype),
+                         randn(bsz, heads, p, n) if with_h0 else None,
+                         timed=served and not with_h0,
+                         twice=s == max(SSM_PROMPTS) and not with_h0)
+        dt_name = str(dtype).split(".")[-1]
+        line = (f"phase8 ssd_scan_bwd B={bsz} H={heads} G={groups} S={s} "
+                f"P={p} N={n} {dt_name} h0, dh={with_h0}: " + "; ".join(
+                    f"{name} {e:.3g} ({r:.3g} of its largest)"
+                    for name, (e, r) in m["errors"].items()))
+        if "bitwise_twice" in m:
+            line += f"; two calls bitwise equal {m['bitwise_twice']}"
+        if "ms" in m:
+            line += (f"; kernel {m['ms']:.4f} ms (device "
+                     f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} "
+                     f"ms, bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
+        print(line)
+        if (dtype, s, served, with_h0) == (torch.bfloat16, max(SSM_PROMPTS),
+                                           True, False):
+            serve["ssd_scan_bwd"] = dict(m, shape=[bsz, heads, s, p, n])
     return serve
 
 
 def train_counts() -> dict:
-    """The forward and backward launch counts of the train step's two
-    kernels."""
+    """The forward and backward launch counts of the train steps'
+    kernels, the SSD scan's forward also by path."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    lm = lm_counts()
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
             "rglru_scan": rglru_scan.launches,
             "rglru_scan_bwd": rglru_scan_bwd.launches,
-            "ssd_scan": lm_counts()["ssd_scan"]}
+            "ssd_scan": lm["ssd_scan"], "ssd_scan.wgmma": lm["ssd_scan.wgmma"],
+            "ssd_scan_bwd": ssd_scan_bwd.launches}
 
 
 def profile_train_step(bundle, state, batch):
     """One train step under torch.profiler: wall time, device busy and
     idle share, the largest device entries and the backward kernels'
-    device time.  Returns the state; prints "not measured" without
-    device time."""
+    device time, each by launch.  Returns the state; prints "not
+    measured" without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2467,31 +2600,43 @@ def profile_train_step(bundle, state, batch):
     print("phase8 profile   device time by op: " + "; ".join(
         f"{e.key[:28]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
         for e in ops))
-    for key in ("attn_bwd", "rglru_bwd", "flash", "rglru_tma", "gemm"):
+    for key in ("attn_bwd", "rglru_bwd", "flash", "rglru_tma", "ssd_state",
+                "ssd_out", "ssd_bwd", "gemm"):
         mine = [e for e in dev if key in e.key.lower()]
         if mine:
             print(f"phase8 profile   {key}: " + "; ".join(
                 f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
                 f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 "ms")
-    # the attention backward's device time by launch (the four kernels
-    # of the wgmma path: D_i, dK/dV, dQ, the shares' sum)
-    bwd = sorted((e for e in dev if "attn_bwd" in e.key.lower()),
-                 key=lambda e: -e.self_device_time_total)
-    if bwd:
-        print("phase8 profile   attention backward by launch: " + "; ".join(
-            f"{re.search(r'attn_bwd_[a-z]+', e.key).group(0)} x{e.count} "
-            f"{e.self_device_time_total / 1e3:.3f} ms "
-            f"({e.self_device_time_total / 1e3 / e.count:.4f} ms each)"
-            for e in bwd))
+    # the backward kernels' device time by launch: the attention
+    # backward's four (D_i, dK/dV, dQ, the shares' sum) and the SSD
+    # backward's four (the chunks' state terms, the passes, the chunks'
+    # gradients, the groups' sum)
+    for label, pattern in (("attention backward", r"attn_bwd_[a-z0-9_]+"),
+                           ("ssd backward", r"ssd_bwd_[a-z_]+")):
+        bwd = sorted((e for e in dev if re.search(pattern, e.key)),
+                     key=lambda e: -e.self_device_time_total)
+        if bwd:
+            total = sum(e.self_device_time_total for e in bwd) / 1e3
+            print(f"phase8 profile   {label} by launch ({total:.3f} ms): "
+                  + "; ".join(
+                      f"{re.search(pattern, e.key).group(0)} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms "
+                      f"({e.self_device_time_total / 1e3 / e.count:.4f} ms "
+                      "each)" for e in bwd))
     return state
 
 
-def phase8_train_full_width():
-    """(b) recurrentgemma-2b at its published width and depth: bf16
-    compute, f32 master weights and moments, remat on, B 1, S 3,000,
-    TokenPipeline seed 0, TRAIN_STEPS steps through make_train_step and
-    no checkpoint.  Returns the backward kernels' launches in the run."""
+def phase8_train_full_width(arch: str):
+    """(b) `arch` (recurrentgemma-2b or mamba2-2.7b) at its published
+    width and depth: bf16 compute, f32 master weights and moments, remat
+    on, B 1, S 3,000, TokenPipeline seed 0, TRAIN_STEPS steps through
+    make_train_step and no checkpoint.  Every loss finite, the last below
+    the first, the kernels' launches exact: each forward once a layer and
+    again in each recomputed period, each backward once a layer, the
+    attention backward on the wgmma path and the SSD forward on its
+    wgmma path.  Returns the launches in the run, the attention
+    backward's by path among them as "flash_attention_bwd.<path>"."""
     import gc
     import torch
     from repro_torch.configs import InputShape, get_config
@@ -2500,28 +2645,32 @@ def phase8_train_full_width():
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import build_state, put_batch
     from repro_torch.models.model import block_structure
+    from repro_torch.kernels import _scratch
     from repro_torch.optim import AdamWConfig
+    # the kernels' scratch of earlier phases would count in this model's
+    # peak: drop it, so that the peak holds only what this model asks for
+    _scratch.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     kinds = cfg.layer_kinds()
-    n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
+    n = {kind: kinds.count(kind) for kind in ("local", "recurrent", "ssm")}
     # remat runs the body's periods forward a second time in the backward;
     # the head and tail layers run forward once
     head, period, n_periods, _ = block_structure(cfg)
     body = kinds[len(head):len(head) + n_periods * len(period)]
-    fwd_local = n_local + body.count("local")
-    fwd_rec = n_rec + body.count("recurrent")
+    fwd = {kind: n[kind] + body.count(kind) for kind in n}
     shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
     opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
     t0 = time.perf_counter()
     state = build_state(cfg, opt_cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    print(f"phase8 {TRAIN_ARCH}: {n_params:,} parameters, f32 weights and "
-          f"moments, computed in {cfg.dtype}; {cfg.n_layers} layers "
-          f"({n_local} local + {n_rec} recurrent), B {TRAIN_BATCH}, S "
-          f"{TRAIN_SEQ}; state built in {time.perf_counter() - t0:.2f} s, "
+    print(f"phase8 {arch}: {n_params:,} parameters, f32 weights and "
+          f"moments, computed in {cfg.dtype}; {cfg.n_layers} layers ("
+          + " + ".join(f"{c} {k}" for k, c in n.items() if c)
+          + f"), B {TRAIN_BATCH}, S {TRAIN_SEQ}; state built in "
+          f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
           f"{opt_cfg}")
     bundle = make_train_step(cfg, shape, opt_cfg, remat=True,
@@ -2538,45 +2687,54 @@ def phase8_train_full_width():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        print(f"phase8 step {i}: loss {loss:.4f}, grad_norm "
+        print(f"phase8 {arch} step {i}: loss {loss:.4f}, grad_norm "
               f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
               f"{times[-1] * 1e3:.1f} ms")
     counts = train_counts()
     by_path = dict(flash_attention_bwd.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": fwd_local * TRAIN_STEPS,
-            "flash_attention_bwd": n_local * TRAIN_STEPS,
-            "rglru_scan": fwd_rec * TRAIN_STEPS,
-            "rglru_scan_bwd": n_rec * TRAIN_STEPS, "ssd_scan": 0}
+    T = TRAIN_STEPS
+    want = {"flash_attention": fwd["local"] * T,
+            "flash_attention_bwd": n["local"] * T,
+            "rglru_scan": fwd["recurrent"] * T,
+            "rglru_scan_bwd": n["recurrent"] * T,
+            "ssd_scan": fwd["ssm"] * T, "ssd_scan.wgmma": fwd["ssm"] * T,
+            "ssd_scan_bwd": n["ssm"] * T}
     steady = statistics.median(times[1:])
-    want_path = {"wgmma": n_local * TRAIN_STEPS, "simt": 0}
-    print(f"phase8 train launches: {counts}; expected {want} (the "
+    want_path = {"wgmma": n["local"] * T, "tf32": 0, "simt": 0}
+    print(f"phase8 {arch} train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
           f"recomputed periods); attention backward by path {by_path}, "
           f"expected {want_path}")
-    print(f"phase8 train: losses {[round(x, 4) for x in losses]}; step "
-          f"time first {times[0] * 1e3:.1f} ms, median of the rest "
+    print(f"phase8 {arch} train: losses {[round(x, 4) for x in losses]}; "
+          f"step time first {times[0] * 1e3:.1f} ms, median of the rest "
           f"{steady * 1e3:.1f} ms = "
           f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB")
     check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
-          f"phase 8 (b): a loss is not finite: {losses}")
-    check(losses[-1] < losses[0], f"phase 8 (b): the loss did not fall: "
-          f"{losses}")
-    check({k: counts[k] for k in want} == want,
-          f"phase 8 (b) launches {counts}, expected {want}")
-    check(by_path == want_path, f"phase 8 (b): attention backward "
+          f"phase 8 (b) {arch}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 8 (b) {arch}: the loss did not "
+          f"fall: {losses}")
+    check(counts == want, f"phase 8 (b) {arch}: launches {counts}, "
+          f"expected {want}")
+    check(by_path == want_path, f"phase 8 (b) {arch}: attention backward "
           f"launches by path {by_path}, expected {want_path}")
     state = profile_train_step(
         bundle, state, put_batch(pipe.batch(TRAIN_STEPS), "cuda"))
     del state, bundle
-    return counts
+    return dict(counts, **{f"flash_attention_bwd.{p}": c
+                           for p, c in by_path.items()})
 
 
-def phase8_period_grads():
-    """(c) recurrentgemma-2b's width at one period (rec, rec, local), S
-    1,024, bf16 compute: every gradient leaf through the kernels against
-    the plain versions, relative in norm within GRAD_TOL."""
+def phase8_period_grads(arch: str):
+    """(c) one period of `arch` at its published width (recurrentgemma:
+    rec, rec, local; mamba2: one SSM layer), S 1,024, bf16 compute: every
+    gradient leaf through the kernels against the plain versions,
+    relative in norm within GRAD_TOL, with the kernels' launches exact.
+    A leaf whose gradient through the kernels is identically zero while
+    the plain versions' is not fails, whatever its norm: the train step
+    fills unused gradients with zeros, which hid the SSD scan's lost
+    gradient until its backward kernel."""
     import gc
     import torch
     from repro_torch.configs import InputShape, get_config
@@ -2587,7 +2745,10 @@ def phase8_period_grads():
     from repro_torch.optim.adamw import leaves_with_path
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=3, pattern_tail=())
+    cfg = get_config(arch)
+    cfg = (cfg.replace(n_layers=1) if arch == SSM_ARCH
+           else cfg.replace(n_layers=3, pattern_tail=()))
+    kinds = cfg.layer_kinds()
     shape = InputShape("phase8c", PERIOD_SEQ, 1, "train")
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
@@ -2595,34 +2756,57 @@ def phase8_period_grads():
     leaves = [p.requires_grad_(True) for _, p in named]
     batch = put_batch(TokenPipeline(cfg, shape, seed=0).batch(0), "cuda")
     grads, losses = [], []
+    # one backward a layer; the forwards once a layer and again under
+    # remat (the one period is recomputed)
+    want_kernel = {"flash_attention": 2 * kinds.count("local"),
+                   "flash_attention_bwd": kinds.count("local"),
+                   "rglru_scan": 2 * kinds.count("recurrent"),
+                   "rglru_scan_bwd": kinds.count("recurrent"),
+                   "ssd_scan": 2 * kinds.count("ssm"),
+                   "ssd_scan.wgmma": 2 * kinds.count("ssm"),
+                   "ssd_scan_bwd": kinds.count("ssm")}
     for use_kernel in (True, False):
         n0 = train_counts()
         loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
                                     use_kernel=use_kernel)
         grads.append(torch.autograd.grad(loss, leaves))
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         d = {k: v - n0[k] for k, v in train_counts().items()}
-        print(f"phase8 period grads use_kernel={use_kernel}: launches {d}")
-        want = ((d["flash_attention_bwd"], d["rglru_scan_bwd"]) == (1, 2)
-                and d["flash_attention"] >= 1 and d["rglru_scan"] >= 2
-                if use_kernel else not any(d.values()))
-        check(want, f"phase 8 (c) use_kernel={use_kernel}: launches {d}")
-    errs = []
+        print(f"phase8 {arch} period grads use_kernel={use_kernel}: "
+              f"launches {d}")
+        want = want_kernel if use_kernel else {k: 0 for k in d}
+        check(d == want, f"phase 8 (c) {arch} use_kernel={use_kernel}: "
+              f"launches {d}, expected {want}")
+    errs, lost = [], []
     for (path, _), gk, gp in zip(named, *grads):
+        name = "/".join(p.strip("[]'") for p in path)
         e = float((gk.float() - gp.float()).norm()
                   / gp.float().norm().clamp_min(1e-30))
-        errs.append(("/".join(p.strip("[]'") for p in path), e))
+        errs.append((name, e))
+        if not bool(gk.any()) and bool(gp.any()):
+            lost.append(name)
     worst = max(e for _, e in errs)
-    print(f"phase8 period grads ({cfg.n_layers} layers of width "
+    print(f"phase8 {arch} period grads ({cfg.n_layers} layers of width "
           f"{cfg.d_model}, S {PERIOD_SEQ}, bf16): loss kernels "
           f"{losses[0]:.5f}, plain {losses[1]:.5f}; each leaf's relative "
           f"error in norm (limit {GRAD_TOL}): " + "; ".join(
               f"{n} {e:.2e}" for n, e in errs))
-    print(f"phase8 period grads: worst leaf {worst:.3e}")
-    check(worst <= GRAD_TOL, f"phase 8 (c): a gradient leaf differs by "
-          f"{worst} in norm")
+    print(f"phase8 {arch} period grads: worst leaf {worst:.3e}; leaves "
+          f"zero through the kernels but not through the plain versions: "
+          f"{lost or 'none'}")
+    check(not lost, f"phase 8 (c) {arch}: gradients lost through the "
+          f"kernels: {lost}")
+    check(worst <= GRAD_TOL, f"phase 8 (c) {arch}: a gradient leaf differs "
+          f"by {worst} in norm")
     check(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
-          f"phase 8 (c): losses {losses}")
+          f"phase 8 (c) {arch}: losses {losses}")
+    if arch == SSM_ARCH:
+        scan_only = [(n, gk) for (n, _), gk in zip(errs, grads[0])
+                     if n.endswith("A_log") or n.endswith("dt_bias")]
+        check(len(scan_only) == 2 * cfg.n_layers
+              and all(bool(g.any()) for _, g in scan_only),
+              f"phase 8 (c): A_log and dt_bias gradients "
+              f"{[(n, float(g.abs().max())) for n, g in scan_only]}")
 
 
 def phase8_drill():
@@ -2747,10 +2931,14 @@ def phase8_policy_fit():
 
 
 def phase8_training():
+    """Phase 8's parts in order; returns (a)'s measurements and each
+    architecture's launches in (b), the attention backward's by path
+    among them."""
     t0 = time.perf_counter()
     serve = phase8_bwd_kernels()
-    counts = phase8_train_full_width()
-    phase8_period_grads()
+    counts = {arch: phase8_train_full_width(arch) for arch in TRAIN_ARCHS}
+    for arch in TRAIN_ARCHS:
+        phase8_period_grads(arch)
     phase8_drill()
     phase8_policy_fit()
     print(f"phase8 total {time.perf_counter() - t0:.1f} s")
@@ -2818,19 +3006,23 @@ def main() -> int:
                     kernels[-1][key] = m[key]
         # the backward kernels: no TPU kernel has a backward (XLA
         # differentiates the reference's jnp paths); `replaces` names the
-        # Pallas kernel whose function they differentiate
-        for name, source, fwd, jnp_path in (
+        # Pallas kernel whose function they differentiate; launches are
+        # phase 8 (b)'s, of the architecture that runs each
+        for name, source, fwd, jnp_path, arch in (
                 ("flash_attention_bwd", "flash_attention_bwd_wgmma.cu",
                  "flash_attention",
-                 "src/repro/models/attention.py:118 blockwise_attention"),
+                 "src/repro/models/attention.py:118 blockwise_attention",
+                 TRAIN_ARCH),
                 ("rglru_scan_bwd", "rglru_scan.cu", "rglru_scan",
-                 "src/repro/models/rglru.py:69 lru_scan")):
+                 "src/repro/models/rglru.py:69 lru_scan", TRAIN_ARCH),
+                ("ssd_scan_bwd", "ssd_scan_bwd.cu", "ssd_scan",
+                 "src/repro/models/ssd.py:63 ssd_chunked", SSM_ARCH)):
             m = train[name]
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": CSRC + source, "replaces": REPLACES[fwd],
                 "differentiates": jnp_path + " (XLA autodiff)",
-                "launches": train_launches[name],
+                "launches": train_launches[arch][name],
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -2848,6 +3040,27 @@ def main() -> int:
             k["platform_launches"] = {
                 label: l[k["name"]] for label, l in platform_launches.items()
                 if label != "b1"}
+        # the f32 attention backward (3xTF32), which no model launches,
+        # rides in the attention backward's entry under "f32"
+        f32b = train["flash_attention_bwd f32"]
+        flash_bwd = next(k for k in kernels
+                         if k["name"] == "flash_attention_bwd")
+        flash_bwd["f32"] = {
+            "source": CSRC + "flash_attention_bwd_tf32.cu",
+            "launches": sum(train_launches[arch]["flash_attention_bwd.tf32"]
+                            for arch in TRAIN_ARCHS),
+            **{key: f32b[key] for key in (
+                "path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
+                "simt_device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}}
+        print(f"flash_attention_bwd f32 path={f32b['path']} "
+              f"({CSRC}flash_attention_bwd_tf32.cu) at {f32b['shape']}: "
+              f"kernel {f32b['ms']:.4f} ms (device {f32b['device_ms']:.4f} "
+              f"ms), first kernel {f32b['simt_ms']:.4f} ms (device "
+              f"{f32b['simt_device_ms']:.4f} ms), plain "
+              f"{f32b['plain_ms']:.4f} ms, sdpa backward "
+              f"{f32b['library_ms']:.4f} ms, bound {f32b['bound_ms']:.5f} ms "
+              f"({f32b['bound_by']}), max_abs_err {f32b['max_abs_err']:.3g}")
         f32 = lm["flash_attention f32"]
         flash = next(k for k in kernels if k["name"] == "flash_attention")
         flash["f32"] = {

@@ -33,9 +33,12 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "flash_attention_bwd": "flash_attention_bwd.cu",
                            "flash_attention_bwd_wgmma":
                                "flash_attention_bwd_wgmma.cu",
+                           "flash_attention_bwd_tf32":
+                               "flash_attention_bwd_tf32.cu",
                            "rglru_scan": "rglru_scan.cu",
                            "ssd_scan": "ssd_scan.cu",
-                           "ssd_scan_wgmma": "ssd_scan_wgmma.cu"}
+                           "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
+                           "ssd_scan_bwd": "ssd_scan_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -76,10 +79,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
                                        _I, _I, _D, _P], _I),
     },
     "flash_attention_tf32": {
-        # q, k, v, o, part (scratch or null), bh, s, d, group, causal,
-        # kind, window, softcap, splits, stream
-        "flash_attention_tf32_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _D, _I, _P], _I),
+        # q, k, v, o, part (scratch or null), lse (or null), bh, s, d,
+        # group, causal, kind, window, softcap, splits, stream
+        "flash_attention_tf32_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _D, _I, _P], _I),
         # bh, s, d, causal, kind, window -> the kv shares fwd takes
         "flash_attention_tf32_splits": ([_I, _I, _I, _I, _I, _I], _I),
     },
@@ -98,6 +101,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "flash_attention_bwd_wgmma": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
                                        _P], _I),
+    },
+    "flash_attention_bwd_tf32": {
+        # the same entry points as the wgmma backward's, for f32
+        "flash_attention_bwd_tf32_shares": ([_I, _I, _I, _I, _I, _I, _I], _I),
+        "flash_attention_bwd_tf32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+                                      _P], _I),
     },
     "rglru_scan": {
         # both: a, b, h0 (or null), h, batch, s, w, stream
@@ -120,6 +130,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # heads, groups, s, stream
         "ssd_scan_wgmma_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _P], _I),
+    },
+    "ssd_scan_bwd": {
+        # batch, heads, s, p, n -> bytes of scratch
+        "ssd_scan_bwd_scratch_bytes": ([_I, _I, _I, _I, _I], _L),
+        # x, dA, dt, Bm, Cm, h0 (or null), dy, dh (or null), dx, ddA, ddt,
+        # dB, dC, dh0 (or null), scratch, batch, heads, groups, s, p, n,
+        # is_bf16, stream
+        "ssd_scan_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     },
 }
 

@@ -22,3 +22,9 @@ def scratch(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
         buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
         _BUFFERS[key] = buf
     return buf
+
+
+def clear() -> None:
+    """Drop every buffer, so that the next caller's memory holds only the
+    scratch its own calls ask for."""
+    _BUFFERS.clear()

@@ -28,7 +28,9 @@
 // c) * c, before the mask; masked scores take the finite value
 // -2.3819763e38 and keys past S take -inf; the running (m, l, acc) are
 // f32; p stays f32 (split like any operand) for P.V; o = acc / max(l,
-// 1e-30).
+// 1e-30).  When the caller asks (a gradient will be taken), each row's
+// log-sum-exp m + log(max(l, 1e-30)) is written beside o for the backward
+// of flash_attention_bwd_tf32.cu.
 //
 // What bounds it on this card.  At the serving shapes (D = 256, a local
 // window of 2,048, S up to 3,000) the work is 4*D operations per unmasked
@@ -206,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int group,
                   float scale, int causal, int kind, int window, float softcap,
-                  int split_tiles, float* __restrict__ part) {
+                  int split_tiles, float* __restrict__ part, float* __restrict__ lse) {
   using L = Layout<D, BK>;
   constexpr int R = L::kRow;
   constexpr int KH = BK / 2;  // keys of a tile per warp
@@ -465,6 +467,10 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     return;
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {  // each row's log-sum-exp, natural log
+    if (qp0 < S) lse[(long long)bh * S + qp0] = m0 + logf(d0);
+    if (qp1 < S) lse[(long long)bh * S + qp1] = m1 + logf(d1);
+  }
   float* ob = o + (long long)bh * S * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -483,8 +489,9 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // shares that held kv tiles.  One warp per row.
 template <int BK>
 __global__ void __launch_bounds__(256)
-flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o, int bh_rows, int S,
-                   int D, int splits, int split_tiles, int causal, int kind, int window) {
+flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o,
+                   float* __restrict__ lse, int bh_rows, int S, int D, int splits,
+                   int split_tiles, int causal, int kind, int window) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;  // bh * S + qp
   const int lane = threadIdx.x % 32;
   if (row >= (long long)bh_rows * S) return;
@@ -500,6 +507,7 @@ flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o, int bh
   float l = 0.0f;
   for (int z = 0; z < n; ++z) l += expf(pm[z * rows] - m) * pl[z * rows];
   const float inv_den = 1.0f / fmaxf(l, 1e-30f);
+  if (lse != nullptr && lane == 0) lse[row] = m + logf(fmaxf(l, 1e-30f));
   for (int c = lane; c < D; c += 32) {
     float acc = 0.0f;
     for (int z = 0; z < n; ++z) acc += expf(pm[z * rows] - m) * part[(z * rows + row) * D + c];
@@ -527,8 +535,8 @@ void plan(int bh, int s, int causal, int kind, int window, int& most, int& split
 
 template <int D, int BK>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* part,
-                   int bh, int s, int group, int causal, int kind, int window, float softcap,
-                   int splits, cudaStream_t stream) {
+                   float* lse, int bh, int s, int group, int causal, int kind, int window,
+                   float softcap, int splits, cudaStream_t stream) {
   const int smem = (int)Layout<D, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_tf32_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -541,12 +549,12 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   const int split_tiles = splits > 1 ? (most + splits - 1) / splits : 0;
   flash_tf32_kernel<D, BK><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
       q, k, v, o, s, group, scale, causal, kind, window, softcap, split_tiles,
-      split_tiles > 0 ? part : nullptr);
+      split_tiles > 0 ? part : nullptr, split_tiles > 0 ? nullptr : lse);
   err = cudaGetLastError();
   if (err != cudaSuccess || split_tiles == 0) return err;
   const long long rows = (long long)bh * s;
   flash_tf32_combine<BK><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      part, o, bh, s, D, splits, split_tiles, causal, kind, window);
+      part, o, lse, bh, s, D, splits, split_tiles, causal, kind, window);
   return cudaGetLastError();
 }
 
@@ -580,11 +588,13 @@ extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int causal, int
 // local, 2 chunked.  splits is flash_attention_tf32_splits' answer; above
 // 1 each q tile's kv tiles are cut into that many shares, one block each,
 // joined by a second launch, and `part` is scratch of splits * bh * s *
-// (d + 2) floats (else unused).
+// (d + 2) floats (else unused).  lse, (bh, s) f32 or null, takes each
+// row's log-sum-exp m + log(max(l, 1e-30)) (natural log) for the
+// backward: written by the main kernel, or by the join when split.
 extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void* v, void* o,
-                                        void* part, int bh, int s, int d, int group,
-                                        int causal, int kind, int window, double softcap,
-                                        int splits, void* stream) {
+                                        void* part, void* lse, int bh, int s, int d,
+                                        int group, int causal, int kind, int window,
+                                        double softcap, int splits, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -594,15 +604,16 @@ extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   float* pf = static_cast<float*>(part);
+  float* lf = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+      return (int)launch<64, 64>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
                                  cap, splits, st);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+      return (int)launch<128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
                                   cap, splits, st);
     case 256:
-      return (int)launch<256, 32>(qf, kf, vf, of, pf, bh, s, group, causal, kind, window,
+      return (int)launch<256, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
                                   cap, splits, st);
     default:
       return (int)cudaErrorInvalidValue;

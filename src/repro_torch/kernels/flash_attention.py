@@ -20,17 +20,19 @@ fails raises, and nothing falls back to the other kernel.  Given CPU
 tensors it computes the same function with the plain version
 (``ref.flash_attention_ref``, after repeating k and v) and launches
 nothing.  With ``return_lse`` it also returns each row's log-sum-exp
-(BH, S) f32, which the bf16 kernel writes beside o (the plain
+(BH, S) f32, which the two tensor-core kernels write beside o (the plain
 ``ref.flash_attention_lse_ref`` on the CPU).
 
-The backward, ``flash_attention_bwd``, has two kernels:
+The backward, ``flash_attention_bwd``, has three kernels:
 ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D in WGMMA_HEAD_DIMS, on
-the tensor cores, reading the forward's lse) and
-``csrc/flash_attention_bwd.cu`` (every other case, on the CUDA cores in
-f32, recomputing the lse); ``bwd_path(dtype, D, softcap)`` names the one
-that runs, and ``flash_attention_bwd.launches_by_path`` counts each.
+the tensor cores), ``csrc/flash_attention_bwd_tf32.cu`` (f32 at those
+head dims without a softcap, on the tensor cores in 3xTF32), both
+reading the forward's lse, and ``csrc/flash_attention_bwd.cu`` (every
+other case, on the CUDA cores in f32, recomputing the lse);
+``bwd_path(dtype, D, softcap)`` names the one that runs, and
+``flash_attention_bwd.launches_by_path`` counts each.
 ``FlashAttentionFn`` asks the forward for the lse when a gradient will
-be taken on the wgmma path.
+be taken on a path that reads it.
 """
 from __future__ import annotations
 
@@ -71,12 +73,20 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
 def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
     """The kernel that computes the attention backward of `dtype` with
     head dim `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS,
-    with or without a softcap; it reads the forward's lse) or "simt"
-    (every other case: f32 on the CUDA cores, its own lse)."""
-    del softcap  # both kernels take every softcap
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    with or without a softcap), "tf32" (f32, D in WGMMA_HEAD_DIMS, no
+    softcap), both reading the forward's lse, or "simt" (every other
+    case: f32 on the CUDA cores, its own lse).  The f32 cases are the
+    forward's ``path``: what its 3xTF32 kernel computes, this one
+    differentiates."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        return "simt" if softcap else "tf32"
     return "simt"
+
+
+#: the backward paths that read the forward's lse
+LSE_BWD_PATHS = ("wgmma", "tf32")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
@@ -120,8 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     return_lse: bool = False):
     """q (BH, S, D), k and v (BH / G, S, D) -> (BH, S, D) in q's dtype;
     with `return_lse`, (out, lse) with lse each row's log-sum-exp (BH, S)
-    f32.  On the card only the wgmma path writes the lse: asking for it
-    on another path raises."""
+    f32.  On the card the two tensor-core paths write the lse (wgmma and
+    tf32): asking for it on the simt path raises."""
     group = _check(q, k, v, kind, window)
     mask = dict(causal=causal, kind=kind, window=window, softcap=softcap)
     if q.device.type == "cpu":
@@ -134,9 +144,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (out, lse) if return_lse else out
     BH, S, D = q.shape
     kernel = path(q.dtype, D, softcap)
-    if return_lse and kernel != "wgmma":
-        raise ValueError(f"the {kernel} forward writes no lse: only the "
-                         "wgmma path (bf16, D in WGMMA_HEAD_DIMS) does")
+    if return_lse and kernel == "simt":
+        raise ValueError("the simt forward writes no lse: only the wgmma "
+                         "and tf32 paths (D in WGMMA_HEAD_DIMS, f32 without "
+                         "a softcap) do")
     out = torch.empty_like(q)
     lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -167,7 +178,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     if splits > 1 else None)
             err = lib.flash_attention_tf32_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(), BH, S, D, group,
+                None if part is None else part.data_ptr(),
+                None if lse is None else lse.data_ptr(), BH, S, D, group,
                 int(causal), KINDS[kind], int(window), float(softcap),
                 splits, stream)
         else:
@@ -218,9 +230,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients of ``flash_attention``: q, o (its output), do (the loss's
     gradient by o) (BH, S, D); k, v (BH / G, S, D); lse the forward's row
     log-sum-exp (BH, S) f32 -> (dq, dk, dv) in the inputs' dtype, dk and
-    dv summed over each kv row's G query rows.  The wgmma path needs lse
-    and raises without it; the simt path and the plain version (CPU
-    tensors) compute their own and ignore it."""
+    dv summed over each kv row's G query rows.  The wgmma and tf32 paths
+    need lse and raise without it; the simt path and the plain version
+    (CPU tensors) compute their own and ignore it."""
     group = _check_bwd(q, k, v, o, do, kind, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
@@ -228,10 +240,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            softcap=softcap)
     BH, S, D = q.shape
     kernel = bwd_path(q.dtype, D, softcap)
-    if kernel == "wgmma":
+    if kernel in LSE_BWD_PATHS:
         if lse is None:
-            raise ValueError("the wgmma backward reads the forward's lse: "
-                             "pass flash_attention(..., return_lse=True)'s")
+            raise ValueError(f"the {kernel} backward reads the forward's "
+                             "lse: pass flash_attention(..., "
+                             "return_lse=True)'s")
         if (lse.shape != (BH, S) or lse.dtype != torch.float32
                 or lse.device != q.device or not lse.is_contiguous()):
             raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on "
@@ -245,17 +258,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kernel == "wgmma":
-            lib = _build.load("flash_attention_bwd_wgmma")
+        if kernel in LSE_BWD_PATHS:
+            name = f"flash_attention_bwd_{kernel}"
             # each key tile's work is split into `shares` blocks, whose
             # f32 dK and dV partials a last launch sums in order; the
             # scratch holds them, then D_i (BH, S) f32
-            shares = _bwd_shares(q.device.index, BH, S, D, group,
+            shares = _bwd_shares(name, q.device.index, BH, S, D, group,
                                  int(causal), KINDS[kind], int(window))
             n_part = 2 * shares * k.numel()
             buf = _scratch.scratch(q.device, stream, (n_part + BH * S) * 4)
             part = buf.data_ptr()
-            err = lib.flash_attention_bwd_wgmma(
+            err = getattr(_build.load(name), name)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), part + n_part * 4, part, BH, S, D, group,
@@ -278,36 +291,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_path = {"wgmma": 0, "simt": 0}
+flash_attention_bwd.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_shares(device_index: int, *args: int) -> int:
-    """The wgmma backward's dK/dV share count for (bh, s, d, group,
-    causal, kind, window) on the current device (it reads the SM count
-    and the kernel's occupancy), kept per shape."""
-    shares = _build.load(
-        "flash_attention_bwd_wgmma").flash_attention_bwd_wgmma_shares(*args)
+def _bwd_shares(name: str, device_index: int, *args: int) -> int:
+    """The dK/dV share count of backward library `name` (the wgmma or
+    tf32 one) for (bh, s, d, group, causal, kind, window) on the current
+    device (it reads the SM count and the kernel's occupancy), kept per
+    shape."""
+    shares = getattr(_build.load(name), name + "_shares")(*args)
     if shares <= 0:
-        raise RuntimeError(f"flash_attention_bwd (wgmma): no share count "
-                           f"for {args}")
+        raise RuntimeError(f"{name}: no share count for {args}")
     return shares
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its hand-written gradient: the forward
     kernel, then ``flash_attention_bwd`` on the saved q, k, v, output and,
-    on the wgmma backward path, the forward's row log-sum-exp.  The lse
-    is asked for only when a gradient will be taken, so serving's calls
-    write none; under ``torch.utils.checkpoint`` the recomputed forward
-    writes it again."""
+    on the wgmma and tf32 backward paths, the forward's row log-sum-exp.
+    The lse is asked for only when a gradient will be taken, so serving's
+    calls write none; under ``torch.utils.checkpoint`` the recomputed
+    forward writes it again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kind, window, softcap):
         mask = dict(causal=causal, kind=kind, window=window,
                     softcap=softcap)
         want_lse = (any(ctx.needs_input_grad[:3])
-                    and bwd_path(q.dtype, q.shape[-1], softcap) == "wgmma")
+                    and bwd_path(q.dtype, q.shape[-1], softcap)
+                    in LSE_BWD_PATHS)
         if want_lse:
             o, lse = flash_attention(q, k, v, return_lse=True, **mask)
             ctx.save_for_backward(q, k, v, o, lse)

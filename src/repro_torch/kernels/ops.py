@@ -2,11 +2,12 @@
 ``repro.kernels.ops``: ``use_kernel=True`` goes through the hand-written
 kernel's wrapper (which takes the plain version itself for tensors on
 the CPU), ``use_kernel=False`` through the plain PyTorch version on the
-tensors' own device.  Attention and the RG-LRU scan go through their
-``torch.autograd.Function``s, so a train step differentiates them with
-the hand-written backward kernels; without gradients they launch what
-the forward wrappers launch.  ``use_kernel=False`` is differentiated by
-autograd through the plain versions."""
+tensors' own device.  Attention, the RG-LRU scan and the SSD scan go
+through their ``torch.autograd.Function``s, so a train step
+differentiates them with the hand-written backward kernels; without
+gradients they launch what the forward wrappers launch.
+``use_kernel=False`` is differentiated by autograd through the plain
+versions."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -17,7 +18,7 @@ from . import ref
 from .flash_attention import flash_attention_fn
 from .rfr_inference import rfr_capacity_sweep, rfr_forest_apply
 from .rglru_scan import rglru_scan_fn
-from .ssd_scan import ssd_scan
+from .ssd_scan import ssd_scan_fn
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,7 +72,7 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bt = Bm.transpose(1, 2).contiguous()
     Ct = Cm.transpose(1, 2).contiguous()
     if use_kernel:
-        y, h = ssd_scan(xt, dA, dtt, Bt, Ct, h0)
+        y, h = ssd_scan_fn(xt, dA, dtt, Bt, Ct, h0)
     else:
         y, h = ref.ssd_scan_ref(xt, dA, dtt, Bt, Ct, h0, chunk=chunk)
     return y.transpose(1, 2), h

@@ -8,15 +8,16 @@ on the card they are the yardstick the kernels are checked against.
 ``flash_attention_ref`` and ``rglru_scan_ref`` repeat the reference's
 oracles: full materialised softmax attention, and the serial recurrence
 h_t = a_t h_{t-1} + b_t one step at a time (a multiply, then an add,
-each rounded, as the scan kernel does).  ``flash_attention_bwd_ref`` and
-``rglru_scan_bwd_ref`` are their gradients written out as formulas (the
-reference has no backward kernel: XLA differentiates its jnp paths), the
-yardsticks of the backward kernels; ``flash_attention_lse_ref`` is the
-row log-sum-exp the bf16 forward kernel writes for its backward.  ``ssd_scan_ref`` is the SSD
+each rounded, as the scan kernel does).  ``ssd_scan_ref`` is the SSD
 scan in its chunked state-passing form, as the tensor-core kernel
 computes it (the reference's oracle steps token by token, which is the
-same function).  ``tf32_split`` is the operand split of the f32
-attention kernel's 3xTF32 products.
+same function).  ``flash_attention_bwd_ref``, ``rglru_scan_bwd_ref`` and
+``ssd_scan_bwd_ref`` are their gradients written out as formulas (the
+reference has no backward kernel: XLA differentiates its jnp paths), the
+yardsticks of the backward kernels; ``flash_attention_lse_ref`` is the
+row log-sum-exp the tensor-core forward kernels write for their
+backwards.  ``tf32_split`` is the operand split of the f32 attention
+kernels' 3xTF32 products.
 
 The forest layout is the complete-tree one of ``core.predictor``:
 
@@ -84,9 +85,9 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
                             ) -> torch.Tensor:
     """Each query row's log-sum-exp of its scaled (and softcapped)
     masked scores, natural log, in f32: q (BH, S, D), k (BH / G, S, D),
-    query row bh reading kv row bh // G -> (BH, S).  What the bf16
-    forward kernel writes for the backward when a gradient will be
-    taken."""
+    query row bh reading kv row bh // G -> (BH, S).  What the
+    tensor-core forward kernels (bf16 and f32) write for the backward when
+    a gradient will be taken."""
     BH, S, D = q.shape
     kr = k.float().repeat_interleave(BH // k.shape[0], dim=0)
     s = torch.einsum("bqd,bkd->bqk", q.float(), kr) / math.sqrt(D)
@@ -205,21 +206,24 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         y = ((C B^T) * L * dt) x + exp(cum) * (C h_{c-1}^T)  every chunk
             L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
 
-    Returns (y in x's dtype, final state (B, H, P, N) f32)."""
+    Returns (y in x's dtype, final state (B, H, P, N) f32; f64 for f64
+    inputs)."""
     B, H, S, P = x.shape
     N = Bm.shape[-1]
     rep = H // Bm.shape[1]
     if rep > 1:
         Bm = Bm.repeat_interleave(rep, dim=1)
         Cm = Cm.repeat_interleave(rep, dim=1)
-    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    ft = torch.promote_types(x.dtype, torch.float32)
+    h = (torch.zeros((B, H, P, N), dtype=ft, device=x.device)
+         if h0 is None else h0.to(ft))
     nc = -(-S // chunk)
     pad = nc * chunk - S
 
     def chunks(a: torch.Tensor) -> torch.Tensor:
-        """(B, H, S, ...) f32 -> (B, H, nc, chunk, ...), zero-padded."""
-        a = a.float()
+        """(B, H, S, ...) -> (B, H, nc, chunk, ...) in f32 (f64 for f64
+        inputs), zero-padded."""
+        a = a.to(ft)
         if pad:
             a = torch.cat([a, a.new_zeros((B, H, pad) + a.shape[3:])], dim=2)
         return a.reshape((B, H, nc, chunk) + a.shape[3:])
@@ -245,6 +249,116 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     y = M @ xc + torch.exp(cum)[..., None] * (Cc @ h_in.transpose(-1, -2))
     y = y.reshape(B, H, nc * chunk, P)[:, :, :S]
     return y.to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor,
+                     h0: Optional[torch.Tensor], dy: torch.Tensor,
+                     dh: Optional[torch.Tensor] = None, chunk: int = 64
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``ssd_scan_ref`` written out in its state-passing
+    form, in f32, as the backward kernel computes them.  dy (B, H, S, P)
+    is the loss's gradient by y, dh (B, H, P, N) f32 by the final state
+    (None: zeros).  Per chunk, with cum the within-chunk cumulative sum
+    of dA, L its last row, h_in the state entering the chunk and g the
+    gradient by the state leaving it:
+
+        g_{c-1} = e^{cum_L} g_c + sum_i e^{cum_i} dy_i C_i^T,  dh0 = g_{-1}
+        W_ij = (C_i . B_j) e^{cum_i - cum_j} dt_j   (i >= j, else 0)
+        R_ij = (dy_i . x_j) e^{cum_i - cum_j} dt_j
+        w_j = e^{cum_L - cum_j} dt_j,  gB_j = g B_j,  u_j = x_j . gB_j
+        dx_j = sum_i W_ij dy_i + w_j gB_j
+        dC_i = sum_j R_ij B_j + e^{cum_i} h_in^T dy_i
+        dB_j = sum_i R_ij C_i + w_j g^T x_j
+        ddt_j = sum_i (dy_i . x_j)(C_i . B_j) e^{cum_i - cum_j}
+                + e^{cum_L - cum_j} u_j
+        dcum_i = sum_{j<i} Q_ij - sum_{k>i} Q_ki + e^{cum_i} C_i . (h_in^T
+                 dy_i) - w_i u_i,  Q_ij = (dy_i . x_j)(C_i . B_j) e^{..} dt_j
+                 (Q's diagonal, which would enter twice with opposite
+                 signs, left out of both sums),
+        dcum_L += sum_j w_j u_j + e^{cum_L} <g, h_in>
+        ddA_k = sum_{i >= k} dcum_i   within the chunk
+
+    dB and dC are summed over the heads of each group.  Returns (dx in
+    x's dtype, ddA, ddt f32, dB, dC in Bm's dtype, dh0 f32; f64 for f64
+    inputs)."""
+    Bsz, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    rep = H // G
+    if rep > 1:
+        Bm = Bm.repeat_interleave(rep, dim=1)
+        Cm = Cm.repeat_interleave(rep, dim=1)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    ft = torch.promote_types(x.dtype, torch.float32)
+
+    def chunks(a: torch.Tensor) -> torch.Tensor:
+        """(B, H, S, ...) -> (B, H, nc, chunk, ...) in f32 (f64 for f64
+        inputs), zero-padded."""
+        a = a.to(ft)
+        if pad:
+            a = torch.cat([a, a.new_zeros((Bsz, H, pad) + a.shape[3:])],
+                          dim=2)
+        return a.reshape((Bsz, H, nc, chunk) + a.shape[3:])
+
+    xc, Bc, Cc, dyc = chunks(x), chunks(Bm), chunks(Cm), chunks(dy)
+    dtc = chunks(dt)
+    cum = torch.cumsum(chunks(dA), dim=-1)                    # (B,H,nc,c)
+    last = cum[..., -1:]
+    w = torch.exp(last - cum) * dtc
+    ecum = torch.exp(cum)
+    decay = torch.exp(last)[..., None]                        # (B,H,nc,1,1)
+    dS = xc.transpose(-1, -2) @ (Bc * w[..., None])           # (B,H,nc,P,N)
+    dG = (dyc * ecum[..., None]).transpose(-1, -2) @ Cc       # (B,H,nc,P,N)
+    zeros = torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
+    h = zeros if h0 is None else h0.to(ft)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, :, c] * h + dS[:, :, c]
+    h_in = torch.stack(h_in, dim=2)
+    g = zeros if dh is None else dh.to(ft)
+    g_out = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        g_out[c] = g
+        g = decay[:, :, c] * g + dG[:, :, c]
+    g_out = torch.stack(g_out, dim=2)
+    seg = cum[..., :, None] - cum[..., None, :]
+    lower = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).tril()
+    # exp only where i >= j: above the diagonal seg > 0 may overflow
+    Lm = torch.exp(seg.masked_fill(~lower, float("-inf")))
+    CB = Cc @ Bc.transpose(-1, -2)
+    DX = dyc @ xc.transpose(-1, -2)
+    M = CB * Lm * dtc[..., None, :]
+    R = DX * Lm * dtc[..., None, :]
+    Gm = CB * DX * Lm
+    gB = Bc @ g_out.transpose(-1, -2)                         # (..., c, P)
+    hTdy = dyc @ h_in                                         # (..., c, N)
+    gTx = xc @ g_out                                          # (..., c, N)
+    dx = M.transpose(-1, -2) @ dyc + w[..., None] * gB
+    dC = R @ Bc + ecum[..., None] * hTdy
+    dB = R.transpose(-1, -2) @ Cc + w[..., None] * gTx
+    u = (xc * gB).sum(-1)
+    v = (Cc * hTdy).sum(-1)
+    ddt = Gm.sum(-2) + torch.exp(last - cum) * u
+    Q = (Gm * dtc[..., None, :]).tril(-1)
+    dcum = Q.sum(-1) - Q.sum(-2) + ecum * v - w * u
+    dcum[..., -1] += ((w * u).sum(-1)
+                      + torch.exp(last[..., 0]) * (g_out * h_in).sum((-1, -2)))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+
+    def rows(a: torch.Tensor) -> torch.Tensor:
+        """(B, H, nc, chunk, ...) -> (B, H, S, ...)."""
+        return a.reshape((Bsz, H, nc * chunk) + a.shape[4:])[:, :, :S]
+
+    dB, dC = rows(dB), rows(dC)
+    if rep > 1:
+        dB = dB.reshape(Bsz, G, rep, S, N).sum(2)
+        dC = dC.reshape(Bsz, G, rep, S, N).sum(2)
+    return (rows(dx).to(x.dtype), rows(ddA), rows(ddt), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), g)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

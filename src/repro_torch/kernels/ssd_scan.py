@@ -21,6 +21,13 @@ a launch the runtime refuses raises, and nothing falls back to the other
 kernel.  Given CPU tensors it computes the same function with the plain
 version (``ref.ssd_scan_ref`` at the kernels' chunk) and launches
 nothing.
+
+The gradient: ``ssd_scan_bwd`` wraps ``csrc/ssd_scan_bwd.cu`` (f32 on
+the CUDA cores, any dtype, head dim up to 64, d_state up to 128; four
+launches, counted as one call in ``ssd_scan_bwd.launches``); on CPU
+tensors it is the plain ``ref.ssd_scan_bwd_ref`` at the kernels' chunk.
+``SSDScanFn`` is the ``torch.autograd.Function`` that pairs the forward
+kernel with it; ``ssd_scan_fn`` applies it.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from . import _build, _scratch, ref
 CHUNK = 64
 #: the largest d_state the kernels take
 MAX_STATE = 128
+#: the largest head dim the backward kernel takes
+MAX_BWD_HEAD_DIM = 64
 #: (head dim, d_state) of the tensor-core path: mamba2's served shape
 WGMMA_SHAPE = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -61,12 +70,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor,
-             h0: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, H, S, P); dA, dt (B, H, S) f32; Bm, Cm (B, G, S, N);
-    h0 (B, H, P, N) f32 or None -> (y (B, H, S, P), h (B, H, P, N) f32)."""
+def _check_all(x, dA, dt, Bm, Cm, h0):
+    """Validate the forward's inputs; returns (B, H, S, P, G, N)."""
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x and Bm must be 4-d, got {tuple(x.shape)}, "
                          f"{tuple(Bm.shape)}")
@@ -89,6 +94,17 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     _check("Cm", Cm, (B, G, S, N), (x.dtype,), dev)
     if h0 is not None:
         _check("h0", h0, (B, H, P, N), (torch.float32,), dev)
+    return B, H, S, P, G, N
+
+
+def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, H, S, P); dA, dt (B, H, S) f32; Bm, Cm (B, G, S, N);
+    h0 (B, H, P, N) f32 or None -> (y (B, H, S, P), h (B, H, P, N) f32)."""
+    B, H, S, P, G, N = _check_all(x, dA, dt, Bm, Cm, h0)
+    dev = x.device
     if dev.type == "cpu":
         return ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
     y = torch.empty_like(x)
@@ -129,8 +145,95 @@ ssd_scan.launches = 0
 ssd_scan.launches_by_path = {"wgmma": 0, "simt": 0}
 
 
+def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 h0: Optional[torch.Tensor], dy: torch.Tensor,
+                 dh: Optional[torch.Tensor] = None, with_dh0: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``ssd_scan``: its inputs, dy (B, H, S, P) in x's dtype
+    (the loss's gradient by y) and dh (B, H, P, N) f32 by the final state
+    (None: zeros).  Returns (dx, ddA, ddt, dB, dC, dh0): dx in x's dtype,
+    ddA and ddt f32, dB and dC (B, G, S, N) in Bm's dtype, summed over
+    each group's heads, dh0 f32 or None unless `with_dh0`."""
+    B, H, S, P, G, N = _check_all(x, dA, dt, Bm, Cm, h0)
+    dev = x.device
+    _check("dy", dy, (B, H, S, P), (x.dtype,), dev)
+    if dh is not None:
+        _check("dh", dh, (B, H, P, N), (torch.float32,), dev)
+    if dev.type == "cpu":
+        dx, ddA, ddt, dB, dC, dh0 = ref.ssd_scan_bwd_ref(
+            x, dA, dt, Bm, Cm, h0, dy, dh, chunk=CHUNK)
+        return dx, ddA, ddt, dB, dC, dh0 if with_dh0 else None
+    if P > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"head dim {P} above the backward kernel's "
+                         f"{MAX_BWD_HEAD_DIM}")
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddA, ddt = torch.empty_like(dA), torch.empty_like(dt)
+    dh0 = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+           if with_dh0 else None)
+    if x.numel() == 0:
+        for t in (dB, dC, ddA, ddt):
+            t.zero_()
+        if dh0 is not None:
+            dh0.copy_(torch.zeros_like(dh0) if dh is None else dh)
+        return dx, ddA, ddt, dB, dC, dh0
+    lib = _build.load("ssd_scan_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the chunks' states and state gradients, their last cum, and the
+        # heads' dB and dC partials, all f32
+        buf = _scratch.scratch(dev, stream,
+                               lib.ssd_scan_bwd_scratch_bytes(B, H, S, P, N))
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dy.data_ptr(), None if dh is None else dh.data_ptr(),
+            dx.data_ptr(), ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+            buf.data_ptr(), B, H, G, S, P, N, int(x.dtype == torch.bfloat16),
+            stream)
+    _build.check_launch(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddA, ddt, dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` with its hand-written gradient: the forward kernel of
+    its path, then ``ssd_scan_bwd`` on the saved inputs.  A gradient that
+    autograd does not supply (y or the final state unused) is zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dA, dt, Bm, Cm, h0):
+        ctx.set_materialize_grads(False)
+        y, h = ssd_scan(x, dA, dt, Bm, Cm, h0)
+        ctx.save_for_backward(x, dA, dt, Bm, Cm, h0)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dA, dt, Bm, Cm, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        return ssd_scan_bwd(x, dA, dt, Bm, Cm, h0, dy, dh,
+                            with_dh0=ctx.needs_input_grad[5])
+
+
+def ssd_scan_fn(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_scan`` that autograd differentiates with the backward kernel
+    (its plain version on CPU tensors)."""
+    return SSDScanFn.apply(x, dA, dt, Bm, Cm, h0)
+
+
 def reset_launches():
-    """Zero the launch counts, the total and each path's."""
+    """Zero the launch counts, the total and each path's, and the
+    backward's."""
     ssd_scan.launches = 0
     for key in ssd_scan.launches_by_path:
         ssd_scan.launches_by_path[key] = 0
+    ssd_scan_bwd.launches = 0

@@ -723,14 +723,15 @@ def test_learned_scorer_on_card_matches_numpy():
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    bwd_path, flash_attention_bwd, flash_attention_fn)
+    LSE_BWD_PATHS, bwd_path, flash_attention_bwd, flash_attention_fn)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan_bwd, rglru_scan_fn)
 
 BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
-#: the bf16 forward's lse against the plain one, absolute: the same f32
-#: scores summed in another order (a few 1e-6 at softcapped scores of
-#: tens); one key of a 2,048-key window dropped moves it by ~5e-4
+#: the tensor-core forwards' lse against the plain one, absolute: the
+#: same f32 scores summed in another order (a few 1e-6 at softcapped
+#: scores of tens); one key of a 2,048-key window dropped moves it by
+#: ~5e-4
 LSE_TOL = 1e-4
 
 
@@ -747,14 +748,15 @@ def _assert_grads_close(got, want, dtype, what=""):
 def _bwd_case(seed, BH, G, S, D, dtype, dev, kw, scale=1.0):
     """(BH, S, D) q, o, dO and (BH / G, S, D) k, v on the card, and the
     lse; o is the forward kernel's output, the lse the forward's on the
-    wgmma backward path (None on the simt one, which computes its own)."""
+    wgmma and tf32 backward paths (None on the simt one, which computes
+    its own)."""
     rng = np.random.default_rng(seed)
     mk = lambda rows, s=1.0: torch.from_numpy(
         (rng.standard_normal((rows, S, D)) * s).astype(np.float32)).to(
             device=dev, dtype=dtype)
     q, k, v = mk(BH, scale), mk(BH // G, scale), mk(BH // G)
     do = mk(BH)
-    if bwd_path(dtype, D, kw.get("softcap", 0.0)) == "wgmma":
+    if bwd_path(dtype, D, kw.get("softcap", 0.0)) in LSE_BWD_PATHS:
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     else:
         o, lse = flash_attention(q, k, v, **kw), None
@@ -793,9 +795,10 @@ BWD_MASKS = [dict(causal=True, kind="global"),
 def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype, BH, G):
     """Ragged S (query rows and keys past S in the last tile), GQA 2:1
     and MQA 10:1 (dK and dV summed over the group's query heads; on the
-    tensor-core path split into shares), every mask; one launch a call,
-    on its path: f32 and D = 16 on the first kernel, bf16 at D = 64, 128,
-    256 on the tensor-core one, which reads the forward's lse."""
+    tensor-core paths split into shares), every mask; one launch a call,
+    on its path: D = 16 and f32 with a softcap on the first kernel, bf16
+    at D = 64, 128, 256 on the wgmma one and f32 there on the 3xTF32 one,
+    both reading the forward's lse."""
     dev = _card()
     scale = 4.0 if kw.get("softcap") else 1.0
     q, k, v, o, do, lse = _bwd_case(D + S + G - 2, BH, G, S, D, dtype, dev,
@@ -829,26 +832,57 @@ def test_flash_forward_lse_matches_plain(D, kw):
 
 
 @pytest.mark.cuda_only
+@pytest.mark.parametrize("BH,S", [(2, 300), (10, 1000), (20, 2048)])
+@pytest.mark.parametrize("kw", [kw for kw in BWD_MASKS
+                                if not kw.get("softcap")],
+                         ids=lambda kw: "-".join(f"{k}{v}"
+                                                 for k, v in kw.items()))
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_tf32_forward_lse_matches_plain(D, kw, BH, S):
+    """The 3xTF32 forward's lse (written only when asked; by the main
+    kernel, or by the join where the kv range is split, as it is at BH 2,
+    S 300 for every mask but the chunked one) against the plain one, and
+    the output the same with and without it."""
+    dev = _card()
+    rng = np.random.default_rng(D + S)
+    mk = lambda rows: torch.from_numpy(rng.standard_normal(
+        (rows, S, D)).astype(np.float32)).to(dev)
+    q, k, v = mk(BH), mk(BH // 2), mk(BH // 2)
+    n0 = flash_attention.launches_by_path["tf32"]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    plain = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["tf32"] == n0 + 2
+    assert torch.equal(out, plain)
+    want = ref.flash_attention_lse_ref(q, k, **kw)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.cuda_only
 def test_flash_lse_refused_off_the_wgmma_path_and_required_on_it():
-    """The wgmma backward without the forward's lse raises (nothing falls
-    back); the f32 forward, which writes no lse, refuses to return one;
-    the simt backward takes no lse."""
+    """The wgmma and tf32 backwards without the forward's lse raise
+    (nothing falls back); the CUDA-core forward (head dim 16, or f32
+    with a softcap), which writes no lse, refuses to return one; the
+    simt backward takes no lse."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=32)
-    q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 64, torch.bfloat16, dev,
-                                    kw)
-    n0 = flash_attention_bwd.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 64, dtype, dev, kw)
+        n0 = flash_attention_bwd.launches
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention_bwd(q, k, v, o, do, **kw)
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention_bwd(q, k, v, o, do, lse[:, :50].contiguous(),
+                                **kw)
+        assert flash_attention_bwd.launches == n0
     with pytest.raises(ValueError, match="lse"):
-        flash_attention_bwd(q, k, v, o, do, **kw)
-    with pytest.raises(ValueError, match="lse"):
-        flash_attention_bwd(q, k, v, o, do, lse[:, :50].contiguous(), **kw)
-    assert flash_attention_bwd.launches == n0
-    with pytest.raises(ValueError, match="lse"):
-        flash_attention(q.float(), k.float(), v.float(), return_lse=True,
-                        **kw)
-    q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 64, torch.float32, dev,
+        flash_attention(q, k, v, return_lse=True, softcap=5.0, **kw)
+    q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 16, torch.float32, dev,
                                     kw)
     assert lse is None
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention(q, k, v, return_lse=True, **kw)
     _bwd_launch(q, k, v, o, do, None, kw)
 
 
@@ -880,7 +914,9 @@ def test_flash_bwd_kernel_rows_that_see_only_their_own_key(D, dtype):
                                      (torch.bfloat16, 2048),
                                      (torch.bfloat16, 3000),
                                      (torch.float32, 512),
-                                     (torch.float32, 1000)])
+                                     (torch.float32, 1000),
+                                     (torch.float32, 2048),
+                                     (torch.float32, 3000)])
 def test_flash_bwd_kernel_serving_shape(S, dtype):
     """recurrentgemma's local layers: MQA 10:1 (dK/dV sum the ten query
     heads of the one kv head), head dim 256, window 2,048: the first and
@@ -897,10 +933,11 @@ def test_flash_bwd_kernel_serving_shape(S, dtype):
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 1000),
                                      (torch.bfloat16, 3000),
-                                     (torch.float32, 1000)])
+                                     (torch.float32, 1000),
+                                     (torch.float32, 3000)])
 def test_flash_bwd_kernel_is_deterministic(dtype, S):
     """No atomics: two runs give bitwise the same gradients, on both
-    paths (the wgmma one sums its dK/dV shares in a fixed order)."""
+    tensor-core paths (each sums its dK/dV shares in a fixed order)."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=2048)
     q, k, v, o, do, lse = _bwd_case(5, 10, 10, S, 256, dtype, dev, kw)
@@ -1015,3 +1052,174 @@ def test_smoke_train_step_on_card_kernels_match_plain():
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4)
     for g, w in zip(out[0][1], out[1][1]):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan's backward kernel against its plain version, and mamba2's
+# gradients through the kernels against the plain versions'.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_bwd, ssd_scan_fn)
+
+SSD_GRADS = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
+
+
+def _ssd_bwd_case(seed, B, H, G, S, P, N, dtype, with_h0, with_dh, dev):
+    """The forward's inputs (``_ssd_case``), dy in x's dtype and dh f32
+    (or None)."""
+    args = _ssd_case(seed, B, H, G, S, P, N, dtype, with_h0, dev)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((B, H, S, P)).astype(
+        np.float32)).to(device=dev, dtype=dtype)
+    dh = (torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(
+        np.float32)).to(dev) if with_dh else None)
+    return args, dy, dh
+
+
+def _assert_ssd_grads_close(got, want, dtype, what=""):
+    """Each gradient within SSD_TOL of its largest |value|, finite, in its
+    input's dtype."""
+    tol = SSD_TOL[dtype]
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), (what, name)
+        err = float((g - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (what, name, err)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N", [
+    (2, 3, 3, 37, 8, 16),        # small, prime S: one ragged chunk, G = H
+    (2, 4, 2, 200, 40, 100),     # grouped B/C, P and N off the tiles
+    (1, 8, 1, 129, 64, 128),     # one row past two chunks
+    (1, 80, 1, 3001, 64, 128),   # mamba2-2.7b's shape, prime S
+    (2, 8, 2, 200, 64, 128),     # grouped B/C at the served widths
+    (1, 8, 4, 64, 16, 16),       # the smoke widths, one whole chunk
+    (1, 6, 3, 1, 64, 128),       # one token
+])
+def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
+                                      with_dh):
+    """dx, ddA, ddt, dB and dC (summed over each group's heads) and dh0
+    against ``ref.ssd_scan_bwd_ref`` at the kernels' chunk; one launch a
+    call."""
+    dev = _card()
+    args, dy, dh = _ssd_bwd_case(S + N, B, H, G, S, P, N, dtype, with_h0,
+                                 with_dh, dev)
+    n0 = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == n0 + 1
+    want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
+    _assert_ssd_grads_close(got, want, dtype, f"S={S} G={G} {dtype}")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_is_deterministic(dtype):
+    """No atomics: two calls at mamba2's shape give bitwise the same
+    gradients (the group's heads summed in head order)."""
+    dev = _card()
+    args, dy, dh = _ssd_bwd_case(5, 1, 80, 1, 3001, 64, 128, dtype, True,
+                                 True, dev)
+    first = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    second = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+def test_ssd_bwd_refuses_what_the_kernel_does_not_take():
+    """A head dim above 64 raises on the card (nothing falls back to the
+    plain version); without `with_dh0` no dh0 is returned."""
+    dev = _card()
+    args, dy, dh = _ssd_bwd_case(2, 1, 2, 1, 70, 80, 16, torch.float32,
+                                 False, False, dev)
+    n0 = ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan_bwd(*args, dy, dh)
+    assert ssd_scan_bwd.launches == n0
+    args, dy, dh = _ssd_bwd_case(2, 1, 2, 1, 70, 16, 16, torch.float32,
+                                 False, False, dev)
+    assert ssd_scan_bwd(*args, dy, dh)[5] is None
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_op_grads_through_the_kernels(dtype):
+    """autograd through ``ops.ssd_op`` in the model's layout (x, dt, A, B,
+    C and h0 all leaves): one forward and one backward launch, against
+    autograd through the plain version at the kernels' chunk."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    B, S, H, P, G, N = 2, 150, 8, 64, 2, 128
+    mk = lambda *shape, dt=torch.float32: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(
+            device=dev, dtype=dt).requires_grad_(True)
+    x, Bm, Cm = mk(B, S, H, P, dt=dtype), mk(B, S, G, N, dt=dtype), mk(
+        B, S, G, N, dt=dtype)
+    dt = torch.nn.functional.softplus(mk(B, S, H) - 2.0).detach()
+    dt.requires_grad_(True)
+    A = (-torch.linspace(1.0, 8.0, H, device=dev)).requires_grad_(True)
+    h0 = mk(B, H, P, N)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(
+        np.float32)).to(device=dev, dtype=dtype)
+    ins = (x, dt, A, Bm, Cm, h0)
+    n0 = ssd_scan.launches, ssd_scan_bwd.launches
+    y, _h = ops.ssd_op(x, dt, A, Bm, Cm, h0)
+    got = torch.autograd.grad(y, ins, dy)
+    assert (ssd_scan.launches - n0[0], ssd_scan_bwd.launches - n0[1]) == (1, 1)
+    yp, _hp = ops.ssd_op(x, dt, A, Bm, Cm, h0, chunk=CHUNK, use_kernel=False)
+    want = torch.autograd.grad(yp, ins, dy)
+    tol = SSD_TOL[dtype]
+    for name, g, w in zip(("x", "dt", "A", "B", "C", "h0"), got, want):
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda_only
+def test_mamba_smoke_train_grads_on_card_kernels_match_plain():
+    """The mamba2 smoke model's loss gradients on the card through the
+    kernels (the SSD scan's forward and backward) against the plain
+    versions', every leaf within 5e-2 in norm (phase 8 (c)'s limit) and
+    within 1e-4 of its largest element (f32); A_log and dt_bias, which
+    reach the loss only through the scan, get a non-zero gradient.  Before
+    the backward kernel their gradients were zero here."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.optim.adamw import leaves_with_path
+    dev = _card()
+    cfg = get_smoke_config("mamba2-2.7b").replace(n_layers=2)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    named = leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 77))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "targets")}
+    out = []
+    for use_kernel in (True, False):
+        n0 = ssd_scan.launches, ssd_scan_bwd.launches
+        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                    use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, leaves)
+        # remat recomputes each layer's forward in the backward
+        want = ((2 * cfg.n_layers, cfg.n_layers) if use_kernel else (0, 0))
+        assert (ssd_scan.launches - n0[0],
+                ssd_scan_bwd.launches - n0[1]) == want
+        out.append((float(loss), grads))
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4)
+    for (path, _), g, w in zip(named, out[0][1], out[1][1]):
+        name = "/".join(str(p) for p in path)
+        assert float((g - w).norm()) <= 5e-2 * float(w.norm()), name
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), \
+            name
+        if "A_log" in name or "dt_bias" in name:
+            assert float(g.abs().max()) > 0, name

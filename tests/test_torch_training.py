@@ -1,9 +1,10 @@
 """The port's training path against the JAX package's, on the CPU: AdamW,
-the chunked cross-entropy and loss, the model's gradients and three
-train steps on the recurrentgemma smoke config, the plain versions of the
-two backward kernels, the policy fit, the data pipeline, checkpoints and
-the fault-tolerance drill; and serving's outputs unchanged by the
-autograd dispatch.
+the chunked cross-entropy and loss, the model's gradients (the
+recurrentgemma and mamba2 smoke configs) and three train steps on the
+recurrentgemma smoke config, the plain versions of the three backward
+kernels, the policy fit, the data pipeline, checkpoints and the
+fault-tolerance drill; and serving's outputs unchanged by the autograd
+dispatch.
 
 Both packages get the same numpy inputs and weights (``params_from_numpy``
 of the reference's ``init_params``).  Tolerances, f32 throughout: AdamW
@@ -62,6 +63,8 @@ from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
                                                  flash_attention_fn)
 from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
                                             rglru_scan_fn)
+from repro_torch.kernels.ssd_scan import (CHUNK, ssd_scan, ssd_scan_bwd,
+                                          ssd_scan_fn)
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import model as tmodel
 from repro_torch.models import (params_from_numpy, params_to_numpy,
@@ -70,6 +73,9 @@ from repro_torch.models import steps as tsteps
 from repro_torch.optim import adamw as tadamw
 
 ARCH = "recurrentgemma-2b"
+#: the architectures whose smoke models' gradients are held to jax.grad
+#: (mamba2's two layers deep, as in test_torch_models.py)
+GRAD_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b")
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "policy_traces.jsonl")
 GRAD_TOL = 1e-4
@@ -103,9 +109,14 @@ def _assert_trees_close(got, want, rtol):
 
 
 @pytest.fixture(scope="module")
-def smoke():
-    jcfg = jbase.get_smoke_config(ARCH)
-    tcfg = tbase.get_smoke_config(ARCH)
+def smoke(request):
+    """(JAX config, JAX params, port config) of ARCH's smoke model, or of
+    the architecture a test parametrises it with (indirect)."""
+    arch = getattr(request, "param", ARCH)
+    jcfg = jbase.get_smoke_config(arch)
+    tcfg = tbase.get_smoke_config(arch)
+    if arch == "mamba2-2.7b":
+        jcfg, tcfg = jcfg.replace(n_layers=2), tcfg.replace(n_layers=2)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, jp, tcfg
 
@@ -297,10 +308,14 @@ def jax_grads(smoke):
 
 
 @pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("smoke", GRAD_ARCHS, indirect=True)
 def test_model_gradients_match_jax(smoke, jax_grads, remat):
     """The loss and every gradient leaf of the smoke model within 1e-4 of
     ``jax.value_and_grad(repro.models.steps.loss_fn)``, with the kernels'
-    autograd Functions (their plain versions on the CPU)."""
+    autograd Functions (their plain versions on the CPU): recurrentgemma
+    through attention and the RG-LRU scan, mamba2 through the SSD scan
+    (the reference differentiates ``ssd_chunked`` at the model's chunk,
+    the port ``ref.ssd_scan_bwd_ref`` at the kernels')."""
     jcfg, jp, tcfg = smoke
     tp = _port_params(tcfg, jp)
     leaves = [p.requires_grad_(True) for _, p in tadamw.leaves_with_path(tp)]
@@ -481,13 +496,76 @@ def test_rglru_bwd_ref_matches_autograd_and_jax(with_h0):
         _close(dh0, (a[:, 0] * db.numpy()[:, 0]))
 
 
+def _ssd_inputs(seed, B=2, H=4, G=2, S=37, P=5, N=6, with_h0=True,
+                with_dh=True):
+    """The SSD scan's inputs (x, dA, dt, Bm, Cm, h0) in the kernels'
+    layout, f32 numpy, h0 None unless `with_h0`; dy and dh (None unless
+    `with_dh`).  dt = softplus(N(-2, 1)), A in [-4, -1]: decays of the
+    model's size."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    dt = np.log1p(np.exp(f(B, H, S) - 2.0)).astype(np.float32)
+    A = -np.linspace(1.0, 4.0, H).astype(np.float32)
+    args = (f(B, H, S, P), (dt * A[None, :, None]).astype(np.float32), dt,
+            f(B, G, S, N), f(B, G, S, N), f(B, H, P, N) if with_h0 else None)
+    return args, f(B, H, S, P), f(B, H, P, N) if with_dh else None
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("G,S", [(1, 37), (2, 150), (4, 64), (4, 129)])
+def test_ssd_bwd_ref_matches_autograd_and_jax(G, S, with_h0, with_dh):
+    """``ref.ssd_scan_bwd_ref`` (the SSD backward kernel's plain version,
+    at the kernels' chunk of 64) against torch autograd through
+    ``ref.ssd_scan_ref`` in float64 (1e-10 of each gradient's largest
+    |value|: the same function) and against ``jax.grad`` of the
+    reference's token-by-token oracle in f32 with B and C repeated to the
+    heads (1e-4), for G = 1, 2 and H (4 heads), a ragged S and whole
+    chunks, with and without h0, and a zero or non-zero gradient by the
+    final state."""
+    args, dy, dh = _ssd_inputs(S + G, G=G, S=S, with_h0=with_h0,
+                               with_dh=with_dh)
+    names = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
+    got = ref.ssd_scan_bwd_ref(*(None if a is None else _t(a)
+                                 for a in args), _t(dy),
+                               None if dh is None else _t(dh), chunk=CHUNK)
+    d64 = lambda a: None if a is None else torch.from_numpy(
+        np.array(a, np.float64))
+    leaves = [d64(a).requires_grad_(True) for a in args if a is not None]
+    y, hf = ref.ssd_scan_ref(*leaves[:5], leaves[5] if with_h0 else None,
+                             chunk=CHUNK)
+    loss = (y * d64(dy)).sum() + ((hf * d64(dh)).sum() if with_dh else 0.0)
+    want = torch.autograd.grad(loss, leaves)
+    g64 = ref.ssd_scan_bwd_ref(*(d64(a) for a in args), d64(dy), d64(dh),
+                               chunk=CHUNK)
+    for name, a, b in zip(names, g64, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-10 * scale, name
+
+    rep = 4 // G
+
+    def jloss(x, dA, dt, Bm, Cm, h0):
+        y, hf = jref.ssd_scan_ref(x, dA, dt, jnp.repeat(Bm, rep, 1),
+                                  jnp.repeat(Cm, rep, 1), h0)
+        out = jnp.sum(y * dy)
+        return out + jnp.sum(hf * dh) if with_dh else out
+
+    h0 = args[5] if with_h0 else np.zeros((2, 4, 5, 6), np.float32)
+    jg = jax.grad(jloss, argnums=tuple(range(6)))(*args[:5], h0)
+    for name, a, b in zip(names, got, jg):
+        b = np.asarray(b)
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= 1e-4 * float(np.abs(b).max()), (name, err)
+
+
 def test_autograd_functions_on_cpu_take_the_plain_backward():
-    """On CPU tensors the Functions differentiate with the plain versions
-    and launch nothing."""
+    """On CPU tensors the Functions (attention, the RG-LRU scan, the SSD
+    scan) differentiate with the plain versions and launch nothing."""
     q, k, v, do = _attn_inputs(9)
     kw = dict(causal=True, kind="local", window=8)
     n0 = (flash_attention.launches, flash_attention_bwd.launches,
-          rglru_scan.launches, rglru_scan_bwd.launches)
+          rglru_scan.launches, rglru_scan_bwd.launches, ssd_scan.launches,
+          ssd_scan_bwd.launches)
     qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
     o = flash_attention_fn(qt, kt, vt, **kw)
     got = torch.autograd.grad(o, (qt, kt, vt), _t(do))
@@ -503,10 +581,25 @@ def test_autograd_functions_on_cpu_take_the_plain_backward():
     got = torch.autograd.grad(h, (at, bt), dh)
     want = ref.rglru_scan_bwd_ref(a, h.detach(), dh)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    args, dy, dhf = _ssd_inputs(14, G=2, S=70, with_h0=True, with_dh=True)
+    leaves = [_t(a).requires_grad_(True) for a in args]
+    y, hf = ssd_scan_fn(*leaves)
+    got = torch.autograd.grad((y, hf), leaves, (_t(dy), _t(dhf)))
+    want = ref.ssd_scan_bwd_ref(*map(_t, args), _t(dy), _t(dhf), chunk=CHUNK)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the final state unused: its gradient is zeros, and h0 takes none
+    y, _hf = ssd_scan_fn(*leaves[:5], _t(args[5]))
+    got = torch.autograd.grad(y, leaves[:5], _t(dy))
+    want = ref.ssd_scan_bwd_ref(*map(_t, args), _t(dy), chunk=CHUNK)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert (flash_attention.launches, flash_attention_bwd.launches,
-            rglru_scan.launches, rglru_scan_bwd.launches) == n0
+            rglru_scan.launches, rglru_scan_bwd.launches, ssd_scan.launches,
+            ssd_scan_bwd.launches) == n0
     da, db, dh0 = rglru_scan_bwd(a, h.detach(), dh)
     assert dh0 is None
+    assert ssd_scan_bwd(*map(_t, args), _t(dy))[5] is None
 
 
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
@@ -514,11 +607,18 @@ def test_autograd_functions_on_cpu_take_the_plain_backward():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
         dtype, D, softcap):
-    """bf16 at head dims 64, 128 and 256 takes the tensor-core backward,
-    softcap or not; f32 and every other head dim the CUDA-core one."""
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
-            else "simt")
+    """bf16 at head dims 64, 128 and 256 takes the wgmma backward, softcap
+    or not; f32 there without a softcap the 3xTF32 one (the cases the
+    forward's ``path`` sends to its 3xTF32 kernel); f32 with a softcap
+    and every other head dim the CUDA-core one."""
+    if D in (64, 128, 256) and dtype == torch.bfloat16:
+        want = "wgmma"
+    elif D in (64, 128, 256) and not softcap:
+        want = "tf32"
+    else:
+        want = "simt"
     assert bwd_path(dtype, D, softcap) == want
+    assert (want == "tf32") == (tflash.path(dtype, D, softcap) == "tf32")
 
 
 def _lse_f64(q, k, kw):
@@ -559,17 +659,18 @@ def test_plain_lse_matches_float64(kw, group):
     assert torch.equal(out, flash_attention(_t(q), _t(k), _t(_v), **kw))
 
 
-@pytest.mark.parametrize("dtype,D,lse_saved", [
-    (torch.bfloat16, 64, True), (torch.bfloat16, 16, False),
-    (torch.float32, 64, False)])
+@pytest.mark.parametrize("dtype,D,softcap,lse_saved", [
+    (torch.bfloat16, 64, 5.0, True), (torch.bfloat16, 16, 5.0, False),
+    (torch.float32, 64, 5.0, False), (torch.float32, 64, 0.0, True),
+    (torch.float32, 16, 0.0, False)])
 def test_flash_attention_fn_saves_lse_only_when_a_gradient_is_needed(
-        monkeypatch, dtype, D, lse_saved):
+        monkeypatch, dtype, D, softcap, lse_saved):
     """The forward asks for the lse only when a gradient will be taken on
-    the wgmma backward path (bf16 at the tensor-core head dims), so
-    serving's calls write none; on CPU tensors it is the plain lse and
-    nothing launches."""
+    a backward path that reads it (bf16 at the tensor-core head dims on
+    wgmma; f32 there without a softcap on tf32), so serving's calls write
+    none; on CPU tensors it is the plain lse and nothing launches."""
     q, k, v, do = _attn_inputs(12, D=D)
-    kw = dict(causal=True, kind="local", window=8, softcap=5.0)
+    kw = dict(causal=True, kind="local", window=8, softcap=softcap)
     asked = []
     real = tflash.flash_attention
 
