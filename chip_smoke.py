@@ -135,9 +135,15 @@ Phases (each one failing makes the script exit non-zero):
      ``ref.ssd_scan_bwd_ref`` at mamba2-2.7b's shapes (B 1, 80 heads of
      64, d_state 128, one group, S = 512, 1,000, 2,048, 3,001) in bf16
      and f32, without and with h0 and a gradient by the final state, then
-     grouped B/C (G 2) and a shape off the served one (each gradient
-     within SSD_TOL of its largest |value|; two calls at S = 3,001
-     bitwise equal), timed beside its plain version;
+     grouped B/C (G 2 and G 3 with 2 heads a group) and a shape off the
+     served one (each gradient within SSD_TOL of its largest |value|; the
+     path each ran must be the one ``bwd_path`` names: bf16 at P 64, N
+     128 the tensor-core kernel of ``ssd_scan_bwd_wgmma.cu``, the rest
+     the first design of ``ssd_scan_bwd.cu``, which is held on the same
+     inputs beside the tensor-core kernel; two calls at S = 3,001 bitwise
+     equal), timed beside its plain version, the first design timed
+     beside the tensor-core kernel at the served shape and slower than it
+     on the device;
      (b) recurrentgemma-2b, then mamba2-2.7b, at its published width and
      depth, f32 master weights and moments computed in bf16, remat on, B
      1, S 3,000, TokenPipeline seed 0, 8 steps of ``make_train_step``
@@ -147,7 +153,8 @@ Phases (each one failing makes the script exit non-zero):
      exact (recurrentgemma: 8 attention backward launches a step, all on
      the wgmma path, and 18 scan backward launches; mamba2: 64 SSD
      backward launches a step and 128 SSD forwards, all on the wgmma
-     path, remat recomputing each); step time, tokens/s, peak memory and
+     paths, remat recomputing each forward); step time, tokens/s, peak
+     memory and
      one profiled step, with the backward kernels' device time by
      launch; (c) one period of each at the same width (rec, rec, local;
      one SSM layer), S 1,024, bf16: every gradient leaf through the
@@ -167,9 +174,10 @@ Phases (each one failing makes the script exit non-zero):
      serving path's kernel, with the f32 path's under "f32"; the SSD
      scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
      redesigned kernel carries the first kernel's times beside its own,
-     the attention backward's too (its entry is the wgmma kernel, the
-     3xTF32 one under "f32"); the backward kernels' launches are phase 8
-     (b)'s), then the device line.
+     the backward kernels' too (the attention backward's entry is the
+     wgmma kernel, the 3xTF32 one under "f32"; the SSD backward's the
+     wgmma kernel); the backward kernels' launches are phase 8 (b)'s),
+     then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -2382,17 +2390,48 @@ def ssd_bwd_bound(bsz: int, heads: int, groups: int, s: int, p: int,
     return bound(nbytes, ops, matmul_peak(dtype))
 
 
+def simt_ssd_bwd(args, dy, dh, with_dh0: bool = True):
+    """The first SSD backward (csrc/ssd_scan_bwd.cu, the CUDA cores)
+    called directly, so that it can be held and timed at shapes where the
+    wrapper takes the tensor-core path; not counted in the wrapper's
+    launches.  Returns what ``ssd_scan_bwd`` returns."""
+    import torch
+    from repro_torch.kernels import _build
+    x, dA, dt, Bm, Cm, h0 = args
+    bsz, heads, s, p = x.shape
+    groups, n = Bm.shape[1], Bm.shape[3]
+    lib = _build.load("ssd_scan_bwd")
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddA, ddt = torch.empty_like(dA), torch.empty_like(dt)
+    dh0 = (torch.empty((bsz, heads, p, n), dtype=torch.float32,
+                       device=x.device) if with_dh0 else None)
+    buf = torch.empty(lib.ssd_scan_bwd_scratch_bytes(bsz, heads, s, p, n),
+                      dtype=torch.uint8, device=x.device)
+    opt = lambda t: None if t is None else t.data_ptr()
+    err = lib.ssd_scan_bwd(
+        x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), opt(h0), dy.data_ptr(), opt(dh), dx.data_ptr(),
+        ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        opt(dh0), buf.data_ptr(), bsz, heads, groups, s, p, n,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "ssd_scan_bwd (simt, direct)")
+    return dx, ddA, ddt, dB, dC, dh0
+
+
 def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
     """ssd_scan_bwd against its plain version (``ref.ssd_scan_bwd_ref`` at
     the kernels' chunk) on the forward's inputs `args`, dy and dh (None:
     zeros): each of dx, ddA, ddt, dB, dC and dh0 finite and within
-    SSD_TOL of its largest |value|, one launch a call.  With `twice`, a
-    second call bitwise equal to the first.  With `timed`, the kernel and
-    its plain version timed, and the bound (no PyTorch call computes the
-    same function).  Returns a dict."""
+    SSD_TOL of its largest |value|, one launch a call, on the path that
+    ``bwd_path`` names; where that is the tensor-core kernel, the first
+    design (``simt_ssd_bwd``) held beside it on the same inputs.  With
+    `twice`, a second call bitwise equal to the first.  With `timed`, the
+    kernel, its plain version and the first design (where it is not the
+    path) timed, and the bound (no PyTorch call computes the same
+    function).  Returns a dict."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan import CHUNK, bwd_path, ssd_scan_bwd
     x, Bm, h0 = args[0], args[3], args[5]
     bsz, heads, s, p = x.shape
     groups, n = Bm.shape[1], Bm.shape[3]
@@ -2400,21 +2439,35 @@ def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
     what = (f"ssd_scan_bwd B={bsz} H={heads} G={groups} S={s} P={p} N={n} "
             f"{dt_name} h0={h0 is not None} dh={dh is not None}")
     n0 = ssd_scan_bwd.launches
+    by0 = dict(ssd_scan_bwd.launches_by_path)
     got = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
     want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
     torch.cuda.synchronize()
     check(ssd_scan_bwd.launches == n0 + 1,
           f"{what}: {ssd_scan_bwd.launches - n0} launches")
+    ran = [k for k, c in ssd_scan_bwd.launches_by_path.items() if c != by0[k]]
+    want_path = bwd_path(x.dtype, p, n)
+    check(ran == [want_path], f"{what}: ran {ran}, bwd_path says {want_path}")
     tol = SSD_TOL[dt_name]
-    out = {"errors": {}}
-    for name, g, w in zip(SSD_GRADS, got, want):
-        g, w = g.float(), w.float()
-        check(bool(torch.isfinite(g).all()), f"{what}: {name} not finite")
-        err, scale = float((g - w).abs().max()), float(w.abs().max())
-        out["errors"][name] = (err, err / max(scale, 1e-30))
-        check(err <= tol * scale, f"{what}: {name} max_abs_err {err} of "
-              f"{scale} (limit {tol} of it)")
+
+    def held(grads, label):
+        errors = {}
+        for name, g, w in zip(SSD_GRADS, grads, want):
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()),
+                  f"{what} ({label}): {name} not finite")
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            errors[name] = (err, err / max(scale, 1e-30))
+            check(err <= tol * scale, f"{what} ({label}): {name} max_abs_err "
+                  f"{err} of {scale} (limit {tol} of it)")
+        return errors
+
+    out = {"errors": held(got, ran[0]), "path": ran[0]}
     out["max_abs_err"] = max(e for e, _ in out["errors"].values())
+    if ran[0] != "simt":
+        out["simt_errors"] = held(simt_ssd_bwd(args, dy, dh), "simt")
+        out["simt_max_abs_err"] = max(
+            e for e, _ in out["simt_errors"].values())
     if twice:
         again = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2425,6 +2478,16 @@ def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
         out["ms"] = time_ms(lambda: ssd_scan_bwd(*args, dy, dh))
         out["device_ms"] = time_ms(lambda: ssd_scan_bwd(*args, dy, dh),
                                    queued=True)
+        if ran[0] != "simt":
+            out["simt_ms"] = time_ms(
+                lambda: simt_ssd_bwd(args, dy, dh, with_dh0=False))
+            out["simt_device_ms"] = time_ms(
+                lambda: simt_ssd_bwd(args, dy, dh, with_dh0=False),
+                queued=True)
+            check(out["device_ms"] < out["simt_device_ms"],
+                  f"{what}: the tensor-core kernel {out['device_ms']:.4f} "
+                  f"ms device, not below the first design's "
+                  f"{out['simt_device_ms']:.4f} ms")
         out["plain_ms"] = time_ms(lambda: ref.ssd_scan_bwd_ref(
             *args, dy, dh, chunk=CHUNK), reps=5)
         out["library_ms"] = None
@@ -2518,6 +2581,7 @@ def phase8_bwd_kernels():
                  for dtype in (torch.bfloat16, torch.float32)
                  for s in SSM_PROMPTS for with_h0 in (False, True)]
     ssd_cases += [(torch.bfloat16, (2, 8, 2, 1000, 64, 128), True),
+                  (torch.bfloat16, (1, 6, 3, 1000, 64, 128), True),
                   (torch.float32, (1, 24, 3, 777, 40, 100), True)]
     for dtype, (bsz, heads, groups, s, p, n), with_h0 in ssd_cases:
         A = -torch.linspace(1.0, 16.0, heads, device=dev)
@@ -2532,16 +2596,26 @@ def phase8_bwd_kernels():
                          timed=served and not with_h0,
                          twice=s == max(SSM_PROMPTS) and not with_h0)
         dt_name = str(dtype).split(".")[-1]
+        def errs(errors):
+            return "; ".join(f"{name} {e:.3g} ({r:.3g} of its largest)"
+                             for name, (e, r) in errors.items())
+
         line = (f"phase8 ssd_scan_bwd B={bsz} H={heads} G={groups} S={s} "
-                f"P={p} N={n} {dt_name} h0, dh={with_h0}: " + "; ".join(
-                    f"{name} {e:.3g} ({r:.3g} of its largest)"
-                    for name, (e, r) in m["errors"].items()))
+                f"P={p} N={n} {dt_name} h0, dh={with_h0} path={m['path']}: "
+                + errs(m["errors"]))
         if "bitwise_twice" in m:
             line += f"; two calls bitwise equal {m['bitwise_twice']}"
+        if "simt_errors" in m:
+            line += f"; [first design: {errs(m['simt_errors'])}]"
         if "ms" in m:
             line += (f"; kernel {m['ms']:.4f} ms (device "
-                     f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} "
-                     f"ms, bound {m['bound_ms']:.5f} ms ({m['bound_by']})")
+                     f"{m['device_ms']:.4f} ms)")
+            if "simt_ms" in m:
+                line += (f" [first design {m['simt_ms']:.4f} ms, device "
+                         f"{m['simt_device_ms']:.4f} ms: "
+                         f"{m['simt_device_ms'] / m['device_ms']:.2f}x]")
+            line += (f", plain {m['plain_ms']:.4f} ms, bound "
+                     f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
         print(line)
         if (dtype, s, served, with_h0) == (torch.bfloat16, max(SSM_PROMPTS),
                                            True, False):
@@ -2551,7 +2625,8 @@ def phase8_bwd_kernels():
 
 def train_counts() -> dict:
     """The forward and backward launch counts of the train steps'
-    kernels, the SSD scan's forward also by path."""
+    kernels, the SSD scan's forward and backward also on the wgmma
+    path."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
@@ -2562,7 +2637,8 @@ def train_counts() -> dict:
             "rglru_scan": rglru_scan.launches,
             "rglru_scan_bwd": rglru_scan_bwd.launches,
             "ssd_scan": lm["ssd_scan"], "ssd_scan.wgmma": lm["ssd_scan.wgmma"],
-            "ssd_scan_bwd": ssd_scan_bwd.launches}
+            "ssd_scan_bwd": ssd_scan_bwd.launches,
+            "ssd_scan_bwd.wgmma": ssd_scan_bwd.launches_by_path["wgmma"]}
 
 
 def profile_train_step(bundle, state, batch):
@@ -2610,8 +2686,8 @@ def profile_train_step(bundle, state, batch):
                 "ms")
     # the backward kernels' device time by launch: the attention
     # backward's four (D_i, dK/dV, dQ, the shares' sum) and the SSD
-    # backward's four (the chunks' state terms, the passes, the chunks'
-    # gradients, the groups' sum)
+    # backward's three on the wgmma path (the chunk walks, the chunks'
+    # gradients by head tile, the tiles' sum)
     for label, pattern in (("attention backward", r"attn_bwd_[a-z0-9_]+"),
                            ("ssd backward", r"ssd_bwd_[a-z_]+")):
         bwd = sorted((e for e in dev if re.search(pattern, e.key)),
@@ -2699,7 +2775,7 @@ def phase8_train_full_width(arch: str):
             "rglru_scan": fwd["recurrent"] * T,
             "rglru_scan_bwd": n["recurrent"] * T,
             "ssd_scan": fwd["ssm"] * T, "ssd_scan.wgmma": fwd["ssm"] * T,
-            "ssd_scan_bwd": n["ssm"] * T}
+            "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T}
     steady = statistics.median(times[1:])
     want_path = {"wgmma": n["local"] * T, "tf32": 0, "simt": 0}
     print(f"phase8 {arch} train launches: {counts}; expected {want} (the "
@@ -2764,7 +2840,8 @@ def phase8_period_grads(arch: str):
                    "rglru_scan_bwd": kinds.count("recurrent"),
                    "ssd_scan": 2 * kinds.count("ssm"),
                    "ssd_scan.wgmma": 2 * kinds.count("ssm"),
-                   "ssd_scan_bwd": kinds.count("ssm")}
+                   "ssd_scan_bwd": kinds.count("ssm"),
+                   "ssd_scan_bwd.wgmma": kinds.count("ssm")}
     for use_kernel in (True, False):
         n0 = train_counts()
         loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
@@ -3015,7 +3092,7 @@ def main() -> int:
                  TRAIN_ARCH),
                 ("rglru_scan_bwd", "rglru_scan.cu", "rglru_scan",
                  "src/repro/models/rglru.py:69 lru_scan", TRAIN_ARCH),
-                ("ssd_scan_bwd", "ssd_scan_bwd.cu", "ssd_scan",
+                ("ssd_scan_bwd", "ssd_scan_bwd_wgmma.cu", "ssd_scan",
                  "src/repro/models/ssd.py:63 ssd_chunked", SSM_ARCH)):
             m = train[name]
             kernels.append({
@@ -3027,13 +3104,15 @@ def main() -> int:
                 "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "shape": m["shape"]})
-            # the path that ran and, for the redesigned attention
-            # backward, the first kernel's times on the same inputs
+            # the path that ran and, for the redesigned backwards, the
+            # first kernel's times on the same inputs
             for key in ("path", "simt_ms", "simt_device_ms"):
                 if key in m:
                     kernels[-1][key] = m[key]
             if "simt_ms" in m:
-                kernels[-1]["simt_source"] = CSRC + "flash_attention_bwd.cu"
+                kernels[-1]["simt_source"] = CSRC + (
+                    "ssd_scan_bwd.cu" if name == "ssd_scan_bwd"
+                    else "flash_attention_bwd.cu")
         # launches of each forest kernel in phase 7's runs (b2 and c
         # launch the forest kernel, b3 the sweep)
         for k in kernels[:2]:

@@ -38,7 +38,8 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "rglru_scan": "rglru_scan.cu",
                            "ssd_scan": "ssd_scan.cu",
                            "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
-                           "ssd_scan_bwd": "ssd_scan_bwd.cu"}
+                           "ssd_scan_bwd": "ssd_scan_bwd.cu",
+                           "ssd_scan_bwd_wgmma": "ssd_scan_bwd_wgmma.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -138,6 +139,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # dB, dC, dh0 (or null), scratch, batch, heads, groups, s, p, n,
         # is_bf16, stream
         "ssd_scan_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    },
+    "ssd_scan_bwd_wgmma": {
+        # batch, heads, groups, s -> bytes of scratch
+        "ssd_scan_bwd_wgmma_scratch_bytes": ([_I, _I, _I, _I], _L),
+        # x, dA, dt, Bm, Cm, h0 (or null), dy, dh (or null), dx, ddA, ddt,
+        # dB, dC, dh0 (or null), scratch, batch, heads, groups, s, stream
+        "ssd_scan_bwd_wgmma": ([_P] * 15 + [_I] * 4 + [_P], _I),
     },
 }
 

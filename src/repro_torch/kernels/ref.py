@@ -17,7 +17,8 @@ reference has no backward kernel: XLA differentiates its jnp paths), the
 yardsticks of the backward kernels; ``flash_attention_lse_ref`` is the
 row log-sum-exp the tensor-core forward kernels write for their
 backwards.  ``tf32_split`` is the operand split of the f32 attention
-kernels' 3xTF32 products.
+kernels' 3xTF32 products, ``bf16_split`` the hi + lo split of an f32
+value the bf16 tensor-core kernels feed their products.
 
 The forest layout is the complete-tree one of ``core.predictor``:
 
@@ -254,10 +255,10 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
 def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                      Bm: torch.Tensor, Cm: torch.Tensor,
                      h0: Optional[torch.Tensor], dy: torch.Tensor,
-                     dh: Optional[torch.Tensor] = None, chunk: int = 64
-                     ) -> Tuple[torch.Tensor, ...]:
+                     dh: Optional[torch.Tensor] = None, chunk: int = 64,
+                     split: bool = False) -> Tuple[torch.Tensor, ...]:
     """Gradients of ``ssd_scan_ref`` written out in its state-passing
-    form, in f32, as the backward kernel computes them.  dy (B, H, S, P)
+    form, in f32, as the backward kernels compute them.  dy (B, H, S, P)
     is the loss's gradient by y, dh (B, H, P, N) f32 by the final state
     (None: zeros).  Per chunk, with cum the within-chunk cumulative sum
     of dA, L its last row, h_in the state entering the chunk and g the
@@ -279,9 +280,13 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         dcum_L += sum_j w_j u_j + e^{cum_L} <g, h_in>
         ddA_k = sum_{i >= k} dcum_i   within the chunk
 
-    dB and dC are summed over the heads of each group.  Returns (dx in
-    x's dtype, ddA, ddt f32, dB, dC in Bm's dtype, dh0 f32; f64 for f64
-    inputs)."""
+    dB and dC are summed over the heads of each group.  With `split`,
+    the values the tensor-core kernel (``csrc/ssd_scan_bwd_wgmma.cu``)
+    feeds its products as bf16 hi + lo (``bf16_split``) are rounded so:
+    x w and dy e^{cum} in the walks' state terms, the stored states h_in
+    and g (also in <g, h_in>), and W and R; the walks' running states and
+    everything else stay f32.  Returns (dx in x's dtype, ddA, ddt f32, dB,
+    dC in Bm's dtype, dh0 f32; f64 for f64 inputs)."""
     Bsz, H, S, P = x.shape
     G, N = Bm.shape[1], Bm.shape[-1]
     rep = H // G
@@ -302,6 +307,13 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                           dim=2)
         return a.reshape((Bsz, H, nc, chunk) + a.shape[3:])
 
+    def rnd(a: torch.Tensor) -> torch.Tensor:
+        """`a` as the tensor-core kernel's operand: hi + lo with `split`."""
+        if not split:
+            return a
+        hi, lo = bf16_split(a)
+        return hi + lo
+
     xc, Bc, Cc, dyc = chunks(x), chunks(Bm), chunks(Cm), chunks(dy)
     dtc = chunks(dt)
     cum = torch.cumsum(chunks(dA), dim=-1)                    # (B,H,nc,c)
@@ -309,21 +321,21 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     w = torch.exp(last - cum) * dtc
     ecum = torch.exp(cum)
     decay = torch.exp(last)[..., None]                        # (B,H,nc,1,1)
-    dS = xc.transpose(-1, -2) @ (Bc * w[..., None])           # (B,H,nc,P,N)
-    dG = (dyc * ecum[..., None]).transpose(-1, -2) @ Cc       # (B,H,nc,P,N)
+    dS = rnd(xc * w[..., None]).transpose(-1, -2) @ Bc       # (B,H,nc,P,N)
+    dG = rnd(dyc * ecum[..., None]).transpose(-1, -2) @ Cc    # (B,H,nc,P,N)
     zeros = torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
     h = zeros if h0 is None else h0.to(ft)
     h_in = []
     for c in range(nc):
         h_in.append(h)
         h = decay[:, :, c] * h + dS[:, :, c]
-    h_in = torch.stack(h_in, dim=2)
+    h_in = rnd(torch.stack(h_in, dim=2))
     g = zeros if dh is None else dh.to(ft)
     g_out = [None] * nc
     for c in range(nc - 1, -1, -1):
         g_out[c] = g
         g = decay[:, :, c] * g + dG[:, :, c]
-    g_out = torch.stack(g_out, dim=2)
+    g_out = rnd(torch.stack(g_out, dim=2))
     seg = cum[..., :, None] - cum[..., None, :]
     lower = torch.ones(chunk, chunk, dtype=torch.bool,
                        device=x.device).tril()
@@ -337,9 +349,9 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     gB = Bc @ g_out.transpose(-1, -2)                         # (..., c, P)
     hTdy = dyc @ h_in                                         # (..., c, N)
     gTx = xc @ g_out                                          # (..., c, N)
-    dx = M.transpose(-1, -2) @ dyc + w[..., None] * gB
-    dC = R @ Bc + ecum[..., None] * hTdy
-    dB = R.transpose(-1, -2) @ Cc + w[..., None] * gTx
+    dx = rnd(M).transpose(-1, -2) @ dyc + w[..., None] * gB
+    dC = rnd(R) @ Bc + ecum[..., None] * hTdy
+    dB = rnd(R).transpose(-1, -2) @ Cc + w[..., None] * gTx
     u = (xc * gB).sum(-1)
     v = (Cc * hTdy).sum(-1)
     ddt = Gm.sum(-2) + torch.exp(last - cum) * u
@@ -374,6 +386,15 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sums lo_a hi_b + hi_a lo_b + hi_a hi_b (3xTF32)."""
     hi = tf32_round(x)
     return hi, x.float() - hi
+
+
+def bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x as hi = bf16(x) and lo = bf16(x - hi), both returned in x's
+    float type: the two bf16 parts the tensor-core kernels feed their
+    products for an f32 value (``split2`` in ``csrc/hopper_wgmma.cuh``,
+    round to nearest even).  hi + lo carries about 16 bits of x."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
 def forest_depth(feat: torch.Tensor) -> int:

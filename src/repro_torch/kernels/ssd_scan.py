@@ -22,12 +22,16 @@ kernel.  Given CPU tensors it computes the same function with the plain
 version (``ref.ssd_scan_ref`` at the kernels' chunk) and launches
 nothing.
 
-The gradient: ``ssd_scan_bwd`` wraps ``csrc/ssd_scan_bwd.cu`` (f32 on
-the CUDA cores, any dtype, head dim up to 64, d_state up to 128; four
-launches, counted as one call in ``ssd_scan_bwd.launches``); on CPU
-tensors it is the plain ``ref.ssd_scan_bwd_ref`` at the kernels' chunk.
-``SSDScanFn`` is the ``torch.autograd.Function`` that pairs the forward
-kernel with it; ``ssd_scan_fn`` applies it.
+The gradient: ``ssd_scan_bwd`` wraps two kernels as the forward does,
+and ``bwd_path(dtype, P, N)`` names the one that runs:
+``csrc/ssd_scan_bwd_wgmma.cu`` for bf16 at WGMMA_SHAPE (the tensor
+cores; three launches) and ``csrc/ssd_scan_bwd.cu`` for every other case
+(f32 on the CUDA cores, head dim up to 64, d_state up to 128; four
+launches).  A call counts one in ``ssd_scan_bwd.launches`` and in
+``ssd_scan_bwd.launches_by_path[path]``; nothing falls back to the other
+kernel.  On CPU tensors it is the plain ``ref.ssd_scan_bwd_ref`` at the
+kernels' chunk.  ``SSDScanFn`` is the ``torch.autograd.Function`` that
+pairs the forward kernel with it; ``ssd_scan_fn`` applies it.
 """
 from __future__ import annotations
 
@@ -55,6 +59,20 @@ def path(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
     if dtype == torch.bfloat16 and (head_dim, d_state) == WGMMA_SHAPE:
         return "wgmma"
     return "simt"
+
+
+def bwd_path(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
+    """The kernel that computes the scan's gradient of `dtype` at this
+    head dim and d_state on the card: "wgmma" (bf16 at WGMMA_SHAPE) or
+    "simt" (f32, and bf16 at any other shape)."""
+    return path(dtype, head_dim, d_state)
+
+
+def _check_aligned(**tensors):
+    """The tensor maps need 16-byte aligned bases."""
+    for name, a in tensors.items():
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
@@ -118,10 +136,7 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "wgmma":
-            # the tensor maps need 16-byte aligned bases
-            for name, a in (("x", x), ("Bm", Bm), ("Cm", Cm)):
-                if a.data_ptr() % 16:
-                    raise ValueError(f"{name} is not 16-byte aligned")
+            _check_aligned(x=x, Bm=Bm, Cm=Cm)
             # the state entering each chunk, bf16 high and low parts:
             # (B, H, ceil(S / CHUNK), 2, P, N)
             hin = _scratch.scratch(dev, stream,
@@ -164,7 +179,8 @@ def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         dx, ddA, ddt, dB, dC, dh0 = ref.ssd_scan_bwd_ref(
             x, dA, dt, Bm, Cm, h0, dy, dh, chunk=CHUNK)
         return dx, ddA, ddt, dB, dC, dh0 if with_dh0 else None
-    if P > MAX_BWD_HEAD_DIM:
+    kernel = bwd_path(x.dtype, P, N)
+    if kernel == "simt" and P > MAX_BWD_HEAD_DIM:
         raise ValueError(f"head dim {P} above the backward kernel's "
                          f"{MAX_BWD_HEAD_DIM}")
     dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
@@ -177,27 +193,39 @@ def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         if dh0 is not None:
             dh0.copy_(torch.zeros_like(dh0) if dh is None else dh)
         return dx, ddA, ddt, dB, dC, dh0
-    lib = _build.load("ssd_scan_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # the chunks' states and state gradients, their last cum, and the
-        # heads' dB and dC partials, all f32
-        buf = _scratch.scratch(dev, stream,
-                               lib.ssd_scan_bwd_scratch_bytes(B, H, S, P, N))
-        err = lib.ssd_scan_bwd(
-            x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+    ptrs = (x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
             dy.data_ptr(), None if dh is None else dh.data_ptr(),
             dx.data_ptr(), ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-            buf.data_ptr(), B, H, G, S, P, N, int(x.dtype == torch.bfloat16),
-            stream)
-    _build.check_launch(err, "ssd_scan_bwd")
+            dC.data_ptr(), None if dh0 is None else dh0.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kernel == "wgmma":
+            _check_aligned(x=x, dy=dy, Bm=Bm, Cm=Cm)
+            lib = _build.load("ssd_scan_bwd_wgmma")
+            # the states entering the chunks and the gradients by the
+            # states leaving them (bf16 hi + lo), and the head tiles' dB
+            # and dC partials (f32)
+            buf = _scratch.scratch(
+                dev, stream, lib.ssd_scan_bwd_wgmma_scratch_bytes(B, H, G, S))
+            err = lib.ssd_scan_bwd_wgmma(*ptrs, buf.data_ptr(), B, H, G, S,
+                                         stream)
+        else:
+            lib = _build.load("ssd_scan_bwd")
+            # the chunks' states and state gradients, their last cum, and
+            # the heads' dB and dC partials, all f32
+            buf = _scratch.scratch(
+                dev, stream, lib.ssd_scan_bwd_scratch_bytes(B, H, S, P, N))
+            err = lib.ssd_scan_bwd(*ptrs, buf.data_ptr(), B, H, G, S, P, N,
+                                   int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(err, f"ssd_scan_bwd ({kernel})")
     ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.launches_by_path[kernel] += 1
     return dx, ddA, ddt, dB, dC, dh0
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_path = {"wgmma": 0, "simt": 0}
 
 
 class SSDScanFn(torch.autograd.Function):
@@ -231,9 +259,9 @@ def ssd_scan_fn(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
 
 
 def reset_launches():
-    """Zero the launch counts, the total and each path's, and the
-    backward's."""
-    ssd_scan.launches = 0
-    for key in ssd_scan.launches_by_path:
-        ssd_scan.launches_by_path[key] = 0
-    ssd_scan_bwd.launches = 0
+    """Zero the launch counts of the forward and the backward, the total
+    and each path's."""
+    for fn in (ssd_scan, ssd_scan_bwd):
+        fn.launches = 0
+        for key in fn.launches_by_path:
+            fn.launches_by_path[key] = 0

@@ -1060,7 +1060,7 @@ def test_smoke_train_step_on_card_kernels_match_plain():
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_scan_bwd, ssd_scan_fn)
+    bwd_path as ssd_bwd_path, ssd_scan_bwd, ssd_scan_fn)
 
 SSD_GRADS = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
 
@@ -1101,19 +1101,28 @@ def _assert_ssd_grads_close(got, want, dtype, what=""):
     (2, 8, 2, 200, 64, 128),     # grouped B/C at the served widths
     (1, 8, 4, 64, 16, 16),       # the smoke widths, one whole chunk
     (1, 6, 3, 1, 64, 128),       # one token
+    (1, 6, 3, 200, 64, 128),     # 2 heads a group: a head tile cut short
+    (2, 10, 2, 129, 64, 128),    # 5 heads a group: tiles of 4 and 1
 ])
 def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
                                       with_dh):
     """dx, ddA, ddt, dB and dC (summed over each group's heads) and dh0
     against ``ref.ssd_scan_bwd_ref`` at the kernels' chunk; one launch a
-    call."""
+    call, on the path ``bwd_path`` names: bf16 at P 64, N 128 the
+    tensor-core kernel, the rest the CUDA-core one."""
     dev = _card()
     args, dy, dh = _ssd_bwd_case(S + N, B, H, G, S, P, N, dtype, with_h0,
                                  with_dh, dev)
     n0 = ssd_scan_bwd.launches
+    by_path = dict(ssd_scan_bwd.launches_by_path)
     got = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
     torch.cuda.synchronize()
     assert ssd_scan_bwd.launches == n0 + 1
+    ran = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
+           else "simt")
+    assert ssd_bwd_path(dtype, P, N) == ran
+    by_path[ran] += 1
+    assert ssd_scan_bwd.launches_by_path == by_path
     want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
     _assert_ssd_grads_close(got, want, dtype, f"S={S} G={G} {dtype}")
 
@@ -1122,14 +1131,65 @@ def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_kernel_is_deterministic(dtype):
     """No atomics: two calls at mamba2's shape give bitwise the same
-    gradients (the group's heads summed in head order)."""
+    gradients (the group's heads summed in head order), bf16 on the
+    tensor-core kernel, f32 on the CUDA-core one."""
     dev = _card()
     args, dy, dh = _ssd_bwd_case(5, 1, 80, 1, 3001, 64, 128, dtype, True,
                                  True, dev)
+    by_path = dict(ssd_scan_bwd.launches_by_path)
     first = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
     second = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    ran = "wgmma" if dtype == torch.bfloat16 else "simt"
+    by_path[ran] += 2
+    assert ssd_scan_bwd.launches_by_path == by_path
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _first_ssd_bwd(args, dy, dh):
+    """The first SSD backward (``csrc/ssd_scan_bwd.cu``) called directly,
+    as chip_smoke's ``simt_ssd_bwd`` does, so that it runs at a shape
+    where the wrapper takes the tensor-core kernel; not counted."""
+    from repro_torch.kernels import _build
+    x, dA, dt, Bm, Cm, h0 = args
+    B, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    lib = _build.load("ssd_scan_bwd")
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddA, ddt = torch.empty_like(dA), torch.empty_like(dt)
+    dh0 = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    buf = torch.empty(lib.ssd_scan_bwd_scratch_bytes(B, H, S, P, N),
+                      dtype=torch.uint8, device=x.device)
+    opt = lambda t: None if t is None else t.data_ptr()
+    err = lib.ssd_scan_bwd(
+        x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), opt(h0), dy.data_ptr(), opt(dh), dx.data_ptr(),
+        ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dh0.data_ptr(), buf.data_ptr(), B, H, G, S, P, N,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "ssd_scan_bwd (simt, direct)")
+    return dx, ddA, ddt, dB, dC, dh0
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_bwd_first_design_and_tensor_core_kernel_both_match_plain(
+        with_h0):
+    """At mamba2-2.7b's shape in bf16 (1, 80, 1, 3,001, 64, 128) the first
+    design (the CUDA cores) and the tensor-core kernel, on the same
+    inputs, are each within SSD_TOL of the plain version; the wrapper
+    launches the tensor-core one."""
+    dev = _card()
+    args, dy, dh = _ssd_bwd_case(11, 1, 80, 1, 3001, 64, 128,
+                                 torch.bfloat16, with_h0, with_h0, dev)
+    want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
+    n0 = ssd_scan_bwd.launches_by_path["wgmma"]
+    new = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    assert ssd_scan_bwd.launches_by_path["wgmma"] == n0 + 1
+    first = _first_ssd_bwd(args, dy, dh)
+    torch.cuda.synchronize()
+    _assert_ssd_grads_close(new, want, torch.bfloat16, "wgmma")
+    _assert_ssd_grads_close(first, want, torch.bfloat16, "simt")
 
 
 @pytest.mark.cuda_only

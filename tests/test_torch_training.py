@@ -63,6 +63,7 @@ from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
                                                  flash_attention_fn)
 from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
                                             rglru_scan_fn)
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels.ssd_scan import (CHUNK, ssd_scan, ssd_scan_bwd,
                                           ssd_scan_fn)
 from repro_torch.launch import train as tlaunch
@@ -556,6 +557,73 @@ def test_ssd_bwd_ref_matches_autograd_and_jax(G, S, with_h0, with_dh):
         b = np.asarray(b)
         err = float(np.abs(a.numpy() - b).max())
         assert err <= 1e-4 * float(np.abs(b).max()), (name, err)
+
+
+@pytest.mark.parametrize("P,N", [(64, 128), (64, 64), (32, 128), (40, 100),
+                                 (16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_path_depends_on_dtype_and_shape_alone(dtype, P, N):
+    """bf16 at (P, N) = (64, 128), mamba2-2.7b's shape, takes the
+    tensor-core backward (``csrc/ssd_scan_bwd_wgmma.cu``); f32 and every
+    other shape the CUDA-core one, as the forward's ``path`` splits."""
+    want = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
+            else "simt")
+    assert tssd.bwd_path(dtype, P, N) == want
+    assert tssd.path(dtype, P, N) == want
+
+
+#: the bf16 card tests' tolerance for the SSD backward, of each
+#: gradient's largest |value|
+SSD_BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("G,S", [(1, 200), (2, 200), (1, 129), (2, 129)])
+def test_ssd_bwd_bf16_split_model_within_card_tolerance(G, S, with_h0,
+                                                        with_dh):
+    """The tensor-core backward's rounding, modelled in PyTorch
+    (``ref.ssd_scan_bwd_ref(..., split=True)``: bf16 inputs, every value
+    that is not a bf16 input fed to its products as bf16 hi + lo, f32
+    sums, bf16 dx, dB and dC), at mamba2-2.7b's widths (4 heads of 64,
+    d_state 128; S 200 and a ragged 129; G 1 and 2; with and without h0
+    and a gradient by the final state), against the float64 plain
+    backward on the same bf16 values: each gradient within the card
+    tests' bf16 tolerance (2e-2) of its largest |value|.  Worst seen:
+    3.34e-3 (dB, S 129, G 2, with h0), the bf16 rounding of the outputs;
+    the splits move ddA, ddt and dh0 by 6e-6 of their largest at most.
+    The model must differ from the unsplit f32 backward (the splits are
+    applied)."""
+    args, dy, dh = _ssd_inputs(S + G, B=1, H=4, G=G, S=S, P=64, N=128,
+                               with_h0=with_h0, with_dh=with_dh)
+    bf = lambda a: torch.from_numpy(a).bfloat16()
+    opt = lambda a: None if a is None else _t(a)
+    ins = (bf(args[0]), _t(args[1]), _t(args[2]), bf(args[3]), bf(args[4]),
+           opt(args[5]), bf(dy), opt(dh))
+    got = ref.ssd_scan_bwd_ref(*ins, chunk=CHUNK, split=True)
+    plain = ref.ssd_scan_bwd_ref(*ins, chunk=CHUNK)
+    want = ref.ssd_scan_bwd_ref(*(None if a is None else a.double()
+                                  for a in ins), chunk=CHUNK)
+    for name, g, w in zip(("dx", "ddA", "ddt", "dB", "dC", "dh0"), got,
+                          want):
+        assert g.dtype == (torch.bfloat16 if name in ("dx", "dB", "dC")
+                           else torch.float32), name
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = float((g.double() - w).abs().max())
+        assert err <= SSD_BF16_TOL * float(w.abs().max()), (name, err)
+    assert not torch.equal(got[1], plain[1])
+    assert not torch.equal(got[5], plain[5])
+
+
+def test_bf16_split_carries_sixteen_bits():
+    """``ref.bf16_split``: hi is x rounded to bf16, lo the rest rounded
+    again; hi + lo is within 2^-16 of |x| (relative) on normal values."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        10_000).astype(np.float32)) * 1e3
+    hi, lo = ref.bf16_split(x)
+    assert torch.equal(hi, x.bfloat16().float())
+    assert torch.equal(lo, (x - hi).bfloat16().float())
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0 ** -16
 
 
 def test_autograd_functions_on_cpu_take_the_plain_backward():
