@@ -77,7 +77,13 @@ Phases (each one failing makes the script exit non-zero):
      state's norm; bf16: 2e-2), the CUDA-core kernel held and timed
      beside the wgmma one, which must be no slower, and at S = 3,001
      ``ops.ssd_op`` in the model's layout timed beside the kernel alone
-     (the transposes around the call);
+     (the transposes around the call); ``flash_attention`` at
+     deepseek-v2-236b's MLA prefill shape (BH 128, group 1, q and k of
+     head dim 192, v of 128, causal global, S = 512, 1,000, 2,048, 3,000),
+     bf16 on the wgmma kernel (the CUDA-core kernel held and timed
+     beside) and f32 on the CUDA-core kernel, each against its plain
+     version within the same tolerances, timed beside it, sdpa with the
+     same bool mask and the bound (2 (D + Dv) operations per kept pair);
   5. serving recurrentgemma-2b at its published width (random weights
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
@@ -97,7 +103,18 @@ Phases (each one failing makes the script exit non-zero):
      launch 64 ``ssd_scan`` kernels, all on the wgmma path, and nothing
      else; the plain run's prefill logits, SSM states and first tokens
      are held to it as in phase 5, each layer's state error printed as a
-     share of its limit;
+     share of its limit; then (b) deepseek-v2-236b at its published width
+     (d_model 5,120, 128 heads, MLA ranks 1,536 / 512, 160 routed experts
+     top-6 of d_ff 1,536, 2 shared, vocab 102,400), depth cut from 60 to
+     7 layers (the dense first layer and six MoE layers), bf16 weights
+     from a seeded generator (the router f32), the same engine and 8
+     requests (prompts of 512-3,000 tokens): every prefill launches 7
+     flash kernels, all on the wgmma path; the profiled 3,000-token
+     prefill's flash outputs are held against the plain version on the
+     same q, k, v; the plain run's routing is compared with the kernels'
+     layer by layer (printed), and the logits and first tokens of every
+     prompt whose routing agreed at its last position in every layer are
+     held as in phase 5 (the others printed beside the limit);
   7. the platform facade (``repro_torch.platform``): (a) the port's
      ``smoke()`` on the card (every registered scheduler built from
      manifest dicts, 30 ticks, 8 target nodes), then the same manifests
@@ -171,7 +188,8 @@ Phases (each one failing makes the script exit non-zero):
   9. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
-     serving path's kernel, with the f32 path's under "f32"; the SSD
+     serving path's kernel, with the f32 path's under "f32" and the MLA
+     shape's under "mla", its launches phase 6 (b)'s; the SSD
      scan's is the wgmma kernel, the RG-LRU scan's the TMA kernel; each
      redesigned kernel carries the first kernel's times beside its own,
      the backward kernels' too (the attention backward's entry is the
@@ -227,6 +245,9 @@ TF32_OPS_PER_S = 494.7e12
 #: of |v| about 0.8 to |out| about 0.03, so one kv tile of 32 keys
 #: dropped or added moves outputs by many times that
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -8)}
+#: deepseek-v2-236b's MLA prefill: 128 heads, q and k of head dim 128 +
+#: 64 (nope + rope), v of head dim 128, causal global attention
+MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 128, 192, 128
 #: recurrentgemma-2b's local layers: MQA, head dim 256, window 2,048
 SERVE_ARCH = "recurrentgemma-2b"
 SERVE_PROMPTS = (512, 1000, 2048, 3000)
@@ -244,6 +265,11 @@ LOGIT_TOL = 2e-2
 SSM_ARCH = "mamba2-2.7b"
 SSM_PROMPTS = (512, 1000, 2048, 3001)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase 6 (b): deepseek-v2-236b at its published width, depth cut from
+#: 60 layers (470 GB of bf16 weights) to the dense first layer and six
+#: MoE layers (about 50 GB), served as phase 5 serves
+MOE_ARCH = "deepseek-v2-236b"
+MOE_LAYERS = 7
 #: phase 8: recurrentgemma-2b and mamba2-2.7b trained at full width and
 #: depth on the serving shape's longest prompt (past recurrentgemma's
 #: 2,048 window; 46 whole chunks of 64 and a ragged one of 56 for the SSD
@@ -1067,14 +1093,17 @@ def matmul_peak(dtype) -> float:
 
 
 def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int,
-                peak=None):
-    """q, k, v read once and o written once; 4*D operations (two
-    multiply-adds, for q.k and p.v) per query-key pair the mask keeps, at
-    the tensor-core rate for the inputs' type (or `peak`)."""
+                peak=None, dv=None):
+    """q, k, v read once and o written once; 2*(D + Dv) operations (a
+    multiply-add a column for q.k and for p.v; 4*D where Dv = D) per
+    query-key pair the mask keeps, at the tensor-core rate for the inputs'
+    type (or `peak`).  q and k have D columns, v and o Dv (D when None)."""
     import torch
+    dv = d if dv is None else dv
     esize = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * bh + 2 * bh_kv) * s * d * esize
-    return bound(nbytes, 4 * bh * d * pairs, peak or matmul_peak(dtype))
+    nbytes = ((bh + bh_kv) * d + (bh + bh_kv) * dv) * s * esize
+    return bound(nbytes, 2 * (d + dv) * bh * pairs,
+                 peak or matmul_peak(dtype))
 
 
 def tf32_flash(q, k, v, kw):
@@ -1108,10 +1137,11 @@ def simt_flash(q, k, v, kw):
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import KINDS
     bh, s, d = q.shape
-    out = torch.empty_like(q)
+    dv = v.shape[-1]
+    out = q.new_empty((bh, s, dv))
     err = _build.load("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
-        bh // k.shape[0], int(q.dtype == torch.bfloat16),
+        dv, bh // k.shape[0], int(q.dtype == torch.bfloat16),
         int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
         int(kw.get("window", 0)), float(kw.get("softcap", 0.0)),
         torch.cuda.current_stream().cuda_stream)
@@ -1120,17 +1150,20 @@ def simt_flash(q, k, v, kw):
 
 
 def hold_flash(q, k, v, kw, with_library: bool):
-    """flash_attention on (BH, S, D) tensors against its plain version
-    (k and v repeated, materialised softmax), both timed; the library
-    yardstick is scaled_dot_product_attention with the same boolean mask.
-    The wrapper must launch the kernel that ``path`` names; where that is
-    a tensor-core kernel, the CUDA-core kernel is held and timed beside
-    it.  Returns a dict of the measurements."""
+    """flash_attention on q, k (BH, S, D) and v (BH, S, Dv) tensors
+    against its plain version (k and v repeated, materialised softmax),
+    both timed; the library yardstick is scaled_dot_product_attention
+    with the same boolean mask (which takes Dv other than D).  The
+    wrapper must launch the
+    kernel that ``path`` names; where that is a tensor-core kernel, the
+    CUDA-core kernel is held and timed beside it.  Returns a dict of the
+    measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention, path
     bh, s, d = q.shape
+    dv = v.shape[-1]
     group = bh // k.shape[0]
     dt = str(q.dtype).split(".")[-1]
     first, second = ATTN_TOL[dt]
@@ -1160,8 +1193,8 @@ def hold_flash(q, k, v, kw, with_library: bool):
            if n != n0[p]]
     want = plain()
     torch.cuda.synchronize()
-    want_path = path(q.dtype, d, kw.get("softcap", 0.0))
-    check(ran == [want_path], f"flash_attention S={s} D={d} {dt}: "
+    want_path = path(q.dtype, d, kw.get("softcap", 0.0), dv)
+    check(ran == [want_path], f"flash_attention S={s} D={d} Dv={dv} {dt}: "
           f"ran {ran}, path says {want_path}")
     err, worst = held(got, want, ran[0])
     mask = ref.attention_mask(s, kw.get("causal", True),
@@ -1190,7 +1223,7 @@ def hold_flash(q, k, v, kw, with_library: bool):
         out["plain_ms"] = time_ms(plain)
         q4 = q.view(1, bh, s, d)
         k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
-        v4 = v.view(1, -1, s, d).expand(1, bh, s, d)
+        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
 
         def library():
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
@@ -1198,10 +1231,10 @@ def hold_flash(q, k, v, kw, with_library: bool):
         out["library_ms"] = time_ms(library)
         out["library_device_ms"] = time_ms(library, queued=True)
         out["bound_ms"], out["bound_by"] = flash_bound(
-            bh, k.shape[0], s, d, q.dtype, pairs)
+            bh, k.shape[0], s, d, q.dtype, pairs, dv=dv)
         if q.dtype == torch.float32:
             out["cuda_core_bound_ms"], _ = flash_bound(
-                bh, k.shape[0], s, d, q.dtype, pairs, F32_OPS_PER_S)
+                bh, k.shape[0], s, d, q.dtype, pairs, F32_OPS_PER_S, dv=dv)
     return out
 
 
@@ -1567,7 +1600,55 @@ def phase4_lm_kernels():
                                            False):
                     serve["ssd_scan"] = dict(m, shape=[1, heads, s, p, n])
                     ssd_layout_cost(*args[:5], A)
+    serve.update(phase4_mla(randn))
     return serve
+
+
+def phase4_mla(randn) -> dict:
+    """flash_attention at deepseek-v2-236b's MLA prefill shape: 128 heads
+    (BH 128, group 1), q and k of head dim 192, v of 128, causal global,
+    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma kernel (the CUDA-core
+    kernel held and timed beside it), f32 on the CUDA-core kernel.  Each
+    held against its plain version within ATTN_TOL and timed beside it,
+    sdpa with the same bool mask and the bound.  Returns the S = 3,000 measurements of both dtypes."""
+    import torch
+    bh, d, dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        for s in SERVE_PROMPTS:
+            q, k, v = (randn(bh, s, d, dtype=dtype),
+                       randn(bh, s, d, dtype=dtype),
+                       randn(bh, s, dv, dtype=dtype))
+            m = hold_flash(q, k, v, dict(causal=True, kind="global"),
+                           with_library=True)
+            del q, k, v
+            want = "wgmma" if dtype == torch.bfloat16 else "simt"
+            check(m["path"] == want, f"flash_attention MLA S={s} {dt}: "
+                  f"path {m['path']}, expected {want}")
+            simt = (f", simt kernel {m['simt_ms']:.4f} ms (device "
+                    f"{m['simt_device_ms']:.4f} ms, "
+                    f"{m['simt_device_ms'] / m['device_ms']:.2f}x the "
+                    f"wgmma kernel's; max_abs_err {m['simt_err']:.3g}, "
+                    f"{m['simt_worst']:.3g} of the allowance)"
+                    if "simt_ms" in m else "")
+            old_bound = (f"; at the CUDA cores' 67 TFLOP/s "
+                         f"{m['cuda_core_bound_ms']:.5f} ms"
+                         if "cuda_core_bound_ms" in m else "")
+            print(f"phase4 flash_attention MLA BH={bh} G=1 S={s} D={d} "
+                  f"Dv={dv} causal global {dt} path={m['path']}: "
+                  f"max_abs_err {m['max_abs_err']:.3g} ({m['worst']:.3g} of "
+                  f"the allowance), kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms){simt}, plain "
+                  f"{m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms "
+                  f"(device {m['library_device_ms']:.4f} ms), bound "
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}{old_bound}), "
+                  f"pairs {m['pairs']}")
+            if s == max(SERVE_PROMPTS):
+                key = "flash_attention mla" + (
+                    "" if dtype == torch.bfloat16 else " f32")
+                out[key] = dict(m, shape=[bh, s, d, dv])
+    return out
 
 
 def lm_counts() -> dict:
@@ -1598,32 +1679,52 @@ def reset_lm_counts():
 
 class PrefillRecorder:
     """Keeps each prefill's last-position logits, its recurrent or SSM
-    layers' final states h (on the host, f32) and the LM kernels it
-    launched, in the order the engine admits requests.  Wraps the name
-    the serving engine calls."""
+    layers' final states h (on the host, f32), the LM kernels it launched
+    and each MoE layer's routing (every token's experts and whether each
+    assignment was kept under the capacity, on the sort dispatch), in the
+    order the engine admits requests.  Wraps the names the serving engine
+    and the MoE layer call."""
 
     def __init__(self):
         from repro_torch.models import model as model_lib
-        self.mod = model_lib
-        self.orig = model_lib.prefill
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.moe = model_lib, moe_mod
+        self.orig, self.orig_router = model_lib.prefill, moe_mod._router
         self.logits = []
         self.states = []
         self.launches = []
+        self.routes = []
+        self._routing = None
+
+        def router(params, x2d, moe):
+            w, idx, gates = self.orig_router(params, x2d, moe)
+            if self._routing is not None:
+                pos = moe_mod._positions_in_expert(idx, moe.n_experts)
+                keep = pos < moe_mod._capacity(idx.shape[0], moe)
+                self._routing.append((idx, keep))
+            return w, idx, gates
 
         def rec(*args, **kw):
             n0 = lm_counts()
-            logits, cache = self.orig(*args, **kw)
+            self._routing = []
+            try:
+                logits, cache = self.orig(*args, **kw)
+            finally:
+                routing, self._routing = self._routing, None
             self.launches.append({k: n - n0[k]
                                   for k, n in lm_counts().items()})
             self.logits.append(logits[0].float().cpu())
             self.states.append([c["h"][0].float().cpu() for c in cache
                                 if "h" in c])
+            self.routes.append(routing)
             return logits, cache
 
         model_lib.prefill = rec
+        moe_mod._router = router
 
     def close(self):
         self.mod.prefill = self.orig
+        self.moe._router = self.orig_router
 
 
 def _serve(cfg, params, prompts, use_kernel: bool):
@@ -1888,6 +1989,237 @@ def phase6_ssm_serving():
          "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
+
+
+class FlashStash:
+    """While open, keeps every (q, k, v, out, mask) that the model layers
+    hand to the flash kernel (``ops.flash_attention_fn``), so each call's
+    output can be held against the plain version afterwards, outside the
+    profiled window."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig = ops, ops.flash_attention_fn
+        self.calls = []
+
+        def stash(q, k, v, **kw):
+            out = self.orig(q, k, v, **kw)
+            self.calls.append((q, k, v, out, kw))
+            return out
+
+        ops.flash_attention_fn = stash
+
+    def close(self):
+        self.ops.flash_attention_fn = self.orig
+
+
+def hold_stashed_flash(calls, label: str, rows: int = 16) -> float:
+    """Each stashed bf16 flash output against the plain version on the
+    same q, k, v (`rows` query rows at a time, to bound the plain
+    version's scores), within ATTN_TOL; returns the worst element's share
+    of its allowance."""
+    import torch
+    from repro_torch.kernels import ref
+    first, second = ATTN_TOL["bfloat16"]
+    worst_all = 0.0
+    for j, (q, k, v, out, kw) in enumerate(calls):
+        group = q.shape[0] // k.shape[0]
+        worst, err = 0.0, 0.0
+        for r0 in range(0, q.shape[0], rows):
+            qs = q[r0:r0 + rows]
+            ks = k.repeat_interleave(group, 0)[r0:r0 + rows]
+            vs = v.repeat_interleave(group, 0)[r0:r0 + rows]
+            want = ref.flash_attention_ref(qs, ks, vs, **kw).float()
+            avg_abs_v = ref.flash_attention_ref(qs, ks, vs.abs(), **kw)
+            diff = (out[r0:r0 + rows].float() - want).abs()
+            allowed = first * want.abs() + second * avg_abs_v.float()
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / allowed).max()))
+        print(f"{label} layer {j} flash kernel against plain on its own q "
+              f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+              f"max_abs_err {err:.3g}, worst element {worst:.3g} of the "
+              f"allowance")
+        check(worst <= 1.0, f"{label} layer {j}: the flash kernel is "
+              f"{worst:.3g} of its allowance from the plain version")
+        worst_all = max(worst_all, worst)
+    return worst_all
+
+
+def _routing_diff(rk, rp):
+    """One MoE layer's routing in two runs, (experts, kept) each: the
+    tokens whose expert set differs, the assignments whose keep flag
+    differs (of tokens whose set agrees), and whether the last position's
+    experts and keep flags agree."""
+    import torch
+    ik, kk = (t.cpu() for t in rk)
+    ip, kp = (t.cpu() for t in rp)
+    sk, ordk = torch.sort(ik, dim=-1)
+    sp, ordp = torch.sort(ip, dim=-1)
+    keep_k, keep_p = kk.gather(1, ordk), kp.gather(1, ordp)
+    set_diff = (sk != sp).any(dim=-1)
+    keep_diff = (keep_k != keep_p) & ~set_diff[:, None]
+    last = not bool(set_diff[-1]) and bool((keep_k[-1] == keep_p[-1]).all())
+    return int(set_diff.sum()), int(keep_diff.sum()), last
+
+
+def phase6b_moe_serving():
+    """deepseek-v2-236b at its published width, depth cut to MOE_LAYERS
+    (the dense first layer and six MoE layers), bf16 weights (the router
+    f32) from a seeded generator, after phase 6's model is freed: the
+    serving setup of phase 5.  Every prefill launches one flash kernel a
+    layer, all on the wgmma path (q and k of head dim 192, v of 128);
+    the profiled 3,000-token prefill's flash outputs are held against the
+    plain version on the same q, k, v; the plain run's routing is compared
+    layer by layer, and the logits and first tokens of every prompt whose
+    routing agreed at its last position in every layer are held as in
+    phase 5.  Returns the launches of the kernels' run."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase6b before init: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          " GiB allocated")
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    m, moe = cfg.mla, cfg.moe
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    check((cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
+           m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
+           moe.n_experts, moe.top_k, moe.d_ff_expert, moe.n_shared_experts,
+           cfg.vocab_size, n_moe) == (5120, MLA_HEADS, 1536, 512,
+                                      MLA_QK_DIM, MLA_V_DIM, 160, 6, 1536,
+                                      2, 102400, MOE_LAYERS - 1),
+          f"phase 6 (b): {MOE_ARCH} is not at its published width")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def gbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree)) / 1e9
+
+    print(f"phase6b {MOE_ARCH}: {sum(t.numel() for t in _leaves(params)):,}"
+          f" parameters (bf16, router f32; the config's estimate "
+          f"{cfg.param_count():,}), {gbytes(params):.2f} GB: embedding and "
+          f"head {gbytes(params['embed']) + gbytes(params['lm_head']):.2f}, "
+          f"dense layer 0 {gbytes(params['layers'][0]):.2f}, each MoE layer "
+          f"{gbytes(params['layers'][1]):.2f}; {cfg.n_layers} layers of "
+          f"{get_config(MOE_ARCH).n_layers} (1 dense + {n_moe} MoE; MLA "
+          f"ranks {m.q_lora_rank} / {m.kv_lora_rank}; {moe.n_experts} "
+          f"experts top-{moe.top_k} of d_ff {moe.d_ff_expert}, "
+          f"{moe.n_shared_experts} shared; dispatch {moe.dispatch}, "
+          f"capacity factor {moe.capacity_factor}), init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS for _ in range(2)]
+    warm = ServingEngine(cfg, params, slots=1, max_len=SERVE_MAX_LEN)
+    warm.scale_up(1)
+    warm.submit(Request(-1, prompts[0][:256].copy(), 2))
+    warm.drain()
+    del warm
+
+    # one flash kernel a layer, all on the wgmma path, nothing else
+    per_prefill = {k: 0 for k in lm_counts()}
+    per_prefill["flash_attention"] = cfg.n_layers
+    per_prefill["flash_attention.wgmma"] = cfg.n_layers
+    done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True)
+    check(len(done) == len(prompts)
+          and all(len(r.tokens) == SERVE_MAX_NEW for r in done),
+          "phase 6 (b): not every request finished with max_new tokens")
+    want = {k: n * len(prompts) for k, n in per_prefill.items()}
+    print(f"phase6b launches (kernels run): {launches}, expected {want} "
+          f"({cfg.n_layers} flash kernels per prefill, all wgmma)")
+    check(launches == want, f"phase 6 (b) launches {launches} != {want}")
+    check(rec_k.launches == [per_prefill] * len(prompts),
+          f"phase 6 (b): launches per prefill {rec_k.launches}")
+    prefill_ms = [1e3 * (r.t_first_token - r.t_admit) for r in done]
+    for r, ms in zip(done, prefill_ms):
+        print(f"phase6b request {r.rid}: prompt {len(r.prompt)}, prefill "
+              f"{ms:.2f} ms, latency {r.latency_ms:.2f} ms, tokens "
+              f"{r.tokens[:4]}...")
+    n_dec = sum(len(r.tokens) - 1 for r in done)
+    dec_s = wall - sum(prefill_ms) / 1e3
+    print(f"phase6b drain {wall:.3f} s: prefill {sum(prefill_ms):.2f} ms "
+          f"total, decode {n_dec} tokens in {dec_s:.3f} s = "
+          f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
+          f"{peak / 2**30:.3f} GiB")
+
+    stash = FlashStash()
+    try:
+        profile_serving(cfg, params, prompts[-1], "phase6b")
+    finally:
+        stash.close()
+    check(len(stash.calls) == cfg.n_layers,
+          f"phase 6 (b): the profiled prefill made {len(stash.calls)} flash "
+          f"calls, not {cfg.n_layers}")
+    worst_layer = hold_stashed_flash(stash.calls, "phase6b profiled prefill")
+    del stash
+
+    done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
+                                                  False)
+    check(not any(launches_p.values()),
+          f"phase 6 (b): the plain run launched kernels {launches_p}")
+    check(len(rec_k.logits) == len(rec_p.logits) == len(prompts)
+          and all(len(r) == n_moe for r in rec_k.routes + rec_p.routes),
+          "phase 6 (b): a prefill or its routing was not recorded")
+    worst, n_held, n_checked = 0.0, 0, 0
+    flips = [[0, 0] for _ in range(n_moe)]
+    for i, (lk, lp) in enumerate(zip(rec_k.logits, rec_p.logits)):
+        check(bool(torch.isfinite(lk).all()),
+              f"phase 6 (b) prefill {i}: logits not finite")
+        diffs = [_routing_diff(a, b)
+                 for a, b in zip(rec_k.routes[i], rec_p.routes[i])]
+        for j, (n_set, n_keep, _) in enumerate(diffs):
+            flips[j][0] += n_set
+            flips[j][1] += n_keep
+        agreed = all(last for _, _, last in diffs)
+        scale = float(lp.abs().max())
+        err = float((lk - lp).abs().max())
+        top2 = torch.topk(lp, 2).values
+        margin = float(top2[0] - top2[1])
+        tol = LOGIT_TOL * scale
+        same = int(lk.argmax()) == int(lp.argmax())
+        print(f"phase6b prefill {i} (prompt {len(prompts[i])}): routing "
+              f"differs from the plain run in {[d[0] for d in diffs]} "
+              f"tokens' experts and {[d[1] for d in diffs]} keep flags by "
+              f"MoE layer; the last position agrees by layer "
+              f"{[int(d[2]) for d in diffs]}; logits max_abs_err {err:.4f} "
+              f"of max |logit| {scale:.2f} (tol {tol:.4f}, "
+              f"{'held' if agreed else 'not held: routing differs'}); "
+              f"top-2 margin {margin:.4f}; first token same={same}")
+        if not agreed:
+            continue
+        n_held += 1
+        worst = max(worst, err / scale)
+        check(err <= tol, f"phase 6 (b) prefill {i}: logits differ by {err}")
+        if margin > tol:
+            n_checked += 1
+            check(same, f"phase 6 (b) prefill {i}: first token differs")
+    print("phase6b routing decisions that differ between the kernels' and "
+          "the plain run, summed over the 8 prefills, by MoE layer (tokens "
+          "whose expert set differs / assignments whose keep flag "
+          "differs): " + "; ".join(f"layer {j + 1} {a} / {b}"
+                                   for j, (a, b) in enumerate(flips)))
+    print(f"phase6b plain run: drain {wall_p:.3f} s; logits held on "
+          f"{n_held} of {len(prompts)} prefills (worst {worst:.5f} of max "
+          f"|logit|), first token checked on {n_checked}; the profiled "
+          f"prefill's flash outputs at worst {worst_layer:.3g} of their "
+          f"allowance")
+    check(n_held > 0, "phase 6 (b): no prompt's routing agreed at its last "
+          "position, so no logits were held")
+    del params, rec_k, rec_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase6b total {time.perf_counter() - t_phase:.1f} s; after: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3061,6 +3393,7 @@ def main() -> int:
             lm["flash_attention"]["simt_device_ms"],
             lm["rglru_scan"]["simt_device_ms"])
         ssm_launches = phase6_ssm_serving()
+        moe_launches = phase6b_moe_serving()
         platform_launches = phase7_platform()
         train, train_launches = phase8_training()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
@@ -3140,8 +3473,29 @@ def main() -> int:
               f"{f32b['plain_ms']:.4f} ms, sdpa backward "
               f"{f32b['library_ms']:.4f} ms, bound {f32b['bound_ms']:.5f} ms "
               f"({f32b['bound_by']}), max_abs_err {f32b['max_abs_err']:.3g}")
-        f32 = lm["flash_attention f32"]
+        # the MLA shape (deepseek-v2-236b's prefill, phase 6 (b)): the
+        # wgmma kernel at D 192, Dv 128, with the CUDA-core kernel's f32
+        # beside; launches are phase 6 (b)'s kernels run
         flash = next(k for k in kernels if k["name"] == "flash_attention")
+        keys = ("path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
+                "simt_device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")
+        mla, mla32 = lm["flash_attention mla"], lm["flash_attention mla f32"]
+        flash["mla"] = {
+            "source": CSRC + SOURCES["flash_attention"],
+            "launches": moe_launches["flash_attention"],
+            **{key: mla.get(key) for key in keys},
+            "f32": {"source": CSRC + "flash_attention.cu",
+                    **{key: mla32.get(key) for key in keys
+                       if not key.startswith("simt")}}}
+        for label, m in (("bf16", mla), ("f32", mla32)):
+            print(f"flash_attention mla {label} path={m['path']} at "
+                  f"{m['shape']}: kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms, "
+                  f"sdpa {m['library_ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}), max_abs_err "
+                  f"{m['max_abs_err']:.3g}")
+        f32 = lm["flash_attention f32"]
         flash["f32"] = {
             "source": CSRC + SOURCES["flash_attention f32"],
             **{key: f32[key] for key in (

@@ -24,7 +24,6 @@ import torch
 from ..configs.base import InputShape, ModelConfig
 from ..core.predictor import resolve_device
 from ..models import steps as steps_lib
-from ..models.model import check_supported
 from ..optim import adamw
 
 
@@ -42,7 +41,6 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     """The train step of `cfg` at `shape` on `device` (the card unless the
     caller names another), through the hand-written kernels and their
     backward kernels."""
-    check_supported(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     dev = resolve_device(device)
     if microbatch < 1 or shape.global_batch % microbatch:

@@ -68,16 +68,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
                                 _I, _I, _I, _P], _I),
     },
     "flash_attention": {
-        # q, k, v, o, bh, s, d, group, is_bf16, causal, kind, window,
+        # q, k, v, o, bh, s, d, dv, group, is_bf16, causal, kind, window,
         # softcap, stream
         "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _D, _P], _I),
+                                 _I, _I, _D, _P], _I),
     },
     "flash_attention_wgmma": {
-        # q, k, v, o, lse (or null), bh, s, d, group, causal, kind, window,
-        # softcap, stream
+        # q, k, v, o, lse (or null), bh, s, d, dv, group, causal, kind,
+        # window, softcap, stream
         "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _D, _P], _I),
+                                       _I, _I, _I, _D, _P], _I),
     },
     "flash_attention_tf32": {
         # q, k, v, o, part (scratch or null), lse (or null), bh, s, d,

@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention` (`_kernel`) of
 // src/repro/kernels/flash_attention.py:
-//   q (BH, S, D), k and v (BH / G, S, D), f32 or bf16, D <= 256
-//   -> o (BH, S, D) in q's dtype,
+//   q (BH, S, D), k (BH / G, S, D), v (BH / G, S, Dv), f32 or bf16,
+//   D and Dv <= 256 -> o (BH, S, Dv) in q's dtype,
 // with causal, `local` (sliding window) and `chunked` (aligned chunks of
 // `window` keys) masks and an optional tanh softcap on the scores.  Query
 // row bh reads kv row bh / G, so MQA and GQA need no repeat of k and v.
+// v may be narrower than q and k (MLA: D = 192, Dv = 128); the scale is
+// 1/sqrt(D) either way.
 //
 // Arithmetic, as the Pallas kernel does it: q and k are read as f32 and
 // their products summed in f32; s = (q.k) * (1/sqrt(D)); softcap
@@ -23,7 +25,8 @@
 // TFLOP/s at most), not on the tensor cores.  It now serves only the
 // head dims that the tensor-core kernels do not take (D not 64, 128 or
 // 256: flash_attention_wgmma.cu has bf16 there, flash_attention_tf32.cu
-// f32), and stays callable at every shape as their yardstick.
+// f32; at D = 192, Dv = 128 it serves f32 only), and stays callable at
+// every shape as their yardstick.
 //
 // What the design does:
 //   * one block of 256 threads per (bh, tile of 64 query rows); the block
@@ -36,7 +39,7 @@
 //     Every row sees at least its own key, so a skipped tile would only
 //     have been wiped by alpha = 0, and the function is unchanged;
 //   * each thread owns a 4 x 4 block of the 64 x 64 score tile and a
-//     4 x 16 block of the 64 x D accumulator, in registers;
+//     4 x 16 block of the 64 x Dv accumulator, in registers;
 //   * a ragged last tile is masked (keys at or past S give p = 0, query
 //     rows past S are not written), so any S works with one tile size.
 // At D = 256 the tiles take 214 KB of shared memory, above the default 48
@@ -73,33 +76,34 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-size_t smem_bytes(int d) {
+size_t smem_bytes(int d, int dv) {
   const size_t ds = d + 1;
-  return sizeof(float) * (kBQ * ds + kBK * ds + (size_t)kBK * d +
+  return sizeof(float) * (kBQ * ds + kBK * ds + (size_t)kBK * dv +
                           kBQ * (kBK + 1) + 2 * kBQ);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int D, int group,
-                 float scale, int causal, int kind, int window, float softcap) {
+                 const T* __restrict__ v, T* __restrict__ o, int S, int D, int Dv,
+                 int group, float scale, int causal, int kind, int window,
+                 float softcap) {
   extern __shared__ float smem[];
   const int ds = D + 1;
   float* qs = smem;                    // kBQ x ds
   float* ks = qs + kBQ * ds;           // kBK x ds
-  float* vs = ks + kBK * ds;           // kBK x D
-  float* ps = vs + kBK * D;            // kBQ x (kBK + 1): scores, then p
+  float* vs = ks + kBK * ds;           // kBK x Dv
+  float* ps = vs + kBK * Dv;           // kBQ x (kBK + 1): scores, then p
   float* row_alpha = ps + kBQ * (kBK + 1);
   float* row_l = row_alpha + kBQ;
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const long long plane = (long long)S * D;
+  const long long plane = (long long)S * D, vplane = (long long)S * Dv;
   const T* qb = q + bh * plane;
   const T* kb = k + (bh / group) * plane;
-  const T* vb = v + (bh / group) * plane;
-  T* ob = o + bh * plane;
+  const T* vb = v + (bh / group) * vplane;
+  T* ob = o + bh * vplane;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
@@ -131,10 +135,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's k, v and p are no longer read
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
-      const bool in = k0 + r < S;
-      const long long g = (long long)(k0 + r) * D + c;
-      ks[r * ds + c] = in ? to_f(kb[g]) : 0.0f;
-      vs[r * D + c] = in ? to_f(vb[g]) : 0.0f;
+      ks[r * ds + c] = k0 + r < S ? to_f(kb[(long long)(k0 + r) * D + c]) : 0.0f;
+    }
+    for (int i = tid; i < kBK * Dv; i += kThreads) {
+      const int r = i / Dv, c = i % Dv;
+      vs[r * Dv + c] = k0 + r < S ? to_f(vb[(long long)(k0 + r) * Dv + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -209,8 +214,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) {
-          const float vv = vs[c * D + d];
+        if (d < Dv) {
+          const float vv = vs[c * Dv + d];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
         }
@@ -228,16 +233,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) ob[(long long)(q0 + r) * D + d] = from_f<T>(acc[i][j] / l);
+      if (d < Dv) ob[(long long)(q0 + r) * Dv + d] = from_f<T>(acc[i][j] / l);
     }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                   int d, int group, int causal, int kind, int window, float softcap,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
+                   int d, int dv, int group, int causal, int kind, int window,
+                   float softcap, cudaStream_t stream) {
+  const size_t smem = smem_bytes(d, dv);
   if (smem > (size_t)kDefaultSmemLimit) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -247,25 +252,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((s + kBQ - 1) / kBQ, bh);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, d, group, scale, causal, kind, window, softcap);
+      static_cast<T*>(o), s, d, dv, group, scale, causal, kind, window, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (bh, s, d); k, v: (bh / group, s, d); all f32 (is_bf16 = 0) or
-// all bf16 (is_bf16 = 1), contiguous, on the current device.  kind: 0
-// global, 1 local, 2 chunked.
+// q: (bh, s, d); k: (bh / group, s, d); v: (bh / group, s, dv); o: (bh,
+// s, dv); all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), contiguous,
+// on the current device.  kind: 0 global, 1 local, 2 chunked.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int bh, int s, int d, int group, int is_bf16,
+                                   int bh, int s, int d, int dv, int group, int is_bf16,
                                    int causal, int kind, int window, double softcap,
                                    void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > kMaxD || group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > kMaxD || group <= 0 || bh % group)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, bh, s, d, group, causal, kind,
-                                        window, (float)softcap, st)
-                : launch<float>(q, k, v, o, bh, s, d, group, causal, kind, window,
-                                (float)softcap, st);
+  const cudaError_t err =
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, bh, s, d, dv, group, causal, kind,
+                                      window, (float)softcap, st)
+              : launch<float>(q, k, v, o, bh, s, d, dv, group, causal, kind, window,
+                              (float)softcap, st);
   return (int)err;
 }

@@ -1,14 +1,19 @@
 // Forward attention with an online softmax on Hopper's tensor cores
-// (sm_90a): the bf16 path for head dims 64, 128 and 256.
+// (sm_90a): the bf16 path for head dims 64, 128 and 256, and for MLA's q
+// and k of head dim 192 with v of head dim 128.
 //
-// Replaces, for bf16 inputs with D in {64, 128, 256}, the Pallas TPU kernel
-// `flash_attention` (`_kernel`) of src/repro/kernels/flash_attention.py:
-//   q (BH, S, D), k and v (BH / G, S, D), bf16 -> o (BH, S, D) bf16,
+// Replaces, for bf16 inputs with D = Dv in {64, 128, 256} or (D, Dv) =
+// (192, 128), the Pallas TPU kernel `flash_attention` (`_kernel`) of
+// src/repro/kernels/flash_attention.py:
+//   q (BH, S, D), k (BH / G, S, D), v (BH / G, S, Dv), bf16
+//   -> o (BH, S, Dv) bf16,
 // with causal, `local` (sliding window) and `chunked` (aligned chunks of
 // `window` keys) masks and an optional tanh softcap on the scores.  Query
 // row bh reads kv row bh / G, so MQA and GQA need no repeat of k and v.
 // f32 inputs and other head dims stay on the CUDA-core kernel of
-// flash_attention.cu; the wrapper picks the path from dtype and D alone.
+// flash_attention.cu; the wrapper picks the path from dtype, D and Dv
+// alone.  The kernel is templated on DQK (q and k columns) and DV (v and
+// o columns) apart; the scale is 1/sqrt(DQK).
 //
 // Arithmetic, as the Pallas kernel does it: s = (q.k) * (1/sqrt(D)) with
 // the bf16 products summed in f32 (bf16 x bf16 is exact in f32, so only
@@ -32,13 +37,14 @@
 // What the design does:
 //   * one block of one warpgroup (128 threads) per (bh, tile of 64 query
 //     rows); both products run as warpgroup MMAs (wgmma): S = Q K^T as
-//     m64n{BK}k16 steps over D with Q and K in shared memory, and
-//     O += P V as m64n{D}k16 steps over the BK keys of a tile, with P
+//     m64n{BK}k16 steps over DQK with Q and K in shared memory (12 steps
+//     at MLA's 192), and O += P V as m64n{DV}k16 steps over the BK keys of
+//     a tile (m64n128k16 at MLA's 128), with P
 //     taken from registers (S's accumulator layout is the A operand's
 //     register layout, so p is rounded to bf16 in place) and V from shared
 //     memory as the MN-major B operand (the transpose bit);
-//   * O (64 x D f32), m and l live in the warpgroup's registers: D / 2
-//     floats of O a thread, 128 at D = 256.  The register budget is met by
+//   * O (64 x DV f32), m and l live in the warpgroup's registers: DV / 2
+//     floats of O a thread, 128 at DV = 256.  The register budget is met by
 //     the tile sizes, not by setmaxnreg: a block is one warpgroup and
 //     nothing else, so __launch_bounds__(128, 1) leaves each thread 255
 //     registers for O, S (BK / 2), P (BK / 4) and the softmax state (ptxas
@@ -46,7 +52,8 @@
 //   * Q, K and V arrive by TMA (cp.async.bulk.tensor, 3-d tensor maps
 //     encoded on the host with cuTensorMapEncodeTiled) with the 128-byte
 //     swizzle that the wgmma descriptors name.  A row of D bf16 is cut
-//     into D / 64 column blocks of 128 bytes, each stored as its own
+//     into D / 64 column blocks of 128 bytes (three for MLA's q and k,
+//     two for its v), each stored as its own
 //     rows x 128 B swizzled tile.  K and V go into a ring of two stages,
 //     each with an mbarrier: the copy of tile j + 1 is in flight while
 //     tile j's products run, and tile j + 2's copy starts as soon as
@@ -83,13 +90,14 @@ enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 // Shared memory of one block: Q, then the K ring, then the V ring, then
 // the barriers; every tile starts on a 1,024-byte boundary (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes).
-template <int D, int BK>
+template <int DQK, int DV, int BK>
 struct Layout {
-  static constexpr uint32_t kQBytes = kBQ * D * 2;
-  static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t kQBytes = kBQ * DQK * 2;
+  static constexpr uint32_t kKTile = BK * DQK * 2;  // one K tile
+  static constexpr uint32_t kVTile = BK * DV * 2;   // one V tile
   static constexpr uint32_t kK = kQBytes;
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + kStages * kTileBytes;
+  static constexpr uint32_t kV = kK + kStages * kKTile;
+  static constexpr uint32_t kBar = kV + kStages * kVTile;
   // kStages full barriers and the Q barrier, then slack to align the base
   static constexpr uint32_t kBytes = kBar + 8 * (kStages + 1) + 1024;
 };
@@ -102,15 +110,16 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int kind, in
   return ok;
 }
 
-template <int D, int BK>
+template <int DQK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                    float* __restrict__ lse, int S, int group, float scale, int causal,
                    int kind, int window, float softcap) {
-  using L = Layout<D, BK>;
-  constexpr int kCols = D / kColBlock;  // 128-byte column blocks per row
+  using L = Layout<DQK, DV, BK>;
+  constexpr int kQKCols = DQK / kColBlock;  // 128-byte column blocks per row
+  constexpr int kVCols = DV / kColBlock;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -139,12 +148,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   auto load_kv = [&](int st, int k0) {
     const uint32_t bar = full + 8 * st;
-    mbar_expect_tx(bar, 2 * L::kTileBytes);
+    mbar_expect_tx(bar, L::kKTile + L::kVTile);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      tma_load_3d(sk + st * L::kTileBytes + c * BK * 128, &tk, bar, c * kColBlock, k0, kvh);
-      tma_load_3d(sv + st * L::kTileBytes + c * BK * 128, &tv, bar, c * kColBlock, k0, kvh);
-    }
+    for (int c = 0; c < kQKCols; ++c)
+      tma_load_3d(sk + st * L::kKTile + c * BK * 128, &tk, bar, c * kColBlock, k0, kvh);
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c)
+      tma_load_3d(sv + st * L::kVTile + c * BK * 128, &tv, bar, c * kColBlock, k0, kvh);
   };
 
   if (tid == 0) {
@@ -156,7 +166,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_expect_tx(qbar, L::kQBytes);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+    for (int c = 0; c < kQKCols; ++c)
       tma_load_3d(sq + c * kBQ * 128, &tq, qbar, c * kColBlock, q0, bh);
     for (int st = 0; st < kStages && st < n_tiles; ++st) load_kv(st, k_first + st * BK);
   }
@@ -168,9 +178,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const int qp0 = q0 + r0, qp1 = qp0 + 8;
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
   mbar_wait(qbar, 0);
@@ -179,16 +189,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = k_first + it * BK;
     mbar_wait(full + 8 * st, (it / kStages) & 1);
 
-    // S = Q K^T over D in steps of 16: column block c, 32-byte step
+    // S = Q K^T over DQK in steps of 16: column block c, 32-byte step
     // within it (the swizzle is applied by the hardware to the address)
     float s[BK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       const uint64_t da = sw128_desc(sq + (kk / 4) * kBQ * 128 + off, 16, 1024);
       const uint64_t db =
-          sw128_desc(sk + st * L::kTileBytes + (kk / 4) * BK * 128 + off, 16, 1024);
+          sw128_desc(sk + st * L::kKTile + (kk / 4) * BK * 128 + off, 16, 1024);
       wgmma_ss<BK>(s, da, db, kk > 0);
     }
     wgmma_commit();
@@ -260,7 +270,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row r0 + 8
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 4) {
+    for (int i = 0; i < DV / 2; i += 4) {
       acc[i] *= al0;
       acc[i + 1] *= al0;
       acc[i + 2] *= al1;
@@ -273,8 +283,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = sw128_desc(sv + st * L::kTileBytes + kk * 16 * 128, BK * 128, 1024);
-      wgmma_rs_tb<D>(acc, pa[kk], db);
+      const uint64_t db = sw128_desc(sv + st * L::kVTile + kk * 16 * 128, BK * 128, 1024);
+      wgmma_rs_tb<DV>(acc, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -293,42 +303,42 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (qp0 < S) lse[(long long)bh * S + qp0] = m0 + logf(d0);
     if (qp1 < S) lse[(long long)bh * S + qp1] = m1 + logf(d1);
   }
-  __nv_bfloat16* ob = o + (long long)bh * S * D;
+  __nv_bfloat16* ob = o + (long long)bh * S * DV;
   if (qp0 < S) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qp0 * D + 8 * j + cq) =
+    for (int j = 0; j < DV / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qp0 * DV + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
     }
   }
   if (qp1 < S) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qp1 * D + 8 * j + cq) =
+    for (int j = 0; j < DV / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qp1 * DV + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
     }
   }
 }
 
 
-template <int D, int BK>
+template <int DQK, int DV, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int s, int group, int causal, int kind, int window, float softcap,
                    cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(enc, &mq, q, bh, s, D, kBQ) ||
-      !encode_map(enc, &mk, k, bh / group, s, D, BK) ||
-      !encode_map(enc, &mv, v, bh / group, s, D, BK))
+  if (!encode_map(enc, &mq, q, bh, s, DQK, kBQ) ||
+      !encode_map(enc, &mk, k, bh / group, s, DQK, BK) ||
+      !encode_map(enc, &mv, v, bh / group, s, DV, BK))
     return cudaErrorInvalidValue;
-  const int smem = (int)Layout<D, BK>::kBytes;
+  const int smem = (int)Layout<DQK, DV, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wgmma_kernel<DQK, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DQK));
   const dim3 grid(bh, (s + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<D, BK><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<DQK, DV, BK><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, group, scale, causal, kind,
       window, softcap);
   return cudaGetLastError();
@@ -336,36 +346,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace
 
-// q, o: (bh, s, d) bf16; k, v: (bh / group, s, d) bf16; contiguous, 16-byte
-// aligned, on the current device; d in {64, 128, 256}.  kind: 0 global, 1
+// q: (bh, s, d), k: (bh / group, s, d), v: (bh / group, s, dv), o: (bh,
+// s, dv), bf16, contiguous, 16-byte aligned, on the current device; d = dv
+// in {64, 128, 256}, or d = 192 with dv = 128 (MLA).  kind: 0 global, 1
 // local, 2 chunked.  lse: null, or (bh, s) f32 that takes each row's
 // log-sum-exp of its scaled, softcapped, masked scores (natural log:
 // m + log(max(l, 1e-30))), which the backward of
 // flash_attention_bwd_wgmma.cu reads; serving passes null.
 //
-// Keys per kv tile, by head dim: 32 at D = 256 and 128 (at D = 256, Q and
+// Keys per kv tile, by head dims: 32 at D = 256 and 128 (at D = 256, Q and
 // a two-stage ring of 32-key tiles take 97 KB, so two blocks share an SM,
 // where 64-key tiles would take 161 KB and leave the SM one block), 64 at
 // D = 64.  Both sizes were timed at the serving shape on the H100; these
-// were the faster.
+// were the faster.  At (192, 128), 64 keys: Q (24 KB) and two stages of K
+// (24 KB) and V (16 KB) take 106 KB, so two blocks still share an SM, and
+// S is an m64n64 accumulator of 32 floats a thread beside O's 64.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
-                                         void* o, float* lse, int bh, int s, int d,
+                                         void* o, float* lse, int bh, int s, int d, int dv,
                                          int group, int causal, int kind, int window,
                                          double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float cap = (float)softcap;
+  if (d == 192 && dv == 128)
+    return (int)launch<192, 128, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window,
+                                     cap, st);
+  if (d != dv) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return (int)launch<64, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
-                                 st);
+      return (int)launch<64, 64, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window,
+                                     cap, st);
     case 128:
-      return (int)launch<128, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
-                                 st);
+      return (int)launch<128, 128, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window,
+                                       cap, st);
     case 256:
-      return (int)launch<256, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window, cap,
-                                 st);
+      return (int)launch<256, 256, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window,
+                                       cap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,13 +3,17 @@
 the tensor cores), ``csrc/flash_attention_tf32.cu`` (f32 at those head
 dims without a softcap, on the tensor cores in 3xTF32) and
 ``csrc/flash_attention.cu`` (every other case, on the CUDA cores in f32).
-``path(dtype, D, softcap)`` names the one that runs; the choice depends
-on the dtype, the head dim and whether there is a softcap alone.
+``path(dtype, D, softcap, v_dim)`` names the one that runs; the choice
+depends on the dtype, the head dims of q and k (D) and of v (Dv) and
+whether there is a softcap alone.
 
-Layout: q (BH, S, D); k and v (BH / G, S, D) — batch and heads merged
-with heads inner, so query row ``bh`` attends with kv row ``bh // G``
-(MQA and GQA without a repeat of k and v).  f32 or bf16, D up to 256;
-the output is in q's dtype.  Masks: causal, ``local`` (keys within
+Layout: q and k (BH, S, D) and (BH / G, S, D); v (BH / G, S, Dv) —
+batch and heads merged with heads inner, so query row ``bh`` attends with
+kv row ``bh // G`` (MQA and GQA without a repeat of k and v).  f32 or
+bf16, D and Dv up to 256; the output (BH, S, Dv) is in q's dtype, the
+scale 1/sqrt(D).  Dv differs from D in MLA (deepseek-v2: D 192, Dv 128),
+which the bf16 tensor-core kernel takes at that pair and the CUDA-core
+kernel at any.  Masks: causal, ``local`` (keys within
 ``window`` of the query) and ``chunked`` (aligned chunks of ``window``),
 with an optional tanh softcap on the scores.
 
@@ -32,7 +36,9 @@ other case, on the CUDA cores in f32, recomputing the lse);
 ``bwd_path(dtype, D, softcap)`` names the one that runs, and
 ``flash_attention_bwd.launches_by_path`` counts each.
 ``FlashAttentionFn`` asks the forward for the lse when a gradient will
-be taken on a path that reads it.
+be taken on a path that reads it.  No backward kernel takes Dv other
+than D yet: on the card such a gradient raises (the CPU's plain version
+differentiates it).
 """
 from __future__ import annotations
 
@@ -48,13 +54,23 @@ MAX_HEAD_DIM = 256
 #: head dims of the tensor-core paths: whole 64-column (128-byte) blocks
 #: up to the 256 columns one wgmma accumulator holds
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: (D, Dv) pairs with v narrower than q and k that the bf16 tensor-core
+#: kernel also takes: MLA's 128 + 64 query / key columns and 128 value
+#: columns
+WGMMA_QK_V_DIMS = ((192, 128),)
+
+TRAIN_SLICE = ("no backward kernel takes a v head dim other than q's yet: "
+               "training MLA (deepseek-v2) on the card arrives with a later "
+               "slice of the port")
 
 
-def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
-    """The kernel that computes attention of `dtype` with head dim
-    `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS), "tf32"
-    (f32, D in WGMMA_HEAD_DIMS, no softcap) or "simt" (any other D, and
-    f32 with a softcap).
+def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
+         v_dim: Optional[int] = None) -> str:
+    """The kernel that computes attention of `dtype` with q and k of head
+    dim `head_dim` and v of head dim `v_dim` (`head_dim` when None) on
+    the card: "wgmma" (bf16, D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in
+    WGMMA_QK_V_DIMS), "tf32" (f32, D = Dv in WGMMA_HEAD_DIMS, no softcap)
+    or "simt" (any other head dims, and f32 with a softcap).
 
     f32 with a softcap stays on the CUDA-core kernel, which sums q.k in
     the plain version's order: at softcapped scores (tens in magnitude)
@@ -63,6 +79,9 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
     from the plain version by up to several times the tolerance while
     being as close to the function evaluated in float64 (chip_smoke
     phase 4 prints all three against float64)."""
+    if v_dim is not None and v_dim != head_dim:
+        mixed = (head_dim, v_dim) in WGMMA_QK_V_DIMS
+        return "wgmma" if mixed and dtype == torch.bfloat16 else "simt"
     if head_dim in WGMMA_HEAD_DIMS:
         if dtype == torch.bfloat16:
             return "wgmma"
@@ -96,7 +115,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
         raise ValueError(f"q, k, v must be (BH, S, D): {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     BH, S, D = q.shape
-    if k.shape != v.shape or k.shape[1:] != q.shape[1:]:
+    if k.shape[1:] != q.shape[1:] or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
     if k.shape[0] == 0 or BH % k.shape[0]:
@@ -112,8 +131,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"q is on {q.device}: the port runs on the CPU or a "
                          "CUDA device")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} above {MAX_HEAD_DIM}")
+    if max(D, v.shape[2]) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {D}, {v.shape[2]} above "
+                         f"{MAX_HEAD_DIM}")
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     if kind != "global" and window < 1:
@@ -128,10 +148,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kind: str = "global",
                     window: int = 0, softcap: float = 0.0,
                     return_lse: bool = False):
-    """q (BH, S, D), k and v (BH / G, S, D) -> (BH, S, D) in q's dtype;
-    with `return_lse`, (out, lse) with lse each row's log-sum-exp (BH, S)
-    f32.  On the card the two tensor-core paths write the lse (wgmma and
-    tf32): asking for it on the simt path raises."""
+    """q (BH, S, D), k (BH / G, S, D) and v (BH / G, S, Dv) -> (BH, S, Dv)
+    in q's dtype; with `return_lse`, (out, lse) with lse each row's
+    log-sum-exp (BH, S) f32.  On the card the two tensor-core paths write
+    the lse (wgmma and tf32): asking for it on the simt path raises."""
     group = _check(q, k, v, kind, window)
     mask = dict(causal=causal, kind=kind, window=window, softcap=softcap)
     if q.device.type == "cpu":
@@ -143,12 +163,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = ref.flash_attention_ref(q, k, v, **mask)
         return (out, lse) if return_lse else out
     BH, S, D = q.shape
-    kernel = path(q.dtype, D, softcap)
+    Dv = v.shape[2]
+    kernel = path(q.dtype, D, softcap, Dv)
     if return_lse and kernel == "simt":
         raise ValueError("the simt forward writes no lse: only the wgmma "
                          "and tf32 paths (D in WGMMA_HEAD_DIMS, f32 without "
                          "a softcap) do")
-    out = torch.empty_like(q)
+    out = q.new_empty((BH, S, Dv))
     lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if q.numel() == 0:
@@ -164,8 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lib = _build.load("flash_attention_wgmma")
             err = lib.flash_attention_wgmma_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), BH, S, D, group,
-                int(causal), KINDS[kind], int(window), float(softcap),
+                None if lse is None else lse.data_ptr(), BH, S, D, Dv,
+                group, int(causal), KINDS[kind], int(window), float(softcap),
                 stream)
         elif kernel == "tf32":
             lib = _build.load("flash_attention_tf32")
@@ -185,8 +206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         else:
             err = _build.load("flash_attention").flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                S, D, group, int(q.dtype == torch.bfloat16), int(causal),
-                KINDS[kind], int(window), float(softcap), stream)
+                S, D, Dv, group, int(q.dtype == torch.bfloat16),
+                int(causal), KINDS[kind], int(window), float(softcap),
+                stream)
     _build.check_launch(err, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[kernel] += 1
@@ -211,10 +233,11 @@ def reset_launches():
 def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, do: torch.Tensor, kind: str, window: int):
     group = _check(q, k, v, kind, window)
+    want = q.shape[:2] + v.shape[2:]
     for name, a in (("o", o), ("do", do)):
-        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
+        if a.shape != want or a.dtype != q.dtype or a.device != q.device:
             raise ValueError(f"{name} {tuple(a.shape)} {a.dtype} on "
-                             f"{a.device} does not match q {tuple(q.shape)} "
+                             f"{a.device} does not match {tuple(want)} "
                              f"{q.dtype} on {q.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -227,17 +250,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         kind: str = "global", window: int = 0,
                         softcap: float = 0.0):
-    """Gradients of ``flash_attention``: q, o (its output), do (the loss's
-    gradient by o) (BH, S, D); k, v (BH / G, S, D); lse the forward's row
-    log-sum-exp (BH, S) f32 -> (dq, dk, dv) in the inputs' dtype, dk and
-    dv summed over each kv row's G query rows.  The wgmma and tf32 paths
-    need lse and raise without it; the simt path and the plain version
-    (CPU tensors) compute their own and ignore it."""
+    """Gradients of ``flash_attention``: q (BH, S, D), o (its output) and
+    do (the loss's gradient by o) (BH, S, Dv); k (BH / G, S, D), v (BH /
+    G, S, Dv); lse the forward's row log-sum-exp (BH, S) f32 -> (dq, dk,
+    dv) in the inputs' dtype, dk and dv summed over each kv row's G query
+    rows.  The wgmma and tf32 paths need lse and raise without it; the
+    simt path and the plain version (CPU tensors) compute their own and
+    ignore it.  On the card Dv must equal D (no backward kernel takes
+    another Dv yet); the plain version takes any."""
     group = _check_bwd(q, k, v, o, do, kind, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                            kind=kind, window=window,
                                            softcap=softcap)
+    if v.shape[2] != q.shape[2]:
+        raise NotImplementedError(TRAIN_SLICE)
     BH, S, D = q.shape
     kernel = bwd_path(q.dtype, D, softcap)
     if kernel in LSE_BWD_PATHS:

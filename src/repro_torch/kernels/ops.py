@@ -25,12 +25,13 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, kind: str = "global", window: int = 0,
                  softcap: float = 0.0, use_kernel: bool = True
                  ) -> torch.Tensor:
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D).
+    """q: (B, S, Hq, D); k: (B, S, Hkv, D); v: (B, S, Hkv, Dv) ->
+    (B, S, Hq, Dv).  Dv may differ from D (MLA: D 192, Dv 128).
 
     The kernel reads kv head h // (Hq / Hkv) itself; the plain version
     repeats k and v to Hq heads first, as the reference does."""
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if not use_kernel and Hkv != Hq:
@@ -39,11 +40,11 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # contiguous: with B = 1 the reshape is a strided view
     qm = q.transpose(1, 2).reshape(B * Hq, S, D).contiguous()
     km = k.transpose(1, 2).reshape(B * k.shape[2], S, D).contiguous()
-    vm = v.transpose(1, 2).reshape(B * v.shape[2], S, D).contiguous()
+    vm = v.transpose(1, 2).reshape(B * v.shape[2], S, Dv).contiguous()
     fn = flash_attention_fn if use_kernel else ref.flash_attention_ref
     out = fn(qm, km, vm, causal=causal, kind=kind, window=window,
              softcap=softcap)
-    return out.reshape(B, Hq, S, D).transpose(1, 2)
+    return out.reshape(B, Hq, S, Dv).transpose(1, 2)
 
 
 def rglru_op(a: torch.Tensor, b: torch.Tensor,

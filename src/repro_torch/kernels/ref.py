@@ -68,8 +68,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, kind: str = "global",
                         window: int = 0, softcap: float = 0.0
                         ) -> torch.Tensor:
-    """q, k, v: (BH, S, D). Full materialised softmax attention in f32;
-    the output in q's dtype."""
+    """q, k: (BH, S, D); v: (BH, S, Dv) (Dv may differ from D). Full
+    materialised softmax attention in f32, scaled by 1/sqrt(D); the
+    output (BH, S, Dv) in q's dtype."""
     BH, S, D = q.shape
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
     if softcap:
@@ -120,8 +121,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             softcap: float = 0.0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Gradients of ``flash_attention_ref`` in f32, written out.  q, o, do:
-    (BH, S, D); k, v: (BH / G, S, D), query row bh reading kv row bh // G.
+    """Gradients of ``flash_attention_ref`` in f32, written out.  q:
+    (BH, S, D); o, do: (BH, S, Dv); k: (BH / G, S, D), v: (BH / G, S, Dv),
+    query row bh reading kv row bh // G.
     With s the scaled (and softcapped, t = tanh(s / c)) masked scores,
     p = softmax(s) and D_i = rowsum(dO * O):
 
@@ -155,7 +157,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
     if group > 1:
         dk = dk.reshape(-1, group, S, D).sum(dim=1)
-        dv = dv.reshape(-1, group, S, D).sum(dim=1)
+        dv = dv.reshape(-1, group, S, v.shape[-1]).sum(dim=1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

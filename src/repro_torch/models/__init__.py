@@ -1,6 +1,7 @@
-"""The LM model zoo (port of ``repro.models``): dense attention (global /
-local / chunked) and RG-LRU layers (recurrentgemma), and Mamba-2 SSD
-layers (mamba2)."""
+"""The LM model zoo (port of ``repro.models``): attention (global /
+local / chunked, and MLA), RG-LRU layers (recurrentgemma), Mamba-2 SSD
+layers (mamba2), MoE FFNs (deepseek-v2, llama4) and the audio / vision
+frontends."""
 from .convert import (params_from_numpy, params_to_numpy,
                       train_state_from_numpy)
 from .model import (apply_blocks, block_structure, decode_step, final_hidden,

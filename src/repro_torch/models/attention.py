@@ -1,12 +1,18 @@
-"""Attention blocks: MHA / GQA / MQA, global / local / chunked (port of
-``repro.models.attention``, without MLA).
+"""Attention blocks: MHA / GQA / MQA, global / local / chunked, and MLA
+(port of ``repro.models.attention``).
 
 Prefill and forward attention go through ``kernels.ops.attention_op``,
 the hand-written flash kernel on the card, where the reference calls its
 XLA q-block scan ``blockwise_attention``: both compute the same masked
 softmax attention over one segment with query and key positions
 ``arange(S)``.  Decode (one new token against a cache) is direct
-attention in plain PyTorch, as in the reference.
+attention in plain PyTorch, as in the reference.  MLA (DeepSeek-V2's
+multi-head latent attention) prefills through the same kernel with query
+and key head dim ``qk_nope + qk_rope`` (192 at full width) and value head
+dim ``v_head_dim`` (128), scaled by 1/sqrt of the former as the
+reference's ``blockwise_attention`` is; its decode is the absorbed-q
+decode over the compressed (B, L, kv_lora_rank) latent cache, plain
+PyTorch einsums as in the reference.
 
 The decode cache is updated in place: the new token's k and v are written
 into the cache tensors at its slot, and the same dict is returned, which
@@ -41,10 +47,6 @@ class AttnSpec(NamedTuple):
     qk_norm: bool
 
 
-MLA_SLICE = ("MLA attention (deepseek-v2) is not ported yet: it arrives "
-             "with a later slice of the LM model zoo (ROADMAP Queue A item 7)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -73,6 +75,28 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
         p["q_norm"] = rmsnorm_init(head_dim, dev, dtype)
         p["k_norm"] = rmsnorm_init(head_dim, dev, dtype)
     return p
+
+
+def mla_init(gen: torch.Generator, d_model: int, n_heads: int, mla,
+             dtype=torch.float32):
+    dev = gen.device
+    qk_hd = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, (d_model, mla.q_lora_rank), d_model, dtype),
+        "q_norm": rmsnorm_init(mla.q_lora_rank, dev, dtype),
+        "w_uq": dense_init(gen, (mla.q_lora_rank, n_heads, qk_hd),
+                           mla.q_lora_rank, dtype),
+        "w_dkv": dense_init(
+            gen, (d_model, mla.kv_lora_rank + mla.qk_rope_head_dim),
+            d_model, dtype),
+        "kv_norm": rmsnorm_init(mla.kv_lora_rank, dev, dtype),
+        "w_ukv": dense_init(
+            gen, (mla.kv_lora_rank, n_heads,
+                  mla.qk_nope_head_dim + mla.v_head_dim),
+            mla.kv_lora_rank, dtype),
+        "w_o": dense_init(gen, (n_heads, mla.v_head_dim, d_model),
+                          n_heads * mla.v_head_dim, dtype),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -189,4 +213,114 @@ def attention_decode(params, x, cache, spec: AttnSpec, pos,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, 1, Hq, -1)
     out = torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(x.dtype))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params, x, mla, spec: AttnSpec, positions, eps):
+    dtype = x.dtype
+    c_q = x @ params["w_dq"].to(dtype)
+    c_q = rmsnorm(params["q_norm"], c_q, eps)
+    q = torch.einsum("bsl,lhk->bshk", c_q, params["w_uq"].to(dtype))
+    q_nope = q[..., : mla.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions,
+                        spec.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(params, x, mla, spec: AttnSpec, positions, eps):
+    dtype = x.dtype
+    dkv = x @ params["w_dkv"].to(dtype)
+    c_kv = rmsnorm(params["kv_norm"], dkv[..., : mla.kv_lora_rank], eps)
+    k_rope = apply_rope(dkv[..., mla.kv_lora_rank:][:, :, None, :],
+                        positions, spec.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_attend(params, x, mla, spec: AttnSpec, positions, eps,
+                use_kernel: bool):
+    """Up-project q, k and v, attend, project out.  Returns (out, c_kv,
+    k_rope), the latent and the rotated key part a cache keeps."""
+    B, S, _ = x.shape
+    dtype = x.dtype
+    q_nope, q_rope = _mla_q(params, x, mla, spec, positions, eps)
+    c_kv, k_rope = _mla_ckv(params, x, mla, spec, positions, eps)
+    kv = torch.einsum("bsl,lhk->bshk", c_kv, params["w_ukv"].to(dtype))
+    k_nope = kv[..., : mla.qk_nope_head_dim]
+    v = kv[..., mla.qk_nope_head_dim:]
+    H = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, mla.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = _attend(q, k, v, spec, use_kernel)
+    out = torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(dtype))
+    return out, c_kv, k_rope
+
+
+def mla_forward(params, x, mla, spec: AttnSpec, positions=None,
+                eps: float = 1e-6, use_kernel: bool = True):
+    """Prefill/train MLA: up-project, then attention with q and k of head
+    dim qk_nope + qk_rope and v of head dim v_head_dim."""
+    if positions is None:
+        positions = _default_positions(x)
+    return _mla_attend(params, x, mla, spec, positions, eps, use_kernel)[0]
+
+
+def mla_make_cache(params, x, mla, spec: AttnSpec, cache_len: int,
+                   positions=None, eps: float = 1e-6,
+                   use_kernel: bool = True):
+    """Prefill returning (output, cache): the cache holds the latent
+    c_kv (B, L, kv_lora_rank) and the rotated k_rope (B, L, qk_rope), the
+    reference's layout, sized for decode."""
+    S = x.shape[1]
+    if positions is None:
+        positions = _default_positions(x)
+    out, c_kv, k_rope = _mla_attend(params, x, mla, spec, positions, eps,
+                                    use_kernel)
+    L = cache_len
+    if S >= L:
+        c_kv = c_kv[:, S - L:].contiguous()
+        k_rope = k_rope[:, S - L:].contiguous()
+    else:
+        c_kv = torch.nn.functional.pad(c_kv, (0, 0, 0, L - S))
+        k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, L - S))
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
+               eps: float = 1e-6):
+    """Absorbed-q MLA decode: scores and context are computed in the
+    latent space, so the cache stays (B, L, kv_lora_rank) and is never
+    re-expanded per step.  The cache is updated in place."""
+    B = x.shape[0]
+    dtype = x.dtype
+    q_nope, q_rope = _mla_q(params, x, mla, spec, pos[:, None], eps)
+    ckv_new, krope_new = _mla_ckv(params, x, mla, spec, pos[:, None], eps)
+
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    L = c_kv.shape[1]
+    slot = torch.clamp(pos, max=L - 1)
+    bidx = torch.arange(B, device=x.device)
+    c_kv[bidx, slot] = ckv_new[:, 0]
+    k_rope[bidx, slot] = krope_new[:, 0]
+
+    w_ukv = params["w_ukv"].to(dtype)
+    w_uk = w_ukv[..., : mla.qk_nope_head_dim]        # (lora, H, nope)
+    w_uv = w_ukv[..., mla.qk_nope_head_dim:]          # (lora, H, v)
+    q_abs = torch.einsum("bthn,lhn->bthl", q_nope, w_uk)  # (B, 1, H, lora)
+
+    scale = 1.0 / math.sqrt(mla.qk_nope_head_dim + mla.qk_rope_head_dim)
+    s = (torch.einsum("bthl,bsl->bhts", q_abs.float(), c_kv.float())
+         + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                        k_rope.float())) * scale
+    valid = torch.arange(L, device=x.device)[None] <= pos[:, None]
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1).to(dtype)
+    ctx = torch.einsum("bhts,bsl->bthl", p, c_kv)
+    o = torch.einsum("bthl,lhv->bthv", ctx, w_uv)
+    out = torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(dtype))
     return out, cache

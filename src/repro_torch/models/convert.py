@@ -20,7 +20,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
 from ..optim.adamw import OptState
-from .model import block_structure, check_supported
+from .model import block_structure
 
 
 def _map(fn, tree):
@@ -35,7 +35,6 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """`tree`: the reference's parameter pytree (``repro.models.model.
     init_params``) with numpy leaves.  Returns the port's parameters on
     `device` (the card unless the caller names another), dtypes kept."""
-    check_supported(cfg)
     dev = resolve_device(device)
     to_t = lambda a: torch.from_numpy(np.array(a)).to(dev)
     head_s, period_s, n_periods, tail_s = block_structure(cfg)
@@ -51,8 +50,9 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     out = {"embed": _map(to_t, tree["embed"]),
            "final_norm": _map(to_t, tree["final_norm"]),
            "layers": layers}
-    if "lm_head" in tree:
-        out["lm_head"] = _map(to_t, tree["lm_head"])
+    for key in ("lm_head", "frontend_proj"):
+        if key in tree:
+            out[key] = _map(to_t, tree[key])
     return out
 
 
@@ -67,7 +67,6 @@ def params_to_numpy(cfg: ModelConfig, params):
     gradients or AdamW moments) as the reference's tree of numpy arrays:
     ``head`` and ``tail`` lists, ``body["p{i}"]`` stacked over the
     periods on a leading axis.  bf16 leaves come back as f32."""
-    check_supported(cfg)
     head_s, period_s, n_periods, tail_s = block_structure(cfg)
     layers = [_map(_to_numpy, p) for p in params["layers"]]
     if len(layers) != cfg.n_layers:
@@ -82,8 +81,9 @@ def params_to_numpy(cfg: ModelConfig, params):
            "final_norm": _map(_to_numpy, params["final_norm"]),
            "head": layers[:n_head], "body": body,
            "tail": layers[len(layers) - len(tail_s):] if tail_s else []}
-    if "lm_head" in params:
-        out["lm_head"] = _map(_to_numpy, params["lm_head"])
+    for key in ("lm_head", "frontend_proj"):
+        if key in params:
+            out[key] = _map(_to_numpy, params[key])
     return out
 
 

@@ -6,13 +6,13 @@ layer parameters; PyTorch runs eagerly, so here depth is a Python loop
 over one parameter dict per layer, in layer order (head, then the
 periods unrolled, then the tail).  ``models.convert.params_from_numpy``
 unstacks the reference's tree into this layout.  The reference's ``pctx``
-sharding hints mean nothing on one card, so the ``constrain`` calls are
-dropped.
+sharding hints are the identity on one card, so the ``constrain`` calls
+are dropped.
 
 Param layout::
 
-    {"embed": {"table"}, "lm_head"?: {"table"}, "final_norm": {"scale"},
-     "layers": [layer0, layer1, ...]}
+    {"embed": {"table"}, "lm_head"?: {"table"}, "frontend_proj"?,
+     "final_norm": {"scale"}, "layers": [layer0, layer1, ...]}
 
 A cache is a list of per-layer dicts with the batch on axis 0.  Decode
 updates it in place and returns it.
@@ -23,10 +23,12 @@ Training goes through ``final_hidden`` (``models.steps.loss_fn``): with
 the periods' inputs are kept for the backward and each period's forward
 runs again inside it.
 
-The port brings the dense-MLP attention and RG-LRU layers
-(recurrentgemma) and the Mamba-2 SSD layers (mamba2); MoE and MLA layers
-and the audio / vision frontends raise ``NotImplementedError`` naming the
-slice that brings them.
+Every layer kind of the reference is here: attention (global, local or
+chunked, MHA / GQA / MQA, or MLA) and RG-LRU layers with a dense MLP or
+an MoE FFN, Mamba-2 SSD blocks, the audio and vision frontends and
+encoder-only (non-causal) attention.  MoE layers take a ``dispatch``
+("einsum", "sort", "gshard:G", "sortg:G"; the config's when None) and
+add their load-balance loss in "forward" mode, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,15 +41,11 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssd as ssd_mod
-from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
-                     rmsnorm_init, unembed)
-
-MOE_SLICE = ("MoE layers are not ported yet: they arrive with a later "
-             "slice of the LM model zoo (ROADMAP Queue A item 7)")
-FRONTEND_SLICE = ("audio / vision frontends are not ported yet: they "
-                  "arrive with a later slice of the LM model zoo")
+from .layers import (dense_init, embed, embedding_init, mlp, mlp_init,
+                     rmsnorm, rmsnorm_init, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -124,20 +122,6 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec):
         qk_norm=cfg.qk_norm)
 
 
-def check_supported(cfg: ModelConfig):
-    """Raise for the parts of a config the port does not bring yet.
-    Every entry point calls it, so below it a layer is attention (global,
-    local or chunked, not MLA) or recurrent, with a dense MLP, or an SSM
-    block."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(FRONTEND_SLICE)
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_SLICE)
-    kinds = set(cfg.layer_kinds())
-    if cfg.mla is not None and kinds & {"global", "local", "chunked"}:
-        raise NotImplementedError(attn.MLA_SLICE)
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -155,13 +139,20 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["rglru"] = rglru_mod.rglru_init(gen, d, cfg.n_heads, cfg.rglru,
                                           param_dtype)
     else:
-        p["attn"] = attn.attention_init(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(),
-            cfg.qkv_bias, cfg.qk_norm, param_dtype)
+        if cfg.mla is not None:
+            p["mla"] = attn.mla_init(gen, d, cfg.n_heads, cfg.mla,
+                                     param_dtype)
+        else:
+            p["attn"] = attn.attention_init(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(),
+                cfg.qkv_bias, cfg.qk_norm, param_dtype)
         if cfg.post_norms:
             p["post_attn_norm"] = rmsnorm_init(d, dev, param_dtype)
     p["pre_ffn_norm"] = rmsnorm_init(d, dev, param_dtype)
-    p["mlp"] = mlp_init(gen, d, spec.d_ff, param_dtype)
+    if spec.is_moe:
+        p["moe"] = moe_mod.moe_init(gen, d, cfg.moe, param_dtype)
+    elif spec.d_ff:
+        p["mlp"] = mlp_init(gen, d, spec.d_ff, param_dtype)
     if cfg.post_norms:
         p["post_ffn_norm"] = rmsnorm_init(d, dev, param_dtype)
     return p
@@ -172,9 +163,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random parameters on `device` (the card unless the caller names
     another), drawn from `generator` (a fresh one seeded 0 on that device
     when None).  Matmul weights and norm scales are `param_dtype`; the
-    RG-LRU ``a_param`` and the SSD's ``A_log``, ``D`` and ``dt_bias`` stay
-    f32."""
-    check_supported(cfg)
+    RG-LRU ``a_param``, the SSD's ``A_log``, ``D`` and ``dt_bias`` and
+    the MoE router ``w_router`` stay f32."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -189,6 +179,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings and not cfg.encoder_only:
         params["lm_head"] = embedding_init(generator, cfg.vocab_size,
                                            cfg.d_model, param_dtype)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = dense_init(
+            generator, (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim,
+            param_dtype)
     params["layers"] = [init_layer(generator, cfg, s, param_dtype)
                         for s in layer_specs(cfg)]
     return params
@@ -220,6 +214,12 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                                  device=device),
                 "conv": torch.zeros((batch, r.conv_width - 1, w),
                                     dtype=dtype, device=device)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                      dtype=dtype, device=device)}
     L = max_len if spec.kind == "global" else min(spec.window, max_len)
     shape = (batch, L, cfg.n_kv_heads, cfg.resolved_head_dim())
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -227,7 +227,6 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
     return [init_layer_cache(cfg, s, batch, max_len, dtype, dev)
@@ -247,10 +246,12 @@ def _residual(cfg, params, key, y):
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
                 mode: str, cache=None, pos=None, cache_len: int = 0,
-                use_kernel: bool = True):
+                use_kernel: bool = True, dispatch: Optional[str] = None):
     """One block.  mode: "forward" | "prefill" | "decode".
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux): aux is an MoE layer's load-balance loss
+    (f32) in "forward" mode, else 0.0."""
     eps = cfg.norm_eps
+    aux = 0.0
     h = rmsnorm(params["pre_norm"], x, eps)
     new_cache = cache
     if spec.kind == "ssm":
@@ -264,7 +265,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
         else:
             y, new_cache = ssd_mod.ssd_decode(params["ssd"], h, cache,
                                               cfg.ssd, eps)
-        return x + y, new_cache  # no FFN half
+        return x + y, new_cache, aux  # no FFN half
     if spec.kind == "recurrent":
         if mode == "forward":
             y = rglru_mod.rglru_forward(params["rglru"], h, cfg.n_heads,
@@ -279,7 +280,18 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
         x = x + y
     else:
         aspec = attn_spec(cfg, spec)
-        if mode == "forward":
+        if cfg.mla is not None:
+            if mode == "forward":
+                y = attn.mla_forward(params["mla"], h, cfg.mla, aspec,
+                                     positions, eps, use_kernel=use_kernel)
+            elif mode == "prefill":
+                y, new_cache = attn.mla_make_cache(
+                    params["mla"], h, cfg.mla, aspec, cache_len, positions,
+                    eps, use_kernel=use_kernel)
+            else:
+                y, new_cache = attn.mla_decode(params["mla"], h, cache,
+                                               cfg.mla, aspec, pos, eps)
+        elif mode == "forward":
             y = attn.attention_forward(params["attn"], h, aspec, positions,
                                        eps, use_kernel=use_kernel)
         elif mode == "prefill":
@@ -292,9 +304,17 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
         x = x + _residual(cfg, params, "post_attn_norm", y)
 
     h = rmsnorm(params["pre_ffn_norm"], x, eps)
-    y = mlp(params["mlp"], h, cfg.activation)
+    if spec.is_moe:
+        y = moe_mod.moe_forward(params["moe"], h, cfg.moe, cfg.activation,
+                                dispatch)
+        if mode == "forward":
+            aux = moe_mod.moe_aux_loss(params["moe"], h, cfg.moe)
+    elif spec.d_ff:
+        y = mlp(params["mlp"], h, cfg.activation)
+    else:
+        y = torch.zeros_like(x)
     x = x + _residual(cfg, params, "post_ffn_norm", y)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -303,9 +323,21 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    """-> (x (B,S,d), positions (B,S))."""
-    x = embed(params["embed"], batch["tokens"], cfg.emb_scale, cfg.d_model,
-              compute_dtype(cfg))
+    """-> (x (B,S,d), positions (B,S)).  Audio: the projected frames
+    (batch["frames"] (B, S, frontend_dim)); vision: the projected patch
+    embeddings (batch["patch_embeds"]) followed by the embedded tokens."""
+    dtype = compute_dtype(cfg)
+    if cfg.frontend == "audio":
+        x = batch["frames"].to(dtype) @ params["frontend_proj"].to(dtype)
+    elif cfg.frontend == "vision":
+        img = (batch["patch_embeds"].to(dtype)
+               @ params["frontend_proj"].to(dtype))
+        txt = embed(params["embed"], batch["tokens"], cfg.emb_scale,
+                    cfg.d_model, dtype)
+        x = torch.cat([img, txt], dim=1)
+    else:
+        x = embed(params["embed"], batch["tokens"], cfg.emb_scale,
+                  cfg.d_model, dtype)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions
@@ -313,53 +345,63 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 
 def apply_blocks(cfg: ModelConfig, params, x, positions, mode: str,
                  cache=None, pos=None, cache_len: int = 0,
-                 use_kernel: bool = True, remat: bool = False):
-    """Run all layers in order.  Returns (x, new_cache); new_cache is
-    None in "forward" mode.  `remat` ("forward" mode only) recomputes
-    each period of the body in the backward instead of keeping its
-    activations; the head and tail layers run as they are, as in the
-    reference."""
+                 use_kernel: bool = True, remat: bool = False,
+                 dispatch: Optional[str] = None):
+    """Run all layers in order.  Returns (x, new_cache, aux): new_cache
+    is None in "forward" mode, aux the MoE layers' load-balance losses
+    summed (0.0 without MoE layers or outside "forward" mode).
+    `remat` ("forward" mode only) recomputes each period of the body in
+    the backward instead of keeping its activations; the head and tail
+    layers run as they are, as in the reference."""
     if remat:
         if mode != "forward":
             raise ValueError("remat applies to the forward (train) mode")
-        return _apply_remat(cfg, params, x, positions, use_kernel), None
+        x, aux = _apply_remat(cfg, params, x, positions, use_kernel,
+                              dispatch)
+        return x, None, aux
     new_cache = [] if mode != "forward" else None
+    aux = 0.0
     for i, spec in enumerate(layer_specs(cfg)):
         c = cache[i] if cache is not None else None
-        x, nc = block_apply(cfg, spec, params["layers"][i], x, positions,
-                            mode, c, pos, cache_len, use_kernel)
+        x, nc, a = block_apply(cfg, spec, params["layers"][i], x, positions,
+                               mode, c, pos, cache_len, use_kernel, dispatch)
+        aux = aux + a
         if new_cache is not None:
             new_cache.append(nc)
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def _apply_remat(cfg: ModelConfig, params, x, positions, use_kernel: bool):
+def _apply_remat(cfg: ModelConfig, params, x, positions, use_kernel: bool,
+                 dispatch: Optional[str]):
     head, period, n_periods, tail = block_structure(cfg)
     specs = layer_specs(cfg)
     layers = params["layers"]
 
-    def run(x, lo, hi):
+    def run(x, aux, lo, hi):
         for i in range(lo, hi):
-            x, _ = block_apply(cfg, specs[i], layers[i], x, positions,
-                               "forward", use_kernel=use_kernel)
-        return x
+            x, _, a = block_apply(cfg, specs[i], layers[i], x, positions,
+                                  "forward", use_kernel=use_kernel,
+                                  dispatch=dispatch)
+            aux = aux + a
+        return x, aux
 
-    x = run(x, 0, len(head))
+    x, aux = run(x, 0.0, 0, len(head))
     for j in range(n_periods):
         lo = len(head) + j * len(period)
-        x = torch.utils.checkpoint.checkpoint(run, x, lo, lo + len(period),
-                                              use_reentrant=False)
-    return run(x, len(specs) - len(tail), len(specs))
+        x, aux = torch.utils.checkpoint.checkpoint(
+            run, x, aux, lo, lo + len(period), use_reentrant=False)
+    return run(x, aux, len(specs) - len(tail), len(specs))
 
 
 def final_hidden(cfg: ModelConfig, params, batch, use_kernel: bool = True,
-                 remat: bool = False):
-    """Full sequence -> final hidden states; `remat` as in
-    ``apply_blocks``."""
+                 remat: bool = False, dispatch: Optional[str] = None):
+    """Full sequence -> (final hidden states, the MoE layers' summed
+    load-balance loss); `remat` as in ``apply_blocks``."""
     x, positions = embed_inputs(cfg, params, batch)
-    x, _ = apply_blocks(cfg, params, x, positions, "forward",
-                        use_kernel=use_kernel, remat=remat)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x, _, aux = apply_blocks(cfg, params, x, positions, "forward",
+                             use_kernel=use_kernel, remat=remat,
+                             dispatch=dispatch)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def logits_from_hidden(cfg: ModelConfig, params, h):
@@ -371,33 +413,34 @@ def logits_from_hidden(cfg: ModelConfig, params, h):
 
 
 @torch.no_grad()
-def forward(cfg: ModelConfig, params, batch, use_kernel: bool = True):
-    """batch: {"tokens": (B, S) int} -> logits (B, S, V)."""
-    check_supported(cfg)
-    h = final_hidden(cfg, params, batch, use_kernel)
+def forward(cfg: ModelConfig, params, batch, use_kernel: bool = True,
+            dispatch: Optional[str] = None):
+    """batch: {"tokens": (B, S) int} (and "frames" or "patch_embeds" for
+    a frontend) -> logits (B, S, V)."""
+    h, _ = final_hidden(cfg, params, batch, use_kernel, dispatch=dispatch)
     return logits_from_hidden(cfg, params, h)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch, cache_len: int,
-            use_kernel: bool = True):
+            use_kernel: bool = True, dispatch: Optional[str] = None):
     """-> (last-position logits (B, V), cache sized for `cache_len`)."""
-    check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
-    x, cache = apply_blocks(cfg, params, x, positions, "prefill",
-                            cache_len=cache_len, use_kernel=use_kernel)
+    x, cache, _ = apply_blocks(cfg, params, x, positions, "prefill",
+                               cache_len=cache_len, use_kernel=use_kernel,
+                               dispatch=dispatch)
     h = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return logits_from_hidden(cfg, params, h)[:, 0], cache
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, params, tokens, pos, cache):
+def decode_step(cfg: ModelConfig, params, tokens, pos, cache,
+                dispatch: Optional[str] = None):
     """tokens: (B,) int; pos: (B,) int. -> (logits (B, V), cache); the
     cache is updated in place."""
-    check_supported(cfg)
     x = embed(params["embed"], tokens[:, None], cfg.emb_scale, cfg.d_model,
               compute_dtype(cfg))
-    x, cache = apply_blocks(cfg, params, x, pos[:, None], "decode",
-                            cache=cache, pos=pos)
+    x, cache, _ = apply_blocks(cfg, params, x, pos[:, None], "decode",
+                               cache=cache, pos=pos, dispatch=dispatch)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(cfg, params, h)[:, 0], cache

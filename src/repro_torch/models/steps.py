@@ -9,8 +9,8 @@ chunk's are alive at a time: at vocab 256,000 and c = 500, 512 MB rather
 than S / c times that.
 
 The reference's ``pctx.constrain`` sharding hints are the identity on
-one device and are dropped; MoE is not in the port yet, so the auxiliary
-loss is 0.
+one device and are dropped.  MoE layers add their load-balance loss,
+weighted by AUX_LOSS_WEIGHT, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import InputShape, ModelConfig
 from ..core.predictor import resolve_device
-from .model import check_supported, final_hidden, logits_from_hidden
+from .model import final_hidden, logits_from_hidden
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -65,15 +65,19 @@ def chunked_xent(cfg: ModelConfig, params, h, targets, mask=None,
 
 
 def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False,
-            use_kernel: bool = True):
-    """Mean next-token xent (+ MoE aux, 0 here). Returns (loss, metrics).
+            use_kernel: bool = True, dispatch: Optional[str] = None):
+    """Mean next-token xent (+ MoE aux). Returns (loss, metrics).
     `use_kernel` picks the hand-written kernels (and their backward) or
     the plain versions, as in ``models.model``."""
-    h = final_hidden(cfg, params, batch, use_kernel=use_kernel, remat=remat)
-    loss, weight = chunked_xent(cfg, params, h, batch["targets"],
-                                batch.get("mask"))
+    h, aux = final_hidden(cfg, params, batch, use_kernel=use_kernel,
+                          remat=remat, dispatch=dispatch)
+    targets = batch["targets"]
+    if cfg.frontend == "vision":
+        # frontend tokens carry no LM targets
+        h = h[:, h.shape[1] - targets.shape[1]:]
+    loss, weight = chunked_xent(cfg, params, h, targets, batch.get("mask"))
     mean = loss / torch.clamp(weight, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     total = mean + AUX_LOSS_WEIGHT * aux
     return total, {"xent": mean, "aux": aux, "tokens": weight}
 
@@ -81,13 +85,26 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False,
 def make_train_batch(cfg: ModelConfig, shape: InputShape, rng=None,
                      device=None):
     """Concrete random batch (for smoke tests), numpy-drawn as the
-    reference draws it, as int32 tensors on `device` (the card unless the
-    caller names another)."""
-    check_supported(cfg)
+    reference draws it, on `device` (the card unless the caller names
+    another): tokens and targets int32, a frontend's frames or patch
+    embeddings f32."""
     dev = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     B, S = shape.global_batch, shape.seq_len
-    tokens = rng.integers(0, cfg.vocab_size, (B, S))
-    targets = rng.integers(0, cfg.vocab_size, (B, S))
-    return {k: torch.from_numpy(a.astype(np.int32)).to(dev)
-            for k, a in (("tokens", tokens), ("targets", targets))}
+    batch = {}
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal((B, S, cfg.frontend_dim),
+                                              dtype=np.float32)
+        batch["targets"] = rng.integers(0, cfg.vocab_size, (B, S))
+    elif cfg.frontend == "vision":
+        n_front = cfg.n_frontend_tokens
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, n_front, cfg.frontend_dim), dtype=np.float32)
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S - n_front))
+        batch["targets"] = rng.integers(0, cfg.vocab_size, (B, S - n_front))
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+        batch["targets"] = rng.integers(0, cfg.vocab_size, (B, S))
+    return {k: torch.from_numpy(a if a.dtype == np.float32
+                                else a.astype(np.int32)).to(dev)
+            for k, a in batch.items()}

@@ -215,16 +215,6 @@ def test_rglru_state_carries_across_a_split_prompt(both):
                                         *args, state=jstate))
 
 
-@pytest.mark.parametrize("arch,what", [("internvl2-2b", "frontends"),
-                                       ("hubert-xlarge", "frontends"),
-                                       ("deepseek-v2-236b", "MoE"),
-                                       ("llama4-maverick-400b-a17b", "MoE")])
-def test_unported_layers_raise_naming_their_slice(arch, what):
-    cfg = tbase.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-
 # ---------------------------------------------------------------------------
 # configs: a copy, not an import
 # ---------------------------------------------------------------------------

@@ -416,6 +416,115 @@ def test_flash_kernel_serving_shape(S, dtype):
             got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
 
 
+def _mla_qkv(seed, BH, G, S, dtype, device, dqk=192, dv=128):
+    rng = np.random.default_rng(seed)
+    mk = lambda rows, d: torch.from_numpy(rng.standard_normal(
+        (rows, S, d)).astype(np.float32)).to(device=device, dtype=dtype)
+    return mk(BH, dqk), mk(BH // G, dqk), mk(BH // G, dv)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,window,causal", [
+    ("global", 0, True), ("global", 0, False), ("local", 100, True),
+    ("chunked", 128, True)])
+@pytest.mark.parametrize("S,BH,G", [(333, 8, 1), (333, 8, 2), (64, 4, 1),
+                                    (1000, 16, 1)])
+def test_flash_kernel_at_mla_head_dims(S, BH, G, kind, window, causal,
+                                       dtype):
+    """MLA's shape: q and k of head dim 192, v of 128 (scale 1/sqrt(192)),
+    ragged S: bf16 on the wgmma kernel, f32 on the CUDA-core kernel, each
+    against its plain version; the output (BH, S, 128)."""
+    from repro_torch.kernels.flash_attention import path
+    dev = _card()
+    q, k, v = _mla_qkv(S + BH, BH, G, S, dtype, dev)
+    kw = dict(causal=causal, kind=kind, window=window)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert path(dtype, 192, 0.0, 128) == want
+    by_path = dict(flash_attention.launches_by_path)
+    got = flash_attention(q, k, v, **kw)
+    by_path[want] += 1
+    assert flash_attention.launches_by_path == by_path
+    group = BH // k.shape[0]
+    kr, vr = k.repeat_interleave(group, 0), v.repeat_interleave(group, 0)
+    plain = ref.flash_attention_ref(q, kr, vr, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (BH, S, 128) and got.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.bfloat16:
+        _assert_bf16_attention_close(
+            got, plain, ref.flash_attention_ref(q, kr, vr.abs(), **kw))
+
+
+@pytest.mark.cuda_only
+def test_flash_gradient_at_mla_head_dims_raises_on_card():
+    """No backward kernel takes Dv other than D: a gradient taken on the
+    card raises naming the training slice, through the autograd Function
+    and from the backward wrapper, rather than falling back."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fn)
+    dev = _card()
+    q, k, v = _mla_qkv(1, 4, 1, 64, torch.bfloat16, dev)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training"):
+        flash_attention_fn(q, k, v).float().sum().backward()
+    with torch.no_grad():
+        o = flash_attention(q.detach(), k, v)
+        with pytest.raises(NotImplementedError, match="training"):
+            flash_attention_bwd(q.detach(), k, v, o, torch.ones_like(o))
+        # without a gradient the Function is the forward kernel
+        out = flash_attention_fn(q.detach(), k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_smoke_model_on_card_kernels_match_plain(dtype):
+    """The deepseek smoke config with MLA's full head dims (128 + 64
+    query / key columns, 128 value columns; 2 heads, latent 32), MoE on
+    the sort dispatch: a prefill launches one flash kernel per layer, on
+    the wgmma path in bf16 and the CUDA-core path in f32, and its logits
+    through the kernels match the plain versions' (f32 1e-4; bf16 2e-2
+    of the largest |logit|), as do the decode steps after it."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    dev = _card()
+    cfg = get_smoke_config("deepseek-v2-236b")
+    cfg = cfg.replace(n_heads=2, n_kv_heads=2, head_dim=192, dtype=dtype,
+                      mla=dataclasses.replace(
+                          cfg.mla, q_lora_rank=32, kv_lora_rank=32,
+                          qk_nope_head_dim=128, qk_rope_head_dim=64,
+                          v_head_dim=128))
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 77))).to(dev)
+    by_path = dict(flash_attention.launches_by_path)
+    got, gc = model_lib.prefill(cfg, params, {"tokens": toks}, 96)
+    by_path["wgmma" if dtype == "bfloat16" else "simt"] += cfg.n_layers
+    assert flash_attention.launches_by_path == by_path
+    want, wc = model_lib.prefill(cfg, params, {"tokens": toks}, 96,
+                                 use_kernel=False)
+    tol = 1e-4 if dtype == "float32" else 2e-2 * float(want.abs().max())
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=1e-4 if dtype == "float32" else 0)
+    tok = want.argmax(-1)
+    for i in range(3):
+        pos = torch.full((1,), 77 + i, device=dev)
+        got, gc = model_lib.decode_step(cfg, params, tok, pos, gc)
+        want, wc = model_lib.decode_step(cfg, params, tok, pos, wc)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=tol,
+                                   rtol=1e-4 if dtype == "float32" else 0)
+        tok = want.argmax(-1)
+
+
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("kind,window", [("global", 0), ("local", 100)])
 @pytest.mark.parametrize("D", [64, 128, 256])
