@@ -146,7 +146,14 @@ Phases (each one failing makes the script exit non-zero):
      allowance; the path each ran must be the one ``bwd_path`` names),
      timed beside its plain version and sdpa's backward (forward and
      backward through ``torch.autograd.grad`` minus the forward, same
-     bool mask); ``rglru_scan_bwd`` exactly its plain reverse loop at (1,
+     bool mask); ``flash_attention_bwd`` at deepseek-v2-236b's MLA shape
+     (BH 128, group 1, q and k of head dim 192, v of 128, causal global,
+     S = 512, 1,000, 2,048, 3,000), bf16 on the wgmma kernel (the first
+     kernel held and timed beside) and f32 on the CUDA-core kernel, each
+     within BWD_TOL, two calls at S = 3,000 bitwise equal, timed beside
+     the plain version and sdpa's backward, with the bound (6 D + 4 Dv
+     operations a kept pair), no speed check; ``rglru_scan_bwd`` exactly
+     its plain reverse loop at (1,
      3,000, 2,560) with and without h0, (4, 1,000, 2,560) and (2, 1,000,
      2,562) (the one-thread-a-channel path); ``ssd_scan_bwd`` against
      ``ref.ssd_scan_bwd_ref`` at mamba2-2.7b's shapes (B 1, 80 heads of
@@ -162,22 +169,30 @@ Phases (each one failing makes the script exit non-zero):
      beside the tensor-core kernel at the served shape and slower than it
      on the device;
      (b) recurrentgemma-2b, then mamba2-2.7b, at its published width and
-     depth, f32 master weights and moments computed in bf16, remat on, B
-     1, S 3,000, TokenPipeline seed 0, 8 steps of ``make_train_step``
+     depth, f32 master weights and moments computed in bf16, then
+     deepseek-v2-236b at its published width, depth cut from 60 to 2
+     layers (the dense first layer and one MoE layer), bf16 weights,
+     gradients and moments (f32 state would not fit: 85.8 GB), remat on,
+     B 1, S 3,000, TokenPipeline seed 0, 8 steps of ``make_train_step``
      with the AdamWConfig the reference's ``train_loop`` builds for 8
-     steps (warmup 1, cosine over 8), no checkpoint (the state is some 43
-     GB): every loss finite, the last below the first, the launches
-     exact (recurrentgemma: 8 attention backward launches a step, all on
-     the wgmma path, and 18 scan backward launches; mamba2: 64 SSD
-     backward launches a step and 128 SSD forwards, all on the wgmma
-     paths, remat recomputing each forward); step time, tokens/s, peak
-     memory and
-     one profiled step, with the backward kernels' device time by
-     launch; (c) one period of each at the same width (rec, rec, local;
-     one SSM layer), S 1,024, bf16: every gradient leaf through the
-     kernels against the plain versions within GRAD_TOL in norm, the
-     launches exact, no leaf zero through the kernels where the plain
-     versions' is not, and mamba2's A_log and dt_bias non-zero; (d) the
+     steps (warmup 1, cosine over 8; deepseek's moments bf16), no
+     checkpoint: every loss finite, the last below the first, the
+     launches exact (recurrentgemma: 8 attention backward launches a
+     step, all on the wgmma path, and 18 scan backward launches; mamba2:
+     64 SSD backward launches a step and 128 SSD forwards, all on the
+     wgmma paths, remat recomputing each forward; deepseek: 3 flash
+     forwards a step, the dense head layer's once and the MoE layer's
+     twice, and 2 backwards, all on the wgmma paths at q/k 192, v 128);
+     step time, tokens/s, peak memory and one profiled step, with the
+     backward kernels' device time by launch; (c) one period of each at
+     the same width (rec, rec, local; one SSM layer), then deepseek's
+     dense layer alone and with its MoE layer (bf16 weights; the plain
+     run routes every token as the kernels' run did, and the routing its
+     own gates would choose is printed), S 1,024, bf16: every gradient
+     leaf through the kernels against the plain versions within GRAD_TOL
+     in norm, the launches exact, no leaf zero through the kernels where
+     the plain versions' is not, and mamba2's A_log and dt_bias
+     non-zero; (d) the
      fail/resume drill on the card at the smoke config (fail at 6,
      resume from step 4, finish at 10; a resumed run's steps 4-7 within
      rtol 1e-4 of the straight run's); (e) the policy fit at
@@ -194,8 +209,9 @@ Phases (each one failing makes the script exit non-zero):
      redesigned kernel carries the first kernel's times beside its own,
      the backward kernels' too (the attention backward's entry is the
      wgmma kernel, the 3xTF32 one under "f32"; the SSD backward's the
-     wgmma kernel); the backward kernels' launches are phase 8 (b)'s),
-     then the device line.
+     wgmma kernel); the backward kernels' launches are phase 8 (b)'s;
+     the attention backward's MLA shape under "mla", its launches by
+     path deepseek-v2's phase 8 (b) run's), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -270,6 +286,11 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: MoE layers (about 50 GB), served as phase 5 serves
 MOE_ARCH = "deepseek-v2-236b"
 MOE_LAYERS = 7
+#: phase 8 (b): deepseek-v2-236b trained at its published width, depth
+#: cut to the dense first layer and one MoE layer (5.36e9 parameters:
+#: 42.9 GB of bf16 weights, gradients and two moments); (c) its dense
+#: layer alone (c1) and both layers (c2)
+MOE_TRAIN_LAYERS = 2
 #: phase 8: recurrentgemma-2b and mamba2-2.7b trained at full width and
 #: depth on the serving shape's longest prompt (past recurrentgemma's
 #: 2,048 window; 46 whole chunks of 64 and a ragged one of 56 for the SSD
@@ -346,6 +367,20 @@ def check(cond: bool, what: str):
         raise PhaseFailed(what)
 
 
+def _event_ms(fn, queued: bool) -> float:
+    """One call of `fn` timed by CUDA events (see ``time_ms``)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def time_ms(fn, reps: int = 20, queued: bool = False) -> float:
     """Median time of one call, by CUDA events, after a warm-up.
 
@@ -362,18 +397,25 @@ def time_ms(fn, reps: int = 20, queued: bool = False) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
+    return statistics.median(_event_ms(fn, queued) for _ in range(reps))
+
+
+def time_pair_ms(fn_a, fn_b, reps: int = 20,
+                 queued: bool = False) -> tuple[float, float]:
+    """``time_ms`` of two calls that are compared, taken in turn (a, b, a,
+    b, ...): the medians of each.  The host's part of a call varies with
+    what else the machine's shared cores run, and a busy stretch that
+    fell on one call's reps alone would decide a comparison of host
+    times; taken in turn, both calls meet the same stretches."""
+    import torch
+    fn_a()
+    fn_b()
+    torch.cuda.synchronize()
+    a, b = [], []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(QUEUE_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        a.append(_event_ms(fn_a, queued))
+        b.append(_event_ms(fn_b, queued))
+    return statistics.median(a), statistics.median(b)
 
 
 def forest_bytes(feat) -> int:
@@ -1211,9 +1253,20 @@ def hold_flash(q, k, v, kw, with_library: bool):
                 bh, s, d, int(kw.get("causal", True)),
                 KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
     if with_library:
-        out["ms"] = time_ms(lambda: flash_attention(q, k, v, **kw))
-        out["device_ms"] = time_ms(lambda: flash_attention(q, k, v, **kw),
-                                   queued=True)
+        q4 = q.view(1, bh, s, d)
+        k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
+        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
+
+        def kernel():
+            return flash_attention(q, k, v, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        # the kernel and the library call are compared: timed in turn
+        out["ms"], out["library_ms"] = time_pair_ms(kernel, library)
+        out["device_ms"], out["library_device_ms"] = time_pair_ms(
+            kernel, library, queued=True)
         if ran[0] != "simt":
             out["simt_err"], out["simt_worst"] = held(
                 simt_flash(q, k, v, kw), want, "simt")
@@ -1221,15 +1274,6 @@ def hold_flash(q, k, v, kw, with_library: bool):
             out["simt_device_ms"] = time_ms(lambda: simt_flash(q, k, v, kw),
                                             queued=True)
         out["plain_ms"] = time_ms(plain)
-        q4 = q.view(1, bh, s, d)
-        k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
-        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
-
-        def library():
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
-
-        out["library_ms"] = time_ms(library)
-        out["library_device_ms"] = time_ms(library, queued=True)
         out["bound_ms"], out["bound_by"] = flash_bound(
             bh, k.shape[0], s, d, q.dtype, pairs, dv=dv)
         if q.dtype == torch.float32:
@@ -2525,14 +2569,18 @@ def phase7_platform():
 # ---------------------------------------------------------------------------
 
 
-def flash_bwd_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int):
-    """q, o, dO and k, v read once, dq, dk, dv written once; 10*D
-    operations (five products of 2*D: s, dp, dv, dq, dk) per query-key
-    pair the mask keeps, at the tensor-core rate for the inputs' type."""
+def flash_bwd_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int,
+                    dv=None):
+    """q, o, dO and k, v read once, dq, dk, dv written once; 6*D + 4*Dv
+    operations (five products: s, dq, dk of 2*D, dp, dv of 2*Dv; 10*D
+    where Dv = D) per query-key pair the mask keeps, at the tensor-core
+    rate for the inputs' type.  q, k, dq, dk have D columns, v, o, dO,
+    dv Dv (D when None)."""
     import torch
+    dv = d if dv is None else dv
     esize = torch.empty((), dtype=dtype).element_size()
-    nbytes = (4 * bh + 4 * bh_kv) * s * d * esize
-    return bound(nbytes, 10 * bh * d * pairs, matmul_peak(dtype))
+    nbytes = (bh + bh_kv) * 2 * (d + dv) * s * esize
+    return bound(nbytes, (6 * d + 4 * dv) * bh * pairs, matmul_peak(dtype))
 
 
 def simt_flash_bwd(q, k, v, o, do, kw):
@@ -2549,7 +2597,7 @@ def simt_flash_bwd(q, k, v, o, do, kw):
     err = _build.load("flash_attention_bwd").flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), bh, s, d,
+        stats[0].data_ptr(), stats[1].data_ptr(), bh, s, d, v.shape[2],
         bh // k.shape[0], int(q.dtype == torch.bfloat16),
         int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
         int(kw.get("window", 0)), float(kw.get("softcap", 0.0)),
@@ -2577,10 +2625,11 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
                                                      flash_attention,
                                                      flash_attention_bwd)
     bh, s, d = q.shape
+    dv = v.shape[2]
     dt = str(q.dtype).split(".")[-1]
-    what = f"flash_attention_bwd S={s} D={d} {dt} {kw}"
+    what = f"flash_attention_bwd S={s} D={d} Dv={dv} {dt} {kw}"
     rel, of_max = BWD_TOL[dt]
-    kernel = bwd_path(q.dtype, d, kw.get("softcap", 0.0))
+    kernel = bwd_path(q.dtype, d, kw.get("softcap", 0.0), dv)
     out = {"errors": {}, "max_abs_err": 0.0, "path": kernel}
     if kernel in LSE_BWD_PATHS:
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
@@ -2591,7 +2640,7 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
               f"{lse_err} from the plain lse (limit {LSE_TOL})")
     else:
         o, lse = flash_attention(q, k, v, **kw), None
-    do = torch.randn(q.shape, device=q.device,
+    do = torch.randn((bh, s, dv), device=q.device,
                      generator=torch.Generator(device=q.device).manual_seed(
                          s)).to(q.dtype)
     n0 = dict(flash_attention_bwd.launches_by_path)
@@ -2646,8 +2695,9 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
         q, k, v, o, do, **kw), reps=5)
     q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
     k4 = k.view(1, -1, s, d).expand(1, bh, s, d).detach().requires_grad_(True)
-    v4 = v.view(1, -1, s, d).expand(1, bh, s, d).detach().requires_grad_(True)
-    do4 = do.view(1, bh, s, d)
+    v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv).detach().requires_grad_(
+        True)
+    do4 = do.view(1, bh, s, dv)
 
     def library_fwd():
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
@@ -2661,7 +2711,7 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     out["library_both_ms"] = both
     out["pairs"] = int(mask.sum())
     out["bound_ms"], out["bound_by"] = flash_bwd_bound(
-        bh, k.shape[0], s, d, q.dtype, out["pairs"])
+        bh, k.shape[0], s, d, q.dtype, out["pairs"], dv)
     return out
 
 
@@ -2829,6 +2879,33 @@ def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
     return out
 
 
+def flash_bwd_line(what: str, m: dict) -> str:
+    """phase 8 (a)'s line for one hold_flash_bwd measurement `m`."""
+    def errs(errors):
+        return "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
+                         for n, (e, w) in errors.items())
+
+    line = f"phase8 flash_attention_bwd {what} path={m['path']}: " + errs(
+        m["errors"])
+    if "lse_err" in m:
+        line += (f"; forward lse max_abs_err {m['lse_err']:.3g} (limit "
+                 f"{LSE_TOL})")
+    if "bitwise_twice" in m:
+        line += f"; two calls bitwise equal {m['bitwise_twice']}"
+    if "simt_errors" in m:
+        line += f"; [first kernel: {errs(m['simt_errors'])}]"
+    if "ms" in m:
+        line += f"; kernel {m['ms']:.4f} ms (device {m['device_ms']:.4f} ms)"
+        if "simt_ms" in m:
+            line += (f" [first kernel {m['simt_ms']:.4f} ms, device "
+                     f"{m['simt_device_ms']:.4f} ms]")
+        line += (f", plain {m['plain_ms']:.4f} ms, sdpa backward "
+                 f"{m['library_ms']:.4f} ms (forward and backward "
+                 f"{m['library_both_ms']:.4f}), bound {m['bound_ms']:.5f} ms "
+                 f"({m['bound_by']}), pairs {m['pairs']} a head")
+    return line
+
+
 def phase8_bwd_kernels():
     """(a) The three backward kernels against their plain versions at the
     serving shapes; returns the measurements for the kernels line."""
@@ -2852,33 +2929,9 @@ def phase8_bwd_kernels():
         m = hold_flash_bwd(q, k, v, kw, timed=not extra,
                            twice=s == max(SERVE_PROMPTS))
         dt = str(dtype).split(".")[-1]
-
-        def errs(errors):
-            return "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
-                             for n, (e, w) in errors.items())
-
-        line = (f"phase8 flash_attention_bwd BH=10 G=10 S={s} D=256 local "
-                f"2048{' softcap 50' if extra else ''} {dt} "
-                f"path={m['path']}: {errs(m['errors'])}")
-        if "lse_err" in m:
-            line += (f"; forward lse max_abs_err {m['lse_err']:.3g} (limit "
-                     f"{LSE_TOL})")
-        if "bitwise_twice" in m:
-            line += f"; two calls bitwise equal {m['bitwise_twice']}"
-        if "simt_errors" in m:
-            line += f"; [first kernel: {errs(m['simt_errors'])}]"
-        if "ms" in m:
-            line += (f"; kernel {m['ms']:.4f} ms (device "
-                     f"{m['device_ms']:.4f} ms)")
-            if "simt_ms" in m:
-                line += (f" [first kernel {m['simt_ms']:.4f} ms, device "
-                         f"{m['simt_device_ms']:.4f} ms]")
-            line += (f", plain {m['plain_ms']:.4f} "
-                     f"ms, sdpa backward {m['library_ms']:.4f} ms (forward "
-                     f"and backward {m['library_both_ms']:.4f}), bound "
-                     f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
-                     f"{m['pairs']} a head")
-        print(line)
+        print(flash_bwd_line(
+            f"BH=10 G=10 S={s} D=256 local 2048"
+            f"{' softcap 50' if extra else ''} {dt}", m))
         if "ms" in m and m["path"] != "simt":
             check(m["ms"] <= m["library_ms"],
                   f"phase 8 (a): flash_attention_bwd S={s} {dt} "
@@ -2888,6 +2941,7 @@ def phase8_bwd_kernels():
             key = ("flash_attention_bwd" if dtype == torch.bfloat16
                    else "flash_attention_bwd f32")
             serve[key] = dict(m, shape=[10, s, 256])
+    serve.update(phase8_mla_bwd(randn))
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False),
@@ -2955,6 +3009,40 @@ def phase8_bwd_kernels():
     return serve
 
 
+def phase8_mla_bwd(randn) -> dict:
+    """(a) flash_attention_bwd at deepseek-v2-236b's MLA shape: 128 heads
+    (BH 128, group 1), q and k of head dim 192, v of 128, causal global,
+    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma backward (reading the
+    forward's lse; the first kernel held and timed beside it), f32 on the
+    CUDA-core one.  Each gradient within BWD_TOL of the plain version,
+    two calls at S = 3,000 bitwise equal, timed beside the plain version
+    and sdpa's backward, and the bound (6 D + 4 Dv = 1,664 operations a
+    kept pair).  No speed check: the first design's time is recorded
+    whatever it is.  Returns the S = 3,000 measurements of both dtypes."""
+    import torch
+    bh, d, dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
+    kw = dict(causal=True, kind="global")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
+        for s in SERVE_PROMPTS:
+            q, k = randn(bh, s, d, dtype=dtype), randn(bh, s, d, dtype=dtype)
+            v = randn(bh, s, dv, dtype=dtype)
+            m = hold_flash_bwd(q, k, v, kw, timed=True,
+                               twice=s == max(SERVE_PROMPTS))
+            del q, k, v
+            check(m["path"] == want, f"phase 8 (a) MLA S={s} {dt}: path "
+                  f"{m['path']}, expected {want}")
+            print(flash_bwd_line(f"MLA BH={bh} G=1 S={s} D={d} Dv={dv} "
+                                 f"causal global {dt}", m))
+            if s == max(SERVE_PROMPTS):
+                key = "flash_attention_bwd mla" + (
+                    "" if dtype == torch.bfloat16 else " f32")
+                out[key] = dict(m, shape=[bh, s, d, dv])
+    return out
+
+
 def train_counts() -> dict:
     """The forward and backward launch counts of the train steps'
     kernels, the SSD scan's forward and backward also on the wgmma
@@ -2965,6 +3053,7 @@ def train_counts() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     lm = lm_counts()
     return {"flash_attention": flash_attention.launches,
+            "flash_attention.wgmma": lm["flash_attention.wgmma"],
             "flash_attention_bwd": flash_attention_bwd.launches,
             "rglru_scan": rglru_scan.launches,
             "rglru_scan_bwd": rglru_scan_bwd.launches,
@@ -3035,24 +3124,69 @@ def profile_train_step(bundle, state, batch):
     return state
 
 
+def _layer_counts(cfg) -> tuple:
+    """(layers by kind, forwards by kind under remat): "attention" (local,
+    global or chunked), "recurrent", "ssm".  Remat runs each period of
+    the body forward a second time in the backward; the head (deepseek's
+    dense first layer) and tail layers run forward once."""
+    from repro_torch.models.model import block_structure
+
+    def count(kinds):
+        return {"attention": sum(kinds.count(k) for k in
+                                 ("local", "global", "chunked")),
+                "recurrent": kinds.count("recurrent"),
+                "ssm": kinds.count("ssm")}
+
+    kinds = list(cfg.layer_kinds())
+    head, period, n_periods, _ = block_structure(cfg)
+    n = count(kinds)
+    body = count(kinds[len(head):len(head) + n_periods * len(period)])
+    return n, {k: n[k] + body[k] for k in n}, n_periods
+
+
+def _train_config(arch: str, n_layers: int = 0):
+    """(config, parameter dtype, moment dtype) of `arch` for phase 8:
+    recurrentgemma-2b and mamba2-2.7b at their depth with f32 weights and
+    moments; deepseek-v2-236b at its published width, its depth cut to
+    `n_layers` (MOE_TRAIN_LAYERS by default), with bf16 weights (the
+    router f32) and moments: 16 bytes a parameter of f32 state would not
+    fit one card at two layers (85.8 GB)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch != MOE_ARCH:
+        return cfg, torch.float32, "float32"
+    cfg = cfg.replace(n_layers=n_layers or MOE_TRAIN_LAYERS)
+    m, moe = cfg.mla, cfg.moe
+    check((cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
+           m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
+           moe.n_experts, moe.top_k, moe.d_ff_expert, moe.n_shared_experts,
+           cfg.vocab_size) == (5120, MLA_HEADS, 1536, 512, MLA_QK_DIM,
+                               MLA_V_DIM, 160, 6, 1536, 2, 102400),
+          f"phase 8: {MOE_ARCH} is not at its published width")
+    return cfg, torch.bfloat16, "bfloat16"
+
+
 def phase8_train_full_width(arch: str):
-    """(b) `arch` (recurrentgemma-2b or mamba2-2.7b) at its published
-    width and depth: bf16 compute, f32 master weights and moments, remat
-    on, B 1, S 3,000, TokenPipeline seed 0, TRAIN_STEPS steps through
-    make_train_step and no checkpoint.  Every loss finite, the last below
-    the first, the kernels' launches exact: each forward once a layer and
-    again in each recomputed period, each backward once a layer, the
-    attention backward on the wgmma path and the SSD forward on its
-    wgmma path.  Returns the launches in the run, the attention
-    backward's by path among them as "flash_attention_bwd.<path>"."""
+    """(b) `arch` at its published width: recurrentgemma-2b and
+    mamba2-2.7b at their depth with f32 master weights and moments,
+    deepseek-v2-236b cut to MOE_TRAIN_LAYERS (the dense first layer and
+    one MoE layer) with bf16 weights, gradients and moments; bf16
+    compute, remat on, B 1, S 3,000, TokenPipeline seed 0, TRAIN_STEPS
+    steps through make_train_step and no checkpoint.  Every loss finite,
+    the last below the first, the kernels' launches exact: each forward
+    once a layer and again in each recomputed period, each backward once
+    a layer, the attention forward and backward (deepseek: at MLA's q/k
+    192, v 128) and the SSD forward on their wgmma paths.  Returns the
+    launches in the run, the attention backward's by path among them as
+    "flash_attention_bwd.<path>"."""
     import gc
     import torch
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import build_state, put_batch
-    from repro_torch.models.model import block_structure
     from repro_torch.kernels import _scratch
     from repro_torch.optim import AdamWConfig
     # the kernels' scratch of earlier phases would count in this model's
@@ -3060,21 +3194,22 @@ def phase8_train_full_width(arch: str):
     _scratch.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
-    kinds = cfg.layer_kinds()
-    n = {kind: kinds.count(kind) for kind in ("local", "recurrent", "ssm")}
-    # remat runs the body's periods forward a second time in the backward;
-    # the head and tail layers run forward once
-    head, period, n_periods, _ = block_structure(cfg)
-    body = kinds[len(head):len(head) + n_periods * len(period)]
-    fwd = {kind: n[kind] + body.count(kind) for kind in n}
+    cfg, param_dtype, moment_dtype = _train_config(arch)
+    n, fwd, n_periods = _layer_counts(cfg)
     shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
-    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    # the reference's train_loop's AdamWConfig for TRAIN_STEPS steps
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                          moment_dtype=moment_dtype)
     t0 = time.perf_counter()
-    state = build_state(cfg, opt_cfg, seed=0, device="cuda")
+    state = build_state(cfg, opt_cfg, seed=0, device="cuda",
+                        param_dtype=param_dtype)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    print(f"phase8 {arch}: {n_params:,} parameters, f32 weights and "
+    state_gb = sum(t.numel() * t.element_size() for t in _leaves(
+        [state["params"], state["opt"].m, state["opt"].v])) / 1e9
+    print(f"phase8 {arch}: {n_params:,} parameters, "
+          f"{str(param_dtype)[6:]} weights (and gradients), "
+          f"{moment_dtype} moments: {state_gb:.2f} GB of weights and "
           f"moments, computed in {cfg.dtype}; {cfg.n_layers} layers ("
           + " + ".join(f"{c} {k}" for k, c in n.items() if c)
           + f"), B {TRAIN_BATCH}, S {TRAIN_SEQ}; state built in "
@@ -3102,14 +3237,15 @@ def phase8_train_full_width(arch: str):
     by_path = dict(flash_attention_bwd.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
     T = TRAIN_STEPS
-    want = {"flash_attention": fwd["local"] * T,
-            "flash_attention_bwd": n["local"] * T,
+    want = {"flash_attention": fwd["attention"] * T,
+            "flash_attention.wgmma": fwd["attention"] * T,
+            "flash_attention_bwd": n["attention"] * T,
             "rglru_scan": fwd["recurrent"] * T,
             "rglru_scan_bwd": n["recurrent"] * T,
             "ssd_scan": fwd["ssm"] * T, "ssd_scan.wgmma": fwd["ssm"] * T,
             "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T}
     steady = statistics.median(times[1:])
-    want_path = {"wgmma": n["local"] * T, "tf32": 0, "simt": 0}
+    want_path = {"wgmma": n["attention"] * T, "tf32": 0, "simt": 0}
     print(f"phase8 {arch} train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
           f"recomputed periods); attention backward by path {by_path}, "
@@ -3134,18 +3270,64 @@ def phase8_train_full_width(arch: str):
                            for p, c in by_path.items()})
 
 
-def phase8_period_grads(arch: str):
+class RoutingReplay:
+    """Wraps the MoE router (``models.moe._router``).  In its first run it
+    records each call's routing (every token's experts and keep flags
+    under the capacity); in the run after ``replay()`` each call routes
+    by the first run's call of the same order (the weights recomputed
+    from this run's own gates at those experts, so the gradient reaches
+    the router as it does through the top-k), and records the routing
+    its own gates would have chosen beside.  Both runs make the same
+    calls in the same order: the MoE forward's and the aux loss's, then
+    both again in remat's recomputation."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.models import moe as moe_mod
+        self.moe, self.orig = moe_mod, moe_mod._router
+        self.first, self.own = [], []
+        self.replaying = False
+
+        def router(params, x2d, moe):
+            w, idx, gates = self.orig(params, x2d, moe)
+            pos = moe_mod._positions_in_expert(idx, moe.n_experts)
+            route = (idx, pos < moe_mod._capacity(idx.shape[0], moe))
+            if not self.replaying:
+                self.first.append(route)
+                return w, idx, gates
+            self.own.append(route)
+            idx = self.first[len(self.own) - 1][0]
+            w = gates.gather(1, idx)
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+            return w, idx, gates
+
+        moe_mod._router = router
+
+    def replay(self):
+        self.replaying = True
+
+    def close(self):
+        self.moe._router = self.orig
+
+
+def phase8_period_grads(arch: str, n_layers: int = 0):
     """(c) one period of `arch` at its published width (recurrentgemma:
-    rec, rec, local; mamba2: one SSM layer), S 1,024, bf16 compute: every
-    gradient leaf through the kernels against the plain versions,
-    relative in norm within GRAD_TOL, with the kernels' launches exact.
-    A leaf whose gradient through the kernels is identically zero while
-    the plain versions' is not fails, whatever its norm: the train step
-    fills unused gradients with zeros, which hid the SSD scan's lost
-    gradient until its backward kernel."""
+    rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
+    `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
+    bf16 weights), S 1,024, bf16 compute: every gradient leaf through the
+    kernels against the plain versions, relative in norm within GRAD_TOL,
+    with the kernels' launches exact.  A leaf whose gradient through the
+    kernels is identically zero while the plain versions' is not fails,
+    whatever its norm: the train step fills unused gradients with zeros,
+    which hid the SSD scan's lost gradient until its backward kernel.
+    With MoE layers, bf16 rounding flips near-tied experts between the
+    two runs (as phase 6 (b) finds), and a token routed otherwise has
+    another gradient: the plain run routes every token as the kernels'
+    run did (RoutingReplay), so every leaf is held, and the routing its
+    own gates would have chosen is printed against the kernels'."""
     import gc
     import torch
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.train import put_batch
     from repro_torch.models import model as model_lib
@@ -3153,39 +3335,65 @@ def phase8_period_grads(arch: str):
     from repro_torch.optim.adamw import leaves_with_path
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
-    cfg = (cfg.replace(n_layers=1) if arch == SSM_ARCH
-           else cfg.replace(n_layers=3, pattern_tail=()))
-    kinds = cfg.layer_kinds()
+    cfg, param_dtype, _ = _train_config(arch, n_layers)
+    if arch == SSM_ARCH:
+        cfg = cfg.replace(n_layers=1)
+    elif arch == TRAIN_ARCH:
+        cfg = cfg.replace(n_layers=3, pattern_tail=())
+    label = f"{arch} ({cfg.n_layers} layers)" if n_layers else arch
+    n, fwd, _ = _layer_counts(cfg)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     shape = InputShape("phase8c", PERIOD_SEQ, 1, "train")
     params = model_lib.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
+        param_dtype=param_dtype)
     named = leaves_with_path(params)
     leaves = [p.requires_grad_(True) for _, p in named]
     batch = put_batch(TokenPipeline(cfg, shape, seed=0).batch(0), "cuda")
     grads, losses = [], []
-    # one backward a layer; the forwards once a layer and again under
-    # remat (the one period is recomputed)
-    want_kernel = {"flash_attention": 2 * kinds.count("local"),
-                   "flash_attention_bwd": kinds.count("local"),
-                   "rglru_scan": 2 * kinds.count("recurrent"),
-                   "rglru_scan_bwd": kinds.count("recurrent"),
-                   "ssd_scan": 2 * kinds.count("ssm"),
-                   "ssd_scan.wgmma": 2 * kinds.count("ssm"),
-                   "ssd_scan_bwd": kinds.count("ssm"),
-                   "ssd_scan_bwd.wgmma": kinds.count("ssm")}
-    for use_kernel in (True, False):
-        n0 = train_counts()
-        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
-                                    use_kernel=use_kernel)
-        grads.append(torch.autograd.grad(loss, leaves))
-        losses.append(float(loss.detach()))
-        d = {k: v - n0[k] for k, v in train_counts().items()}
-        print(f"phase8 {arch} period grads use_kernel={use_kernel}: "
-              f"launches {d}")
-        want = want_kernel if use_kernel else {k: 0 for k in d}
-        check(d == want, f"phase 8 (c) {arch} use_kernel={use_kernel}: "
-              f"launches {d}, expected {want}")
+    # one backward a layer; the forwards once a layer and again in each
+    # recomputed period
+    want_kernel = {"flash_attention": fwd["attention"],
+                   "flash_attention.wgmma": fwd["attention"],
+                   "flash_attention_bwd": n["attention"],
+                   "rglru_scan": fwd["recurrent"],
+                   "rglru_scan_bwd": n["recurrent"],
+                   "ssd_scan": fwd["ssm"],
+                   "ssd_scan.wgmma": fwd["ssm"],
+                   "ssd_scan_bwd": n["ssm"],
+                   "ssd_scan_bwd.wgmma": n["ssm"]}
+    routing = RoutingReplay() if n_moe else None
+    try:
+        for use_kernel in (True, False):
+            if routing is not None and not use_kernel:
+                routing.replay()
+            n0 = train_counts()
+            loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                        use_kernel=use_kernel)
+            grads.append(torch.autograd.grad(loss, leaves))
+            losses.append(float(loss.detach()))
+            d = {k: v - n0[k] for k, v in train_counts().items()}
+            print(f"phase8 {label} period grads use_kernel={use_kernel}: "
+                  f"launches {d}")
+            want = want_kernel if use_kernel else {k: 0 for k in d}
+            check(d == want, f"phase 8 (c) {label} use_kernel={use_kernel}:"
+                  f" launches {d}, expected {want}")
+    finally:
+        if routing is not None:
+            routing.close()
+    if routing is not None:
+        check(len(routing.first) == len(routing.own) == 4 * n_moe,
+              f"phase 8 (c) {label}: router calls {len(routing.first)}, "
+              f"{len(routing.own)}, expected {4 * n_moe} each")
+        diffs = [_routing_diff(a, b) for a, b in zip(routing.first,
+                                                     routing.own)]
+        print(f"phase8 {label} routing: the plain run's own gates against "
+              f"the kernels' routing, by router call (MoE forward, aux "
+              f"loss, then both recomputed; {PERIOD_SEQ} tokens, top-"
+              f"{cfg.moe.top_k} of {cfg.moe.n_experts}): tokens whose "
+              f"experts differ {[x[0] for x in diffs]}, assignments whose "
+              f"keep flag differs {[x[1] for x in diffs]}; the plain run "
+              f"routed as the kernels' run did")
     errs, lost = [], []
     for (path, _), gk, gp in zip(named, *grads):
         name = "/".join(p.strip("[]'") for p in path)
@@ -3195,20 +3403,20 @@ def phase8_period_grads(arch: str):
         if not bool(gk.any()) and bool(gp.any()):
             lost.append(name)
     worst = max(e for _, e in errs)
-    print(f"phase8 {arch} period grads ({cfg.n_layers} layers of width "
-          f"{cfg.d_model}, S {PERIOD_SEQ}, bf16): loss kernels "
-          f"{losses[0]:.5f}, plain {losses[1]:.5f}; each leaf's relative "
-          f"error in norm (limit {GRAD_TOL}): " + "; ".join(
-              f"{n} {e:.2e}" for n, e in errs))
-    print(f"phase8 {arch} period grads: worst leaf {worst:.3e}; leaves "
+    print(f"phase8 {label} period grads ({cfg.n_layers} layers of width "
+          f"{cfg.d_model}, {str(param_dtype)[6:]} weights, S {PERIOD_SEQ},"
+          f" bf16): loss kernels {losses[0]:.5f}, plain {losses[1]:.5f}; "
+          f"each leaf's relative error in norm (limit {GRAD_TOL}): "
+          + "; ".join(f"{n} {e:.2e}" for n, e in errs))
+    print(f"phase8 {label} period grads: worst leaf {worst:.3e}; leaves "
           f"zero through the kernels but not through the plain versions: "
           f"{lost or 'none'}")
-    check(not lost, f"phase 8 (c) {arch}: gradients lost through the "
+    check(not lost, f"phase 8 (c) {label}: gradients lost through the "
           f"kernels: {lost}")
-    check(worst <= GRAD_TOL, f"phase 8 (c) {arch}: a gradient leaf differs "
-          f"by {worst} in norm")
+    check(worst <= GRAD_TOL, f"phase 8 (c) {label}: a gradient leaf "
+          f"differs by {worst} in norm")
     check(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
-          f"phase 8 (c) {arch}: losses {losses}")
+          f"phase 8 (c) {label}: losses {losses}")
     if arch == SSM_ARCH:
         scan_only = [(n, gk) for (n, _), gk in zip(errs, grads[0])
                      if n.endswith("A_log") or n.endswith("dt_bias")]
@@ -3345,9 +3553,12 @@ def phase8_training():
     among them."""
     t0 = time.perf_counter()
     serve = phase8_bwd_kernels()
-    counts = {arch: phase8_train_full_width(arch) for arch in TRAIN_ARCHS}
+    counts = {arch: phase8_train_full_width(arch)
+              for arch in TRAIN_ARCHS + (MOE_ARCH,)}
     for arch in TRAIN_ARCHS:
         phase8_period_grads(arch)
+    for n_layers in (1, MOE_TRAIN_LAYERS):
+        phase8_period_grads(MOE_ARCH, n_layers)
     phase8_drill()
     phase8_policy_fit()
     print(f"phase8 total {time.perf_counter() - t0:.1f} s")
@@ -3465,6 +3676,35 @@ def main() -> int:
                 "path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
                 "simt_device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}}
+        # the MLA shape's backward (deepseek-v2-236b trained in phase 8
+        # (b)): the wgmma kernel at D 192, Dv 128, with the CUDA-core
+        # kernel's f32 beside; launches are phase 8 (b)'s deepseek run,
+        # by path
+        mla_b, mla_b32 = (train["flash_attention_bwd mla"],
+                          train["flash_attention_bwd mla f32"])
+        moe_counts = train_launches[MOE_ARCH]
+        keys = ("path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
+                "simt_device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")
+        flash_bwd["mla"] = {
+            "source": CSRC + "flash_attention_bwd_wgmma.cu",
+            "launches": moe_counts["flash_attention_bwd"],
+            "launches_by_path": {
+                p: moe_counts[f"flash_attention_bwd.{p}"]
+                for p in ("wgmma", "tf32", "simt")},
+            **{key: mla_b.get(key) for key in keys},
+            "f32": {"source": CSRC + "flash_attention_bwd.cu",
+                    "launches": sum(c["flash_attention_bwd.simt"]
+                                    for c in train_launches.values()),
+                    **{key: mla_b32.get(key) for key in keys
+                       if not key.startswith("simt")}}}
+        for label, m in (("bf16", mla_b), ("f32", mla_b32)):
+            print(f"flash_attention_bwd mla {label} path={m['path']} at "
+                  f"{m['shape']}: kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms, "
+                  f"sdpa backward {m['library_ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}), max_abs_err "
+                  f"{m['max_abs_err']:.3g}")
         print(f"flash_attention_bwd f32 path={f32b['path']} "
               f"({CSRC}flash_attention_bwd_tf32.cu) at {f32b['shape']}: "
               f"kernel {f32b['ms']:.4f} ms (device {f32b['device_ms']:.4f} "

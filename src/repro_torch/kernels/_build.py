@@ -89,22 +89,21 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, lse and delta scratch, bh, s, d,
-        # group, is_bf16, causal, kind, window, softcap, stream
+        # dv, group, is_bf16, causal, kind, window, softcap, stream
         "flash_attention_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _D, _P], _I),
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _D, _P],
+                                _I),
     },
     "flash_attention_bwd_wgmma": {
-        # bh, s, d, group, causal, kind, window -> the dK/dV shares
-        "flash_attention_bwd_wgmma_shares": ([_I, _I, _I, _I, _I, _I, _I],
-                                             _I),
+        # bh, s, d, dv, group, causal, kind, window -> the dK/dV shares
+        "flash_attention_bwd_wgmma_shares": ([_I] * 8, _I),
         # q, k, v, o, dout, lse, dq, dk, dv, delta and partials scratch,
-        # bh, s, d, group, shares, causal, kind, window, softcap, stream
-        "flash_attention_bwd_wgmma": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-                                       _P], _I),
+        # bh, s, d, dv, group, shares, causal, kind, window, softcap,
+        # stream
+        "flash_attention_bwd_wgmma": ([_P] * 11 + [_I] * 9 + [_D, _P], _I),
     },
     "flash_attention_bwd_tf32": {
-        # the same entry points as the wgmma backward's, for f32
+        # the wgmma backward's entry points without dv (d = dv), for f32
         "flash_attention_bwd_tf32_shares": ([_I, _I, _I, _I, _I, _I, _I], _I),
         "flash_attention_bwd_tf32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,

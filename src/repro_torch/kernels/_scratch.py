@@ -12,6 +12,14 @@ import torch
 _BUFFERS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
+def current_stream(device: torch.device) -> int:
+    """The handle of `device`'s current stream, as the entry points take
+    it: ``torch.cuda.current_stream(device).cuda_stream`` without building
+    a Stream object, which costs a launch a few microseconds on the
+    host."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def scratch(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     """At least `nbytes` bytes (uint8) on `device`, for kernels queued on
     `stream` (its ``cuda_stream`` handle); 256-byte aligned, as every

@@ -6,10 +6,14 @@
 // `blockwise_attention` (src/repro/models/attention.py:118), which XLA
 // differentiates.  The port's train step runs the hand-written forward,
 // so its gradient is this kernel:
-//   q, o, dO (BH, S, D), k and v (BH / G, S, D), f32 or bf16, D <= 256
-//   -> dq (BH, S, D), dk and dv (BH / G, S, D) in the inputs' dtype,
+//   q (BH, S, D), k (BH / G, S, D), v (BH / G, S, Dv), o, dO (BH, S, Dv),
+//   f32 or bf16, D and Dv <= 256
+//   -> dq (BH, S, D), dk (BH / G, S, D), dv (BH / G, S, Dv) in the
+//   inputs' dtype,
 // with the forward's masks (causal, `local` within `window`, `chunked`)
-// and its tanh softcap.  Query row bh reads kv row bh / G.
+// and its tanh softcap.  Query row bh reads kv row bh / G.  v may be
+// narrower than q and k (MLA: D 192, Dv 128), as in the CUDA-core
+// forward; the scale is 1/sqrt(D).
 //
 // Arithmetic (FA2's backward, all in f32): with s the scaled, softcapped
 // (t = tanh(s / c), s = t c) and masked scores, lse the row's
@@ -20,7 +24,8 @@
 // Masked pairs, keys past S and query rows past S give p = 0 and ds = 0.
 //
 // What bounds it on this card: operations.  The least work is five
-// products of 2*D flops per kept pair (s, dp, dv, dq, dk: 10*D), against
+// products per kept pair (s, dq, dk of 2*D flops, dp, dv of 2*Dv: 6*D +
+// 4*Dv, 10*D when Dv = D), against
 // q, k, v, o, dO read and dq, dk, dv written once; at the serving shapes
 // (D = 256, local window 2,048) that is far above the bytes.  This first
 // design runs on the CUDA cores in f32 and recomputes s twice more (the
@@ -41,10 +46,11 @@
 // Tiles that the mask hides from every pair are skipped, as the forward
 // skips them (for a local window of 2,048 at S = 3,000, a third).  Every
 // row sees its own key under these masks, so no row is wholly masked.
-// Tiles are staged in shared memory as f32 rows padded to D + 1 floats
-// (the dot products read a row a lane without bank conflicts); 256
-// threads, warp w owning rows w, w + 8, w + 16, w + 24 of a 32 x 32 score
-// tile, lane l its column l, and 4 x (D / 32) of each 32 x D accumulator.
+// Tiles are staged in shared memory as f32 rows padded to D + 1 (q, k)
+// or Dv + 1 (v, o, dO) floats (the dot products read a row a lane without
+// bank conflicts); 256 threads, warp w owning rows w, w + 8, w + 16, w + 24
+// of a 32 x 32 score tile, lane l its column l, and 4 x (D / 32) of each
+// 32 x D accumulator (4 x (Dv / 32) of dv's).
 // At D = 256 the dK/dV block takes 137 KB of shared memory, opted in per
 // call with cudaFuncSetAttribute.
 //
@@ -155,26 +161,26 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ lse, float* __restrict__ delta, int D, int group,
-                      Mask mask) {
+                      float* __restrict__ lse, float* __restrict__ delta, int D, int Dv,
+                      int group, Mask mask) {
   extern __shared__ float smem[];
   const int S = mask.S, ds = D + 1;
   float* qs = smem;          // kB x ds
   float* ks = qs + kB * ds;  // kB x ds
   const int bh = blockIdx.y, q0 = blockIdx.x * kB;
-  const long long plane = (long long)S * D;
+  const long long plane = (long long)S * D, vplane = (long long)S * Dv;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // D_i, a warp per row: lanes stride over the head dim
-  const T* ob = o + bh * plane;
-  const T* dob = dout + bh * plane;
+  // D_i, a warp per row: lanes stride over v's head dim
+  const T* ob = o + bh * vplane;
+  const T* dob = dout + bh * vplane;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = q0 + w + 8 * i;
     if (r >= S) continue;
     float acc = 0.0f;
-    for (int c = lane; c < D; c += 32)
-      acc = fmaf(to_f(dob[(long long)r * D + c]), to_f(ob[(long long)r * D + c]), acc);
+    for (int c = lane; c < Dv; c += 32)
+      acc = fmaf(to_f(dob[(long long)r * Dv + c]), to_f(ob[(long long)r * Dv + c]), acc);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (lane == 0) delta[(long long)bh * S + r] = acc;
@@ -234,35 +240,37 @@ attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // 2. dQ: one block per (bh, query tile)
 // ---------------------------------------------------------------------------
 
-size_t dq_smem(int d) { return 4 * tile_bytes(d) + sizeof(float) * (kB * (kB + 1) + 2 * kB); }
+size_t dq_smem(int d, int dv) {
+  return 2 * tile_bytes(d) + 2 * tile_bytes(dv) + sizeof(float) * (kB * (kB + 1) + 2 * kB);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq, int D, int group,
-                   Mask mask) {
+                   const float* __restrict__ delta, T* __restrict__ dq, int D, int Dv,
+                   int group, Mask mask) {
   extern __shared__ float smem[];
-  const int S = mask.S, ds = D + 1;
+  const int S = mask.S, ds = D + 1, dvs = Dv + 1;
   float* qs = smem;                 // kB x ds
-  float* dos = qs + kB * ds;        // kB x ds
-  float* ks = dos + kB * ds;        // kB x ds
-  float* vs = ks + kB * ds;         // kB x ds
-  float* dss = vs + kB * ds;        // kB x (kB + 1): ds of row r, key j
+  float* ks = qs + kB * ds;         // kB x ds
+  float* dos = ks + kB * ds;        // kB x dvs
+  float* vs = dos + kB * dvs;       // kB x dvs
+  float* dss = vs + kB * dvs;       // kB x (kB + 1): ds of row r, key j
   float* lse_s = dss + kB * (kB + 1);
   float* delta_s = lse_s + kB;
   const int bh = blockIdx.y, q0 = blockIdx.x * kB;
-  const long long plane = (long long)S * D;
+  const long long plane = (long long)S * D, vplane = (long long)S * Dv;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   stage(qs, q + bh * plane, q0, S, D);
-  stage(dos, dout + bh * plane, q0, S, D);
+  stage(dos, dout + bh * vplane, q0, S, Dv);
   if (threadIdx.x < kB) {
     const int r = q0 + threadIdx.x;
     lse_s[threadIdx.x] = r < S ? lse[(long long)bh * S + r] : 0.0f;
     delta_s[threadIdx.x] = r < S ? delta[(long long)bh * S + r] : 0.0f;
   }
   const T* kb = k + (bh / group) * plane;
-  const T* vb = v + (bh / group) * plane;
+  const T* vb = v + (bh / group) * vplane;
   float acc[kRows][kCols];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
@@ -274,18 +282,20 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   for (int k0 = (lo / kB) * kB; k0 < hi; k0 += kB) {
     __syncthreads();  // the previous tile's k, v and ds are no longer read
     stage(ks, kb, k0, S, D);
-    stage(vs, vb, k0, S, D);
+    stage(vs, vb, k0, S, Dv);
     __syncthreads();
     float sdot[kRows], pdot[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) sdot[i] = pdot[i] = 0.0f;
     for (int d = 0; d < D; ++d) {
-      const float kv = ks[lane * ds + d], vv = vs[lane * ds + d];
+      const float kv = ks[lane * ds + d];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        sdot[i] = fmaf(qs[(w + 8 * i) * ds + d], kv, sdot[i]);
-        pdot[i] = fmaf(dos[(w + 8 * i) * ds + d], vv, pdot[i]);
-      }
+      for (int i = 0; i < kRows; ++i) sdot[i] = fmaf(qs[(w + 8 * i) * ds + d], kv, sdot[i]);
+    }
+    for (int d = 0; d < Dv; ++d) {
+      const float vv = vs[lane * dvs + d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) pdot[i] = fmaf(dos[(w + 8 * i) * dvs + d], vv, pdot[i]);
     }
     const int kp = k0 + lane;
 #pragma unroll
@@ -335,29 +345,31 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 //    summed in registers
 // ---------------------------------------------------------------------------
 
-size_t dkdv_smem(int d) { return 4 * tile_bytes(d) + sizeof(float) * (2 * kB * (kB + 1) + 2 * kB); }
+size_t dkdv_smem(int d, int dv) {
+  return 2 * tile_bytes(d) + 2 * tile_bytes(dv) + sizeof(float) * (2 * kB * (kB + 1) + 2 * kB);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int D, int group, Mask mask) {
+                     int D, int Dv, int group, Mask mask) {
   extern __shared__ float smem[];
-  const int S = mask.S, ds = D + 1;
+  const int S = mask.S, ds = D + 1, dvs = Dv + 1;
   float* ks = smem;                  // kB x ds
-  float* vs = ks + kB * ds;          // kB x ds
-  float* qs = vs + kB * ds;          // kB x ds
-  float* dos = qs + kB * ds;         // kB x ds
-  float* pts = dos + kB * ds;        // kB x (kB + 1): p of key j, query row i
+  float* qs = ks + kB * ds;          // kB x ds
+  float* vs = qs + kB * ds;          // kB x dvs
+  float* dos = vs + kB * dvs;        // kB x dvs
+  float* pts = dos + kB * dvs;       // kB x (kB + 1): p of key j, query row i
   float* dsts = pts + kB * (kB + 1); // kB x (kB + 1): ds of key j, query row i
   float* lse_s = dsts + kB * (kB + 1);
   float* delta_s = lse_s + kB;
   const int bkv = blockIdx.y, k0 = blockIdx.x * kB;
-  const long long plane = (long long)S * D;
+  const long long plane = (long long)S * D, vplane = (long long)S * Dv;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   stage(ks, k + bkv * plane, k0, S, D);
-  stage(vs, v + bkv * plane, k0, S, D);
+  stage(vs, v + bkv * vplane, k0, S, Dv);
   float acc_k[kRows][kCols], acc_v[kRows][kCols];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
@@ -369,11 +381,11 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int g = 0; g < group; ++g) {
     const int bh = bkv * group + g;
     const T* qb = q + bh * plane;
-    const T* dob = dout + bh * plane;
+    const T* dob = dout + bh * vplane;
     for (int q0 = (lo / kB) * kB; q0 < hi; q0 += kB) {
       __syncthreads();  // the previous tile's q, dO, p and ds are no longer read
       stage(qs, qb, q0, S, D);
-      stage(dos, dob, q0, S, D);
+      stage(dos, dob, q0, S, Dv);
       if (threadIdx.x < kB) {
         const int r = q0 + threadIdx.x;
         lse_s[threadIdx.x] = r < S ? lse[(long long)bh * S + r] : 0.0f;
@@ -385,12 +397,14 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int i = 0; i < kRows; ++i) sdot[i] = pdot[i] = 0.0f;
       for (int d = 0; d < D; ++d) {
-        const float qv = qs[lane * ds + d], dov = dos[lane * ds + d];
+        const float qv = qs[lane * ds + d];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          sdot[i] = fmaf(qv, ks[(w + 8 * i) * ds + d], sdot[i]);
-          pdot[i] = fmaf(dov, vs[(w + 8 * i) * ds + d], pdot[i]);
-        }
+        for (int i = 0; i < kRows; ++i) sdot[i] = fmaf(qv, ks[(w + 8 * i) * ds + d], sdot[i]);
+      }
+      for (int d = 0; d < Dv; ++d) {
+        const float dov = dos[lane * dvs + d];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) pdot[i] = fmaf(dov, vs[(w + 8 * i) * dvs + d], pdot[i]);
       }
       const int qp = q0 + lane;
 #pragma unroll
@@ -418,20 +432,22 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int d = lane + 32 * c;
-          if (d < D) {
-            const float dov = dos[r * ds + d], qv = qs[r * ds + d];
+          if (d < Dv) {
+            const float dov = dos[r * dvs + d];
 #pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
-              acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
-            }
+            for (int i = 0; i < kRows; ++i) acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
+          }
+          if (d < D) {
+            const float qv = qs[r * ds + d];
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
           }
         }
       }
     }
   }
   T* dkb = dk + bkv * plane;
-  T* dvb = dv + bkv * plane;
+  T* dvb = dv + bkv * vplane;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = k0 + w + 8 * i;
@@ -439,10 +455,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) {
-        dkb[(long long)r * D + d] = from_f<T>(acc_k[i][c] * mask.scale);
-        dvb[(long long)r * D + d] = from_f<T>(acc_v[i][c]);
-      }
+      if (d < D) dkb[(long long)r * D + d] = from_f<T>(acc_k[i][c] * mask.scale);
+      if (d < Dv) dvb[(long long)r * Dv + d] = from_f<T>(acc_v[i][c]);
     }
   }
 }
@@ -456,7 +470,7 @@ cudaError_t opt_in(K kernel, size_t smem) {
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    void* dq, void* dk, void* dv, float* lse, float* delta, int bh, int s, int d,
-                   int group, int causal, int kind, int window, float softcap,
+                   int d_v, int group, int causal, int kind, int window, float softcap,
                    cudaStream_t stream) {
   const Mask mask{s, causal, kind, window, (float)(1.0 / sqrt((double)d)), softcap};
   const T* qt = static_cast<const T*>(q);
@@ -467,35 +481,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   cudaError_t err = opt_in(attn_bwd_stats_kernel<T>, stats_smem(d));
   if (err != cudaSuccess) return err;
   attn_bwd_stats_kernel<T><<<dim3(tiles, bh), kThreads, stats_smem(d), stream>>>(
-      qt, kt, static_cast<const T*>(o), dot, lse, delta, d, group, mask);
+      qt, kt, static_cast<const T*>(o), dot, lse, delta, d, d_v, group, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(attn_bwd_dq_kernel<T>, dq_smem(d))) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T><<<dim3(tiles, bh), kThreads, dq_smem(d), stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), d, group, mask);
+  if ((err = opt_in(attn_bwd_dq_kernel<T>, dq_smem(d, d_v))) != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T><<<dim3(tiles, bh), kThreads, dq_smem(d, d_v), stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), d, d_v, group, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = opt_in(attn_bwd_dkdv_kernel<T>, dkdv_smem(d))) != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T><<<dim3(tiles, bh / group), kThreads, dkdv_smem(d), stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), d, group, mask);
+  if ((err = opt_in(attn_bwd_dkdv_kernel<T>, dkdv_smem(d, d_v))) != cudaSuccess) return err;
+  attn_bwd_dkdv_kernel<T><<<dim3(tiles, bh / group), kThreads, dkdv_smem(d, d_v), stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), d, d_v, group,
+      mask);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq: (bh, s, d); k, v, dk, dv: (bh / group, s, d); all f32
-// (is_bf16 = 0) or all bf16 (is_bf16 = 1), contiguous, on the current
-// device; lse, delta: (bh, s) f32 scratch.  kind: 0 global, 1 local, 2
-// chunked.
+// q, dq: (bh, s, d); o, dout: (bh, s, d_v); k, dk: (bh / group, s, d); v,
+// dv: (bh / group, s, d_v); all f32 (is_bf16 = 0) or all bf16 (is_bf16 =
+// 1), contiguous, on the current device; lse, delta: (bh, s) f32
+// scratch.  kind: 0 global, 1 local, 2 chunked.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, void* dq, void* dk, void* dv, float* lse,
-                                   float* delta, int bh, int s, int d, int group, int is_bf16,
-                                   int causal, int kind, int window, double softcap,
-                                   void* stream) {
+                                   float* delta, int bh, int s, int d, int d_v, int group,
+                                   int is_bf16, int causal, int kind, int window,
+                                   double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > kMaxD || group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d > kMaxD || d_v <= 0 || d_v > kMaxD || group <= 0 || bh % group)
+    return (int)cudaErrorInvalidValue;
   if (kind != kGlobal && window < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, s,
-                                               d, group, causal, kind, window, (float)softcap, st)
-                       : launch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, s, d,
+                                               d, d_v, group, causal, kind, window,
+                                               (float)softcap, st)
+                       : launch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, s, d, d_v,
                                        group, causal, kind, window, (float)softcap, st));
 }

@@ -1,5 +1,6 @@
 // Attention backward on Hopper's tensor cores (sm_90a): the bf16 path for
-// head dims 64, 128 and 256, the gradient of flash_attention_wgmma.cu.
+// head dims 64, 128 and 256, and for MLA's q and k of head dim 192 with v
+// of head dim 128; the gradient of flash_attention_wgmma.cu.
 //
 // The Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:77) has no backward: the reference trains through
@@ -7,12 +8,15 @@
 // differentiates.  This kernel computes what flash_attention_bwd.cu (the
 // first design, f32 on the CUDA cores, which keeps f32 inputs and other
 // head dims) computes:
-//   q, o, dO (BH, S, D), k and v (BH / G, S, D) bf16, lse (BH, S) f32
-//   -> dq (BH, S, D), dk and dv (BH / G, S, D) bf16,
+//   q (BH, S, D), k (BH / G, S, D), v (BH / G, S, Dv), o, dO (BH, S, Dv)
+//   bf16, lse (BH, S) f32
+//   -> dq (BH, S, D), dk (BH / G, S, D), dv (BH / G, S, Dv) bf16,
 // with the forward's masks (causal, `local` within `window`, `chunked`)
 // and its tanh softcap; query row bh reads kv row bh / G.  lse is each
 // row's log-sum-exp in natural-log units, written by the bf16 forward
-// when a gradient will be taken, so no launch recomputes it.
+// when a gradient will be taken, so no launch recomputes it.  The
+// kernels are templated on D (q and k columns) and DV (v, o and dO
+// columns) apart, for D = DV in {64, 128, 256} and (D, DV) = (192, 128).
 //
 // Arithmetic (FA2's backward): with s the scaled, softcapped (t =
 // tanh(s / c), s = t c) scores, p = exp(s - lse) on the pairs the mask
@@ -28,12 +32,14 @@
 // 0).  Every product accumulates in f32.
 //
 // What bounds it on this card: operations.  The least work is five
-// products of 2*D flops per kept pair (10*D); at the serving shapes (D =
-// 256, local window 2,048, MQA 10:1) that is far above the bytes.  This
+// products per kept pair, three over D (s, dq, dk) and two over Dv (dp,
+// dv): 6*D + 4*Dv flops (10*D when Dv = D; 1,664 at MLA's 192 / 128); at
+// the serving shapes (D = 256, local window 2,048, MQA 10:1) and at
+// MLA's (causal global, S 3,000) that is far above the bytes.  This
 // design does 12*D on the dK/dV side (s, dp, and the two split products)
 // and 8*D on the dQ side (s and dp again, and dq's split product): 20*D
-// a pair on the tensor cores, where the first design did 18*D on the CUDA
-// cores.
+// a pair on the tensor cores when Dv = D, where the first design did 18*D
+// on the CUDA cores.
 //
 // Four launches on the caller's stream, no atomics (two runs give bitwise
 // the same gradients):
@@ -72,6 +78,25 @@
 // thread t of the other holds); both then form p and ds for their own
 // columns.  A block takes about 225 KB of shared memory at D = 256 (K,
 // V, two (Q, dO) stages, the exchange), one block an SM.
+//
+// MLA's (192, 128): Q and K are three 128-byte column blocks, V and dO
+// two.  S^T = K Q^T takes twelve k16 steps, dP^T = V dO^T eight.  dK (64
+// x 192 f32) and dV (64 x 128 f32) are 160 floats a thread of one
+// warpgroup, with S, dP and the split P and dS besides above the limit,
+// and an n of 96 (half of 192) would start a B operand in the middle of
+// a 64-column swizzle atom.  So the two warpgroups split the five column
+// blocks at block boundaries: warpgroup 0 computes the score tile and
+// owns dK's first 128 columns (one m64n128 product a k16 step, split in
+// two); warpgroup 1 computes the dP tile and owns dV (m64n128) and dK's
+// last 64 columns (m64n64).  That is 28 and 32 m64n64k16 steps an item
+// (12 + 16 and 8 + 16 + 8), and 96 accumulator floats a thread in both
+// (warpgroup 0 leaves its 32-float second accumulator idle).  On the dQ
+// side warpgroup 0 owns dq's first 128 columns and warpgroup 1 the last
+// 64.  Shared memory: dK/dV about 154 KB (K 24 KB, V 16 KB, two (Q, dO)
+// stages of 40 KB, the exchange 32 KB), dQ about 153 KB (Q, dO, two (K,
+// V) stages, the exchange); one block an SM.  ptxas (CUDA 12 on the
+// H100's machine, printed by chip_smoke.py's phase 0): dK/dV 202
+// registers, dQ 193, no spill (at D 256: 246 and 162).
 //
 // Masks: tiles that the mask hides from every pair are skipped (the key
 // tile's query range, the query tile's key range); tiles that it shows
@@ -187,18 +212,19 @@ __device__ __forceinline__ void tile_dot(float (&acc)[N / 2], uint32_t sa, uint3
   }
 }
 
-// The two score-side tiles of one step, s (= A1 B1^T) and dp (= A2 B2^T),
-// in every warpgroup's registers.  With one warpgroup it computes both;
-// with two, warpgroup w computes product w and they swap through `xch`
-// (two slots of kT / 2 floats a thread, thread-major).
-template <int D, int kWG>
+// The two score-side tiles of one step, s (= A1 B1^T, over D columns) and
+// dp (= A2 B2^T, over DV columns), in every warpgroup's registers.  With
+// one warpgroup it computes both; with two, warpgroup w computes product
+// w and they swap through `xch` (two slots of kT / 2 floats a thread,
+// thread-major).
+template <int D, int DV, int kWG>
 __device__ __forceinline__ void score_tiles(float (&s)[kT / 2], float (&dp)[kT / 2],
                                             uint32_t a1, uint32_t b1, uint32_t a2,
                                             uint32_t b2, float* xch, int wg, int lt) {
   if constexpr (kWG == 1) {
     wgmma_fence();
     tile_dot<D, kT>(s, a1, b1);
-    tile_dot<D, kT>(dp, a2, b2);
+    tile_dot<DV, kT>(dp, a2, b2);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -206,7 +232,13 @@ __device__ __forceinline__ void score_tiles(float (&s)[kT / 2], float (&dp)[kT /
   } else {
     float x[kT / 2];
     wgmma_fence();
-    tile_dot<D, kT>(x, wg == 0 ? a1 : a2, wg == 0 ? b1 : b2);
+    if constexpr (D == DV) {
+      tile_dot<D, kT>(x, wg == 0 ? a1 : a2, wg == 0 ? b1 : b2);
+    } else if (wg == 0) {
+      tile_dot<D, kT>(x, a1, b1);
+    } else {
+      tile_dot<DV, kT>(x, a2, b2);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(x);
@@ -244,6 +276,29 @@ __device__ __forceinline__ void tile_acc(float (&acc)[N / 2], const uint32_t (&h
                                    kT * 128, 1024);
     wgmma_rs_tb<N>(acc, hi[kk], db);
     wgmma_rs_tb<N>(acc, lo[kk], db);
+  }
+}
+
+// One warpgroup's N accumulator columns of 64 rows into columns [col, col
+// + N) of a row-major plane of `width` columns, rows r_base + r0 and
+// r_base + r0 + 8 below S, each value times `scale`: f32 pairs, or bf16
+// pairs when T is __nv_bfloat16
+template <int N, typename T>
+__device__ __forceinline__ void store_tile(T* dst, int width, int col, const float (&a)[N / 2],
+                                           int r_base, int r0, int cq, int S, float scale) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_base + r0 + 8 * half;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const long long at = (long long)r * width + col + cq + 8 * j;
+      const float x = a[4 * j + 2 * half] * scale, y = a[4 * j + 2 * half + 1] * scale;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(dst + at) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst + at) = __floats2bfloat162_rn(x, y);
+    }
   }
 }
 
@@ -285,33 +340,53 @@ attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
 
 // Shared memory: K, V, then the (Q, dO) ring, the exchange (two
 // warpgroups only), each stage's lse and D_i, the barriers; tiles on
-// 1,024-byte boundaries.
-template <int D>
+// 1,024-byte boundaries.  Q and K tiles are kT x D bf16, V and dO tiles
+// kT x DV.
+template <int D, int DV>
 struct DkdvLayout {
-  static constexpr int kWG = D > 128 ? 2 : 1;  // consumer warpgroups
-  static constexpr uint32_t kTile = kT * D * 2;
+  static constexpr int kWG = D > 128 || D != DV ? 2 : 1;  // consumer warpgroups
+  static constexpr uint32_t kQK = kT * D * 2;
+  static constexpr uint32_t kVO = kT * DV * 2;
+  static constexpr uint32_t kStage = kQK + kVO;
   static constexpr uint32_t kK = 0;
-  static constexpr uint32_t kV = kTile;
-  static constexpr uint32_t kRing = 2 * kTile;  // stage st: Q, then dO
-  static constexpr uint32_t kX = kRing + kStages * 2 * kTile;
+  static constexpr uint32_t kV = kQK;
+  static constexpr uint32_t kRing = kQK + kVO;  // stage st: Q, then dO
+  static constexpr uint32_t kX = kRing + kStages * kStage;
   static constexpr uint32_t kRows = kX + (kWG == 2 ? 2 * (kT / 2) * 128 * 4 : 0);
   static constexpr uint32_t kBar = kRows + kStages * 2 * kT * 4;
   // the K/V barrier and one a stage, then slack to align the base
   static constexpr uint32_t kBytes = kBar + 8 * (kStages + 1) + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(128 * DkdvLayout<D>::kWG, 1)
+// The column split of the gradients between the warpgroups.  With D =
+// DV, warpgroup w owns columns [w D / kWG, (w + 1) D / kWG) of dK and dV:
+// accumulator 0 is its dV, accumulator 1 its dK, N0 = N1 = D / kWG.  With
+// MLA's (192, 128) (the only D != DV pair), accumulator 0 is 128 columns
+// and 1 is 64: warpgroup 0 owns dK[:, 0:128] in 0 (1 idle), warpgroup 1
+// dV in 0 and dK[:, 128:192] in 1.  On the dQ side the same N0, N1:
+// warpgroup 0 owns dq[:, 0:N0] in 0, warpgroup 1 dq[:, N0:D] in 1 (D !=
+// DV; with D = DV accumulator 0 holds each warpgroup's D / kWG columns).
+template <int D, int DV>
+struct Split {
+  static_assert(D == DV || (D == 192 && DV == 128), "unsupported head dims");
+  static constexpr bool kMixed = D != DV;
+  static constexpr int kWG = DkdvLayout<D, DV>::kWG;
+  static constexpr int kN0 = kMixed ? DV : D / kWG;
+  static constexpr int kN1 = kMixed ? D - DV : D / kWG;
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(128 * DkdvLayout<D, DV>::kWG, 1)
 attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ part, int bh_kv,
                      int group, int shares, Mask mask) {
-  using L = DkdvLayout<D>;
+  using L = DkdvLayout<D, DV>;
+  using P = Split<D, DV>;
   constexpr int kWG = L::kWG;
-  constexpr int kDW = D / kWG;  // dK and dV columns per warpgroup
-  constexpr int kCols = D / kColBlock;
+  constexpr int kQKCols = D / kColBlock, kVCols = DV / kColBlock;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -339,13 +414,14 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     int bh, q0;
     item_rows(item, bh, q0);
     const uint32_t bar = full + 8 * st;
-    const uint32_t sq = base + L::kRing + st * 2 * L::kTile;
-    mbar_expect_tx(bar, 2 * L::kTile);
+    const uint32_t sq = base + L::kRing + st * L::kStage;
+    mbar_expect_tx(bar, L::kStage);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kQKCols; ++c)
       tma_load_3d(sq + c * kT * 128, &tq, bar, c * kColBlock, q0, bh);
-      tma_load_3d(sq + L::kTile + c * kT * 128, &tdo, bar, c * kColBlock, q0, bh);
-    }
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c)
+      tma_load_3d(sq + L::kQK + c * kT * 128, &tdo, bar, c * kColBlock, q0, bh);
   };
   // lse and D_i of an item's query rows into its stage (rows past S: 0)
   auto stage_rows = [&](int st, int item) {
@@ -364,12 +440,13 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0 && n_mine > 0) {
-    mbar_expect_tx(kvbar, 2 * L::kTile);
+    mbar_expect_tx(kvbar, L::kQK + L::kVO);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kQKCols; ++c)
       tma_load_3d(sk + c * kT * 128, &tk, kvbar, c * kColBlock, k0, kvh);
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c)
       tma_load_3d(sv + c * kT * 128, &tv, kvbar, c * kColBlock, k0, kvh);
-    }
     for (int st = 0; st < kStages && st < n_mine; ++st) load_item(st, i_begin + st);
   }
   for (int st = 0; st < kStages && st < n_mine; ++st) stage_rows(st, i_begin + st);
@@ -382,24 +459,27 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
 
-  float dk[kDW / 2], dv[kDW / 2];
+  // the Split's two accumulators (with D = DV: dV and dK)
+  float a0[P::kN0 / 2], a1[P::kN1 / 2];
 #pragma unroll
-  for (int i = 0; i < kDW / 2; ++i) dk[i] = dv[i] = 0.0f;
+  for (int i = 0; i < P::kN0 / 2; ++i) a0[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < P::kN1 / 2; ++i) a1[i] = 0.0f;
 
   if (n_mine > 0) mbar_wait(kvbar, 0);
   for (int it = 0; it < n_mine; ++it) {
     const int st = it % kStages;
     int bh, q0;
     item_rows(i_begin + it, bh, q0);
-    const uint32_t sq = base + L::kRing + st * 2 * L::kTile;
-    const uint32_t sdo = sq + L::kTile;
+    const uint32_t sq = base + L::kRing + st * L::kStage;
+    const uint32_t sdo = sq + L::kQK;
     const float* lse_s = rows + st * 2 * kT;
     const float* delta_s = lse_s + kT;
     mbar_wait(full + 8 * st, (it / kStages) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T: rows keys, columns query rows
     float s[kT / 2], dp[kT / 2];
-    score_tiles<D, kWG>(s, dp, sk, sq, sv, sdo, xch, wg, lt);
+    score_tiles<D, DV, kWG>(s, dp, sk, sq, sv, sdo, xch, wg, lt);
 
     const bool whole = mask.whole(q0, k0);
 #pragma unroll
@@ -410,24 +490,55 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                 whole || mask.visible(q0 + qc, k0 + kr), mask);
     }
 
-    // dV += P^T dO, then dK += dS^T Q (each split in two), this
-    // warpgroup's columns; dS is split while P^T dO runs
-    uint32_t ph[kT / 16][4], pl[kT / 16][4], dh[kT / 16][4], dl[kT / 16][4];
-    split_tile(s, ph, pl);
-    wgmma_fence();
-    tile_acc<kDW>(dv, ph, pl, sdo, wg * kDW);
-    wgmma_commit();
-    split_tile(dp, dh, dl);
-    wgmma_fence();
-    tile_acc<kDW>(dk, dh, dl, sq, wg * kDW);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(ph);
-    fence_regs(pl);
-    fence_regs(dh);
-    fence_regs(dl);
+    if constexpr (!P::kMixed) {
+      // dV += P^T dO, then dK += dS^T Q (each split in two), this
+      // warpgroup's columns; dS is split while P^T dO runs
+      constexpr int kDW = P::kN0;
+      uint32_t ph[kT / 16][4], pl[kT / 16][4], dh[kT / 16][4], dl[kT / 16][4];
+      split_tile(s, ph, pl);
+      wgmma_fence();
+      tile_acc<kDW>(a0, ph, pl, sdo, wg * kDW);
+      wgmma_commit();
+      split_tile(dp, dh, dl);
+      wgmma_fence();
+      tile_acc<kDW>(a1, dh, dl, sq, wg * kDW);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(a0);
+      fence_regs(a1);
+      fence_regs(ph);
+      fence_regs(pl);
+      fence_regs(dh);
+      fence_regs(dl);
+    } else {
+      // warpgroup 0: dK[:, 0:128] += dS^T Q; warpgroup 1: dV += P^T dO,
+      // then dK[:, 128:192] += dS^T Q (each split in two)
+      uint32_t h[kT / 16][4], l[kT / 16][4];
+      if (wg == 0) {
+        split_tile(dp, h, l);
+        wgmma_fence();
+        tile_acc<P::kN0>(a0, h, l, sq, 0);
+        wgmma_commit();
+      } else {
+        split_tile(s, h, l);
+        wgmma_fence();
+        tile_acc<P::kN0>(a0, h, l, sdo, 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(a0);
+        fence_regs(h);
+        fence_regs(l);
+        split_tile(dp, h, l);
+        wgmma_fence();
+        tile_acc<P::kN1>(a1, h, l, sq, P::kN0);
+        wgmma_commit();
+      }
+      wgmma_wait_all();
+      fence_regs(a0);
+      fence_regs(a1);
+      fence_regs(h);
+      fence_regs(l);
+    }
 
     // every warp is done with this stage: refill it with item it + kStages
     __syncthreads();
@@ -437,23 +548,19 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // this share's partials, rows below S (an empty share writes zeros)
-  const long long plane = (long long)S * D;
-  float* pk = part + ((long long)share * bh_kv + kvh) * plane;
-  float* pv = part + ((long long)(shares + share) * bh_kv + kvh) * plane;
-  const int col = wg * kDW + cq;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = k0 + r0 + 8 * half;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < kDW / 8; ++j) {
-      const long long at = (long long)r * D + col + 8 * j;
-      *reinterpret_cast<float2*>(pk + at) =
-          make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
-      *reinterpret_cast<float2*>(pv + at) =
-          make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
-    }
+  // this share's partials, rows below S (an empty share writes zeros):
+  // every share's dK planes (S x D), then every share's dV planes (S x DV)
+  float* pk = part + ((long long)share * bh_kv + kvh) * S * D;
+  float* pv = part + (long long)shares * bh_kv * S * D +
+              ((long long)share * bh_kv + kvh) * S * DV;
+  if constexpr (!P::kMixed) {
+    store_tile<P::kN1>(pk, D, wg * P::kN1, a1, k0, r0, cq, S, 1.0f);
+    store_tile<P::kN0>(pv, DV, wg * P::kN0, a0, k0, r0, cq, S, 1.0f);
+  } else if (wg == 0) {
+    store_tile<P::kN0>(pk, D, 0, a0, k0, r0, cq, S, 1.0f);
+  } else {
+    store_tile<P::kN0>(pv, DV, 0, a0, k0, r0, cq, S, 1.0f);
+    store_tile<P::kN1>(pk, D, P::kN0, a1, k0, r0, cq, S, 1.0f);
   }
 }
 
@@ -463,29 +570,31 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
 // Shared memory: Q, dO, then the (K, V) ring, the exchange (two
 // warpgroups only), the barriers.
-template <int D>
+template <int D, int DV>
 struct DqLayout {
-  static constexpr int kWG = D > 128 ? 2 : 1;
-  static constexpr uint32_t kTile = kT * D * 2;
+  static constexpr int kWG = D > 128 || D != DV ? 2 : 1;
+  static constexpr uint32_t kQK = kT * D * 2;
+  static constexpr uint32_t kVO = kT * DV * 2;
+  static constexpr uint32_t kStage = kQK + kVO;
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kDO = kTile;
-  static constexpr uint32_t kRing = 2 * kTile;  // stage st: K, then V
-  static constexpr uint32_t kX = kRing + kStages * 2 * kTile;
+  static constexpr uint32_t kDO = kQK;
+  static constexpr uint32_t kRing = kQK + kVO;  // stage st: K, then V
+  static constexpr uint32_t kX = kRing + kStages * kStage;
   static constexpr uint32_t kBar = kX + (kWG == 2 ? 2 * (kT / 2) * 128 * 4 : 0);
   static constexpr uint32_t kBytes = kBar + 8 * (kStages + 1) + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(128 * DqLayout<D>::kWG, 1)
+template <int D, int DV>
+__global__ void __launch_bounds__(128 * DqLayout<D, DV>::kWG, 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int group,
                    Mask mask) {
-  using L = DqLayout<D>;
+  using L = DqLayout<D, DV>;
+  using P = Split<D, DV>;
   constexpr int kWG = L::kWG;
-  constexpr int kDW = D / kWG;
-  constexpr int kCols = D / kColBlock;
+  constexpr int kQKCols = D / kColBlock, kVCols = DV / kColBlock;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -505,13 +614,14 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   auto load_kv = [&](int st, int k0) {
     const uint32_t bar = full + 8 * st;
-    const uint32_t skt = base + L::kRing + st * 2 * L::kTile;
-    mbar_expect_tx(bar, 2 * L::kTile);
+    const uint32_t skt = base + L::kRing + st * L::kStage;
+    mbar_expect_tx(bar, L::kStage);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kQKCols; ++c)
       tma_load_3d(skt + c * kT * 128, &tk, bar, c * kColBlock, k0, kvh);
-      tma_load_3d(skt + L::kTile + c * kT * 128, &tv, bar, c * kColBlock, k0, kvh);
-    }
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c)
+      tma_load_3d(skt + L::kQK + c * kT * 128, &tv, bar, c * kColBlock, k0, kvh);
   };
   if (tid == 0) {
     for (int b = 0; b <= kStages; ++b) mbar_init(qbar + 8 * b, 1);
@@ -519,12 +629,13 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(qbar, 2 * L::kTile);
+    mbar_expect_tx(qbar, L::kQK + L::kVO);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kQKCols; ++c)
       tma_load_3d(sq + c * kT * 128, &tq, qbar, c * kColBlock, q0, bh);
+#pragma unroll
+    for (int c = 0; c < kVCols; ++c)
       tma_load_3d(sdo + c * kT * 128, &tdo, qbar, c * kColBlock, q0, bh);
-    }
     for (int st = 0; st < kStages && st < n_tiles; ++st) load_kv(st, k_first + st * kT);
   }
 
@@ -538,21 +649,26 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const float lse0 = qp0 < S ? lse_b[qp0] : 0.0f, lse1 = qp1 < S ? lse_b[qp1] : 0.0f;
   const float dl0 = qp0 < S ? delta_b[qp0] : 0.0f, dl1 = qp1 < S ? delta_b[qp1] : 0.0f;
 
-  float acc[kDW / 2];
+  // dq's columns: with D = DV, [wg D / kWG, (wg + 1) D / kWG) in a0;
+  // with MLA's, warpgroup 0's [0, N0) in a0, warpgroup 1's [N0, D) in a1
+  constexpr int kN1 = P::kMixed ? P::kN1 : 2;  // a1 idle with D = DV
+  float a0[P::kN0 / 2], a1[kN1 / 2];
 #pragma unroll
-  for (int i = 0; i < kDW / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < P::kN0 / 2; ++i) a0[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kN1 / 2; ++i) a1[i] = 0.0f;
 
   mbar_wait(qbar, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % kStages;
     const int k0 = k_first + it * kT;
-    const uint32_t skt = base + L::kRing + st * 2 * L::kTile;
-    const uint32_t svt = skt + L::kTile;
+    const uint32_t skt = base + L::kRing + st * L::kStage;
+    const uint32_t svt = skt + L::kQK;
     mbar_wait(full + 8 * st, (it / kStages) & 1);
 
     // S = Q K^T and dP = dO V^T: rows query rows, columns keys
     float s[kT / 2], dp[kT / 2];
-    score_tiles<D, kWG>(s, dp, sq, skt, sdo, svt, xch, wg, lt);
+    score_tiles<D, DV, kWG>(s, dp, sq, skt, sdo, svt, xch, wg, lt);
 
     const bool whole = mask.whole(q0, k0);
 #pragma unroll
@@ -567,10 +683,17 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     uint32_t dh[kT / 16][4], dl[kT / 16][4];
     split_tile(dp, dh, dl);
     wgmma_fence();
-    tile_acc<kDW>(acc, dh, dl, skt, wg * kDW);
+    if constexpr (!P::kMixed) {
+      tile_acc<P::kN0>(a0, dh, dl, skt, wg * P::kN0);
+    } else if (wg == 0) {
+      tile_acc<P::kN0>(a0, dh, dl, skt, 0);
+    } else {
+      tile_acc<P::kN1>(a1, dh, dl, skt, P::kN0);
+    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(acc);
+    fence_regs(a0);
+    fence_regs(a1);
     fence_regs(dh);
     fence_regs(dl);
 
@@ -579,39 +702,45 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 
   __nv_bfloat16* dqb = dq + (long long)bh * S * D;
-  const int col = wg * kDW + cq;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? qp1 : qp0;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < kDW / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (long long)r * D + col + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half] * mask.scale,
-                                acc[4 * j + 2 * half + 1] * mask.scale);
-  }
+  if constexpr (!P::kMixed)
+    store_tile<P::kN0>(dqb, D, wg * P::kN0, a0, q0, r0, cq, S, mask.scale);
+  else if (wg == 0)
+    store_tile<P::kN0>(dqb, D, 0, a0, q0, r0, cq, S, mask.scale);
+  else
+    store_tile<P::kN1>(dqb, D, P::kN0, a1, q0, r0, cq, S, mask.scale);
 }
 
 // ---------------------------------------------------------------------------
 // 4. dK and dV: the shares' partials summed in share order
 // ---------------------------------------------------------------------------
 
+// part holds `shares` planes of dK partials (nk floats each), then
+// `shares` of dV partials (nv floats each)
 __global__ void __launch_bounds__(256)
 attn_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, long long n, int shares, float scale) {
-  const long long n4 = n / 4;
+                    __nv_bfloat16* __restrict__ dv, long long nk, long long nv, int shares,
+                    float scale) {
+  const long long nk4 = nk / 4, nv4 = nv / 4, n4 = nk4 > nv4 ? nk4 : nv4;
+  const float* pv = part + (long long)shares * nk;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    for (int p = 0; p < shares; ++p) {
-      const float4 x = reinterpret_cast<const float4*>(part + (long long)p * n)[i];
-      const float4 y = reinterpret_cast<const float4*>(part + (long long)(shares + p) * n)[i];
-      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
+    if (i < nk4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p = 0; p < shares; ++p) {
+        const float4 x = reinterpret_cast<const float4*>(part + (long long)p * nk)[i];
+        a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      }
+      reinterpret_cast<uint2*>(dk)[i] =
+          make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
     }
-    reinterpret_cast<uint2*>(dk)[i] =
-        make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
-    reinterpret_cast<uint2*>(dv)[i] = make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    if (i < nv4) {
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int p = 0; p < shares; ++p) {
+        const float4 y = reinterpret_cast<const float4*>(pv + (long long)p * nv)[i];
+        b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
+      }
+      reinterpret_cast<uint2*>(dv)[i] = make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
   }
 }
 
@@ -620,15 +749,16 @@ Mask make_mask(int s, int d, int causal, int kind, int window, float softcap) {
 }
 
 // Blocks of the dK/dV kernel an SM holds, or 0 when the query fails.
-template <int D>
+template <int D, int DV>
 int dkdv_occupancy() {
-  const int smem = (int)DkdvLayout<D>::kBytes;
-  if (cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
+  const int smem = (int)DkdvLayout<D, DV>::kBytes;
+  if (cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return 0;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_dkdv_kernel<D>,
-                                                    128 * DkdvLayout<D>::kWG, smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_dkdv_kernel<D, DV>,
+                                                    128 * DkdvLayout<D, DV>::kWG,
+                                                    smem) != cudaSuccess)
     return 0;
   return n;
 }
@@ -671,45 +801,46 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
   return best;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
                    float* delta, float* part, int bh, int s, int group, int shares,
                    const Mask& mask, cudaStream_t stream) {
+  using LK = DkdvLayout<D, DV>;
+  using LQ = DqLayout<D, DV>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   const int bh_kv = bh / group;
   CUtensorMap mq, mk, mv, mdo;
   if (!encode_map(enc, &mq, q, bh, s, D, kT) || !encode_map(enc, &mk, k, bh_kv, s, D, kT) ||
-      !encode_map(enc, &mv, v, bh_kv, s, D, kT) ||
-      !encode_map(enc, &mdo, dout, bh, s, D, kT))
+      !encode_map(enc, &mv, v, bh_kv, s, DV, kT) ||
+      !encode_map(enc, &mdo, dout, bh, s, DV, kT))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DkdvLayout<D>::kBytes);
+                                         (int)LK::kBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DqLayout<D>::kBytes);
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LQ::kBytes);
   if (err != cudaSuccess) return err;
 
   const long long rows = (long long)bh * s;
   attn_bwd_delta_kernel<<<(unsigned)((rows + kDeltaRows - 1) / kDeltaRows), 32 * kDeltaRows, 0,
                           stream>>>(static_cast<const __nv_bfloat16*>(o),
-                                    static_cast<const __nv_bfloat16*>(dout), delta, rows, D);
+                                    static_cast<const __nv_bfloat16*>(dout), delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int tiles = (s + kT - 1) / kT;
-  attn_bwd_dkdv_kernel<D><<<dim3(shares, tiles, bh_kv), 128 * DkdvLayout<D>::kWG,
-                            DkdvLayout<D>::kBytes, stream>>>(mq, mk, mv, mdo, lse, delta, part,
-                                                             bh_kv, group, shares, mask);
+  attn_bwd_dkdv_kernel<D, DV><<<dim3(shares, tiles, bh_kv), 128 * LK::kWG, LK::kBytes,
+                                stream>>>(mq, mk, mv, mdo, lse, delta, part, bh_kv, group,
+                                          shares, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<D><<<dim3(bh, tiles), 128 * DqLayout<D>::kWG, DqLayout<D>::kBytes,
-                          stream>>>(mq, mk, mv, mdo, lse, delta,
-                                    static_cast<__nv_bfloat16*>(dq), group, mask);
+  attn_bwd_dq_kernel<D, DV><<<dim3(bh, tiles), 128 * LQ::kWG, LQ::kBytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), group, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long n = (long long)bh_kv * s * D;
-  const long long blocks = (n / 4 + 255) / 256;
+  const long long nk = (long long)bh_kv * s * D, nv = (long long)bh_kv * s * DV;
+  const long long blocks = ((nk > nv ? nk : nv) / 4 + 255) / 256;
   attn_bwd_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n, shares,
+      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), nk, nv, shares,
       mask.scale);
   return cudaGetLastError();
 }
@@ -717,30 +848,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // The number of shares the dK/dV launch splits each key tile's work
-// into (the partials' scratch is 2 * shares * (bh / group) * s * d f32),
-// or 0 when the arguments are refused or the device query fails.
-extern "C" int flash_attention_bwd_wgmma_shares(int bh, int s, int d, int group, int causal,
-                                                int kind, int window) {
+// into (the partials' scratch is shares * (bh / group) * s * (d + dv)
+// f32), or 0 when the arguments are refused or the device query fails.
+extern "C" int flash_attention_bwd_wgmma_shares(int bh, int s, int d, int dv, int group,
+                                                int causal, int kind, int window) {
   if (bh <= 0 || s <= 0 || group <= 0 || bh % group) return 0;
   if (kind != kGlobal && window < 1) return 0;
   const Mask m = make_mask(s, d, causal, kind, window, 0.0f);
+  const int bh_kv = bh / group;
+  if (d == 192 && dv == 128)
+    return choose_shares(bh_kv, s, group, m, dkdv_occupancy<192, 128>());
+  if (d != dv) return 0;
   switch (d) {
-    case 64: return choose_shares(bh / group, s, group, m, dkdv_occupancy<64>());
-    case 128: return choose_shares(bh / group, s, group, m, dkdv_occupancy<128>());
-    case 256: return choose_shares(bh / group, s, group, m, dkdv_occupancy<256>());
+    case 64: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<64, 64>());
+    case 128: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<128, 128>());
+    case 256: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<256, 256>());
     default: return 0;
   }
 }
 
-// q, o, dout, dq: (bh, s, d) bf16; k, v, dk, dv: (bh / group, s, d)
-// bf16; lse: (bh, s) f32 from the forward; delta: (bh, s) f32 scratch;
-// part: 2 * shares * (bh / group) * s * d f32 scratch.  All contiguous,
-// 16-byte aligned, on the current device; d in {64, 128, 256}.  kind: 0
-// global, 1 local, 2 chunked.
+// q, dq: (bh, s, d) bf16; o, dout: (bh, s, dv) bf16; k, dk: (bh / group,
+// s, d) bf16; v, dv_out: (bh / group, s, dv) bf16; lse: (bh, s) f32 from
+// the forward; delta: (bh, s) f32 scratch; part: shares * (bh / group) *
+// s * (d + dv) f32 scratch.  All contiguous, 16-byte aligned, on the
+// current device; d = dv in {64, 128, 256} or (d, dv) = (192, 128).
+// kind: 0 global, 1 local, 2 chunked.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
-                                         void* dq, void* dk, void* dv, float* delta,
-                                         float* part, int bh, int s, int d, int group,
+                                         void* dq, void* dk, void* dv_out, float* delta,
+                                         float* part, int bh, int s, int d, int dv, int group,
                                          int shares, int causal, int kind, int window,
                                          double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
@@ -748,16 +884,20 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   if (kind != kGlobal && window < 1) return (int)cudaErrorInvalidValue;
   const Mask m = make_mask(s, d, causal, kind, window, (float)softcap);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (d == 192 && dv == 128)
+    return (int)launch<192, 128>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
+                                 group, shares, m, st);
+  if (d != dv) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return (int)launch<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
-                             shares, m, st);
+      return (int)launch<64, 64>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
+                                 group, shares, m, st);
     case 128:
-      return (int)launch<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
-                              shares, m, st);
+      return (int)launch<128, 128>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
+                                   group, shares, m, st);
     case 256:
-      return (int)launch<256>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
-                              shares, m, st);
+      return (int)launch<256, 256>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
+                                   group, shares, m, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -28,17 +28,16 @@ nothing.  With ``return_lse`` it also returns each row's log-sum-exp
 ``ref.flash_attention_lse_ref`` on the CPU).
 
 The backward, ``flash_attention_bwd``, has three kernels:
-``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D in WGMMA_HEAD_DIMS, on
-the tensor cores), ``csrc/flash_attention_bwd_tf32.cu`` (f32 at those
-head dims without a softcap, on the tensor cores in 3xTF32), both
-reading the forward's lse, and ``csrc/flash_attention_bwd.cu`` (every
-other case, on the CUDA cores in f32, recomputing the lse);
-``bwd_path(dtype, D, softcap)`` names the one that runs, and
+``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in WGMMA_HEAD_DIMS
+and at (D, Dv) in WGMMA_QK_V_DIMS, on the tensor cores),
+``csrc/flash_attention_bwd_tf32.cu`` (f32 at D = Dv in WGMMA_HEAD_DIMS
+without a softcap, on the tensor cores in 3xTF32), both reading the
+forward's lse, and ``csrc/flash_attention_bwd.cu`` (every other case,
+any Dv, on the CUDA cores in f32, recomputing the lse);
+``bwd_path(dtype, D, softcap, v_dim)`` names the one that runs, and
 ``flash_attention_bwd.launches_by_path`` counts each.
 ``FlashAttentionFn`` asks the forward for the lse when a gradient will
-be taken on a path that reads it.  No backward kernel takes Dv other
-than D yet: on the card such a gradient raises (the CPU's plain version
-differentiates it).
+be taken on a path that reads it.
 """
 from __future__ import annotations
 
@@ -58,10 +57,6 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 #: kernel also takes: MLA's 128 + 64 query / key columns and 128 value
 #: columns
 WGMMA_QK_V_DIMS = ((192, 128),)
-
-TRAIN_SLICE = ("no backward kernel takes a v head dim other than q's yet: "
-               "training MLA (deepseek-v2) on the card arrives with a later "
-               "slice of the port")
 
 
 def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
@@ -89,19 +84,18 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
     return "simt"
 
 
-def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0) -> str:
-    """The kernel that computes the attention backward of `dtype` with
-    head dim `head_dim` on the card: "wgmma" (bf16, D in WGMMA_HEAD_DIMS,
-    with or without a softcap), "tf32" (f32, D in WGMMA_HEAD_DIMS, no
-    softcap), both reading the forward's lse, or "simt" (every other
-    case: f32 on the CUDA cores, its own lse).  The f32 cases are the
-    forward's ``path``: what its 3xTF32 kernel computes, this one
-    differentiates."""
-    if head_dim in WGMMA_HEAD_DIMS:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        return "simt" if softcap else "tf32"
-    return "simt"
+def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
+             v_dim: Optional[int] = None) -> str:
+    """The kernel that computes the attention backward of `dtype` with q
+    and k of head dim `head_dim` and v of head dim `v_dim` (`head_dim`
+    when None) on the card: "wgmma" (bf16, D = Dv in WGMMA_HEAD_DIMS or
+    (D, Dv) in WGMMA_QK_V_DIMS, with or without a softcap), "tf32" (f32,
+    D = Dv in WGMMA_HEAD_DIMS, no softcap), both reading the forward's
+    lse, or "simt" (every other case: f32 on the CUDA cores, its own
+    lse).  It is the forward's ``path`` in every case: what the forward's
+    kernel computes, this one differentiates, and the tensor-core
+    forwards write the lse the tensor-core backwards read."""
+    return path(dtype, head_dim, softcap, v_dim)
 
 
 #: the backward paths that read the forward's lse
@@ -110,30 +104,31 @@ LSE_BWD_PATHS = ("wgmma", "tf32")
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
            window: int) -> int:
-    """Validate the inputs; returns the group size G."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError(f"q, k, v must be (BH, S, D): {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    BH, S, D = q.shape
-    if k.shape[1:] != q.shape[1:] or v.shape[:2] != k.shape[:2]:
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"fit q {tuple(q.shape)}")
-    if k.shape[0] == 0 or BH % k.shape[0]:
-        raise ValueError(f"{BH} query rows do not group over {k.shape[0]} "
+    """Validate the inputs; returns the group size G.  It runs before every
+    launch, so it reads each shape once and compares ints (slicing a
+    torch.Size builds another)."""
+    qs, ks, vs = tuple(q.shape), tuple(k.shape), tuple(v.shape)
+    if len(qs) != 3 or len(ks) != 3 or len(vs) != 3:
+        raise ValueError(f"q, k, v must be (BH, S, D): {qs}, {ks}, {vs}")
+    BH, S, D = qs
+    if ks[1] != S or ks[2] != D or vs[0] != ks[0] or vs[1] != S:
+        raise ValueError(f"k {ks} and v {vs} do not fit q {qs}")
+    if ks[0] == 0 or BH % ks[0]:
+        raise ValueError(f"{BH} query rows do not group over {ks[0]} "
                          "kv rows")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+    dtype, dev = q.dtype, q.device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"q, k, v dtypes differ: {dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if not (k.device == v.device == q.device):
-        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"q is on {q.device}: the port runs on the CPU or a "
+    if not (k.device == v.device == dev):
+        raise ValueError(f"q, k, v on {dev}, {k.device}, {v.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"q is on {dev}: the port runs on the CPU or a "
                          "CUDA device")
-    if max(D, v.shape[2]) > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {D}, {v.shape[2]} above "
-                         f"{MAX_HEAD_DIM}")
+    if max(D, vs[2]) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {D}, {vs[2]} above {MAX_HEAD_DIM}")
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
     if kind != "global" and window < 1:
@@ -141,7 +136,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
     for name, a in (("q", q), ("k", k), ("v", v)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return BH // k.shape[0]
+    return BH // ks[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -180,7 +175,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if a.data_ptr() % 16:
                 raise ValueError(f"{name} is not 16-byte aligned")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = _scratch.current_stream(q.device)
         if kernel == "wgmma":
             lib = _build.load("flash_attention_wgmma")
             err = lib.flash_attention_wgmma_fwd(
@@ -256,17 +251,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv) in the inputs' dtype, dk and dv summed over each kv row's G query
     rows.  The wgmma and tf32 paths need lse and raise without it; the
     simt path and the plain version (CPU tensors) compute their own and
-    ignore it.  On the card Dv must equal D (no backward kernel takes
-    another Dv yet); the plain version takes any."""
+    ignore it."""
     group = _check_bwd(q, k, v, o, do, kind, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                            kind=kind, window=window,
                                            softcap=softcap)
-    if v.shape[2] != q.shape[2]:
-        raise NotImplementedError(TRAIN_SLICE)
     BH, S, D = q.shape
-    kernel = bwd_path(q.dtype, D, softcap)
+    Dv = v.shape[2]
+    kernel = bwd_path(q.dtype, D, softcap, Dv)
     if kernel in LSE_BWD_PATHS:
         if lse is None:
             raise ValueError(f"the {kernel} backward reads the forward's "
@@ -284,21 +277,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = _scratch.current_stream(q.device)
         if kernel in LSE_BWD_PATHS:
             name = f"flash_attention_bwd_{kernel}"
             # each key tile's work is split into `shares` blocks, whose
-            # f32 dK and dV partials a last launch sums in order; the
-            # scratch holds them, then D_i (BH, S) f32
-            shares = _bwd_shares(name, q.device.index, BH, S, D, group,
+            # f32 dK and dV partials (each at its own width) a last
+            # launch sums in order; the scratch holds them, then D_i
+            # (BH, S) f32.  The wgmma library takes q's and v's head dims
+            # apart, the tf32 one (D = Dv) one head dim
+            dims = (D, Dv) if kernel == "wgmma" else (D,)
+            shares = _bwd_shares(name, q.device.index, BH, S, *dims, group,
                                  int(causal), KINDS[kind], int(window))
-            n_part = 2 * shares * k.numel()
+            n_part = shares * (k.numel() + v.numel())
             buf = _scratch.scratch(q.device, stream, (n_part + BH * S) * 4)
             part = buf.data_ptr()
             err = getattr(_build.load(name), name)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), part + n_part * 4, part, BH, S, D, group,
+                dv.data_ptr(), part + n_part * 4, part, BH, S, *dims, group,
                 shares, int(causal), KINDS[kind], int(window),
                 float(softcap), stream)
         else:
@@ -308,8 +304,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = _build.load("flash_attention_bwd").flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                stats[0].data_ptr(), stats[1].data_ptr(), BH, S, D, group,
-                int(q.dtype == torch.bfloat16), int(causal), KINDS[kind],
+                stats[0].data_ptr(), stats[1].data_ptr(), BH, S, D, Dv,
+                group, int(q.dtype == torch.bfloat16), int(causal), KINDS[kind],
                 int(window), float(softcap), stream)
     _build.check_launch(err, f"flash_attention_bwd ({kernel})")
     flash_attention_bwd.launches += 1
@@ -324,9 +320,9 @@ flash_attention_bwd.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 @functools.lru_cache(maxsize=256)
 def _bwd_shares(name: str, device_index: int, *args: int) -> int:
     """The dK/dV share count of backward library `name` (the wgmma or
-    tf32 one) for (bh, s, d, group, causal, kind, window) on the current
-    device (it reads the SM count and the kernel's occupancy), kept per
-    shape."""
+    tf32 one) for (bh, s, d, [dv,] group, causal, kind, window) on the
+    current device (it reads the SM count and the kernel's occupancy),
+    kept per shape."""
     shares = getattr(_build.load(name), name + "_shares")(*args)
     if shares <= 0:
         raise RuntimeError(f"{name}: no share count for {args}")
@@ -346,7 +342,7 @@ class FlashAttentionFn(torch.autograd.Function):
         mask = dict(causal=causal, kind=kind, window=window,
                     softcap=softcap)
         want_lse = (any(ctx.needs_input_grad[:3])
-                    and bwd_path(q.dtype, q.shape[-1], softcap)
+                    and bwd_path(q.dtype, q.shape[-1], softcap, v.shape[-1])
                     in LSE_BWD_PATHS)
         if want_lse:
             o, lse = flash_attention(q, k, v, return_lse=True, **mask)

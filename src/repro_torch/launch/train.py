@@ -20,16 +20,19 @@ import numpy as np
 import torch
 
 
-def build_state(cfg, opt_cfg, seed: int = 0, device=None):
-    """A fresh train state on `device`: parameters from the port's
-    ``init_params`` drawn from a generator seeded `seed` on that device,
-    zero AdamW moments."""
+def build_state(cfg, opt_cfg, seed: int = 0, device=None,
+                param_dtype=torch.float32):
+    """A fresh train state on `device`: parameters of `param_dtype` (the
+    router's stay f32) from the port's ``init_params`` drawn from a
+    generator seeded `seed` on that device, zero AdamW moments of
+    ``opt_cfg.moment_dtype``."""
     from ..core.predictor import resolve_device
     from ..models import model as model_lib
     from ..optim import adamw
     dev = resolve_device(device)
     params = model_lib.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+        param_dtype=param_dtype)
     return {"params": params, "opt": adamw.init(params, opt_cfg)}
 
 

@@ -7,9 +7,13 @@ and lists of tensors).  The reference's ``update`` is functional; this
 one updates the parameters and both moments in place, one leaf at a
 time, and returns the same trees, so a step at recurrentgemma-2b's width
 holds the weights, gradients and moments once (some 43 GB in f32) and a
-single leaf's temporaries besides.  The step count, the learning rate
-and the clip scale stay on the parameters' device as 0-d tensors: a step
-never waits for the card.
+single leaf's temporaries besides.  A leaf of more than SLICE_ELEMENTS
+elements is updated in slices along its first axis: the update is
+elementwise, so the result is bitwise the same, and the f32 temporaries
+of bf16 state (some six copies at once) stay a slice's size rather than
+the leaf's (deepseek-v2's stacked experts are 1.26e9 elements, 5 GB a
+copy).  The step count, the learning rate and the clip scale stay on the
+parameters' device as 0-d tensors: a step never waits for the card.
 
 Weight decay skips norms, biases and scalars by name, as the reference
 does: its rule reads ``str(path[-1])`` of a JAX key path, ``"['bias1']"``
@@ -25,6 +29,9 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+#: leaves above this many elements are updated a slice of the first axis
+#: at a time (2^26: 256 MB an f32 temporary)
+SLICE_ELEMENTS = 1 << 26
 
 
 class AdamWConfig(NamedTuple):
@@ -130,18 +137,34 @@ def update(params, grads, state: OptState, cfg: AdamWConfig):
             == len(v_leaves)):
         raise ValueError("params, grads and moments are not congruent")
     for (path, p), g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-        g = g.float() * scale
-        m32 = m if m.dtype == torch.float32 else m.float()
-        m32.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v32 = v if v.dtype == torch.float32 else v.float()
-        v32.mul_(cfg.b2).add_((g * (1 - cfg.b2)).mul_(g))
-        upd = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
-        p32 = p if p.dtype == torch.float32 else p.float()
-        if _decayable(path):
-            upd = upd + cfg.weight_decay * p32
-        p32.sub_(lr * upd)
-        for dst, src in ((p, p32), (m, m32), (v, v32)):
-            if src is not dst:
-                dst.copy_(src)
+        decay = _decayable(path)
+        n = p.shape[0] if p.dim() else 0
+        rows = max(1, SLICE_ELEMENTS * n // max(p.numel(), 1))
+        if rows >= n:
+            _update_leaf(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
+            continue
+        for i in range(0, n, rows):
+            s = slice(i, i + rows)
+            _update_leaf(p[s], g[s], m[s], v[s], cfg, scale, lr, b1c, b2c,
+                         decay)
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm,
                                                       "lr": lr}
+
+
+def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, b1c, b2c,
+                 decay: bool):
+    """One leaf's (or slice's) update in f32, written back in place into
+    p, m and v in their own dtypes."""
+    g = g.float() * scale
+    m32 = m if m.dtype == torch.float32 else m.float()
+    m32.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+    v32 = v if v.dtype == torch.float32 else v.float()
+    v32.mul_(cfg.b2).add_((g * (1 - cfg.b2)).mul_(g))
+    upd = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
+    p32 = p if p.dtype == torch.float32 else p.float()
+    if decay:
+        upd = upd + cfg.weight_decay * p32
+    p32.sub_(lr * upd)
+    for dst, src in ((p, p32), (m, m32), (v, v32)):
+        if src is not dst:
+            dst.copy_(src)

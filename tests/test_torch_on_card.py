@@ -460,28 +460,6 @@ def test_flash_kernel_at_mla_head_dims(S, BH, G, kind, window, causal,
 
 
 @pytest.mark.cuda_only
-def test_flash_gradient_at_mla_head_dims_raises_on_card():
-    """No backward kernel takes Dv other than D: a gradient taken on the
-    card raises naming the training slice, through the autograd Function
-    and from the backward wrapper, rather than falling back."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fn)
-    dev = _card()
-    q, k, v = _mla_qkv(1, 4, 1, 64, torch.bfloat16, dev)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training"):
-        flash_attention_fn(q, k, v).float().sum().backward()
-    with torch.no_grad():
-        o = flash_attention(q.detach(), k, v)
-        with pytest.raises(NotImplementedError, match="training"):
-            flash_attention_bwd(q.detach(), k, v, o, torch.ones_like(o))
-        # without a gradient the Function is the forward kernel
-        out = flash_attention_fn(q.detach(), k, v)
-    torch.cuda.synchronize()
-    assert torch.equal(out, o)
-
-
-@pytest.mark.cuda_only
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_deepseek_smoke_model_on_card_kernels_match_plain(dtype):
     """The deepseek smoke config with MLA's full head dims (128 + 64
@@ -875,7 +853,8 @@ def _bwd_case(seed, BH, G, S, D, dtype, dev, kw, scale=1.0):
 def _bwd_launch(q, k, v, o, do, lse, kw):
     """flash_attention_bwd, checking that it launched once, on the path
     ``bwd_path`` names."""
-    kernel = bwd_path(q.dtype, q.shape[-1], kw.get("softcap", 0.0))
+    kernel = bwd_path(q.dtype, q.shape[-1], kw.get("softcap", 0.0),
+                      v.shape[-1])
     n0 = flash_attention_bwd.launches
     by0 = dict(flash_attention_bwd.launches_by_path)
     got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -915,6 +894,78 @@ def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype, BH, G):
     got = _bwd_launch(q, k, v, o, do, lse, kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
     _assert_grads_close(got, want, dtype, f"D={D} S={S} G={G} {kw}")
+
+
+def _mla_bwd_case(seed, BH, G, S, dtype, dev, kw):
+    """MLA's q, k (head dim 192), v, o and dO (128) on the card, o the
+    forward kernel's and the lse the forward's on the wgmma backward path
+    (None on the simt one)."""
+    q, k, v = _mla_qkv(seed, BH, G, S, dtype, dev)
+    do = _mla_qkv(seed + 1, BH, 1, S, dtype, dev)[2]
+    if bwd_path(dtype, 192, kw.get("softcap", 0.0), 128) in LSE_BWD_PATHS:
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    else:
+        o, lse = flash_attention(q, k, v, **kw), None
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", BWD_MASKS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("S,BH,G", [(37, 4, 1), (333, 8, 2), (1000, 16, 1)])
+def test_flash_bwd_kernel_at_mla_head_dims(S, BH, G, kw, dtype):
+    """MLA's shape, q and k of head dim 192 and v of 128, ragged S, GQA
+    2:1 and MHA, every mask: bf16 on the wgmma backward (reading the
+    forward's lse), f32 on the CUDA-core one, each within BWD_TOL of the
+    plain version; dq (BH, S, 192), dk (BH / G, S, 192), dv (BH / G, S,
+    128); bf16 bitwise the same over two calls."""
+    dev = _card()
+    want_path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert bwd_path(dtype, 192, kw.get("softcap", 0.0), 128) == want_path
+    q, k, v, o, do, lse = _mla_bwd_case(S + BH + G, BH, G, S, dtype, dev,
+                                        kw)
+    got = _bwd_launch(q, k, v, o, do, lse, kw)
+    assert [tuple(g.shape) for g in got] == [(BH, S, 192),
+                                             (BH // G, S, 192),
+                                             (BH // G, S, 128)]
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(got, want, dtype, f"MLA S={S} G={G} {kw}")
+    if dtype == torch.bfloat16:
+        again = _bwd_launch(q, k, v, o, do, lse, kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda_only
+def test_flash_gradient_at_mla_head_dims_takes_wgmma_and_reads_lse():
+    """A bf16 gradient through ``FlashAttentionFn`` at MLA's head dims:
+    the forward writes the lse (saved beside q, k, v and o), the backward
+    launches once, on the wgmma path, and its gradients are the backward
+    wrapper's on the saved lse; the same call without a gradient saves
+    none.  Nothing falls back."""
+    dev = _card()
+    kw = dict(causal=True, kind="global")
+    q, k, v = _mla_qkv(5, 8, 1, 300, torch.bfloat16, dev)
+    do = _mla_qkv(6, 8, 1, 300, torch.bfloat16, dev)[2]
+    qg, kg, vg = (a.clone().requires_grad_(True) for a in (q, k, v))
+    by0 = dict(flash_attention_bwd.launches_by_path)
+    o = flash_attention_fn(qg, kg, vg, **kw)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches_by_path == {
+        p: n + (p == "wgmma") for p, n in by0.items()}
+    lse = ref.flash_attention_lse_ref(q, k, **kw)
+    assert float((saved[4] - lse).abs().max()) <= LSE_TOL
+    want = flash_attention_bwd(q, k, v, o.detach(), do, saved[4], **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _assert_grads_close(got, ref.flash_attention_bwd_ref(
+        q, k, v, o.detach(), do, **kw), torch.bfloat16, "MLA Function")
+    with torch.no_grad():
+        out = flash_attention_fn(q, k, v, **kw)
+    assert out.grad_fn is None and torch.equal(out, o.detach())
 
 
 @pytest.mark.cuda_only

@@ -1,6 +1,7 @@
-"""The port's training path against the JAX package's, on the CPU: AdamW,
-the chunked cross-entropy and loss, the model's gradients (the
-recurrentgemma and mamba2 smoke configs) and three train steps on the
+"""The port's training path against the JAX package's, on the CPU: AdamW
+(f32, and bf16 parameters and moments within one bf16 ulp), the chunked
+cross-entropy and loss, the model's gradients (the recurrentgemma,
+mamba2 and deepseek-v2 smoke configs) and three train steps on the
 recurrentgemma smoke config, the plain versions of the three backward
 kernels, the policy fit, the data pipeline, checkpoints and the
 fault-tolerance drill; and serving's outputs unchanged by the autograd
@@ -40,6 +41,7 @@ import repro.policy as jpol
 from repro.configs import base as jbase
 from repro.data import pipeline as jpipe
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro.models import model as jmodel
 from repro.models import steps as jsteps
 from repro.optim import adamw as jadamw
@@ -75,8 +77,9 @@ from repro_torch.optim import adamw as tadamw
 
 ARCH = "recurrentgemma-2b"
 #: the architectures whose smoke models' gradients are held to jax.grad
-#: (mamba2's two layers deep, as in test_torch_models.py)
-GRAD_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b")
+#: (mamba2's two layers deep, as in test_torch_models.py; deepseek-v2's
+#: dense first layer and one MoE layer, MLA at q/k 24, v 16)
+GRAD_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b", "deepseek-v2-236b")
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "policy_traces.jsonl")
 GRAD_TOL = 1e-4
@@ -147,34 +150,111 @@ def _nested_tree(rng):
             "dt_bias": a(3), "A_log": a(3), "table": a(6, 3)}
 
 
-@pytest.mark.parametrize("clip_norm", [1.0, 0.0])
-def test_adamw_update_matches_reference(clip_norm):
+def _bf16_ulp(x):
+    """One bf16 ulp at each element of the f32 array x (the spacing of
+    bf16 values at its magnitude; the smallest normal's at zero)."""
+    x = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(x)) - 7).astype(np.float32)
+
+
+def _to_numpy(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("clip_norm,dtype", [
+    pytest.param(1.0, "float32", id="1.0"),
+    pytest.param(0.0, "float32", id="0.0"),
+    pytest.param(1.0, "bfloat16", id="bfloat16-1.0"),
+    pytest.param(0.0, "bfloat16", id="bfloat16-0.0")])
+def test_adamw_update_matches_reference(clip_norm, dtype):
     """Five steps on a nested tree: parameters, both moments and the
-    metrics within 1e-6 of ``repro.optim.adamw.update``."""
+    metrics within 1e-6 of ``repro.optim.adamw.update`` in f32.  With
+    bf16 parameters, gradients and moments (``moment_dtype="bfloat16"``,
+    deepseek-v2's training state) each step starts from the reference's
+    state and every parameter and moment is within one bf16 ulp of the
+    reference's: the same f32 arithmetic rounded once to bf16, where a
+    contracted multiply-add may round the f32 value to the other side of
+    a bf16 midpoint."""
     rng = np.random.default_rng(1)
     cfg_kw = dict(lr=1e-2, warmup_steps=2, total_steps=8,
-                  clip_norm=clip_norm, weight_decay=0.1)
+                  clip_norm=clip_norm, weight_decay=0.1, moment_dtype=dtype)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     params = _nested_tree(rng)
     grads = [jax.tree.map(lambda x: 3.0 * rng.standard_normal(x.shape)
                           .astype(np.float32), params) for _ in range(5)]
     jcfg, tcfg = jadamw.AdamWConfig(**cfg_kw), tadamw.AdamWConfig(**cfg_kw)
-    jp = jax.tree.map(jnp.asarray, params)
+    jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), params)
     js = jadamw.init(jp, jcfg)
-    tp = jax.tree.map(_t, params)
+    tp = jax.tree.map(lambda a: _t(a).to(tdt), params)
     ts = tadamw.init(tp, tcfg)
     jupdate = jax.jit(lambda p, g, s: jadamw.update(p, g, s, jcfg))
+
+    def from_jax(tree):
+        return jax.tree.map(
+            lambda a: _t(np.asarray(a, np.float32)).to(tdt), tree)
+
     for g in grads:
-        jp, js, jm = jupdate(jp, jax.tree.map(jnp.asarray, g), js)
-        tp, ts, tm = tadamw.update(tp, jax.tree.map(_t, g), ts, tcfg)
+        if dtype == "bfloat16":
+            # the reference's state as the port's, so that each step's
+            # rounding is held alone
+            tp = from_jax(jp)
+            ts = tadamw.OptState(from_jax(js.m), from_jax(js.v),
+                                 torch.tensor(int(js.step), dtype=torch.int32))
+        jp, js, jm = jupdate(jp, jax.tree.map(
+            lambda a: jnp.asarray(a).astype(jdt), g), js)
+        tp, ts, tm = tadamw.update(
+            tp, jax.tree.map(lambda a: _t(a).to(tdt), g), ts, tcfg)
         for key in ("grad_norm", "lr"):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]),
                                        rtol=1e-6)
+        if dtype == "float32":
+            continue
+        for got, want in ((tp, jp), (ts.m, js.m), (ts.v, js.v)):
+            got = jax.tree.map(_to_numpy, got)
+            for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+                assert a.dtype == np.float32
+                b = np.asarray(b, np.float32)
+                assert np.all(np.abs(a - b) <= _bf16_ulp(b)), \
+                    jax.tree_util.keystr(path)
     for got, want in ((tp, jp), (ts.m, js.m), (ts.v, js.v)):
-        got = jax.tree.map(lambda t: t.numpy(), got)
+        got = jax.tree.map(_to_numpy, got)
         for (path, a), (_, b) in zip(_leaves(got), _leaves(_np(want))):
-            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6,
-                                       err_msg=jax.tree_util.keystr(path))
+            assert b.dtype == jdt, jax.tree_util.keystr(path)
+            if dtype == "float32":
+                np.testing.assert_allclose(
+                    a, b, rtol=1e-6, atol=1e-6,
+                    err_msg=jax.tree_util.keystr(path))
+    for leaf in jax.tree.leaves((tp, ts.m, ts.v)):
+        assert leaf.dtype == tdt
     assert int(ts.step) == int(js.step) == 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_sliced_update_is_bitwise_the_unsliced_one(monkeypatch, dtype):
+    """Leaves above ``SLICE_ELEMENTS`` are updated a slice of their first
+    axis at a time; the update is elementwise, so three steps with a
+    slice of 7 elements (every leaf of more than 7 sliced, ragged last
+    slices, 1-d leaves in runs) give bitwise the parameters and moments
+    of the unsliced update, in f32 and in bf16."""
+    rng = np.random.default_rng(2)
+    tree = _nested_tree(rng)
+    tree["stack"] = rng.standard_normal((5, 4, 3)).astype(np.float32)
+    grads = [jax.tree.map(lambda x: rng.standard_normal(x.shape)
+                          .astype(np.float32), tree) for _ in range(3)]
+    cfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4,
+                             moment_dtype=str(dtype).split(".")[-1])
+    out = []
+    for limit in (1 << 30, 7):
+        monkeypatch.setattr(tadamw, "SLICE_ELEMENTS", limit)
+        p = jax.tree.map(lambda a: _t(a).to(dtype), tree)
+        st = tadamw.init(p, cfg)
+        for g in grads:
+            p, st, _ = tadamw.update(
+                p, jax.tree.map(lambda a: _t(a).to(dtype), g), st, cfg)
+        out.append([t for _, t in tadamw.leaves_with_path((p, st.m, st.v))])
+    assert any(t.numel() > 7 for t in out[0])
+    for a, b in zip(*out):
+        assert a.dtype == b.dtype == dtype and torch.equal(a, b)
 
 
 def _decayed(update, params, to_tensor, to_numpy):
@@ -361,6 +441,50 @@ def test_three_train_steps_match_reference(smoke):
     assert int(tstate["opt"].step) == 3
 
 
+def test_deepseek_bf16_state_trains_and_loses_no_gradient():
+    """deepseek-v2's smoke model as phase 8 (b) trains it on the card:
+    ``build_state`` with bf16 parameters (the router's f32) and bf16
+    moments, bf16 compute.  Every leaf's gradient through the MLA
+    attention, the sort dispatch, the router (its f32 logits) and the aux
+    loss exists and is not identically zero (the train step's zero fill
+    would hide a detached one); three steps of ``make_train_step`` keep
+    every dtype, move every leaf and give finite losses."""
+    cfg = tbase.get_smoke_config("deepseek-v2-236b").replace(
+        dtype="bfloat16")
+    ocfg = tadamw.AdamWConfig(warmup_steps=1, total_steps=4, lr=1e-2,
+                              moment_dtype="bfloat16")
+    state = tlaunch.build_state(cfg, ocfg, seed=0, device="cpu",
+                                param_dtype=torch.bfloat16)
+    named = tadamw.leaves_with_path(state["params"])
+    want = {"/".join(p): (torch.float32 if p[-1] == "['w_router']"
+                          else torch.bfloat16) for p, _ in named}
+    assert {"/".join(p): t.dtype for p, t in named} == want
+    assert all(t.dtype == torch.bfloat16
+               for _, t in tadamw.leaves_with_path(state["opt"].m))
+    b = jax.tree.map(_t, _batch(2, 32, seed=3))
+    leaves = [t.requires_grad_(True) for _, t in named]
+    loss, mets = tsteps.loss_fn(cfg, state["params"], b, remat=True)
+    assert float(mets["aux"].detach()) > 0
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    lost = ["/".join(p) for (p, _), g in zip(named, grads)
+            if g is None or not bool(g.any())]
+    assert not lost, lost
+    before = [t.detach().clone() for t in leaves]
+    bundle = make_train_step(cfg, tbase.InputShape("t", 32, 2, "train"),
+                             ocfg, remat=True, device="cpu")
+    losses = []
+    for i in range(3):
+        state, m = bundle.fn(state, jax.tree.map(
+            _t, _batch(2, 32, seed=20 + i)))
+        losses.append(float(m["loss"]))
+    assert np.all(np.isfinite(losses))
+    after = tadamw.leaves_with_path(state["params"])
+    assert {"/".join(p): t.dtype for p, t in after} == want
+    still = ["/".join(p) for (p, t), t0 in zip(after, before)
+             if torch.equal(t.detach(), t0)]
+    assert not still, still
+
+
 def test_microbatch_step_matches_whole_batch(smoke):
     """Gradient accumulation over 2 microbatches gives the whole batch's
     step (the mean loss is linear in the per-microbatch means at equal
@@ -423,12 +547,13 @@ MASKS = [dict(causal=True, kind="local", window=8),
          dict(causal=True, kind="chunked", window=8, softcap=2.0)]
 
 
-def _attn_inputs(seed, BH=4, G=2, S=37, D=16):
+def _attn_inputs(seed, BH=4, G=2, S=37, D=16, Dv=None):
+    Dv = Dv or D
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((BH, S, D)).astype(np.float32)
     k = rng.standard_normal((BH // G, S, D)).astype(np.float32)
-    v = rng.standard_normal((BH // G, S, D)).astype(np.float32)
-    do = rng.standard_normal((BH, S, D)).astype(np.float32)
+    v = rng.standard_normal((BH // G, S, Dv)).astype(np.float32)
+    do = rng.standard_normal((BH, S, Dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -439,15 +564,34 @@ def _close(got, want, what=""):
                                rtol=rtol, err_msg=what)
 
 
-@pytest.mark.parametrize("group", [2, 4])
-@pytest.mark.parametrize("kw", MASKS, ids=lambda kw: "-".join(
-    f"{k}{v}" for k, v in kw.items()))
-def test_flash_bwd_ref_matches_autograd_and_jax(kw, group):
+def _mask_id(kw):
+    return "-".join(f"{k}{v}" for k, v in kw.items())
+
+
+#: (mask, group, v's head dim): D = Dv = 16 at every mask, and MLA's
+#: shape cut down, q and k of head dim 24 with v of 16 (the deepseek
+#: smoke config's), at every mask ``blockwise_attention`` evaluates as
+#: the plain version does (its local span looks back only, so not the
+#: bidirectional local mask)
+FLASH_BWD_CASES = (
+    [pytest.param(kw, group, None, id=f"{_mask_id(kw)}-{group}")
+     for kw in MASKS for group in (2, 4)]
+    + [pytest.param(kw, group, 16, id=f"{_mask_id(kw)}-{group}-qk24-v16")
+       for kw in MASKS if kw["causal"] or kw["kind"] != "local"
+       for group in (1, 2)])
+
+
+@pytest.mark.parametrize("kw,group,dv", FLASH_BWD_CASES)
+def test_flash_bwd_ref_matches_autograd_and_jax(kw, group, dv):
     """``flash_attention_bwd_ref`` in the kernels' layout, GQA (two kv
     rows of two query rows each) and MQA (one kv row for all four),
     against torch autograd through the plain forward and against
-    ``jax.grad`` of the reference's oracle with k and v repeated."""
-    q, k, v, do = _attn_inputs(7, G=group)
+    ``jax.grad`` of the reference's oracle with k and v repeated; with v
+    narrower than q and k (head dims 24 and 16, MHA and GQA 2:1), against
+    ``jax.grad`` of the reference's ``blockwise_attention``, which XLA
+    differentiates when the reference trains MLA."""
+    q, k, v, do = (_attn_inputs(7, G=group) if dv is None
+                   else _attn_inputs(7, G=group, D=24, Dv=dv))
     G = q.shape[0] // k.shape[0]
     qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
     o = ref.flash_attention_ref(qt, kt.repeat_interleave(G, 0),
@@ -459,12 +603,22 @@ def test_flash_bwd_ref_matches_autograd_and_jax(kw, group):
         _close(a, b.numpy(), f"d{name} vs autograd")
 
     def jloss(q, k, v):
-        out = jref.flash_attention_ref(q, jnp.repeat(k, G, 0),
-                                       jnp.repeat(v, G, 0), **kw)
+        if dv is None:
+            out = jref.flash_attention_ref(q, jnp.repeat(k, G, 0),
+                                           jnp.repeat(v, G, 0), **kw)
+        else:
+            # (BH, S, D) as one batch of BH heads: (1, S, BH, D)
+            spec = jattn.AttnSpec(kw["kind"], kw["causal"],
+                                  kw.get("window", 0), 0.0,
+                                  kw.get("softcap", 0.0), False, q_block=8)
+            out = jattn.blockwise_attention(
+                *(a.transpose(1, 0, 2)[None] for a in (q, k, v)),
+                spec)[0].transpose(1, 0, 2)
         return jnp.sum(out * do)
 
     jg = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
     for name, a, b in zip("qkv", got, jg):
+        assert a.shape == b.shape
         _close(a, b, f"d{name} vs jax.grad")
 
 
@@ -678,7 +832,12 @@ def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
     """bf16 at head dims 64, 128 and 256 takes the wgmma backward, softcap
     or not; f32 there without a softcap the 3xTF32 one (the cases the
     forward's ``path`` sends to its 3xTF32 kernel); f32 with a softcap
-    and every other head dim the CUDA-core one."""
+    and every other head dim the CUDA-core one.  With v's head dim given
+    (``v_dim``): equal to D it changes nothing; MLA's (192, 128) takes the
+    wgmma backward in bf16 and the CUDA-core one in f32, and every other
+    v narrower or wider than q and k the CUDA-core one, as the forward's
+    ``path`` says in every case (each tensor-core backward reads the lse
+    its forward writes)."""
     if D in (64, 128, 256) and dtype == torch.bfloat16:
         want = "wgmma"
     elif D in (64, 128, 256) and not softcap:
@@ -686,7 +845,15 @@ def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
     else:
         want = "simt"
     assert bwd_path(dtype, D, softcap) == want
+    assert bwd_path(dtype, D, softcap, D) == want
     assert (want == "tf32") == (tflash.path(dtype, D, softcap) == "tf32")
+    mla = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert bwd_path(dtype, 192, softcap, 128) == mla
+    for dv in (D // 2, 2 * D):
+        assert bwd_path(dtype, D, softcap, dv) == "simt"
+    for d, dv in ((D, D), (D, D // 2), (192, 128)):
+        assert bwd_path(dtype, d, softcap, dv) == tflash.path(dtype, d,
+                                                              softcap, dv)
 
 
 def _lse_f64(q, k, kw):
