@@ -80,10 +80,12 @@ Phases (each one failing makes the script exit non-zero):
      (the transposes around the call); ``flash_attention`` at
      deepseek-v2-236b's MLA prefill shape (BH 128, group 1, q and k of
      head dim 192, v of 128, causal global, S = 512, 1,000, 2,048, 3,000),
-     bf16 on the wgmma kernel (the CUDA-core kernel held and timed
-     beside) and f32 on the CUDA-core kernel, each against its plain
+     bf16 on the wgmma kernel and f32 on the 3xTF32 kernel (the
+     CUDA-core kernel held and timed beside each), each against its plain
      version within the same tolerances, timed beside it, sdpa with the
      same bool mask and the bound (2 (D + Dv) operations per kept pair);
+     the f32 kernels against float64 at S = 512 and 3,000, and at S =
+     3,000 the 3xTF32 kernel's device time no more than sdpa's;
   5. serving recurrentgemma-2b at its published width (random weights
      from a seeded generator): one ServingEngine instance, 4 slots,
      max_len 4,096, 8 requests (prompts of 512, 1,000, 2,048 and 3,000
@@ -148,11 +150,12 @@ Phases (each one failing makes the script exit non-zero):
      backward through ``torch.autograd.grad`` minus the forward, same
      bool mask); ``flash_attention_bwd`` at deepseek-v2-236b's MLA shape
      (BH 128, group 1, q and k of head dim 192, v of 128, causal global,
-     S = 512, 1,000, 2,048, 3,000), bf16 on the wgmma kernel (the first
-     kernel held and timed beside) and f32 on the CUDA-core kernel, each
-     within BWD_TOL, two calls at S = 3,000 bitwise equal, timed beside
-     the plain version and sdpa's backward, with the bound (6 D + 4 Dv
-     operations a kept pair), no speed check; ``rglru_scan_bwd`` exactly
+     S = 512, 1,000, 2,048, 3,000), bf16 on the wgmma kernel and f32 on
+     the 3xTF32 kernel (the first kernel held and timed beside each),
+     each within BWD_TOL, two calls at S = 3,000 bitwise equal, timed
+     beside the plain version and sdpa's backward, with the bound (6 D +
+     4 Dv operations a kept pair), and at S = 3,000 the 3xTF32 kernel's
+     device time no more than sdpa's backward's; ``rglru_scan_bwd`` exactly
      its plain reverse loop at (1,
      3,000, 2,560) with and without h0, (4, 1,000, 2,560) and (2, 1,000,
      2,562) (the one-thread-a-channel path); ``ssd_scan_bwd`` against
@@ -190,9 +193,13 @@ Phases (each one failing makes the script exit non-zero):
      run routes every token as the kernels' run did, and the routing its
      own gates would choose is printed), S 1,024, bf16: every gradient
      leaf through the kernels against the plain versions within GRAD_TOL
-     in norm, the launches exact, no leaf zero through the kernels where
-     the plain versions' is not, and mamba2's A_log and dt_bias
-     non-zero; (d) the
+     in norm, the launches exact (each attention kernel's by path), no
+     leaf zero through the kernels where the plain versions' is not, and
+     mamba2's A_log and dt_bias non-zero; (c3) deepseek's dense layer
+     alone in f32 (weights and compute, 1.39e9 parameters): the attention
+     forward and backward on the 3xTF32 kernels at MLA's q/k 192, v 128,
+     every leaf and the loss within F32_GRAD_TOL (1e-4) of the plain
+     versions', launches exact, none lost; (d) the
      fail/resume drill on the card at the smoke config (fail at 6,
      resume from step 4, finish at 10; a resumed run's steps 4-7 within
      rtol 1e-4 of the straight run's); (e) the policy fit at
@@ -211,7 +218,10 @@ Phases (each one failing makes the script exit non-zero):
      wgmma kernel, the 3xTF32 one under "f32"; the SSD backward's the
      wgmma kernel); the backward kernels' launches are phase 8 (b)'s;
      the attention backward's MLA shape under "mla", its launches by
-     path deepseek-v2's phase 8 (b) run's), then the device line.
+     path deepseek-v2's phase 8 (b) run's; the f32 MLA forward and
+     backward, on the 3xTF32 kernels, under each "mla" entry's "f32",
+     their launches phase 8 (c3)'s, each with sdpa's time, the bound and
+     the CUDA-core kernel's time), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -319,6 +329,11 @@ LSE_TOL = 1e-4
 #: to bf16 before P.V where the plain version keeps f32, which moves the
 #: activations by ~2^-9 and every gradient after them
 GRAD_TOL = 5e-2
+#: phase 8 (c3): the same in f32 compute, where the kernels (3xTF32) and
+#: the plain versions compute the same f32 function summed in other
+#: orders: the f32 tolerance the CPU tests hold the port's gradients to
+#: against the JAX model
+F32_GRAD_TOL = 1e-4
 #: phase 8 (e): two candidates whose scores on the CPU fit lie within
 #: this share of the larger (a few f32 ulps at the fixture's scores) are a
 #: tie that rounding breaks; at most MAX_TIE_FLIPS decisions a split may
@@ -1150,21 +1165,23 @@ def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int,
 
 def tf32_flash(q, k, v, kw):
     """The 3xTF32 kernel of csrc/flash_attention_tf32.cu called directly
-    (f32, D in 64, 128, 256), also where the wrapper keeps the case on the
-    CUDA-core kernel; not counted in the wrapper's launches."""
+    (f32, D = Dv in 64, 128, 256 or MLA's (192, 128)), also where the
+    wrapper keeps the case on the CUDA-core kernel (a softcap); not
+    counted in the wrapper's launches."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import KINDS
     bh, s, d = q.shape
-    out = torch.empty_like(q)
+    dv = v.shape[-1]
+    out = q.new_empty((bh, s, dv))
     lib = _build.load("flash_attention_tf32")
     mask = (int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
             int(kw.get("window", 0)))
-    splits = lib.flash_attention_tf32_splits(bh, s, d, *mask)
-    part = torch.empty(splits * bh * s * (d + 2), device=q.device)
+    splits = lib.flash_attention_tf32_splits(bh, s, d, dv, *mask)
+    part = torch.empty(splits * bh * s * (dv + 2), device=q.device)
     err = lib.flash_attention_tf32_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        part.data_ptr(), None, bh, s, d, bh // k.shape[0], *mask,
+        part.data_ptr(), None, bh, s, d, dv, bh // k.shape[0], *mask,
         float(kw.get("softcap", 0.0)), splits,
         torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "flash_attention (tf32, direct)")
@@ -1250,7 +1267,7 @@ def hold_flash(q, k, v, kw, with_library: bool):
         from repro_torch.kernels.flash_attention import KINDS
         out["kv_shares"] = _build.load(
             "flash_attention_tf32").flash_attention_tf32_splits(
-                bh, s, d, int(kw.get("causal", True)),
+                bh, s, d, dv, int(kw.get("causal", True)),
                 KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
     if with_library:
         q4 = q.view(1, bh, s, d)
@@ -1651,12 +1668,16 @@ def phase4_lm_kernels():
 def phase4_mla(randn) -> dict:
     """flash_attention at deepseek-v2-236b's MLA prefill shape: 128 heads
     (BH 128, group 1), q and k of head dim 192, v of 128, causal global,
-    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma kernel (the CUDA-core
-    kernel held and timed beside it), f32 on the CUDA-core kernel.  Each
+    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma kernel, f32 on the
+    3xTF32 kernel, the CUDA-core kernel held and timed beside each.  Each
     held against its plain version within ATTN_TOL and timed beside it,
-    sdpa with the same bool mask and the bound.  Returns the S = 3,000 measurements of both dtypes."""
+    sdpa with the same bool mask and the bound; the f32 kernels' errors
+    against float64 printed at S = 512 and 3,000; at S = 3,000 the f32
+    kernel's device time at most sdpa's.  Returns the S = 3,000
+    measurements of both dtypes."""
     import torch
     bh, d, dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
+    kw = dict(causal=True, kind="global")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
@@ -1664,16 +1685,18 @@ def phase4_mla(randn) -> dict:
             q, k, v = (randn(bh, s, d, dtype=dtype),
                        randn(bh, s, d, dtype=dtype),
                        randn(bh, s, dv, dtype=dtype))
-            m = hold_flash(q, k, v, dict(causal=True, kind="global"),
-                           with_library=True)
+            m = hold_flash(q, k, v, kw, with_library=True)
+            exact = (f64_shares(q, k, v, kw) if dtype == torch.float32
+                     and s in (min(SERVE_PROMPTS), max(SERVE_PROMPTS))
+                     else None)
             del q, k, v
-            want = "wgmma" if dtype == torch.bfloat16 else "simt"
+            want = "wgmma" if dtype == torch.bfloat16 else "tf32"
             check(m["path"] == want, f"flash_attention MLA S={s} {dt}: "
                   f"path {m['path']}, expected {want}")
             simt = (f", simt kernel {m['simt_ms']:.4f} ms (device "
                     f"{m['simt_device_ms']:.4f} ms, "
                     f"{m['simt_device_ms'] / m['device_ms']:.2f}x the "
-                    f"wgmma kernel's; max_abs_err {m['simt_err']:.3g}, "
+                    f"{m['path']} kernel's; max_abs_err {m['simt_err']:.3g}, "
                     f"{m['simt_worst']:.3g} of the allowance)"
                     if "simt_ms" in m else "")
             old_bound = (f"; at the CUDA cores' 67 TFLOP/s "
@@ -1688,6 +1711,14 @@ def phase4_mla(randn) -> dict:
                   f"(device {m['library_device_ms']:.4f} ms), bound "
                   f"{m['bound_ms']:.5f} ms ({m['bound_by']}{old_bound}), "
                   f"pairs {m['pairs']}")
+            if exact is not None:
+                print(f"phase4 flash_attention MLA BH={bh} S={s} D={d} "
+                      f"Dv={dv} float32, from float64: {exact}")
+            if dtype == torch.float32 and s == max(SERVE_PROMPTS):
+                check(m["device_ms"] <= m["library_device_ms"],
+                      f"flash_attention MLA S={s} {dt}: device "
+                      f"{m['device_ms']:.4f} ms against sdpa's "
+                      f"{m['library_device_ms']:.4f} ms")
             if s == max(SERVE_PROMPTS):
                 key = "flash_attention mla" + (
                     "" if dtype == torch.bfloat16 else " f32")
@@ -2616,7 +2647,9 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     to the first.  With `timed`, the kernel (and on the tensor-core paths
     the first kernel), its plain version and sdpa's backward (forward and
     backward through torch.autograd.grad, minus its forward, with the
-    same boolean mask) timed, and the bound.  Returns a dict."""
+    same boolean mask; ``library_ms`` as called, ``library_device_ms``
+    queued as every ``device_ms``) timed, and the bound.  Returns a
+    dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2709,6 +2742,8 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     fwd = time_ms(library_fwd, reps=10)
     out["library_ms"] = both - fwd
     out["library_both_ms"] = both
+    out["library_device_ms"] = (time_ms(library_both, reps=10, queued=True)
+                                - time_ms(library_fwd, reps=10, queued=True))
     out["pairs"] = int(mask.sum())
     out["bound_ms"], out["bound_by"] = flash_bwd_bound(
         bh, k.shape[0], s, d, q.dtype, out["pairs"], dv)
@@ -2900,7 +2935,8 @@ def flash_bwd_line(what: str, m: dict) -> str:
             line += (f" [first kernel {m['simt_ms']:.4f} ms, device "
                      f"{m['simt_device_ms']:.4f} ms]")
         line += (f", plain {m['plain_ms']:.4f} ms, sdpa backward "
-                 f"{m['library_ms']:.4f} ms (forward and backward "
+                 f"{m['library_ms']:.4f} ms (device "
+                 f"{m['library_device_ms']:.4f} ms; forward and backward "
                  f"{m['library_both_ms']:.4f}), bound {m['bound_ms']:.5f} ms "
                  f"({m['bound_by']}), pairs {m['pairs']} a head")
     return line
@@ -3012,20 +3048,21 @@ def phase8_bwd_kernels():
 def phase8_mla_bwd(randn) -> dict:
     """(a) flash_attention_bwd at deepseek-v2-236b's MLA shape: 128 heads
     (BH 128, group 1), q and k of head dim 192, v of 128, causal global,
-    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma backward (reading the
-    forward's lse; the first kernel held and timed beside it), f32 on the
-    CUDA-core one.  Each gradient within BWD_TOL of the plain version,
-    two calls at S = 3,000 bitwise equal, timed beside the plain version
-    and sdpa's backward, and the bound (6 D + 4 Dv = 1,664 operations a
-    kept pair).  No speed check: the first design's time is recorded
-    whatever it is.  Returns the S = 3,000 measurements of both dtypes."""
+    S = 512, 1,000, 2,048, 3,000; bf16 on the wgmma backward, f32 on the
+    3xTF32 one (both reading the forward's lse; the first kernel held and
+    timed beside each).  Each gradient within BWD_TOL of the plain
+    version, two calls at S = 3,000 bitwise equal, timed beside the plain
+    version and sdpa's backward, and the bound (6 D + 4 Dv = 1,664
+    operations a kept pair); at S = 3,000 the f32 kernel's device time at
+    most sdpa's backward's.  Returns the S = 3,000 measurements of both
+    dtypes."""
     import torch
     bh, d, dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
     kw = dict(causal=True, kind="global")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
-        want = "wgmma" if dtype == torch.bfloat16 else "simt"
+        want = "wgmma" if dtype == torch.bfloat16 else "tf32"
         for s in SERVE_PROMPTS:
             q, k = randn(bh, s, d, dtype=dtype), randn(bh, s, d, dtype=dtype)
             v = randn(bh, s, dv, dtype=dtype)
@@ -3036,6 +3073,11 @@ def phase8_mla_bwd(randn) -> dict:
                   f"{m['path']}, expected {want}")
             print(flash_bwd_line(f"MLA BH={bh} G=1 S={s} D={d} Dv={dv} "
                                  f"causal global {dt}", m))
+            if dtype == torch.float32 and s == max(SERVE_PROMPTS):
+                check(m["device_ms"] <= m["library_device_ms"],
+                      f"phase 8 (a) MLA S={s} {dt}: device "
+                      f"{m['device_ms']:.4f} ms against sdpa's backward "
+                      f"{m['library_device_ms']:.4f} ms")
             if s == max(SERVE_PROMPTS):
                 key = "flash_attention_bwd mla" + (
                     "" if dtype == torch.bfloat16 else " f32")
@@ -3310,13 +3352,17 @@ class RoutingReplay:
         self.moe._router = self.orig
 
 
-def phase8_period_grads(arch: str, n_layers: int = 0):
+def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     """(c) one period of `arch` at its published width (recurrentgemma:
     rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
     `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
     bf16 weights), S 1,024, bf16 compute: every gradient leaf through the
     kernels against the plain versions, relative in norm within GRAD_TOL,
-    with the kernels' launches exact.  A leaf whose gradient through the
+    with the kernels' launches exact, each attention kernel's by path.
+    With `f32` (c3: deepseek's dense layer alone), f32 weights and
+    compute, the attention forward and backward on their 3xTF32 paths at
+    MLA's q/k 192, v 128, and every leaf and the loss within
+    F32_GRAD_TOL.  A leaf whose gradient through the
     kernels is identically zero while the plain versions' is not fails,
     whatever its norm: the train step fills unused gradients with zeros,
     which hid the SSD scan's lost gradient until its backward kernel.
@@ -3333,6 +3379,8 @@ def phase8_period_grads(arch: str, n_layers: int = 0):
     from repro_torch.models import model as model_lib
     from repro_torch.models import steps as steps_lib
     from repro_torch.optim.adamw import leaves_with_path
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     gc.collect()
     torch.cuda.empty_cache()
     cfg, param_dtype, _ = _train_config(arch, n_layers)
@@ -3340,7 +3388,11 @@ def phase8_period_grads(arch: str, n_layers: int = 0):
         cfg = cfg.replace(n_layers=1)
     elif arch == TRAIN_ARCH:
         cfg = cfg.replace(n_layers=3, pattern_tail=())
+    if f32:
+        cfg, param_dtype = cfg.replace(dtype="float32"), torch.float32
+    tol = F32_GRAD_TOL if f32 else GRAD_TOL
     label = f"{arch} ({cfg.n_layers} layers)" if n_layers else arch
+    label += " f32" if f32 else ""
     n, fwd, _ = _layer_counts(cfg)
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     shape = InputShape("phase8c", PERIOD_SEQ, 1, "train")
@@ -3351,28 +3403,43 @@ def phase8_period_grads(arch: str, n_layers: int = 0):
     leaves = [p.requires_grad_(True) for _, p in named]
     batch = put_batch(TokenPipeline(cfg, shape, seed=0).batch(0), "cuda")
     grads, losses = [], []
+
+    def counts():
+        """train_counts with each attention kernel's launches by path"""
+        c = train_counts()
+        for fn in (flash_attention, flash_attention_bwd):
+            c.update({f"{fn.__name__}.{p}": k
+                      for p, k in fn.launches_by_path.items()})
+        return c
+
     # one backward a layer; the forwards once a layer and again in each
-    # recomputed period
-    want_kernel = {"flash_attention": fwd["attention"],
-                   "flash_attention.wgmma": fwd["attention"],
-                   "flash_attention_bwd": n["attention"],
-                   "rglru_scan": fwd["recurrent"],
-                   "rglru_scan_bwd": n["recurrent"],
-                   "ssd_scan": fwd["ssm"],
-                   "ssd_scan.wgmma": fwd["ssm"],
-                   "ssd_scan_bwd": n["ssm"],
-                   "ssd_scan_bwd.wgmma": n["ssm"]}
+    # recomputed period; attention on the tensor-core path of its dtype
+    attn = "tf32" if f32 else "wgmma"
+    want_kernel = {k: 0 for k in counts()}
+    want_kernel.update({"flash_attention": fwd["attention"],
+                        f"flash_attention.{attn}": fwd["attention"],
+                        "flash_attention_bwd": n["attention"],
+                        f"flash_attention_bwd.{attn}": n["attention"],
+                        "rglru_scan": fwd["recurrent"],
+                        "rglru_scan_bwd": n["recurrent"],
+                        "ssd_scan": fwd["ssm"],
+                        "ssd_scan.wgmma": fwd["ssm"],
+                        "ssd_scan_bwd": n["ssm"],
+                        "ssd_scan_bwd.wgmma": n["ssm"]})
     routing = RoutingReplay() if n_moe else None
+    kernel_launches = {}
     try:
         for use_kernel in (True, False):
             if routing is not None and not use_kernel:
                 routing.replay()
-            n0 = train_counts()
+            n0 = counts()
             loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
                                         use_kernel=use_kernel)
             grads.append(torch.autograd.grad(loss, leaves))
             losses.append(float(loss.detach()))
-            d = {k: v - n0[k] for k, v in train_counts().items()}
+            d = {k: v - n0[k] for k, v in counts().items()}
+            if use_kernel:
+                kernel_launches = d
             print(f"phase8 {label} period grads use_kernel={use_kernel}: "
                   f"launches {d}")
             want = want_kernel if use_kernel else {k: 0 for k in d}
@@ -3403,19 +3470,21 @@ def phase8_period_grads(arch: str, n_layers: int = 0):
         if not bool(gk.any()) and bool(gp.any()):
             lost.append(name)
     worst = max(e for _, e in errs)
+    n_params = sum(p.numel() for p in leaves)
     print(f"phase8 {label} period grads ({cfg.n_layers} layers of width "
-          f"{cfg.d_model}, {str(param_dtype)[6:]} weights, S {PERIOD_SEQ},"
-          f" bf16): loss kernels {losses[0]:.5f}, plain {losses[1]:.5f}; "
-          f"each leaf's relative error in norm (limit {GRAD_TOL}): "
+          f"{cfg.d_model}, {n_params:,} parameters, {str(param_dtype)[6:]} "
+          f"weights, S {PERIOD_SEQ}, {cfg.dtype} compute): loss kernels "
+          f"{losses[0]:.7f}, plain {losses[1]:.7f}; each leaf's relative "
+          f"error in norm (limit {tol}): "
           + "; ".join(f"{n} {e:.2e}" for n, e in errs))
     print(f"phase8 {label} period grads: worst leaf {worst:.3e}; leaves "
           f"zero through the kernels but not through the plain versions: "
           f"{lost or 'none'}")
     check(not lost, f"phase 8 (c) {label}: gradients lost through the "
           f"kernels: {lost}")
-    check(worst <= GRAD_TOL, f"phase 8 (c) {label}: a gradient leaf "
+    check(worst <= tol, f"phase 8 (c) {label}: a gradient leaf "
           f"differs by {worst} in norm")
-    check(abs(losses[0] - losses[1]) <= GRAD_TOL * abs(losses[1]),
+    check(abs(losses[0] - losses[1]) <= tol * abs(losses[1]),
           f"phase 8 (c) {label}: losses {losses}")
     if arch == SSM_ARCH:
         scan_only = [(n, gk) for (n, _), gk in zip(errs, grads[0])
@@ -3424,6 +3493,7 @@ def phase8_period_grads(arch: str, n_layers: int = 0):
               and all(bool(g.any()) for _, g in scan_only),
               f"phase 8 (c): A_log and dt_bias gradients "
               f"{[(n, float(g.abs().max())) for n, g in scan_only]}")
+    return kernel_launches
 
 
 def phase8_drill():
@@ -3550,7 +3620,7 @@ def phase8_policy_fit():
 def phase8_training():
     """Phase 8's parts in order; returns (a)'s measurements and each
     architecture's launches in (b), the attention backward's by path
-    among them."""
+    among them, and (c3)'s launches under "c3"."""
     t0 = time.perf_counter()
     serve = phase8_bwd_kernels()
     counts = {arch: phase8_train_full_width(arch)
@@ -3559,6 +3629,9 @@ def phase8_training():
         phase8_period_grads(arch)
     for n_layers in (1, MOE_TRAIN_LAYERS):
         phase8_period_grads(MOE_ARCH, n_layers)
+    # (c3) deepseek's dense layer in f32: MLA's attention on the 3xTF32
+    # kernels; its launches count for the f32 MLA kernels' entries
+    counts["c3"] = phase8_period_grads(MOE_ARCH, 1, f32=True)
     phase8_drill()
     phase8_policy_fit()
     print(f"phase8 total {time.perf_counter() - t0:.1f} s")
@@ -3677,15 +3750,15 @@ def main() -> int:
                 "simt_device_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")}}
         # the MLA shape's backward (deepseek-v2-236b trained in phase 8
-        # (b)): the wgmma kernel at D 192, Dv 128, with the CUDA-core
-        # kernel's f32 beside; launches are phase 8 (b)'s deepseek run,
-        # by path
+        # (b)): the wgmma kernel at D 192, Dv 128, launches phase 8 (b)'s
+        # deepseek run by path; the 3xTF32 kernel's f32 beside, its
+        # launches phase 8 (c3)'s; the CUDA-core kernel timed beside both
         mla_b, mla_b32 = (train["flash_attention_bwd mla"],
                           train["flash_attention_bwd mla f32"])
-        moe_counts = train_launches[MOE_ARCH]
+        moe_counts, c3 = train_launches[MOE_ARCH], train_launches["c3"]
         keys = ("path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
-                "simt_device_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by")
+                "simt_device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")
         flash_bwd["mla"] = {
             "source": CSRC + "flash_attention_bwd_wgmma.cu",
             "launches": moe_counts["flash_attention_bwd"],
@@ -3693,16 +3766,18 @@ def main() -> int:
                 p: moe_counts[f"flash_attention_bwd.{p}"]
                 for p in ("wgmma", "tf32", "simt")},
             **{key: mla_b.get(key) for key in keys},
-            "f32": {"source": CSRC + "flash_attention_bwd.cu",
-                    "launches": sum(c["flash_attention_bwd.simt"]
-                                    for c in train_launches.values()),
-                    **{key: mla_b32.get(key) for key in keys
-                       if not key.startswith("simt")}}}
+            "f32": {"source": CSRC + "flash_attention_bwd_tf32.cu",
+                    "simt_source": CSRC + "flash_attention_bwd.cu",
+                    "launches": c3["flash_attention_bwd.tf32"],
+                    **{key: mla_b32.get(key) for key in keys}}}
         for label, m in (("bf16", mla_b), ("f32", mla_b32)):
             print(f"flash_attention_bwd mla {label} path={m['path']} at "
                   f"{m['shape']}: kernel {m['ms']:.4f} ms (device "
-                  f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms, "
-                  f"sdpa backward {m['library_ms']:.4f} ms, bound "
+                  f"{m['device_ms']:.4f} ms), CUDA-core kernel "
+                  f"{m['simt_ms']:.4f} ms (device {m['simt_device_ms']:.4f} "
+                  f"ms), plain {m['plain_ms']:.4f} ms, sdpa backward "
+                  f"{m['library_ms']:.4f} ms (device "
+                  f"{m['library_device_ms']:.4f} ms), bound "
                   f"{m['bound_ms']:.5f} ms ({m['bound_by']}), max_abs_err "
                   f"{m['max_abs_err']:.3g}")
         print(f"flash_attention_bwd f32 path={f32b['path']} "
@@ -3714,8 +3789,9 @@ def main() -> int:
               f"{f32b['library_ms']:.4f} ms, bound {f32b['bound_ms']:.5f} ms "
               f"({f32b['bound_by']}), max_abs_err {f32b['max_abs_err']:.3g}")
         # the MLA shape (deepseek-v2-236b's prefill, phase 6 (b)): the
-        # wgmma kernel at D 192, Dv 128, with the CUDA-core kernel's f32
-        # beside; launches are phase 6 (b)'s kernels run
+        # wgmma kernel at D 192, Dv 128, launches phase 6 (b)'s kernels
+        # run; the 3xTF32 kernel's f32 beside, its launches phase 8
+        # (c3)'s; the CUDA-core kernel timed beside both
         flash = next(k for k in kernels if k["name"] == "flash_attention")
         keys = ("path", "shape", "max_abs_err", "ms", "device_ms", "simt_ms",
                 "simt_device_ms", "plain_ms", "library_ms",
@@ -3725,14 +3801,19 @@ def main() -> int:
             "source": CSRC + SOURCES["flash_attention"],
             "launches": moe_launches["flash_attention"],
             **{key: mla.get(key) for key in keys},
-            "f32": {"source": CSRC + "flash_attention.cu",
-                    **{key: mla32.get(key) for key in keys
-                       if not key.startswith("simt")}}}
+            "f32": {"source": CSRC + SOURCES["flash_attention f32"],
+                    "simt_source": CSRC + "flash_attention.cu",
+                    "launches": c3["flash_attention.tf32"],
+                    **{key: mla32.get(key) for key in keys},
+                    "cuda_core_bound_ms": mla32["cuda_core_bound_ms"]}}
         for label, m in (("bf16", mla), ("f32", mla32)):
             print(f"flash_attention mla {label} path={m['path']} at "
                   f"{m['shape']}: kernel {m['ms']:.4f} ms (device "
-                  f"{m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms, "
-                  f"sdpa {m['library_ms']:.4f} ms, bound "
+                  f"{m['device_ms']:.4f} ms), CUDA-core kernel "
+                  f"{m['simt_ms']:.4f} ms (device {m['simt_device_ms']:.4f} "
+                  f"ms), plain {m['plain_ms']:.4f} ms, sdpa "
+                  f"{m['library_ms']:.4f} ms (device "
+                  f"{m['library_device_ms']:.4f} ms), bound "
                   f"{m['bound_ms']:.5f} ms ({m['bound_by']}), max_abs_err "
                   f"{m['max_abs_err']:.3g}")
         f32 = lm["flash_attention f32"]

@@ -80,12 +80,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
                                        _I, _I, _I, _D, _P], _I),
     },
     "flash_attention_tf32": {
-        # q, k, v, o, part (scratch or null), lse (or null), bh, s, d,
+        # q, k, v, o, part (scratch or null), lse (or null), bh, s, d, dv,
         # group, causal, kind, window, softcap, splits, stream
-        "flash_attention_tf32_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _D, _I, _P], _I),
-        # bh, s, d, causal, kind, window -> the kv shares fwd takes
-        "flash_attention_tf32_splits": ([_I, _I, _I, _I, _I, _I], _I),
+        "flash_attention_tf32_fwd": ([_P] * 6 + [_I] * 8 + [_D, _I, _P], _I),
+        # bh, s, d, dv, causal, kind, window -> the kv shares fwd takes
+        "flash_attention_tf32_splits": ([_I] * 7, _I),
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, lse and delta scratch, bh, s, d,
@@ -103,11 +102,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "flash_attention_bwd_wgmma": ([_P] * 11 + [_I] * 9 + [_D, _P], _I),
     },
     "flash_attention_bwd_tf32": {
-        # the wgmma backward's entry points without dv (d = dv), for f32
-        "flash_attention_bwd_tf32_shares": ([_I, _I, _I, _I, _I, _I, _I], _I),
-        "flash_attention_bwd_tf32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-                                      _P], _I),
+        # the wgmma backward's entry points, for f32
+        "flash_attention_bwd_tf32_shares": ([_I] * 8, _I),
+        "flash_attention_bwd_tf32": ([_P] * 11 + [_I] * 9 + [_D, _P], _I),
     },
     "rglru_scan": {
         # both: a, b, h0 (or null), h, batch, s, w, stream

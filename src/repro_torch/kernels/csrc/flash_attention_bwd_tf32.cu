@@ -1,6 +1,7 @@
 // Attention backward on Hopper's tensor cores at f32 accuracy (sm_90a):
-// the f32 path for head dims 64, 128 and 256 without a softcap, the
-// gradient of flash_attention_tf32.cu.
+// the f32 path without a softcap for q/k and v head dims (D, Dv) = (64,
+// 64), (128, 128), (256, 256) and MLA's (192, 128), the gradient of
+// flash_attention_tf32.cu.
 //
 // The Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:77) has no backward: the reference trains through
@@ -8,8 +9,9 @@
 // differentiates.  This kernel computes what flash_attention_bwd.cu (the
 // first design, f32 on the CUDA cores, which keeps f32 with a softcap and
 // other head dims) computes:
-//   q, o, dO (BH, S, D), k and v (BH / G, S, D) f32, lse (BH, S) f32
-//   -> dq (BH, S, D), dk and dv (BH / G, S, D) f32,
+//   q (BH, S, D), o and dO (BH, S, Dv), k (BH / G, S, D) and v (BH / G,
+//   S, Dv) f32, lse (BH, S) f32
+//   -> dq (BH, S, D), dk (BH / G, S, D) and dv (BH / G, S, Dv) f32,
 // with the forward's masks (causal, `local` within `window`, `chunked`);
 // query row bh reads kv row bh / G.  lse is each row's log-sum-exp in
 // natural-log units, written by the 3xTF32 forward when a gradient will
@@ -27,12 +29,14 @@
 // product would leave 2^-11.  p and ds are split like any operand.
 //
 // What bounds it on this card: operations.  The least work is five
-// products of 2*D per kept pair (10*D) at the TF32 rate (495 TFLOP/s);
-// at the serving shape (D = 256, local window 2,048, MQA 10:1) that is
-// far above the bytes.  3xTF32 triples each product; the dK/dV side does
-// four (s, dp, dv, dk) and the dQ side three (s and dp again, dq): 42*D a
-// pair on the tensor cores, where the first design did 18*D on the CUDA
-// cores (67 TFLOP/s at most).
+// products per kept pair, s, dq and dk over D and dp and dv over Dv (6*D
+// + 4*Dv; 10*D where Dv = D), at the TF32 rate (495 TFLOP/s); at the
+// serving shape (D = 256, local window 2,048, MQA 10:1) and at MLA's
+// (BH 128, causal, S 3,000) that is far above the bytes.  3xTF32 triples
+// each product; the dK/dV side does four (s, dp, dv, dk) and the dQ side
+// three (s and dp again, dq): 6*(4*D + 3*Dv) a pair on the tensor cores
+// (42*D where Dv = D), where the first design did 18*D on the CUDA cores
+// (67 TFLOP/s at most).
 //
 // Why mma.sync and not wgmma: the forward's reason (flash_attention_tf32.cu)
 // holds.  wgmma reads TF32 operands only K-major from shared memory, so
@@ -66,18 +70,31 @@
 //
 // Warps: eight a block, two row groups of 16 (keys on the dK/dV side,
 // query rows on the dQ side) with four warps each.  Of a row group's
-// four, two compute the score tile (16 x 32) and two the dP tile, two
-// n-blocks of 8 columns each, over all of D; they meet through shared
+// four, two compute the score tile (16 x 32, over D) and two the dP tile
+// (over Dv), two n-blocks of 8 columns each; they meet through shared
 // memory (a named barrier of the group's 128 threads), where the dP
 // warps turn p and dp into ds.  Then each warp takes the product of p or
-// ds with its share of D's columns: on the dK/dV side the P warps own dV
-// (half the columns each) and the dS warps dK; on the dQ side all four
-// own a quarter of dq.  At D = 256 a thread holds 64 f32 of dK or dV (32
-// of dq).  The transposed products (P^T dO, dS^T Q) need no shuffle: the
-// score accumulator is already P^T's A fragment when logical k = t is
-// read as query 2t and k = t + 4 as query 2t + 1, and the B fragment
-// takes dO's (or Q's) rows 2t and 2t + 1 to match, as the forward does
-// for P V.
+// ds with its share of the columns: on the dK/dV side the P warps own dV
+// (half of Dv each) and the dS warps dK (half of D each); on the dQ side
+// all four own a quarter of dq.  At D = 256 a thread holds 64 f32 of dK
+// or dV (32 of dq).  The transposed products (P^T dO, dS^T Q) need no
+// shuffle: the score accumulator is already P^T's A fragment when logical
+// k = t is read as query 2t and k = t + 4 as query 2t + 1, and the B
+// fragment takes dO's (or Q's) rows 2t and 2t + 1 to match, as the
+// forward does for P V.
+//
+// MLA's (192, 128): Q and K rows are staged at D + 4 floats, V and dO
+// rows at Dv + 4, so a block's two fixed tiles, its two-stage ring and
+// the exchange take 134,656 bytes, one block an SM as at D = 256.  The
+// score warps' product runs 24 k8 steps, the dP warps' 16, so the dP
+// warps wait at the exchange for a third of the score warps' time; and
+// the dS warps own dK's 96 columns a half (12 n-blocks, 48 f32 a thread)
+// where the P warps own dV's 64 (8 n-blocks, 32 f32).  The dQ side's
+// warps own 48 columns of dq each (6 n-blocks).  The layout is kept
+// simple (the same roles at every (D, Dv)); balancing the two kinds of
+// warp is later work.  ptxas (CUDA 12 on the H100's machine, printed by
+// chip_smoke.py's phase 0): the main kernel 197 registers at (192, 128),
+// 228 at (256, 256), 147 at (128, 128), 110 at (64, 64), no spill.
 //
 // Masks: tiles that the mask hides from every pair are skipped (the key
 // tile's query range, the query tile's key range); tiles that it shows
@@ -172,15 +189,25 @@ __host__ __device__ inline int items_per_share(int most, int shares) {
   return (most + shares - 1) / shares;
 }
 
-template <int D>
-struct Layout {
-  static constexpr int kRow = D + kPad;      // floats per staged row
+// A staged tile of kT rows of W floats: rows padded to W + kPad floats,
+// so every fragment load of a warp falls on distinct banks.
+template <int W>
+struct Staged {
+  static constexpr int kRow = W + kPad;      // floats per staged row
   static constexpr int kTile = kT * kRow;    // floats of a staged tile
+};
+
+// q and k of D columns, v, o and dO of DV.  Each side keeps one tile of
+// D columns and one of DV (K and V; Q and dO) and streams pairs of the
+// other two through the ring.
+template <int D, int DV>
+struct Layout {
+  static constexpr int kPair = Staged<D>::kTile + Staged<DV>::kTile;
   // the exchange: [row group][p, ds][n-block][element][lane]
   static constexpr int kX = 2 * 2 * 4 * 4 * 32;
   // two fixed tiles, a two-stage ring of two, the exchange, and a stage's
   // lse and D_i (dK/dV side)
-  static constexpr size_t kBytes = 4 * (size_t)(6 * kTile + kX + 2 * 2 * kT);
+  static constexpr size_t kBytes = 4 * (size_t)(3 * kPair + kX + 2 * 2 * kT);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -201,15 +228,15 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// rows row0 .. row0 + kT - 1 of a (S, D) matrix into a staged tile
-template <int D>
+// rows row0 .. row0 + kT - 1 of a (S, W) matrix into a staged tile
+template <int W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S) {
-  constexpr int kVec = D / 4;  // 16-byte pieces of a row
+  constexpr int kVec = W / 4;  // 16-byte pieces of a row
   for (int e = threadIdx.x; e < kT * kVec; e += kThreads) {
     const int r = e / kVec, c = e % kVec;
     const bool in = row0 + r < S;
-    cp_async16(dst + r * Layout<D>::kRow + 4 * c,
-               src + (long long)(in ? row0 + r : 0) * D + 4 * c, in);
+    cp_async16(dst + r * Staged<W>::kRow + 4 * c,
+               src + (long long)(in ? row0 + r : 0) * W + 4 * c, in);
   }
 }
 
@@ -244,27 +271,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[
   mma_tf32(d, ahi, bh0, bh1);
 }
 
-// acc[nb] (16 rows x 8 columns) = A B^T over all of D: A is the 16 rows
-// at `a`, B the 8 rows at b + 8 nb * kRow (n-block nb), both staged
-// row-major.  A thread holds rows g, g + 8 and columns 2t, 2t + 1.  As in
-// the forward's Q K^T, the large terms hi_a hi_b of each 8 columns of D
-// are summed from zero on the tensor cores and added in f32 with Kahan's
-// compensation, and the small terms accumulate on the tensor cores: the
-// tensor core's adds do not round to nearest, so a sum over all of D on
-// it has an error that grows with D, where this one does not.  The
-// backward's scores then agree with the forward's to a few ulps, and p =
-// exp(s - lse) is 1 where a row sees one key.
-template <int D, int NB>
+// acc[nb] (16 rows x 8 columns) = A B^T over all W columns: A is the 16
+// rows at `a`, B the 8 rows at b + 8 nb * kRow (n-block nb), both staged
+// row-major at width W (D for S, Dv for dP).  A thread holds rows g,
+// g + 8 and columns 2t, 2t + 1.  As in the forward's Q K^T, the large
+// terms hi_a hi_b of each 8 columns are summed from zero on the tensor
+// cores and added in f32 with Kahan's compensation, and the small terms
+// accumulate on the tensor cores: the tensor core's adds do not round to
+// nearest, so a sum over all of W on it has an error that grows with W,
+// where this one does not.  The backward's scores then agree with the
+// forward's to a few ulps, and p = exp(s - lse) is 1 where a row sees one
+// key.
+template <int W, int NB>
 __device__ __forceinline__ void rows_dot(float (&acc)[NB][4], const float* a, const float* b,
                                          int g, int t) {
-  constexpr int R = Layout<D>::kRow;
+  constexpr int R = Staged<W>::kRow;
   float small[NB][4];
 #pragma unroll
   for (int n = 0; n < NB; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.0f;
 #pragma unroll 4
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < W / 8; ++kk) {
     const float* ap = a + g * R + 8 * kk + t;
     uint32_t ahi[4], alo[4];
     split_tf32(ap[0], ahi[0], alo[0]);
@@ -312,17 +340,19 @@ __device__ __forceinline__ void tile_frags(const float* x, int lane, uint32_t (&
   }
 }
 
-// acc[j] (16 rows x 8 columns, columns col + 8 j) += X (16 x 32, the
-// fragments) B, B the 32 staged rows at `b` (row 2t and 2t + 1 of each
-// k-block of 8, matching the fragments' pairing).  Each tile's product is
-// summed from zero on the tensor cores and added to acc in f32, so the
-// error does not grow with the number of tiles summed (as the forward
-// folds P V into O).
-template <int D, int NJ>
-__device__ __forceinline__ void frags_acc(float (&acc)[NJ][4], const uint32_t (&hi)[4][4],
+// acc[j] (16 rows x 8 columns, columns col + 8 j), j < NJ, += X (16 x 32,
+// the fragments) B, B the 32 staged rows of width W at `b` (row 2t and
+// 2t + 1 of each k-block of 8, matching the fragments' pairing).  Each
+// tile's product is summed from zero on the tensor cores and added to acc
+// in f32, so the error does not grow with the number of tiles summed (as
+// the forward folds P V into O).  acc may hold more n-blocks than NJ (a
+// block's warps share one array, sized for the widest).
+template <int W, int NJ, int NA>
+__device__ __forceinline__ void frags_acc(float (&acc)[NA][4], const uint32_t (&hi)[4][4],
                                           const uint32_t (&lo)[4][4], const float* b, int col,
                                           int g, int t) {
-  constexpr int R = Layout<D>::kRow;
+  static_assert(NJ <= NA, "the accumulator holds every n-block");
+  constexpr int R = Staged<W>::kRow;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -341,19 +371,19 @@ __device__ __forceinline__ void group_barrier(int r) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. D_i = rowsum(dO * O)
+// 1. D_i = rowsum(dO * O), over Dv
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(32 * kDeltaRows)
 attn_bwd_tf32_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                           float* __restrict__ delta, long long rows, int D) {
+                           float* __restrict__ delta, long long rows, int dv) {
   const long long row = (long long)blockIdx.x * kDeltaRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float4* ob = reinterpret_cast<const float4*>(o + row * D);
-  const float4* db = reinterpret_cast<const float4*>(dout + row * D);
+  const float4* ob = reinterpret_cast<const float4*>(o + row * dv);
+  const float4* db = reinterpret_cast<const float4*>(dout + row * dv);
   float acc = 0.0f;
-  for (int c = lane; c < D / 4; c += 32) {
+  for (int c = lane; c < dv / 4; c += 32) {
     const float4 a = ob[c], b = db[c];
     acc = fmaf(a.x, b.x, acc);
     acc = fmaf(a.y, b.y, acc);
@@ -369,7 +399,7 @@ attn_bwd_tf32_delta_kernel(const float* __restrict__ o, const float* __restrict_
 // 2. dK and dV partials: one block per (share, key tile, kv row)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
                                            const float* __restrict__ k,
                                            const float* __restrict__ v,
@@ -379,14 +409,16 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
                                            float* __restrict__ part, int bh_kv, int group,
                                            int shares, int per, const Mask& mask, int share,
                                            int key_tile, int kvh) {
-  using L = Layout<D>;
-  constexpr int R = L::kRow;
-  constexpr int NJ = D / 16;  // n-blocks of a warp's half of D
+  using L = Layout<D, DV>;
+  constexpr int RQ = Staged<D>::kRow, RV = Staged<DV>::kRow;
+  constexpr int NJK = D / 16;   // n-blocks of a dS warp's half of D (dK)
+  constexpr int NJV = DV / 16;  // n-blocks of a P warp's half of Dv (dV)
+  constexpr int NJ = NJK > NJV ? NJK : NJV;
   extern __shared__ float smem[];
   float* sk = smem;
-  float* sv = sk + L::kTile;
-  float* ring = sv + L::kTile;             // stage st: Q, then dO
-  float* xch = ring + 4 * L::kTile;
+  float* sv = sk + Staged<D>::kTile;
+  float* ring = sv + Staged<DV>::kTile;    // stage st: Q, then dO
+  float* xch = ring + 2 * L::kPair;
   float* rows = xch + L::kX;               // [stage][lse, D_i][kT]
 
   const int S = mask.S;
@@ -410,9 +442,9 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
   auto load_item = [&](int st, int item) {
     int bh, q0;
     item_rows(item, bh, q0);
-    float* sq = ring + st * 2 * L::kTile;
+    float* sq = ring + st * L::kPair;
     load_tile<D>(sq, q + (long long)bh * S * D, q0, S);
-    load_tile<D>(sq + L::kTile, dout + (long long)bh * S * D, q0, S);
+    load_tile<DV>(sq + Staged<D>::kTile, dout + (long long)bh * S * DV, q0, S);
     if (tid < 2 * kT) {  // lse and D_i of the item's rows (past S: 0)
       const int row = q0 + tid % kT;
       const float* src = tid < kT ? lse : delta;
@@ -421,7 +453,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
   };
 
   load_tile<D>(sk, k + (long long)kvh * S * D, k0, S);
-  load_tile<D>(sv, v + (long long)kvh * S * D, k0, S);
+  load_tile<DV>(sv, v + (long long)kvh * S * DV, k0, S);
   load_item(0, i_begin);
   cp_async_commit();
 
@@ -441,17 +473,19 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
     __syncthreads();
     int bh, q0;
     item_rows(i_begin + it, bh, q0);
-    const float* sq = ring + st * 2 * L::kTile;
-    const float* sdo = sq + L::kTile;
+    const float* sq = ring + st * L::kPair;
+    const float* sdo = sq + Staged<D>::kTile;
     const float* lse_s = rows + st * 2 * kT;
     const float* delta_s = lse_s + kT;
     const bool whole = mask.whole(q0, k0);
 
-    // S^T = K Q^T (P warps) or dP^T = V dO^T (dS warps): keys 16 r .., query
-    // columns of n-blocks 2 half, 2 half + 1
+    // S^T = K Q^T over D (P warps) or dP^T = V dO^T over Dv (dS warps):
+    // keys 16 r .., query columns of n-blocks 2 half, 2 half + 1
     float x[2][4];
-    rows_dot<D, 2>(x, (p_warp ? sk : sv) + 16 * r * R,
-                   (p_warp ? sq : sdo) + 16 * half * R, g, t);
+    if (p_warp)
+      rows_dot<D, 2>(x, sk + 16 * r * RQ, sq + 16 * half * RQ, g, t);
+    else
+      rows_dot<DV, 2>(x, sv + 16 * r * RV, sdo + 16 * half * RV, g, t);
     if (p_warp) {
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
@@ -480,27 +514,36 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
     }
     group_barrier(r);  // ds is in the exchange
 
-    // dV += P^T dO (P warps) or dK += dS^T Q (dS warps), columns of this
-    // warp's half of D
+    // dV += P^T dO (P warps, this warp's half of Dv) or dK += dS^T Q (dS
+    // warps, its half of D)
     uint32_t hi[4][4], lo[4][4];
     tile_frags(p_warp ? xp : xs, lane, hi, lo);
-    frags_acc<D, NJ>(acc, hi, lo, p_warp ? sdo : sq, half * (D / 2), g, t);
+    if (p_warp)
+      frags_acc<DV, NJV>(acc, hi, lo, sdo, half * (DV / 2), g, t);
+    else
+      frags_acc<D, NJK>(acc, hi, lo, sq, half * (D / 2), g, t);
 
     // every warp is done with this stage and the exchange
     __syncthreads();
   }
 
-  // this share's partials, keys below S: dK in dS warps, dV in P warps
-  const long long plane = (long long)S * D;
-  float* out = part + ((long long)((p_warp ? shares : 0) + share) * bh_kv + kvh) * plane;
+  // this share's partials, keys below S: dK in dS warps, dV in P warps.
+  // The scratch holds every share's dK (bh_kv, S, D), then every share's
+  // dV (bh_kv, S, Dv)
+  const int width = p_warp ? DV : D;
+  const int nj = p_warp ? NJV : NJK;
+  float* out = p_warp ? part + (long long)shares * bh_kv * S * D +
+                            ((long long)share * bh_kv + kvh) * S * DV
+                      : part + ((long long)share * bh_kv + kvh) * S * D;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int kp = k0 + 16 * r + g + 8 * hr;
     if (kp >= S) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int col = half * (D / 2) + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(out + (long long)kp * D + col) =
+      if (j >= nj) break;
+      const int col = half * (width / 2) + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(out + (long long)kp * width + col) =
           make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
     }
   }
@@ -510,7 +553,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
 // 3. dQ: one block per (bh, query tile)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void dq_block(const float* __restrict__ q,
                                          const float* __restrict__ k,
                                          const float* __restrict__ v,
@@ -518,14 +561,14 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, float* __restrict__ dq,
                                          int group, const Mask& mask, int bh, int q_tile) {
-  using L = Layout<D>;
-  constexpr int R = L::kRow;
+  using L = Layout<D, DV>;
+  constexpr int RQ = Staged<D>::kRow, RV = Staged<DV>::kRow;
   constexpr int NJ = D / 32;  // n-blocks of a warp's quarter of D
   extern __shared__ float smem[];
   float* sq = smem;
-  float* sdo = sq + L::kTile;
-  float* ring = sdo + L::kTile;  // stage st: K, then V
-  float* xch = ring + 4 * L::kTile;
+  float* sdo = sq + Staged<D>::kTile;
+  float* ring = sdo + Staged<DV>::kTile;  // stage st: K, then V
+  float* xch = ring + 2 * L::kPair;
 
   const int S = mask.S;
   const int kvh = bh / group;
@@ -540,15 +583,15 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
   const bool p_warp = role < 2;             // P; else dP and dS
   const int half = role % 2;
   const float* kb = k + (long long)kvh * S * D;
-  const float* vb = v + (long long)kvh * S * D;
+  const float* vb = v + (long long)kvh * S * DV;
 
   auto load_kv = [&](int st, int k0) {
-    float* s = ring + st * 2 * L::kTile;
+    float* s = ring + st * L::kPair;
     load_tile<D>(s, kb, k0, S);
-    load_tile<D>(s + L::kTile, vb, k0, S);
+    load_tile<DV>(s + Staged<D>::kTile, vb, k0, S);
   };
   load_tile<D>(sq, q + (long long)bh * S * D, q0, S);
-  load_tile<D>(sdo, dout + (long long)bh * S * D, q0, S);
+  load_tile<DV>(sdo, dout + (long long)bh * S * DV, q0, S);
   if (n_tiles > 0) load_kv(0, k_first);
   cp_async_commit();
 
@@ -574,15 +617,17 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
-    const float* sk = ring + st * 2 * L::kTile;
-    const float* sv = sk + L::kTile;
+    const float* sk = ring + st * L::kPair;
+    const float* sv = sk + Staged<D>::kTile;
     const bool whole = mask.whole(q0, k0);
 
-    // S = Q K^T (P warps) or dP = dO V^T (dS warps): rows 16 r .., key
-    // columns of n-blocks 2 half, 2 half + 1
+    // S = Q K^T over D (P warps) or dP = dO V^T over Dv (dS warps): rows
+    // 16 r .., key columns of n-blocks 2 half, 2 half + 1
     float x[2][4];
-    rows_dot<D, 2>(x, (p_warp ? sq : sdo) + 16 * r * R, (p_warp ? sk : sv) + 16 * half * R, g,
-                   t);
+    if (p_warp)
+      rows_dot<D, 2>(x, sq + 16 * r * RQ, sk + 16 * half * RQ, g, t);
+    else
+      rows_dot<DV, 2>(x, sdo + 16 * r * RV, sv + 16 * half * RV, g, t);
     if (p_warp) {
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
@@ -639,7 +684,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
 // grid, so the SMs the dK/dV blocks free take dQ blocks at once
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_tf32_main_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
@@ -651,13 +696,13 @@ attn_bwd_tf32_main_kernel(const float* __restrict__ q, const float* __restrict__
   if (b < n_dkdv) {
     const int share = (int)(b % shares);
     b /= shares;
-    dkdv_block<D>(q, k, v, dout, lse, delta, part, bh_kv, group, shares, per, mask, share,
-                  (int)(b % tiles), (int)(b / tiles));
+    dkdv_block<D, DV>(q, k, v, dout, lse, delta, part, bh_kv, group, shares, per, mask,
+                      share, (int)(b % tiles), (int)(b / tiles));
   } else {
     b -= n_dkdv;
     const int bh_rows = bh_kv * group;
-    dq_block<D>(q, k, v, dout, lse, delta, dq, group, mask, (int)(b % bh_rows),
-                tiles - 1 - (int)(b / bh_rows));
+    dq_block<D, DV>(q, k, v, dout, lse, delta, dq, group, mask, (int)(b % bh_rows),
+                    tiles - 1 - (int)(b / bh_rows));
   }
 }
 
@@ -665,30 +710,35 @@ attn_bwd_tf32_main_kernel(const float* __restrict__ q, const float* __restrict__
 // 4. dK and dV: the shares' partials summed in share order
 // ---------------------------------------------------------------------------
 
+// Four floats of dK (i below bh_kv * S * D / 4) or of dV (the rest): the
+// used shares' partials at (bh_kv, S, width) summed in share order.
 __global__ void __launch_bounds__(256)
 attn_bwd_tf32_sum_kernel(const float* __restrict__ part, float* __restrict__ dk,
-                         float* __restrict__ dv, int bh_kv, int D, int group, int shares,
-                         int per, Mask mask) {
+                         float* __restrict__ dv, int bh_kv, int D, int DV, int group,
+                         int shares, int per, Mask mask) {
   const int S = mask.S;
-  const long long n = (long long)bh_kv * S * D;
-  const long long plane = (long long)S * D;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+  const long long nk = (long long)bh_kv * S * D, nv = (long long)bh_kv * S * DV;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < (nk + nv) / 4;
        i += (long long)gridDim.x * blockDim.x) {
-    const long long e = 4 * i;                  // D is a multiple of 4
-    const int kp = (int)((e % plane) / D);
+    const bool is_k = i < nk / 4;                // D and Dv are multiples of 4
+    const long long e = is_k ? 4 * i : 4 * i - nk;
+    const int width = is_k ? D : DV;
+    const long long n = is_k ? nk : nv;
+    const float* src = is_k ? part : part + (long long)shares * nk;
+    const int kp = (int)((e % ((long long)S * width)) / width);
     int qt0, n_qt;
     mask.items(kp / kT * kT, qt0, n_qt);
     const int used = min(shares, (group * n_qt + per - 1) / per);
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int z = 0; z < used; ++z) {
-      const float4 x = reinterpret_cast<const float4*>(part + (long long)z * n)[i];
-      const float4 y = reinterpret_cast<const float4*>(part + (long long)(shares + z) * n)[i];
+      const float4 x = reinterpret_cast<const float4*>(src + (long long)z * n + e)[0];
       a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
     }
-    reinterpret_cast<float4*>(dk)[i] =
-        make_float4(a.x * mask.scale, a.y * mask.scale, a.z * mask.scale, a.w * mask.scale);
-    reinterpret_cast<float4*>(dv)[i] = b;
+    if (is_k)
+      reinterpret_cast<float4*>(dk + e)[0] =
+          make_float4(a.x * mask.scale, a.y * mask.scale, a.z * mask.scale, a.w * mask.scale);
+    else
+      reinterpret_cast<float4*>(dv + e)[0] = a;
   }
 }
 
@@ -708,43 +758,51 @@ int most_items(int s, int group, const Mask& m) {
 }
 
 // The largest dynamic shared memory a block may take is set once per
-// device and head dim, not at every call.
-template <int D>
+// device and head dims, not at every call.
+template <int D, int DV>
 cudaError_t allow_smem() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(attn_bwd_tf32_main_kernel<D>,
+  err = cudaFuncSetAttribute(attn_bwd_tf32_main_kernel<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Layout<D>::kBytes);
+                             (int)Layout<D, DV>::kBytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
 // Blocks of the main kernel an SM holds, or 0 when the query fails.
-template <int D>
+template <int D, int DV>
 int main_occupancy() {
-  if (allow_smem<D>() != cudaSuccess) return 0;
+  if (allow_smem<D, DV>() != cudaSuccess) return 0;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_tf32_main_kernel<D>, kThreads,
-                                                    (int)Layout<D>::kBytes) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_tf32_main_kernel<D, DV>,
+                                                    kThreads, (int)Layout<D, DV>::kBytes) !=
+      cudaSuccess)
     return 0;
   return n;
 }
 
-// The main launch's work in quarters of a dK/dV item: an item (a query
-// tile of one head against the key tile) 4, a dQ block's key tile 3 (one
-// product fewer), a block's fixed work (its resident tiles in, its
-// outputs out) 8 for dK/dV (the partials, read back by the sum) and 4 for
-// dQ.
-constexpr int kItem = 4, kTile = 3, kDkdvBlock = 8, kDqBlock = 4;
+// The main launch's work by the columns its products and copies run over:
+// a dK/dV item (a query tile of one head against the key tile) four
+// products, s and dk over D and dp and dv over Dv; a dQ block's key tile
+// three, s and dq over D and dp over Dv; a block's fixed work (its
+// resident tiles in, its outputs out) twice an item's for dK/dV (the
+// partials, read back by the sum) and an item's for dQ.  Where D = Dv
+// these are 4, 3, 8 and 4 times D.
+struct Work {
+  long long item, tile, dkdv_block, dq_block;
+};
+Work work_of(int d, int dv) {
+  return Work{2LL * (d + dv), 2LL * d + dv, 4LL * (d + dv), 2LL * (d + dv)};
+}
 
 // The share count: with `per` items a dK/dV block, key tile t takes
 // ceil(items_t / per) blocks.  The launch's span is about the larger of
 // its work spread over the SMs and its longest block; the count minimises
 // that (the dQ blocks' work is fixed), the smallest on a tie.
-int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
+int choose_shares(int bh_kv, int s, int group, const Mask& m, const Work& w, int per_sm) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -756,9 +814,9 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
   for (int q0 = 0; q0 < s; q0 += kT) {
     int lo, hi;
     m.key_range(q0, lo, hi);
-    const long long w = kDqBlock + kTile * (long long)((hi - lo / kT * kT + kT - 1) / kT);
-    dq_work += w;
-    dq_longest = w > dq_longest ? w : dq_longest;
+    const long long x = w.dq_block + w.tile * (long long)((hi - lo / kT * kT + kT - 1) / kT);
+    dq_work += x;
+    dq_longest = x > dq_longest ? x : dq_longest;
   }
   dq_work *= (long long)bh_kv * group;
   for (int k0 = 0; k0 < s; k0 += kT) {
@@ -778,9 +836,9 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
       blocks += (group * n_qt + per - 1) / per;
     }
     blocks *= bh_kv;
-    const long long work = dq_work + kItem * items + kDkdvBlock * blocks;
+    const long long work = dq_work + w.item * items + w.dkdv_block * blocks;
     long long cost = (work + slots - 1) / slots;
-    const long long longest = (long long)kItem * per + kDkdvBlock;
+    const long long longest = w.item * per + w.dkdv_block;
     cost = cost > longest ? cost : longest;
     cost = cost > dq_longest ? cost : dq_longest;
     if (best_cost < 0 || cost < best_cost) {
@@ -791,64 +849,76 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
   return best;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, float* dq, float* dk, float* dv,
                    float* delta, float* part, int bh, int s, int group, int shares,
                    const Mask& mask, cudaStream_t stream) {
   const int bh_kv = bh / group;
-  cudaError_t err = allow_smem<D>();
+  cudaError_t err = allow_smem<D, DV>();
   if (err != cudaSuccess) return err;
   const int per = items_per_share(most_items(s, group, mask), shares);
 
   const long long rows = (long long)bh * s;
   attn_bwd_tf32_delta_kernel<<<(unsigned)((rows + kDeltaRows - 1) / kDeltaRows),
-                               32 * kDeltaRows, 0, stream>>>(o, dout, delta, rows, D);
+                               32 * kDeltaRows, 0, stream>>>(o, dout, delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int tiles = (s + kT - 1) / kT;
   const long long blocks = (long long)(shares + group) * tiles * bh_kv;
-  attn_bwd_tf32_main_kernel<D><<<(unsigned)blocks, kThreads, Layout<D>::kBytes, stream>>>(
-      q, k, v, dout, lse, delta, part, dq, bh_kv, group, shares, per, tiles, mask);
+  attn_bwd_tf32_main_kernel<D, DV>
+      <<<(unsigned)blocks, kThreads, Layout<D, DV>::kBytes, stream>>>(
+          q, k, v, dout, lse, delta, part, dq, bh_kv, group, shares, per, tiles, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long n = (long long)bh_kv * s * D;
+  const long long n = (long long)bh_kv * s * (D + DV);
   const long long sum_blocks = (n / 4 + 255) / 256;
   attn_bwd_tf32_sum_kernel<<<(unsigned)(sum_blocks < 4096 ? sum_blocks : 4096), 256, 0,
                              stream>>>(
-      part, dk, dv, bh_kv, D, group, shares, per, mask);
+      part, dk, dv, bh_kv, D, DV, group, shares, per, mask);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The number of shares the dK/dV launch cuts each key tile's work into
-// (the partials' scratch is 2 * shares * (bh / group) * s * d f32), or 0
-// when the arguments are refused or the device query fails.
-extern "C" int flash_attention_bwd_tf32_shares(int bh, int s, int d, int group, int causal,
-                                               int kind, int window) {
-  if (bh <= 0 || s <= 0 || group <= 0 || bh % group) return 0;
-  if (kind != kGlobal && window < 1) return 0;
-  const Mask m = make_mask(s, d, causal, kind, window);
-  switch (d) {
-    case 64: return choose_shares(bh / group, s, group, m, main_occupancy<64>());
-    case 128: return choose_shares(bh / group, s, group, m, main_occupancy<128>());
-    case 256: return choose_shares(bh / group, s, group, m, main_occupancy<256>());
-    default: return 0;
-  }
+// The (D, Dv) pairs the kernel takes: D = Dv in {64, 128, 256}, and MLA's
+// (192, 128).
+static bool takes(int d, int dv) {
+  return (d == dv && (d == 64 || d == 128 || d == 256)) || (d == 192 && dv == 128);
 }
 
-// q, o, dout, dq: (bh, s, d) f32; k, v, dk, dv: (bh / group, s, d) f32;
-// lse: (bh, s) f32 from the forward; delta: (bh, s) f32 scratch; part: 2 *
-// shares * (bh / group) * s * d f32 scratch.  All contiguous, 16-byte
-// aligned, on the current device; d in {64, 128, 256}; no softcap (the
-// first kernel keeps it).  kind: 0 global, 1 local, 2 chunked.
+// The number of shares the dK/dV launch cuts each key tile's work into
+// (the partials' scratch is shares * (bh / group) * s * (d + dv) f32), or
+// 0 when the arguments are refused or the device query fails.
+extern "C" int flash_attention_bwd_tf32_shares(int bh, int s, int d, int dv, int group,
+                                               int causal, int kind, int window) {
+  if (bh <= 0 || s <= 0 || group <= 0 || bh % group || !takes(d, dv)) return 0;
+  if (kind != kGlobal && window < 1) return 0;
+  const Mask m = make_mask(s, d, causal, kind, window);
+  const Work w = work_of(d, dv);
+  int per_sm = 0;
+  switch (d) {
+    case 64: per_sm = main_occupancy<64, 64>(); break;
+    case 128: per_sm = main_occupancy<128, 128>(); break;
+    case 192: per_sm = main_occupancy<192, 128>(); break;
+    case 256: per_sm = main_occupancy<256, 256>(); break;
+  }
+  return choose_shares(bh / group, s, group, m, w, per_sm);
+}
+
+// q, dq: (bh, s, d) f32; o, dout: (bh, s, dv) f32; k, dk: (bh / group, s,
+// d) f32; v, dv_out: (bh / group, s, dv) f32; lse: (bh, s) f32 from the
+// forward; delta: (bh, s) f32 scratch; part: shares * (bh / group) * s *
+// (d + dv) f32 scratch (every share's dK partials, then every share's
+// dV).  All contiguous, 16-byte aligned, on the current device; (d, dv)
+// in {(64, 64), (128, 128), (256, 256), (192, 128)}; no softcap (the first
+// kernel keeps it).  kind: 0 global, 1 local, 2 chunked.
 extern "C" int flash_attention_bwd_tf32(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const float* lse,
-                                        void* dq, void* dk, void* dv, float* delta,
-                                        float* part, int bh, int s, int d, int group,
+                                        void* dq, void* dk, void* dv_out, float* delta,
+                                        float* part, int bh, int s, int d, int dv, int group,
                                         int shares, int causal, int kind, int window,
                                         double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (group <= 0 || bh % group || shares <= 0 || softcap != 0.0)
+  if (group <= 0 || bh % group || shares <= 0 || softcap != 0.0 || !takes(d, dv))
     return (int)cudaErrorInvalidValue;
   if (kind != kGlobal && window < 1) return (int)cudaErrorInvalidValue;
   const Mask m = make_mask(s, d, causal, kind, window);
@@ -860,18 +930,19 @@ extern "C" int flash_attention_bwd_tf32(const void* q, const void* k, const void
   const float* df = static_cast<const float*>(dout);
   float* dqf = static_cast<float*>(dq);
   float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
+  float* dvf = static_cast<float*>(dv_out);
   switch (d) {
     case 64:
-      return (int)launch<64>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s, group,
-                             shares, m, st);
+      return (int)launch<64, 64>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
+                                 group, shares, m, st);
     case 128:
-      return (int)launch<128>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s, group,
-                              shares, m, st);
-    case 256:
-      return (int)launch<256>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s, group,
-                              shares, m, st);
+      return (int)launch<128, 128>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
+                                   group, shares, m, st);
+    case 192:
+      return (int)launch<192, 128>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
+                                   group, shares, m, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)launch<256, 256>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
+                                   group, shares, m, st);
   }
 }

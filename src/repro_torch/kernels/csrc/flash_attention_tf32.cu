@@ -1,15 +1,17 @@
 // Forward attention with an online softmax on Hopper's tensor cores at f32
-// accuracy (sm_90a): the f32 path for head dims 64, 128 and 256.
+// accuracy (sm_90a): the f32 path for q/k and v head dims (D, Dv) = (64,
+// 64), (128, 128), (256, 256) and MLA's (192, 128).
 //
-// Replaces, for f32 inputs with D in {64, 128, 256}, the Pallas TPU kernel
+// Replaces, for f32 inputs at those head dims, the Pallas TPU kernel
 // `flash_attention` (`_kernel`) of src/repro/kernels/flash_attention.py:
-//   q (BH, S, D), k and v (BH / G, S, D), f32 -> o (BH, S, D) f32,
+//   q (BH, S, D), k (BH / G, S, D) and v (BH / G, S, Dv), f32
+//   -> o (BH, S, Dv) f32,
 // with causal, `local` (sliding window) and `chunked` (aligned chunks of
 // `window` keys) masks and an optional tanh softcap on the scores.  Query
 // row bh reads kv row bh / G, so MQA and GQA need no repeat of k and v.
 // bf16 inputs take flash_attention_wgmma.cu, other head dims the CUDA-core
-// kernel of flash_attention.cu; the wrapper picks the path from dtype, D
-// and the softcap: f32 with a softcap also stays on the CUDA-core kernel,
+// kernel of flash_attention.cu; the wrapper picks the path from dtype, D,
+// Dv and the softcap: f32 with a softcap also stays on the CUDA-core kernel,
 // whose q.k sums round as the plain version's do (at softcapped scores the
 // f32 rounding of a score moves the output by about the f32 tolerance, so
 // this kernel, summing in another order, can differ from the plain
@@ -33,11 +35,13 @@
 // of flash_attention_bwd_tf32.cu.
 //
 // What bounds it on this card.  At the serving shapes (D = 256, a local
-// window of 2,048, S up to 3,000) the work is 4*D operations per unmasked
-// query-key pair, three times over in 3xTF32, against 2*D*4 bytes of q, k,
-// v and o per query row: it is bound by the tensor cores' TF32 rate (495
-// TFLOP/s dense).  The earlier kernel ran both products on the CUDA cores
-// in f32 (67 TFLOP/s at most) and lost to scaled_dot_product_attention.
+// window of 2,048, S up to 3,000) the work is 2*(D + Dv) operations per
+// unmasked query-key pair (4*D where Dv = D), three times over in 3xTF32,
+// against (D + Dv)*4 bytes of q, k, v and o per query row: it is bound by
+// the tensor cores' TF32 rate (495 TFLOP/s dense), as at MLA's (BH 128,
+// causal, S up to 3,000).  The earlier kernel ran both products on the
+// CUDA cores in f32 (67 TFLOP/s at most) and lost to
+// scaled_dot_product_attention.
 //
 // Why mma.sync (m16n8k8, TF32) and not wgmma.  wgmma reads TF32 operands
 // only K-major from shared memory (the transpose bit is for 16-bit types),
@@ -55,11 +59,12 @@
 // What the design does:
 //   * one block of eight warps per (bh, tile of 64 query rows): two warps
 //     for each 16 rows, one for each half of a kv tile's keys.  A warp's
-//     scores (16 x BK / 2) and its share of the output (16 x D, 128 floats
-//     a thread at D = 256) stay in registers; the pair meets once a tile
-//     (a named barrier) to agree on the rows' running maximum, and its two
-//     outputs and sums are added at the end.  Four warps, one a row group,
-//     left an SM with one warp on each scheduler;
+//     scores (16 x BK / 2) and its share of the output (16 x Dv, 128
+//     floats a thread at Dv = 256, 64 at MLA's 128) stay in registers;
+//     the pair meets once a tile (a named barrier) to agree on the rows'
+//     running maximum, and its two outputs and sums are added at the
+//     end.  Four warps, one a row group, left an SM with one warp on each
+//     scheduler;
 //   * the large terms of Q K^T are summed on the tensor cores four products
 //     at a time and added in f32, and P V one kv tile at a time: summed on
 //     the tensor cores over all of D, Q K^T missed the f32 tolerance
@@ -67,11 +72,12 @@
 //   * the split rounds with integer operations, not cvt.rna.tf32.f32,
 //     which issues at a quarter of their rate and held a first version
 //     far below the tensor cores' TF32 rate;
-//   * q, then K and V tiles of BK keys (32 at D = 256 and 128, 64 at D =
-//     64), arrive by cp.async into a two-stage ring: the next kv tile is
-//     in flight while this one's products run.  Rows are padded to D + 4
-//     floats, so every fragment load of a warp falls on distinct banks;
-//     keys and queries past S are zero-filled;
+//   * q, then K and V tiles of BK keys (32 at D = 256, 192 and 128, 64 at
+//     D = 64), arrive by cp.async into a two-stage ring: the next kv tile
+//     is in flight while this one's products run.  q and K rows are
+//     padded to D + 4 floats, V rows to Dv + 4, so every fragment load of
+//     a warp falls on distinct banks; keys and queries past S are
+//     zero-filled;
 //   * kv tiles that the mask hides from every row of the q tile are
 //     skipped, and tiles that it shows whole to every row skip the
 //     per-element mask; q tiles are launched longest first;
@@ -83,6 +89,18 @@
 //     tells the caller how many, to size the scratch); each share writes
 //     its unnormalised output, maximum and sum, and a second launch joins
 //     them.
+//
+// MLA's (192, 128): BK 32.  The q tile (64 rows of 196 floats, 49 KB)
+// and two stages of K (192 columns) and V (128) take 134,144 bytes, one
+// block an SM; BK 64 would take 218 KB for the same one block an SM and
+// double each warp's score, p and split registers, and BK 16 (92 KB, two
+// blocks an SM) would leave each warp one n-block of keys a tile and
+// twice the meetings a key, under a register budget halved to 128.  So
+// the MLA shape takes the D = 128 and 256 tile.  S = Q K^T runs 24 k8
+// steps over D, P V 16 n-blocks over Dv; the scale is 1/sqrt(D).  ptxas
+// (CUDA 12 on the H100's machine, printed by chip_smoke.py's phase 0):
+// 216 registers at (192, 128), 255 at (256, 256), 201 at (128, 128), 173
+// at (64, 64), no spill.
 //
 // Interface: plain C, bound from Python with ctypes.  The entry point
 // launches on the caller's stream, allocates nothing, does not
@@ -104,12 +122,15 @@ constexpr float kNegInf = -2.3819763e38f;
 
 enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 
-template <int D, int BK>
+template <int D, int DV, int BK>
 struct Layout {
-  static constexpr int kRow = D + kPad;                // floats per staged row
+  static constexpr int kRow = D + kPad;                // floats per q or K row
+  static constexpr int kRowV = DV + kPad;              // floats per V row
   static constexpr int kQ = kBQ * kRow;                // floats of the q tile
-  static constexpr int kTile = BK * kRow;              // floats of a K or V tile
-  static constexpr size_t kBytes = 4 * (size_t)(kQ + 4 * kTile);  // q, 2 K, 2 V
+  static constexpr int kTile = BK * kRow;              // floats of a K tile
+  static constexpr int kTileV = BK * kRowV;            // floats of a V tile
+  static constexpr size_t kBytes =
+      4 * (size_t)(kQ + 2 * kTile + 2 * kTileV);      // q, 2 K, 2 V
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -202,20 +223,20 @@ __host__ __device__ inline void kv_tiles(int q0, int S, int BK, int causal, int 
 // With a kv split (split_tiles > 0), block z of a q tile takes its kv
 // tiles [z split_tiles, (z + 1) split_tiles) and writes its unnormalised
 // output, running maximum and sum to `part` instead of o: (splits, BH, S,
-// D) outputs, then (splits, BH, S) maxima, then (splits, BH, S) sums.
-template <int D, int BK>
+// Dv) outputs, then (splits, BH, S) maxima, then (splits, BH, S) sums.
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int group,
                   float scale, int causal, int kind, int window, float softcap,
                   int split_tiles, float* __restrict__ part, float* __restrict__ lse) {
-  using L = Layout<D, BK>;
-  constexpr int R = L::kRow;
+  using L = Layout<D, DV, BK>;
+  constexpr int R = L::kRow, RV = L::kRowV;
   constexpr int KH = BK / 2;  // keys of a tile per warp
   extern __shared__ float smem[];
   float* sq = smem;
   float* sk = sq + L::kQ;            // stage st: sk + st * kTile
-  float* sv = sk + 2 * L::kTile;
+  float* sv = sk + 2 * L::kTile;     // stage st: sv + st * kTileV
   __shared__ float red[2][2][kBQ];   // [tile parity][key half][row]: row maxima
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -227,7 +248,7 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
   const float* qb = q + (long long)bh * S * D;
   const float* kb = k + (long long)kvh * S * D;
-  const float* vb = v + (long long)kvh * S * D;
+  const float* vb = v + (long long)kvh * S * DV;
 
   int k_first, n_tiles;
   kv_tiles(q0, S, BK, causal, kind, window, k_first, n_tiles);
@@ -238,28 +259,31 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     n_tiles = min(split_tiles, n_tiles - first);
   }
 
-  constexpr int kVec = D / 4;  // 16-byte pieces of a row
-  auto load_rows = [&](float* dst, const float* src, int row0, int rows) {
-    for (int e = tid; e < rows * kVec; e += kThreads) {
-      const int r = e / kVec, c = e % kVec;
+  // `rows` rows of `width` floats from row0 on, staged `stride` apart
+  auto load_rows = [&](float* dst, const float* src, int row0, int rows, int width,
+                       int stride) {
+    const int vec = width / 4;  // 16-byte pieces of a row
+    for (int e = tid; e < rows * vec; e += kThreads) {
+      const int r = e / vec, c = e % vec;
       const bool in = row0 + r < S;
-      cp_async16(dst + r * R + 4 * c, src + (long long)(in ? row0 + r : 0) * D + 4 * c, in);
+      cp_async16(dst + r * stride + 4 * c, src + (long long)(in ? row0 + r : 0) * width + 4 * c,
+                 in);
     }
   };
   auto load_kv = [&](int st, int k0) {
-    load_rows(sk + st * L::kTile, kb, k0, BK);
-    load_rows(sv + st * L::kTile, vb, k0, BK);
+    load_rows(sk + st * L::kTile, kb, k0, BK, D, R);
+    load_rows(sv + st * L::kTileV, vb, k0, BK, DV, RV);
   };
 
-  load_rows(sq, qb, q0, kBQ);
+  load_rows(sq, qb, q0, kBQ, D, R);
   if (n_tiles > 0) load_kv(0, k_first);
   cp_async_commit();
 
   const int rq = 16 * rg + g;  // this thread's rows: rq, rq + 8
   const int qp0 = q0 + rq, qp1 = qp0 + 8;
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // l over this warp's keys
@@ -272,7 +296,7 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();
     __syncthreads();
     const float* ks = sk + st * L::kTile + kh * KH * R;
-    const float* vs = sv + st * L::kTile + kh * KH * R;
+    const float* vs = sv + st * L::kTileV + kh * KH * RV;
 
     // S = Q K^T over this warp's keys: A = q rows (row, d), B = K rows
     // (key, d).  The large terms hi_q hi_k are summed from zero on the
@@ -403,12 +427,12 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split_tf32(s[n][3], phi[n][3], plo[n][3]);  // row rq + 8, key 2t + 1
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int n = 0; n < KH / 8; ++n) {
-        const float* vr = vs + (8 * n + 2 * t) * R + 8 * j + g;
-        mma_3xtf32(part, phi[n], plo[n], vr[0], vr[R]);
+        const float* vr = vs + (8 * n + 2 * t) * RV + 8 * j + g;
+        mma_3xtf32(part, phi[n], plo[n], vr[0], vr[RV]);
       }
       acc[j][0] = fmaf(acc[j][0], al0, part[0]);
       acc[j][1] = fmaf(acc[j][1], al0, part[1]);
@@ -422,38 +446,40 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // the second key half's O and l join the first's through shared memory
   // (the K/V ring is free): both scaled by the same running maxima
-  float* xo = sk;  // [row group][D / 2 values][lane]
-  float* xl = sk + kRowGroups * (D / 2) * 32;
+  float* xo = sk;  // [row group][Dv / 2 values][lane]
+  float* xl = sk + kRowGroups * (DV / 2) * 32;
+  static_assert(kRowGroups * (DV / 2 + 2) * 32 <= 2 * (L::kTile + L::kTileV),
+                "the K/V ring holds the second key half's output and sums");
   if (kh == 1) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) xo[(rg * (D / 2) + 4 * j + e) * 32 + lane] = acc[j][e];
+      for (int e = 0; e < 4; ++e) xo[(rg * (DV / 2) + 4 * j + e) * 32 + lane] = acc[j][e];
     xl[(rg * 2) * 32 + lane] = l0;
     xl[(rg * 2 + 1) * 32 + lane] = l1;
   }
   __syncthreads();
   if (kh == 1) return;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += xo[(rg * (D / 2) + 4 * j + e) * 32 + lane];
+    for (int e = 0; e < 4; ++e) acc[j][e] += xo[(rg * (DV / 2) + 4 * j + e) * 32 + lane];
   l0 += xl[(rg * 2) * 32 + lane];
   l1 += xl[(rg * 2 + 1) * 32 + lane];
   if (split_tiles > 0) {
     const long long rows = (long long)gridDim.x * S;  // BH * S
     const long long r = blockIdx.z * rows + (long long)bh * S;
-    float* po = part + r * D;
-    float* pm = part + gridDim.z * rows * D + r;
+    float* po = part + r * DV;
+    float* pm = part + gridDim.z * rows * DV + r;
     float* pl = pm + gridDim.z * rows;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int c = 8 * j + 2 * t;
       if (qp0 < S)
-        *reinterpret_cast<float2*>(po + (long long)qp0 * D + c) =
+        *reinterpret_cast<float2*>(po + (long long)qp0 * DV + c) =
             make_float2(acc[j][0], acc[j][1]);
       if (qp1 < S)
-        *reinterpret_cast<float2*>(po + (long long)qp1 * D + c) =
+        *reinterpret_cast<float2*>(po + (long long)qp1 * DV + c) =
             make_float2(acc[j][2], acc[j][3]);
     }
     if (t == 0 && qp0 < S) {
@@ -471,26 +497,26 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qp0 < S) lse[(long long)bh * S + qp0] = m0 + logf(d0);
     if (qp1 < S) lse[(long long)bh * S + qp1] = m1 + logf(d1);
   }
-  float* ob = o + (long long)bh * S * D;
+  float* ob = o + (long long)bh * S * DV;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const int c = 8 * j + 2 * t;
     if (qp0 < S)
-      *reinterpret_cast<float2*>(ob + (long long)qp0 * D + c) =
+      *reinterpret_cast<float2*>(ob + (long long)qp0 * DV + c) =
           make_float2(acc[j][0] / d0, acc[j][1] / d0);
     if (qp1 < S)
-      *reinterpret_cast<float2*>(ob + (long long)qp1 * D + c) =
+      *reinterpret_cast<float2*>(ob + (long long)qp1 * DV + c) =
           make_float2(acc[j][2] / d1, acc[j][3] / d1);
   }
 }
 
 // The kv split's shares of each query row joined: o = sum_z e^(m_z - m)
 // acc_z / max(sum_z e^(m_z - m) l_z, 1e-30), m the largest m_z, over the
-// shares that held kv tiles.  One warp per row.
+// shares that held kv tiles.  One warp per row of DV outputs.
 template <int BK>
 __global__ void __launch_bounds__(256)
 flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o,
-                   float* __restrict__ lse, int bh_rows, int S, int D, int splits,
+                   float* __restrict__ lse, int bh_rows, int S, int DV, int splits,
                    int split_tiles, int causal, int kind, int window) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;  // bh * S + qp
   const int lane = threadIdx.x % 32;
@@ -500,7 +526,7 @@ flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o,
   kv_tiles(qp / kBQ * kBQ, S, BK, causal, kind, window, k_first, n_tiles);
   const int n = min(splits, (n_tiles + split_tiles - 1) / split_tiles);
   const long long rows = (long long)bh_rows * S;
-  const float* pm = part + splits * rows * D + row;
+  const float* pm = part + splits * rows * DV + row;
   const float* pl = pm + splits * rows;
   float m = pm[0];
   for (int z = 1; z < n; ++z) m = fmaxf(m, pm[z * rows]);
@@ -508,10 +534,10 @@ flash_tf32_combine(const float* __restrict__ part, float* __restrict__ o,
   for (int z = 0; z < n; ++z) l += expf(pm[z * rows] - m) * pl[z * rows];
   const float inv_den = 1.0f / fmaxf(l, 1e-30f);
   if (lse != nullptr && lane == 0) lse[row] = m + logf(fmaxf(l, 1e-30f));
-  for (int c = lane; c < D; c += 32) {
+  for (int c = lane; c < DV; c += 32) {
     float acc = 0.0f;
-    for (int z = 0; z < n; ++z) acc += expf(pm[z * rows] - m) * part[(z * rows + row) * D + c];
-    o[row * D + c] = acc * inv_den;
+    for (int z = 0; z < n; ++z) acc += expf(pm[z * rows] - m) * part[(z * rows + row) * DV + c];
+    o[row * DV + c] = acc * inv_den;
   }
 }
 
@@ -533,13 +559,13 @@ void plan(int bh, int s, int causal, int kind, int window, int& most, int& split
   splits = min(kMaxSplits, max(1, (int)ceil(most / share)));
 }
 
-template <int D, int BK>
+template <int D, int DV, int BK>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* part,
                    float* lse, int bh, int s, int group, int causal, int kind, int window,
                    float softcap, int splits, cudaStream_t stream) {
-  const int smem = (int)Layout<D, BK>::kBytes;
+  const int smem = (int)Layout<D, DV, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tf32_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tf32_kernel<D, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
   const int n_q = (s + kBQ - 1) / kBQ;
@@ -547,56 +573,59 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   plan<BK>(bh, s, causal, kind, window, most, planned);
   if (splits != planned) return cudaErrorInvalidValue;  // the scratch was sized for it
   const int split_tiles = splits > 1 ? (most + splits - 1) / splits : 0;
-  flash_tf32_kernel<D, BK><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
+  flash_tf32_kernel<D, DV, BK><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
       q, k, v, o, s, group, scale, causal, kind, window, softcap, split_tiles,
       split_tiles > 0 ? part : nullptr, split_tiles > 0 ? nullptr : lse);
   err = cudaGetLastError();
   if (err != cudaSuccess || split_tiles == 0) return err;
   const long long rows = (long long)bh * s;
   flash_tf32_combine<BK><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      part, o, lse, bh, s, D, splits, split_tiles, causal, kind, window);
+      part, o, lse, bh, s, DV, splits, split_tiles, causal, kind, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Keys per kv tile, by head dim: 32 at D = 256 and 128 (q and a two-stage
-// ring take 195 KB at D = 256, 99 KB at D = 128: two blocks an SM), 64 at
-// D = 64.
+// Keys per kv tile, by head dims: 32 at (256, 256), (192, 128) and (128,
+// 128) (q and a two-stage ring take 195 KB at D = 256, 131 KB at MLA's
+// (192, 128): one block an SM; 99 KB at D = 128: two), 64 at D = 64.
 
-// The number of kv shares flash_attention_tf32_fwd takes for this call
-// (1: no split), or 0 for a head dim it does not take.
-extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int causal, int kind,
-                                           int window) {
-  if (bh <= 0 || s <= 0) return 1;
-  int most, splits;
-  switch (d) {
-    case 64:
-      plan<64>(bh, s, causal, kind, window, most, splits);
-      return splits;
-    case 128:
-    case 256:
-      plan<32>(bh, s, causal, kind, window, most, splits);
-      return splits;
-    default:
-      return 0;
-  }
+// The (D, Dv) pairs the kernel takes: D = Dv in {64, 128, 256}, and MLA's
+// (192, 128).
+static bool takes(int d, int dv) {
+  return (d == dv && (d == 64 || d == 128 || d == 256)) || (d == 192 && dv == 128);
 }
 
-// q, o: (bh, s, d) f32; k, v: (bh / group, s, d) f32; contiguous, 16-byte
-// aligned, on the current device; d in {64, 128, 256}.  kind: 0 global, 1
-// local, 2 chunked.  splits is flash_attention_tf32_splits' answer; above
-// 1 each q tile's kv tiles are cut into that many shares, one block each,
-// joined by a second launch, and `part` is scratch of splits * bh * s *
-// (d + 2) floats (else unused).  lse, (bh, s) f32 or null, takes each
-// row's log-sum-exp m + log(max(l, 1e-30)) (natural log) for the
-// backward: written by the main kernel, or by the join when split.
+// The number of kv shares flash_attention_tf32_fwd takes for this call
+// (1: no split), or 0 for head dims it does not take.
+extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int dv, int causal, int kind,
+                                           int window) {
+  if (!takes(d, dv)) return 0;
+  if (bh <= 0 || s <= 0) return 1;
+  int most, splits;
+  if (d == 64)
+    plan<64>(bh, s, causal, kind, window, most, splits);
+  else
+    plan<32>(bh, s, causal, kind, window, most, splits);
+  return splits;
+}
+
+// q: (bh, s, d) f32; k: (bh / group, s, d) f32; v: (bh / group, s, dv)
+// f32; o: (bh, s, dv) f32; contiguous, 16-byte aligned, on the current
+// device; (d, dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}.
+// kind: 0 global, 1 local, 2 chunked.  splits is
+// flash_attention_tf32_splits' answer; above 1 each q tile's kv tiles
+// are cut into that many shares, one block each, joined by a second
+// launch, and `part` is scratch of splits * bh * s * (dv + 2) floats
+// (else unused).  lse, (bh, s) f32 or null, takes each row's log-sum-exp
+// m + log(max(l, 1e-30)) (natural log) for the backward: written by the
+// main kernel, or by the join when split.
 extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void* v, void* o,
-                                        void* part, void* lse, int bh, int s, int d,
+                                        void* part, void* lse, int bh, int s, int d, int dv,
                                         int group, int causal, int kind, int window,
                                         double softcap, int splits, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
+  if (group <= 0 || bh % group || !takes(d, dv)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float cap = (float)softcap;
   const float* qf = static_cast<const float*>(q);
@@ -607,15 +636,16 @@ extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void
   float* lf = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return (int)launch<64, 64>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
-                                 cap, splits, st);
+      return (int)launch<64, 64, 64>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
+                                     cap, splits, st);
     case 128:
-      return (int)launch<128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
-                                  cap, splits, st);
-    case 256:
-      return (int)launch<256, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
-                                  cap, splits, st);
+      return (int)launch<128, 128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
+                                       window, cap, splits, st);
+    case 192:
+      return (int)launch<192, 128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
+                                       window, cap, splits, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return (int)launch<256, 256, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
+                                       window, cap, splits, st);
   }
 }

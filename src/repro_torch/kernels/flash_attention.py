@@ -1,8 +1,9 @@
 """Flash attention forward: the wrapper around the three Hopper kernels,
-``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 128 or 256, on
-the tensor cores), ``csrc/flash_attention_tf32.cu`` (f32 at those head
-dims without a softcap, on the tensor cores in 3xTF32) and
-``csrc/flash_attention.cu`` (every other case, on the CUDA cores in f32).
+``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 128 or 256, or
+MLA's q/k 192 and v 128, on the tensor cores),
+``csrc/flash_attention_tf32.cu`` (f32 at those head dims without a
+softcap, on the tensor cores in 3xTF32) and ``csrc/flash_attention.cu``
+(every other case, on the CUDA cores in f32).
 ``path(dtype, D, softcap, v_dim)`` names the one that runs; the choice
 depends on the dtype, the head dims of q and k (D) and of v (Dv) and
 whether there is a softcap alone.
@@ -12,10 +13,10 @@ batch and heads merged with heads inner, so query row ``bh`` attends with
 kv row ``bh // G`` (MQA and GQA without a repeat of k and v).  f32 or
 bf16, D and Dv up to 256; the output (BH, S, Dv) is in q's dtype, the
 scale 1/sqrt(D).  Dv differs from D in MLA (deepseek-v2: D 192, Dv 128),
-which the bf16 tensor-core kernel takes at that pair and the CUDA-core
-kernel at any.  Masks: causal, ``local`` (keys within
-``window`` of the query) and ``chunked`` (aligned chunks of ``window``),
-with an optional tanh softcap on the scores.
+which both tensor-core kernels take at that pair (the f32 one without a
+softcap) and the CUDA-core kernel at any.  Masks: causal, ``local``
+(keys within ``window`` of the query) and ``chunked`` (aligned chunks of
+``window``), with an optional tanh softcap on the scores.
 
 Given CUDA tensors the wrapper launches the kernel of its path on
 PyTorch's current stream and adds one to ``flash_attention.launches`` and
@@ -30,9 +31,9 @@ nothing.  With ``return_lse`` it also returns each row's log-sum-exp
 The backward, ``flash_attention_bwd``, has three kernels:
 ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in WGMMA_HEAD_DIMS
 and at (D, Dv) in WGMMA_QK_V_DIMS, on the tensor cores),
-``csrc/flash_attention_bwd_tf32.cu`` (f32 at D = Dv in WGMMA_HEAD_DIMS
-without a softcap, on the tensor cores in 3xTF32), both reading the
-forward's lse, and ``csrc/flash_attention_bwd.cu`` (every other case,
+``csrc/flash_attention_bwd_tf32.cu`` (f32 at the same head dims without
+a softcap, on the tensor cores in 3xTF32), both reading the forward's
+lse, and ``csrc/flash_attention_bwd.cu`` (every other case,
 any Dv, on the CUDA cores in f32, recomputing the lse);
 ``bwd_path(dtype, D, softcap, v_dim)`` names the one that runs, and
 ``flash_attention_bwd.launches_by_path`` counts each.
@@ -53,8 +54,8 @@ MAX_HEAD_DIM = 256
 #: head dims of the tensor-core paths: whole 64-column (128-byte) blocks
 #: up to the 256 columns one wgmma accumulator holds
 WGMMA_HEAD_DIMS = (64, 128, 256)
-#: (D, Dv) pairs with v narrower than q and k that the bf16 tensor-core
-#: kernel also takes: MLA's 128 + 64 query / key columns and 128 value
+#: (D, Dv) pairs with v narrower than q and k that both tensor-core
+#: kernels also take: MLA's 128 + 64 query / key columns and 128 value
 #: columns
 WGMMA_QK_V_DIMS = ((192, 128),)
 
@@ -63,9 +64,9 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
          v_dim: Optional[int] = None) -> str:
     """The kernel that computes attention of `dtype` with q and k of head
     dim `head_dim` and v of head dim `v_dim` (`head_dim` when None) on
-    the card: "wgmma" (bf16, D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in
-    WGMMA_QK_V_DIMS), "tf32" (f32, D = Dv in WGMMA_HEAD_DIMS, no softcap)
-    or "simt" (any other head dims, and f32 with a softcap).
+    the card: at D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS,
+    "wgmma" (bf16) or "tf32" (f32, no softcap); "simt" otherwise (any
+    other head dims, and f32 with a softcap).
 
     f32 with a softcap stays on the CUDA-core kernel, which sums q.k in
     the plain version's order: at softcapped scores (tens in magnitude)
@@ -74,27 +75,28 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
     from the plain version by up to several times the tolerance while
     being as close to the function evaluated in float64 (chip_smoke
     phase 4 prints all three against float64)."""
-    if v_dim is not None and v_dim != head_dim:
-        mixed = (head_dim, v_dim) in WGMMA_QK_V_DIMS
-        return "wgmma" if mixed and dtype == torch.bfloat16 else "simt"
-    if head_dim in WGMMA_HEAD_DIMS:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        return "simt" if softcap else "tf32"
-    return "simt"
+    if v_dim is None or v_dim == head_dim:
+        tensor_cores = head_dim in WGMMA_HEAD_DIMS
+    else:
+        tensor_cores = (head_dim, v_dim) in WGMMA_QK_V_DIMS
+    if not tensor_cores:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "simt" if softcap else "tf32"
 
 
 def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
              v_dim: Optional[int] = None) -> str:
     """The kernel that computes the attention backward of `dtype` with q
     and k of head dim `head_dim` and v of head dim `v_dim` (`head_dim`
-    when None) on the card: "wgmma" (bf16, D = Dv in WGMMA_HEAD_DIMS or
-    (D, Dv) in WGMMA_QK_V_DIMS, with or without a softcap), "tf32" (f32,
-    D = Dv in WGMMA_HEAD_DIMS, no softcap), both reading the forward's
-    lse, or "simt" (every other case: f32 on the CUDA cores, its own
-    lse).  It is the forward's ``path`` in every case: what the forward's
-    kernel computes, this one differentiates, and the tensor-core
-    forwards write the lse the tensor-core backwards read."""
+    when None) on the card: at D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in
+    WGMMA_QK_V_DIMS, "wgmma" (bf16, with or without a softcap) or "tf32"
+    (f32, no softcap), both reading the forward's lse; "simt" in every
+    other case (f32 on the CUDA cores, its own lse).  It is the
+    forward's ``path`` in every case: what the forward's kernel
+    computes, this one differentiates, and the tensor-core forwards write
+    the lse the tensor-core backwards read."""
     return path(dtype, head_dim, softcap, v_dim)
 
 
@@ -162,8 +164,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = path(q.dtype, D, softcap, Dv)
     if return_lse and kernel == "simt":
         raise ValueError("the simt forward writes no lse: only the wgmma "
-                         "and tf32 paths (D in WGMMA_HEAD_DIMS, f32 without "
-                         "a softcap) do")
+                         "and tf32 paths (D = Dv in WGMMA_HEAD_DIMS or (D, "
+                         "Dv) in WGMMA_QK_V_DIMS, f32 without a softcap) "
+                         "do")
     out = q.new_empty((BH, S, Dv))
     lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -188,16 +191,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             # kv shares of each q tile (the kernel's choice from the grid)
             # and their outputs, maxima and sums in f32
             splits = lib.flash_attention_tf32_splits(
-                BH, S, D, int(causal), KINDS[kind], int(window))
+                BH, S, D, Dv, int(causal), KINDS[kind], int(window))
             part = (_scratch.scratch(q.device, stream,
-                                     splits * BH * S * (D + 2) * 4)
+                                     splits * BH * S * (Dv + 2) * 4)
                     if splits > 1 else None)
             err = lib.flash_attention_tf32_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if part is None else part.data_ptr(),
-                None if lse is None else lse.data_ptr(), BH, S, D, group,
-                int(causal), KINDS[kind], int(window), float(softcap),
-                splits, stream)
+                None if lse is None else lse.data_ptr(), BH, S, D, Dv,
+                group, int(causal), KINDS[kind], int(window),
+                float(softcap), splits, stream)
         else:
             err = _build.load("flash_attention").flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
@@ -283,10 +286,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # each key tile's work is split into `shares` blocks, whose
             # f32 dK and dV partials (each at its own width) a last
             # launch sums in order; the scratch holds them, then D_i
-            # (BH, S) f32.  The wgmma library takes q's and v's head dims
-            # apart, the tf32 one (D = Dv) one head dim
-            dims = (D, Dv) if kernel == "wgmma" else (D,)
-            shares = _bwd_shares(name, q.device.index, BH, S, *dims, group,
+            # (BH, S) f32
+            shares = _bwd_shares(name, q.device.index, BH, S, D, Dv, group,
                                  int(causal), KINDS[kind], int(window))
             n_part = shares * (k.numel() + v.numel())
             buf = _scratch.scratch(q.device, stream, (n_part + BH * S) * 4)
@@ -294,7 +295,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = getattr(_build.load(name), name)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), part + n_part * 4, part, BH, S, *dims, group,
+                dv.data_ptr(), part + n_part * 4, part, BH, S, D, Dv, group,
                 shares, int(causal), KINDS[kind], int(window),
                 float(softcap), stream)
         else:
@@ -320,7 +321,7 @@ flash_attention_bwd.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 @functools.lru_cache(maxsize=256)
 def _bwd_shares(name: str, device_index: int, *args: int) -> int:
     """The dK/dV share count of backward library `name` (the wgmma or
-    tf32 one) for (bh, s, d, [dv,] group, causal, kind, window) on the
+    tf32 one) for (bh, s, d, dv, group, causal, kind, window) on the
     current device (it reads the SM count and the kernel's occupancy),
     kept per shape."""
     shares = getattr(_build.load(name), name + "_shares")(*args)

@@ -24,7 +24,7 @@ from repro.kernels.rglru_scan import rglru_scan as jscan
 from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro.models.ssd import ssd_chunked
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import bwd_path, flash_attention
 from repro_torch.kernels.flash_attention import path as flash_path
 from repro_torch.kernels.rglru_scan import path as scan_path
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -130,6 +130,97 @@ def test_flash_path_keeps_f32_with_a_softcap_on_cuda_cores(dtype, D):
     if dtype == torch.float32 and D in (64, 128, 256):
         want = "simt"
     assert flash_path(dtype, D, 30.0) == want
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_paths_at_mla_head_dims(dtype, softcap):
+    """MLA's q/k 192, v 128 takes the tensor-core kernels forward and
+    backward: bf16 the wgmma ones, softcap or not; f32 the 3xTF32 ones
+    without a softcap and the CUDA-core ones with it.  Other v widths at
+    q/k 192 stay on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        want = "wgmma"
+    else:
+        want = "simt" if softcap else "tf32"
+    assert flash_path(dtype, 192, softcap, 128) == want
+    assert bwd_path(dtype, 192, softcap, 128) == want
+    for dv in (64, 96, 192):
+        assert flash_path(dtype, 192, softcap, dv) == "simt"
+        assert bwd_path(dtype, 192, softcap, dv) == "simt"
+
+
+def _tf32_parts(x: torch.Tensor):
+    """x's 3xTF32 operands: hi = tf32(x) and lo = tf32(x - hi), as the
+    kernel hands them to the tensor core."""
+    hi, lo = ref.tf32_split(x)
+    return hi, ref.tf32_round(lo)
+
+
+def _tf32_attention_model(q, k, v, terms: int = 3, bk: int = 32):
+    """The f32 forward kernel's arithmetic (csrc/flash_attention_tf32.cu)
+    on the CPU, causal: S = Q K^T with the large terms hi_q hi_k summed
+    four columns at a time (one m16n8k4 product each, two a k8 step),
+    added into s in f32 with Kahan's compensation, and the small terms
+    lo_q hi_k + hi_q lo_k of each k8 step summed beside; then an online
+    softmax over kv tiles of `bk` keys, P V in 3xTF32 a tile at a time
+    and folded into the output in f32.  `terms` = 1 keeps hi_a hi_b
+    alone (plain TF32)."""
+    BH, S, D = q.shape
+    qh, ql = _tf32_parts(q)
+    kh, kl = _tf32_parts(k)
+    vh, vl = _tf32_parts(v)
+    kt_h, kt_l = kh.transpose(1, 2), kl.transpose(1, 2)
+    s = torch.zeros(BH, S, S)
+    small = torch.zeros(BH, S, S)
+    for c in range(0, D, 8):
+        lo, mid, hi = slice(c, c + 4), slice(c + 4, c + 8), slice(c, c + 8)
+        big = qh[..., lo] @ kt_h[:, lo] + qh[..., mid] @ kt_h[:, mid]
+        total = s + big
+        small += (s - total) + big
+        s = total
+        if terms == 3:
+            small += ql[..., hi] @ kt_h[:, hi] + qh[..., hi] @ kt_l[:, hi]
+    s = (s + small) * np.float32(1.0 / np.sqrt(D))
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(keep, s, torch.tensor(ref.NEG_INF))
+    m = torch.full((BH, S), -np.inf)
+    den = torch.zeros(BH, S)
+    acc = torch.zeros(BH, S, v.shape[2])
+    for k0 in range(0, S, bk):
+        tile = s[..., k0:k0 + bk]
+        new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp(m - new)
+        p = torch.exp(tile - new[..., None])
+        den = den * alpha + p.sum(-1)
+        ph, pl = _tf32_parts(p)
+        part = ph @ vh[:, k0:k0 + bk]
+        if terms == 3:
+            part = pl @ vh[:, k0:k0 + bk] + ph @ vl[:, k0:k0 + bk] + part
+        acc = acc * alpha[..., None] + part
+        m = new
+    return acc / den[..., None]
+
+
+def test_tf32_kernel_arithmetic_holds_f32_at_mla_head_dims():
+    """The 3xTF32 forward's rounding, modelled on the CPU at MLA's q/k 192
+    and v 128 (S ragged against the kv tile of 32): within the card's f32
+    attention tolerance (1e-5 absolute plus 1e-5 relative) of the
+    function evaluated in float64, where plain TF32 products miss it."""
+    rng = np.random.default_rng(192)
+    BH, S = 2, 100
+    q, k = (torch.from_numpy(rng.standard_normal((BH, S, 192)).astype(
+        np.float32)) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((BH, S, 128)).astype(
+        np.float32))
+    s = (q.double() @ k.double().transpose(1, 2)) / np.sqrt(192)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(keep, s, torch.tensor(-np.inf, dtype=torch.float64))
+    want = (torch.softmax(s, -1) @ v.double()).numpy()
+    got = _tf32_attention_model(q, k, v).double().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    one = _tf32_attention_model(q, k, v, terms=1).double().numpy()
+    assert np.max(np.abs(one - want) / (1e-5 + 1e-5 * np.abs(want))) > 1.0
 
 
 @pytest.mark.parametrize("kind,window,causal", [

@@ -433,13 +433,14 @@ def _mla_qkv(seed, BH, G, S, dtype, device, dqk=192, dv=128):
 def test_flash_kernel_at_mla_head_dims(S, BH, G, kind, window, causal,
                                        dtype):
     """MLA's shape: q and k of head dim 192, v of 128 (scale 1/sqrt(192)),
-    ragged S: bf16 on the wgmma kernel, f32 on the CUDA-core kernel, each
-    against its plain version; the output (BH, S, 128)."""
+    ragged S: bf16 on the wgmma kernel, f32 on the 3xTF32 kernel (its kv
+    range split at the small grids), each against its plain version; the
+    output (BH, S, 128)."""
     from repro_torch.kernels.flash_attention import path
     dev = _card()
     q, k, v = _mla_qkv(S + BH, BH, G, S, dtype, dev)
     kw = dict(causal=causal, kind=kind, window=window)
-    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert path(dtype, 192, 0.0, 128) == want
     by_path = dict(flash_attention.launches_by_path)
     got = flash_attention(q, k, v, **kw)
@@ -465,7 +466,7 @@ def test_deepseek_smoke_model_on_card_kernels_match_plain(dtype):
     """The deepseek smoke config with MLA's full head dims (128 + 64
     query / key columns, 128 value columns; 2 heads, latent 32), MoE on
     the sort dispatch: a prefill launches one flash kernel per layer, on
-    the wgmma path in bf16 and the CUDA-core path in f32, and its logits
+    the wgmma path in bf16 and the 3xTF32 path in f32, and its logits
     through the kernels match the plain versions' (f32 1e-4; bf16 2e-2
     of the largest |logit|), as do the decode steps after it."""
     import dataclasses
@@ -484,7 +485,7 @@ def test_deepseek_smoke_model_on_card_kernels_match_plain(dtype):
         0, cfg.vocab_size, (1, 77))).to(dev)
     by_path = dict(flash_attention.launches_by_path)
     got, gc = model_lib.prefill(cfg, params, {"tokens": toks}, 96)
-    by_path["wgmma" if dtype == "bfloat16" else "simt"] += cfg.n_layers
+    by_path["wgmma" if dtype == "bfloat16" else "tf32"] += cfg.n_layers
     assert flash_attention.launches_by_path == by_path
     want, wc = model_lib.prefill(cfg, params, {"tokens": toks}, 96,
                                  use_kernel=False)
@@ -802,10 +803,12 @@ def test_learned_scorer_on_card_matches_numpy():
 # orders): each gradient within 1e-5 of |want| plus 1e-4 of the tensor's
 # largest |value| in f32; in bf16 within 2^-7 of |want| (the two f32 sums
 # may round to neighbouring bf16 values) plus 1e-4 of the largest, so a
-# key tile dropped or added fails.  bf16 at head dims 64, 128, 256 runs
-# on the tensor-core kernel (``bwd_path`` "wgmma"), which reads the
-# forward kernel's lse; f32 and other head dims on the first kernel
-# ("simt").  The forward's lse against the plain one within LSE_TOL.  The
+# key tile dropped or added fails.  bf16 at head dims 64, 128, 256 and
+# MLA's (192, 128) runs on the tensor-core kernel (``bwd_path``
+# "wgmma"), f32 there without a softcap on the 3xTF32 one ("tf32"), both
+# reading the forward kernel's lse; other head dims and f32 with a
+# softcap on the first kernel ("simt").  The forward's lse against the
+# plain one within LSE_TOL.  The
 # RG-LRU scan's backward is exactly its serial reverse loop.
 # ---------------------------------------------------------------------------
 
@@ -898,8 +901,8 @@ def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype, BH, G):
 
 def _mla_bwd_case(seed, BH, G, S, dtype, dev, kw):
     """MLA's q, k (head dim 192), v, o and dO (128) on the card, o the
-    forward kernel's and the lse the forward's on the wgmma backward path
-    (None on the simt one)."""
+    forward kernel's and the lse the forward's on the wgmma and tf32
+    backward paths (None on the simt one)."""
     q, k, v = _mla_qkv(seed, BH, G, S, dtype, dev)
     do = _mla_qkv(seed + 1, BH, 1, S, dtype, dev)[2]
     if bwd_path(dtype, 192, kw.get("softcap", 0.0), 128) in LSE_BWD_PATHS:
@@ -916,12 +919,16 @@ def _mla_bwd_case(seed, BH, G, S, dtype, dev, kw):
 @pytest.mark.parametrize("S,BH,G", [(37, 4, 1), (333, 8, 2), (1000, 16, 1)])
 def test_flash_bwd_kernel_at_mla_head_dims(S, BH, G, kw, dtype):
     """MLA's shape, q and k of head dim 192 and v of 128, ragged S, GQA
-    2:1 and MHA, every mask: bf16 on the wgmma backward (reading the
-    forward's lse), f32 on the CUDA-core one, each within BWD_TOL of the
-    plain version; dq (BH, S, 192), dk (BH / G, S, 192), dv (BH / G, S,
-    128); bf16 bitwise the same over two calls."""
+    2:1 and MHA, every mask: bf16 on the wgmma backward, f32 on the 3xTF32
+    one (both reading the forward's lse) and f32 with a softcap on the
+    CUDA-core one, each within BWD_TOL of the plain version; dq (BH, S,
+    192), dk (BH / G, S, 192), dv (BH / G, S, 128); the tensor-core
+    backwards bitwise the same over two calls."""
     dev = _card()
-    want_path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        want_path = "wgmma"
+    else:
+        want_path = "simt" if kw.get("softcap") else "tf32"
     assert bwd_path(dtype, 192, kw.get("softcap", 0.0), 128) == want_path
     q, k, v, o, do, lse = _mla_bwd_case(S + BH + G, BH, G, S, dtype, dev,
                                         kw)
@@ -931,41 +938,112 @@ def test_flash_bwd_kernel_at_mla_head_dims(S, BH, G, kw, dtype):
                                              (BH // G, S, 128)]
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
     _assert_grads_close(got, want, dtype, f"MLA S={S} G={G} {kw}")
-    if dtype == torch.bfloat16:
+    if want_path != "simt":
         again = _bwd_launch(q, k, v, o, do, lse, kw)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.cuda_only
-def test_flash_gradient_at_mla_head_dims_takes_wgmma_and_reads_lse():
-    """A bf16 gradient through ``FlashAttentionFn`` at MLA's head dims:
-    the forward writes the lse (saved beside q, k, v and o), the backward
-    launches once, on the wgmma path, and its gradients are the backward
+def _mla_gradient_through_function(dtype, want_path):
+    """A gradient through ``FlashAttentionFn`` at MLA's head dims: the
+    forward writes the lse (saved beside q, k, v and o), the backward
+    launches once, on `want_path`, and its gradients are the backward
     wrapper's on the saved lse; the same call without a gradient saves
-    none.  Nothing falls back."""
+    none."""
     dev = _card()
     kw = dict(causal=True, kind="global")
-    q, k, v = _mla_qkv(5, 8, 1, 300, torch.bfloat16, dev)
-    do = _mla_qkv(6, 8, 1, 300, torch.bfloat16, dev)[2]
+    q, k, v = _mla_qkv(5, 8, 1, 300, dtype, dev)
+    do = _mla_qkv(6, 8, 1, 300, dtype, dev)[2]
     qg, kg, vg = (a.clone().requires_grad_(True) for a in (q, k, v))
     by0 = dict(flash_attention_bwd.launches_by_path)
+    fwd0 = dict(flash_attention.launches_by_path)
     o = flash_attention_fn(qg, kg, vg, **kw)
+    assert flash_attention.launches_by_path == {
+        p: n + (p == want_path) for p, n in fwd0.items()}
     saved = o.grad_fn.saved_tensors
     assert len(saved) == 5
     got = torch.autograd.grad(o, (qg, kg, vg), do)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches_by_path == {
-        p: n + (p == "wgmma") for p, n in by0.items()}
+        p: n + (p == want_path) for p, n in by0.items()}
     lse = ref.flash_attention_lse_ref(q, k, **kw)
     assert float((saved[4] - lse).abs().max()) <= LSE_TOL
     want = flash_attention_bwd(q, k, v, o.detach(), do, saved[4], **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     _assert_grads_close(got, ref.flash_attention_bwd_ref(
-        q, k, v, o.detach(), do, **kw), torch.bfloat16, "MLA Function")
+        q, k, v, o.detach(), do, **kw), dtype, "MLA Function")
     with torch.no_grad():
         out = flash_attention_fn(q, k, v, **kw)
     assert out.grad_fn is None and torch.equal(out, o.detach())
+
+
+@pytest.mark.cuda_only
+def test_flash_gradient_at_mla_head_dims_takes_wgmma_and_reads_lse():
+    """A bf16 gradient through ``FlashAttentionFn`` at MLA's head dims
+    takes the wgmma kernels and reads the saved lse.  Nothing falls
+    back."""
+    _mla_gradient_through_function(torch.bfloat16, "wgmma")
+
+
+@pytest.mark.cuda_only
+def test_flash_gradient_at_mla_head_dims_f32_takes_tf32_and_reads_lse():
+    """An f32 gradient through ``FlashAttentionFn`` at MLA's head dims
+    takes the 3xTF32 kernels, forward and backward, and the backward
+    reads the lse the forward saved.  Nothing falls back."""
+    _mla_gradient_through_function(torch.float32, "tf32")
+
+
+def _simt_mla(q, k, v, do, kw):
+    """The CUDA-core forward and backward (``csrc/flash_attention.cu``,
+    ``csrc/flash_attention_bwd.cu``) called directly at f32, where the
+    wrapper takes the 3xTF32 kernels: (o, (dq, dk, dv))."""
+    from repro_torch.kernels import _build, _scratch
+    from repro_torch.kernels.flash_attention import KINDS
+    bh, s, d = q.shape
+    dv = v.shape[2]
+    group = bh // k.shape[0]
+    mask = (int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
+            int(kw.get("window", 0)), float(kw.get("softcap", 0.0)))
+    stream = _scratch.current_stream(q.device)
+    o = q.new_empty((bh, s, dv))
+    err = _build.load("flash_attention").flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, d, dv,
+        group, 0, *mask, stream)
+    _build.check_launch(err, "flash_attention (simt, direct)")
+    grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, bh, s), dtype=torch.float32, device=q.device)
+    err = _build.load("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        *(g.data_ptr() for g in grads), stats[0].data_ptr(),
+        stats[1].data_ptr(), bh, s, d, dv, group, 0, *mask, stream)
+    _build.check_launch(err, "flash_attention_bwd (simt, direct)")
+    return o, grads
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kw", BWD_MASKS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("S,BH,G", [(37, 4, 1), (333, 8, 2)])
+def test_cuda_core_kernels_held_at_f32_mla_head_dims(S, BH, G, kw):
+    """The CUDA-core forward and backward, which the wrapper now keeps at
+    f32 (192, 128) only with a softcap, called directly at every mask:
+    the output within ATTN_TOL and each gradient within BWD_TOL of the
+    plain versions, and no wrapper launch counted."""
+    dev = _card()
+    q, k, v = _mla_qkv(S + BH + 7, BH, G, S, torch.float32, dev)
+    do = _mla_qkv(S + BH + 8, BH, 1, S, torch.float32, dev)[2]
+    n0 = flash_attention.launches, flash_attention_bwd.launches
+    o, grads = _simt_mla(q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == n0
+    kr, vr = (a.repeat_interleave(G, 0) for a in (k, v))
+    plain = ref.flash_attention_ref(q, kr, vr, **kw)
+    tol = ATTN_TOL[torch.float32]
+    np.testing.assert_allclose(o.cpu().numpy(), plain.cpu().numpy(),
+                               atol=tol, rtol=tol)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(grads, want, torch.float32,
+                        f"simt MLA S={S} G={G} {kw}")
 
 
 @pytest.mark.cuda_only

@@ -834,8 +834,9 @@ def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
     forward's ``path`` sends to its 3xTF32 kernel); f32 with a softcap
     and every other head dim the CUDA-core one.  With v's head dim given
     (``v_dim``): equal to D it changes nothing; MLA's (192, 128) takes the
-    wgmma backward in bf16 and the CUDA-core one in f32, and every other
-    v narrower or wider than q and k the CUDA-core one, as the forward's
+    wgmma backward in bf16, the 3xTF32 one in f32 without a softcap and
+    the CUDA-core one with it, and every other v narrower or wider than q
+    and k the CUDA-core one, as the forward's
     ``path`` says in every case (each tensor-core backward reads the lse
     its forward writes)."""
     if D in (64, 128, 256) and dtype == torch.bfloat16:
@@ -847,7 +848,10 @@ def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
     assert bwd_path(dtype, D, softcap) == want
     assert bwd_path(dtype, D, softcap, D) == want
     assert (want == "tf32") == (tflash.path(dtype, D, softcap) == "tf32")
-    mla = "wgmma" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        mla = "wgmma"
+    else:
+        mla = "simt" if softcap else "tf32"
     assert bwd_path(dtype, 192, softcap, 128) == mla
     for dv in (D // 2, 2 * D):
         assert bwd_path(dtype, D, softcap, dv) == "simt"
