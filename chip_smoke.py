@@ -207,7 +207,41 @@ Phases (each one failing makes the script exit non-zero):
      CPU, both timed: each step's loss within 1e-4, every train and
      holdout decision the same, save at most one a split that is a tie
      on the CPU fit (TIE_TOL), the raw agreements printed;
-  9. the f32 flash path's times and the f32 attention backward's on
+  9. the serving entry points (the earlier phases' models freed first):
+     (a) ``repro_torch.launch.serve`` at its defaults (jiagu,
+     dual-staged, 600 s, seed 0) with the predictor on the forest kernel,
+     then on numpy with the same seed: every outcome equal (density, QoS
+     rate, decisions, fast, slow, real and logical cold starts, releases,
+     migrations), the forest kernel launched; both runs' wall time; (b)
+     gemma2-2b at its published width (26 layers, local attention in a
+     window of 4,096 alternating with global, 8 query heads over 4 kv
+     heads of 256, softcap 50) served as phase 5 serves, with caches of
+     8,192 and prompts of 512, 3,000 and 6,000 tokens, two each (the
+     6,000-token ones roll the local layers' ring cache): 26 flash
+     launches per prefill, all on the wgmma path; its own bf16 rounding
+     moves single logits by more than phase 5's limit, so each prefill's
+     logits are held in norm, within 2e-2 of the plain run's and no
+     farther from the same prefill in f32 than 1.25 times the plain run
+     is (the max error printed beside phase 5's limit), the first token
+     where the top-2 margin allows, and every layer's flash output in a
+     6,000-token prefill against the plain version on its own q, k, v
+     within the bf16 tolerance; the flash kernel at gemma2's shape (BH 8, 4
+     kv heads, D 256, softcap 50, local 4,096 and global, S = 3,000 and
+     6,000) timed against its plain version and its bound (sdpa takes no
+     tanh softcap); (c) ``repro_torch.launch.serve_cluster``'s loop, the
+     twin of ``examples/serve_cluster.py``, at published width
+     (gemma2-2b and mamba2-2.7b, random f32 weights from a seeded
+     generator, the example's engines: 2 replicas of 2 slots, max_len
+     96, 12-token prompts, 4 new tokens) at the example's defaults (30
+     ticks, release after 6) under the sinusoid and then burst-storm:
+     launches exact by path (26 flash a gemma2 prefill, 64 SSD scans a
+     mamba2 one, all on the tensor-core paths), every served request's
+     logits (within 2e-2 in norm) and tokens (wherever the top-2 margin
+     allows) held step by step against its prompt served through the
+     plain versions; one
+     real cold start (``scale_up(1)``) and one logical start
+     (``logical_start(1)``) of each model timed, five each;
+  10. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -221,7 +255,10 @@ Phases (each one failing makes the script exit non-zero):
      path deepseek-v2's phase 8 (b) run's; the f32 MLA forward and
      backward, on the 3xTF32 kernels, under each "mla" entry's "f32",
      their launches phase 8 (c3)'s, each with sdpa's time, the bound and
-     the CUDA-core kernel's time), then the device line.
+     the CUDA-core kernel's time; phase 9's launches: the serve
+     driver's forest launches under "serve_launches", gemma2-2b's flash
+     launches and its shapes' times under "gemma2", the twin's launches
+     by load under "cluster_launches"), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -229,6 +266,7 @@ port is not beside this script.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -283,6 +321,13 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4096, 16
 #: and each recurrent or SSM layer's final state within 2e-2 in norm
 #: (phases 5 and 6)
 LOGIT_TOL = 2e-2
+#: phase 9 (b), gemma2-2b: on random weights at published width its own
+#: bf16 rounding moves its logits (|logit| averaging 20.7 under the cap of
+#: 30) by 2.4-2.5 from the same prefill in f32, 8% of the largest |logit|
+#: and four times LOGIT_TOL of it, so the kernels run is held in norm:
+#: within LOGIT_TOL of the plain run, and no farther from f32 than
+#: WITNESS_RATIO times the plain run is (measured 0.99-1.02)
+WITNESS_RATIO = 1.25
 #: mamba2-2.7b: 80 SSM heads of 64, d_state 128, one B/C group; the SSD
 #: kernel against its plain version at the kernel's chunk: f32 1e-4 of
 #: the largest |y| and of the state's norm (the same arithmetic summed in
@@ -1208,15 +1253,60 @@ def simt_flash(q, k, v, kw):
     return out
 
 
+def flex_library(q, k, v, kw):
+    """flash_attention's function as one compiled flex_attention call:
+    the tanh softcap as its score_mod, the mask as its mask_mod, the kv
+    heads shared through enable_gqa (query head h reads kv head h // G,
+    as the kernel does).  The library yardstick where a softcap rules
+    sdpa out.  Builds the block mask and compiles here, outside any
+    timed call; returns (the call, its output, the seconds that took)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    # inductor's and triton's caches under the checkout's build/
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    bh, s, d = q.shape
+    cap = float(kw["softcap"])
+    causal, kind = kw.get("causal", True), kw.get("kind", "global")
+    window = int(kw.get("window", 0))
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki if causal else qi == qi
+        if kind == "local":
+            keep = keep & (qi - ki < window)
+        elif kind == "chunked":
+            keep = keep & (qi // window == ki // window)
+        return keep
+
+    def softcap(score, b, h, qi, ki):
+        return torch.tanh(score / cap) * cap
+
+    t0 = time.perf_counter()
+    block = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    q4, k4, v4 = q[None], k[None], v[None]
+
+    def library():
+        return flex(q4, k4, v4, score_mod=softcap, block_mask=block,
+                    enable_gqa=True)
+
+    got = library()[0]
+    torch.cuda.synchronize()
+    return library, got, time.perf_counter() - t0
+
+
 def hold_flash(q, k, v, kw, with_library: bool):
     """flash_attention on q, k (BH, S, D) and v (BH, S, Dv) tensors
     against its plain version (k and v repeated, materialised softmax),
     both timed; the library yardstick is scaled_dot_product_attention
-    with the same boolean mask (which takes Dv other than D).  The
-    wrapper must launch the
-    kernel that ``path`` names; where that is a tensor-core kernel, the
-    CUDA-core kernel is held and timed beside it.  Returns a dict of the
-    measurements."""
+    with the same boolean mask (which takes Dv other than D), or with a
+    softcap, which sdpa does not take, one compiled flex_attention call
+    (``flex_library``), held against the plain version as the kernel is.
+    The wrapper must launch the kernel that ``path`` names; where that is
+    a tensor-core kernel, the CUDA-core kernel is held and timed beside
+    it.  Returns a dict of the measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1270,16 +1360,26 @@ def hold_flash(q, k, v, kw, with_library: bool):
                 bh, s, d, dv, int(kw.get("causal", True)),
                 KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
     if with_library:
-        q4 = q.view(1, bh, s, d)
-        k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
-        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
-
         def kernel():
             return flash_attention(q, k, v, **kw)
 
-        def library():
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        if kw.get("softcap"):
+            library, got_lib, out["library_setup_s"] = flex_library(
+                q, k, v, kw)
+            out["library"] = "flex_attention"
+            out["library_err"], out["library_worst"] = held(
+                got_lib, want, "flex_attention")
+        else:
+            # one kv head (MQA) broadcast over the query heads
+            q4 = q.view(1, bh, s, d)
+            k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
+            v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
 
+            def library():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      attn_mask=mask)
+
+            out["library"] = "sdpa"
         # the kernel and the library call are compared: timed in turn
         out["ms"], out["library_ms"] = time_pair_ms(kernel, library)
         out["device_ms"], out["library_device_ms"] = time_pair_ms(
@@ -1752,70 +1852,128 @@ def reset_lm_counts():
         module.reset_launches()
 
 
-class PrefillRecorder:
-    """Keeps each prefill's last-position logits, its recurrent or SSM
-    layers' final states h (on the host, f32), the LM kernels it launched
-    and each MoE layer's routing (every token's experts and whether each
-    assignment was kept under the capacity, on the sort dispatch), in the
-    order the engine admits requests.  Wraps the names the serving engine
-    and the MoE layer call."""
+class ServeRecorder:
+    """Keeps, in the order the engine admits requests, each prefill's
+    last-position logits and the same logits before the model's final
+    softcap (what ``unembed`` returned; the same rows where the model has
+    no cap), its recurrent or SSM layers' final states h (on the host,
+    f32), the LM kernels it launched and each MoE layer's routing (every
+    token's experts and whether each assignment was kept under the
+    capacity, on the sort dispatch).  With `steps`, also every step's
+    logits of each request, after and before the cap (None where there
+    is no cap), keyed by rid in ``by_rid``: its prefill's last position
+    and its slot's row of each decode step.  Wraps the names the serving
+    engine, the model and the MoE layer call."""
 
-    def __init__(self):
+    def __init__(self, steps: bool = False):
+        from collections import defaultdict
         from repro_torch.models import model as model_lib
         from repro_torch.models import moe as moe_mod
-        self.mod, self.moe = model_lib, moe_mod
-        self.orig, self.orig_router = model_lib.prefill, moe_mod._router
-        self.logits = []
-        self.states = []
-        self.launches = []
-        self.routes = []
-        self._routing = None
+        from repro_torch.serving.engine import ServingInstance
+        self.logits, self.pre, self.states = [], [], []
+        self.launches, self.routes = [], []
+        self.by_rid = defaultdict(list)
+        self._routing, self._unembedded, self._rids = None, None, [None]
+        self._patched = []
 
-        def router(params, x2d, moe):
-            w, idx, gates = self.orig_router(params, x2d, moe)
-            if self._routing is not None:
-                pos = moe_mod._positions_in_expert(idx, moe.n_experts)
-                keep = pos < moe_mod._capacity(idx.shape[0], moe)
-                self._routing.append((idx, keep))
-            return w, idx, gates
+        def patch(owner, name, wrap):
+            orig = getattr(owner, name)
+            self._patched.append((owner, name, orig))
+            setattr(owner, name, wrap(orig))
 
-        def rec(*args, **kw):
-            n0 = lm_counts()
-            self._routing = []
-            try:
-                logits, cache = self.orig(*args, **kw)
-            finally:
-                routing, self._routing = self._routing, None
-            self.launches.append({k: n - n0[k]
-                                  for k, n in lm_counts().items()})
-            self.logits.append(logits[0].float().cpu())
-            self.states.append([c["h"][0].float().cpu() for c in cache
-                                if "h" in c])
-            self.routes.append(routing)
-            return logits, cache
+        def rows(cfg, logits):
+            got = logits.float().cpu()
+            pre = (self._unembedded[:, -1].float().cpu()
+                   if cfg.logit_softcap else got)
+            for i, rid in enumerate(self._rids):
+                if steps and rid is not None:
+                    self.by_rid[rid].append(
+                        (got[i], None if pre is got else pre[i]))
+            return got, pre
 
-        model_lib.prefill = rec
-        moe_mod._router = router
+        def router(orig):
+            def call(params, x2d, moe):
+                w, idx, gates = orig(params, x2d, moe)
+                if self._routing is not None:
+                    pos = moe_mod._positions_in_expert(idx, moe.n_experts)
+                    keep = pos < moe_mod._capacity(idx.shape[0], moe)
+                    self._routing.append((idx, keep))
+                return w, idx, gates
+            return call
+
+        def unembed(orig):
+            def call(table, h):
+                self._unembedded = orig(table, h)
+                return self._unembedded
+            return call
+
+        def prefill(orig):
+            def call(cfg, *args, **kw):
+                n0 = lm_counts()
+                self._routing = []
+                try:
+                    logits, cache = orig(cfg, *args, **kw)
+                finally:
+                    routing, self._routing = self._routing, None
+                self.launches.append({k: n - n0[k]
+                                      for k, n in lm_counts().items()})
+                got, pre = rows(cfg, logits)
+                self.logits.append(got[0])
+                self.pre.append(pre[0])
+                self.states.append([c["h"][0].float().cpu() for c in cache
+                                    if "h" in c])
+                self.routes.append(routing)
+                return logits, cache
+            return call
+
+        def decode_step(orig):
+            def call(cfg, *args, **kw):
+                logits, cache = orig(cfg, *args, **kw)
+                rows(cfg, logits)
+                return logits, cache
+            return call
+
+        def admit(orig):
+            def call(inst, req):
+                self._rids = [req.rid]
+                return orig(inst, req)
+            return call
+
+        def step(orig):
+            def call(inst):
+                self._rids = [None if r is None else r.rid
+                              for r in inst.active]
+                return orig(inst)
+            return call
+
+        patch(moe_mod, "_router", router)
+        patch(model_lib, "unembed", unembed)
+        patch(model_lib, "prefill", prefill)
+        if steps:
+            patch(model_lib, "decode_step", decode_step)
+            patch(ServingInstance, "admit", admit)
+            patch(ServingInstance, "step", step)
 
     def close(self):
-        self.mod.prefill = self.orig
-        self.moe._router = self.orig_router
+        for owner, name, orig in reversed(self._patched):
+            setattr(owner, name, orig)
 
 
-def _serve(cfg, params, prompts, use_kernel: bool):
+def _serve(cfg, params, prompts, use_kernel: bool,
+           max_len: int = SERVE_MAX_LEN):
     """One engine, one instance, every prompt submitted at once and
     drained; returns (requests, prefill logits, launches, seconds, peak
     bytes)."""
     import torch
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, use_kernel=use_kernel)
+                        max_len=max_len, use_kernel=use_kernel)
     eng.scale_up(1)
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p.copy(), SERVE_MAX_NEW))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = PrefillRecorder()
+    rec = ServeRecorder()
     reset_lm_counts()
     try:
         t0 = time.perf_counter()
@@ -1829,7 +1987,8 @@ def _serve(cfg, params, prompts, use_kernel: bool):
             torch.cuda.max_memory_allocated())
 
 
-def profile_serving(cfg, params, prompt, phase: str, first_ms=None):
+def profile_serving(cfg, params, prompt, phase: str, first_ms=None,
+                    max_len: int = SERVE_MAX_LEN):
     """One prefill of `prompt` into a fresh instance and one decode step,
     under torch.profiler (host and device activity): wall time, device
     busy share, and the largest entries by device and by host time; the
@@ -1842,7 +2001,7 @@ def profile_serving(cfg, params, prompt, phase: str, first_ms=None):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingInstance
     inst = ServingInstance(cfg, params, slots=SERVE_SLOTS,
-                           max_len=SERVE_MAX_LEN)
+                           max_len=max_len)
     torch.cuda.synchronize()
     for label, run in (("prefill", lambda: inst.admit(
             Request(0, prompt.copy(), SERVE_MAX_NEW))),
@@ -1899,13 +2058,23 @@ def profile_serving(cfg, params, prompt, phase: str, first_ms=None):
 
 
 def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
-                     per_prefill: dict, layers_label: str, first_ms=None):
+                     per_prefill: dict, layers_label: str, first_ms=None,
+                     max_len: int = SERVE_MAX_LEN, f32_witness: bool = False):
     """`arch` at its published width on the card, random f32 weights from
     a seeded generator, computed in the config's dtype: one
-    ServingEngine instance (4 slots, max_len 4,096) serves two requests
-    of each prompt length, with the kernels and then with their plain
-    versions.  Each prefill must launch `per_prefill` kernels; the
-    prefills' logits, final states and first tokens must agree.  Returns
+    ServingEngine instance (4 slots, caches of `max_len`) serves two
+    requests of each prompt length, with the kernels and then with their
+    plain versions.  Each prefill must launch `per_prefill` kernels; the
+    prefills' logits, final states (of the recurrent or SSM layers, where
+    the model has any) and first tokens must agree.  With `f32_witness`
+    (a model whose own bf16 rounding moves its logits by more than
+    LOGIT_TOL of the largest) the logits are held in norm instead: within
+    LOGIT_TOL of the plain run's, and no farther than WITNESS_RATIO times
+    the plain run's distance from the same prefill in f32 through the
+    plain versions; and so are the logits before the final softcap (which
+    saturates random weights' logits), which must also be within
+    LOGIT_TOL of their largest |logit| and whose argmax must agree where
+    the plain run's top-2 margin exceeds that.  Returns
     the kernels' launches in the kernels' run."""
     import numpy as np
     import torch
@@ -1928,13 +2097,14 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in prompt_lengths for _ in range(2)]
     # warm-up (cuBLAS handles, the kernels' first launch), not counted
-    warm = ServingEngine(cfg, params, slots=1, max_len=SERVE_MAX_LEN)
+    warm = ServingEngine(cfg, params, slots=1, max_len=max_len)
     warm.scale_up(1)
     warm.submit(Request(-1, prompts[0][:256].copy(), 2))
     warm.drain()
     del warm
 
-    done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True)
+    done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True,
+                                               max_len)
     check(len(done) == len(prompts)
           and all(len(r.tokens) == SERVE_MAX_NEW for r in done),
           f"{label}: not every request finished with max_new tokens")
@@ -1956,15 +2126,15 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
           f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
           f"{peak / 2**30:.3f} GiB")
 
-    profile_serving(cfg, params, prompts[-1], phase, first_ms)
+    profile_serving(cfg, params, prompts[-1], phase, first_ms, max_len)
 
     done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
-                                                  False)
+                                                  False, max_len)
     check(not any(launches_p.values()),
           f"{label}: the plain run launched kernels {launches_p}")
     check(len(rec_k.logits) == len(rec_p.logits) == len(prompts),
           f"{label}: a prefill was not recorded")
-    worst, worst_h, n_checked = 0.0, 0.0, 0
+    worst, worst_h, n_checked, n_pre_checked = 0.0, 0.0, 0, 0
     for i, (lk, lp) in enumerate(zip(rec_k.logits, rec_p.logits)):
         check(bool(torch.isfinite(lk).all()),
               f"{label} prefill {i}: logits not finite")
@@ -1977,14 +2147,67 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
         same = int(lk.argmax()) == int(lp.argmax())
         print(f"{phase} prefill {i} (prompt {len(prompts[i])}): logits "
               f"max_abs_err {err:.4f} of max |logit| {scale:.2f} "
-              f"(tol {tol:.4f}); top-2 margin {margin:.4f}; first token "
-              f"same={same}")
-        check(err <= tol, f"{label} prefill {i}: logits differ by {err}")
+              f"(tol {tol:.4f}{', not held' if f32_witness else ''}); "
+              f"top-2 margin {margin:.4f}; first token same={same}")
+        if f32_witness:
+            toks = torch.as_tensor(prompts[i][None].astype(np.int64),
+                                   device=model_lib.params_device(params))
+            rec_f = ServeRecorder()
+            try:
+                model_lib.prefill(cfg.replace(dtype="float32"), params,
+                                  {"tokens": toks}, max_len,
+                                  use_kernel=False)
+            finally:
+                rec_f.close()
+            lf = rec_f.logits[0]
+            kp, kf, pf = (float((a - b).norm() / b.norm())
+                          for a, b in ((lk, lp), (lk, lf), (lp, lf)))
+            pf_abs = float((lp - lf).abs().max())
+            print(f"{phase} prefill {i} in norm: kernels against plain "
+                  f"{kp:.5f} (tol {LOGIT_TOL}); against f32 {kf:.5f}, the "
+                  f"plain run against f32 {pf:.5f} (tol {WITNESS_RATIO} "
+                  f"times; max_abs {pf_abs:.4f}); f32 argmax "
+                  f"{int(lf.argmax())}; plain logits at the largest "
+                  f"|logit| {int((lp.abs() >= scale).sum())}")
+            check(kp <= LOGIT_TOL and kf <= WITNESS_RATIO * pf,
+                  f"{label} prefill {i}: logits {kp} from the plain run's "
+                  f"and {kf} from f32 (the plain run {pf}) in norm")
+            # before the final softcap, which saturates random weights'
+            # logits and hides what differs before it: the same holds, phase
+            # 5's (LOGIT_TOL of the largest |logit|), and the argmax where
+            # the plain run's top-2 margin allows
+            bk, bp, bf = rec_k.pre[i], rec_p.pre[i], rec_f.pre[0]
+            kp, kf, pf = (float((a - b).norm() / b.norm())
+                          for a, b in ((bk, bp), (bk, bf), (bp, bf)))
+            pre_scale = float(bp.abs().max())
+            pre_err = float((bk - bp).abs().max())
+            top2 = torch.topk(bp, 2).values
+            pre_margin = float(top2[0] - top2[1])
+            pre_same = int(bk.argmax()) == int(bp.argmax())
+            print(f"{phase} prefill {i} before the cap: kernels against "
+                  f"plain {kp:.5f} in norm (tol {LOGIT_TOL}), max_abs_err "
+                  f"{pre_err:.4f} of max |logit| {pre_scale:.2f} (tol "
+                  f"{LOGIT_TOL * pre_scale:.4f}); against f32 {kf:.5f}, "
+                  f"the plain run against f32 {pf:.5f} (tol "
+                  f"{WITNESS_RATIO} times); top-2 margin {pre_margin:.4f}; "
+                  f"argmax same={pre_same}")
+            check(kp <= LOGIT_TOL and kf <= WITNESS_RATIO * pf
+                  and pre_err <= LOGIT_TOL * pre_scale,
+                  f"{label} prefill {i}: logits before the cap {kp} from "
+                  f"the plain run's and {kf} from f32 (the plain run {pf}) "
+                  f"in norm, {pre_err} at most of {pre_scale}")
+            if pre_margin > LOGIT_TOL * pre_scale:
+                n_pre_checked += 1
+                check(pre_same, f"{label} prefill {i}: the argmax before "
+                      "the cap differs")
+        else:
+            check(err <= tol, f"{label} prefill {i}: logits differ by {err}")
         # the scan's output itself: each recurrent or SSM layer's final
         # state, relative in norm (the logits are dominated by the
-        # embedding)
-        h_err = max(float((hk - hp).norm() / hp.norm())
-                    for hk, hp in zip(rec_k.states[i], rec_p.states[i]))
+        # embedding); attention-only models have none
+        h_err = max((float((hk - hp).norm() / hp.norm())
+                     for hk, hp in zip(rec_k.states[i], rec_p.states[i])),
+                    default=0.0)
         worst_h = max(worst_h, h_err)
         check(h_err <= LOGIT_TOL, f"{label} prefill {i}: states differ by "
               f"{h_err} in norm")
@@ -1994,6 +2217,14 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     # how the state error grows with depth: bf16 rounding of each layer's
     # output, which the two runs do at other places, adds up layer by layer
     n_layers = len(rec_k.states[0])
+    if not n_layers:
+        print(f"{phase} plain run: drain {wall_p:.3f} s; worst logits error "
+              f"{worst:.5f} of max |logit|; no recurrent or SSM state; "
+              f"first token checked on {n_checked} of {len(prompts)} "
+              "prefills"
+              + (f", the argmax before the cap on {n_pre_checked}"
+                 if f32_witness else ""))
+        return launches
     by_depth = [max(float((rec_k.states[i][j] - rec_p.states[i][j]).norm()
                           / rec_p.states[i][j].norm())
                     for i in range(len(prompts))) for j in range(n_layers)]
@@ -2021,6 +2252,17 @@ def _leaves(tree):
         yield tree
 
 
+def _free_models(label: str):
+    """Frees what earlier phases left (their models, the allocator's
+    cache) and prints what stays allocated."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} before init: {torch.cuda.memory_allocated() / 2**30:.3f} "
+          "GiB allocated")
+
+
 def phase5_serving(flash_first_ms: float, scan_first_ms: float):
     """recurrentgemma-2b: 8 flash launches per prefill, all on the
     tensor-core path (bf16, head dim 256), and 18 RG-LRU scans, all on
@@ -2044,13 +2286,8 @@ def phase6_ssm_serving():
     """mamba2-2.7b, after phase 5's model is freed: 64 SSD scan launches
     per prefill, all on the tensor-core path (bf16, head dim 64, d_state
     128)."""
-    import gc
-    import torch
     from repro_torch.configs import get_config
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"phase6 before init: {torch.cuda.memory_allocated() / 2**30:.3f} "
-          "GiB allocated")
+    _free_models("phase6")
     cfg = get_config(SSM_ARCH)
     n_ssm = cfg.layer_kinds().count("ssm")
     check(n_ssm == cfg.n_layers == 64 and cfg.d_model == 2560,
@@ -2155,10 +2392,7 @@ def phase6b_moe_serving():
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"phase6b before init: {torch.cuda.memory_allocated() / 2**30:.3f}"
-          " GiB allocated")
+    _free_models("phase6b")
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
     m, moe = cfg.mla, cfg.moe
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
@@ -3638,6 +3872,427 @@ def phase8_training():
     return serve, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving entry points
+# ---------------------------------------------------------------------------
+
+#: phase 9 (b): gemma2-2b at its published width (26 layers, local
+#: attention in a window of 4,096 alternating with global, 8 query heads
+#: over 4 kv heads of 256, a softcap of 50 on the scores and 30 on the
+#: logits); the 6,000-token prompts pass the window, so the local layers'
+#: ring cache rolls
+GEMMA_ARCH = "gemma2-2b"
+GEMMA_PROMPTS = (512, 3000, 6000)
+GEMMA_MAX_LEN = 8192
+GEMMA_FLASH_S = (3000, 6000)
+#: phase 9 (c): the serve_cluster twin at the example's defaults, its
+#: engines as the example builds them (``serve_cluster.SLOTS``, ...)
+CLUSTER_TICKS, CLUSTER_RELEASE_AFTER = 30, 6
+#: the plain rerun of the twin's requests: one instance of this many slots
+CLUSTER_PLAIN_SLOTS = 16
+COLD_START_REPS = 5
+
+
+def serve_outcome(res) -> dict:
+    """Every outcome of a serve-driver run that does not read the wall
+    clock."""
+    s, c = res.sched, res.scaling
+    return {"density": res.density,
+            "qos_violation_rate": res.qos_violation_rate,
+            "requests": res.requests,
+            "violated_requests": res.violated_requests,
+            "nodes_peak": res.nodes_peak,
+            "sched": (s.decisions, s.fast, s.slow, s.failed,
+                      s.instances_placed),
+            "scaling": (c.real_cold_starts, c.logical_cold_starts,
+                        c.releases, c.evictions, c.migrations)}
+
+
+def _printed(fn, prefix: str):
+    """Calls `fn`, prints what it printed with `prefix` before each line;
+    returns its result and the lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"{prefix}{line}")
+    return out, lines
+
+
+def phase9a_serve_driver() -> int:
+    """``repro_torch.launch.serve`` at its defaults (jiagu, dual-staged,
+    600 s, seed 0) with the predictor on engine "cuda", then on "numpy"
+    with the same seed (the oracle): every outcome equal, the forest
+    kernel launched in the first run and not in the second.  Returns the
+    first run's forest launches."""
+    import torch
+    from repro_torch.kernels.rfr_inference import (rfr_forest_apply,
+                                                   reset_launches)
+    from repro_torch.launch import serve
+    runs = {}
+    for engine in ("cuda", "numpy"):
+        args = serve.parse_args(["--engine", engine])
+        reset_launches()
+        t0 = time.perf_counter()
+        res = serve.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rfr_forest_apply.launches
+        _printed(lambda: serve.report(args, res), f"phase9 (a) {engine} | ")
+        print(f"phase9 (a) engine={engine}: {wall:.2f} s (dataset, forest "
+              f"fit, {args.seconds} simulated s), forest kernel launches "
+              f"{launches}, inference calls {res.inference_calls}, "
+              f"mean_inference_ms {res.mean_inference_ms:.4f}")
+        runs[engine] = (serve_outcome(res), launches)
+    (got, launches), (want, numpy_launches) = runs["cuda"], runs["numpy"]
+    diff = _differing(got, want)
+    print(f"phase9 (a) cuda vs numpy: differing outcomes {diff or 'none'}")
+    check(not diff, f"phase 9 (a): the serve driver on the card differs "
+          f"from numpy in {diff}")
+    check(launches > 0 and numpy_launches == 0,
+          f"phase 9 (a): forest launches {launches} on the card, "
+          f"{numpy_launches} on numpy")
+    return launches
+
+
+def phase9b_gemma2() -> dict:
+    """gemma2-2b at its published width, served as phase 5 serves with
+    caches of GEMMA_MAX_LEN: every prefill launches 26 flash kernels, all
+    on the wgmma path with the softcap; the logits held in norm against
+    the plain run and an f32 witness (``serve_full_width``'s
+    `f32_witness`), every layer's flash output in the longest prompt's
+    prefill against the plain version on its own q, k, v; then the flash
+    kernel at its shapes timed against its plain version, its bound and
+    one compiled flex_attention call (sdpa takes no tanh softcap).
+    Returns the launches and the timings."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import path
+    from repro_torch.models import model as model_lib
+    _free_models("phase9 (b)")
+    cfg = get_config(GEMMA_ARCH)
+    kinds = cfg.layer_kinds()
+    n_local, n_global = kinds.count("local"), kinds.count("global")
+    check(cfg.n_layers == n_local + n_global == 26 and cfg.d_model == 2304
+          and cfg.head_dim == 256 and cfg.attn_softcap == 50.0,
+          f"phase 9 (b): {GEMMA_ARCH} is {cfg.n_layers} layers "
+          f"({n_local} local, {n_global} global) of {cfg.d_model}")
+    check(path(torch.bfloat16, cfg.head_dim, cfg.attn_softcap) == "wgmma",
+          "phase 9 (b): gemma2's attention is not on the wgmma path")
+    n = cfg.n_layers
+    launches = serve_full_width(
+        "phase9", GEMMA_ARCH, GEMMA_PROMPTS, 9,
+        {"flash_attention": n, "flash_attention.wgmma": n,
+         "flash_attention.tf32": 0, "flash_attention.simt": 0,
+         "rglru_scan": 0, "rglru_scan.tma": 0, "rglru_scan.simt": 0,
+         "ssd_scan": 0, "ssd_scan.wgmma": 0, "ssd_scan.simt": 0},
+        f"{n_local} local in a window of {cfg.window} + {n_global} global, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim}, softcap {cfg.attn_softcap:g}",
+        max_len=GEMMA_MAX_LEN, f32_witness=True)
+    # each layer's flash output in a prefill past the window, against the
+    # plain version on its own q, k, v
+    _free_models("phase9 (b) layers")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, max(GEMMA_PROMPTS))),
+        device=model_lib.params_device(params))
+    stash = FlashStash()
+    try:
+        model_lib.prefill(cfg, params, {"tokens": toks}, GEMMA_MAX_LEN)
+    finally:
+        stash.close()
+    check(len(stash.calls) == n, f"phase 9 (b): {len(stash.calls)} flash "
+          f"calls in a prefill of {n} layers")
+    worst = hold_stashed_flash(stash.calls, f"phase9 (b) "
+                               f"{max(GEMMA_PROMPTS)}-token prefill")
+    print(f"phase9 (b) the {n} layers' flash outputs: worst element "
+          f"{worst:.3g} of the allowance")
+    del params, stash
+    _free_models("phase9 (b) flash")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bh, bh_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    times = []
+    for kind, window in (("local", cfg.window), ("global", 0)):
+        for s in GEMMA_FLASH_S:
+            # scores scaled by 16 so that the softcap bites
+            q, k = randn(bh, s, d, scale=4.0), randn(bh_kv, s, d, scale=4.0)
+            v = randn(bh_kv, s, d)
+            kw = dict(causal=True, kind=kind, window=window,
+                      softcap=cfg.attn_softcap)
+            m = hold_flash(q, k, v, kw, with_library=True)
+            check(m["path"] == "wgmma", f"phase 9 (b): flash at S={s} "
+                  f"{kind} ran {m['path']}")
+            print(f"phase9 flash_attention BH={bh} G={bh // bh_kv} S={s} "
+                  f"D={d} {kind} {window} softcap {cfg.attn_softcap:g} "
+                  f"bfloat16 path={m['path']}: max_abs_err "
+                  f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the "
+                  f"allowance), kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms), simt kernel "
+                  f"{m['simt_ms']:.4f} ms (device {m['simt_device_ms']:.4f} "
+                  f"ms), plain {m['plain_ms']:.4f} ms, {m['library']} "
+                  f"{m['library_ms']:.4f} ms (device "
+                  f"{m['library_device_ms']:.4f} ms, max_abs_err "
+                  f"{m['library_err']:.3g}, mask and compile "
+                  f"{m['library_setup_s']:.1f} s), bound "
+                  f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
+                  f"{m['pairs']}")
+            times.append(dict(m, shape=[bh, bh_kv, s, d], kind=kind,
+                              window=window, softcap=cfg.attn_softcap))
+    return {"launches": launches, "times": times}
+
+
+def hold_tokens(label: str, served, plain, rec_k, rec_p) -> str:
+    """Each served request's tokens against the plain rerun's, step by
+    step, from the two runs' ``ServeRecorder.by_rid``, while the two
+    agree: the logits before the final softcap (which saturates random
+    weights' logits and would hide what differs before it) within
+    LOGIT_TOL in norm and within LOGIT_TOL of their largest |logit|
+    (phase 5's limit); the same token wherever the plain run's top-2
+    margin exceeds LOGIT_TOL of the largest |logit|, and the same argmax
+    before the cap wherever the margin there exceeds LOGIT_TOL of its
+    largest.  After a token that differs where the margin is within
+    that, the two continue from other tokens and are not compared."""
+    import torch
+    by_rid = {r.rid: r for r in plain}
+    worst = worst_cap = worst_abs = 0.0
+    held = checked = pre_checked = parted = 0
+    for r in served:
+        p = by_rid[r.rid]
+        lk, lp = rec_k.by_rid[r.rid], rec_p.by_rid[r.rid]
+        check(len(lk) == len(lp) == len(r.tokens) == len(p.tokens),
+              f"{label} request {r.rid}: {len(lk)} and {len(lp)} logits "
+              f"rows for {len(r.tokens)} tokens")
+        for i, ((a, a_pre), (b, b_pre)) in enumerate(zip(lk, lp)):
+            capped = a_pre is not None
+            a_pre, b_pre = (a_pre, b_pre) if capped else (a, b)
+            check(bool(torch.isfinite(a).all())
+                  and bool(torch.isfinite(a_pre).all()),
+                  f"{label} request {r.rid} step {i}: logits not finite")
+            err = float((a_pre - b_pre).norm() / b_pre.norm())
+            err_abs = float((a_pre - b_pre).abs().max()
+                            / b_pre.abs().max())
+            check(err <= LOGIT_TOL and err_abs <= LOGIT_TOL,
+                  f"{label} request {r.rid} step {i}: logits before the "
+                  f"cap differ by {err} in norm, by {err_abs} of the "
+                  "largest at most")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, err_abs)
+            worst_cap = max(worst_cap, float((a - b).norm() / b.norm()))
+            held += 1
+            pairs = [(a, b, "token")]
+            if capped:
+                pairs.append((a_pre, b_pre, "argmax before the cap"))
+            for x, y, what in pairs:
+                top2 = torch.topk(y, 2).values
+                margin = float(top2[0] - top2[1])
+                if margin > LOGIT_TOL * float(y.abs().max()):
+                    got, want = ((int(x.argmax()), int(y.argmax()))
+                                 if what != "token" else
+                                 (r.tokens[i], p.tokens[i]))
+                    check(got == want, f"{label} request {r.rid} step {i}: "
+                          f"{what} {got} against {want}, top-2 margin "
+                          f"{margin}")
+                    if what == "token":
+                        checked += 1
+                    else:
+                        pre_checked += 1
+            if r.tokens[i] != p.tokens[i]:
+                parted += 1
+                break
+    return (f"{held} steps' logits held before the cap (worst {worst:.5f} "
+            f"in norm, {worst_abs:.5f} of the largest |logit|; after it "
+            f"{worst_cap:.5f} in norm), argmax before the cap "
+            f"checked at {pre_checked}, tokens checked at {checked}, "
+            f"{parted} requests parted at a margin within the tolerance")
+
+
+def cold_starts(arch: str, eng):
+    """Times COLD_START_REPS real cold starts of `eng` (``scale_up(1)``:
+    a new instance and its slot cache) and as many logical ones (each
+    after a ``release(1)``, ``logical_start(1)``), each synchronised, on
+    the host clock; prints each, the median and the largest."""
+    import statistics as st
+    import torch
+    real, logical = [], []
+    for _ in range(COLD_START_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.scale_up(1)
+        torch.cuda.synchronize()
+        real.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(COLD_START_REPS):
+        eng.release(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.logical_start(1)
+        torch.cuda.synchronize()
+        logical.append(1e3 * (time.perf_counter() - t0))
+        check(got == 1, f"phase 9 (c) {arch}: logical start revived {got}")
+
+    def summary(ms):
+        return (f"median {st.median(ms):.4f} ms, max {max(ms):.4f} ms "
+                f"({', '.join(f'{x:.4f}' for x in ms)})")
+
+    print(f"phase9 (c) {arch} cold start, host clock, synchronised, "
+          f"{COLD_START_REPS} each, weights resident: real (scale_up(1), "
+          f"slots {eng.slots}, max_len {eng.max_len}) {summary(real)}; "
+          f"logical (logical_start(1)) {summary(logical)}")
+
+
+def phase9c_cluster() -> dict:
+    """The serve_cluster twin at published width: gemma2-2b and
+    mamba2-2.7b on random f32 weights from a generator seeded 0, computed
+    in each config's dtype, as the example builds its engines; its loop
+    at the example's defaults under the sinusoid, then under burst-storm.
+    Every prefill launches each model's kernels, all on the tensor-core
+    paths; every served request's tokens are held against the same
+    prompts through the plain versions.  Then one real cold start
+    (``scale_up(1)``) and one logical start (``logical_start(1)``) of
+    each, timed at the twin's engines and at phase 9 (b)'s serving
+    configuration.  Returns each load's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_cluster
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+    _free_models("phase9 (c)")
+    cfgs = {a: get_config(a) for a in serve_cluster.ARCHS}
+    params = {a: model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        for a, cfg in cfgs.items()}
+    torch.cuda.synchronize()
+    per_prefill = {}
+    for a, cfg in cfgs.items():
+        kinds = cfg.layer_kinds()
+        n_attn = sum(kinds.count(k) for k in ("local", "global"))
+        per_prefill[a] = {"flash_attention": n_attn,
+                          "ssd_scan": kinds.count("ssm")}
+        print(f"phase9 (c) {a}: {sum(t.numel() for t in _leaves(params[a])):,}"
+              f" parameters (f32, computed in {cfg.dtype}), "
+              f"{cfg.n_layers} layers, per prefill {per_prefill[a]}")
+    print(f"phase9 (c) {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          "allocated")
+
+    def engines(replicas=serve_cluster.REPLICAS):
+        out = {}
+        for a, cfg in cfgs.items():
+            eng = ServingEngine(cfg, params[a], slots=serve_cluster.SLOTS,
+                                max_len=serve_cluster.MAX_LEN)
+            eng.scale_up(replicas)
+            out[a] = eng
+        return out
+
+    # warm-up (the kernels' first launch), not counted
+    warm = engines(replicas=1)
+    for a, eng in warm.items():
+        eng.submit(Request(-1, np.zeros(serve_cluster.PROMPT_LEN, np.int32),
+                           2))
+        eng.drain()
+    del warm
+    all_launches = {}
+    kept = None
+    for scenario in ("sinusoid", "burst-storm"):
+        load = serve_cluster.offered_load(
+            scenario, list(cfgs), CLUSTER_TICKS, seed=0)
+        engs = engines()
+        rec_k = ServeRecorder(steps=True)
+        reset_lm_counts()
+        try:
+            t0 = time.perf_counter()
+            stats, _ = _printed(lambda: serve_cluster.run(
+                engs, CLUSTER_TICKS, CLUSTER_RELEASE_AFTER, load,
+                np.random.default_rng(0)), f"phase9 (c) {scenario} | ")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rec_k.close()
+        launches = lm_counts()
+        served = {a: s["served"] for a, s in stats.items()}
+        want = {}
+        for name in ("flash_attention", "ssd_scan"):
+            total = sum(per_prefill[a][name] * len(served[a])
+                        for a in cfgs)
+            want[name] = want[f"{name}.wgmma"] = total
+            want[f"{name}.simt"] = 0
+        want["flash_attention.tf32"] = 0
+        got = {k: launches[k] for k in want}
+        print(f"phase9 (c) {scenario}: {wall:.2f} s for {CLUSTER_TICKS} "
+              f"ticks and the drain, served "
+              f"{ {a: len(v) for a, v in served.items()} }; launches by "
+              f"path {got}, expected {want}")
+        check(got == want, f"phase 9 (c) {scenario}: launches {got} != "
+              f"{want}")
+        check(not launches["rglru_scan"], "phase 9 (c): an RG-LRU scan "
+              "launched")
+        for a, cfg in cfgs.items():
+            eng = ServingEngine(cfg, params[a], slots=CLUSTER_PLAIN_SLOTS,
+                                max_len=serve_cluster.MAX_LEN,
+                                use_kernel=False)
+            eng.scale_up(1)
+            for r in served[a]:
+                eng.submit(Request(r.rid, r.prompt.copy(), r.max_new))
+            rec_p = ServeRecorder(steps=True)
+            reset_lm_counts()
+            try:
+                t0 = time.perf_counter()
+                plain = eng.drain()
+                torch.cuda.synchronize()
+                wall_p = time.perf_counter() - t0
+            finally:
+                rec_p.close()
+            check(not any(lm_counts().values()),
+                  f"phase 9 (c): the plain rerun launched {lm_counts()}")
+            check(sorted(r.rid for r in plain)
+                  == sorted(r.rid for r in served[a]),
+                  f"phase 9 (c) {scenario} {a}: the plain rerun served "
+                  "other requests")
+            print(f"phase9 (c) {scenario} {a} plain rerun ({wall_p:.2f} s, "
+                  f"{CLUSTER_PLAIN_SLOTS} slots): "
+                  + hold_tokens(f"phase 9 (c) {scenario} {a}", served[a],
+                                plain, rec_k, rec_p))
+        all_launches[scenario] = launches
+        if kept is None:
+            kept = engs
+        else:
+            del engs
+    # the data plane's side of a cold start: a real one allocates an
+    # instance's slot cache (the replicas share the weights, which stay
+    # resident: loading them, part of a deployment's real start, is not
+    # timed); a logical one re-labels a cached instance.  At the twin's
+    # engines and at the serving configuration of phase 9 (b)
+    for a, eng in kept.items():
+        cold_starts(a, eng)
+        big = ServingEngine(cfgs[a], params[a], slots=SERVE_SLOTS,
+                            max_len=GEMMA_MAX_LEN)
+        cold_starts(a, big)
+        del big
+    return all_launches
+
+
+def phase9_serving_entry_points() -> tuple:
+    """Phase 9's parts in order; returns (a)'s forest launches, (b)'s
+    launches and flash timings, and (c)'s launches by load."""
+    t0 = time.perf_counter()
+    serve_launches = phase9a_serve_driver()
+    gemma = phase9b_gemma2()
+    cluster = phase9c_cluster()
+    print(f"phase9 total {time.perf_counter() - t0:.1f} s")
+    return serve_launches, gemma, cluster
+
+
 def main() -> int:
     try:
         import torch
@@ -3680,6 +4335,7 @@ def main() -> int:
         moe_launches = phase6b_moe_serving()
         platform_launches = phase7_platform()
         train, train_launches = phase8_training()
+        serve_driver_launches, gemma, cluster = phase9_serving_entry_points()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -3736,6 +4392,29 @@ def main() -> int:
             k["platform_launches"] = {
                 label: l[k["name"]] for label, l in platform_launches.items()
                 if label != "b1"}
+        # phase 9: the serve driver's forest launches (a); gemma2-2b's
+        # flash launches (b) and its shapes' times; the serve_cluster
+        # twin's launches by load (c)
+        kernels[0]["serve_launches"] = serve_driver_launches
+        for k in kernels:
+            if k["name"] in ("flash_attention", "ssd_scan"):
+                k["cluster_launches"] = {
+                    load: {p: n for p, n in l.items()
+                           if p.split(".")[0] == k["name"]}
+                    for load, l in cluster.items()}
+        next(k for k in kernels if k["name"] == "flash_attention")[
+            "gemma2"] = {
+            "source": CSRC + SOURCES["flash_attention"],
+            "launches": gemma["launches"]["flash_attention"],
+            "launches_by_path": {
+                p: gemma["launches"][f"flash_attention.{p}"]
+                for p in ("wgmma", "tf32", "simt")},
+            "times": [{key: m[key] for key in (
+                "path", "shape", "kind", "window", "softcap", "max_abs_err",
+                "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
+                "library", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by")}
+                for m in gemma["times"]]}
         # the f32 attention backward (3xTF32), which no model launches,
         # rides in the attention backward's entry under "f32"
         f32b = train["flash_attention_bwd f32"]

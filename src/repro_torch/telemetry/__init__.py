@@ -1,7 +1,7 @@
 """repro_torch.telemetry — unified observability for the control plane
 (the port of ``repro.telemetry``).
 
-Three layers:
+One subsystem, four layers:
 
 * :mod:`~repro_torch.telemetry.metrics` — typed metric instruments
   (``Counter`` / ``Gauge`` / ``Histogram`` on ``core.metrics.Reservoir``)
@@ -14,11 +14,10 @@ Three layers:
   uninstrumented runs free;
 * :mod:`~repro_torch.telemetry.report` — the schema-versioned
   ``RunReport`` persisted as a ``BENCH_<study>.json`` trajectory
-  (baseline + runs).
-
-The reference's regression gate and HTML dashboard over those files
-(``repro.telemetry.gate`` / ``dashboard``) are benchmark tooling and
-wait for the port's benchmark.
+  (baseline + runs);
+* :mod:`~repro_torch.telemetry.gate` / :mod:`~repro_torch.telemetry.dashboard`
+  — the regression gate over those files, and the self-contained HTML
+  dashboard (``python -m repro_torch.telemetry.dashboard``).
 
 ``Telemetry.create()`` bundles a registry + observer + tracer for
 ``Platform.build`` to wire in one call.
@@ -34,6 +33,20 @@ from .report import (BENCH_SCHEMA, REPORT_SCHEMA, RunReport, append_bench,
                      bench_path, load_bench, manifest_hash,
                      promote_baseline, repo_root)
 from .spans import NULL_TRACER, Span, SpanTracer
+
+#: gate exports resolve lazily (PEP 562) so ``python -m
+#: repro_torch.telemetry.gate`` doesn't re-execute an already-imported
+#: module (runpy's double-import warning)
+_GATE_EXPORTS = ("DEFAULT_STUDIES", "Delta", "Tolerances",
+                 "compare_reports", "gate_study", "print_delta_table")
+
+
+def __getattr__(name: str):
+    if name in _GATE_EXPORTS:
+        from . import gate
+        return getattr(gate, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclass
@@ -72,4 +85,7 @@ __all__ = [
     "RunReport", "REPORT_SCHEMA", "BENCH_SCHEMA", "append_bench",
     "load_bench", "bench_path", "promote_baseline", "manifest_hash",
     "repo_root",
+    # gate
+    "Tolerances", "Delta", "compare_reports", "gate_study",
+    "print_delta_table", "DEFAULT_STUDIES",
 ]

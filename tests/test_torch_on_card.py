@@ -416,6 +416,32 @@ def test_flash_kernel_serving_shape(S, dtype):
             got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
 
 
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kind,window", [("local", 4096), ("global", 0)])
+@pytest.mark.parametrize("S", [333, 3000, 4500])
+def test_flash_kernel_gemma2_shape_with_softcap(S, kind, window):
+    """gemma2-2b's layers: 8 query heads over 4 kv heads (G 2), head dim
+    256, a tanh softcap of 50 (scores scaled by 16 so that it bites),
+    local attention in a window of 4,096 alternating with global; bf16 on
+    the wgmma kernel against its plain version at phase 4's bf16
+    tolerance.  S = 4,500 is past the window."""
+    from repro_torch.kernels.flash_attention import path
+    dev = _card()
+    q, k, v = _qkv(S + len(kind), 1, S, 8, 4, 256, torch.bfloat16, dev,
+                   scale=4.0)
+    kw = dict(causal=True, kind=kind, window=window, softcap=50.0)
+    assert path(torch.bfloat16, 256, 50.0) == "wgmma"
+    by_path = dict(flash_attention.launches_by_path)
+    got = ops.attention_op(q, k, v, **kw)
+    by_path["wgmma"] += 1
+    assert flash_attention.launches_by_path == by_path
+    plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _assert_bf16_attention_close(
+        got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
+
+
 def _mla_qkv(seed, BH, G, S, dtype, device, dqk=192, dv=128):
     rng = np.random.default_rng(seed)
     mk = lambda rows, d: torch.from_numpy(rng.standard_normal(
