@@ -241,7 +241,26 @@ Phases (each one failing makes the script exit non-zero):
      plain versions; one
      real cold start (``scale_up(1)``) and one logical start
      (``logical_start(1)``) of each model timed, five each;
-  10. the f32 flash path's times and the f32 attention backward's on
+  10. the mesh steps (``repro_torch.distributed``) on a 1x1 ("data",
+     "model") NCCL mesh started from a FileStore in a temporary
+     directory: (b) recurrentgemma-2b's mesh train step at full width and
+     depth with its hints installed, phase 8 (b)'s seed, batches and
+     AdamW settings, 3 steps: the losses within rtol 1e-5 of phase 8
+     (b)'s first three and the kernels' launches a step equal to its,
+     and a fourth step profiled as phase 8 profiles the one-device step;
+     (c) gemma2-2b at full width through ``make_prefill_step`` /
+     ``make_decode_step``, a 512- and a 3,000-token prompt in turn and 16
+     greedy decode steps each: the tokens and the flash launches equal
+     to the one-device path's, both paths timed; (d)
+     ``compressed_psum`` over the 1-rank group on (b)'s embedding
+     gradient (256,000 x 2,560 f32), bitwise ``ef_quantize`` /
+     ``dequantize`` on the CPU, timed; (e) the dry run
+     of qwen1.5-110b x train_4k on the single- and multi-pod meshes, each
+     in a subprocess on the host (both started after (d), so that
+     nothing else runs while (b)-(d) are timed; at most 120 s): status
+     ok, the argument GiB a device, the three roofline terms and the
+     bottleneck; every number beside the card's name and power limit;
+  11. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -258,7 +277,8 @@ Phases (each one failing makes the script exit non-zero):
      the CUDA-core kernel's time; phase 9's launches: the serve
      driver's forest launches under "serve_launches", gemma2-2b's flash
      launches and its shapes' times under "gemma2", the twin's launches
-     by load under "cluster_launches"), then the device line.
+     by load under "cluster_launches"; phase 10's launches on the mesh
+     under "mesh_launches"), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -3338,11 +3358,12 @@ def train_counts() -> dict:
             "ssd_scan_bwd.wgmma": ssd_scan_bwd.launches_by_path["wgmma"]}
 
 
-def profile_train_step(bundle, state, batch):
+def profile_train_step(bundle, state, batch, phase: str = "phase8"):
     """One train step under torch.profiler: wall time, device busy and
-    idle share, the largest device entries and the backward kernels'
-    device time, each by launch.  Returns the state; prints "not
-    measured" without device time."""
+    idle share, the largest device entries, the largest host entries by
+    their own host time, and the backward kernels' device time, each by
+    launch.  Returns the state; prints "not measured" without device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3357,27 +3378,33 @@ def profile_train_step(bundle, state, batch):
     dev = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e6
     if busy <= 0:
-        print("phase8 profile train step: device time not measured")
+        print(f"{phase} profile train step: device time not measured")
         return state
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     host = [e for e in rows if e.device_type == DeviceType.CPU]
-    print(f"phase8 profile train step (profiled {wall * 1e3:.1f} ms): "
+    print(f"{phase} profile train step (profiled {wall * 1e3:.1f} ms): "
           f"device busy {busy * 1e3:.2f} ms, idle share "
           f"{1 - busy / wall:.4f}; {sum(e.count for e in host)} host op "
           "calls")
-    print("phase8 profile   device: " + "; ".join(
+    print(f"{phase} profile   device: " + "; ".join(
         f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
         for e in top))
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"{phase} profile   host: host time "
+          f"{sum(e.self_cpu_time_total for e in host) / 1e3:.1f} ms in "
+          f"{len(host)} op kinds; " + "; ".join(
+              f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
+              for e in top_host))
     ops = sorted((e for e in host if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:8]
-    print("phase8 profile   device time by op: " + "; ".join(
+    print(f"{phase} profile   device time by op: " + "; ".join(
         f"{e.key[:28]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
         for e in ops))
     for key in ("attn_bwd", "rglru_bwd", "flash", "rglru_tma", "ssd_state",
                 "ssd_out", "ssd_bwd", "gemm"):
         mine = [e for e in dev if key in e.key.lower()]
         if mine:
-            print(f"phase8 profile   {key}: " + "; ".join(
+            print(f"{phase} profile   {key}: " + "; ".join(
                 f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
                 f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 "ms")
@@ -3391,7 +3418,7 @@ def profile_train_step(bundle, state, batch):
                      key=lambda e: -e.self_device_time_total)
         if bwd:
             total = sum(e.self_device_time_total for e in bwd) / 1e3
-            print(f"phase8 profile   {label} by launch ({total:.3f} ms): "
+            print(f"{phase} profile   {label} by launch ({total:.3f} ms): "
                   + "; ".join(
                       f"{re.search(pattern, e.key).group(0)} x{e.count} "
                       f"{e.self_device_time_total / 1e3:.3f} ms "
@@ -3492,7 +3519,7 @@ def phase8_train_full_width(arch: str):
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
           f"{opt_cfg}")
-    bundle = make_train_step(cfg, shape, opt_cfg, remat=True,
+    bundle = make_train_step(cfg, None, shape, opt_cfg, remat=True,
                              device="cuda")
     pipe = TokenPipeline(cfg, shape, seed=0)
     torch.cuda.reset_peak_memory_stats()
@@ -3542,6 +3569,7 @@ def phase8_train_full_width(arch: str):
     state = profile_train_step(
         bundle, state, put_batch(pipe.batch(TRAIN_STEPS), "cuda"))
     del state, bundle
+    PHASE8_RUNS[arch] = {"losses": losses, "counts": counts}
     return dict(counts, **{f"flash_attention_bwd.{p}": c
                            for p, c in by_path.items()})
 
@@ -3849,6 +3877,11 @@ def phase8_policy_fit():
               f"phase 8 (e): {name} decisions {rows[differ].tolist()} "
               f"differ between the card and the CPU, relative gaps "
               f"{gap[differ].tolist()} on the CPU fit")
+
+
+#: phase 8 (b)'s losses and launch counts by architecture, which phase
+#: 10 (b) holds the mesh step to
+PHASE8_RUNS: dict = {}
 
 
 def phase8_training():
@@ -4293,6 +4326,341 @@ def phase9_serving_entry_points() -> tuple:
     return serve_launches, gemma, cluster
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh steps on a 1x1 NCCL mesh, compression, the dry run
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_PROMPTS = (512, 3000)
+MESH_NEW = 16
+MESH_LOSS_RTOL = 1e-5
+DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_LIMIT_S = "qwen1.5-110b", "train_4k", 120
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def start_dryruns() -> dict:
+    """(e): one subprocess a mesh kind, both at once, each tracing
+    ``launch.dryrun.run_cell`` of DRYRUN_ARCH x DRYRUN_SHAPE on a fake
+    process group, on the host alone (no card visible to it); its record
+    is the last line of its output."""
+    code = ("import json, logging, sys, warnings; "
+            "warnings.filterwarnings('ignore'); "
+            "logging.disable(logging.WARNING); sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.dryrun import run_cell; "
+            f"r = run_cell({DRYRUN_ARCH!r}, {DRYRUN_SHAPE!r}, sys.argv[1]); "
+            "r['collectives'].pop('_top', None); "
+            "print(json.dumps(r, default=str))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return {kind: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", code, kind], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for kind in ("single", "multi")}
+
+
+def phase10e_dryruns(procs: dict, power: str) -> dict:
+    """(e) each dry-run subprocess's record within DRYRUN_LIMIT_S of its
+    start: status ok, or the phase fails."""
+    recs = {}
+    for kind, (t0, proc) in procs.items():
+        left = max(DRYRUN_LIMIT_S - (time.perf_counter() - t0), 1.0)
+        try:
+            out, err = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, f"phase 10 (e): the {kind} dry run took more than "
+                  f"{DRYRUN_LIMIT_S} s")
+        wall = time.perf_counter() - t0
+        lines = out.strip().splitlines()
+        check(proc.returncode == 0 and lines, f"phase 10 (e): the {kind} "
+              f"dry run exited {proc.returncode}: {err[-2000:]}")
+        rec = json.loads(lines[-1])
+        check(rec.get("status") == "ok", f"phase 10 (e): {kind} dry run "
+              f"{rec.get('status')}: {str(rec)[:2000]}")
+        r = rec["roofline"]
+        gib = rec["memory"]["arg_bytes_analytic_per_device"] / 2**30
+        print(f"phase10 (e) dryrun {DRYRUN_ARCH} x {DRYRUN_SHAPE} x {kind}: "
+              f"status {rec['status']}, {r['n_devices']} devices, "
+              f"{gib:.3f} GiB of arguments a device; compute "
+              f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+              f"collective {r['collective_s']:.4g} s -> bottleneck "
+              f"{r['bottleneck']}; useful_ratio {r['useful_ratio']:.4g}, "
+              f"roofline_frac {r['roofline_frac']:.4g}; traced in "
+              f"{rec['trace_s']} s, {wall:.1f} s with start-up (host of "
+              f"the {power} machine; H100 SXM5 constants)")
+        recs[kind] = rec
+    return recs
+
+
+def mesh_1x1():
+    """(a) a 1x1 ("data", "model") NCCL mesh on the card, its process
+    group started from a FileStore in a temporary directory."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1),
+                            rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    check(dist.get_backend() == "nccl" and mesh.size() == 1
+          and mesh.device_type == "cuda", f"phase 10 (a): mesh {mesh}")
+    print(f"phase10 (a) mesh {mesh} on {dist.get_backend()}")
+    return mesh
+
+
+def _one_device_train(cfg, shape, opt_cfg, param_dtype, steps: int):
+    """Phase 8 (b)'s first `steps` steps of `cfg` on one device: (losses,
+    launch counts); what (b) compares with when phase 8 did not run in
+    this process."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state, put_batch
+    state = build_state(cfg, opt_cfg, seed=0, device="cuda",
+                        param_dtype=param_dtype)
+    bundle = make_train_step(cfg, None, shape, opt_cfg, remat=True,
+                             device="cuda")
+    pipe = TokenPipeline(cfg, shape, seed=0)
+    reset_lm_counts()
+    losses = []
+    for i in range(steps):
+        state, m = bundle.fn(state, put_batch(pipe.batch(i), "cuda"))
+        losses.append(float(m["loss"]))
+    counts = train_counts()
+    del state, bundle
+    torch.cuda.empty_cache()
+    return losses, counts
+
+
+def phase10b_train(mesh, power: str):
+    """(b) recurrentgemma-2b's mesh train step at full width and depth on
+    the 1x1 mesh with its hints installed: phase 8 (b)'s seed, batches
+    and AdamW settings, MESH_STEPS steps; the losses within
+    MESH_LOSS_RTOL of phase 8 (b)'s first ones and the kernels' launches
+    a step equal to its.  Returns (the launches, the embedding table's
+    gradient on the next batch, taken by the bundle's ``grads``)."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.distributed.steps import distribute
+    from repro_torch.kernels import _scratch
+    from repro_torch.launch.train import build_state, put_batch
+    from repro_torch.optim import AdamWConfig
+    _scratch.clear()
+    _free_models("phase10 (b)")
+    cfg, param_dtype, moment_dtype = _train_config(TRAIN_ARCH)
+    shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                          moment_dtype=moment_dtype)
+    ref = PHASE8_RUNS.get(TRAIN_ARCH)
+    if ref is None:
+        losses, counts = _one_device_train(cfg, shape, opt_cfg, param_dtype,
+                                           MESH_STEPS)
+        ref = {"losses": losses, "per_step": {
+            k: c / MESH_STEPS for k, c in counts.items()}}
+        print(f"phase10 (b) phase 8 (b) did not run: its first "
+              f"{MESH_STEPS} steps run here on one device for reference")
+    else:
+        ref = {"losses": ref["losses"], "per_step": {
+            k: c / TRAIN_STEPS for k, c in ref["counts"].items()}}
+    bundle = make_train_step(cfg, mesh, shape, opt_cfg, remat=True)
+    state = build_state(cfg, opt_cfg, seed=0, device="cuda",
+                        param_dtype=param_dtype)
+    state = distribute(state, bundle.meta["state_shardings"], mesh)
+    batch_sh = bundle.meta["batch_shardings"]
+    pipe = TokenPipeline(cfg, shape, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_counts()
+    losses, times = [], []
+    for i in range(MESH_STEPS):
+        batch = put_batch(pipe.batch(i), "cuda", batch_sh, mesh)
+        t0 = time.perf_counter()
+        state, m = bundle.fn(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: round(c * MESH_STEPS) for k, c in ref["per_step"].items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    same = losses == ref["losses"][:MESH_STEPS]
+    print(f"phase10 (b) {TRAIN_ARCH} mesh train step (1x1 NCCL mesh, "
+          f"hints {sorted(bundle.meta['hints'])}): losses {losses}; phase 8 "
+          f"(b)'s {ref['losses'][:MESH_STEPS]}; largest relative difference "
+          f"{max(rel):.3g}{' (bitwise equal)' if same else ''}")
+    print(f"phase10 (b) launches {counts}; phase 8 (b)'s a step x "
+          f"{MESH_STEPS}: {want}")
+    print(f"phase10 (b) step times {[round(t * 1e3, 1) for t in times]} ms "
+          f"(median {statistics.median(times) * 1e3:.1f} ms), peak memory "
+          f"{peak / 2**30:.3f} GiB ({power})")
+    check(max(rel) <= MESH_LOSS_RTOL, f"phase 10 (b): losses {losses} "
+          f"against phase 8 (b)'s {ref['losses'][:MESH_STEPS]}")
+    check(counts == want, f"phase 10 (b): launches {counts}, phase 8 (b)'s "
+          f"{want}")
+    # where a mesh step's time goes, beside phase 8's profile of the
+    # one-device step
+    state = profile_train_step(
+        bundle, state, put_batch(pipe.batch(MESH_STEPS), "cuda", batch_sh,
+                                 mesh), "phase10 (b)")
+    _, _, (g_embed,) = bundle.meta["grads"](
+        state, put_batch(pipe.batch(MESH_STEPS + 1), "cuda", batch_sh,
+                         mesh), paths={"embed/table"})
+    g_embed = g_embed.to_local().detach()
+    del state, bundle
+    _scratch.clear()
+    return counts, g_embed
+
+
+def phase10c_serve(mesh, power: str) -> dict:
+    """(c) gemma2-2b at its published width through ``make_prefill_step``
+    / ``make_decode_step`` on the 1x1 mesh: each prompt of MESH_PROMPTS
+    alone, then MESH_NEW greedy decode steps; the tokens equal to the
+    one-device path's (``models.model.prefill`` / ``decode_step``) on the
+    same weights and prompts, and the flash kernel's launches too."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.distributed import make_decode_step, make_prefill_step
+    from repro_torch.distributed.steps import distribute
+    from repro_torch.models import model as model_lib
+    _free_models("phase10 (c)")
+    cfg = get_config(GEMMA_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(10)
+    launches = {"one-device": {}, "mesh": {}}
+    dparams = None
+    for S in MESH_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                               dtype=torch.int32, device="cuda")
+        L = S + MESH_NEW
+        reset_lm_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model_lib.prefill(cfg, params, {"tokens": toks}, L)
+        want = [torch.argmax(logits, dim=-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        one_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in range(MESH_NEW):
+            pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
+            logits, cache = model_lib.decode_step(cfg, params, want[-1], pos,
+                                                  cache)
+            want.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        torch.cuda.synchronize()
+        one_decode = (time.perf_counter() - t0) / MESH_NEW
+        del cache
+        launches["one-device"][S] = lm_counts()
+        pb = make_prefill_step(cfg, mesh, InputShape("p10", S, 1, "prefill"),
+                               cache_len=L)
+        db = make_decode_step(cfg, mesh, InputShape("d10", L, 1, "decode"))
+        if dparams is None:
+            dparams = distribute(params, pb.meta["params_shardings"], mesh)
+        reset_lm_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = pb.fn(dparams, {"tokens": toks})
+        got = [torch.argmax(tok.full_tensor(), dim=-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in range(MESH_NEW):
+            pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
+            nxt, cache = db.fn(dparams, cache, got[-1], pos)
+            got.append(nxt.full_tensor())
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / MESH_NEW
+        del cache
+        launches["mesh"][S] = lm_counts()
+        w = torch.cat(want).tolist()
+        g = torch.cat(got).tolist()
+        print(f"phase10 (c) {GEMMA_ARCH} {S}-token prompt: mesh tokens {g}; "
+              f"one-device {w}; {'equal' if g == w else 'DIFFER'}; mesh "
+              f"prefill {t_prefill * 1e3:.1f} ms, decode step "
+              f"{t_decode * 1e3:.1f} ms; one-device prefill "
+              f"{one_prefill * 1e3:.1f} ms, decode step "
+              f"{one_decode * 1e3:.1f} ms ({power}); flash launches mesh "
+              f"{launches['mesh'][S]['flash_attention']} "
+              f"(wgmma {launches['mesh'][S]['flash_attention.wgmma']}), "
+              f"one-device {launches['one-device'][S]['flash_attention']}")
+        check(g == w, f"phase 10 (c): {S}-token prompt: tokens {g} on the "
+              f"mesh, {w} on one device")
+        check(launches["mesh"][S] == launches["one-device"][S],
+              f"phase 10 (c): launches {launches['mesh'][S]} on the mesh, "
+              f"{launches['one-device'][S]} on one device")
+    del params, dparams
+    return launches
+
+
+def phase10d_compress(g, power: str):
+    """(d) ``compressed_psum`` over the 1-rank process group on (b)'s
+    embedding gradient: the mean and the residual bitwise ``ef_quantize``
+    / ``dequantize`` on the CPU; its time (median of 5, CUDA events)."""
+    import torch
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize, ef_quantize)
+    err = torch.zeros_like(g, dtype=torch.float32)
+    mean, new_err = compressed_psum(g, None, err)
+    q, s, ne = ef_quantize(g.cpu(), err.cpu())
+    same = (torch.equal(mean.cpu(), dequantize(q, s))
+            and torch.equal(new_err.cpu(), ne))
+    ms = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        compressed_psum(g, None, err)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    print(f"phase10 (d) compressed_psum of the embedding gradient "
+          f"{tuple(g.shape)} {str(g.dtype)[6:]}: mean and residual "
+          f"{'bitwise equal to' if same else 'DIFFER from'} ef_quantize / "
+          f"dequantize on the CPU; {statistics.median(ms):.3f} ms (median "
+          f"of 5, {power})")
+    check(same, "phase 10 (d): compressed_psum differs from the CPU's "
+          "ef_quantize / dequantize")
+
+
+def phase10_mesh() -> dict:
+    """Phase 10's parts in order, the dry runs (e) started after (d), so
+    that nothing else runs on the host while (b)-(d) are timed; the
+    process group ended at the end.  Returns (b)'s and (c)'s launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    power = card()
+    procs = {}
+    try:
+        mesh = mesh_1x1()
+        train, g = phase10b_train(mesh, power)
+        serve = phase10c_serve(mesh, power)
+        phase10d_compress(g, power)
+        del g
+        procs = start_dryruns()
+        phase10e_dryruns(procs, power)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"phase10 total {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "serve": serve}
+
+
 def main() -> int:
     try:
         import torch
@@ -4336,6 +4704,7 @@ def main() -> int:
         platform_launches = phase7_platform()
         train, train_launches = phase8_training()
         serve_driver_launches, gemma, cluster = phase9_serving_entry_points()
+        mesh = phase10_mesh()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -4415,6 +4784,15 @@ def main() -> int:
                 "library", "library_ms", "library_device_ms", "bound_ms",
                 "bound_by")}
                 for m in gemma["times"]]}
+        # phase 10: the launches of the mesh path (a 1x1 NCCL mesh):
+        # recurrentgemma-2b's mesh train steps (b), gemma2-2b's mesh
+        # prefill and decode by prompt length (c)
+        for k in kernels:
+            if k["name"] in mesh["train"] and mesh["train"][k["name"]]:
+                k["mesh_launches"] = {"train": mesh["train"][k["name"]]}
+        next(k for k in kernels if k["name"] == "flash_attention"
+             ).setdefault("mesh_launches", {})["serve"] = {
+            S: c["flash_attention"] for S, c in mesh["serve"]["mesh"].items()}
         # the f32 attention backward (3xTF32), which no model launches,
         # rides in the attention backward's entry under "f32"
         f32b = train["flash_attention_bwd f32"]

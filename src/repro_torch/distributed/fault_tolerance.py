@@ -1,8 +1,7 @@
 """Fault tolerance for 1000+-node runs: straggler detection, heartbeat
-watchdog, elastic mesh re-planning, and failure injection for tests (a
-copy of ``repro.distributed.fault_tolerance``, which is pure Python but
-for ``make_elastic_mesh``; that one builds a JAX mesh and waits for the
-port's ``DeviceMesh`` slice).
+watchdog, elastic mesh re-planning, and failure injection for tests (port
+of ``repro.distributed.fault_tolerance``; ``make_elastic_mesh`` builds a
+``DeviceMesh`` where the reference builds a JAX mesh).
 
 The control flow these implement (exercised end-to-end by
 ``launch/train.py`` and tests/test_fault_tolerance.py):
@@ -18,7 +17,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +117,21 @@ def plan_elastic_mesh(n_devices: int, model_parallel: int = 16,
         return (usable_pods, data, model_parallel), ("pod", "data", "model")
     data = n_devices // model_parallel
     return (data, model_parallel), ("data", "model")
+
+
+def make_elastic_mesh(n_devices: Optional[int] = None,
+                      model_parallel: int = 16, device_type: str = "cuda"):
+    """The ``plan_elastic_mesh`` grid as a DeviceMesh over the first ranks
+    of the default process group (all of them when `n_devices` is None):
+    the surviving devices' mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    n = n_devices if n_devices is not None else dist.get_world_size()
+    shape, axes = plan_elastic_mesh(n, model_parallel)
+    need = math.prod(shape)
+    return DeviceMesh(device_type, torch.arange(need).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Launchers (port of ``repro.launch``): the training driver, the
-serving driver (``serve``) and the twin of ``examples/serve_cluster.py``
-(``serve_cluster``).  The mesh, dry-run and roofline launchers arrive
-with later slices."""
+"""Launchers (port of ``repro.launch``): the production mesh, the
+multi-pod dry run and the roofline analysis, the training loop
+(``train``), the serving CLI (``serve``) and the twin of
+``examples/serve_cluster.py`` (``serve_cluster``)."""

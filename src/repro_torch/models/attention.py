@@ -16,7 +16,9 @@ PyTorch einsums as in the reference.
 
 The decode cache is updated in place: the new token's k and v are written
 into the cache tensors at its slot, and the same dict is returned, which
-saves a copy of the whole cache per step.
+saves a copy of the whole cache per step.  A mesh step's decode runs on
+each rank's shards (``_decode_shards``) and returns its cache in a new
+dict of DTensors.
 
 Layout conventions:
     activations  (B, S, d_model)
@@ -31,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops
+from . import pctx
 from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap
 
 _NEG_INF = -2.3819763e38  # bf16-safe large negative
@@ -135,24 +138,102 @@ def _attend(q, k, v, spec: AttnSpec, use_kernel: bool):
 
 def attention_forward(params, x, spec: AttnSpec, positions=None,
                       eps: float = 1e-6, use_kernel: bool = True):
-    """Full-sequence (train / prefill) attention.  x: (B, S, d_model)."""
+    """Full-sequence (train / prefill) attention.  x: (B, S, d_model).
+    On DTensors the whole block runs on each rank's shards
+    (``_attention_shards``)."""
     if positions is None:
         positions = _default_positions(x)
+    if pctx.is_dtensor(x):
+        return _attention_shards(params, x, spec, positions, eps,
+                                 use_kernel)
     q, k, v = _qkv(params, x, spec, positions, eps)
     out = _attend(q, k, v, spec, use_kernel)
     return torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(x.dtype))
 
 
+def _heads_axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _tp(params, x):
+    """(query heads' entry, kv heads' entry, parameter specs, kv picker)
+    of attention on each rank's shards (Megatron's tensor-parallel
+    attention): the query heads as the "attn_q" hint splits them, the kv
+    heads as "attn_kv" does; where the kv heads stay whole and the query
+    heads are split, the picker takes (dimension 2 of k and v) the kv
+    heads the rank's query heads read."""
+    hq = pctx.spec_of("attn_q", 4)[2]
+    hkv = pctx.spec_of("attn_kv", 4)[2]
+    Hq, Hkv = params["w_q"].shape[1], params["w_k"].shape[1]
+    pick = None
+    if hq is not None and hkv is None and Hkv != Hq:
+        pick = pctx.heads_picker(x.device_mesh, hq, Hq, Hkv, x.device)
+
+    def pspec(path, t):
+        name = path.split("/")[0]
+        return {"w_q": (None, hq, None), "w_k": (None, hkv, None),
+                "w_v": (None, hkv, None), "w_o": (hq, None, None),
+                "b_q": (hq, None), "b_k": (hkv, None),
+                "b_v": (hkv, None)}.get(name, (None,) * t.ndim)
+    return hq, hkv, pspec, pick
+
+
+def _attn_local(p, x, positions, spec: AttnSpec, eps, use_kernel: bool,
+                pick, cache_len=None):
+    """The block on one rank's local tensors: its kv heads all projected
+    (a cache keeps them), those its query heads read attended."""
+    q, k, v = _qkv(p, x, spec, positions, eps)
+    kr, vr = (pick(k), pick(v)) if pick is not None else (k, v)
+    o = _attend(q, kr, vr, spec, use_kernel)
+    out = torch.einsum("bshd,hdm->bsm", o, p["w_o"].to(x.dtype))
+    if cache_len is None:
+        return out
+    return (out,) + _prefill_cache(k, v, spec, cache_len)
+
+
+def _attention_shards(params, x, spec: AttnSpec, positions, eps,
+                      use_kernel: bool, cache_len=None):
+    """``attention_forward`` (or, with `cache_len`, ``attention_make_
+    cache``) on each rank's shards (``pctx.local_block``, split as
+    ``_tp`` splits it): the output projection's partial sums added over
+    the heads' axis; a cache of the kv heads as "attn_kv" places them."""
+    hq, hkv, pspec, pick = _tp(params, x)
+    rows = pctx.activation_rows(3)
+    block = lambda p, x, pos: _attn_local(p, x, pos, spec, eps, use_kernel,
+                                          pick, cache_len)
+    if cache_len is None:
+        return pctx.local_block(block, params, x, pspec, rows,
+                                partial=_heads_axes(hq), extra=(positions,),
+                                extra_specs=(rows[:2],))
+    kv = (rows[0], None, hkv, None)
+    out, ck, cv = pctx.local_block(
+        block, params, x, pspec, [rows, kv, kv],
+        partial=[_heads_axes(hq), (), ()], extra=(positions,),
+        extra_specs=(rows[:2],))
+    return out, {"k": ck, "v": cv}
+
+
 def attention_make_cache(params, x, spec: AttnSpec, cache_len: int,
                          positions=None, eps: float = 1e-6,
                          use_kernel: bool = True):
-    """Prefill returning (output, cache) with the cache sized for decode."""
-    B, S, _ = x.shape
+    """Prefill returning (output, cache) with the cache sized for decode.
+    On DTensors the block runs on each rank's shards
+    (``_attention_shards``)."""
     if positions is None:
         positions = _default_positions(x)
+    if pctx.is_dtensor(x):
+        return _attention_shards(params, x, spec, positions, eps,
+                                 use_kernel, cache_len)
     q, k, v = _qkv(params, x, spec, positions, eps)
     out = _attend(q, k, v, spec, use_kernel)
     out = torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(x.dtype))
+    ck, cv = _prefill_cache(k, v, spec, cache_len)
+    return out, {"k": ck, "v": cv}
+
+
+def _prefill_cache(k, v, spec: AttnSpec, cache_len: int):
+    """The decode cache (k, v) of a prefill's k, v (B, S, Hkv, D)."""
+    S = k.shape[1]
     L = cache_len if spec.kind == "global" else min(spec.window, cache_len)
     if S >= L:
         # ring layout: position p lives at slot p % L
@@ -165,7 +246,7 @@ def attention_make_cache(params, x, spec: AttnSpec, cache_len: int,
         pad = (0, 0, 0, 0, 0, L - S)
         ck = torch.nn.functional.pad(k, pad)
         cv = torch.nn.functional.pad(v, pad)
-    return out, {"k": ck, "v": cv}
+    return ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -173,24 +254,62 @@ def attention_make_cache(params, x, spec: AttnSpec, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
+def _write_slot(buf, slot, new):
+    """Row `slot[b]` of cache `buf` (B, L, ...) set to `new[b, 0]`, in
+    place; `buf` returned."""
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    buf[bidx, slot] = new[:, 0]
+    return buf
+
+
 def attention_decode(params, x, cache, spec: AttnSpec, pos,
                      eps: float = 1e-6):
     """x: (B, 1, d_model); pos: (B,) int position of the new token.
     cache: {"k": (B, L, Hkv, D), "v": ...}, updated in place.
     Returns (out, cache)."""
-    B = x.shape[0]
+    if pctx.is_dtensor(x):
+        return _decode_shards(params, x, cache, spec, pos, eps)
     q, k_new, v_new = _qkv(params, x, spec, pos[:, None], eps)
+    k, v = _write_kv(cache, spec, pos, k_new, v_new)
+    return _decode_attend(params, x, q, k, v, spec, pos), cache
 
-    k, v = cache["k"], cache["v"]
+
+def _write_kv(cache, spec: AttnSpec, pos, k_new, v_new):
+    L = cache["k"].shape[1]
+    slot = torch.clamp(pos, max=L - 1) if spec.kind == "global" \
+        else pos % L
+    return (_write_slot(cache["k"], slot, k_new),
+            _write_slot(cache["v"], slot, v_new))
+
+
+def _decode_shards(params, x, cache, spec: AttnSpec, pos, eps):
+    """``attention_decode`` on each rank's shards (``pctx.local_block``,
+    split as ``_tp`` splits it): the cache's kv heads as the "attn_kv"
+    hint places them, all of them written where they stay whole, those
+    the rank's query heads read attended; its length whole on each rank
+    (a cache split over its length, sequence parallelism, is gathered)."""
+    hq, hkv, pspec, pick = _tp(params, x)
+
+    def block(p, x, k, v, pos):
+        q, k_new, v_new = _qkv(p, x, spec, pos[:, None], eps)
+        k, v = _write_kv({"k": k, "v": v}, spec, pos, k_new, v_new)
+        kr, vr = (pick(k), pick(v)) if pick is not None else (k, v)
+        return _decode_attend(p, x, q, kr, vr, spec, pos), k, v
+    rows = pctx.activation_rows(3)
+    kv = (rows[0], None, hkv, None)
+    out, k, v = pctx.local_block(
+        block, params, x, pspec, [rows, kv, kv],
+        partial=[_heads_axes(hq), (), ()], extra=(cache["k"], cache["v"],
+                                                 pos),
+        extra_specs=(kv, kv, rows[:1]))
+    return out, {"k": k, "v": v}
+
+
+def _decode_attend(params, x, q, k, v, spec: AttnSpec, pos):
+    """The new token's attention over the written cache k, v and its
+    output projection."""
+    B = x.shape[0]
     L = k.shape[1]
-    if spec.kind == "global":
-        slot = torch.clamp(pos, max=L - 1)
-    else:
-        slot = pos % L
-    bidx = torch.arange(B, device=x.device)
-    k[bidx, slot] = k_new[:, 0]
-    v[bidx, slot] = v_new[:, 0]
-
     Hq, Dk = q.shape[2], q.shape[3]
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -212,8 +331,7 @@ def attention_decode(params, x, cache, spec: AttnSpec, pos,
                                                                   _NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, 1, Hq, -1)
-    out = torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(x.dtype))
-    return out, cache
+    return torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +382,32 @@ def _mla_attend(params, x, mla, spec: AttnSpec, positions, eps,
 def mla_forward(params, x, mla, spec: AttnSpec, positions=None,
                 eps: float = 1e-6, use_kernel: bool = True):
     """Prefill/train MLA: up-project, then attention with q and k of head
-    dim qk_nope + qk_rope and v of head dim v_head_dim."""
+    dim qk_nope + qk_rope and v of head dim v_head_dim.  On DTensors the
+    whole block runs on each rank's shards (``pctx.local_block``): its
+    batch rows and the heads as the "attn_q" hint splits them (the
+    low-rank projections gathered), the output's partial sums added over
+    the heads' axis."""
     if positions is None:
         positions = _default_positions(x)
+    if pctx.is_dtensor(x):
+        hq = pctx.spec_of("attn_q", 4)[2]
+        rows = pctx.activation_rows(3)
+        return pctx.local_block(
+            lambda p, x, pos: mla_forward(p, x, mla, spec, pos, eps,
+                                          use_kernel),
+            params, x, _mla_pspec(hq), rows, partial=_heads_axes(hq),
+            extra=(positions,), extra_specs=(rows[:2],))
     return _mla_attend(params, x, mla, spec, positions, eps, use_kernel)[0]
+
+
+def _mla_pspec(hq):
+    """MLA's parameter specs on each rank's shards: the heads as the
+    "attn_q" hint splits them, the low-rank projections gathered."""
+    def pspec(path, t):
+        name = path.split("/")[0]
+        return {"w_uq": (None, hq, None), "w_ukv": (None, hq, None),
+                "w_o": (hq, None, None)}.get(name, (None,) * t.ndim)
+    return pspec
 
 
 def mla_make_cache(params, x, mla, spec: AttnSpec, cache_len: int,
@@ -275,10 +415,25 @@ def mla_make_cache(params, x, mla, spec: AttnSpec, cache_len: int,
                    use_kernel: bool = True):
     """Prefill returning (output, cache): the cache holds the latent
     c_kv (B, L, kv_lora_rank) and the rotated k_rope (B, L, qk_rope), the
-    reference's layout, sized for decode."""
+    reference's layout, sized for decode.  On DTensors the block runs on
+    each rank's shards, as ``mla_forward``'s, the latent cache whole on
+    every rank of the heads' axis."""
     S = x.shape[1]
     if positions is None:
         positions = _default_positions(x)
+    if pctx.is_dtensor(x):
+        hq = pctx.spec_of("attn_q", 4)[2]
+        rows = pctx.activation_rows(3)
+
+        def block(p, x, pos):
+            out, c = mla_make_cache(p, x, mla, spec, cache_len, pos, eps,
+                                    use_kernel)
+            return out, c["c_kv"], c["k_rope"]
+        out, c_kv, k_rope = pctx.local_block(
+            block, params, x, _mla_pspec(hq), [rows, rows, rows],
+            partial=[_heads_axes(hq), (), ()], extra=(positions,),
+            extra_specs=(rows[:2],))
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
     out, c_kv, k_rope = _mla_attend(params, x, mla, spec, positions, eps,
                                     use_kernel)
     L = cache_len
@@ -295,7 +450,25 @@ def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
                eps: float = 1e-6):
     """Absorbed-q MLA decode: scores and context are computed in the
     latent space, so the cache stays (B, L, kv_lora_rank) and is never
-    re-expanded per step.  The cache is updated in place."""
+    re-expanded per step.  The cache is updated in place.  On DTensors
+    the step runs on each rank's shards (``pctx.local_block``): its batch
+    rows and heads, the latent cache whole on every rank of the heads'
+    axis."""
+    if pctx.is_dtensor(x):
+        hq = pctx.spec_of("attn_q", 4)[2]
+        pspec = _mla_pspec(hq)
+
+        def block(p, x, c_kv, k_rope, pos):
+            out, c = mla_decode(p, x, {"c_kv": c_kv, "k_rope": k_rope},
+                                mla, spec, pos, eps)
+            return out, c["c_kv"], c["k_rope"]
+        rows = pctx.activation_rows(3)
+        out, c_kv, k_rope = pctx.local_block(
+            block, params, x, pspec, [rows, rows, rows],
+            partial=[_heads_axes(hq), (), ()],
+            extra=(cache["c_kv"], cache["k_rope"], pos),
+            extra_specs=(rows, rows, rows[:1]))
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
     B = x.shape[0]
     dtype = x.dtype
     q_nope, q_rope = _mla_q(params, x, mla, spec, pos[:, None], eps)
@@ -304,9 +477,8 @@ def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     L = c_kv.shape[1]
     slot = torch.clamp(pos, max=L - 1)
-    bidx = torch.arange(B, device=x.device)
-    c_kv[bidx, slot] = ckv_new[:, 0]
-    k_rope[bidx, slot] = krope_new[:, 0]
+    _write_slot(c_kv, slot, ckv_new)
+    _write_slot(k_rope, slot, krope_new)
 
     w_ukv = params["w_ukv"].to(dtype)
     w_uk = w_ukv[..., : mla.qk_nope_head_dim]        # (lora, H, nope)

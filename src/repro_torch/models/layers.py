@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import pctx
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -90,11 +92,30 @@ def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 def mlp(params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+    """x (..., d) -> (..., d).  On DTensors each rank computes its rows'
+    share of the hidden width (``pctx.local_call``, as the "ffn_hidden"
+    hint places it, the weights gathered over their FSDP axis) and the
+    down projection's partial sums are added over the hidden's axis: the
+    column- then row-parallel MLP of Megatron."""
     dtype = x.dtype
-    gate = x @ params["w_gate"].to(dtype)
-    up = x @ params["w_up"].to(dtype)
-    h = _act(gate, activation) * up
-    return h @ params["w_down"].to(dtype)
+    w = [params[k].to(dtype) for k in ("w_gate", "w_up", "w_down")]
+
+    def ffn(x, w_gate, w_up, w_down):
+        gate = x @ w_gate
+        up = x @ w_up
+        h = _act(gate, activation) * up
+        return h @ w_down
+    if not pctx.is_dtensor(x):
+        return ffn(x, *w)
+    key = "ffn_hidden" if x.ndim == 3 else "ffn_hidden_2d"
+    spec = pctx.spec_of(key, x.ndim)
+    if pctx.hint(key) is None:
+        spec = pctx.spec_of("activations", 3)[: x.ndim - 1] + (None,)
+    rows, hid = spec[:-1], spec[-1]
+    axes = (hid,) if isinstance(hid, str) else tuple(hid or ())
+    return pctx.local_call(ffn, (x, *w), (rows + (None,), (None, hid),
+                                           (None, hid), (hid, None)),
+                           rows + (None,), partial=axes)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +169,15 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed(params, tokens: torch.Tensor, scale: bool, d_model: int,
           dtype=torch.bfloat16) -> torch.Tensor:
+    """The rows of the table for `tokens`.  On DTensors each rank looks up
+    its own tokens' rows (``pctx.local_call``; the table whole on every
+    rank, as its rule keeps it), the gradient summed over the ranks."""
+    if pctx.is_dtensor(tokens):
+        rows = (pctx.activation_rows(3)[0],) + (None,) * (tokens.ndim - 1)
+        return pctx.local_call(
+            lambda table, tokens: embed({"table": table}, tokens, scale,
+                                        d_model, dtype),
+            (params["table"], tokens), ((), rows), rows + (None,))
     x = params["table"][tokens].to(dtype)
     if scale:
         # sqrt(d_model) rounded to the compute dtype first, as the

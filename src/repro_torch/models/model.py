@@ -5,9 +5,11 @@ The reference compiles depth as a ``lax.scan`` over periods of stacked
 layer parameters; PyTorch runs eagerly, so here depth is a Python loop
 over one parameter dict per layer, in layer order (head, then the
 periods unrolled, then the tail).  ``models.convert.params_from_numpy``
-unstacks the reference's tree into this layout.  The reference's ``pctx``
-sharding hints are the identity on one card, so the ``constrain`` calls
-are dropped.
+unstacks the reference's tree into this layout.  A block's input takes
+the "activations" hint (``pctx.constrain``: the identity on plain
+tensors, a redistribution of the DTensors of a mesh step,
+``distributed.steps``); inside a block the placements are those its
+``pctx.local_block`` specs read from the same hints.
 
 Param layout::
 
@@ -42,6 +44,7 @@ from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
+from . import pctx
 from . import rglru as rglru_mod
 from . import ssd as ssd_mod
 from .layers import (dense_init, embed, embedding_init, mlp, mlp_init,
@@ -252,6 +255,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, params, x, positions,
     (f32) in "forward" mode, else 0.0."""
     eps = cfg.norm_eps
     aux = 0.0
+    x = pctx.constrain(x, "activations")
     h = rmsnorm(params["pre_norm"], x, eps)
     new_cache = cache
     if spec.kind == "ssm":

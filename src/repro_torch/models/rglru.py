@@ -9,7 +9,8 @@ Prefill runs the recurrence through ``kernels.ops.rglru_op``, the
 hand-written serial scan on the card, where the reference calls its
 ``associative_scan`` (``lru_scan``): the same recurrence, summed in
 another order, so the two agree to f32 rounding, not bitwise.  Decode is
-one step of the recurrence in plain PyTorch.
+one step of the recurrence in plain PyTorch.  In a mesh step the block
+runs on each rank's shards (``_forward_shards``, ``_decode_shards``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import pctx
 from .layers import dense_init
 
 _C = 8.0
@@ -87,7 +89,11 @@ def _gelu(x):
 def rglru_forward(params, x, n_heads: int, rglru, state=None,
                   return_state: bool = False, use_kernel: bool = True):
     """x: (B, S, d_model) -> (B, S, d_model); with ``return_state`` also
-    the decode state {"h": (B, W) f32, "conv": (B, cw-1, W)}."""
+    the decode state {"h": (B, W) f32, "conv": (B, cw-1, W)}.  On
+    DTensors the block runs on each rank's shards (``_forward_shards``)."""
+    if pctx.is_dtensor(x):
+        return _forward_shards(params, x, n_heads, rglru, use_kernel,
+                               state, return_state)
     dtype = x.dtype
     gate = _gelu(x @ params["w_gate_branch"].to(dtype))
     u_raw = x @ params["w_x"].to(dtype)
@@ -113,9 +119,78 @@ def rglru_forward(params, x, n_heads: int, rglru, state=None,
     return out
 
 
+def _split(params, x, n_heads: int):
+    """(channel entry, local blocks, parameter specs) of the RG-LRU on
+    each rank's shards: the LRU channels split over "model" where that
+    divides both the width and the gates' blocks (the channels' weights,
+    biases and blocks with them, the input projections gathered)."""
+    from ..distributed.sharding import axis_names, axis_size
+    mesh = x.device_mesh
+    nm = axis_size(mesh, "model")
+    ch = ("model" if "model" in axis_names(mesh) and n_heads % nm == 0
+          and params["w_x"].shape[1] % nm == 0 else None)
+    nb = n_heads // nm if ch else n_heads
+
+    def pspec(path, t):
+        name = path.split("/")[0]
+        if name in ("w_x", "w_gate_branch", "conv_w"):
+            return (None, ch)
+        if name in ("w_r", "w_i"):
+            return (ch, None, None)
+        if name == "w_out":
+            return (ch, None)
+        return (ch,) if t.ndim == 1 else (None,) * t.ndim
+    return ch, nb, pspec
+
+
+def _forward_shards(params, x, n_heads: int, rglru, use_kernel: bool,
+                    state=None, return_state: bool = False):
+    """``rglru_forward`` on each rank's shards (``pctx.local_block``, as
+    ``_split`` splits it); the output projection's partial sums added
+    over "model", the states' channels as the block splits them."""
+    ch, nb, pspec = _split(params, x, n_heads)
+    rows = pctx.activation_rows(3)
+    part = (ch,) if ch else ()
+    st_specs = ((rows[0], ch), (rows[0], None, ch))
+    extra = () if state is None else (state["h"], state["conv"])
+
+    def block(p, x, *st):
+        st = {"h": st[0], "conv": st[1]} if st else None
+        got = rglru_forward(p, x, nb, rglru, st, return_state, use_kernel)
+        return (got[0], got[1]["h"], got[1]["conv"]) if return_state \
+            else got
+    if not return_state:
+        return pctx.local_block(block, params, x, pspec, rows,
+                                partial=part, extra=extra,
+                                extra_specs=st_specs[:len(extra)])
+    out, h, conv = pctx.local_block(
+        block, params, x, pspec, [rows, *st_specs], partial=[part, (), ()],
+        extra=extra, extra_specs=st_specs[:len(extra)])
+    return out, {"h": h, "conv": conv}
+
+
+def _decode_shards(params, x, state, n_heads: int, rglru):
+    ch, nb, pspec = _split(params, x, n_heads)
+    rows = pctx.activation_rows(3)
+
+    def block(p, x, h, conv):
+        out, st = rglru_decode(p, x, {"h": h, "conv": conv}, nb, rglru)
+        return out, st["h"], st["conv"]
+    out, h, conv = pctx.local_block(
+        block, params, x, pspec, [rows, (rows[0], ch), (rows[0], None, ch)],
+        partial=[(ch,) if ch else (), (), ()],
+        extra=(state["h"], state["conv"]),
+        extra_specs=((rows[0], ch), (rows[0], None, ch)))
+    return out, {"h": h, "conv": conv}
+
+
 def rglru_decode(params, x, state, n_heads: int, rglru):
     """x: (B, 1, d); state: {"h": (B, W) f32, "conv": (B, cw-1, W)}.
-    Returns (out, state) with the state's entries replaced."""
+    Returns (out, state) with the state's entries replaced.  On DTensors
+    the step runs on each rank's shards, split as ``_forward_shards``
+    splits the forward."""
+    if pctx.is_dtensor(x):
+        return _decode_shards(params, x, state, n_heads, rglru)
     dtype = x.dtype
     gate = _gelu(x @ params["w_gate_branch"].to(dtype))
     u_new = (x @ params["w_x"].to(dtype))[:, 0]

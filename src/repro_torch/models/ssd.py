@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import pctx
 from .layers import dense_init, rmsnorm, rmsnorm_init
 
 
@@ -81,12 +82,41 @@ def _heads(xBC, di: int, g: int, n: int, nh: int, hd: int):
     return xs, Bg, Cg
 
 
+def _forward_shards(params, x, ssd, eps, state, return_state: bool,
+                    use_kernel: bool):
+    """``ssd_forward`` on each rank's batch rows (``pctx.local_block``),
+    its weights gathered: the in-projection's channels interleave the
+    heads' x, B, C and dt, and the gate's norm spans every head, so the
+    block is not split over "model"; the states likewise."""
+    rows = pctx.activation_rows(3)
+    st_specs = ((rows[0], None, None, None), rows)
+    extra = () if state is None else (state["h"], state["conv"])
+
+    def block(p, x, *st):
+        st = {"h": st[0], "conv": st[1]} if st else None
+        got = ssd_forward(p, x, ssd, eps, st, return_state, use_kernel)
+        return (got[0], got[1]["h"], got[1]["conv"]) if return_state \
+            else got
+    whole = lambda path, t: (None,) * t.ndim
+    if not return_state:
+        return pctx.local_block(block, params, x, whole, rows, extra=extra,
+                                extra_specs=st_specs[:len(extra)])
+    out, h, conv = pctx.local_block(block, params, x, whole,
+                                    [rows, *st_specs], extra=extra,
+                                    extra_specs=st_specs[:len(extra)])
+    return out, {"h": h, "conv": conv}
+
+
 def ssd_forward(params, x, ssd, eps: float = 1e-6, state=None,
                 return_state: bool = False, use_kernel: bool = True):
     """Full-sequence Mamba-2 block. x: (B, S, d_model).  `state` (the
     decode state of an earlier chunk of the prompt) seeds the scan;
     ``return_state`` also returns {"h": (B, nh, hd, n), "conv":
-    (B, cw-1, conv_ch)} in the compute dtype."""
+    (B, cw-1, conv_ch)} in the compute dtype.  On DTensors the whole
+    block runs on each rank's batch rows (``_forward_shards``)."""
+    if pctx.is_dtensor(x):
+        return _forward_shards(params, x, ssd, eps, state, return_state,
+                               use_kernel)
     Bsz, S, d = x.shape
     dtype = x.dtype
     di = ssd.d_inner(d)
@@ -139,7 +169,20 @@ def xBC_raw_tail(xBC_raw, conv_width: int):
 def ssd_decode(params, x, state, ssd, eps: float = 1e-6):
     """Single-token step. x: (B, 1, d); state: {"h": (B, nh, hd, n),
     "conv": (B, conv_width-1, conv_ch)}.  Returns (out, state) with the
-    state's entries replaced."""
+    state's entries replaced.  On DTensors the step runs on each rank's
+    batch rows, the weights gathered, as ``ssd_forward``'s forward."""
+    if pctx.is_dtensor(x):
+        rows = pctx.activation_rows(3)
+
+        def block(p, x, h, conv):
+            out, st = ssd_decode(p, x, {"h": h, "conv": conv}, ssd, eps)
+            return out, st["h"], st["conv"]
+        h4 = (rows[0], None, None, None)
+        out, h, conv = pctx.local_block(
+            block, params, x, lambda path, t: (None,) * t.ndim,
+            [rows, h4, rows], extra=(state["h"], state["conv"]),
+            extra_specs=(h4, rows))
+        return out, {"h": h, "conv": conv}
     Bsz, _, d = x.shape
     dtype = x.dtype
     di = ssd.d_inner(d)

@@ -8,9 +8,13 @@ drops them; under autograd each chunk runs in ``torch.utils.checkpoint``
 chunk's are alive at a time: at vocab 256,000 and c = 500, 512 MB rather
 than S / c times that.
 
-The reference's ``pctx.constrain`` sharding hints are the identity on
-one device and are dropped.  MoE layers add their load-balance loss,
-weighted by AUX_LOSS_WEIGHT, as in the reference.
+On DTensors each chunk runs on each rank's shards
+(``_chunk_xent_shards``): its rows, and its slice of the vocabulary as
+the reference's "logits" hint splits it.  The target's logit is picked
+by a masked sum over the slice, the reference's one-hot mask-reduce, and
+the max and sums over the split vocabulary are (B, c) all-reduces; on
+plain tensors by ``gather``.  Both are exact.  MoE layers add their
+load-balance loss, weighted by AUX_LOSS_WEIGHT, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import InputShape, ModelConfig
 from ..core.predictor import resolve_device
+from . import pctx
 from .model import final_hidden, logits_from_hidden
 
 AUX_LOSS_WEIGHT = 0.01
@@ -35,10 +40,54 @@ def _pick_chunk(S: int, target: int = 512) -> int:
 
 
 def _chunk_xent(cfg: ModelConfig, params, h, targets, mask):
+    h = pctx.constrain(h, "activations")
+    if pctx.is_dtensor(h):
+        return _chunk_xent_shards(cfg, params, h, targets, mask)
     logits = logits_from_hidden(cfg, params, h).float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.sum((lse - ll) * mask)
+
+
+def _chunk_xent_shards(cfg: ModelConfig, params, h, targets, mask):
+    """``_chunk_xent`` of DTensor `h` on each rank's shards
+    (``pctx.local_call``): its rows and its slice of the vocabulary as
+    the "logits" hint places them (the table sliced to match); the max
+    and the two sums over a split vocabulary all-reduced over its axis,
+    (B, c) each, the reference's one-hot mask-reduce; the chunk's sum a
+    partial sum over the rows' axes."""
+    from ..distributed.sharding import axis_size
+    key = "lm_head" if "lm_head" in params else "embed"
+    table = params[key]["table"]
+    mesh = h.device_mesh
+    rows, _, vent = pctx.spec_of("logits", 3)
+    if pctx.hint("logits") is None:
+        rows, vent = pctx.activation_rows(3)[0], None
+    if not isinstance(vent, str) or axis_size(mesh, vent) == 1:
+        vent = None                     # the whole vocabulary on each rank
+    v0 = pctx.axes_rank(mesh, vent) * (table.shape[0] //
+                                       axis_size(mesh, vent)) if vent else 0
+
+    def local(h, table, targets, mask):
+        # the table under both names: logits_from_hidden reads "embed"
+        logits = logits_from_hidden(
+            cfg, {"embed": {"table": table}, key: {"table": table}},
+            h).float()
+        m = torch.amax(logits, dim=-1).detach()
+        if vent:
+            m = pctx.max_over(m, mesh, vent)
+        s = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        vocab = v0 + torch.arange(logits.shape[-1], device=logits.device)
+        hit = vocab == targets.long()[..., None]
+        ll = torch.sum(torch.where(hit, logits, torch.zeros_like(logits)),
+                       dim=-1)
+        if vent:
+            s, ll = pctx.sum_over(torch.stack([s, ll]), mesh, vent).unbind(0)
+        return torch.sum((m + torch.log(s) - ll) * mask)
+    r2 = (rows, None)
+    return pctx.local_call(local, (h, table, targets, mask),
+                           ((rows, None, None), (vent, None), r2, r2), (),
+                           partial=pctx.axes_of(rows))
 
 
 def chunked_xent(cfg: ModelConfig, params, h, targets, mask=None,

@@ -14,6 +14,8 @@ of bf16 state (some six copies at once) stay a slice's size rather than
 the leaf's (deepseek-v2's stacked experts are 1.26e9 elements, 5 GB a
 copy).  The step count, the learning rate and the clip scale stay on the
 parameters' device as 0-d tensors: a step never waits for the card.
+DTensor leaves (a mesh step's) are updated on each rank's own shards,
+the global norm taken over their global values.
 
 Weight decay skips norms, biases and scalars by name, as the reference
 does: its rule reads ``str(path[-1])`` of a JAX key path, ``"['bias1']"``
@@ -26,6 +28,8 @@ import math
 from typing import Any, List, NamedTuple, Tuple
 
 import torch
+
+from ..models.pctx import is_dtensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -82,7 +86,9 @@ def _device(tree) -> torch.device:
 
 def init(params, cfg: AdamWConfig) -> OptState:
     mdt = _DTYPES[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    # zeros_like: DTensor parameters get moments of their placements
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt,
+                                       memory_format=torch.contiguous_format)
     return OptState(m=_map(zeros, params), v=_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32,
                                      device=_device(params)))
@@ -101,9 +107,26 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The global L2 norm of the tree's leaves; of DTensor leaves, the
+    norm of their global values, as a plain tensor."""
     leaves = [t for _, t in leaves_with_path(tree)]
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in leaves))
+    return norm.full_tensor() if is_dtensor(norm) else norm
+
+
+def _local(p, g, m, v):
+    """The local shards of a DTensor leaf's parameter, gradient and
+    moments, which share one set of placements (the update is
+    elementwise, so each rank updates its own shards); plain tensors as
+    they are."""
+    if not is_dtensor(p):
+        return p, g, m, v
+    if not (tuple(p.placements) == tuple(g.placements)
+            == tuple(m.placements) == tuple(v.placements)):
+        raise ValueError("parameter, gradient and moments are placed "
+                         "differently")
+    return p.to_local(), g.to_local(), m.to_local(), v.to_local()
 
 
 def _decayable(path) -> bool:
@@ -137,6 +160,7 @@ def update(params, grads, state: OptState, cfg: AdamWConfig):
             == len(v_leaves)):
         raise ValueError("params, grads and moments are not congruent")
     for (path, p), g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+        p, g, m, v = _local(p, g, m, v)
         decay = _decayable(path)
         n = p.shape[0] if p.dim() else 0
         rows = max(1, SLICE_ELEMENTS * n // max(p.numel(), 1))

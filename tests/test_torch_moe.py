@@ -553,20 +553,39 @@ def test_prefill_decode_matches_forward(arch):
 
 
 # ---------------------------------------------------------------------------
-# pctx: one device, no hints
+# pctx: hints on a mesh, the identity on plain tensors
 # ---------------------------------------------------------------------------
 
 
-def test_sharding_hints_raise_naming_the_distribution_slice():
-    """An empty context is the identity, as the reference's is; a
-    non-empty one needs a mesh and raises rather than being ignored."""
-    x = torch.ones(2, 3)
-    with pctx.sharding_hints(None):
-        assert pctx.constrain(x, "activations") is x
+def test_sharding_hints_redistribute_dtensors_on_a_one_rank_mesh(tmp_path):
+    """Hints installed on a 1-rank gloo mesh: ``constrain`` redistributes
+    a DTensor to the hint's placements (its values unchanged), skips a
+    rank-mismatched site and a key without a hint, and returns a plain
+    tensor as it is; the context is restored on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed.sharding import NamedSharding, P
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        t = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+        x = distribute_tensor(t, mesh, (Shard(0), Replicate()))
+        plain = torch.ones(2, 3)
+        hints = {"activations": NamedSharding(mesh, P(None, None, "model")),
+                 "attn_q": NamedSharding(mesh, P("data", None, "model",
+                                                 None))}
+        with pctx.sharding_hints(hints):
+            y = pctx.constrain(x, "activations")
+            assert tuple(y.placements) == (Replicate(), Shard(2))
+            assert torch.equal(y.full_tensor(), t)
+            assert pctx.constrain(x, "attn_q") is x    # rank-mismatched
+            assert pctx.constrain(x, "logits") is x     # no hint
+            assert pctx.constrain(plain, "activations") is plain
+            assert pctx.hint("attn_q") is hints["attn_q"]
         assert pctx.hint("activations") is None
-    with pctx.sharding_hints({}):
-        assert pctx.constrain(x, "moe_dispatch") is x
-    with pytest.raises(NotImplementedError, match="distribution"):
-        with pctx.sharding_hints({"activations": object()}):
-            pass
-    assert pctx.hint("activations") is None
+        assert pctx.constrain(x, "activations") is x
+    finally:
+        dist.destroy_process_group()

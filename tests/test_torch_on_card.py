@@ -1547,3 +1547,81 @@ def test_mamba_smoke_train_grads_on_card_kernels_match_plain():
             name
         if "A_log" in name or "dt_bias" in name:
             assert float(g.abs().max()) > 0, name
+
+
+@pytest.mark.cuda_only
+def test_mesh_train_step_on_card_matches_one_device(tmp_path):
+    """The recurrentgemma smoke config's mesh train step on a 1x1 NCCL
+    mesh (a FileStore under tmp_path) against the one-device step on the
+    same seed and batches: losses within 1e-5 relative over three steps,
+    the parameters after them within 1e-5, and the same kernel launches
+    (the attention and RG-LRU scan forwards and backwards)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.distributed import make_train_step
+    from repro_torch.distributed.steps import _full
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.launch.train import build_state, put_batch
+    from repro_torch.models.steps import make_train_batch
+    from repro_torch.optim import adamw
+    dev = _card()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_smoke_config("recurrentgemma-2b")
+        shape = InputShape("t", 64, 2, "train")
+        opt = adamw.AdamWConfig(total_steps=4, warmup_steps=1)
+        runs = []
+        for m in (None, mesh):
+            bundle = make_train_step(cfg, m, shape, opt, device=dev)
+            state = build_state(cfg, opt, 0, dev)
+            counts = [flash_attention.launches, rglru_scan.launches,
+                      flash_attention_bwd.launches, rglru_scan_bwd.launches]
+            losses = []
+            for i in range(3):
+                batch = make_train_batch(cfg, shape,
+                                         np.random.default_rng(i), dev)
+                state, met = bundle.fn(state, batch)
+                losses.append(float(met["loss"]))
+            counts = [c1 - c0 for c0, c1 in zip(counts, [
+                flash_attention.launches, rglru_scan.launches,
+                flash_attention_bwd.launches, rglru_scan_bwd.launches])]
+            runs.append((losses, counts, [
+                _full(p) for _, p in adamw.leaves_with_path(
+                    state["params"])]))
+        (l0, c0, p0), (l1, c1, p1) = runs
+        np.testing.assert_allclose(l1, l0, rtol=1e-5)
+        assert c1 == c0 and all(c > 0 for c in c0)
+        for a, b in zip(p0, p1):
+            assert float((a - b).abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("seed", range(4))
+def test_quantize_on_card_is_bitwise_the_cpu(seed):
+    """``compression.quantize`` / ``ef_quantize`` on the card bitwise the
+    CPU's over 200 tensors of scales from 1e-8 to 1e2, the scale numpy's
+    IEEE float32 division by 127 on both (CUDA's division by a Python
+    scalar, a product with its reciprocal, would round some differently)."""
+    from repro_torch.distributed.compression import ef_quantize, quantize
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        g = torch.from_numpy(rng.standard_normal(64).astype(np.float32)
+                             * np.float32(10.0 ** rng.uniform(-8, 2)))
+        err = torch.from_numpy(rng.standard_normal(64).astype(np.float32)
+                               * np.float32(1e-3))
+        q0, s0 = quantize(g)
+        q1, s1 = quantize(g.to(dev))
+        assert torch.equal(q1.cpu(), q0) and torch.equal(s1.cpu(), s0)
+        ieee = np.float32(g.abs().max().item()) / np.float32(127.0)
+        assert s0.numpy().view(np.int32) == np.asarray(ieee).view(np.int32)
+        want = ef_quantize(g, err)
+        got = ef_quantize(g.to(dev), err.to(dev))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -430,7 +430,8 @@ def test_three_train_steps_match_reference(smoke):
         return {"params": p, "opt": o}, loss
 
     tstate = train_state_from_numpy(tcfg, _np(state), device="cpu")
-    bundle = make_train_step(tcfg, tbase.InputShape("t", 32, 2, "train"),
+    bundle = make_train_step(tcfg, None,
+                             tbase.InputShape("t", 32, 2, "train"),
                              tadamw.AdamWConfig(**ocfg), remat=True,
                              device="cpu")
     for b in batches:
@@ -470,7 +471,8 @@ def test_deepseek_bf16_state_trains_and_loses_no_gradient():
             if g is None or not bool(g.any())]
     assert not lost, lost
     before = [t.detach().clone() for t in leaves]
-    bundle = make_train_step(cfg, tbase.InputShape("t", 32, 2, "train"),
+    bundle = make_train_step(cfg, None,
+                             tbase.InputShape("t", 32, 2, "train"),
                              ocfg, remat=True, device="cpu")
     losses = []
     for i in range(3):
@@ -498,8 +500,8 @@ def test_microbatch_step_matches_whole_batch(smoke):
             tcfg, {"params": _np(jp),
                    "opt": _np(jadamw.init(jp, jadamw.AdamWConfig()))},
             device="cpu")
-        bundle = make_train_step(tcfg, shape, remat=False, microbatch=mb,
-                                 device="cpu")
+        bundle = make_train_step(tcfg, None, shape, remat=False,
+                                 microbatch=mb, device="cpu")
         st, m = bundle.fn(st, b)
         out.append((float(m["loss"]), params_to_numpy(tcfg, st["params"])))
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5)
