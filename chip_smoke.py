@@ -47,7 +47,8 @@ Phases (each one failing makes the script exit non-zero):
      run; the sweep calls' shape distribution; both kernels timed at the
      largest and the median call shape of the run, the first forest
      kernel beside the new one; then (b) and (c) once more under the
-     profiler, with the forest and sweep kernels' device time in all;
+     profiler for 60 simulated seconds of the scenario, with the forest
+     and sweep kernels' device time in all;
   4. the LM kernels against their plain versions on the card (the three
      path functions printed; every line names the kernel that ran, which must
      be the one ``path`` names): ``flash_attention`` at
@@ -260,7 +261,54 @@ Phases (each one failing makes the script exit non-zero):
      nothing else runs while (b)-(d) are timed; at most 120 s): status
      ok, the argument GiB a device, the three roofline terms and the
      bottleneck; every number beside the card's name and power limit;
-  11. the f32 flash path's times and the f32 attention backward's on
+  11. the six architectures no earlier phase serves, each at its
+     published width with random weights from a seeded generator, bf16
+     compute, freed before the next: (a) gemma-7b (28 layers, 16 heads of
+     256, MHA, f32 weights), (b) gemma3-12b (48 layers, 5 local in a
+     window of 1,024 to 1 global, 16 query heads over 8 kv heads of 256,
+     qk-norm, two RoPE thetas; bf16 weights; prompts of 2,048 and 3,000
+     cross the window), (c) qwen1.5-110b cut from 80 layers to 8 (64
+     query heads over 8 kv heads of 128, QKV bias; bf16 weights), (d)
+     llama4-maverick cut from 48 layers to one period (three chunked
+     layers in chunks of 8,192 and a global one without RoPE, 40 query
+     heads over 8 kv heads of 128, MoE on the odd layers, 128 experts
+     top-1 and a shared one; bf16 weights, 70.6 GB), served as phase 5
+     serves (two prompts of 512 and of 3,000 tokens, llama4 two of 10,000
+     too, past a chunk boundary, in caches of 10,240; 16 new tokens):
+     every prefill launches one flash kernel a layer, all on the wgmma
+     path, exactly; the prefills' logits and first tokens held against
+     the plain run to phase 5's limits (llama4: where every MoE layer
+     routed the last position alike, the routing differences printed;
+     its 10,000-token prompts have no plain run, and the profiled one's
+     flash outputs are each held against the plain version on its own
+     q, k, v); (e) internvl2-2b (24 layers, f32 weights): its 256
+     projected patch embeddings before prompts of 512 and 3,000 tokens
+     through ``model.prefill`` and 15 greedy ``model.decode_step`` calls,
+     24 wgmma launches a prefill, every step's logits held, the tokens
+     while the margins allow; (f) hubert-xlarge (48 non-causal layers of
+     16 heads of 80, f32 weights) through ``model.forward`` on frames of
+     width 512 at (1, 3,000) and (4, 1,000): 48 launches a forward on the
+     CUDA-core kernel; its own bf16 rounding moves the (B, S, 504) logits
+     past phase 5's limit, so they are held as phase 9 (b) holds
+     gemma2-2b's, in norm against the same forward in f32 (no farther from
+     it than 1.25 times the plain run), and the argmax equal to the f32
+     one wherever its margin is wider than 2.5 times the plain run's own
+     deviation there; each model's peak memory and
+     time on a line of its own; (g) the first layer of each of the six
+     (gemma3-12b: its period of 6 layers) at published width, f32
+     weights, bf16 compute, S 1,024: every gradient leaf through the
+     kernels against the plain versions as phase 8 (c) holds them, the
+     forward and backward launches exact by path (the backward on wgmma
+     at D 128 and 256, on the CUDA cores at hubert's D 80, non-causal);
+     (h) the flash kernel at the new shapes (qwen's D 128 group 8 causal
+     at S 3,000, llama4's chunked 8,192 at S 10,000, gemma3's local
+     1,024 at D 256 group 2 at S 3,000, hubert's D 80 non-causal at S
+     3,000 on the CUDA-core kernel), held against its plain version and
+     timed beside it, its bound and one scaled_dot_product_attention call
+     with the same boolean mask (the kv heads shared through
+     `enable_gqa`); phase 11's time, beside the card's name and power
+     limit;
+  12. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -278,7 +326,9 @@ Phases (each one failing makes the script exit non-zero):
      driver's forest launches under "serve_launches", gemma2-2b's flash
      launches and its shapes' times under "gemma2", the twin's launches
      by load under "cluster_launches"; phase 10's launches on the mesh
-     under "mesh_launches"), then the device line.
+     under "mesh_launches"; phase 11's launches by architecture and path
+     under "phase11", in the attention's entry with the times of (h) and
+     in the attention backward's from (g)), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -421,6 +471,10 @@ FOREST_N = (1, 20, 255, 256, 257, 9372, 200_000)
 #: time
 QUEUE_CYCLES = 4_000_000
 SCENARIO = dict(n_functions=24, duration_s=180, target_nodes=1024, seed=0)
+#: phase 3's profiled reruns run the scenario for 60 simulated seconds,
+#: not 180: the profiler's processing of the whole device-drain run's
+#: device events took 77 s of host time beside the run's 20.7 s
+PROFILED_S = 60
 #: phase 7 (b): the control plane's own size through Platform.build,
 #: sharded into cells, admission on; per-function conservation of
 #: admitted = served + dropped + queued within CONSERVATION_TOL
@@ -1011,11 +1065,14 @@ def phase2_other_worlds():
                   "device-drain tables differ from numpy")
 
 
-def _main_path_sim(label: str, engine: str, drain: str):
+def _main_path_sim(label: str, engine: str, drain: str,
+                   duration_s: int = SCENARIO["duration_s"]):
     """A fresh world (the ground truth's noise RNG is stateful) and the
-    main path's Simulation on it; returns (sim, world build seconds)."""
+    main path's Simulation on it, `duration_s` simulated seconds long;
+    returns (sim, world build seconds)."""
     import repro_torch.core as core
-    scn = core.make_scenario("burst-storm", **SCENARIO)
+    scn = core.make_scenario("burst-storm",
+                             **dict(SCENARIO, duration_s=duration_s))
     t0 = time.perf_counter()
     world = core.scenario_world(scn, engine=engine)
     build_s = time.perf_counter() - t0
@@ -1113,13 +1170,14 @@ def print_sweep_shapes(calls):
 
 def device_share(label: str, engine: str, drain: str):
     """The main path once more under torch.profiler, device activity
-    only: the device's busy time (kernels and copies, from CUPTI) over
-    the run's wall time, and the largest device entries.  A measurement
-    only; prints "not measured" when the profiler sees no device time."""
+    only, PROFILED_S simulated seconds of it: the device's busy time
+    (kernels and copies, from CUPTI) over the run's wall time, and the
+    largest device entries.  A measurement only; prints "not measured"
+    when the profiler sees no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sim, _ = _main_path_sim(label, engine, drain)
+    sim, _ = _main_path_sim(label, engine, drain, PROFILED_S)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run()
@@ -1134,7 +1192,8 @@ def device_share(label: str, engine: str, drain: str):
         return
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
     print(f"phase3 device ({label}) engine={engine} drain={drain}, "
-          f"profiled run {wall:.2f} s: device busy {busy_s:.4f} s, idle "
+          f"profiled run ({PROFILED_S} simulated s) {wall:.2f} s: device "
+          f"busy {busy_s:.4f} s, idle "
           f"share {1 - busy_s / wall:.4f}; largest: " + "; ".join(
               f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f}"
               f" ms" for e in top))
@@ -1321,7 +1380,8 @@ def hold_flash(q, k, v, kw, with_library: bool):
     """flash_attention on q, k (BH, S, D) and v (BH, S, Dv) tensors
     against its plain version (k and v repeated, materialised softmax),
     both timed; the library yardstick is scaled_dot_product_attention
-    with the same boolean mask (which takes Dv other than D), or with a
+    with the same boolean mask (which takes Dv other than D, and groups
+    of query heads over fewer kv heads through `enable_gqa`), or with a
     softcap, which sdpa does not take, one compiled flex_attention call
     (``flex_library``), held against the plain version as the kernel is.
     The wrapper must launch the kernel that ``path`` names; where that is
@@ -1390,14 +1450,19 @@ def hold_flash(q, k, v, kw, with_library: bool):
             out["library_err"], out["library_worst"] = held(
                 got_lib, want, "flex_attention")
         else:
-            # one kv head (MQA) broadcast over the query heads
             q4 = q.view(1, bh, s, d)
-            k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
-            v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
+            gqa = 1 < group < bh
+            if gqa:
+                # query head h reads kv head h // G, as the kernel does
+                k4, v4 = k.view(1, -1, s, d), v.view(1, -1, s, dv)
+            else:
+                # one kv head (MQA), or one for each query head
+                k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
+                v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
 
             def library():
-                return F.scaled_dot_product_attention(q4, k4, v4,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, enable_gqa=gqa)
 
             out["library"] = "sdpa"
         # the kernel and the library call are compared: timed in turn
@@ -1872,6 +1937,14 @@ def reset_lm_counts():
         module.reset_launches()
 
 
+def flash_launches(n: int, kernel: str) -> dict:
+    """The LM kernels' launch counts (``lm_counts``' keys) of a prefill
+    whose only kernels are `n` flash launches, all on path `kernel`."""
+    want = {k: 0 for k in lm_counts()}
+    want["flash_attention"] = want[f"flash_attention.{kernel}"] = n
+    return want
+
+
 class ServeRecorder:
     """Keeps, in the order the engine admits requests, each prefill's
     last-position logits and the same logits before the model's final
@@ -2079,14 +2152,27 @@ def profile_serving(cfg, params, prompt, phase: str, first_ms=None,
 
 def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
                      per_prefill: dict, layers_label: str, first_ms=None,
-                     max_len: int = SERVE_MAX_LEN, f32_witness: bool = False):
-    """`arch` at its published width on the card, random f32 weights from
-    a seeded generator, computed in the config's dtype: one
-    ServingEngine instance (4 slots, caches of `max_len`) serves two
-    requests of each prompt length, with the kernels and then with their
-    plain versions.  Each prefill must launch `per_prefill` kernels; the
-    prefills' logits, final states (of the recurrent or SSM layers, where
-    the model has any) and first tokens must agree.  With `f32_witness`
+                     max_len: int = SERVE_MAX_LEN, f32_witness: bool = False,
+                     cfg=None, param_dtype=None, n_plain: int = 0,
+                     stash_rows: int = 0):
+    """`arch` at its published width on the card (`cfg`, where given, is
+    its config cut in depth), random weights from a seeded generator
+    (f32, or `param_dtype`; the MoE router and the scans' own parameters
+    stay f32), computed in the config's dtype: one ServingEngine instance
+    (4 slots, caches of `max_len`) serves two requests of each prompt
+    length, with the kernels and then, the first `n_plain` of them (all
+    where 0: a prompt too long for the plain version's materialised
+    scores is left out), with their plain versions.  Each prefill must
+    launch `per_prefill` kernels; the prefills' logits, final states (of
+    the recurrent or SSM layers, where the model has any) and first
+    tokens must agree.  With `stash_rows`, every flash call of the
+    profiled prefill (the last prompt's) is held against the plain
+    version on its own q, k, v, `stash_rows` query rows at a time
+    (``hold_stashed_flash``).  With MoE layers, bf16 rounding flips
+    near-tied experts between the two runs: each prefill's routing is
+    compared layer by layer (printed), and its logits and first token are
+    held where every layer routed the last position alike, which at least
+    one prefill must.  With `f32_witness`
     (a model whose own bf16 rounding moves its logits by more than
     LOGIT_TOL of the largest) the logits are held in norm instead: within
     LOGIT_TOL of the plain run's, and no farther than WITNESS_RATIO times
@@ -2094,28 +2180,36 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     plain versions; and so are the logits before the final softcap (which
     saturates random weights' logits), which must also be within
     LOGIT_TOL of their largest |logit| and whose argmax must agree where
-    the plain run's top-2 margin exceeds that.  Returns
-    the kernels' launches in the kernels' run."""
+    the plain run's top-2 margin exceeds that.  Returns the kernels'
+    launches in the kernels' run and that drain's peak memory (bytes)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
     label = phase.replace("phase", "phase ")
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = cfg or full
+    param_dtype = param_dtype or torch.float32
     t0 = time.perf_counter()
     params = model_lib.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        param_dtype=param_dtype)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"{phase} {arch}: {n_params:,} parameters (f32, computed in "
-          f"{cfg.dtype}; the config's estimate {cfg.param_count():,}), "
-          f"{cfg.n_layers} layers ({layers_label}), d_model {cfg.d_model}, "
-          f"init {time.perf_counter() - t0:.2f} s, "
+    leaves = list(_leaves(params))
+    print(f"{phase} {arch}: {sum(t.numel() for t in leaves):,} parameters "
+          f"({str(param_dtype)[6:]}, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} "
+          f"GB, computed in {cfg.dtype}; the config's estimate "
+          f"{cfg.param_count():,}), {cfg.n_layers} of {full.n_layers} "
+          f"layers ({layers_label}), d_model {cfg.d_model}, init "
+          f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    del leaves
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in prompt_lengths for _ in range(2)]
+    plain = prompts[:n_plain or len(prompts)]
     # warm-up (cuBLAS handles, the kernels' first launch), not counted
     warm = ServingEngine(cfg, params, slots=1, max_len=max_len)
     warm.scale_up(1)
@@ -2146,29 +2240,66 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
           f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
           f"{peak / 2**30:.3f} GiB")
 
-    profile_serving(cfg, params, prompts[-1], phase, first_ms, max_len)
+    stash = FlashStash() if stash_rows else None
+    try:
+        profile_serving(cfg, params, prompts[-1], phase, first_ms, max_len)
+    finally:
+        if stash is not None:
+            stash.close()
+    worst_layer = None
+    if stash is not None:
+        n_flash = per_prefill["flash_attention"]
+        check(len(stash.calls) == n_flash, f"{label}: the profiled prefill "
+              f"made {len(stash.calls)} flash calls, not {n_flash}")
+        worst_layer = hold_stashed_flash(
+            stash.calls, f"{phase} profiled {len(prompts[-1])}-token "
+            "prefill", stash_rows)
+        del stash
 
-    done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
+    done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, plain,
                                                   False, max_len)
     check(not any(launches_p.values()),
           f"{label}: the plain run launched kernels {launches_p}")
-    check(len(rec_k.logits) == len(rec_p.logits) == len(prompts),
+    check(len(rec_k.logits) == len(prompts)
+          and len(rec_p.logits) == len(plain),
           f"{label}: a prefill was not recorded")
-    worst, worst_h, n_checked, n_pre_checked = 0.0, 0.0, 0, 0
-    for i, (lk, lp) in enumerate(zip(rec_k.logits, rec_p.logits)):
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    check(all(len(r) == n_moe for r in rec_k.routes + rec_p.routes),
+          f"{label}: a prefill's routing was not recorded")
+    flips = [[0, 0] for _ in range(n_moe)]
+    worst, worst_h, n_held, n_checked, n_pre_checked = 0.0, 0.0, 0, 0, 0
+    for i, lp in enumerate(rec_p.logits):
+        lk = rec_k.logits[i]
         check(bool(torch.isfinite(lk).all()),
               f"{label} prefill {i}: logits not finite")
+        # MoE: held where every layer routed the last position alike
+        diffs = [_routing_diff(a, b)
+                 for a, b in zip(rec_k.routes[i], rec_p.routes[i])]
+        for j, (n_set, n_keep, _) in enumerate(diffs):
+            flips[j][0] += n_set
+            flips[j][1] += n_keep
+        agreed = all(last for _, _, last in diffs)
         scale = float(lp.abs().max())
         err = float((lk - lp).abs().max())
-        worst = max(worst, err / scale)
         top2 = torch.topk(lp, 2).values
         margin = float(top2[0] - top2[1])
         tol = LOGIT_TOL * scale
         same = int(lk.argmax()) == int(lp.argmax())
-        print(f"{phase} prefill {i} (prompt {len(prompts[i])}): logits "
-              f"max_abs_err {err:.4f} of max |logit| {scale:.2f} "
-              f"(tol {tol:.4f}{', not held' if f32_witness else ''}); "
-              f"top-2 margin {margin:.4f}; first token same={same}")
+        routed = (f"routing differs from the plain run in "
+                  f"{[d[0] for d in diffs]} tokens' experts and "
+                  f"{[d[1] for d in diffs]} keep flags by MoE layer, the "
+                  f"last position agrees by layer "
+                  f"{[int(d[2]) for d in diffs]}; " if n_moe else "")
+        held = ("not held: routing differs" if not agreed else
+                "not held" if f32_witness else "held")
+        print(f"{phase} prefill {i} (prompt {len(prompts[i])}): {routed}"
+              f"logits max_abs_err {err:.4f} of max |logit| {scale:.2f} "
+              f"(tol {tol:.4f}, {held}); top-2 margin {margin:.4f}; first "
+              f"token same={same}")
+        if not agreed:
+            continue
+        n_held += 1
+        worst = max(worst, err / scale)
         if f32_witness:
             toks = torch.as_tensor(prompts[i][None].astype(np.int64),
                                    device=model_lib.params_device(params))
@@ -2234,31 +2365,42 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
         if margin > tol:
             n_checked += 1
             check(same, f"{label} prefill {i}: first token differs")
+    held = (f"logits held on {n_held} of {len(plain)} prefills (of "
+            f"{len(prompts)}; worst {worst:.5f} of max |logit|), first "
+            f"token checked on {n_checked}"
+            + (f", the argmax before the cap on {n_pre_checked}"
+               if f32_witness else "")
+            + ("" if worst_layer is None else
+               f"; the profiled prefill's flash outputs at worst "
+               f"{worst_layer:.3g} of their allowance"))
+    if n_moe:
+        print(f"{phase} routing decisions that differ between the kernels' "
+              f"and the plain run, summed over the {len(plain)} prefills, "
+              "by MoE layer (tokens whose expert set differs / assignments "
+              "whose keep flag differs): " + "; ".join(
+                  f"layer {j + 1} {a} / {b}"
+                  for j, (a, b) in enumerate(flips)))
+        check(n_held > 0, f"{label}: no prompt's routing agreed at its last "
+              "position, so no logits were held")
     # how the state error grows with depth: bf16 rounding of each layer's
     # output, which the two runs do at other places, adds up layer by layer
     n_layers = len(rec_k.states[0])
     if not n_layers:
-        print(f"{phase} plain run: drain {wall_p:.3f} s; worst logits error "
-              f"{worst:.5f} of max |logit|; no recurrent or SSM state; "
-              f"first token checked on {n_checked} of {len(prompts)} "
-              "prefills"
-              + (f", the argmax before the cap on {n_pre_checked}"
-                 if f32_witness else ""))
-        return launches
+        print(f"{phase} plain run: drain {wall_p:.3f} s; {held}; no "
+              "recurrent or SSM state")
+        return launches, peak
     by_depth = [max(float((rec_k.states[i][j] - rec_p.states[i][j]).norm()
                           / rec_p.states[i][j].norm())
-                    for i in range(len(prompts))) for j in range(n_layers)]
+                    for i in range(len(plain))) for j in range(n_layers)]
     marks = sorted({0, n_layers // 4, n_layers // 2, n_layers - 1})
     print(f"{phase} state error by layer (worst over prefills): " + "; ".join(
         f"layer {j + 1} {by_depth[j]:.5f}" for j in marks))
     print(f"{phase} state error by layer as a share of the {LOGIT_TOL} "
           "limit, layers 1 to " f"{n_layers}: " + " ".join(
               f"{e / LOGIT_TOL:.3f}" for e in by_depth))
-    print(f"{phase} plain run: drain {wall_p:.3f} s; worst logits error "
-          f"{worst:.5f} of max |logit|; worst state error {worst_h:.5f} in "
-          f"norm over {len(rec_k.states[0])} layers; first token checked "
-          f"on {n_checked} of {len(prompts)} prefills")
-    return launches
+    print(f"{phase} plain run: drain {wall_p:.3f} s; {held}; worst state "
+          f"error {worst_h:.5f} in norm over {n_layers} layers")
+    return launches, peak
 
 
 def _leaves(tree):
@@ -2291,7 +2433,7 @@ def phase5_serving(flash_first_ms: float, scan_first_ms: float):
     from repro_torch.configs import get_config
     kinds = get_config(SERVE_ARCH).layer_kinds()
     n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
-    return serve_full_width(
+    launches, _ = serve_full_width(
         "phase5", SERVE_ARCH, SERVE_PROMPTS, 5,
         {"flash_attention": n_local, "flash_attention.wgmma": n_local,
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
@@ -2300,6 +2442,7 @@ def phase5_serving(flash_first_ms: float, scan_first_ms: float):
          "ssd_scan.simt": 0},
         f"{n_local} local + {n_rec} recurrent",
         {"flash": n_local * flash_first_ms, "scan": n_rec * scan_first_ms})
+    return launches
 
 
 def phase6_ssm_serving():
@@ -2313,7 +2456,7 @@ def phase6_ssm_serving():
     check(n_ssm == cfg.n_layers == 64 and cfg.d_model == 2560,
           f"phase 6: {SSM_ARCH} is {cfg.n_layers} layers ({n_ssm} SSM) of "
           f"{cfg.d_model}")
-    return serve_full_width(
+    launches, _ = serve_full_width(
         "phase6", SSM_ARCH, SSM_PROMPTS, 6,
         {"flash_attention": 0, "flash_attention.wgmma": 0,
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
@@ -2321,6 +2464,7 @@ def phase6_ssm_serving():
          "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
+    return launches
 
 
 class FlashStash:
@@ -2397,20 +2541,18 @@ def _routing_diff(rk, rp):
 def phase6b_moe_serving():
     """deepseek-v2-236b at its published width, depth cut to MOE_LAYERS
     (the dense first layer and six MoE layers), bf16 weights (the router
-    f32) from a seeded generator, after phase 6's model is freed: the
-    serving setup of phase 5.  Every prefill launches one flash kernel a
-    layer, all on the wgmma path (q and k of head dim 192, v of 128);
-    the profiled 3,000-token prefill's flash outputs are held against the
-    plain version on the same q, k, v; the plain run's routing is compared
-    layer by layer, and the logits and first tokens of every prompt whose
-    routing agreed at its last position in every layer are held as in
-    phase 5.  Returns the launches of the kernels' run."""
+    f32) from a seeded generator, after phase 6's model is freed, served
+    as phase 5 serves (``serve_full_width``): every prefill launches one
+    flash kernel a layer, all on the wgmma path (q and k of head dim 192,
+    v of 128); the profiled 3,000-token prefill's flash outputs are held
+    against the plain version on the same q, k, v; the plain run's
+    routing is compared layer by layer, and the logits and first tokens
+    of every prompt whose routing agreed at its last position in every
+    layer are held as in phase 5.  Returns the launches of the kernels'
+    run."""
     import gc
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import model as model_lib
-    from repro_torch.serving.engine import Request, ServingEngine
     t_phase = time.perf_counter()
     _free_models("phase6b")
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
@@ -2423,127 +2565,14 @@ def phase6b_moe_serving():
                                       MLA_QK_DIM, MLA_V_DIM, 160, 6, 1536,
                                       2, 102400, MOE_LAYERS - 1),
           f"phase 6 (b): {MOE_ARCH} is not at its published width")
-    t0 = time.perf_counter()
-    params = model_lib.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-        param_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-
-    def gbytes(tree):
-        return sum(t.numel() * t.element_size() for t in _leaves(tree)) / 1e9
-
-    print(f"phase6b {MOE_ARCH}: {sum(t.numel() for t in _leaves(params)):,}"
-          f" parameters (bf16, router f32; the config's estimate "
-          f"{cfg.param_count():,}), {gbytes(params):.2f} GB: embedding and "
-          f"head {gbytes(params['embed']) + gbytes(params['lm_head']):.2f}, "
-          f"dense layer 0 {gbytes(params['layers'][0]):.2f}, each MoE layer "
-          f"{gbytes(params['layers'][1]):.2f}; {cfg.n_layers} layers of "
-          f"{get_config(MOE_ARCH).n_layers} (1 dense + {n_moe} MoE; MLA "
-          f"ranks {m.q_lora_rank} / {m.kv_lora_rank}; {moe.n_experts} "
-          f"experts top-{moe.top_k} of d_ff {moe.d_ff_expert}, "
-          f"{moe.n_shared_experts} shared; dispatch {moe.dispatch}, "
-          f"capacity factor {moe.capacity_factor}), init "
-          f"{time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_PROMPTS for _ in range(2)]
-    warm = ServingEngine(cfg, params, slots=1, max_len=SERVE_MAX_LEN)
-    warm.scale_up(1)
-    warm.submit(Request(-1, prompts[0][:256].copy(), 2))
-    warm.drain()
-    del warm
-
-    # one flash kernel a layer, all on the wgmma path, nothing else
-    per_prefill = {k: 0 for k in lm_counts()}
-    per_prefill["flash_attention"] = cfg.n_layers
-    per_prefill["flash_attention.wgmma"] = cfg.n_layers
-    done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True)
-    check(len(done) == len(prompts)
-          and all(len(r.tokens) == SERVE_MAX_NEW for r in done),
-          "phase 6 (b): not every request finished with max_new tokens")
-    want = {k: n * len(prompts) for k, n in per_prefill.items()}
-    print(f"phase6b launches (kernels run): {launches}, expected {want} "
-          f"({cfg.n_layers} flash kernels per prefill, all wgmma)")
-    check(launches == want, f"phase 6 (b) launches {launches} != {want}")
-    check(rec_k.launches == [per_prefill] * len(prompts),
-          f"phase 6 (b): launches per prefill {rec_k.launches}")
-    prefill_ms = [1e3 * (r.t_first_token - r.t_admit) for r in done]
-    for r, ms in zip(done, prefill_ms):
-        print(f"phase6b request {r.rid}: prompt {len(r.prompt)}, prefill "
-              f"{ms:.2f} ms, latency {r.latency_ms:.2f} ms, tokens "
-              f"{r.tokens[:4]}...")
-    n_dec = sum(len(r.tokens) - 1 for r in done)
-    dec_s = wall - sum(prefill_ms) / 1e3
-    print(f"phase6b drain {wall:.3f} s: prefill {sum(prefill_ms):.2f} ms "
-          f"total, decode {n_dec} tokens in {dec_s:.3f} s = "
-          f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
-          f"{peak / 2**30:.3f} GiB")
-
-    stash = FlashStash()
-    try:
-        profile_serving(cfg, params, prompts[-1], "phase6b")
-    finally:
-        stash.close()
-    check(len(stash.calls) == cfg.n_layers,
-          f"phase 6 (b): the profiled prefill made {len(stash.calls)} flash "
-          f"calls, not {cfg.n_layers}")
-    worst_layer = hold_stashed_flash(stash.calls, "phase6b profiled prefill")
-    del stash
-
-    done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, prompts,
-                                                  False)
-    check(not any(launches_p.values()),
-          f"phase 6 (b): the plain run launched kernels {launches_p}")
-    check(len(rec_k.logits) == len(rec_p.logits) == len(prompts)
-          and all(len(r) == n_moe for r in rec_k.routes + rec_p.routes),
-          "phase 6 (b): a prefill or its routing was not recorded")
-    worst, n_held, n_checked = 0.0, 0, 0
-    flips = [[0, 0] for _ in range(n_moe)]
-    for i, (lk, lp) in enumerate(zip(rec_k.logits, rec_p.logits)):
-        check(bool(torch.isfinite(lk).all()),
-              f"phase 6 (b) prefill {i}: logits not finite")
-        diffs = [_routing_diff(a, b)
-                 for a, b in zip(rec_k.routes[i], rec_p.routes[i])]
-        for j, (n_set, n_keep, _) in enumerate(diffs):
-            flips[j][0] += n_set
-            flips[j][1] += n_keep
-        agreed = all(last for _, _, last in diffs)
-        scale = float(lp.abs().max())
-        err = float((lk - lp).abs().max())
-        top2 = torch.topk(lp, 2).values
-        margin = float(top2[0] - top2[1])
-        tol = LOGIT_TOL * scale
-        same = int(lk.argmax()) == int(lp.argmax())
-        print(f"phase6b prefill {i} (prompt {len(prompts[i])}): routing "
-              f"differs from the plain run in {[d[0] for d in diffs]} "
-              f"tokens' experts and {[d[1] for d in diffs]} keep flags by "
-              f"MoE layer; the last position agrees by layer "
-              f"{[int(d[2]) for d in diffs]}; logits max_abs_err {err:.4f} "
-              f"of max |logit| {scale:.2f} (tol {tol:.4f}, "
-              f"{'held' if agreed else 'not held: routing differs'}); "
-              f"top-2 margin {margin:.4f}; first token same={same}")
-        if not agreed:
-            continue
-        n_held += 1
-        worst = max(worst, err / scale)
-        check(err <= tol, f"phase 6 (b) prefill {i}: logits differ by {err}")
-        if margin > tol:
-            n_checked += 1
-            check(same, f"phase 6 (b) prefill {i}: first token differs")
-    print("phase6b routing decisions that differ between the kernels' and "
-          "the plain run, summed over the 8 prefills, by MoE layer (tokens "
-          "whose expert set differs / assignments whose keep flag "
-          "differs): " + "; ".join(f"layer {j + 1} {a} / {b}"
-                                   for j, (a, b) in enumerate(flips)))
-    print(f"phase6b plain run: drain {wall_p:.3f} s; logits held on "
-          f"{n_held} of {len(prompts)} prefills (worst {worst:.5f} of max "
-          f"|logit|), first token checked on {n_checked}; the profiled "
-          f"prefill's flash outputs at worst {worst_layer:.3g} of their "
-          f"allowance")
-    check(n_held > 0, "phase 6 (b): no prompt's routing agreed at its last "
-          "position, so no logits were held")
-    del params, rec_k, rec_p
+    launches, _ = serve_full_width(
+        "phase6b", MOE_ARCH, SERVE_PROMPTS, 7,
+        flash_launches(cfg.n_layers, "wgmma"),
+        f"1 dense + {n_moe} MoE; MLA ranks {m.q_lora_rank} / "
+        f"{m.kv_lora_rank}; {moe.n_experts} experts top-{moe.top_k} of "
+        f"d_ff {moe.d_ff_expert}, {moe.n_shared_experts} shared; dispatch "
+        f"{moe.dispatch}, capacity factor {moe.capacity_factor}",
+        cfg=cfg, param_dtype=torch.bfloat16, stash_rows=16)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase6b total {time.perf_counter() - t_phase:.1f} s; after: "
@@ -3614,13 +3643,31 @@ class RoutingReplay:
         self.moe._router = self.orig
 
 
+def first_layers(cfg, n: int):
+    """`cfg` cut to its first `n` layers.  A depth that is not a whole
+    number of periods (llama4-maverick's is 4 layers, the lcm of its
+    pattern and its MoE interleave) runs them as the tail of a model with
+    no period, which remat runs as they are."""
+    import math
+    kinds = cfg.layer_kinds()[:n]
+    period = math.lcm(len(cfg.pattern), cfg.moe.moe_period if cfg.moe else 1)
+    head = cfg.moe.first_dense_layers if cfg.moe else 0
+    cut = (cfg.replace(n_layers=n) if (n - head) % period == 0
+           else cfg.replace(n_layers=n, pattern_tail=kinds))
+    check(cut.layer_kinds() == kinds, f"{cfg.name}: the first {n} layers "
+          f"are {kinds}, the cut model's {cut.layer_kinds()}")
+    return cut
+
+
 def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     """(c) one period of `arch` at its published width (recurrentgemma:
     rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
     `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
-    bf16 weights), S 1,024, bf16 compute: every gradient leaf through the
-    kernels against the plain versions, relative in norm within GRAD_TOL,
-    with the kernels' launches exact, each attention kernel's by path.
+    bf16 weights), or phase 11 (g)'s first layers of the architectures in
+    GRAD_LAYERS (f32 weights), S 1,024, bf16 compute: every gradient
+    leaf through the kernels against the plain versions, relative in norm
+    within GRAD_TOL, with the kernels' launches exact, each attention
+    kernel's by path.
     With `f32` (c3: deepseek's dense layer alone), f32 weights and
     compute, the attention forward and backward on their 3xTF32 paths at
     MLA's q/k 192, v 128, and every leaf and the loss within
@@ -3642,7 +3689,8 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     from repro_torch.models import steps as steps_lib
     from repro_torch.optim.adamw import leaves_with_path
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     path)
     gc.collect()
     torch.cuda.empty_cache()
     cfg, param_dtype, _ = _train_config(arch, n_layers)
@@ -3650,6 +3698,8 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
         cfg = cfg.replace(n_layers=1)
     elif arch == TRAIN_ARCH:
         cfg = cfg.replace(n_layers=3, pattern_tail=())
+    elif arch in GRAD_LAYERS:
+        cfg = first_layers(cfg, GRAD_LAYERS[arch])
     if f32:
         cfg, param_dtype = cfg.replace(dtype="float32"), torch.float32
     tol = F32_GRAD_TOL if f32 else GRAD_TOL
@@ -3675,8 +3725,12 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
         return c
 
     # one backward a layer; the forwards once a layer and again in each
-    # recomputed period; attention on the tensor-core path of its dtype
-    attn = "tf32" if f32 else "wgmma"
+    # recomputed period; attention on the path of its dtype and head dims
+    # (the tensor cores' at 64, 128, 256 and MLA's 192 / 128)
+    qk = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim if cfg.mla
+          else cfg.resolved_head_dim())
+    attn = path(torch.float32 if f32 else torch.bfloat16, qk,
+                cfg.attn_softcap, cfg.mla.v_head_dim if cfg.mla else qk)
     want_kernel = {k: 0 for k in counts()}
     want_kernel.update({"flash_attention": fwd["attention"],
                         f"flash_attention.{attn}": fwd["attention"],
@@ -3711,9 +3765,13 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
         if routing is not None:
             routing.close()
     if routing is not None:
-        check(len(routing.first) == len(routing.own) == 4 * n_moe,
+        # the MoE forward's and the aux loss's calls, again in each
+        # recomputed period
+        _, period, n_periods, _ = model_lib.block_structure(cfg)
+        calls = 2 * (n_moe + n_periods * sum(s.is_moe for s in period))
+        check(len(routing.first) == len(routing.own) == calls,
               f"phase 8 (c) {label}: router calls {len(routing.first)}, "
-              f"{len(routing.own)}, expected {4 * n_moe} each")
+              f"{len(routing.own)}, expected {calls} each")
         diffs = [_routing_diff(a, b) for a, b in zip(routing.first,
                                                      routing.own)]
         print(f"phase8 {label} routing: the plain run's own gates against "
@@ -4017,12 +4075,8 @@ def phase9b_gemma2() -> dict:
     check(path(torch.bfloat16, cfg.head_dim, cfg.attn_softcap) == "wgmma",
           "phase 9 (b): gemma2's attention is not on the wgmma path")
     n = cfg.n_layers
-    launches = serve_full_width(
-        "phase9", GEMMA_ARCH, GEMMA_PROMPTS, 9,
-        {"flash_attention": n, "flash_attention.wgmma": n,
-         "flash_attention.tf32": 0, "flash_attention.simt": 0,
-         "rglru_scan": 0, "rglru_scan.tma": 0, "rglru_scan.simt": 0,
-         "ssd_scan": 0, "ssd_scan.wgmma": 0, "ssd_scan.simt": 0},
+    launches, _ = serve_full_width(
+        "phase9", GEMMA_ARCH, GEMMA_PROMPTS, 9, flash_launches(n, "wgmma"),
         f"{n_local} local in a window of {cfg.window} + {n_global} global, "
         f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads of "
         f"{cfg.head_dim}, softcap {cfg.attn_softcap:g}",
@@ -4661,6 +4715,382 @@ def phase10_mesh() -> dict:
     return {"train": train, "serve": serve}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other six architectures
+# ---------------------------------------------------------------------------
+
+#: phase 11: the six architectures no earlier phase serves, each at its
+#: published width, bf16 compute, prompts of these lengths (two each)
+OTHER_PROMPTS = (512, 3000)
+#: gemma3-12b's prompts cross its local window of 1,024
+GEMMA3_PROMPTS = (2048, 3000)
+#: qwen1.5-110b cut from 80 layers (220 GB of bf16 weights) to 8 (26.7 GB)
+QWEN_LAYERS = 8
+#: llama4-maverick cut from 48 layers to one period: chunked dense,
+#: chunked MoE, chunked dense, global no-RoPE MoE (70.6 GB of bf16
+#: weights, 128 experts of d_ff 8,192 in each MoE layer)
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 4
+#: llama4's long prompt crosses one boundary of its 8,192-token chunks;
+#: its plain version is left out (40 heads x 10^8 scores x 4 B = 16 GB a
+#: tensor), and its flash outputs are held 4 query rows at a time beside
+#: the weights
+LLAMA4_LONG, LLAMA4_MAX_LEN, LLAMA4_STASH_ROWS = 10000, 10240, 4
+#: internvl2-2b: its 256 projected patch embeddings, then prompts of
+#: these lengths, and greedy decode steps for VLM_NEW tokens in all
+VLM_ARCH = "internvl2-2b"
+VLM_TEXT = (512, 3000)
+VLM_NEW = SERVE_MAX_NEW
+#: hubert-xlarge (encoder-only, no decode step): forwards over (batch,
+#: frames): 60 s of audio and four clips of 20 s at 50 frames a second
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_SHAPES = ((1, 3000), (4, 1000))
+#: phase 11 (g): the layers of each architecture whose gradients are held
+#: on the card at S PERIOD_SEQ: its first layer, gemma3-12b's whole period
+GRAD_LAYERS = {"gemma-7b": 1, "gemma3-12b": 6, "qwen1.5-110b": 1,
+               LLAMA4_ARCH: 1, VLM_ARCH: 1, AUDIO_ARCH: 1}
+
+
+def phase11_served(letter: str, arch: str, prompt_lengths, n_layers: int = 0,
+                   bf16_weights: bool = False, **serve) -> dict:
+    """(a)-(d) `arch` served as phase 5 serves (``serve_full_width``),
+    after the earlier models are freed: at its published width, its depth
+    cut to `n_layers` where given, f32 weights (bf16 with `bf16_weights`),
+    bf16 compute; every prefill launches one flash kernel a layer, on the
+    path ``path`` names for its head dim (all wgmma).  Prints the model's
+    peak memory and time.  Returns the kernels' launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import path
+    from repro_torch.models.model import layer_specs
+    t0 = time.perf_counter()
+    phase = f"phase11{letter}"
+    _free_models(f"phase11 ({letter})")
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers) if n_layers else full
+    kinds = cfg.layer_kinds()
+    d = cfg.resolved_head_dim()
+    kernel = path(torch.bfloat16, d, cfg.attn_softcap)
+    check(cfg.dtype == "bfloat16" and kernel == "wgmma",
+          f"phase 11 ({letter}): {arch} computes in {cfg.dtype} on {kernel}")
+    thetas = sorted({s.rope_theta for s in layer_specs(cfg)})
+    label = (", ".join(f"{kinds.count(k)} {k}"
+                       + ("" if k == "global" else f" (window {cfg.window})")
+                       for k in dict.fromkeys(kinds))
+             + f", {cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads "
+             f"of {d}, RoPE theta {thetas} (0: none)"
+             + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+                f"{cfg.moe.d_ff_expert} + {cfg.moe.n_shared_experts} shared"
+                if cfg.moe else "")
+             + (", QKV bias" if cfg.qkv_bias else "")
+             + (", qk-norm" if cfg.qk_norm else ""))
+    launches, peak = serve_full_width(
+        phase, arch, prompt_lengths, 110 + ord(letter) - ord("a"),
+        flash_launches(cfg.n_layers, kernel), label, cfg=cfg,
+        param_dtype=torch.bfloat16 if bf16_weights else None, **serve)
+    print(f"phase11 ({letter}) {arch} peak memory {peak / 2**30:.3f} GiB "
+          f"(the kernels' drain, weights included); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _held_steps(label: str, got, want) -> str:
+    """Each step's logits of a greedy run through the kernels (`got`)
+    against the plain run's (`want`), lists of (logits row, token), while
+    the two agree: within LOGIT_TOL of the largest |logit| (phase 5's
+    limit), the same token wherever the plain run's top-2 margin exceeds
+    that.  After a token that differs where the margin is within that,
+    the two continue from other tokens and are not compared."""
+    import torch
+    worst, checked, steps = 0.0, 0, 0
+    for i, ((lk, tk), (lp, tp)) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(lk).all()),
+              f"{label} step {i}: logits not finite")
+        scale = float(lp.abs().max())
+        err = float((lk - lp).abs().max())
+        check(err <= LOGIT_TOL * scale, f"{label} step {i}: logits differ "
+              f"by {err} of max |logit| {scale}")
+        worst, steps = max(worst, err / scale), steps + 1
+        top2 = torch.topk(lp, 2).values
+        if float(top2[0] - top2[1]) > LOGIT_TOL * scale:
+            checked += 1
+            check(tk == tp, f"{label} step {i}: token {tk} against {tp}")
+        if tk != tp:
+            break
+    return (f"{steps} steps held (worst {worst:.5f} of max |logit|), tokens "
+            f"checked at {checked}")
+
+
+def phase11e_internvl2() -> dict:
+    """(e) internvl2-2b at its published width and depth (24 layers,
+    d_model 2,048, 16 query heads over 8 kv heads of 128), f32 weights,
+    bf16 compute, its vision frontend's 256 projected patch embeddings
+    (InternViT's width 1,024, drawn from a seed) before prompts of
+    VLM_TEXT tokens: ``model.prefill`` with the cache sized for both and
+    VLM_NEW - 1 greedy ``model.decode_step`` calls (the serving engine
+    takes tokens alone, as the reference's does), through the kernels and
+    through their plain versions.  Every prefill launches 24 flash
+    kernels, all on the wgmma path; the logits of every step held as
+    phase 5 holds a prefill's.  Returns the kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    t0 = time.perf_counter()
+    _free_models("phase11 (e)")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    dev = model_lib.params_device(params)
+    n_front = cfg.n_frontend_tokens
+    print(f"phase11e {VLM_ARCH}: {sum(t.numel() for t in _leaves(params)):,}"
+          f" parameters (f32, computed in {cfg.dtype}; the config's "
+          f"estimate {cfg.param_count():,}), {cfg.n_layers} global layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+          f"{cfg.n_kv_heads} kv heads of {cfg.resolved_head_dim()}, "
+          f"{n_front} patch embeddings of {cfg.frontend_dim} projected")
+    want = flash_launches(cfg.n_layers, "wgmma")
+    rng = np.random.default_rng(115)
+
+    def run(batch, n_text, use_kernel):
+        """prefill, then greedy decode steps: ([(logits, token)], the
+        prefill's launches, prefill ms, decode s)"""
+        reset_lm_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model_lib.prefill(
+            cfg, params, batch, n_front + n_text + VLM_NEW,
+            use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        launches = lm_counts()
+        steps = [(logits[0].float().cpu(), int(logits[0].argmax()))]
+        t = time.perf_counter()
+        for i in range(VLM_NEW - 1):
+            tok = torch.tensor([steps[-1][1]], device=dev)
+            pos = torch.full((1,), n_front + n_text + i, device=dev)
+            logits, cache = model_lib.decode_step(cfg, params, tok, pos,
+                                                  cache)
+            steps.append((logits[0].float().cpu(), int(logits[0].argmax())))
+        return steps, launches, prefill_ms, time.perf_counter() - t
+
+    def batch_of(n_text):
+        patches = rng.standard_normal((1, n_front, cfg.frontend_dim))
+        return {"patch_embeds": torch.from_numpy(
+                    patches.astype(np.float32)).to(dev),
+                "tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (1, n_text))).to(dev)}
+
+    run(batch_of(64), 64, True)  # warm-up, not counted
+    total = {k: 0 for k in want}
+    for n_text in VLM_TEXT:
+        batch = batch_of(n_text)
+        got, launches, k_ms, k_s = run(batch, n_text, True)
+        check(launches == want, f"phase 11 (e) prefill of {n_text}: "
+              f"launches {launches}, expected {want}")
+        total = {k: total[k] + launches[k] for k in total}
+        plain, launches_p, p_ms, p_s = run(batch, n_text, False)
+        check(not any(launches_p.values()), f"phase 11 (e): the plain run "
+              f"launched kernels {launches_p}")
+        held = _held_steps(f"phase 11 (e) prompt {n_text}", got, plain)
+        print(f"phase11e {n_front} patches + {n_text} tokens: prefill "
+              f"{k_ms:.2f} ms (plain {p_ms:.2f}), {VLM_NEW - 1} decode "
+              f"steps {k_s:.3f} s (plain {p_s:.3f}); tokens "
+              f"{[t for _, t in got][:6]}...; {held}")
+    print(f"phase11 (e) {VLM_ARCH} launches {total} ({want} per prefill); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase11f_hubert() -> dict:
+    """(f) hubert-xlarge at its published width and depth (48 layers,
+    d_model 1,280, 16 heads of 80, encoder-only, so non-causal), f32
+    weights, bf16 compute, through ``model.forward`` on audio frames of
+    width 512 (its conv frontend's, drawn from a seed) at AUDIO_SHAPES,
+    through the kernels and through their plain versions: every forward
+    launches 48 flash kernels, all on the CUDA-core path (head dim 80 is
+    no tensor-core width).  Its own bf16 rounding moves the (B, S, 504)
+    logits past phase 5's limit (48 layers; |logit| up to some 170), so
+    they are held as phase 9 (b) holds gemma2-2b's, against a witness:
+    the same forward in f32 through the plain versions.  The kernels'
+    run no farther from it in norm than WITNESS_RATIO times the plain
+    run is, and the same argmax as the witness at every frame whose
+    witness top-2 margin exceeds 2 WITNESS_RATIO times the plain run's
+    largest deviation from the witness at that frame (phase 5's rule,
+    with the tolerance the plain run's own bf16 rounding).  Returns the
+    kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import path
+    from repro_torch.models import model as model_lib
+    t0 = time.perf_counter()
+    _free_models("phase11 (f)")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(AUDIO_ARCH)
+    d = cfg.resolved_head_dim()
+    check(path(torch.bfloat16, d) == "simt" and cfg.encoder_only,
+          f"phase 11 (f): {AUDIO_ARCH} at head dim {d} is not on the "
+          "CUDA-core path")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    dev = model_lib.params_device(params)
+    print(f"phase11f {AUDIO_ARCH}: {sum(t.numel() for t in _leaves(params)):,}"
+          f" parameters (f32, computed in {cfg.dtype}; the config's "
+          f"estimate {cfg.param_count():,}), {cfg.n_layers} non-causal "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {d}, "
+          f"frames of {cfg.frontend_dim}, vocabulary {cfg.vocab_size}")
+    want = flash_launches(cfg.n_layers, "simt")
+    rng = np.random.default_rng(116)
+
+    def run(frames, use_kernel, dtype=cfg.dtype):
+        reset_lm_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = model_lib.forward(cfg.replace(dtype=dtype), params,
+                                   {"frames": frames}, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return logits.float(), lm_counts(), time.perf_counter() - t
+
+    def frames_of(B, S):
+        return torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)).to(dev)
+
+    run(frames_of(1, 256), True)  # warm-up, not counted
+    total = {k: 0 for k in want}
+    for B, S in AUDIO_SHAPES:
+        frames = frames_of(B, S)
+        lk, launches, k_s = run(frames, True)
+        check(launches == want, f"phase 11 (f) forward ({B}, {S}): "
+              f"launches {launches}, expected {want}")
+        total = {k: total[k] + launches[k] for k in total}
+        lp, launches_p, p_s = run(frames, False)
+        check(not any(launches_p.values()), f"phase 11 (f): the plain run "
+              f"launched kernels {launches_p}")
+        check(lk.shape == (B, S, cfg.vocab_size)
+              and bool(torch.isfinite(lk).all()),
+              f"phase 11 (f): logits {tuple(lk.shape)}, finite "
+              f"{bool(torch.isfinite(lk).all())}")
+        lf, _, f_s = run(frames, False, "float32")
+        scale = float(lp.abs().max())
+        err = float((lk - lp).abs().max())
+        kp, kf, pf = (float((a - b).norm() / b.norm())
+                      for a, b in ((lk, lp), (lk, lf), (lp, lf)))
+        # the frames whose f32 top-2 margin is wider than twice
+        # WITNESS_RATIO times the plain run's own largest deviation there:
+        # bf16 rounding of that size cannot flip them
+        top2 = torch.topk(lf, 2, dim=-1).values
+        clear = ((top2[..., 0] - top2[..., 1])
+                 > 2 * WITNESS_RATIO * (lp - lf).abs().amax(-1))
+        best = lf.argmax(-1)
+        miss_k = int((clear & (lk.argmax(-1) != best)).sum())
+        miss_p = int((clear & (lp.argmax(-1) != best)).sum())
+        print(f"phase11f forward ({B}, {S}): kernels {k_s * 1e3:.2f} ms, "
+              f"plain {p_s * 1e3:.2f} ms, f32 plain {f_s * 1e3:.2f} ms; "
+              f"logits max_abs_err {err:.4f} of max |logit| {scale:.2f} "
+              f"(phase 5's tol {LOGIT_TOL * scale:.4f}, not held); in "
+              f"norm: kernels against plain {kp:.5f}, against f32 "
+              f"{kf:.5f}, the plain run against f32 {pf:.5f} (tol "
+              f"{WITNESS_RATIO} times); of the {int(clear.sum())} of "
+              f"{clear.numel()} frames whose f32 top-2 margin exceeds "
+              f"{2 * WITNESS_RATIO} times the plain run's largest "
+              f"deviation there, the f32 argmax missed at {miss_k} "
+              f"through the kernels, {miss_p} through the plain versions")
+        check(kf <= WITNESS_RATIO * pf, f"phase 11 (f) forward ({B}, {S}): "
+              f"logits {kf} from f32 in norm, the plain run {pf}")
+        check(miss_k == 0, f"phase 11 (f) forward ({B}, {S}): the f32 "
+              f"argmax missed at {miss_k} frames whose margin bf16 "
+              "rounding cannot flip")
+    print(f"phase11 (f) {AUDIO_ARCH} launches {total} ({want} per forward); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase11h_flash_shapes(power: str) -> list:
+    """(h) the flash kernel at the four shapes the six bring to the card,
+    bf16, timed as phase 4 times its shapes (``hold_flash``: against its
+    plain version, its bound and one scaled_dot_product_attention call
+    with the same boolean mask): qwen1.5-110b's 64 query heads over 8 kv
+    heads of 128, causal, S 3,000; llama4's 40 over 8 of 128, chunked in
+    8,192, S 10,000; gemma3-12b's 16 over 8 of 256, local 1,024, S 3,000;
+    hubert-xlarge's 16 heads of 80, non-causal, S 3,000 (the CUDA-core
+    kernel)."""
+    import torch
+    from repro_torch.configs import get_config
+    _free_models("phase11 (h)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    times = []
+    for arch, s, kind, causal in (
+            ("qwen1.5-110b", 3000, "global", True),
+            (LLAMA4_ARCH, LLAMA4_LONG, "chunked", True),
+            ("gemma3-12b", 3000, "local", True),
+            (AUDIO_ARCH, 3000, "global", False)):
+        cfg = get_config(arch)
+        bh, bh_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        q, k, v = (torch.randn((n, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for n in (bh, bh_kv, bh_kv))
+        window = cfg.window if kind != "global" else 0
+        kw = dict(causal=causal, kind=kind, window=window)
+        m = hold_flash(q, k, v, kw, with_library=True)
+        simt = ("" if "simt_ms" not in m else
+                f", simt kernel {m['simt_ms']:.4f} ms (device "
+                f"{m['simt_device_ms']:.4f} ms)")
+        print(f"phase11 flash_attention {arch} BH={bh} G={bh // bh_kv} "
+              f"S={s} D={d} {kind} {window} causal={causal} bfloat16 "
+              f"path={m['path']}: max_abs_err {m['max_abs_err']:.3g} "
+              f"({m['worst']:.3g} of the allowance), kernel {m['ms']:.4f} "
+              f"ms (device {m['device_ms']:.4f} ms){simt}, plain "
+              f"{m['plain_ms']:.4f} ms, sdpa {m['library_ms']:.4f} ms "
+              f"(device {m['library_device_ms']:.4f} ms), bound "
+              f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
+              f"{m['pairs']}; {power}")
+        times.append(dict({key: m[key] for key in (
+            "path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by")},
+            arch=arch, shape=[bh, bh_kv, s, d], kind=kind, window=window,
+            causal=causal, source=CSRC + ("flash_attention.cu"
+                                          if m["path"] == "simt"
+                                          else SOURCES["flash_attention"])))
+        del q, k, v
+    return times
+
+
+def phase11_other_archs() -> dict:
+    """Phase 11's parts in order, each model freed before the next: (a)
+    gemma-7b, (b) gemma3-12b, (c) qwen1.5-110b cut to QWEN_LAYERS, (d)
+    llama4-maverick cut to one period, served; (e) internvl2-2b through
+    prefill and decode; (f) hubert-xlarge's forward; (g) each one's first
+    layers' gradients (``phase8_period_grads``); (h) the flash kernel at
+    their new shapes.  Returns the launches by path of (a)-(f) and (g)
+    and (h)'s times."""
+    t0 = time.perf_counter()
+    power = card()
+    served = {
+        "gemma-7b": phase11_served("a", "gemma-7b", OTHER_PROMPTS),
+        "gemma3-12b": phase11_served("b", "gemma3-12b", GEMMA3_PROMPTS,
+                                     bf16_weights=True),
+        "qwen1.5-110b": phase11_served("c", "qwen1.5-110b", OTHER_PROMPTS,
+                                       QWEN_LAYERS, bf16_weights=True),
+        LLAMA4_ARCH: phase11_served(
+            "d", LLAMA4_ARCH, OTHER_PROMPTS + (LLAMA4_LONG,), LLAMA4_LAYERS,
+            bf16_weights=True, max_len=LLAMA4_MAX_LEN,
+            n_plain=2 * len(OTHER_PROMPTS), stash_rows=LLAMA4_STASH_ROWS),
+        VLM_ARCH: phase11e_internvl2(),
+        AUDIO_ARCH: phase11f_hubert()}
+    t_grads = time.perf_counter()
+    _free_models("phase11 (g)")
+    grads = {arch: phase8_period_grads(arch) for arch in GRAD_LAYERS}
+    print(f"phase11 (g) gradients of the six: "
+          f"{time.perf_counter() - t_grads:.1f} s")
+    times = phase11h_flash_shapes(power)
+    print(f"phase11 total {time.perf_counter() - t0:.1f} s; {power}")
+    return {"served": served, "grads": grads, "times": times}
+
+
 def main() -> int:
     try:
         import torch
@@ -4705,6 +5135,7 @@ def main() -> int:
         train, train_launches = phase8_training()
         serve_driver_launches, gemma, cluster = phase9_serving_entry_points()
         mesh = phase10_mesh()
+        other = phase11_other_archs()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -4873,6 +5304,19 @@ def main() -> int:
                   f"{m['library_device_ms']:.4f} ms), bound "
                   f"{m['bound_ms']:.5f} ms ({m['bound_by']}), max_abs_err "
                   f"{m['max_abs_err']:.3g}")
+        # phase 11: the other six architectures' flash launches by path,
+        # (a)-(d) in their kernels' drains of 4 (llama4: 6) prefills, (e)
+        # in two prefills, (f) in two forwards; their first layers'
+        # backward launches (g); the kernel at their shapes (h)
+        paths = ("wgmma", "tf32", "simt")
+        flash["phase11"] = {
+            "launches_by_path": {
+                arch: {p: n[f"flash_attention.{p}"] for p in paths}
+                for arch, n in other["served"].items()},
+            "times": other["times"]}
+        flash_bwd["phase11"] = {"launches_by_path": {
+            arch: {p: n[f"flash_attention_bwd.{p}"] for p in paths}
+            for arch, n in other["grads"].items()}}
         f32 = lm["flash_attention f32"]
         flash["f32"] = {
             "source": CSRC + SOURCES["flash_attention f32"],

@@ -28,18 +28,40 @@ def _normal_cdf(x: float) -> float:
     return 0.5 * (1.0 + math.erf(x / _SQRT2))
 
 
-def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
-               dtype=torch.float32) -> torch.Tensor:
-    """Truncated-normal (+-2 std) fan-in init (LeCun-style), by inverting
-    the normal CDF of a uniform draw."""
-    if in_axis_size is None:
-        in_axis_size = shape[0]
-    std = 1.0 / math.sqrt(max(in_axis_size, 1))
+#: the largest f32 draw ``dense_init`` makes in one piece (bytes); a
+#: larger tensor is drawn one slice of its first axis at a time, so that
+#: its f32 draw never sits beside the weights already made.
+#: llama4-maverick's stacked experts (128 x 5,120 x 8,192: 21.5 GB in
+#: f32, 10.7 GB in bf16) would not fit beside the 60 GB of bf16 weights
+#: before them on one 80 GB card; every other tensor of the ten
+#: architectures is drawn whole (deepseek-v2's experts, 5.0 GB, the
+#: largest of them)
+WHOLE_DRAW_BYTES = 8 << 30
+
+
+def _truncated_normal(gen: torch.Generator, shape, std: float):
     lo, hi = _normal_cdf(-2.0), _normal_cdf(2.0)
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     t.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
     t.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
-    return (t * std).to(dtype)
+    return t.mul_(std)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal (+-2 std) fan-in init (LeCun-style), by inverting
+    the normal CDF of a uniform draw; above WHOLE_DRAW_BYTES of f32, one
+    slice of the first axis at a time (other numbers from the same
+    generator, the same distribution)."""
+    if in_axis_size is None:
+        in_axis_size = shape[0]
+    std = 1.0 / math.sqrt(max(in_axis_size, 1))
+    if 4 * math.prod(shape) <= WHOLE_DRAW_BYTES:
+        return _truncated_normal(gen, shape, std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = _truncated_normal(gen, shape[1:], std)
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32):

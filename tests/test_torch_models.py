@@ -106,6 +106,24 @@ def test_init_params_shapes_match_the_reference(both):
     assert rec["rglru"]["w_x"].dtype == torch.bfloat16
 
 
+def test_dense_init_draws_a_large_tensor_a_slice_at_a_time(monkeypatch):
+    """Above ``WHOLE_DRAW_BYTES`` of f32 a tensor is drawn one slice of
+    its first axis at a time (llama4-maverick's stacked experts at
+    published width): the shape and dtype asked for, every value within
+    2 std of 0 (std 1/sqrt(fan-in)), and the slices each drawn from the
+    generator in turn, as three draws of one slice would be."""
+    from repro_torch.models import layers
+    monkeypatch.setattr(layers, "WHOLE_DRAW_BYTES", 64 * 32 * 4)
+    got = layers.dense_init(torch.Generator().manual_seed(4), (3, 64, 32),
+                            64, torch.bfloat16)
+    assert got.shape == (3, 64, 32) and got.dtype == torch.bfloat16
+    assert float(got.float().abs().max()) <= 2.0 / 8
+    gen = torch.Generator().manual_seed(4)
+    want = torch.stack([layers.dense_init(gen, (64, 32), 64)
+                        for _ in range(3)]).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
 def test_forward_matches_reference(both):
     jcfg, jp, tcfg, tp = both
     toks = _tokens(jcfg, 2, 40, 0)

@@ -1625,3 +1625,187 @@ def test_quantize_on_card_is_bitwise_the_cpu(seed):
         want = ef_quantize(g, err)
         got = ef_quantize(g.to(dev), err.to(dev))
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The six architectures that phase 11 of chip_smoke serves: the flash
+# kernel forward and backward at their new shapes, and their smoke models
+# at published head dims through the kernels against the plain versions.
+# ---------------------------------------------------------------------------
+
+#: (BH, G, D, S, mask): qwen1.5-110b's group of 8 at head dim 128;
+#: llama4's chunks of 8,192, S just past one boundary (group 5);
+#: gemma3-12b's local window of 1,024 at head dim 256, group 2; hubert's
+#: head dim 80, non-causal, on the CUDA-core kernels
+NEW_SHAPES = [(16, 8, 128, 300, dict(causal=True, kind="global")),
+              (10, 5, 128, 8292, dict(causal=True, kind="chunked",
+                                      window=8192)),
+              (4, 2, 256, 1500, dict(causal=True, kind="local",
+                                     window=1024)),
+              (4, 1, 80, 300, dict(causal=False, kind="global"))]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("BH,G,D,S,kw", NEW_SHAPES,
+                         ids=["qwen-g8-d128", "llama4-chunked-8192",
+                              "gemma3-local-1024-d256", "hubert-d80-simt"])
+def test_flash_kernels_at_the_new_model_shapes(BH, G, D, S, kw):
+    """bf16, forward and backward, one launch each on the path ``path``
+    names (wgmma at D 128 and 256, simt at D 80), against the plain
+    versions at the bf16 tolerances of the shapes before them."""
+    from repro_torch.kernels.flash_attention import path
+    dev = _card()
+    kernel = path(torch.bfloat16, D)
+    assert kernel == ("simt" if D == 80 else "wgmma")
+    by_path = dict(flash_attention.launches_by_path)
+    q, k, v, o, do, lse = _bwd_case(BH + G + D + S, BH, G, S, D,
+                                    torch.bfloat16, dev, kw)
+    by_path[kernel] += 1
+    assert flash_attention.launches_by_path == by_path
+    group = lambda t: t.repeat_interleave(G, 0)
+    plain = ref.flash_attention_ref(q, group(k), group(v), **kw)
+    _assert_bf16_attention_close(
+        o, plain, ref.flash_attention_ref(q, group(k), group(v).abs(), **kw))
+    got = _bwd_launch(q, k, v, o, do, lse, kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(got, want, torch.bfloat16, f"{kw}")
+
+
+PHASE11_ARCHS = ["gemma-7b", "gemma3-12b", "qwen1.5-110b",
+                 "llama4-maverick-400b-a17b", "internvl2-2b",
+                 "hubert-xlarge"]
+
+
+def _smoke_at_published_head_dim(arch):
+    """The smoke config of `arch` in bf16 with its published head dim (so
+    its attention takes the kernel its full model takes)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    return get_smoke_config(arch).replace(
+        head_dim=get_config(arch).resolved_head_dim(), dtype="bfloat16")
+
+
+def _smoke_batch(cfg, S, seed, dev):
+    rng = np.random.default_rng(seed)
+    batch = {"targets": rng.integers(0, cfg.vocab_size, (2, S))}
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, S, cfg.frontend_dim)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (2, S))
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _route_as_the_kernels_run(monkeypatch):
+    """Wraps the MoE router so that a plain run routes each token as the
+    kernels' run before it did (bf16 rounding flips near-tied experts, and
+    a token routed otherwise has other logits and gradients): after
+    ``record()`` each call's experts are kept, after ``replay()`` the
+    calls take them in the same order, weighted by their own gates.
+    Returns (record, replay)."""
+    from repro_torch.models import moe as moe_mod
+    orig, first, at = moe_mod._router, [], [None]
+
+    def router(params, x2d, moe):
+        w, idx, gates = orig(params, x2d, moe)
+        if at[0] is None:
+            first.append(idx)
+            return w, idx, gates
+        idx, at[0] = first[at[0]], at[0] + 1
+        w = gates.gather(1, idx)
+        return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9), \
+            idx, gates
+
+    def record():
+        first.clear()
+        at[0] = None
+
+    def replay():
+        at[0] = 0
+
+    monkeypatch.setattr(moe_mod, "_router", router)
+    return record, replay
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("arch", PHASE11_ARCHS)
+def test_new_arch_smoke_model_on_card_kernels_match_plain(arch, monkeypatch):
+    """Each smoke model of phase 11's six at its published head dim, bf16:
+    the forward's logits (hubert's every position, the others' prefill's
+    last one and three decode steps after it) through the kernels within
+    2e-2 of the largest |logit| of the plain versions', one flash launch a
+    layer on the path of its head dim; then the loss and every gradient
+    leaf (remat on) within 5e-2 in norm of the plain versions', one
+    backward launch a layer on the same path, no leaf zero through the
+    kernels that is not through the plain versions.  llama4's plain runs
+    route every token as the kernels' runs did."""
+    from repro_torch.kernels.flash_attention import path
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.optim.adamw import leaves_with_path
+    dev = _card()
+    cfg = _smoke_at_published_head_dim(arch)
+    kernel = path(torch.bfloat16, cfg.resolved_head_dim())
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = _smoke_batch(cfg, 77, 5, dev)
+    inputs = {k: v for k, v in batch.items() if k != "targets"}
+
+    record, replay = _route_as_the_kernels_run(monkeypatch)
+
+    def close(got, want):
+        tol = 2e-2 * float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+    by_path = dict(flash_attention.launches_by_path)
+    record()
+    if cfg.encoder_only:
+        got = model_lib.forward(cfg, params, inputs)
+        replay()
+        want = model_lib.forward(cfg, params, inputs, use_kernel=False)
+        close(got, want)
+    else:
+        n = 77 + cfg.n_frontend_tokens
+        got, gc = model_lib.prefill(cfg, params, inputs, n + 4)
+        replay()
+        want, wc = model_lib.prefill(cfg, params, inputs, n + 4,
+                                     use_kernel=False)
+        close(got, want)
+        tok = want.argmax(-1)
+        for i in range(3):
+            pos = torch.full((2,), n + i, device=dev)
+            record()
+            got, gc = model_lib.decode_step(cfg, params, tok, pos, gc)
+            replay()
+            want, wc = model_lib.decode_step(cfg, params, tok, pos, wc)
+            close(got, want)
+            tok = want.argmax(-1)
+    by_path[kernel] += cfg.n_layers
+    assert flash_attention.launches_by_path == by_path
+
+    named = leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    runs = []
+    for use_kernel in (True, False):
+        if use_kernel:
+            record()
+        else:
+            replay()
+        n0 = dict(flash_attention_bwd.launches_by_path)
+        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                    use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        runs.append((float(loss.detach()),
+                     [torch.zeros_like(p) if g is None else g
+                      for p, g in zip(leaves, grads)]))
+        assert flash_attention_bwd.launches_by_path == {
+            p: c + (cfg.n_layers if use_kernel and p == kernel else 0)
+            for p, c in n0.items()}
+    (lk, gk), (lp, gp) = runs
+    assert abs(lk - lp) <= 5e-2 * abs(lp)
+    for (p, _), a, b in zip(named, gk, gp):
+        a, b = a.float(), b.float()
+        assert bool(a.any()) or not bool(b.any()), p
+        assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-30, p

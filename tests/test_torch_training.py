@@ -22,6 +22,7 @@ The reference's ``make_train_step`` fails on a (1, 1) mesh under JAX 0.9
 that fails its own drills), so the three-step comparison runs the
 reference's ``loss_fn`` and ``adamw.update`` under ``jax.jit`` instead.
 """
+import dataclasses
 import os
 
 import jax
@@ -76,10 +77,12 @@ from repro_torch.models import steps as tsteps
 from repro_torch.optim import adamw as tadamw
 
 ARCH = "recurrentgemma-2b"
-#: the architectures whose smoke models' gradients are held to jax.grad
-#: (mamba2's two layers deep, as in test_torch_models.py; deepseek-v2's
-#: dense first layer and one MoE layer, MLA at q/k 24, v 16)
-GRAD_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b", "deepseek-v2-236b")
+#: the architectures whose smoke models' gradients are held to jax.grad:
+#: all ten (mamba2's two layers deep, as in test_torch_models.py;
+#: deepseek-v2's dense first layer and one MoE layer, MLA at q/k 24, v 16;
+#: llama4's one period of chunked and no-RoPE global layers, all MoE; the
+#: frontends' inputs made by ``_grad_batch``)
+GRAD_ARCHS = tuple(tbase.list_archs())
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "policy_traces.jsonl")
 GRAD_TOL = 1e-4
@@ -121,6 +124,11 @@ def smoke(request):
     tcfg = tbase.get_smoke_config(arch)
     if arch == "mamba2-2.7b":
         jcfg, tcfg = jcfg.replace(n_layers=2), tcfg.replace(n_layers=2)
+    if tcfg.moe is not None:
+        # capacity lifted so that no token drops, as in test_torch_moe.py's
+        # prefill / decode test (at the batches here none drops either way)
+        jcfg, tcfg = (c.replace(moe=dataclasses.replace(
+            c.moe, capacity_factor=64.0)) for c in (jcfg, tcfg))
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, jp, tcfg
 
@@ -133,6 +141,22 @@ def _batch(B, S, seed=0, vocab=256):
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
             "targets": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+
+
+def _grad_batch(cfg, B, S, seed):
+    """`_batch`, with the frontend's inputs made from the same seed:
+    hubert's (B, S) audio frames in place of the tokens, internvl2's
+    patch embeddings before S text tokens (they carry no targets)."""
+    b = _batch(B, S, seed, cfg.vocab_size)
+    rng = np.random.default_rng(seed + 1)
+    if cfg.frontend == "audio":
+        b["frames"] = rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)
+        del b["tokens"]
+    elif cfg.frontend == "vision":
+        b["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +406,7 @@ def test_loss_fn_matches_reference(smoke):
 @pytest.fixture(scope="module")
 def jax_grads(smoke):
     jcfg, jp, _ = smoke
-    b = jax.tree.map(jnp.asarray, _batch(2, 40, seed=4))
+    b = jax.tree.map(jnp.asarray, _grad_batch(jcfg, 2, 40, seed=4))
     (loss, _), grads = jax.jit(jax.value_and_grad(
         lambda p: jsteps.loss_fn(jcfg, p, b), has_aux=True))(jp)
     return float(loss), _np(grads)
@@ -396,18 +420,27 @@ def test_model_gradients_match_jax(smoke, jax_grads, remat):
     autograd Functions (their plain versions on the CPU): recurrentgemma
     through attention and the RG-LRU scan, mamba2 through the SSD scan
     (the reference differentiates ``ssd_chunked`` at the model's chunk,
-    the port ``ref.ssd_scan_bwd_ref`` at the kernels')."""
+    the port ``ref.ssd_scan_bwd_ref`` at the kernels').  No leaf is
+    identically zero in the port where it is not in the JAX model: the
+    train steps fill a missing gradient with zeros, and only this would
+    show one lost."""
     jcfg, jp, tcfg = smoke
     tp = _port_params(tcfg, jp)
     leaves = [p.requires_grad_(True) for _, p in tadamw.leaves_with_path(tp)]
-    b = jax.tree.map(_t, _batch(2, 40, seed=4))
+    b = jax.tree.map(_t, _grad_batch(tcfg, 2, 40, seed=4))
     loss, _ = tsteps.loss_fn(tcfg, tp, b, remat=remat)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     loss = loss.detach()
     want_loss, want = jax_grads
+    got = params_to_numpy(tcfg, _like(tp, iter(grads)))
+    lost = [jax.tree_util.keystr(p) for (p, a), (_, w)
+            in zip(_leaves(got), _leaves(want))
+            if not np.any(a) and np.any(w)]
+    assert not lost, lost
     np.testing.assert_allclose(float(loss), want_loss, rtol=GRAD_TOL)
-    _assert_trees_close(params_to_numpy(tcfg, _like(tp, iter(grads))), want,
-                        GRAD_TOL)
+    _assert_trees_close(got, want, GRAD_TOL)
 
 
 def test_three_train_steps_match_reference(smoke):
