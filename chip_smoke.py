@@ -288,7 +288,9 @@ Phases (each one failing makes the script exit non-zero):
      while the margins allow; (f) hubert-xlarge (48 non-causal layers of
      16 heads of 80, f32 weights) through ``model.forward`` on frames of
      width 512 at (1, 3,000) and (4, 1,000): 48 launches a forward on the
-     CUDA-core kernel; its own bf16 rounding moves the (B, S, 504) logits
+     wgmma kernel (head dim 80 padded to two column blocks), each forward
+     through the kernels faster than through the plain versions; its own
+     bf16 rounding moves the (B, S, 504) logits
      past phase 5's limit, so they are held as phase 9 (b) holds
      gemma2-2b's, in norm against the same forward in f32 (no farther from
      it than 1.25 times the plain run), and the argmax equal to the f32
@@ -299,15 +301,15 @@ Phases (each one failing makes the script exit non-zero):
      weights, bf16 compute, S 1,024: every gradient leaf through the
      kernels against the plain versions as phase 8 (c) holds them, the
      forward and backward launches exact by path (the backward on wgmma
-     at D 128 and 256, on the CUDA cores at hubert's D 80, non-causal);
-     (h) the flash kernel at the new shapes (qwen's D 128 group 8 causal
-     at S 3,000, llama4's chunked 8,192 at S 10,000, gemma3's local
-     1,024 at D 256 group 2 at S 3,000, hubert's D 80 non-causal at S
-     3,000 on the CUDA-core kernel), held against its plain version and
-     timed beside it, its bound and one scaled_dot_product_attention call
-     with the same boolean mask (the kv heads shared through
-     `enable_gqa`); phase 11's time, beside the card's name and power
-     limit;
+     at D 80, 128 and 256); (h) the flash kernel at the new shapes
+     (qwen's D 128 group 8 causal at S 3,000, llama4's chunked 8,192 at S
+     10,000, gemma3's local 1,024 at D 256 group 2 at S 3,000, hubert's D
+     80 non-causal at S 3,000), forward and backward, each held against
+     its plain version (the backward bitwise over two calls) and timed
+     beside it, the CUDA-core kernel, its bound and one
+     scaled_dot_product_attention call (its backward) with the same
+     boolean mask (the kv heads shared through `enable_gqa`); phase 11's
+     time, beside the card's name and power limit;
   12. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
@@ -2920,7 +2922,8 @@ def simt_flash_bwd(q, k, v, o, do, kw):
     return dq, dk, dv
 
 
-def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
+def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False,
+                   plain_kv_rows: int = 0):
     """flash_attention_bwd against its plain version on the forward
     kernel's output and a random dO: each of dq, dk, dv within BWD_TOL
     (its worst element printed as a share of its allowance), on the path
@@ -2930,8 +2933,12 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     to the first.  With `timed`, the kernel (and on the tensor-core paths
     the first kernel), its plain version and sdpa's backward (forward and
     backward through torch.autograd.grad, minus its forward, with the
-    same boolean mask; ``library_ms`` as called, ``library_device_ms``
-    queued as every ``device_ms``) timed, and the bound.  Returns a
+    same boolean mask, k and v repeated where 1 < G < BH; ``library_ms``
+    as called, ``library_device_ms`` queued as every ``device_ms``)
+    timed, and the bound.  With
+    `plain_kv_rows`, the plain version runs on that many kv rows (and
+    their query rows) at a time, the same function in pieces (llama4's
+    S of 10,000 would hold scores of 16 GB a tensor at once).  Returns a
     dict."""
     import torch
     import torch.nn.functional as F
@@ -2959,9 +2966,21 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
     do = torch.randn((bh, s, dv), device=q.device,
                      generator=torch.Generator(device=q.device).manual_seed(
                          s)).to(q.dtype)
+
+    def plain_bwd():
+        if not plain_kv_rows:
+            return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        g, rows = bh // k.shape[0], plain_kv_rows
+        parts = []
+        for j in range(0, k.shape[0], rows):
+            qr = slice(j * g, (j + rows) * g)
+            parts.append(ref.flash_attention_bwd_ref(
+                q[qr], k[j:j + rows], v[j:j + rows], o[qr], do[qr], **kw))
+        return tuple(torch.cat(p, 0) for p in zip(*parts))
+
     n0 = dict(flash_attention_bwd.launches_by_path)
     got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    want = plain_bwd()
     torch.cuda.synchronize()
     ran = [p for p, n in flash_attention_bwd.launches_by_path.items()
            if n != n0[p]]
@@ -3007,12 +3026,19 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False):
                                  reps=5)
         out["simt_device_ms"] = time_ms(
             lambda: simt_flash_bwd(q, k, v, o, do, kw), reps=5, queued=True)
-    out["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, o, do, **kw), reps=5)
+    out["plain_ms"] = time_ms(plain_bwd, reps=5)
     q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
-    k4 = k.view(1, -1, s, d).expand(1, bh, s, d).detach().requires_grad_(True)
-    v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv).detach().requires_grad_(
-        True)
+    group = bh // k.shape[0]
+    if 1 < group < bh:
+        # query head h reads kv head h // G: k and v repeated (a copy
+        # made here, outside the timed calls)
+        k4, v4 = (t.repeat_interleave(group, 0).view(1, bh, s, -1)
+                  for t in (k, v))
+    else:
+        # one kv head (MQA), or one for each query head
+        k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
+        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
+    k4, v4 = (t.detach().requires_grad_(True) for t in (k4, v4))
     do4 = do.view(1, bh, s, dv)
 
     def library_fwd():
@@ -3197,13 +3223,14 @@ def hold_ssd_bwd(args, dy, dh, timed: bool, twice: bool = False):
     return out
 
 
-def flash_bwd_line(what: str, m: dict) -> str:
-    """phase 8 (a)'s line for one hold_flash_bwd measurement `m`."""
+def flash_bwd_line(what: str, m: dict, phase: str = "phase8") -> str:
+    """phase 8 (a)'s (or `phase`'s) line for one hold_flash_bwd
+    measurement `m`."""
     def errs(errors):
         return "; ".join(f"{n} {e:.3g} ({w:.3g} of the allowance)"
                          for n, (e, w) in errors.items())
 
-    line = f"phase8 flash_attention_bwd {what} path={m['path']}: " + errs(
+    line = f"{phase} flash_attention_bwd {what} path={m['path']}: " + errs(
         m["errors"])
     if "lse_err" in m:
         line += (f"; forward lse max_abs_err {m['lse_err']:.3g} (limit "
@@ -4910,9 +4937,10 @@ def phase11f_hubert() -> dict:
     weights, bf16 compute, through ``model.forward`` on audio frames of
     width 512 (its conv frontend's, drawn from a seed) at AUDIO_SHAPES,
     through the kernels and through their plain versions: every forward
-    launches 48 flash kernels, all on the CUDA-core path (head dim 80 is
-    no tensor-core width).  Its own bf16 rounding moves the (B, S, 504)
-    logits past phase 5's limit (48 layers; |logit| up to some 170), so
+    launches 48 flash kernels, all on the wgmma path (head dim 80 kept
+    as two 64-column blocks, the last 48 columns zero), and takes less
+    time than the plain versions' forward.  Its own bf16 rounding moves
+    the (B, S, 504) logits past phase 5's limit (48 layers; |logit| up to some 170), so
     they are held as phase 9 (b) holds gemma2-2b's, against a witness:
     the same forward in f32 through the plain versions.  The kernels'
     run no farther from it in norm than WITNESS_RATIO times the plain
@@ -4931,9 +4959,9 @@ def phase11f_hubert() -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(AUDIO_ARCH)
     d = cfg.resolved_head_dim()
-    check(path(torch.bfloat16, d) == "simt" and cfg.encoder_only,
+    check(path(torch.bfloat16, d) == "wgmma" and cfg.encoder_only,
           f"phase 11 (f): {AUDIO_ARCH} at head dim {d} is not on the "
-          "CUDA-core path")
+          "wgmma path")
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     dev = model_lib.params_device(params)
@@ -4942,7 +4970,7 @@ def phase11f_hubert() -> dict:
           f"estimate {cfg.param_count():,}), {cfg.n_layers} non-causal "
           f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of {d}, "
           f"frames of {cfg.frontend_dim}, vocabulary {cfg.vocab_size}")
-    want = flash_launches(cfg.n_layers, "simt")
+    want = flash_launches(cfg.n_layers, "wgmma")
     rng = np.random.default_rng(116)
 
     def run(frames, use_kernel, dtype=cfg.dtype):
@@ -4959,6 +4987,12 @@ def phase11f_hubert() -> dict:
             (B, S, cfg.frontend_dim)).astype(np.float32)).to(dev)
 
     run(frames_of(1, 256), True)  # warm-up, not counted
+    # and both paths at every measured shape (on zeros, so the frames
+    # drawn below are the same), so that neither timed run pays for the
+    # allocator's first blocks of its shape
+    for B, S in AUDIO_SHAPES:
+        for use_kernel in (True, False):
+            run(torch.zeros((B, S, cfg.frontend_dim), device=dev), use_kernel)
     total = {k: 0 for k in want}
     for B, S in AUDIO_SHAPES:
         frames = frames_of(B, S)
@@ -5000,6 +5034,9 @@ def phase11f_hubert() -> dict:
               f"through the kernels, {miss_p} through the plain versions")
         check(kf <= WITNESS_RATIO * pf, f"phase 11 (f) forward ({B}, {S}): "
               f"logits {kf} from f32 in norm, the plain run {pf}")
+        check(k_s < p_s, f"phase 11 (f) forward ({B}, {S}): "
+              f"{k_s * 1e3:.2f} ms through the kernels, {p_s * 1e3:.2f} "
+              "ms through the plain versions")
         check(miss_k == 0, f"phase 11 (f) forward ({B}, {S}): the f32 "
               f"argmax missed at {miss_k} frames whose margin bf16 "
               "rounding cannot flip")
@@ -5009,21 +5046,25 @@ def phase11f_hubert() -> dict:
     return total
 
 
-def phase11h_flash_shapes(power: str) -> list:
+def phase11h_flash_shapes(power: str) -> tuple:
     """(h) the flash kernel at the four shapes the six bring to the card,
-    bf16, timed as phase 4 times its shapes (``hold_flash``: against its
-    plain version, its bound and one scaled_dot_product_attention call
+    bf16, forward and backward, timed as phases 4 and 8 (a) time theirs
+    (``hold_flash``, ``hold_flash_bwd``: against the plain versions, the
+    backward bitwise over two calls, beside the CUDA-core kernels, the
+    bounds and one scaled_dot_product_attention call, or its backward,
     with the same boolean mask): qwen1.5-110b's 64 query heads over 8 kv
     heads of 128, causal, S 3,000; llama4's 40 over 8 of 128, chunked in
-    8,192, S 10,000; gemma3-12b's 16 over 8 of 256, local 1,024, S 3,000;
-    hubert-xlarge's 16 heads of 80, non-causal, S 3,000 (the CUDA-core
-    kernel)."""
+    8,192, S 10,000 (the plain backward a kv head at a time);
+    gemma3-12b's 16 over 8 of 256, local 1,024, S 3,000; hubert-xlarge's
+    16 heads of 80, non-causal, S 3,000, where each direction's device
+    time must be below sdpa's.  Returns the forward's and the backward's
+    measurements."""
     import torch
     from repro_torch.configs import get_config
     _free_models("phase11 (h)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    times = []
+    times, bwd_times = [], []
     for arch, s, kind, causal in (
             ("qwen1.5-110b", 3000, "global", True),
             (LLAMA4_ARCH, LLAMA4_LONG, "chunked", True),
@@ -5049,14 +5090,34 @@ def phase11h_flash_shapes(power: str) -> list:
               f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
               f"{m['pairs']}; {power}")
         times.append(dict({key: m[key] for key in (
-            "path", "max_abs_err", "ms", "device_ms", "plain_ms",
-            "library_ms", "library_device_ms", "bound_ms", "bound_by")},
+            "path", "max_abs_err", "ms", "device_ms", "simt_ms",
+            "simt_device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by") if key in m},
             arch=arch, shape=[bh, bh_kv, s, d], kind=kind, window=window,
             causal=causal, source=CSRC + ("flash_attention.cu"
                                           if m["path"] == "simt"
                                           else SOURCES["flash_attention"])))
+        b = hold_flash_bwd(q, k, v, kw, timed=True, twice=True,
+                           plain_kv_rows=1 if s > 3000 else 0)
+        print(flash_bwd_line(f"{arch} BH={bh} G={bh // bh_kv} S={s} D={d} "
+                             f"{kind} {window} causal={causal} bfloat16", b,
+                             "phase11") + f"; {power}")
+        bwd_times.append(dict({key: b[key] for key in (
+            "path", "max_abs_err", "bitwise_twice", "ms", "device_ms",
+            "simt_ms", "simt_device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by") if key in b},
+            arch=arch, shape=[bh, bh_kv, s, d], kind=kind, window=window,
+            causal=causal, source=CSRC + (
+                "flash_attention_bwd.cu" if b["path"] == "simt"
+                else "flash_attention_bwd_wgmma.cu")))
+        if arch == AUDIO_ARCH:
+            for label, t in (("forward", m), ("backward", b)):
+                check(t["device_ms"] < t["library_device_ms"],
+                      f"phase 11 (h) {arch} {label}: device "
+                      f"{t['device_ms']:.4f} ms, sdpa's "
+                      f"{t['library_device_ms']:.4f} ms")
         del q, k, v
-    return times
+    return times, bwd_times
 
 
 def phase11_other_archs() -> dict:
@@ -5086,9 +5147,10 @@ def phase11_other_archs() -> dict:
     grads = {arch: phase8_period_grads(arch) for arch in GRAD_LAYERS}
     print(f"phase11 (g) gradients of the six: "
           f"{time.perf_counter() - t_grads:.1f} s")
-    times = phase11h_flash_shapes(power)
+    times, bwd_times = phase11h_flash_shapes(power)
     print(f"phase11 total {time.perf_counter() - t0:.1f} s; {power}")
-    return {"served": served, "grads": grads, "times": times}
+    return {"served": served, "grads": grads, "times": times,
+            "bwd_times": bwd_times}
 
 
 def main() -> int:
@@ -5314,9 +5376,21 @@ def main() -> int:
                 arch: {p: n[f"flash_attention.{p}"] for p in paths}
                 for arch, n in other["served"].items()},
             "times": other["times"]}
-        flash_bwd["phase11"] = {"launches_by_path": {
-            arch: {p: n[f"flash_attention_bwd.{p}"] for p in paths}
-            for arch, n in other["grads"].items()}}
+        flash_bwd["phase11"] = {
+            "launches_by_path": {
+                arch: {p: n[f"flash_attention_bwd.{p}"] for p in paths}
+                for arch, n in other["grads"].items()},
+            "times": other["bwd_times"]}
+        # the (D, Dv) instantiations of each tensor-core path, forward and
+        # backward alike (bf16 also at hubert-xlarge's 80, padded)
+        from repro_torch.kernels.flash_attention import (
+            WGMMA_BF16_HEAD_DIMS, WGMMA_HEAD_DIMS, WGMMA_QK_V_DIMS)
+        for k in (flash, flash_bwd):
+            k["head_dims"] = {
+                "wgmma": [[d, d] for d in WGMMA_BF16_HEAD_DIMS]
+                + [list(p) for p in WGMMA_QK_V_DIMS],
+                "tf32": [[d, d] for d in WGMMA_HEAD_DIMS]
+                + [list(p) for p in WGMMA_QK_V_DIMS]}
         f32 = lm["flash_attention f32"]
         flash["f32"] = {
             "source": CSRC + SOURCES["flash_attention f32"],

@@ -1,6 +1,7 @@
 // Attention backward on Hopper's tensor cores (sm_90a): the bf16 path for
-// head dims 64, 128 and 256, and for MLA's q and k of head dim 192 with v
-// of head dim 128; the gradient of flash_attention_wgmma.cu.
+// head dims 64, 80 (hubert-xlarge), 128 and 256, and for MLA's q and k of
+// head dim 192 with v of head dim 128; the gradient of
+// flash_attention_wgmma.cu.
 //
 // The Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:77) has no backward: the reference trains through
@@ -16,7 +17,8 @@
 // row's log-sum-exp in natural-log units, written by the bf16 forward
 // when a gradient will be taken, so no launch recomputes it.  The
 // kernels are templated on D (q and k columns) and DV (v, o and dO
-// columns) apart, for D = DV in {64, 128, 256} and (D, DV) = (192, 128).
+// columns) apart, for D = DV in {64, 80, 128, 256} and (D, DV) = (192,
+// 128).
 //
 // Arithmetic (FA2's backward): with s the scaled, softcapped (t =
 // tanh(s / c), s = t c) scores, p = exp(s - lse) on the pairs the mask
@@ -97,6 +99,24 @@
 // V) stages, the exchange); one block an SM.  ptxas (CUDA 12 on the
 // H100's machine, printed by chip_smoke.py's phase 0): dK/dV 202
 // registers, dQ 193, no spill (at D 256: 246 and 162).
+//
+// D = DV = 80 (hubert-xlarge) is no multiple of 64: each row is kept as
+// two whole 128-byte column blocks, the tensor maps (80 columns wide)
+// filling columns 80-127 with zeros, and the kernels run as at D = 128
+// (one warpgroup, its registers and shared memory) but for the products
+// over D: S^T, dP^T, S and dP take five k16 steps over the 80 columns.
+// The products whose N is the head dim (dV, dK, dq) run at N = 128 (an
+// MN-major B operand comes in 64-column atoms of the 128-byte swizzle),
+// their last 48 columns zero and not written: 2,176 operations a kept
+// pair on the tensor cores where the unpadded design's 20*D would be
+// 1,600.  A block there is bound by the latency of its one warpgroup's
+// chain of steps, and the per-pair tests of the mask and the softcap
+// (branches around each pair's steps, and integer divisions for chunked
+// masks) lengthened it most: where the mask keeps every pair below S (not
+// causal, global, no softcap: hubert-xlarge's attention), the kernels
+// are instantiated with kAll, whose pairs take pair_grad_all, one
+// straight run the compiler schedules with the exponentials in flight.
+// ptxas: dK/dV 234 registers (254 with kAll), dQ 160 (155), no spill.
 //
 // Masks: tiles that the mask hides from every pair are skipped (the key
 // tile's query range, the query tile's key range); tiles that it shows
@@ -200,6 +220,17 @@ __device__ __forceinline__ void pair_grad(float& s, float& dp, float lse, float 
   dp = p * (dp - delta) * f;
 }
 
+// pair_grad where the mask keeps every pair below S and there is no
+// softcap: the same steps with no branch, p selected to 0 for a pair past
+// S (a padded row or key scores 0, whose exponential against an lse of
+// the other side could overflow)
+__device__ __forceinline__ void pair_grad_all(float& s, float& dp, float lse, float delta,
+                                              bool keep, float scale) {
+  const float p = exp2f((s * scale - lse) * kLog2e);
+  s = keep ? p : 0.0f;
+  dp = s * (dp - delta);
+}
+
 // acc (64 x N, f32) = A (64 rows) B^T (N rows), both tiles K-major in
 // shared memory in D / 64 swizzled column blocks of 128 bytes
 template <int D, int N>
@@ -279,11 +310,11 @@ __device__ __forceinline__ void tile_acc(float (&acc)[N / 2], const uint32_t (&h
   }
 }
 
-// One warpgroup's N accumulator columns of 64 rows into columns [col, col
-// + N) of a row-major plane of `width` columns, rows r_base + r0 and
-// r_base + r0 + 8 below S, each value times `scale`: f32 pairs, or bf16
-// pairs when T is __nv_bfloat16
-template <int N, typename T>
+// The first W of one warpgroup's N accumulator columns of 64 rows into
+// columns [col, col + W) of a row-major plane of `width` columns, rows
+// r_base + r0 and r_base + r0 + 8 below S, each value times `scale`: f32
+// pairs, or bf16 pairs when T is __nv_bfloat16
+template <int N, typename T, int W = N>
 __device__ __forceinline__ void store_tile(T* dst, int width, int col, const float (&a)[N / 2],
                                            int r_base, int r0, int cq, int S, float scale) {
 #pragma unroll
@@ -291,7 +322,7 @@ __device__ __forceinline__ void store_tile(T* dst, int width, int col, const flo
     const int r = r_base + r0 + 8 * half;
     if (r >= S) continue;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const long long at = (long long)r * width + col + cq + 8 * j;
       const float x = a[4 * j + 2 * half] * scale, y = a[4 * j + 2 * half + 1] * scale;
       if constexpr (sizeof(T) == 4)
@@ -341,12 +372,12 @@ attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
 // Shared memory: K, V, then the (Q, dO) ring, the exchange (two
 // warpgroups only), each stage's lse and D_i, the barriers; tiles on
 // 1,024-byte boundaries.  Q and K tiles are kT x D bf16, V and dO tiles
-// kT x DV.
+// kT x DV, each in whole column blocks (padded_cols).
 template <int D, int DV>
 struct DkdvLayout {
   static constexpr int kWG = D > 128 || D != DV ? 2 : 1;  // consumer warpgroups
-  static constexpr uint32_t kQK = kT * D * 2;
-  static constexpr uint32_t kVO = kT * DV * 2;
+  static constexpr uint32_t kQK = kT * padded_cols(D) * 2;
+  static constexpr uint32_t kVO = kT * padded_cols(DV) * 2;
   static constexpr uint32_t kStage = kQK + kVO;
   static constexpr uint32_t kK = 0;
   static constexpr uint32_t kV = kQK;
@@ -366,16 +397,22 @@ struct DkdvLayout {
 // dV in 0 and dK[:, 128:192] in 1.  On the dQ side the same N0, N1:
 // warpgroup 0 owns dq[:, 0:N0] in 0, warpgroup 1 dq[:, N0:D] in 1 (D !=
 // DV; with D = DV accumulator 0 holds each warpgroup's D / kWG columns).
+// kN0 and kN1 are the accumulators' widths, kW0 and kW1 the columns of
+// them written: 128 and 80 at D = DV = 80 (one warpgroup, its products at
+// N = 128 over the padded blocks).
 template <int D, int DV>
 struct Split {
   static_assert(D == DV || (D == 192 && DV == 128), "unsupported head dims");
   static constexpr bool kMixed = D != DV;
   static constexpr int kWG = DkdvLayout<D, DV>::kWG;
-  static constexpr int kN0 = kMixed ? DV : D / kWG;
-  static constexpr int kN1 = kMixed ? D - DV : D / kWG;
+  static constexpr int kN0 = kMixed ? DV : padded_cols(D) / kWG;
+  static constexpr int kN1 = kMixed ? D - DV : padded_cols(D) / kWG;
+  static constexpr int kW0 = kMixed ? DV : D / kWG;
+  static constexpr int kW1 = kMixed ? D - DV : D / kWG;
 };
 
-template <int D, int DV>
+// kAll: the mask keeps every pair below S (see the header).
+template <int D, int DV, bool kAll = false>
 __global__ void __launch_bounds__(128 * DkdvLayout<D, DV>::kWG, 1)
 attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -386,7 +423,7 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   using L = DkdvLayout<D, DV>;
   using P = Split<D, DV>;
   constexpr int kWG = L::kWG;
-  constexpr int kQKCols = D / kColBlock, kVCols = DV / kColBlock;
+  constexpr int kQKCols = col_blocks(D), kVCols = col_blocks(DV);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -481,13 +518,23 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     float s[kT / 2], dp[kT / 2];
     score_tiles<D, DV, kWG>(s, dp, sk, sq, sv, sdo, xch, wg, lt);
 
-    const bool whole = mask.whole(q0, k0);
+    if constexpr (kAll) {
 #pragma unroll
-    for (int i = 0; i < kT / 2; ++i) {
-      const int qc = 8 * (i / 4) + cq + (i % 2);
-      const int kr = r0 + 8 * ((i / 2) % 2);
-      pair_grad(s[i], dp[i], lse_s[qc], delta_s[qc],
-                whole || mask.visible(q0 + qc, k0 + kr), mask);
+      for (int i = 0; i < kT / 2; ++i) {
+        const int qc = 8 * (i / 4) + cq + (i % 2);
+        const int kr = r0 + 8 * ((i / 2) % 2);
+        pair_grad_all(s[i], dp[i], lse_s[qc], delta_s[qc], q0 + qc < S && k0 + kr < S,
+                      mask.scale);
+      }
+    } else {
+      const bool whole = mask.whole(q0, k0);
+#pragma unroll
+      for (int i = 0; i < kT / 2; ++i) {
+        const int qc = 8 * (i / 4) + cq + (i % 2);
+        const int kr = r0 + 8 * ((i / 2) % 2);
+        pair_grad(s[i], dp[i], lse_s[qc], delta_s[qc],
+                  whole || mask.visible(q0 + qc, k0 + kr), mask);
+      }
     }
 
     if constexpr (!P::kMixed) {
@@ -554,8 +601,8 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   float* pv = part + (long long)shares * bh_kv * S * D +
               ((long long)share * bh_kv + kvh) * S * DV;
   if constexpr (!P::kMixed) {
-    store_tile<P::kN1>(pk, D, wg * P::kN1, a1, k0, r0, cq, S, 1.0f);
-    store_tile<P::kN0>(pv, DV, wg * P::kN0, a0, k0, r0, cq, S, 1.0f);
+    store_tile<P::kN1, float, P::kW1>(pk, D, wg * P::kW1, a1, k0, r0, cq, S, 1.0f);
+    store_tile<P::kN0, float, P::kW0>(pv, DV, wg * P::kW0, a0, k0, r0, cq, S, 1.0f);
   } else if (wg == 0) {
     store_tile<P::kN0>(pk, D, 0, a0, k0, r0, cq, S, 1.0f);
   } else {
@@ -569,12 +616,12 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 
 // Shared memory: Q, dO, then the (K, V) ring, the exchange (two
-// warpgroups only), the barriers.
+// warpgroups only), the barriers; tiles in whole column blocks.
 template <int D, int DV>
 struct DqLayout {
   static constexpr int kWG = D > 128 || D != DV ? 2 : 1;
-  static constexpr uint32_t kQK = kT * D * 2;
-  static constexpr uint32_t kVO = kT * DV * 2;
+  static constexpr uint32_t kQK = kT * padded_cols(D) * 2;
+  static constexpr uint32_t kVO = kT * padded_cols(DV) * 2;
   static constexpr uint32_t kStage = kQK + kVO;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDO = kQK;
@@ -584,7 +631,7 @@ struct DqLayout {
   static constexpr uint32_t kBytes = kBar + 8 * (kStages + 1) + 1024;
 };
 
-template <int D, int DV>
+template <int D, int DV, bool kAll = false>
 __global__ void __launch_bounds__(128 * DqLayout<D, DV>::kWG, 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -594,7 +641,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   using L = DqLayout<D, DV>;
   using P = Split<D, DV>;
   constexpr int kWG = L::kWG;
-  constexpr int kQKCols = D / kColBlock, kVCols = DV / kColBlock;
+  constexpr int kQKCols = col_blocks(D), kVCols = col_blocks(DV);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -670,13 +717,23 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     float s[kT / 2], dp[kT / 2];
     score_tiles<D, DV, kWG>(s, dp, sq, skt, sdo, svt, xch, wg, lt);
 
-    const bool whole = mask.whole(q0, k0);
+    if constexpr (kAll) {
 #pragma unroll
-    for (int i = 0; i < kT / 2; ++i) {
-      const int kc = 8 * (i / 4) + cq + (i % 2);
-      const bool second = (i / 2) % 2;
-      pair_grad(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
-                whole || mask.visible(second ? qp1 : qp0, k0 + kc), mask);
+      for (int i = 0; i < kT / 2; ++i) {
+        const int kc = 8 * (i / 4) + cq + (i % 2);
+        const bool second = (i / 2) % 2;
+        pair_grad_all(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
+                      (second ? qp1 : qp0) < S && k0 + kc < S, mask.scale);
+      }
+    } else {
+      const bool whole = mask.whole(q0, k0);
+#pragma unroll
+      for (int i = 0; i < kT / 2; ++i) {
+        const int kc = 8 * (i / 4) + cq + (i % 2);
+        const bool second = (i / 2) % 2;
+        pair_grad(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
+                  whole || mask.visible(second ? qp1 : qp0, k0 + kc), mask);
+      }
     }
 
     // dQ += dS K (split in two), this warpgroup's columns
@@ -703,7 +760,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   __nv_bfloat16* dqb = dq + (long long)bh * S * D;
   if constexpr (!P::kMixed)
-    store_tile<P::kN0>(dqb, D, wg * P::kN0, a0, q0, r0, cq, S, mask.scale);
+    store_tile<P::kN0, __nv_bfloat16, P::kW0>(dqb, D, wg * P::kW0, a0, q0, r0, cq, S,
+                                              mask.scale);
   else if (wg == 0)
     store_tile<P::kN0>(dqb, D, 0, a0, q0, r0, cq, S, mask.scale);
   else
@@ -801,7 +859,7 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, int per_sm) {
   return best;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kAll = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
                    float* delta, float* part, int bh, int s, int group, int shares,
@@ -816,11 +874,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       !encode_map(enc, &mv, v, bh_kv, s, DV, kT) ||
       !encode_map(enc, &mdo, dout, bh, s, DV, kT))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DV>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D, DV, kAll>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)LK::kBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DV>,
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, DV, kAll>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LQ::kBytes);
   if (err != cudaSuccess) return err;
 
@@ -830,11 +888,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                                     static_cast<const __nv_bfloat16*>(dout), delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int tiles = (s + kT - 1) / kT;
-  attn_bwd_dkdv_kernel<D, DV><<<dim3(shares, tiles, bh_kv), 128 * LK::kWG, LK::kBytes,
+  attn_bwd_dkdv_kernel<D, DV, kAll><<<dim3(shares, tiles, bh_kv), 128 * LK::kWG, LK::kBytes,
                                 stream>>>(mq, mk, mv, mdo, lse, delta, part, bh_kv, group,
                                           shares, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<D, DV><<<dim3(bh, tiles), 128 * LQ::kWG, LQ::kBytes, stream>>>(
+  attn_bwd_dq_kernel<D, DV, kAll><<<dim3(bh, tiles), 128 * LQ::kWG, LQ::kBytes, stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), group, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long nk = (long long)bh_kv * s * D, nv = (long long)bh_kv * s * DV;
@@ -861,6 +919,7 @@ extern "C" int flash_attention_bwd_wgmma_shares(int bh, int s, int d, int dv, in
   if (d != dv) return 0;
   switch (d) {
     case 64: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<64, 64>());
+    case 80: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<80, 80>());
     case 128: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<128, 128>());
     case 256: return choose_shares(bh_kv, s, group, m, dkdv_occupancy<256, 256>());
     default: return 0;
@@ -871,7 +930,7 @@ extern "C" int flash_attention_bwd_wgmma_shares(int bh, int s, int d, int dv, in
 // s, d) bf16; v, dv_out: (bh / group, s, dv) bf16; lse: (bh, s) f32 from
 // the forward; delta: (bh, s) f32 scratch; part: shares * (bh / group) *
 // s * (d + dv) f32 scratch.  All contiguous, 16-byte aligned, on the
-// current device; d = dv in {64, 128, 256} or (d, dv) = (192, 128).
+// current device; d = dv in {64, 80, 128, 256} or (d, dv) = (192, 128).
 // kind: 0 global, 1 local, 2 chunked.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const float* lse,
@@ -891,6 +950,12 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   switch (d) {
     case 64:
       return (int)launch<64, 64>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
+                                 group, shares, m, st);
+    case 80:
+      if (!causal && kind == kGlobal && softcap == 0.0)
+        return (int)launch<80, 80, true>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part,
+                                         bh, s, group, shares, m, st);
+      return (int)launch<80, 80>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,
                                  group, shares, m, st);
     case 128:
       return (int)launch<128, 128>(q, k, v, o, dout, lse, dq, dk, dv_out, delta, part, bh, s,

@@ -1,8 +1,8 @@
 // Forward attention with an online softmax on Hopper's tensor cores
-// (sm_90a): the bf16 path for head dims 64, 128 and 256, and for MLA's q
-// and k of head dim 192 with v of head dim 128.
+// (sm_90a): the bf16 path for head dims 64, 80 (hubert-xlarge), 128 and
+// 256, and for MLA's q and k of head dim 192 with v of head dim 128.
 //
-// Replaces, for bf16 inputs with D = Dv in {64, 128, 256} or (D, Dv) =
+// Replaces, for bf16 inputs with D = Dv in {64, 80, 128, 256} or (D, Dv) =
 // (192, 128), the Pallas TPU kernel `flash_attention` (`_kernel`) of
 // src/repro/kernels/flash_attention.py:
 //   q (BH, S, D), k (BH / G, S, D), v (BH / G, S, Dv), bf16
@@ -54,13 +54,23 @@
 //     swizzle that the wgmma descriptors name.  A row of D bf16 is cut
 //     into D / 64 column blocks of 128 bytes (three for MLA's q and k,
 //     two for its v), each stored as its own
-//     rows x 128 B swizzled tile.  K and V go into a ring of two stages,
+//     rows x 128 B swizzled tile; D = 80 as two blocks whose last 48
+//     columns the tensor maps fill with zeros (col_blocks,
+//     hopper_wgmma.cuh).  K and V go into a ring of two stages,
 //     each with an mbarrier: the copy of tile j + 1 is in flight while
 //     tile j's products run, and tile j + 2's copy starts as soon as
 //     tile j's products are done;
 //   * kv tiles that the mask hides from every row of the q tile are
 //     skipped (as in the CUDA-core kernel), and tiles that it shows whole
 //     to every row skip the per-element mask;
+//   * D = 80: S = Q K^T takes its five k16 steps over the 80 columns;
+//     O += P V runs at N = 128 over V's two blocks (an MN-major B operand
+//     comes in 64-column atoms of the 128-byte swizzle), the last 48
+//     columns of O zero and not written: 416 operations a kept pair where
+//     320 would do.  A block there is bound by the latency of its one
+//     warpgroup's chain of steps, not by the tensor cores, so the tests of
+//     the softcap and of a whole tile are taken once a tile (kFlat), not
+//     once an element: a whole tile is one straight run of multiplies;
 //   * a ragged last q or kv tile needs no special case: the tensor maps'
 //     out-of-bounds fill reads zeros past S, keys past S take -inf, and
 //     query rows past S are not written;
@@ -92,9 +102,10 @@ enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 // swizzle repeats every 8 rows of 128 bytes).
 template <int DQK, int DV, int BK>
 struct Layout {
-  static constexpr uint32_t kQBytes = kBQ * DQK * 2;
-  static constexpr uint32_t kKTile = BK * DQK * 2;  // one K tile
-  static constexpr uint32_t kVTile = BK * DV * 2;   // one V tile
+  static constexpr int kQKW = padded_cols(DQK), kVW = padded_cols(DV);  // kept columns
+  static constexpr uint32_t kQBytes = kBQ * kQKW * 2;
+  static constexpr uint32_t kKTile = BK * kQKW * 2;  // one K tile
+  static constexpr uint32_t kVTile = BK * kVW * 2;   // one V tile
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + kStages * kKTile;
   static constexpr uint32_t kBar = kV + kStages * kVTile;
@@ -110,7 +121,7 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int kind, in
   return ok;
 }
 
-template <int DQK, int DV, int BK>
+template <int DQK, int DV, int BK, bool kFlat = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -118,8 +129,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    float* __restrict__ lse, int S, int group, float scale, int causal,
                    int kind, int window, float softcap) {
   using L = Layout<DQK, DV, BK>;
-  constexpr int kQKCols = DQK / kColBlock;  // 128-byte column blocks per row
-  constexpr int kVCols = DV / kColBlock;
+  constexpr int kQKCols = col_blocks(DQK);  // 128-byte column blocks per row
+  constexpr int kVCols = col_blocks(DV);
+  constexpr int kVW = L::kVW;  // O's columns in the accumulator
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -178,9 +190,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const int qp0 = q0 + r0, qp1 = qp0 + 8;
 
-  float acc[DV / 2];
+  float acc[kVW / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kVW / 2; ++i) acc[i] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
   mbar_wait(qbar, 0);
@@ -214,17 +226,37 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     else if (kind == kChunked)
       whole = whole && q0 / window == q_hi / window && k0 / window == q0 / window &&
               (k0 + BK - 1) / window == q0 / window;
+    if constexpr (kFlat) {
+      // the same steps, each test taken once a tile
+      if (softcap > 0.0f) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      float x = s[i] * scale;
-      if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
-      if (!whole) {
-        const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
-        const int qp = (i % 4) < 2 ? qp0 : qp1;
-        if (!visible(qp, kp, causal, kind, window)) x = kNegInf;
-        if (kp >= S) x = -INFINITY;
+        for (int i = 0; i < BK / 2; ++i) s[i] = tanhf(s[i] * scale / softcap) * softcap;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] *= scale;
       }
-      s[i] = x;
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
+          const int qp = (i % 4) < 2 ? qp0 : qp1;
+          if (!visible(qp, kp, causal, kind, window)) s[i] = kNegInf;
+          if (kp >= S) s[i] = -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = s[i] * scale;
+        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+        if (!whole) {
+          const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
+          const int qp = (i % 4) < 2 ? qp0 : qp1;
+          if (!visible(qp, kp, causal, kind, window)) x = kNegInf;
+          if (kp >= S) x = -INFINITY;
+        }
+        s[i] = x;
+      }
     }
 
     // online softmax; a row's four threads are lanes 4g .. 4g+3
@@ -270,7 +302,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row r0 + 8
     }
 #pragma unroll
-    for (int i = 0; i < DV / 2; i += 4) {
+    for (int i = 0; i < kVW / 2; i += 4) {
       acc[i] *= al0;
       acc[i + 1] *= al0;
       acc[i + 2] *= al1;
@@ -284,7 +316,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t db = sw128_desc(sv + st * L::kVTile + kk * 16 * 128, BK * 128, 1024);
-      wgmma_rs_tb<DV>(acc, pa[kk], db);
+      wgmma_rs_tb<kVW>(acc, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -303,6 +335,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (qp0 < S) lse[(long long)bh * S + qp0] = m0 + logf(d0);
     if (qp1 < S) lse[(long long)bh * S + qp1] = m1 + logf(d1);
   }
+  // O's first DV columns (at D = 80 the accumulator's last 48 are zero)
   __nv_bfloat16* ob = o + (long long)bh * S * DV;
   if (qp0 < S) {
 #pragma unroll
@@ -321,7 +354,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 
-template <int DQK, int DV, int BK>
+template <int DQK, int DV, int BK, bool kFlat = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                    int s, int group, int causal, int kind, int window, float softcap,
                    cudaStream_t stream) {
@@ -333,12 +366,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
       !encode_map(enc, &mv, v, bh / group, s, DV, BK))
     return cudaErrorInvalidValue;
   const int smem = (int)Layout<DQK, DV, BK>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DQK, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DQK, DV, BK, kFlat>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)DQK));
   const dim3 grid(bh, (s + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<DQK, DV, BK><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<DQK, DV, BK, kFlat><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, group, scale, causal, kind,
       window, softcap);
   return cudaGetLastError();
@@ -348,7 +381,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // q: (bh, s, d), k: (bh / group, s, d), v: (bh / group, s, dv), o: (bh,
 // s, dv), bf16, contiguous, 16-byte aligned, on the current device; d = dv
-// in {64, 128, 256}, or d = 192 with dv = 128 (MLA).  kind: 0 global, 1
+// in {64, 80, 128, 256}, or d = 192 with dv = 128 (MLA).  kind: 0 global, 1
 // local, 2 chunked.  lse: null, or (bh, s) f32 that takes each row's
 // log-sum-exp of its scaled, softcapped, masked scores (natural log:
 // m + log(max(l, 1e-30))), which the backward of
@@ -360,7 +393,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // D = 64.  Both sizes were timed at the serving shape on the H100; these
 // were the faster.  At (192, 128), 64 keys: Q (24 KB) and two stages of K
 // (24 KB) and V (16 KB) take 106 KB, so two blocks still share an SM, and
-// S is an m64n64 accumulator of 32 floats a thread beside O's 64.
+// S is an m64n64 accumulator of 32 floats a thread beside O's 64.  At
+// D = 80, 64 keys (32 and 64 were timed at hubert-xlarge's shape on the
+// H100 with kFlat; 64 was the faster): Q and two stages of K and V, each
+// two padded blocks, take 81 KB, two blocks an SM (ptxas: 138 registers,
+// no spill, printed by chip_smoke.py's phase 0).
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
                                          void* o, float* lse, int bh, int s, int d, int dv,
                                          int group, int causal, int kind, int window,
@@ -377,6 +414,9 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
     case 64:
       return (int)launch<64, 64, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window,
                                      cap, st);
+    case 80:
+      return (int)launch<80, 80, 64, true>(q, k, v, o, lse, bh, s, group, causal, kind,
+                                           window, cap, st);
     case 128:
       return (int)launch<128, 128, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window,
                                        cap, st);

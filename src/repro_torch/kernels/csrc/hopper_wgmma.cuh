@@ -17,6 +17,14 @@ namespace {
 
 constexpr int kColBlock = 64;  // bf16 columns per 128-byte swizzled block
 
+// The 128-byte column blocks a row of d bf16 columns takes in shared
+// memory, and the columns they hold.  A head dim that is no multiple of
+// 64 (hubert-xlarge's 80) is kept as whole blocks: its tensor map is d
+// columns wide, so the TMA's out-of-bounds fill writes zeros past column
+// d, and a box lands (and its barrier counts it) whole.
+__host__ __device__ constexpr int col_blocks(int d) { return (d + kColBlock - 1) / kColBlock; }
+__host__ __device__ constexpr int padded_cols(int d) { return col_blocks(d) * kColBlock; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -268,7 +276,9 @@ EncodeTiled encoder() {
 }
 
 // A (rows, s, d) bf16 tensor as a 3-d map (d, s, rows), read in boxes of
-// 64 columns (128 bytes, the swizzle's span) by box_rows rows.
+// 64 columns (128 bytes, the swizzle's span) by box_rows rows; d a
+// multiple of 8 (a row's stride a multiple of 16 bytes), a box's columns
+// past d read as zeros.
 bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows, int s, int d,
                 int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)rows};

@@ -1,6 +1,6 @@
 """Flash attention forward: the wrapper around the three Hopper kernels,
-``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 128 or 256, or
-MLA's q/k 192 and v 128, on the tensor cores),
+``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 80, 128 or
+256, or MLA's q/k 192 and v 128, on the tensor cores),
 ``csrc/flash_attention_tf32.cu`` (f32 at those head dims without a
 softcap, on the tensor cores in 3xTF32) and ``csrc/flash_attention.cu``
 (every other case, on the CUDA cores in f32).
@@ -29,8 +29,9 @@ nothing.  With ``return_lse`` it also returns each row's log-sum-exp
 ``ref.flash_attention_lse_ref`` on the CPU).
 
 The backward, ``flash_attention_bwd``, has three kernels:
-``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in WGMMA_HEAD_DIMS
-and at (D, Dv) in WGMMA_QK_V_DIMS, on the tensor cores),
+``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in
+WGMMA_BF16_HEAD_DIMS and at (D, Dv) in WGMMA_QK_V_DIMS, on the tensor
+cores),
 ``csrc/flash_attention_bwd_tf32.cu`` (f32 at the same head dims without
 a softcap, on the tensor cores in 3xTF32), both reading the forward's
 lse, and ``csrc/flash_attention_bwd.cu`` (every other case,
@@ -51,9 +52,13 @@ from . import _build, _scratch, ref
 
 KINDS = {"global": 0, "local": 1, "chunked": 2}
 MAX_HEAD_DIM = 256
-#: head dims of the tensor-core paths: whole 64-column (128-byte) blocks
+#: head dims of both tensor-core paths: whole 64-column (128-byte) blocks
 #: up to the 256 columns one wgmma accumulator holds
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: head dims of the bf16 (wgmma) path: those, and hubert-xlarge's 80,
+#: stored as two whole blocks that the tensor maps' out-of-bounds fill
+#: pads with zeros (the 3xTF32 kernels take no such width)
+WGMMA_BF16_HEAD_DIMS = (64, 80, 128, 256)
 #: (D, Dv) pairs with v narrower than q and k that both tensor-core
 #: kernels also take: MLA's 128 + 64 query / key columns and 128 value
 #: columns
@@ -64,9 +69,10 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
          v_dim: Optional[int] = None) -> str:
     """The kernel that computes attention of `dtype` with q and k of head
     dim `head_dim` and v of head dim `v_dim` (`head_dim` when None) on
-    the card: at D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS,
-    "wgmma" (bf16) or "tf32" (f32, no softcap); "simt" otherwise (any
-    other head dims, and f32 with a softcap).
+    the card: "wgmma" for bf16 at D = Dv in WGMMA_BF16_HEAD_DIMS or (D,
+    Dv) in WGMMA_QK_V_DIMS; "tf32" for f32 without a softcap at D = Dv in
+    WGMMA_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS; "simt" otherwise (any
+    other head dims, f32 at D 80, and f32 with a softcap).
 
     f32 with a softcap stays on the CUDA-core kernel, which sums q.k in
     the plain version's order: at softcapped scores (tens in magnitude)
@@ -76,7 +82,9 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
     being as close to the function evaluated in float64 (chip_smoke
     phase 4 prints all three against float64)."""
     if v_dim is None or v_dim == head_dim:
-        tensor_cores = head_dim in WGMMA_HEAD_DIMS
+        tensor_cores = head_dim in (WGMMA_BF16_HEAD_DIMS
+                                    if dtype == torch.bfloat16
+                                    else WGMMA_HEAD_DIMS)
     else:
         tensor_cores = (head_dim, v_dim) in WGMMA_QK_V_DIMS
     if not tensor_cores:
@@ -90,10 +98,11 @@ def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
              v_dim: Optional[int] = None) -> str:
     """The kernel that computes the attention backward of `dtype` with q
     and k of head dim `head_dim` and v of head dim `v_dim` (`head_dim`
-    when None) on the card: at D = Dv in WGMMA_HEAD_DIMS or (D, Dv) in
-    WGMMA_QK_V_DIMS, "wgmma" (bf16, with or without a softcap) or "tf32"
-    (f32, no softcap), both reading the forward's lse; "simt" in every
-    other case (f32 on the CUDA cores, its own lse).  It is the
+    when None) on the card: "wgmma" (bf16 at D = Dv in
+    WGMMA_BF16_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS, with or without a
+    softcap) or "tf32" (f32 at D = Dv in WGMMA_HEAD_DIMS or those (D, Dv),
+    no softcap), both reading the forward's lse; "simt" in every other
+    case (f32 on the CUDA cores, its own lse).  It is the
     forward's ``path`` in every case: what the forward's kernel
     computes, this one differentiates, and the tensor-core forwards write
     the lse the tensor-core backwards read."""
@@ -164,9 +173,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = path(q.dtype, D, softcap, Dv)
     if return_lse and kernel == "simt":
         raise ValueError("the simt forward writes no lse: only the wgmma "
-                         "and tf32 paths (D = Dv in WGMMA_HEAD_DIMS or (D, "
-                         "Dv) in WGMMA_QK_V_DIMS, f32 without a softcap) "
-                         "do")
+                         "and tf32 paths (bf16 at D = Dv in "
+                         "WGMMA_BF16_HEAD_DIMS, f32 without a softcap at "
+                         "D = Dv in WGMMA_HEAD_DIMS, or (D, Dv) in "
+                         "WGMMA_QK_V_DIMS) do")
     out = q.new_empty((BH, S, Dv))
     lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
            if return_lse else None)

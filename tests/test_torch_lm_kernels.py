@@ -105,16 +105,20 @@ def test_attention_op_grouped_heads(B, Hq, Hkv):
         _close(got, want, TOL["float32"])
 
 
-@pytest.mark.parametrize("D", [16, 24, 32, 48, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("D", [16, 24, 32, 48, 64, 80, 96, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_path_depends_on_dtype_and_head_dim_alone(dtype, D):
     """Head dims 64, 128 and 256 take a tensor-core kernel: bf16 the
-    wgmma one, f32 the 3xTF32 one; any other head dim (the zoo's smoke
-    configs use 16 and 24) takes the CUDA-core kernel.  (f16 is refused by
-    the wrapper before a path is chosen.)"""
+    wgmma one, f32 the 3xTF32 one; bf16 at hubert-xlarge's 80 the wgmma
+    one too (padded to two column blocks), f32 there the CUDA-core one;
+    any other head dim (the zoo's smoke configs use 16 and 24) takes the
+    CUDA-core kernel.  (f16 is refused by the wrapper before a path is
+    chosen.)"""
     if D in (64, 128, 256):
         want = "wgmma" if dtype == torch.bfloat16 else "tf32"
+    elif D == 80 and dtype == torch.bfloat16:
+        want = "wgmma"
     else:
         want = "simt"
     assert flash_path(dtype, D) == want
@@ -226,12 +230,14 @@ def test_tf32_kernel_arithmetic_holds_f32_at_mla_head_dims():
 @pytest.mark.parametrize("kind,window,causal", [
     ("global", 0, True), ("local", 40, True), ("chunked", 32, True),
     ("local", 40, False)])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_attention_plain_bf16_at_head_dims_64_128_matches_pallas(
         D, kind, window, causal):
     """The plain version, which the wrapper takes on CPU tensors, at the
-    tensor-core kernel's head dims in bf16 and a ragged S, against the
-    Pallas kernel in interpret mode and the reference oracle: the function
+    tensor-core kernel's head dims in bf16 (64, 128 and hubert-xlarge's
+    80, which the kernel pads to two column blocks) and a ragged S,
+    against the Pallas kernel in interpret mode and the reference
+    oracle: the function
     that kernel is held to on the card.  The kernel itself runs only in
     the cuda_only tests and chip_smoke."""
     rng = np.random.default_rng(D + window)

@@ -1019,10 +1019,11 @@ def test_flash_gradient_at_mla_head_dims_f32_takes_tf32_and_reads_lse():
     _mla_gradient_through_function(torch.float32, "tf32")
 
 
-def _simt_mla(q, k, v, do, kw):
+def _simt_direct(q, k, v, do, kw):
     """The CUDA-core forward and backward (``csrc/flash_attention.cu``,
-    ``csrc/flash_attention_bwd.cu``) called directly at f32, where the
-    wrapper takes the 3xTF32 kernels: (o, (dq, dk, dv))."""
+    ``csrc/flash_attention_bwd.cu``) called directly in q's dtype, where
+    the wrapper takes a tensor-core path (f32 at MLA's head dims, the
+    3xTF32 kernels; bf16 at D 80, the wgmma ones): (o, (dq, dk, dv))."""
     from repro_torch.kernels import _build, _scratch
     from repro_torch.kernels.flash_attention import KINDS
     bh, s, d = q.shape
@@ -1032,16 +1033,17 @@ def _simt_mla(q, k, v, do, kw):
             int(kw.get("window", 0)), float(kw.get("softcap", 0.0)))
     stream = _scratch.current_stream(q.device)
     o = q.new_empty((bh, s, dv))
+    is_bf16 = int(q.dtype == torch.bfloat16)
     err = _build.load("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, d, dv,
-        group, 0, *mask, stream)
+        group, is_bf16, *mask, stream)
     _build.check_launch(err, "flash_attention (simt, direct)")
     grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((2, bh, s), dtype=torch.float32, device=q.device)
     err = _build.load("flash_attention_bwd").flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         *(g.data_ptr() for g in grads), stats[0].data_ptr(),
-        stats[1].data_ptr(), bh, s, d, dv, group, 0, *mask, stream)
+        stats[1].data_ptr(), bh, s, d, dv, group, is_bf16, *mask, stream)
     _build.check_launch(err, "flash_attention_bwd (simt, direct)")
     return o, grads
 
@@ -1059,7 +1061,7 @@ def test_cuda_core_kernels_held_at_f32_mla_head_dims(S, BH, G, kw):
     q, k, v = _mla_qkv(S + BH + 7, BH, G, S, torch.float32, dev)
     do = _mla_qkv(S + BH + 8, BH, 1, S, torch.float32, dev)[2]
     n0 = flash_attention.launches, flash_attention_bwd.launches
-    o, grads = _simt_mla(q, k, v, do, kw)
+    o, grads = _simt_direct(q, k, v, do, kw)
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_bwd.launches) == n0
     kr, vr = (a.repeat_interleave(G, 0) for a in (k, v))
@@ -1636,7 +1638,7 @@ def test_quantize_on_card_is_bitwise_the_cpu(seed):
 #: (BH, G, D, S, mask): qwen1.5-110b's group of 8 at head dim 128;
 #: llama4's chunks of 8,192, S just past one boundary (group 5);
 #: gemma3-12b's local window of 1,024 at head dim 256, group 2; hubert's
-#: head dim 80, non-causal, on the CUDA-core kernels
+#: head dim 80, non-causal, on the wgmma kernels
 NEW_SHAPES = [(16, 8, 128, 300, dict(causal=True, kind="global")),
               (10, 5, 128, 8292, dict(causal=True, kind="chunked",
                                       window=8192)),
@@ -1648,15 +1650,15 @@ NEW_SHAPES = [(16, 8, 128, 300, dict(causal=True, kind="global")),
 @pytest.mark.cuda_only
 @pytest.mark.parametrize("BH,G,D,S,kw", NEW_SHAPES,
                          ids=["qwen-g8-d128", "llama4-chunked-8192",
-                              "gemma3-local-1024-d256", "hubert-d80-simt"])
+                              "gemma3-local-1024-d256", "hubert-d80-wgmma"])
 def test_flash_kernels_at_the_new_model_shapes(BH, G, D, S, kw):
     """bf16, forward and backward, one launch each on the path ``path``
-    names (wgmma at D 128 and 256, simt at D 80), against the plain
-    versions at the bf16 tolerances of the shapes before them."""
+    names (wgmma at D 80, 128 and 256), against the plain versions at the
+    bf16 tolerances of the shapes before them."""
     from repro_torch.kernels.flash_attention import path
     dev = _card()
     kernel = path(torch.bfloat16, D)
-    assert kernel == ("simt" if D == 80 else "wgmma")
+    assert kernel == "wgmma"
     by_path = dict(flash_attention.launches_by_path)
     q, k, v, o, do, lse = _bwd_case(BH + G + D + S, BH, G, S, D,
                                     torch.bfloat16, dev, kw)
@@ -1669,6 +1671,74 @@ def test_flash_kernels_at_the_new_model_shapes(BH, G, D, S, kw):
     got = _bwd_launch(q, k, v, o, do, lse, kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
     _assert_grads_close(got, want, torch.bfloat16, f"{kw}")
+
+
+#: hubert-xlarge's head dim 80 on the wgmma kernels: MHA and GQA 2:1,
+#: every mask (non-causal global, the mask that keeps every pair below
+#: S, takes the backward's instantiation without per-pair tests), ragged
+#: S
+D80_CASES = [(4, 1, 300, dict(causal=False, kind="global")),
+             (8, 2, 1001, dict(causal=False, kind="global")),
+             (8, 2, 300, dict(causal=True, kind="global")),
+             (4, 2, 1001, dict(causal=True, kind="local", window=100)),
+             (4, 1, 300, dict(causal=True, kind="chunked", window=128)),
+             (4, 2, 300, dict(causal=True, kind="global", softcap=20.0)),
+             (4, 1, 1001, dict(causal=False, kind="local", window=48))]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("BH,G,S,kw", D80_CASES, ids=lambda x: (
+    "-".join(f"{k}{v}" for k, v in x.items()) if isinstance(x, dict)
+    else str(x)))
+def test_flash_kernels_at_hubert_head_dim(BH, G, S, kw):
+    """bf16 at D 80: the forward and backward on the wgmma kernels, one
+    launch each, against the plain versions at the bf16 tolerances, and
+    the backward bitwise the same over two calls."""
+    from repro_torch.kernels.flash_attention import path
+    dev = _card()
+    assert path(torch.bfloat16, 80) == bwd_path(torch.bfloat16, 80) == "wgmma"
+    by_path = dict(flash_attention.launches_by_path)
+    q, k, v, o, do, lse = _bwd_case(BH + G + S, BH, G, S, 80, torch.bfloat16,
+                                    dev, kw, 4.0 if kw.get("softcap") else 1.0)
+    by_path["wgmma"] += 1
+    assert flash_attention.launches_by_path == by_path
+    group = lambda t: t.repeat_interleave(G, 0)
+    plain = ref.flash_attention_ref(q, group(k), group(v), **kw)
+    _assert_bf16_attention_close(
+        o, plain, ref.flash_attention_ref(q, group(k), group(v).abs(), **kw))
+    got = _bwd_launch(q, k, v, o, do, lse, kw)
+    again = _bwd_launch(q, k, v, o, do, lse, kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(got, want, torch.bfloat16, f"D=80 S={S} G={G} {kw}")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("S,kw", [(300, dict(causal=False, kind="global")),
+                                  (1001, dict(causal=True, kind="local",
+                                              window=100))],
+                         ids=["global", "local100"])
+def test_cuda_core_kernels_held_at_hubert_head_dim(S, kw):
+    """The CUDA-core forward and backward, which the wrapper no longer
+    takes for bf16 at D 80, called directly there (the witness the wgmma
+    kernels are timed beside): the output and each gradient within the
+    bf16 tolerances of the plain versions, no wrapper launch counted."""
+    dev = _card()
+    rng = np.random.default_rng(S)
+    mk = lambda rows: torch.from_numpy(rng.standard_normal(
+        (rows, S, 80)).astype(np.float32)).to(device=dev,
+                                               dtype=torch.bfloat16)
+    q, k, v, do = mk(4), mk(2), mk(2), mk(4)
+    n0 = flash_attention.launches, flash_attention_bwd.launches
+    o, grads = _simt_direct(q, k, v, do, kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == n0
+    kr, vr = (a.repeat_interleave(2, 0) for a in (k, v))
+    _assert_bf16_attention_close(
+        o, ref.flash_attention_ref(q, kr, vr, **kw),
+        ref.flash_attention_ref(q, kr, vr.abs(), **kw))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    _assert_grads_close(grads, want, torch.bfloat16, f"simt D=80 S={S} {kw}")
 
 
 PHASE11_ARCHS = ["gemma-7b", "gemma3-12b", "qwen1.5-110b",

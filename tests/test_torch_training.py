@@ -860,21 +860,21 @@ def test_autograd_functions_on_cpu_take_the_plain_backward():
 
 
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
-@pytest.mark.parametrize("D", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
         dtype, D, softcap):
-    """bf16 at head dims 64, 128 and 256 takes the wgmma backward, softcap
-    or not; f32 there without a softcap the 3xTF32 one (the cases the
-    forward's ``path`` sends to its 3xTF32 kernel); f32 with a softcap
-    and every other head dim the CUDA-core one.  With v's head dim given
+    """bf16 at head dims 64, 80, 128 and 256 takes the wgmma backward,
+    softcap or not; f32 at 64, 128 and 256 without a softcap the 3xTF32
+    one (the cases the forward's ``path`` sends to its 3xTF32 kernel); f32
+    with a softcap, f32 at 80 and every other head dim the CUDA-core one.  With v's head dim given
     (``v_dim``): equal to D it changes nothing; MLA's (192, 128) takes the
     wgmma backward in bf16, the 3xTF32 one in f32 without a softcap and
     the CUDA-core one with it, and every other v narrower or wider than q
     and k the CUDA-core one, as the forward's
     ``path`` says in every case (each tensor-core backward reads the lse
     its forward writes)."""
-    if D in (64, 128, 256) and dtype == torch.bfloat16:
+    if D in (64, 80, 128, 256) and dtype == torch.bfloat16:
         want = "wgmma"
     elif D in (64, 128, 256) and not softcap:
         want = "tf32"
@@ -979,22 +979,29 @@ def test_flash_attention_fn_saves_lse_only_when_a_gradient_is_needed(
             dict(flash_attention_bwd.launches_by_path)) == n0
 
 
-@pytest.mark.parametrize("kw", [MASKS[0], MASKS[5], MASKS[7]],
-                         ids=lambda kw: "-".join(f"{k}{v}"
-                                                 for k, v in kw.items()))
-def test_flash_attention_fn_grads_match_jax(kw):
+def _mask_id(kw):
+    return "-".join(f"{k}{v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw,G,D", [
+    *(pytest.param(kw, 4, 64, id=_mask_id(kw))
+      for kw in (MASKS[0], MASKS[5], MASKS[7])),
+    # hubert-xlarge's head dim, its heads each their own kv head, no mask
+    pytest.param(MASKS[3], 1, 80, id="hubert-d80-" + _mask_id(MASKS[3]))])
+def test_flash_attention_fn_grads_match_jax(kw, G, D):
     """Autograd through ``flash_attention_fn`` (the kernels' dispatch, on
-    the CPU their plain versions) at a tensor-core head dim, MQA 4:1,
-    against ``jax.grad`` of the reference's oracle with k and v repeated,
-    within 1e-4 of each gradient's largest element."""
-    q, k, v, do = _attn_inputs(13, G=4, D=64)
+    the CPU their plain versions) at a tensor-core head dim (64, MQA 4:1,
+    and hubert-xlarge's 80, MHA, non-causal), against ``jax.grad`` of the
+    reference's oracle with k and v repeated, within 1e-4 of each
+    gradient's largest element."""
+    q, k, v, do = _attn_inputs(13, G=G, D=D)
     qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
     got = torch.autograd.grad(flash_attention_fn(qt, kt, vt, **kw),
                               (qt, kt, vt), _t(do))
 
     def jloss(q, k, v):
-        out = jref.flash_attention_ref(q, jnp.repeat(k, 4, 0),
-                                       jnp.repeat(v, 4, 0), **kw)
+        out = jref.flash_attention_ref(q, jnp.repeat(k, G, 0),
+                                       jnp.repeat(v, G, 0), **kw)
         return jnp.sum(out * do)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
