@@ -257,8 +257,9 @@ Phases (each one failing makes the script exit non-zero):
      gradient (256,000 x 2,560 f32), bitwise ``ef_quantize`` /
      ``dequantize`` on the CPU, timed; (e) the dry run
      of qwen1.5-110b x train_4k on the single- and multi-pod meshes, each
-     in a subprocess on the host (both started after (d), so that
-     nothing else runs while (b)-(d) are timed; at most 120 s): status
+     in a subprocess on the host (both run beside phase 0's build and
+     waited for before phase 1, so that no timed phase shares the host
+     with them; at most 120 s): status
      ok, the argument GiB a device, the three roofline terms and the
      bottleneck; every number beside the card's name and power limit;
   11. the six architectures no earlier phase serves, each at its
@@ -310,7 +311,34 @@ Phases (each one failing makes the script exit non-zero):
      scaled_dot_product_attention call (its backward) with the same
      boolean mask (the kv heads shared through `enable_gqa`); phase 11's
      time, beside the card's name and power limit;
-  12. the f32 flash path's times and the f32 attention backward's on
+  12. the six architectures that fit one card, trained at their
+     published width as phase 8 (b) trains (``launch/train.py``'s
+     ``build_state`` and ``put_batch``, ``make_train_step``, bf16 compute,
+     remat on, B 1, S 3,000, TokenPipeline seed 0, 4 steps; depth,
+     state dtype and learning rate from TRAIN_TABLE), each freed before
+     the next: (a)
+     gemma2-2b (26 layers, f32 state), (b) gemma-7b (28 layers, bf16
+     state), (c) gemma3-12b cut from 48 layers to 30, five whole periods
+     (bf16), (d) qwen1.5-110b cut from 80 to 4 (bf16), (e) internvl2-2b
+     (24 layers, its 256 patch positions and 2,744 text tokens, f32) and
+     (f) hubert-xlarge (48 non-causal layers on frames, f32); qwen at a
+     learning rate of 3e-5, where 3e-4 overshoots, the others at AdamW's
+     default 3e-4: every loss
+     finite, the last below the first, the peak within 72 GiB, the launches
+     exact and every attention kernel on the wgmma path, no scan launched;
+     each step's loss, grad norm, lr and time, the state's GB and the peak
+     printed, and one more step of gemma2-2b and of qwen1.5-110b profiled;
+     (g) hubert-xlarge through ``train_loop`` for 3 steps with (f)'s AdamW
+     settings: its losses bitwise (f)'s first three, the launches exact;
+     (h) gemma2-2b's period (local then global, softcap 50) at S 1,024:
+     every gradient leaf through the kernels against the plain versions as
+     phase 8 (c) holds them; (i) the flash kernel at the shapes (a)-(f)
+     give it at S 3,000 that no earlier phase holds there (gemma2-2b's
+     local 4,096 and global with its softcap of 50, gemma-7b's 16 heads
+     of 256, internvl2-2b's 16 over 8 of 128), forward and backward
+     against the plain versions, the backward bitwise over two calls;
+     phase 12's time, beside the card's name and power limit;
+  13. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -330,7 +358,9 @@ Phases (each one failing makes the script exit non-zero):
      by load under "cluster_launches"; phase 10's launches on the mesh
      under "mesh_launches"; phase 11's launches by architecture and path
      under "phase11", in the attention's entry with the times of (h) and
-     in the attention backward's from (g)), then the device line.
+     in the attention backward's from (g); phase 12's launches by run in
+     each LM kernel's entry under "phase12_launches"), then the device
+     line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -345,6 +375,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -426,6 +457,45 @@ TRAIN_ARCH = SERVE_ARCH
 TRAIN_ARCHS = (SERVE_ARCH, SSM_ARCH)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 3000, 1, 8
 PERIOD_SEQ = 1024
+
+
+class Trained(NamedTuple):
+    """How phase 8 (b) and phase 12 train an architecture at its
+    published width: its depth (0: the config's own), the dtype of its
+    weights, gradients and moments, and AdamW's peak learning rate."""
+    depth: int = 0
+    dtype: str = "float32"
+    lr: float = 3e-4            # AdamWConfig's default
+
+
+#: each architecture trained at its published width.  State is 16 bytes a
+#: parameter in f32 and 8 in bf16, which each model takes where f32 would
+#: not fit one card; depths are cut by whole periods, only where the peak
+#: would pass TRAIN_PEAK_GIB
+TRAIN_TABLE = {
+    "recurrentgemma-2b": Trained(),
+    "mamba2-2.7b": Trained(),
+    # the dense first layer and one MoE layer: 5.36e9 parameters
+    MOE_ARCH: Trained(MOE_TRAIN_LAYERS, "bfloat16"),
+    "gemma2-2b": Trained(),
+    "internvl2-2b": Trained(),
+    "hubert-xlarge": Trained(),
+    # full depth: 8.54e9 parameters, a 69.6 GiB peak
+    "gemma-7b": Trained(0, "bfloat16"),
+    # 30 of 48 layers, five whole periods of 5 local layers and 1 global:
+    # at 36 (six periods) the step ran out of the card's memory past 71.6
+    # GiB allocated
+    "gemma3-12b": Trained(30, "bfloat16"),
+    # 4 of 80 layers: 1.36e9 parameters a layer, 2.49e9 in the untied
+    # embedding and head; at 5 the step ran out of memory past 74 GiB
+    # allocated.  At d_model 8,192 and d_ff 49,152 Adam's first full step
+    # at 3e-4 (warmup 1) overshoots: with 2 layers the loss rose 3.5x,
+    # through the plain versions as much, and with 1 layer as much in f32
+    # state as in bf16; at 3e-5 the last loss is below the first
+    "qwen1.5-110b": Trained(4, "bfloat16", 3e-5),
+}
+TRAIN_PEAK_GIB = 72
+
 #: phase 8 (a): the SSD backward kernel's gradients, in the order it
 #: returns them, each held to SSD_TOL of its largest |value|
 SSD_GRADS = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
@@ -3504,61 +3574,76 @@ def _layer_counts(cfg) -> tuple:
 
 
 def _train_config(arch: str, n_layers: int = 0):
-    """(config, parameter dtype, moment dtype) of `arch` for phase 8:
-    recurrentgemma-2b and mamba2-2.7b at their depth with f32 weights and
-    moments; deepseek-v2-236b at its published width, its depth cut to
-    `n_layers` (MOE_TRAIN_LAYERS by default), with bf16 weights (the
-    router f32) and moments: 16 bytes a parameter of f32 state would not
-    fit one card at two layers (85.8 GB)."""
+    """(config, parameter dtype, moment dtype) of `arch` as TRAIN_TABLE
+    trains it: its published width, its depth cut to `n_layers` where
+    given, else to the table's; in bf16 state the router stays f32."""
     import torch
     from repro_torch.configs import get_config
+    depth, dtype, _ = TRAIN_TABLE.get(arch, Trained())
     cfg = get_config(arch)
-    if arch != MOE_ARCH:
-        return cfg, torch.float32, "float32"
-    cfg = cfg.replace(n_layers=n_layers or MOE_TRAIN_LAYERS)
-    m, moe = cfg.mla, cfg.moe
-    check((cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
-           m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
-           moe.n_experts, moe.top_k, moe.d_ff_expert, moe.n_shared_experts,
-           cfg.vocab_size) == (5120, MLA_HEADS, 1536, 512, MLA_QK_DIM,
-                               MLA_V_DIM, 160, 6, 1536, 2, 102400),
-          f"phase 8: {MOE_ARCH} is not at its published width")
-    return cfg, torch.bfloat16, "bfloat16"
+    if n_layers or depth:
+        cfg = cfg.replace(n_layers=n_layers or depth)
+    if arch == MOE_ARCH:
+        m, moe = cfg.mla, cfg.moe
+        check((cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
+               m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
+               moe.n_experts, moe.top_k, moe.d_ff_expert,
+               moe.n_shared_experts, cfg.vocab_size)
+              == (5120, MLA_HEADS, 1536, 512, MLA_QK_DIM, MLA_V_DIM, 160, 6,
+                  1536, 2, 102400),
+              f"phase 8: {MOE_ARCH} is not at its published width")
+    return cfg, getattr(torch, dtype), dtype
 
 
-def phase8_train_full_width(arch: str):
-    """(b) `arch` at its published width: recurrentgemma-2b and
-    mamba2-2.7b at their depth with f32 master weights and moments,
-    deepseek-v2-236b cut to MOE_TRAIN_LAYERS (the dense first layer and
-    one MoE layer) with bf16 weights, gradients and moments; bf16
-    compute, remat on, B 1, S 3,000, TokenPipeline seed 0, TRAIN_STEPS
-    steps through make_train_step and no checkpoint.  Every loss finite,
-    the last below the first, the kernels' launches exact: each forward
-    once a layer and again in each recomputed period, each backward once
-    a layer, the attention forward and backward (deepseek: at MLA's q/k
-    192, v 128) and the SSD forward on their wgmma paths.  Returns the
-    launches in the run, the attention backward's by path among them as
-    "flash_attention_bwd.<path>"."""
+def _train_setup(arch: str, steps: int):
+    """(config, parameter dtype, input shape, AdamWConfig) of `arch`
+    trained for `steps` steps at B TRAIN_BATCH, S TRAIN_SEQ: the AdamW
+    settings the reference's ``train_loop`` builds for that many steps
+    (warmup 1) at TRAIN_TABLE's learning rate, the moments in the state's
+    dtype."""
+    from repro_torch.configs import InputShape
+    from repro_torch.optim import AdamWConfig
+    cfg, param_dtype, moment_dtype = _train_config(arch)
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    return cfg, param_dtype, shape, AdamWConfig(
+        lr=TRAIN_TABLE.get(arch, Trained()).lr, total_steps=steps,
+        warmup_steps=1, moment_dtype=moment_dtype)
+
+
+def train_full_width(arch: str, label: str = "phase 8 (b)",
+                     steps: int = TRAIN_STEPS, profile: bool = True):
+    """Phase 8 (b) and phase 12 (a)-(f): `arch` at its published width as
+    TRAIN_TABLE trains it (recurrentgemma-2b and mamba2-2.7b at their
+    depth with f32 master weights and moments, deepseek-v2-236b cut to
+    MOE_TRAIN_LAYERS, the dense first layer and one MoE layer, with bf16
+    weights, gradients and moments; phase 12's six likewise); bf16
+    compute, remat on, B 1, S 3,000, TokenPipeline seed 0, `steps` steps
+    through ``launch/train.py``'s ``build_state`` and ``put_batch`` and
+    ``make_train_step``, no checkpoint.  Every loss finite, the last
+    below the first, the peak within TRAIN_PEAK_GIB, the kernels'
+    launches exact: each forward once a layer and again in each
+    recomputed period, each backward once a layer, the attention forward
+    and backward (deepseek: at MLA's q/k 192, v 128) and the SSD forward
+    on their wgmma paths.  With `profile`, one more step under the
+    profiler.  Returns the launches in the run, the attention backward's
+    by path among them as "flash_attention_bwd.<path>"."""
     import gc
     import torch
-    from repro_torch.configs import InputShape
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import build_state, put_batch
     from repro_torch.kernels import _scratch
-    from repro_torch.optim import AdamWConfig
-    # the kernels' scratch of earlier phases would count in this model's
-    # peak: drop it, so that the peak holds only what this model asks for
+    phase = label.split(" (")[0].replace(" ", "")
+    # the kernels' scratch and the models of earlier phases would count in
+    # this model's peak: drop them, so that the peak holds only what this
+    # model asks for
     _scratch.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, param_dtype, moment_dtype = _train_config(arch)
+    before = torch.cuda.memory_allocated()
+    cfg, param_dtype, shape, opt_cfg = _train_setup(arch, steps)
     n, fwd, n_periods = _layer_counts(cfg)
-    shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
-    # the reference's train_loop's AdamWConfig for TRAIN_STEPS steps
-    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
-                          moment_dtype=moment_dtype)
     t0 = time.perf_counter()
     state = build_state(cfg, opt_cfg, seed=0, device="cuda",
                         param_dtype=param_dtype)
@@ -3566,22 +3651,23 @@ def phase8_train_full_width(arch: str):
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     state_gb = sum(t.numel() * t.element_size() for t in _leaves(
         [state["params"], state["opt"].m, state["opt"].v])) / 1e9
-    print(f"phase8 {arch}: {n_params:,} parameters, "
+    print(f"{phase} {arch}: {n_params:,} parameters, "
           f"{str(param_dtype)[6:]} weights (and gradients), "
-          f"{moment_dtype} moments: {state_gb:.2f} GB of weights and "
-          f"moments, computed in {cfg.dtype}; {cfg.n_layers} layers ("
+          f"{opt_cfg.moment_dtype} moments: {state_gb:.2f} GB of weights "
+          f"and moments, computed in {cfg.dtype}; {cfg.n_layers} layers ("
           + " + ".join(f"{c} {k}" for k, c in n.items() if c)
           + f"), B {TRAIN_BATCH}, S {TRAIN_SEQ}; state built in "
           f"{time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated; "
-          f"{opt_cfg}")
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated "
+          f"({before / 2**30:.3f} before); {opt_cfg}")
     bundle = make_train_step(cfg, None, shape, opt_cfg, remat=True,
                              device="cuda")
     pipe = TokenPipeline(cfg, shape, seed=0)
     torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_lm_counts()
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         batch = put_batch(pipe.batch(i), "cuda")
         t0 = time.perf_counter()
         state, m = bundle.fn(state, batch)
@@ -3589,13 +3675,16 @@ def phase8_train_full_width(arch: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        print(f"phase8 {arch} step {i}: loss {loss:.4f}, grad_norm "
+        print(f"{phase} {arch} step {i}: loss {loss:.4f}, grad_norm "
               f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
               f"{times[-1] * 1e3:.1f} ms")
     counts = train_counts()
     by_path = dict(flash_attention_bwd.launches_by_path)
     peak = torch.cuda.max_memory_allocated()
-    T = TRAIN_STEPS
+    # cudaMalloc calls that failed and were retried after the allocator
+    # freed its cache (each a device-wide sync)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    T = steps
     want = {"flash_attention": fwd["attention"] * T,
             "flash_attention.wgmma": fwd["attention"] * T,
             "flash_attention_bwd": n["attention"] * T,
@@ -3605,27 +3694,30 @@ def phase8_train_full_width(arch: str):
             "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T}
     steady = statistics.median(times[1:])
     want_path = {"wgmma": n["attention"] * T, "tf32": 0, "simt": 0}
-    print(f"phase8 {arch} train launches: {counts}; expected {want} (the "
+    print(f"{phase} {arch} train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
           f"recomputed periods); attention backward by path {by_path}, "
           f"expected {want_path}")
-    print(f"phase8 {arch} train: losses {[round(x, 4) for x in losses]}; "
+    print(f"{phase} {arch} train: losses {[round(x, 4) for x in losses]}; "
           f"step time first {times[0] * 1e3:.1f} ms, median of the rest "
           f"{steady * 1e3:.1f} ms = "
           f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; peak memory "
-          f"{peak / 2**30:.3f} GiB")
+          f"{peak / 2**30:.3f} GiB, {retries} allocations retried")
     check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
-          f"phase 8 (b) {arch}: a loss is not finite: {losses}")
-    check(losses[-1] < losses[0], f"phase 8 (b) {arch}: the loss did not "
+          f"{label} {arch}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{label} {arch}: the loss did not "
           f"fall: {losses}")
-    check(counts == want, f"phase 8 (b) {arch}: launches {counts}, "
+    check(peak <= TRAIN_PEAK_GIB * 2**30, f"{label} {arch}: peak memory "
+          f"{peak / 2**30:.3f} GiB, more than {TRAIN_PEAK_GIB}")
+    check(counts == want, f"{label} {arch}: launches {counts}, "
           f"expected {want}")
-    check(by_path == want_path, f"phase 8 (b) {arch}: attention backward "
+    check(by_path == want_path, f"{label} {arch}: attention backward "
           f"launches by path {by_path}, expected {want_path}")
-    state = profile_train_step(
-        bundle, state, put_batch(pipe.batch(TRAIN_STEPS), "cuda"))
+    if profile:
+        state = profile_train_step(
+            bundle, state, put_batch(pipe.batch(steps), "cuda"), phase)
     del state, bundle
-    PHASE8_RUNS[arch] = {"losses": losses, "counts": counts}
+    TRAIN_RUNS[arch] = {"losses": losses, "counts": counts}
     return dict(counts, **{f"flash_attention_bwd.{p}": c
                            for p, c in by_path.items()})
 
@@ -3691,7 +3783,9 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
     `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
     bf16 weights), or phase 11 (g)'s first layers of the architectures in
-    GRAD_LAYERS (f32 weights), S 1,024, bf16 compute: every gradient
+    GRAD_LAYERS (f32 weights), or phase 12 (h)'s first `n_layers` of
+    gemma2-2b (its period, local then global, softcap 50; f32 weights),
+    S 1,024, bf16 compute: every gradient
     leaf through the kernels against the plain versions, relative in norm
     within GRAD_TOL, with the kernels' launches exact, each attention
     kernel's by path.
@@ -3726,7 +3820,9 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     elif arch == TRAIN_ARCH:
         cfg = cfg.replace(n_layers=3, pattern_tail=())
     elif arch in GRAD_LAYERS:
+        # phase 11 (g): f32 weights, whatever TRAIN_TABLE trains them in
         cfg = first_layers(cfg, GRAD_LAYERS[arch])
+        param_dtype = torch.float32
     if f32:
         cfg, param_dtype = cfg.replace(dtype="float32"), torch.float32
     tol = F32_GRAD_TOL if f32 else GRAD_TOL
@@ -3964,9 +4060,10 @@ def phase8_policy_fit():
               f"{gap[differ].tolist()} on the CPU fit")
 
 
-#: phase 8 (b)'s losses and launch counts by architecture, which phase
-#: 10 (b) holds the mesh step to
-PHASE8_RUNS: dict = {}
+#: the losses and launch counts of each architecture's run in phase 8 (b)
+#: or 12, which phase 10 (b) holds the mesh step to and phase 12 (g) the
+#: train loop
+TRAIN_RUNS: dict = {}
 
 
 def phase8_training():
@@ -3975,7 +4072,7 @@ def phase8_training():
     among them, and (c3)'s launches under "c3"."""
     t0 = time.perf_counter()
     serve = phase8_bwd_kernels()
-    counts = {arch: phase8_train_full_width(arch)
+    counts = {arch: train_full_width(arch)
               for arch in TRAIN_ARCHS + (MOE_ARCH,)}
     for arch in TRAIN_ARCHS:
         phase8_period_grads(arch)
@@ -4430,7 +4527,9 @@ def start_dryruns() -> dict:
     """(e): one subprocess a mesh kind, both at once, each tracing
     ``launch.dryrun.run_cell`` of DRYRUN_ARCH x DRYRUN_SHAPE on a fake
     process group, on the host alone (no card visible to it); its record
-    is the last line of its output."""
+    is the last line of its output.  Started beside phase 0's build and
+    waited for before phase 1 (``finish_dryruns``), so that they share
+    the host with no timed phase."""
     code = ("import json, logging, sys, warnings; "
             "warnings.filterwarnings('ignore'); "
             "logging.disable(logging.WARNING); sys.path.insert(0, 'src'); "
@@ -4445,9 +4544,9 @@ def start_dryruns() -> dict:
         for kind in ("single", "multi")}
 
 
-def phase10e_dryruns(procs: dict, power: str) -> dict:
+def finish_dryruns(procs: dict) -> dict:
     """(e) each dry-run subprocess's record within DRYRUN_LIMIT_S of its
-    start: status ok, or the phase fails."""
+    start, with its wall time: status ok, or the run fails."""
     recs = {}
     for kind, (t0, proc) in procs.items():
         left = max(DRYRUN_LIMIT_S - (time.perf_counter() - t0), 1.0)
@@ -4465,6 +4564,13 @@ def phase10e_dryruns(procs: dict, power: str) -> dict:
         rec = json.loads(lines[-1])
         check(rec.get("status") == "ok", f"phase 10 (e): {kind} dry run "
               f"{rec.get('status')}: {str(rec)[:2000]}")
+        recs[kind] = (rec, wall)
+    return recs
+
+
+def phase10e_dryruns(recs: dict, power: str):
+    """(e) each dry run's record (``finish_dryruns``) printed."""
+    for kind, (rec, wall) in recs.items():
         r = rec["roofline"]
         gib = rec["memory"]["arg_bytes_analytic_per_device"] / 2**30
         print(f"phase10 (e) dryrun {DRYRUN_ARCH} x {DRYRUN_SHAPE} x {kind}: "
@@ -4474,10 +4580,9 @@ def phase10e_dryruns(procs: dict, power: str) -> dict:
               f"collective {r['collective_s']:.4g} s -> bottleneck "
               f"{r['bottleneck']}; useful_ratio {r['useful_ratio']:.4g}, "
               f"roofline_frac {r['roofline_frac']:.4g}; traced in "
-              f"{rec['trace_s']} s, {wall:.1f} s with start-up (host of "
-              f"the {power} machine; H100 SXM5 constants)")
-        recs[kind] = rec
-    return recs
+              f"{rec['trace_s']} s, {wall:.1f} s with start-up, beside "
+              f"phase 0's build (host of the {power} machine; H100 SXM5 "
+              "constants)")
 
 
 def mesh_1x1():
@@ -4530,20 +4635,15 @@ def phase10b_train(mesh, power: str):
     a step equal to its.  Returns (the launches, the embedding table's
     gradient on the next batch, taken by the bundle's ``grads``)."""
     import torch
-    from repro_torch.configs import InputShape
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
     from repro_torch.distributed.steps import distribute
     from repro_torch.kernels import _scratch
     from repro_torch.launch.train import build_state, put_batch
-    from repro_torch.optim import AdamWConfig
     _scratch.clear()
     _free_models("phase10 (b)")
-    cfg, param_dtype, moment_dtype = _train_config(TRAIN_ARCH)
-    shape = InputShape("phase8", TRAIN_SEQ, TRAIN_BATCH, "train")
-    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
-                          moment_dtype=moment_dtype)
-    ref = PHASE8_RUNS.get(TRAIN_ARCH)
+    cfg, param_dtype, shape, opt_cfg = _train_setup(TRAIN_ARCH, TRAIN_STEPS)
+    ref = TRAIN_RUNS.get(TRAIN_ARCH)
     if ref is None:
         losses, counts = _one_device_train(cfg, shape, opt_cfg, param_dtype,
                                            MESH_STEPS)
@@ -4715,27 +4815,21 @@ def phase10d_compress(g, power: str):
           "ef_quantize / dequantize")
 
 
-def phase10_mesh() -> dict:
-    """Phase 10's parts in order, the dry runs (e) started after (d), so
-    that nothing else runs on the host while (b)-(d) are timed; the
-    process group ended at the end.  Returns (b)'s and (c)'s launches."""
+def phase10_mesh(dryruns: dict) -> dict:
+    """Phase 10's parts in order, (e) printing the dry runs' records
+    (run beside phase 0's build); the process group ended at the end.
+    Returns (b)'s and (c)'s launches."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     power = card()
-    procs = {}
     try:
         mesh = mesh_1x1()
         train, g = phase10b_train(mesh, power)
         serve = phase10c_serve(mesh, power)
         phase10d_compress(g, power)
         del g
-        procs = start_dryruns()
-        phase10e_dryruns(procs, power)
+        phase10e_dryruns(dryruns, power)
     finally:
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
         if dist.is_initialized():
             dist.destroy_process_group()
     print(f"phase10 total {time.perf_counter() - t0:.1f} s")
@@ -5153,6 +5247,137 @@ def phase11_other_archs() -> dict:
             "bwd_times": bwd_times}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the architectures that fit one card, trained at published width
+# ---------------------------------------------------------------------------
+
+#: phase 12 (a)-(f), in order: each trained as TRAIN_TABLE says;
+#: llama4-maverick is not, its one MoE layer's experts alone being 129 GB
+#: of bf16 state
+PHASE12_ARCHS = (GEMMA_ARCH, "gemma-7b", "gemma3-12b", "qwen1.5-110b",
+                 VLM_ARCH, AUDIO_ARCH)
+PHASE12_STEPS = 4
+#: the runs with one more step under the profiler
+PHASE12_PROFILED = (GEMMA_ARCH, "qwen1.5-110b")
+#: phase 12 (g): the steps of the train loop held bitwise to (f)'s first
+PHASE12_LOOP_STEPS = 3
+
+
+def phase12g_train_loop() -> dict:
+    """(g) hubert-xlarge through ``launch/train.py``'s ``train_loop`` on
+    the card, (f)'s AdamW settings, PHASE12_LOOP_STEPS steps: its losses
+    bitwise (f)'s first ones (the same seed, pipeline and state route;
+    the loop builds f32 state, as (f) trains hubert) and its launches
+    exact.  Returns the launches."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch.train import train_loop
+    _free_models("phase12 (g)")
+    cfg, param_dtype, shape, opt_cfg = _train_setup(AUDIO_ARCH,
+                                                    PHASE12_STEPS)
+    check(param_dtype == torch.float32, f"phase 12 (g): {AUDIO_ARCH} "
+          f"trains in {param_dtype}, the loop in f32")
+    n, fwd, _ = _layer_counts(cfg)
+    T = PHASE12_LOOP_STEPS
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    _state, losses = train_loop(cfg, shape, steps=T, opt_cfg=opt_cfg,
+                                device="cuda", log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del _state
+    counts = dict(train_counts(), **{
+        f"flash_attention_bwd.{p}": c
+        for p, c in flash_attention_bwd.launches_by_path.items()})
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention": fwd["attention"] * T,
+                 "flash_attention.wgmma": fwd["attention"] * T,
+                 "flash_attention_bwd": n["attention"] * T,
+                 "flash_attention_bwd.wgmma": n["attention"] * T})
+    ref = TRAIN_RUNS[AUDIO_ARCH]["losses"][:T]
+    print(f"phase12 (g) {AUDIO_ARCH} train_loop: losses {losses} against "
+          f"(f)'s {ref}; launches {counts}, expected {want}; {wall:.2f} s, "
+          "state built in the loop")
+    check(losses == ref, f"phase 12 (g): train_loop's losses {losses}, "
+          f"(f)'s {ref}")
+    check(counts == want, f"phase 12 (g): launches {counts}, expected "
+          f"{want}")
+    return counts
+
+
+#: phase 12 (i): the attention shapes (a)-(f) give the kernels at S
+#: TRAIN_SEQ that no earlier phase holds there, as (architecture, mask
+#: kind); the others are phase 11 (h)'s
+PHASE12_FLASH_SHAPES = ((GEMMA_ARCH, "local"), (GEMMA_ARCH, "global"),
+                        ("gemma-7b", "global"), (VLM_ARCH, "global"))
+
+
+def phase12i_flash_shapes() -> list:
+    """(i) the flash kernel, forward and backward, at each of
+    PHASE12_FLASH_SHAPES as the train step gives it (B 1, S TRAIN_SEQ,
+    bf16, causal, the config's heads, head dim, window and softcap):
+    held against the plain versions (``hold_flash``, ``hold_flash_bwd``;
+    the backward bitwise over two calls), untimed.  Returns each shape's
+    paths and errors."""
+    import torch
+    from repro_torch.configs import get_config
+    _free_models("phase12 (i)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    held = []
+    for arch, kind in PHASE12_FLASH_SHAPES:
+        cfg = get_config(arch)
+        bh, bh_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        q, k, v = (torch.randn((n, TRAIN_SEQ, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for n in (bh, bh_kv, bh_kv))
+        kw = dict(causal=True, kind=kind,
+                  window=cfg.window if kind == "local" else 0)
+        if cfg.attn_softcap:
+            kw["softcap"] = cfg.attn_softcap
+        m = hold_flash(q, k, v, kw, with_library=False)
+        b = hold_flash_bwd(q, k, v, kw, timed=False, twice=True)
+        what = (f"{arch} BH={bh} G={bh // bh_kv} S={TRAIN_SEQ} D={d} "
+                f"{kw} bfloat16")
+        print(f"phase12 (i) flash_attention {what} path={m['path']}: "
+              f"max_abs_err {m['max_abs_err']:.3g} ({m['worst']:.3g} of "
+              "the allowance)")
+        print(flash_bwd_line(what, b, "phase12 (i)"))
+        held.append({"arch": arch, "shape": [bh, bh_kv, TRAIN_SEQ, d],
+                     **kw, "path": m["path"],
+                     "max_abs_err": m["max_abs_err"], "bwd_path": b["path"],
+                     "bwd_max_abs_err": b["max_abs_err"],
+                     "bwd_bitwise_twice": b["bitwise_twice"]})
+        del q, k, v
+    return held
+
+
+def phase12_training() -> dict:
+    """Phase 12's parts in order: (a)-(f) each of PHASE12_ARCHS trained
+    (``train_full_width``, PHASE12_STEPS steps, gemma2-2b's and
+    qwen1.5-110b's one more step profiled); (g) hubert-xlarge through
+    ``train_loop``; (h) gemma2-2b's period's gradients against the plain
+    versions; (i) the flash kernel at the shapes of (a)-(f) that no
+    earlier phase holds.  Returns the launches by run and (i)'s holds."""
+    t0 = time.perf_counter()
+    power = card()
+    runs = {arch: train_full_width(arch, f"phase 12 ({letter})",
+                                   PHASE12_STEPS, arch in PHASE12_PROFILED)
+            for letter, arch in zip("abcdef", PHASE12_ARCHS)}
+    t_g = time.perf_counter()
+    runs["train_loop " + AUDIO_ARCH] = phase12g_train_loop()
+    t_h = time.perf_counter()
+    _free_models("phase12 (h)")
+    runs[GEMMA_ARCH + " period grads"] = phase8_period_grads(GEMMA_ARCH, 2)
+    t_i = time.perf_counter()
+    held = phase12i_flash_shapes()
+    print(f"phase12 total {time.perf_counter() - t0:.1f} s ((a)-(f) "
+          f"{t_g - t0:.1f} s, (g) {t_h - t_g:.1f} s, (h) "
+          f"{t_i - t_h:.1f} s, (i) {time.perf_counter() - t_i:.1f} s); "
+          f"{power}")
+    return runs, held
+
+
 def main() -> int:
     try:
         import torch
@@ -5177,8 +5402,14 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
+    procs = {}
     try:
+        procs = start_dryruns()
         phase0_build()
+        t_wait = time.perf_counter()
+        dryruns = finish_dryruns(procs)
+        print(f"phase0 waited {time.perf_counter() - t_wait:.2f} s after "
+              "the build for phase 10 (e)'s dry runs")
         scn = core.make_scenario("burst-storm", **SCENARIO)
         world = core.scenario_world(scn, engine="numpy")
         phase1_kernels(world)
@@ -5196,8 +5427,9 @@ def main() -> int:
         platform_launches = phase7_platform()
         train, train_launches = phase8_training()
         serve_driver_launches, gemma, cluster = phase9_serving_entry_points()
-        mesh = phase10_mesh()
+        mesh = phase10_mesh(dryruns)
         other = phase11_other_archs()
+        trained, held12 = phase12_training()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -5381,6 +5613,23 @@ def main() -> int:
                 arch: {p: n[f"flash_attention_bwd.{p}"] for p in paths}
                 for arch, n in other["grads"].items()},
             "times": other["bwd_times"]}
+        # phase 12 (i): the kernel held at the train step's shapes that
+        # no earlier phase holds, both directions
+        flash["phase12_held"] = [
+            {key: h[key] for key in h if not key.startswith("bwd_")}
+            for h in held12]
+        flash_bwd["phase12_held"] = [
+            {key[4:] if key.startswith("bwd_") else key: h[key]
+             for key in h if key not in ("path", "max_abs_err")}
+            for h in held12]
+        # phase 12: each kernel's launches by run, beside phase 8's
+        for k in kernels:
+            name = k["name"]
+            if any(key.split(".")[0] == name for key in trained[GEMMA_ARCH]):
+                k["phase12_launches"] = {
+                    run: {key: c for key, c in counts.items()
+                          if key.split(".")[0] == name}
+                    for run, counts in trained.items()}
         # the (D, Dv) instantiations of each tensor-core path, forward and
         # backward alike (bf16 also at hubert-xlarge's 80, padded)
         from repro_torch.kernels.flash_attention import (
@@ -5412,6 +5661,11 @@ def main() -> int:
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

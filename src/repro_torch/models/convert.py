@@ -19,7 +19,6 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
-from ..optim.adamw import OptState
 from .model import block_structure
 
 
@@ -102,6 +101,9 @@ def train_state_from_numpy(cfg: ModelConfig, state, device=None):
     unless the caller names another): the parameters and both moments
     unstacked as ``params_from_numpy`` does, the step a 0-d int32
     tensor."""
+    # imported here: optim.adamw imports models.pctx, and so this package,
+    # so importing it at the top fails when optim is imported first
+    from ..optim.adamw import OptState
     dev = resolve_device(device)
     opt = state["opt"]
     m, v, step = (opt.m, opt.v, opt.step) if hasattr(opt, "m") else (

@@ -38,6 +38,37 @@ def test_port_imports_no_jax_and_no_reference():
     assert n_modules >= 57      # every ported module was imported
 
 
+_IMPORT_EACH_FIRST = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+failed = []
+for name in names:
+    for m in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+    except ImportError as e:
+        failed.append((name, str(e)))
+print(len(names), failed)
+assert not failed, failed
+"""
+
+
+def test_every_port_module_imports_first():
+    """Each module of the port imports in a process that has imported no
+    other: ``from repro_torch.optim import AdamWConfig`` as a script's
+    first import of the port once failed on a cycle (optim.adamw ->
+    models -> models.convert -> optim.adamw)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 57
+
+
 def test_chip_smoke_imports_no_jax_and_no_reference():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     roots = set()

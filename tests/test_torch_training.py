@@ -1,11 +1,11 @@
 """The port's training path against the JAX package's, on the CPU: AdamW
 (f32, and bf16 parameters and moments within one bf16 ulp), the chunked
-cross-entropy and loss, the model's gradients (the recurrentgemma,
-mamba2 and deepseek-v2 smoke configs) and three train steps on the
-recurrentgemma smoke config, the plain versions of the three backward
-kernels, the policy fit, the data pipeline, checkpoints and the
-fault-tolerance drill; and serving's outputs unchanged by the autograd
-dispatch.
+cross-entropy and loss, the model's gradients and three train steps on
+every architecture's smoke config, bf16 state losing no gradient, the
+train loop bitwise the route chip_smoke trains by, the plain versions
+of the three backward kernels, the policy fit, the data pipeline,
+checkpoints and the fault-tolerance drill; and serving's outputs
+unchanged by the autograd dispatch.
 
 Both packages get the same numpy inputs and weights (``params_from_numpy``
 of the reference's ``init_params``).  Tolerances, f32 throughout: AdamW
@@ -443,16 +443,18 @@ def test_model_gradients_match_jax(smoke, jax_grads, remat):
     _assert_trees_close(got, want, GRAD_TOL)
 
 
+@pytest.mark.parametrize("smoke", GRAD_ARCHS, indirect=True)
 def test_three_train_steps_match_reference(smoke):
     """Three steps from ``train_state_from_numpy`` of the reference's
     state give losses within 1e-4 of the reference's loss_fn + adamw
     step (remat on, the reference's default AdamWConfig but a short
-    warmup so that the steps move)."""
+    warmup so that the steps move), for every architecture's smoke model
+    (the frontends' inputs made by ``_grad_batch``)."""
     jcfg, jp, tcfg = smoke
     ocfg = dict(warmup_steps=1, total_steps=10, lr=3e-3)
     jo = jadamw.AdamWConfig(**ocfg)
     state = {"params": jp, "opt": jadamw.init(jp, jo)}
-    batches = [_batch(2, 32, seed=10 + i) for i in range(3)]
+    batches = [_grad_batch(tcfg, 2, 32, seed=10 + i) for i in range(3)]
 
     @jax.jit
     def jstep(state, b):
@@ -475,16 +477,23 @@ def test_three_train_steps_match_reference(smoke):
     assert int(tstate["opt"].step) == 3
 
 
-def test_deepseek_bf16_state_trains_and_loses_no_gradient():
-    """deepseek-v2's smoke model as phase 8 (b) trains it on the card:
-    ``build_state`` with bf16 parameters (the router's f32) and bf16
-    moments, bf16 compute.  Every leaf's gradient through the MLA
-    attention, the sort dispatch, the router (its f32 logits) and the aux
-    loss exists and is not identically zero (the train step's zero fill
-    would hide a detached one); three steps of ``make_train_step`` keep
-    every dtype, move every leaf and give finite losses."""
-    cfg = tbase.get_smoke_config("deepseek-v2-236b").replace(
-        dtype="bfloat16")
+#: the architectures phase 12 of chip_smoke trains in bf16 state, and
+#: deepseek-v2, which phase 8 (b) does
+BF16_STATE_ARCHS = ("deepseek-v2-236b", "gemma-7b", "gemma3-12b",
+                    "qwen1.5-110b")
+
+
+@pytest.mark.parametrize("arch", BF16_STATE_ARCHS)
+def test_deepseek_bf16_state_trains_and_loses_no_gradient(arch):
+    """The smoke model of each of BF16_STATE_ARCHS as chip_smoke trains
+    it on the card: ``build_state`` with bf16 parameters (deepseek's
+    router f32) and bf16 moments, bf16 compute.  Every leaf's gradient
+    (deepseek: through the MLA attention, the sort dispatch, the router's
+    f32 logits and the aux loss; qwen: its QKV biases and untied head)
+    exists and is not identically zero (the train step's zero fill would
+    hide a detached one); three steps of ``make_train_step`` keep every
+    dtype, move every leaf and give finite losses."""
+    cfg = tbase.get_smoke_config(arch).replace(dtype="bfloat16")
     ocfg = tadamw.AdamWConfig(warmup_steps=1, total_steps=4, lr=1e-2,
                               moment_dtype="bfloat16")
     state = tlaunch.build_state(cfg, ocfg, seed=0, device="cpu",
@@ -492,13 +501,14 @@ def test_deepseek_bf16_state_trains_and_loses_no_gradient():
     named = tadamw.leaves_with_path(state["params"])
     want = {"/".join(p): (torch.float32 if p[-1] == "['w_router']"
                           else torch.bfloat16) for p, _ in named}
+    assert (torch.float32 in want.values()) == (cfg.moe is not None)
     assert {"/".join(p): t.dtype for p, t in named} == want
     assert all(t.dtype == torch.bfloat16
                for _, t in tadamw.leaves_with_path(state["opt"].m))
-    b = jax.tree.map(_t, _batch(2, 32, seed=3))
+    b = jax.tree.map(_t, _grad_batch(cfg, 2, 32, seed=3))
     leaves = [t.requires_grad_(True) for _, t in named]
     loss, mets = tsteps.loss_fn(cfg, state["params"], b, remat=True)
-    assert float(mets["aux"].detach()) > 0
+    assert (float(mets["aux"].detach()) > 0) == (cfg.moe is not None)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     lost = ["/".join(p) for (p, _), g in zip(named, grads)
             if g is None or not bool(g.any())]
@@ -510,14 +520,40 @@ def test_deepseek_bf16_state_trains_and_loses_no_gradient():
     losses = []
     for i in range(3):
         state, m = bundle.fn(state, jax.tree.map(
-            _t, _batch(2, 32, seed=20 + i)))
+            _t, _grad_batch(cfg, 2, 32, seed=20 + i)))
         losses.append(float(m["loss"]))
     assert np.all(np.isfinite(losses))
     after = tadamw.leaves_with_path(state["params"])
     assert {"/".join(p): t.dtype for p, t in after} == want
+    assert all(t.dtype == torch.bfloat16
+               for _, t in tadamw.leaves_with_path(state["opt"].v))
     still = ["/".join(p) for (p, t), t0 in zip(after, before)
              if torch.equal(t.detach(), t0)]
     assert not still, still
+
+
+@pytest.mark.parametrize("arch", ("hubert-xlarge", "internvl2-2b"))
+def test_train_loop_equals_the_phase_route(arch):
+    """``launch/train.py``'s ``train_loop`` gives bitwise the losses of
+    the route chip_smoke's phase 12 trains by, from the same seed:
+    ``build_state``, ``make_train_step`` (remat on) and ``TokenPipeline``
+    batches through ``put_batch`` (hubert's frames; internvl2's patch
+    embeddings before its text), as phase 12 (g) holds on the card."""
+    cfg = tbase.get_smoke_config(arch)
+    shape = tbase.InputShape("t", 40, 2, "train")
+    ocfg = tadamw.AdamWConfig(warmup_steps=1, total_steps=4)
+    _s, got = tlaunch.train_loop(cfg, shape, steps=3, opt_cfg=ocfg,
+                                 device="cpu", quiet=True)
+    state = tlaunch.build_state(cfg, ocfg, seed=0, device="cpu")
+    bundle = make_train_step(cfg, None, shape, ocfg, remat=True,
+                             device="cpu")
+    pipe = tpipe.TokenPipeline(cfg, shape, seed=0)
+    want = []
+    for i in range(3):
+        state, m = bundle.fn(state, tlaunch.put_batch(pipe.batch(i), "cpu"))
+        want.append(float(m["loss"]))
+    assert got == want
+    assert len(set(want)) == 3
 
 
 def test_microbatch_step_matches_whole_batch(smoke):
