@@ -98,7 +98,16 @@ Phases (each one failing makes the script exit non-zero):
      the first scan kernel's; the same requests through the plain
      versions must give prefill logits within 2e-2 of the largest
      |logit|, and the same first token wherever the top-2 margin is
-     above that;
+     above that.  The kernels' drain decodes through the instance's
+     decode step captured in a CUDA graph (one replay a decode step, the
+     capture's ms printed), the plain drain eagerly (the yardstick), both
+     decode rates printed; a fresh instance's captured step is held
+     against the eager step on a bitwise copy of its cache for 15 greedy
+     steps (the tokens equal at every step of every slot, the logits'
+     largest difference printed, 0 expected, else within 2e-2 of the
+     largest |logit|), each step timed; the profile also takes one
+     replayed and one eager decode step.  Phases 6, 6 (b), 9 (b) and 11
+     (a)-(d) serve and hold the same way;
   6. serving mamba2-2.7b at its published width and depth (phase 5's
      model freed first): the same engine, 8 requests (prompts of 512,
      1,000, 2,048 and 3,001 tokens, two each; 3,001 is prime, so the
@@ -239,7 +248,10 @@ Phases (each one failing makes the script exit non-zero):
      mamba2 one, all on the tensor-core paths), every served request's
      logits (within 2e-2 in norm) and tokens (wherever the top-2 margin
      allows) held step by step against its prompt served through the
-     plain versions; one
+     plain versions, run eagerly; every instance's replays equal to its
+     decode steps, the instances that captured and their capture ms
+     printed, and a captured step held against an eager one at the
+     twin's engines; one
      real cold start (``scale_up(1)``) and one logical start
      (``logical_start(1)``) of each model timed, five each;
   10. the mesh steps (``repro_torch.distributed``) on a 1x1 ("data",
@@ -284,9 +296,12 @@ Phases (each one failing makes the script exit non-zero):
      flash outputs are each held against the plain version on its own
      q, k, v); (e) internvl2-2b (24 layers, f32 weights): its 256
      projected patch embeddings before prompts of 512 and 3,000 tokens
-     through ``model.prefill`` and 15 greedy ``model.decode_step`` calls,
-     24 wgmma launches a prefill, every step's logits held, the tokens
-     while the margins allow; (f) hubert-xlarge (48 non-causal layers of
+     through ``model.prefill`` and 15 greedy steps of the engine's
+     ``DecodeStep`` on that cache (captured through the kernels, eager
+     through the plain versions), 24 wgmma launches a prefill, every
+     step's logits held, the tokens while the margins allow, and a
+     captured step held against an eager one as in phase 5; (f)
+     hubert-xlarge (48 non-causal layers of
      16 heads of 80, f32 weights) through ``model.forward`` on frames of
      width 512 at (1, 3,000) and (4, 1,000): 48 launches a forward on the
      wgmma kernel (head dim 80 padded to two column blocks), each forward
@@ -336,7 +351,10 @@ Phases (each one failing makes the script exit non-zero):
      give it at S 3,000 that no earlier phase holds there (gemma2-2b's
      local 4,096 and global with its softcap of 50, gemma-7b's 16 heads
      of 256, internvl2-2b's 16 over 8 of 128), forward and backward
-     against the plain versions, the backward bitwise over two calls;
+     against the plain versions, the backward bitwise over two calls,
+     each direction timed beside the plain version, the CUDA-core kernel,
+     the bound and the library (sdpa, or with gemma2-2b's softcap one
+     compiled flex_attention call, its backward included);
      phase 12's time, beside the card's name and power limit;
   13. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
@@ -419,6 +437,9 @@ MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 128, 192, 128
 SERVE_ARCH = "recurrentgemma-2b"
 SERVE_PROMPTS = (512, 1000, 2048, 3000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_MAX_NEW = 4, 4096, 16
+#: the graph-against-eager hold of every served architecture: greedy
+#: decode steps each way from bitwise-equal caches
+HOLD_STEPS = SERVE_MAX_NEW - 1
 #: phase 5, kernels against plain on the whole model in bf16: the
 #: prefill's last-position logits within 2e-2 of the largest |logit|,
 #: and each recurrent or SSM layer's final state within 2e-2 in norm
@@ -1404,21 +1425,18 @@ def simt_flash(q, k, v, kw):
     return out
 
 
-def flex_library(q, k, v, kw):
-    """flash_attention's function as one compiled flex_attention call:
-    the tanh softcap as its score_mod, the mask as its mask_mod, the kv
-    heads shared through enable_gqa (query head h reads kv head h // G,
-    as the kernel does).  The library yardstick where a softcap rules
-    sdpa out.  Builds the block mask and compiles here, outside any
-    timed call; returns (the call, its output, the seconds that took)."""
+def _flex(s: int, kw, device):
+    """flash_attention's function for flex_attention: the compiled call,
+    the block mask of `kw`'s mask at S = `s` and the tanh softcap as its
+    score_mod (query head h reads kv head h // G through enable_gqa, as
+    the kernel does).  Inductor's and triton's caches under the
+    checkout's build/."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
-    # inductor's and triton's caches under the checkout's build/
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
-    bh, s, d = q.shape
     cap = float(kw["softcap"])
     causal, kind = kw.get("causal", True), kw.get("kind", "global")
     window = int(kw.get("window", 0))
@@ -1434,9 +1452,19 @@ def flex_library(q, k, v, kw):
     def softcap(score, b, h, qi, ki):
         return torch.tanh(score / cap) * cap
 
-    t0 = time.perf_counter()
-    block = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+    block = create_block_mask(mask_mod, None, None, s, s, device=device)
     flex = torch.compile(flex_attention, dynamic=False)
+    return flex, block, softcap
+
+
+def flex_library(q, k, v, kw):
+    """flash_attention's function as one compiled flex_attention call
+    (``_flex``).  The library yardstick where a softcap rules sdpa out.
+    Builds the block mask and compiles here, outside any timed call;
+    returns (the call, its output, the seconds that took)."""
+    import torch
+    t0 = time.perf_counter()
+    flex, block, softcap = _flex(q.shape[1], kw, q.device)
     q4, k4, v4 = q[None], k[None], v[None]
 
     def library():
@@ -1446,6 +1474,29 @@ def flex_library(q, k, v, kw):
     got = library()[0]
     torch.cuda.synchronize()
     return library, got, time.perf_counter() - t0
+
+
+def flex_library_bwd(q, k, v, do, kw):
+    """``flex_library``'s call with its gradient: (its forward, its
+    forward and backward through ``torch.autograd.grad`` by `do`, the
+    seconds the block mask and both compiles took), each compiled here,
+    outside any timed call."""
+    import torch
+    t0 = time.perf_counter()
+    flex, block, softcap = _flex(q.shape[1], kw, q.device)
+    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+
+    def library_fwd():
+        return flex(q4, k4, v4, score_mod=softcap, block_mask=block,
+                    enable_gqa=True)
+
+    def library_both():
+        return torch.autograd.grad(library_fwd(), (q4, k4, v4), do[None])
+
+    library_both()
+    library_fwd()
+    torch.cuda.synchronize()
+    return library_fwd, library_both, time.perf_counter() - t0
 
 
 def hold_flash(q, k, v, kw, with_library: bool):
@@ -2024,21 +2075,25 @@ class ServeRecorder:
     no cap), its recurrent or SSM layers' final states h (on the host,
     f32), the LM kernels it launched and each MoE layer's routing (every
     token's experts and whether each assignment was kept under the
-    capacity, on the sort dispatch).  With `steps`, also every step's
+    capacity, on the sort dispatch); and each instance's decode steps
+    taken (``decode_steps``, by iid).  With `steps`, also every step's
     logits of each request, after and before the cap (None where there
     is no cap), keyed by rid in ``by_rid``: its prefill's last position
-    and its slot's row of each decode step.  Wraps the names the serving
-    engine, the model and the MoE layer call."""
+    and its slot's row of each decode step, read from the step's outputs
+    (``DecodeStep.logits`` and ``.pre``) after the step, since a replayed
+    graph calls no Python.  Wraps the names the serving engine, the model
+    and the MoE layer call."""
 
     def __init__(self, steps: bool = False):
-        from collections import defaultdict
+        from collections import Counter, defaultdict
         from repro_torch.models import model as model_lib
         from repro_torch.models import moe as moe_mod
         from repro_torch.serving.engine import ServingInstance
         self.logits, self.pre, self.states = [], [], []
         self.launches, self.routes = [], []
         self.by_rid = defaultdict(list)
-        self._routing, self._unembedded, self._rids = None, None, [None]
+        self.decode_steps = Counter()
+        self._routing, self._unembedded, self._rid = None, None, None
         self._patched = []
 
         def patch(owner, name, wrap):
@@ -2046,11 +2101,10 @@ class ServeRecorder:
             self._patched.append((owner, name, orig))
             setattr(owner, name, wrap(orig))
 
-        def rows(cfg, logits):
+        def rows(cfg, logits, pre, rids):
             got = logits.float().cpu()
-            pre = (self._unembedded[:, -1].float().cpu()
-                   if cfg.logit_softcap else got)
-            for i, rid in enumerate(self._rids):
+            pre = pre.float().cpu() if cfg.logit_softcap else got
+            for i, rid in enumerate(rids):
                 if steps and rid is not None:
                     self.by_rid[rid].append(
                         (got[i], None if pre is got else pre[i]))
@@ -2082,7 +2136,8 @@ class ServeRecorder:
                     routing, self._routing = self._routing, None
                 self.launches.append({k: n - n0[k]
                                       for k, n in lm_counts().items()})
-                got, pre = rows(cfg, logits)
+                got, pre = rows(cfg, logits, self._unembedded[:, -1],
+                                [self._rid])
                 self.logits.append(got[0])
                 self.pre.append(pre[0])
                 self.states.append([c["h"][0].float().cpu() for c in cache
@@ -2091,33 +2146,29 @@ class ServeRecorder:
                 return logits, cache
             return call
 
-        def decode_step(orig):
-            def call(cfg, *args, **kw):
-                logits, cache = orig(cfg, *args, **kw)
-                rows(cfg, logits)
-                return logits, cache
-            return call
-
         def admit(orig):
             def call(inst, req):
-                self._rids = [req.rid]
+                self._rid = req.rid
                 return orig(inst, req)
             return call
 
         def step(orig):
             def call(inst):
-                self._rids = [None if r is None else r.rid
-                              for r in inst.active]
-                return orig(inst)
+                rids = [None if r is None else r.rid for r in inst.active]
+                done = orig(inst)
+                if any(r is not None for r in rids):
+                    self.decode_steps[inst.iid] += 1
+                    if steps:
+                        rows(inst.cfg, inst.decoder.logits,
+                             inst.decoder.pre, rids)
+                return done
             return call
 
         patch(moe_mod, "_router", router)
         patch(model_lib, "unembed", unembed)
         patch(model_lib, "prefill", prefill)
-        if steps:
-            patch(model_lib, "decode_step", decode_step)
-            patch(ServingInstance, "admit", admit)
-            patch(ServingInstance, "step", step)
+        patch(ServingInstance, "admit", admit)
+        patch(ServingInstance, "step", step)
 
     def close(self):
         for owner, name, orig in reversed(self._patched):
@@ -2127,12 +2178,15 @@ class ServeRecorder:
 def _serve(cfg, params, prompts, use_kernel: bool,
            max_len: int = SERVE_MAX_LEN):
     """One engine, one instance, every prompt submitted at once and
-    drained; returns (requests, prefill logits, launches, seconds, peak
-    bytes)."""
+    drained; the kernels' run (`use_kernel`) decodes through the captured
+    step, the plain run eagerly (``graph=False``), the yardstick.
+    Returns (requests, the recorder, launches, seconds, peak bytes, the
+    instance's decode step)."""
     import torch
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
-                        max_len=max_len, use_kernel=use_kernel)
+                        max_len=max_len, use_kernel=use_kernel,
+                        graph=use_kernel)
     eng.scale_up(1)
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p.copy(), SERVE_MAX_NEW))
@@ -2148,78 +2202,190 @@ def _serve(cfg, params, prompts, use_kernel: bool,
     finally:
         rec.close()
     launches = lm_counts()
+    (inst,) = eng.instances.values()
     return (sorted(done, key=lambda r: r.rid), rec, launches, wall,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), inst.decoder)
+
+
+def _profiled(phase: str, label: str, run, prompt_len: int):
+    """`run` once under torch.profiler (host and device activity): prints
+    its wall time, device busy time and idle share and the largest
+    entries by device and by host time; returns (the profiler's rows, the
+    device rows), None without device time ("not measured")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    if busy <= 0:
+        print(f"{phase} profile {label}: device time not measured")
+        return None
+    top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    host = [e for e in rows if e.device_type == DeviceType.CPU]
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
+    print(f"{phase} profile {label} (prompt {prompt_len}, profiled "
+          f"{wall * 1e3:.1f} ms): device busy {busy * 1e3:.2f} ms, "
+          f"idle share {1 - busy / wall:.4f}; {len(host)} host op "
+          f"kinds, {sum(e.count for e in host)} host op calls")
+    print(f"{phase} profile   device: " + "; ".join(
+        f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} "
+        f"ms" for e in top_dev))
+    print(f"{phase} profile   host: " + "; ".join(
+        f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
+        for e in top_host))
+    return host, dev
 
 
 def profile_serving(cfg, params, prompt, phase: str, first_ms=None,
                     max_len: int = SERVE_MAX_LEN):
-    """One prefill of `prompt` into a fresh instance and one decode step,
-    under torch.profiler (host and device activity): wall time, device
-    busy share, and the largest entries by device and by host time; the
-    flash and RG-LRU scan kernels' device time in the prefill, each
-    beside `first_ms[name]` (the first kernel's phase-4 device time at
-    the same shape, times the launches) where given.  A measurement only;
-    prints "not measured" without device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.engine import Request, ServingInstance
+    """One prefill of `prompt` into a fresh instance, one decode step to
+    capture its graph, then one replayed decode step and one eager step
+    on the same cache, each under torch.profiler (``_profiled``: wall
+    time, device busy share, the largest entries by device and by host
+    time); the flash and RG-LRU scan kernels' device time in the
+    prefill, each beside `first_ms[name]` (the first kernel's phase-4
+    device time at the same shape, times the launches) where given.  A
+    measurement only; prints "not measured" without device time."""
+    from repro_torch.serving.engine import (DecodeStep, Request,
+                                            ServingInstance)
     inst = ServingInstance(cfg, params, slots=SERVE_SLOTS,
                            max_len=max_len)
-    torch.cuda.synchronize()
-    for label, run in (("prefill", lambda: inst.admit(
-            Request(0, prompt.copy(), SERVE_MAX_NEW))),
-                       ("decode step", inst.step)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = prof.key_averages()
-        dev = [e for e in rows if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev) / 1e6
-        if busy <= 0:
-            print(f"{phase} profile {label}: device time not measured")
+    got = _profiled(phase, "prefill", lambda: inst.admit(
+        Request(0, prompt.copy(), SERVE_MAX_NEW)), len(prompt))
+    inst.step()
+    _profiled(phase, "decode step (graph replay)", inst.step, len(prompt))
+    eager = DecodeStep(cfg, params, inst.cache, SERVE_SLOTS, max_len,
+                       inst.device, graph=False)
+    _profiled(phase, "decode step (eager)",
+              lambda: eager(inst.last_token, inst.pos), len(prompt))
+    inst.close()
+    if got is None:
+        return
+    host, dev = got
+    # device time by the host op that launched it
+    ops = sorted((e for e in host if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{phase} profile   device time by op: " + "; ".join(
+        f"{e.key[:24]} x{e.count} "
+        f"{e.self_device_time_total / 1e3:.2f} ms" for e in ops))
+    ssd = [e for e in dev if "ssd_" in e.key]
+    if ssd:
+        print(f"{phase} profile   ssd: " + "; ".join(
+            f"{e.key[:40]} x{e.count} "
+            f"{e.self_device_time_total / 1e3:.2f} ms" for e in ssd))
+    for name, key in (("flash", "flash"), ("scan", "rglru")):
+        mine = [e for e in dev if key in e.key]
+        if not mine:
             continue
-        top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-        host = [e for e in rows if e.device_type == DeviceType.CPU]
-        top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
-        print(f"{phase} profile {label} (prompt {len(prompt)}, profiled "
-              f"{wall * 1e3:.1f} ms): device busy {busy * 1e3:.2f} ms, "
-              f"idle share {1 - busy / wall:.4f}; {len(host)} host op "
-              f"kinds, {sum(e.count for e in host)} host op calls")
-        print(f"{phase} profile   device: " + "; ".join(
-            f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} "
-            f"ms" for e in top_dev))
-        print(f"{phase} profile   host: " + "; ".join(
-            f"{e.key[:32]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
-            for e in top_host))
-        if label == "prefill":
-            # device time by the host op that launched it
-            ops = sorted((e for e in host if e.self_device_time_total > 0),
-                         key=lambda e: -e.self_device_time_total)[:6]
-            print(f"{phase} profile   device time by op: " + "; ".join(
-                f"{e.key[:24]} x{e.count} "
-                f"{e.self_device_time_total / 1e3:.2f} ms" for e in ops))
-            ssd = [e for e in dev if "ssd_" in e.key]
-            if ssd:
-                print(f"{phase} profile   ssd: " + "; ".join(
-                    f"{e.key[:40]} x{e.count} "
-                    f"{e.self_device_time_total / 1e3:.2f} ms" for e in ssd))
-        for name, key in (("flash", "flash"), ("scan", "rglru")):
-            mine = [e for e in dev if key in e.key]
-            if label != "prefill" or not mine:
-                continue
-            first = (first_ms or {}).get(name)
-            ref_text = ("" if first is None else
-                        f"; the first kernel at this shape in phase 4, "
-                        f"times the launches: {first:.2f} ms")
-            print(f"{phase} profile   {name}: " + "; ".join(
-                f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
-                f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
-                f"ms{ref_text}")
+        first = (first_ms or {}).get(name)
+        ref_text = ("" if first is None else
+                    f"; the first kernel at this shape in phase 4, "
+                    f"times the launches: {first:.2f} ms")
+        print(f"{phase} profile   {name}: " + "; ".join(
+            f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
+            f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
+            f"ms{ref_text}")
+
+
+def hold_graph(label: str, cfg, params, graphed, tokens, pos,
+               steps: int = HOLD_STEPS) -> dict:
+    """The graph-against-eager hold: `graphed`, a captured decode step
+    (``DecodeStep``) on its cache after its prefills, and an eager one on
+    a bitwise copy of that cache, `steps` greedy steps each from the
+    slots' `tokens` at positions `pos` (host int64 arrays), in turn: the
+    tokens equal at every step of every slot; the logits' largest
+    difference, before and after the final softcap, printed, and any
+    other than 0 within LOGIT_TOL of the largest |logit|; one replay a
+    step.  Each step timed on the host clock (the step reads its tokens
+    back, so it ends synchronised); decode tokens/s of both over the
+    steps after the first (the graphed one's first captures).  Returns
+    the measurements."""
+    import torch
+    from repro_torch.serving.engine import DecodeStep
+    copy = [{k: t.clone() for k, t in layer.items()}
+            for layer in graphed.cache]
+    eager = DecodeStep(cfg, params, copy, graphed.slots, graphed.max_len,
+                       graphed.device, graph=False)
+    tokens, pos = tokens.copy(), pos.copy()
+    times = {"graph": [], "eager": []}
+    diff = pre_diff = scale = 0.0
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        got = graphed(tokens, pos)
+        t1 = time.perf_counter()
+        want = eager(tokens, pos)
+        t2 = time.perf_counter()
+        times["graph"].append(t1 - t0)
+        times["eager"].append(t2 - t1)
+        check(bool((got == want).all()), f"{label} graph hold step {i}: "
+              f"tokens {got.tolist()} against eager {want.tolist()}")
+        check(bool(torch.isfinite(graphed.logits).all()),
+              f"{label} graph hold step {i}: logits not finite")
+        diff = max(diff, float((graphed.logits.float()
+                                - eager.logits.float()).abs().max()))
+        pre_diff = max(pre_diff, float((graphed.pre.float()
+                                        - eager.pre.float()).abs().max()))
+        scale = max(scale, float(eager.logits.float().abs().max()))
+        tokens, pos = got, pos + 1
+    check(graphed.replays == steps, f"{label} graph hold: "
+          f"{graphed.replays} replays for {steps} steps")
+    check(diff <= LOGIT_TOL * scale, f"{label} graph hold: logits differ "
+          f"by {diff} of max |logit| {scale}")
+    n = graphed.slots * (steps - 1)
+    out = {"capture_ms": graphed.capture_ms,
+           "pool_bytes": graphed.pool_bytes, "max_logit_diff": diff,
+           "max_pre_cap_diff": pre_diff,
+           "graph_tok_s": n / sum(times["graph"][1:]),
+           "eager_tok_s": n / sum(times["eager"][1:]),
+           "graph_first_ms": 1e3 * times["graph"][0],
+           "graph_step_ms": 1e3 * statistics.median(times["graph"][1:]),
+           "eager_step_ms": 1e3 * statistics.median(times["eager"][1:])}
+    print(f"{label} graph against eager, {steps} greedy steps of "
+          f"{graphed.slots} slots from bitwise-equal caches: tokens equal "
+          f"at every step of every slot; logits largest difference "
+          f"{diff:.6g} (before the cap {pre_diff:.6g}; max |logit| "
+          f"{scale:.2f}, tol {LOGIT_TOL * scale:.4f})"
+          f"{'' if diff == 0 else ', not bitwise'}; "
+          f"replays {graphed.replays}; capture {graphed.capture_ms:.2f} ms "
+          f"(warm-up + capture; pool {graphed.pool_bytes / 2**20:.1f} "
+          f"MiB), first graphed step "
+          f"{out['graph_first_ms']:.2f} ms; median step graphed "
+          f"{out['graph_step_ms']:.3f} ms, eager {out['eager_step_ms']:.3f} "
+          f"ms; decode {out['graph_tok_s']:.2f} tokens/s graphed, "
+          f"{out['eager_tok_s']:.2f} eager (steps 2-{steps})")
+    del eager, copy
+    return out
+
+
+def hold_served_graph(phase: str, cfg, params, prompts, max_len: int):
+    """``hold_graph`` at a phase's serving configuration: a fresh graphed
+    instance (SERVE_SLOTS slots, caches of `max_len`) admits one prompt
+    of each length, then the rest in turn, until its slots are full, and
+    its own decode step is held against an eager one on a copy of its
+    cache.  Prints the peak memory of the hold (two caches)."""
+    import torch
+    from repro_torch.serving.engine import Request, ServingInstance
+    inst = ServingInstance(cfg, params, slots=SERVE_SLOTS, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, p in enumerate((prompts[::2] + prompts[1::2])[:SERVE_SLOTS]):
+        check(inst.admit(Request(i, p.copy(), SERVE_MAX_NEW)),
+              f"{phase}: the hold's instance is full")
+    lengths = [len(r.prompt) for r in inst.active]
+    out = hold_graph(f"{phase} prompts {lengths}", cfg, params,
+                     inst.decoder, inst.last_token, inst.pos)
+    print(f"{phase} graph hold peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    inst.close()
+    return out
 
 
 def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
@@ -2252,8 +2418,12 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     plain versions; and so are the logits before the final softcap (which
     saturates random weights' logits), which must also be within
     LOGIT_TOL of their largest |logit| and whose argmax must agree where
-    the plain run's top-2 margin exceeds that.  Returns the kernels'
-    launches in the kernels' run and that drain's peak memory (bytes)."""
+    the plain run's top-2 margin exceeds that.  The kernels' drain
+    decodes through the instance's captured step (one replay a decode
+    step), the plain drain eagerly, and both decode rates are printed;
+    ``hold_served_graph`` holds a captured step against an eager one.
+    Returns the kernels' launches in the kernels' run and that drain's
+    peak memory (bytes)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2289,8 +2459,17 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     warm.drain()
     del warm
 
-    done, rec_k, launches, wall, peak = _serve(cfg, params, prompts, True,
-                                               max_len)
+    done, rec_k, launches, wall, peak, dec = _serve(cfg, params, prompts,
+                                                    True, max_len)
+    n_steps = sum(rec_k.decode_steps.values())
+    print(f"{phase} decode through the captured step: {dec.replays} "
+          f"replays for {n_steps} decode steps, capture "
+          f"{dec.capture_ms:.2f} ms (warm-up + capture, in the drain), "
+          f"the graph's pool {dec.pool_bytes / 2**20:.1f} MiB")
+    check(dec.graph is not None and dec.replays == n_steps,
+          f"{label}: {dec.replays} replays for {n_steps} decode steps")
+    dec.close()
+    del dec
     check(len(done) == len(prompts)
           and all(len(r.tokens) == SERVE_MAX_NEW for r in done),
           f"{label}: not every request finished with max_new tokens")
@@ -2309,8 +2488,9 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
     dec_s = wall - sum(prefill_ms) / 1e3
     print(f"{phase} drain {wall:.3f} s: prefill {sum(prefill_ms):.2f} ms "
           f"total, decode {n_dec} tokens in {dec_s:.3f} s = "
-          f"{n_dec / dec_s:.2f} tokens/s (4 slots), peak memory "
+          f"{n_dec / dec_s:.2f} tokens/s (4 slots, graphed), peak memory "
           f"{peak / 2**30:.3f} GiB")
+    hold_served_graph(phase, cfg, params, prompts, max_len)
 
     stash = FlashStash() if stash_rows else None
     try:
@@ -2328,8 +2508,16 @@ def serve_full_width(phase: str, arch: str, prompt_lengths, seed: int,
             "prefill", stash_rows)
         del stash
 
-    done_p, rec_p, launches_p, wall_p, _ = _serve(cfg, params, plain,
-                                                  False, max_len)
+    done_p, rec_p, launches_p, wall_p, _, dec_p = _serve(
+        cfg, params, plain, False, max_len)
+    n_dec_p = sum(len(r.tokens) - 1 for r in done_p)
+    dec_s_p = wall_p - sum(r.t_first_token - r.t_admit for r in done_p)
+    print(f"{phase} decode tokens/s, the kernels' drain (graphed) "
+          f"{n_dec / dec_s:.2f}, the plain drain (eager) "
+          f"{n_dec_p / dec_s_p:.2f} ({n_dec_p} tokens in {dec_s_p:.3f} s)")
+    check(dec_p.graph is None and dec_p.replays == 0,
+          f"{label}: the plain run's decode was captured")
+    del dec_p
     check(not any(launches_p.values()),
           f"{label}: the plain run launched kernels {launches_p}")
     check(len(rec_k.logits) == len(prompts)
@@ -2503,6 +2691,7 @@ def phase5_serving(flash_first_ms: float, scan_first_ms: float):
     the TMA path.  The first kernels' phase-4 device times at the longest
     prompt, times the launches, stand beside the profiled prefill's."""
     from repro_torch.configs import get_config
+    t0 = time.perf_counter()
     kinds = get_config(SERVE_ARCH).layer_kinds()
     n_local, n_rec = kinds.count("local"), kinds.count("recurrent")
     launches, _ = serve_full_width(
@@ -2514,6 +2703,7 @@ def phase5_serving(flash_first_ms: float, scan_first_ms: float):
          "ssd_scan.simt": 0},
         f"{n_local} local + {n_rec} recurrent",
         {"flash": n_local * flash_first_ms, "scan": n_rec * scan_first_ms})
+    print(f"phase5 total {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2522,6 +2712,7 @@ def phase6_ssm_serving():
     per prefill, all on the tensor-core path (bf16, head dim 64, d_state
     128)."""
     from repro_torch.configs import get_config
+    t0 = time.perf_counter()
     _free_models("phase6")
     cfg = get_config(SSM_ARCH)
     n_ssm = cfg.layer_kinds().count("ssm")
@@ -2536,6 +2727,7 @@ def phase6_ssm_serving():
          "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
+    print(f"phase6 total {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3005,7 +3197,9 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False,
     backward through torch.autograd.grad, minus its forward, with the
     same boolean mask, k and v repeated where 1 < G < BH; ``library_ms``
     as called, ``library_device_ms`` queued as every ``device_ms``)
-    timed, and the bound.  With
+    timed, and the bound; with a softcap, which sdpa does not take, the
+    library is one compiled flex_attention call and its backward
+    (``flex_library_bwd``).  With
     `plain_kv_rows`, the plain version runs on that many kv rows (and
     their query rows) at a time, the same function in pieces (llama4's
     S of 10,000 would hold scores of 16 GB a tensor at once).  Returns a
@@ -3097,26 +3291,34 @@ def hold_flash_bwd(q, k, v, kw, timed: bool, twice: bool = False,
         out["simt_device_ms"] = time_ms(
             lambda: simt_flash_bwd(q, k, v, o, do, kw), reps=5, queued=True)
     out["plain_ms"] = time_ms(plain_bwd, reps=5)
-    q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
-    group = bh // k.shape[0]
-    if 1 < group < bh:
-        # query head h reads kv head h // G: k and v repeated (a copy
-        # made here, outside the timed calls)
-        k4, v4 = (t.repeat_interleave(group, 0).view(1, bh, s, -1)
-                  for t in (k, v))
+    if kw.get("softcap"):
+        # sdpa takes no tanh softcap: one compiled flex_attention call
+        library_fwd, library_both, out["library_setup_s"] = \
+            flex_library_bwd(q, k, v, do, kw)
+        out["library"] = "flex_attention"
     else:
-        # one kv head (MQA), or one for each query head
-        k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
-        v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
-    k4, v4 = (t.detach().requires_grad_(True) for t in (k4, v4))
-    do4 = do.view(1, bh, s, dv)
+        q4 = q.view(1, bh, s, d).detach().requires_grad_(True)
+        group = bh // k.shape[0]
+        if 1 < group < bh:
+            # query head h reads kv head h // G: k and v repeated (a copy
+            # made here, outside the timed calls)
+            k4, v4 = (t.repeat_interleave(group, 0).view(1, bh, s, -1)
+                      for t in (k, v))
+        else:
+            # one kv head (MQA), or one for each query head
+            k4 = k.view(1, -1, s, d).expand(1, bh, s, d)
+            v4 = v.view(1, -1, s, dv).expand(1, bh, s, dv)
+        k4, v4 = (t.detach().requires_grad_(True) for t in (k4, v4))
+        do4 = do.view(1, bh, s, dv)
 
-    def library_fwd():
-        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        def library_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=mask)
 
-    def library_both():
-        return torch.autograd.grad(library_fwd(), (q4, k4, v4), do4)
+        def library_both():
+            return torch.autograd.grad(library_fwd(), (q4, k4, v4), do4)
 
+        out["library"] = "sdpa"
     both = time_ms(library_both, reps=10)
     fwd = time_ms(library_fwd, reps=10)
     out["library_ms"] = both - fwd
@@ -3314,7 +3516,8 @@ def flash_bwd_line(what: str, m: dict, phase: str = "phase8") -> str:
         if "simt_ms" in m:
             line += (f" [first kernel {m['simt_ms']:.4f} ms, device "
                      f"{m['simt_device_ms']:.4f} ms]")
-        line += (f", plain {m['plain_ms']:.4f} ms, sdpa backward "
+        line += (f", plain {m['plain_ms']:.4f} ms, "
+                 f"{m.get('library', 'sdpa')} backward "
                  f"{m['library_ms']:.4f} ms (device "
                  f"{m['library_device_ms']:.4f} ms; forward and backward "
                  f"{m['library_both_ms']:.4f}), bound {m['bound_ms']:.5f} ms "
@@ -4369,7 +4572,11 @@ def phase9c_cluster() -> dict:
     at the example's defaults under the sinusoid, then under burst-storm.
     Every prefill launches each model's kernels, all on the tensor-core
     paths; every served request's tokens are held against the same
-    prompts through the plain versions.  Then one real cold start
+    prompts through the plain versions, run eagerly.  Every instance
+    decodes through its captured step, one replay a decode step; the
+    instances that captured and their capture ms are printed, and at the
+    twin's engines a captured step is held against an eager one
+    (``hold_graph``).  Then one real cold start
     (``scale_up(1)``) and one logical start (``logical_start(1)``) of
     each, timed at the twin's engines and at phase 9 (b)'s serving
     configuration.  Returns each load's launches."""
@@ -4378,7 +4585,8 @@ def phase9c_cluster() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve_cluster
     from repro_torch.models import model as model_lib
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            ServingInstance)
     _free_models("phase9 (c)")
     cfgs = {a: get_config(a) for a in serve_cluster.ARCHS}
     params = {a: model_lib.init_params(
@@ -4415,6 +4623,7 @@ def phase9c_cluster() -> dict:
     del warm
     all_launches = {}
     kept = None
+    captures = {a: [] for a in cfgs}
     for scenario in ("sinusoid", "burst-storm"):
         load = serve_cluster.offered_load(
             scenario, list(cfgs), CLUSTER_TICKS, seed=0)
@@ -4448,10 +4657,23 @@ def phase9c_cluster() -> dict:
               f"{want}")
         check(not launches["rglru_scan"], "phase 9 (c): an RG-LRU scan "
               "launched")
+        for a, eng in engs.items():
+            for inst in eng.instances.values():
+                n_steps = rec_k.decode_steps[inst.iid]
+                check(inst.decoder.replays == n_steps,
+                      f"phase 9 (c) {scenario} {a} instance {inst.iid}: "
+                      f"{inst.decoder.replays} replays for {n_steps} "
+                      "decode steps")
+                if inst.decoder.capture_ms is not None:
+                    captures[a].append((inst.decoder.capture_ms,
+                                        inst.decoder.pool_bytes))
+            print(f"phase9 (c) {scenario} {a}: decode steps by instance "
+                  f"{[rec_k.decode_steps[i] for i in sorted(eng.instances)]}"
+                  f", each one replay of its captured step")
         for a, cfg in cfgs.items():
             eng = ServingEngine(cfg, params[a], slots=CLUSTER_PLAIN_SLOTS,
                                 max_len=serve_cluster.MAX_LEN,
-                                use_kernel=False)
+                                use_kernel=False, graph=False)
             eng.scale_up(1)
             for r in served[a]:
                 eng.submit(Request(r.rid, r.prompt.copy(), r.max_new))
@@ -4485,6 +4707,26 @@ def phase9c_cluster() -> dict:
     # timed); a logical one re-labels a cached instance.  At the twin's
     # engines and at the serving configuration of phase 9 (b)
     for a, eng in kept.items():
+        ms = [c for c, _ in captures[a]]
+        print(f"phase9 (c) {a}: {len(ms)} instances captured their decode "
+              f"step in the two loads (the rest served no request), "
+              f"capture ms (warm-up + capture) "
+              f"{', '.join(f'{x:.2f}' for x in ms)}; median "
+              f"{statistics.median(ms):.2f} ms; the pool grew by "
+              f"{', '.join(f'{b / 2**20:.1f}' for _, b in captures[a])} "
+              "MiB at each (one pool for the function's graphs)")
+        # the graph against eager at the twin's engines
+        inst = ServingInstance(cfgs[a], params[a], slots=serve_cluster.SLOTS,
+                               max_len=serve_cluster.MAX_LEN)
+        rng = np.random.default_rng(93)
+        for i in range(serve_cluster.SLOTS):
+            inst.admit(Request(i, rng.integers(
+                0, cfgs[a].vocab_size, serve_cluster.PROMPT_LEN).astype(
+                    np.int32), SERVE_MAX_NEW))
+        hold_graph(f"phase9 (c) {a} twin's engine", cfgs[a], params[a],
+                   inst.decoder, inst.last_token, inst.pos)
+        inst.close()
+        del inst
         cold_starts(a, eng)
         big = ServingEngine(cfgs[a], params[a], slots=SERVE_SLOTS,
                             max_len=GEMMA_MAX_LEN)
@@ -4948,15 +5190,19 @@ def phase11e_internvl2() -> dict:
     bf16 compute, its vision frontend's 256 projected patch embeddings
     (InternViT's width 1,024, drawn from a seed) before prompts of
     VLM_TEXT tokens: ``model.prefill`` with the cache sized for both and
-    VLM_NEW - 1 greedy ``model.decode_step`` calls (the serving engine
-    takes tokens alone, as the reference's does), through the kernels and
-    through their plain versions.  Every prefill launches 24 flash
+    VLM_NEW - 1 greedy steps of the serving engine's ``DecodeStep`` on
+    that cache (the engine takes tokens alone, as the reference's does),
+    through the kernels, the steps captured in a graph, and through their
+    plain versions, the steps eager.  Every prefill launches 24 flash
     kernels, all on the wgmma path; the logits of every step held as
-    phase 5 holds a prefill's.  Returns the kernels' launches."""
+    phase 5 holds a prefill's; a captured step held against an eager one
+    from the kernels' prefill's cache (``hold_graph``).  Returns the
+    kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import DecodeStep
     t0 = time.perf_counter()
     _free_models("phase11 (e)")
     torch.cuda.reset_peak_memory_stats()
@@ -4975,26 +5221,34 @@ def phase11e_internvl2() -> dict:
     rng = np.random.default_rng(115)
 
     def run(batch, n_text, use_kernel):
-        """prefill, then greedy decode steps: ([(logits, token)], the
-        prefill's launches, prefill ms, decode s)"""
+        """prefill, then greedy decode steps through the serving engine's
+        step on the prefill's cache (captured with the kernels, eager
+        through the plain versions): ([(logits, token)], the prefill's
+        launches, prefill ms, decode s, the step, a copy of the cache as
+        the prefill left it)"""
         reset_lm_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, cache = model_lib.prefill(
-            cfg, params, batch, n_front + n_text + VLM_NEW,
-            use_kernel=use_kernel)
+        L = n_front + n_text + VLM_NEW
+        logits, cache = model_lib.prefill(cfg, params, batch, L,
+                                          use_kernel=use_kernel)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t)
         launches = lm_counts()
+        copy = ([{k: v.clone() for k, v in layer.items()} for layer in cache]
+                if use_kernel else None)
+        step = DecodeStep(cfg, params, cache, 1, L, dev, graph=use_kernel)
         steps = [(logits[0].float().cpu(), int(logits[0].argmax()))]
         t = time.perf_counter()
         for i in range(VLM_NEW - 1):
-            tok = torch.tensor([steps[-1][1]], device=dev)
-            pos = torch.full((1,), n_front + n_text + i, device=dev)
-            logits, cache = model_lib.decode_step(cfg, params, tok, pos,
-                                                  cache)
-            steps.append((logits[0].float().cpu(), int(logits[0].argmax())))
-        return steps, launches, prefill_ms, time.perf_counter() - t
+            nxt = step(np.array([steps[-1][1]], np.int64),
+                       np.array([n_front + n_text + i], np.int64))
+            steps.append((step.logits[0].float().cpu(), int(nxt[0])))
+        dec_s = time.perf_counter() - t
+        check(step.replays == (VLM_NEW - 1 if use_kernel else 0),
+              f"phase 11 (e): {step.replays} replays for {VLM_NEW - 1} "
+              "steps")
+        return steps, launches, prefill_ms, dec_s, step, copy
 
     def batch_of(n_text):
         patches = rng.standard_normal((1, n_front, cfg.frontend_dim))
@@ -5007,18 +5261,30 @@ def phase11e_internvl2() -> dict:
     total = {k: 0 for k in want}
     for n_text in VLM_TEXT:
         batch = batch_of(n_text)
-        got, launches, k_ms, k_s = run(batch, n_text, True)
+        got, launches, k_ms, k_s, step, copy = run(batch, n_text, True)
         check(launches == want, f"phase 11 (e) prefill of {n_text}: "
               f"launches {launches}, expected {want}")
         total = {k: total[k] + launches[k] for k in total}
-        plain, launches_p, p_ms, p_s = run(batch, n_text, False)
+        capture_ms = step.capture_ms
+        step.close()
+        del step
+        plain, launches_p, p_ms, p_s, _, _ = run(batch, n_text, False)
         check(not any(launches_p.values()), f"phase 11 (e): the plain run "
               f"launched kernels {launches_p}")
         held = _held_steps(f"phase 11 (e) prompt {n_text}", got, plain)
         print(f"phase11e {n_front} patches + {n_text} tokens: prefill "
               f"{k_ms:.2f} ms (plain {p_ms:.2f}), {VLM_NEW - 1} decode "
-              f"steps {k_s:.3f} s (plain {p_s:.3f}); tokens "
+              f"steps {k_s:.3f} s graphed, {VLM_NEW - 1} replays, capture "
+              f"{capture_ms:.2f} ms (plain, eager: {p_s:.3f} s); tokens "
               f"{[t for _, t in got][:6]}...; {held}")
+        # the graph against eager from the kernels' prefill's cache
+        L = n_front + n_text + VLM_NEW
+        graphed = DecodeStep(cfg, params, copy, 1, L, dev)
+        hold_graph(f"phase11e prompt {n_text}", cfg, params, graphed,
+                   np.array([got[0][1]], np.int64),
+                   np.array([n_front + n_text], np.int64))
+        graphed.close()
+        del graphed, copy
     print(f"phase11 (e) {VLM_ARCH} launches {total} ({want} per prefill); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
           f"GiB; {time.perf_counter() - t0:.1f} s")
@@ -5317,8 +5583,11 @@ def phase12i_flash_shapes() -> list:
     PHASE12_FLASH_SHAPES as the train step gives it (B 1, S TRAIN_SEQ,
     bf16, causal, the config's heads, head dim, window and softcap):
     held against the plain versions (``hold_flash``, ``hold_flash_bwd``;
-    the backward bitwise over two calls), untimed.  Returns each shape's
-    paths and errors."""
+    the backward bitwise over two calls) and timed beside them, the
+    CUDA-core kernels, the bound and the library: sdpa (with
+    `enable_gqa` forward; k and v repeated backward), or with gemma2-2b's
+    softcap one compiled flex_attention call, forward and backward.
+    Returns each shape's paths and errors."""
     import torch
     from repro_torch.configs import get_config
     _free_models("phase12 (i)")
@@ -5335,14 +5604,26 @@ def phase12i_flash_shapes() -> list:
                   window=cfg.window if kind == "local" else 0)
         if cfg.attn_softcap:
             kw["softcap"] = cfg.attn_softcap
-        m = hold_flash(q, k, v, kw, with_library=False)
-        b = hold_flash_bwd(q, k, v, kw, timed=False, twice=True)
+        m = hold_flash(q, k, v, kw, with_library=True)
+        b = hold_flash_bwd(q, k, v, kw, timed=True, twice=True)
         what = (f"{arch} BH={bh} G={bh // bh_kv} S={TRAIN_SEQ} D={d} "
                 f"{kw} bfloat16")
+        setup = (f", mask and compile {m['library_setup_s']:.1f} s"
+                 if "library_setup_s" in m else "")
         print(f"phase12 (i) flash_attention {what} path={m['path']}: "
               f"max_abs_err {m['max_abs_err']:.3g} ({m['worst']:.3g} of "
-              "the allowance)")
-        print(flash_bwd_line(what, b, "phase12 (i)"))
+              f"the allowance), kernel {m['ms']:.4f} ms (device "
+              f"{m['device_ms']:.4f} ms) [CUDA cores {m['simt_ms']:.4f} ms, "
+              f"device {m['simt_device_ms']:.4f}], plain "
+              f"{m['plain_ms']:.4f} ms, {m['library']} "
+              f"{m['library_ms']:.4f} ms (device "
+              f"{m['library_device_ms']:.4f} ms{setup}), bound "
+              f"{m['bound_ms']:.5f} ms ({m['bound_by']}), pairs "
+              f"{m['pairs']} a head")
+        print(flash_bwd_line(what, b, "phase12 (i)")
+              + (f"; {b['library']} mask and compiles "
+                 f"{b['library_setup_s']:.1f} s"
+                 if "library_setup_s" in b else ""))
         held.append({"arch": arch, "shape": [bh, bh_kv, TRAIN_SEQ, d],
                      **kw, "path": m["path"],
                      "max_abs_err": m["max_abs_err"], "bwd_path": b["path"],

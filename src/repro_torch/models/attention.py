@@ -34,7 +34,8 @@ import torch
 
 from ..kernels import ops
 from . import pctx
-from .layers import apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap
+from .layers import (apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap,
+                     write_state)
 
 _NEG_INF = -2.3819763e38  # bf16-safe large negative
 
@@ -254,14 +255,6 @@ def _prefill_cache(k, v, spec: AttnSpec, cache_len: int):
 # ---------------------------------------------------------------------------
 
 
-def _write_slot(buf, slot, new):
-    """Row `slot[b]` of cache `buf` (B, L, ...) set to `new[b, 0]`, in
-    place; `buf` returned."""
-    bidx = torch.arange(buf.shape[0], device=buf.device)
-    buf[bidx, slot] = new[:, 0]
-    return buf
-
-
 def attention_decode(params, x, cache, spec: AttnSpec, pos,
                      eps: float = 1e-6):
     """x: (B, 1, d_model); pos: (B,) int position of the new token.
@@ -278,8 +271,8 @@ def _write_kv(cache, spec: AttnSpec, pos, k_new, v_new):
     L = cache["k"].shape[1]
     slot = torch.clamp(pos, max=L - 1) if spec.kind == "global" \
         else pos % L
-    return (_write_slot(cache["k"], slot, k_new),
-            _write_slot(cache["v"], slot, v_new))
+    return (write_state(cache, "k", k_new, slot),
+            write_state(cache, "v", v_new, slot))
 
 
 def _decode_shards(params, x, cache, spec: AttnSpec, pos, eps):
@@ -474,11 +467,10 @@ def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
     q_nope, q_rope = _mla_q(params, x, mla, spec, pos[:, None], eps)
     ckv_new, krope_new = _mla_ckv(params, x, mla, spec, pos[:, None], eps)
 
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    L = c_kv.shape[1]
+    L = cache["c_kv"].shape[1]
     slot = torch.clamp(pos, max=L - 1)
-    _write_slot(c_kv, slot, ckv_new)
-    _write_slot(k_rope, slot, krope_new)
+    c_kv = write_state(cache, "c_kv", ckv_new, slot)
+    k_rope = write_state(cache, "k_rope", krope_new, slot)
 
     w_ukv = params["w_ukv"].to(dtype)
     w_uk = w_ukv[..., : mla.qk_nope_head_dim]        # (lora, H, nope)

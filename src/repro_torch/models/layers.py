@@ -149,8 +149,10 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim // 2,), f32."""
     half = head_dim // 2
     exponents = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exponents)
+    # the base filled on the device, not copied from the host, so that a
+    # decode step captured in a CUDA graph makes no host-to-device copy
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exponents)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -166,6 +168,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+
+def write_state(state: dict, key: str, value: torch.Tensor,
+                slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A decode step's write into its cache, in place, so that every entry
+    keeps its address (a step captured in a CUDA graph reads and writes
+    them there at every replay): ``state[key]`` set to `value`, cast to
+    the entry's dtype, or with `slot` (B,) its row ``slot[b]`` of each
+    batch row b set to ``value[b, 0]``.  Returns the entry."""
+    buf = state[key]
+    if slot is None:
+        return buf.copy_(value)
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    buf[bidx, slot] = value[:, 0]
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +225,10 @@ def embed(params, tokens: torch.Tensor, scale: bool, d_model: int,
     x = params["table"][tokens].to(dtype)
     if scale:
         # sqrt(d_model) rounded to the compute dtype first, as the
-        # reference does (bf16 turns 50.596 into 50.5)
-        x = x * torch.tensor(math.sqrt(d_model), dtype=dtype,
-                             device=x.device)
+        # reference does (bf16 turns 50.596 into 50.5); filled on the
+        # device, as ``rope_frequencies``' base
+        x = x * torch.full((), math.sqrt(d_model), dtype=dtype,
+                           device=x.device)
     return x
 
 

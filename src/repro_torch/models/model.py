@@ -409,8 +409,10 @@ def final_hidden(cfg: ModelConfig, params, batch, use_kernel: bool = True,
 
 
 def logits_from_hidden(cfg: ModelConfig, params, h):
-    table = params.get("lm_head", params["embed"])
-    out = unembed(table, h)
+    return _capped(cfg, unembed(params.get("lm_head", params["embed"]), h))
+
+
+def _capped(cfg: ModelConfig, out):
     if cfg.logit_softcap:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
     return out
@@ -442,9 +444,19 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, cache,
                 dispatch: Optional[str] = None):
     """tokens: (B,) int; pos: (B,) int. -> (logits (B, V), cache); the
     cache is updated in place."""
+    return decode_logits(cfg, params, tokens, pos, cache, dispatch)[0], cache
+
+
+@torch.no_grad()
+def decode_logits(cfg: ModelConfig, params, tokens, pos, cache,
+                  dispatch: Optional[str] = None):
+    """``decode_step``'s step -> (logits (B, V), the logits before the
+    model's final softcap: the same tensor where it has none); the cache
+    is updated in place.  The serving engine's step keeps both."""
     x = embed(params["embed"], tokens[:, None], cfg.emb_scale, cfg.d_model,
               compute_dtype(cfg))
     x, cache, _ = apply_blocks(cfg, params, x, pos[:, None], "decode",
                                cache=cache, pos=pos, dispatch=dispatch)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(cfg, params, h)[:, 0], cache
+    pre = unembed(params.get("lm_head", params["embed"]), h)[:, 0]
+    return _capped(cfg, pre), pre

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import pctx
-from .layers import dense_init
+from .layers import dense_init, write_state
 
 _C = 8.0
 
@@ -186,9 +186,10 @@ def _decode_shards(params, x, state, n_heads: int, rglru):
 
 def rglru_decode(params, x, state, n_heads: int, rglru):
     """x: (B, 1, d); state: {"h": (B, W) f32, "conv": (B, cw-1, W)}.
-    Returns (out, state) with the state's entries replaced.  On DTensors
-    the step runs on each rank's shards, split as ``_forward_shards``
-    splits the forward."""
+    Returns (out, state), the state's entries written in place (a decode
+    step captured in a CUDA graph reads them at the same addresses at
+    every replay).  On DTensors the step runs on each rank's shards, split
+    as ``_forward_shards`` splits the forward."""
     if pctx.is_dtensor(x):
         return _decode_shards(params, x, state, n_heads, rglru)
     dtype = x.dtype
@@ -200,6 +201,6 @@ def rglru_decode(params, x, state, n_heads: int, rglru):
     a, b = _gates(params, u[:, None], n_heads)
     h = a[:, 0] * state["h"] + b[:, 0]
     out = (h[:, None].to(dtype) * gate) @ params["w_out"].to(dtype)
-    state["h"] = h
-    state["conv"] = buf[:, 1:].contiguous()
+    write_state(state, "h", h)
+    write_state(state, "conv", buf[:, 1:])
     return out, state

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import pctx
-from .layers import dense_init, rmsnorm, rmsnorm_init
+from .layers import dense_init, rmsnorm, rmsnorm_init, write_state
 
 
 def ssd_init(gen: torch.Generator, d_model: int, ssd, dtype=torch.float32):
@@ -168,9 +168,10 @@ def xBC_raw_tail(xBC_raw, conv_width: int):
 
 def ssd_decode(params, x, state, ssd, eps: float = 1e-6):
     """Single-token step. x: (B, 1, d); state: {"h": (B, nh, hd, n),
-    "conv": (B, conv_width-1, conv_ch)}.  Returns (out, state) with the
-    state's entries replaced.  On DTensors the step runs on each rank's
-    batch rows, the weights gathered, as ``ssd_forward``'s forward."""
+    "conv": (B, conv_width-1, conv_ch)}.  Returns (out, state), the
+    state's entries written in place, as ``rglru_decode``'s.  On DTensors
+    the step runs on each rank's batch rows, the weights gathered, as
+    ``ssd_forward``'s forward."""
     if pctx.is_dtensor(x):
         rows = pctx.activation_rows(3)
 
@@ -215,6 +216,6 @@ def ssd_decode(params, x, state, ssd, eps: float = 1e-6):
     y = y.reshape(Bsz, 1, di)
     y = rmsnorm(params["gate_norm"], y * F.silu(z), eps)
     out = y @ params["w_out"].to(dtype)
-    state["h"] = h.to(state["h"].dtype)
-    state["conv"] = conv_buf[:, 1:].contiguous()
+    write_state(state, "h", h)
+    write_state(state, "conv", conv_buf[:, 1:])
     return out, state

@@ -8,17 +8,25 @@ admitted requests into free slots and advances every active slot by one
 decode step.  The :class:`ServingEngine` is the per-node data plane the
 control plane (``core/``) schedules.
 
-Differences from the reference, all from running eagerly on one device:
+Differences from the reference, all from running on one device:
 
-  * steps run eagerly; nothing replaces ``jax.jit``, so there is no
-    per-function step cache;
+  * the reference jits decode and prefill once per function
+    (``_jitted_steps``); here each instance's decode step is captured in
+    a CUDA graph at its first ``step()`` on the card (``DecodeStep``),
+    since a graph binds the addresses of the instance's own slot cache.
+    What is shared per function (``_STEP_CACHE``) is the graphs' memory
+    pool; every capture runs on one side stream.  Prefill runs
+    eagerly: a graph binds one prompt length, where the reference
+    compiles its prefill again for each new one;
   * the instance's slot cache is a list of torch tensors on its device.
     Admitting a request copies its one-row prefill cache into the slot's
     rows in place (``_splice_cache``), and decode writes each new token
-    into the cache in place, which saves a copy of the whole cache per
-    admit and per step;
+    and state into the cache in place, which saves a copy of the whole
+    cache per admit and per step and lets the captured step replay on
+    the same tensors;
   * ``use_kernel=False`` runs prefill through the kernels' plain PyTorch
-    versions on the same device (the yardstick on the card);
+    versions on the same device (the yardstick on the card), and
+    ``graph=False`` runs decode eagerly (the CPU always does);
   * a request also records ``t_admit``, when its prefill began, so the
     prefill time is ``t_first_token - t_admit``.
 
@@ -29,6 +37,7 @@ slots/expected-latency.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -38,6 +47,144 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
 from ..models import model as model_lib
+
+
+class _SharedStep:
+    """The per-function part of the captured decode step, as the
+    reference shares its jitted step between replicas: one CUDA graph
+    memory pool for the graphs of the function's instances.  One pool
+    serves them all because their replays are serial on the caller's
+    stream and each replay's outputs are read before the next replay.
+    Once every graph of the pool is gone the caching allocator frees the
+    pool (at its next ``empty_cache``) and takes no capture into it, so
+    the next capture opens a new one."""
+
+    def __init__(self):
+        self.pool = None
+        self.graphs = weakref.WeakSet()
+
+    def pool_for(self, graph: "torch.cuda.CUDAGraph"):
+        """The pool `graph` is to be captured into."""
+        if not self.graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+        self.graphs.add(graph)
+        return self.pool
+
+
+#: per function, (cfg, slots, max_len, device) -> what its instances
+#: share of their captured decode steps (``DecodeStep``)
+_STEP_CACHE: Dict[tuple, _SharedStep] = {}
+#: per device, the side stream every step is warmed up and captured on:
+#: one for all functions, so that cuBLAS keeps one workspace for them
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _shared_step(cfg: ModelConfig, slots: int, max_len: int,
+                 device: torch.device) -> _SharedStep:
+    key = (cfg, slots, max_len, device)
+    if key not in _STEP_CACHE:
+        _STEP_CACHE[key] = _SharedStep()
+    return _STEP_CACHE[key]
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+class DecodeStep:
+    """One instance's decode step over its slot cache.  It owns static
+    device buffers for the tokens and positions it reads and for its
+    outputs: ``logits`` (slots, V), ``pre`` (the logits before the
+    model's final softcap; the same tensor where the model has none) and
+    ``next`` (their argmax, which the host reads).  ``capture_ms`` is
+    the host time of the warm-up and the capture, ``pool_bytes`` what the
+    capture added to the memory reserved (the pool's new segments; none
+    where it fits in what the function's earlier graphs left free).
+
+    On the card with `graph`, the first call warms the step up once on
+    the device's capture stream, then captures it in a CUDA graph
+    (``torch.cuda.CUDAGraph``) into the function's pool
+    (``_SharedStep``); every call replays the graph.  The warm-up writes
+    copies of the recurrent and SSM states, which a step writes whole;
+    its writes into the attention caches are the slot writes the first
+    replay makes again.  It runs with the CUDA sync debug mode at
+    "error", so a step that waits on the host raises there, before its
+    capture.  A step that cannot be captured raises: it never falls back
+    to eager.  On the CPU, or without `graph`, each call runs the step
+    eagerly."""
+
+    def __init__(self, cfg: ModelConfig, params, cache, slots: int,
+                 max_len: int, device: torch.device, graph: bool = True):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.slots, self.max_len, self.device = slots, max_len, device
+        self.graphed = graph and device.type == "cuda"
+        self.tokens = torch.zeros(slots, dtype=torch.int64, device=device)
+        self.pos = torch.zeros(slots, dtype=torch.int64, device=device)
+        self.logits = self.pre = self.next = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.replays = 0
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def _run(self, cache):
+        logits, pre = model_lib.decode_logits(self.cfg, self.params,
+                                              self.tokens, self.pos, cache)
+        return logits, pre, torch.argmax(logits, dim=-1)
+
+    def _capture(self):
+        shared = _shared_step(self.cfg, self.slots, self.max_len,
+                              self.device)
+        stream = _capture_stream(self.device)
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        warm = [{k: t.clone() for k, t in c.items()}
+                if spec.kind in ("recurrent", "ssm") else c
+                for spec, c in zip(model_lib.layer_specs(self.cfg),
+                                   self.cache)]
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        mode = torch.cuda.get_sync_debug_mode()
+        try:
+            with torch.cuda.stream(stream):
+                torch.cuda.set_sync_debug_mode("error")
+                self._run(warm)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        torch.cuda.synchronize(self.device)
+        del warm
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=shared.pool_for(graph))
+            try:
+                out = self._run(self.cache)
+            finally:
+                graph.capture_end()
+        self.logits, self.pre, self.next = out
+        self.graph = graph
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+
+    def __call__(self, last_token: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One step from each slot's last token and position (host int64
+        arrays); returns each slot's next token on the host."""
+        self.tokens.copy_(torch.from_numpy(last_token))
+        self.pos.copy_(torch.from_numpy(pos))
+        if not self.graphed:
+            self.logits, self.pre, self.next = self._run(self.cache)
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            self.replays += 1
+        return self.next.cpu().numpy()
+
+    def close(self):
+        """Drops the graph and the outputs it wrote into the pool (the
+        graph is freed with the last reference to it)."""
+        self.graph = self.logits = self.pre = self.next = None
 
 
 @dataclass
@@ -74,7 +221,8 @@ class ServingInstance:
     _ids = 0
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
-                 max_len: int = 512, device=None, use_kernel: bool = True):
+                 max_len: int = 512, device=None, use_kernel: bool = True,
+                 graph: bool = True):
         self.device = _check_device(params, device)
         ServingInstance._ids += 1
         self.iid = ServingInstance._ids
@@ -87,6 +235,8 @@ class ServingInstance:
         self.pos = np.zeros(slots, np.int64)
         self.active: List[Optional[Request]] = [None] * slots
         self.last_token = np.zeros(slots, np.int64)
+        self.decoder = DecodeStep(cfg, params, self.cache, slots, max_len,
+                                  self.device, graph)
 
     # -- slot management ---------------------------------------------------
 
@@ -122,11 +272,7 @@ class ServingInstance:
         """One decode step over all slots; returns finished requests."""
         if self.n_active() == 0:
             return []
-        toks = torch.from_numpy(self.last_token).to(self.device)
-        pos = torch.from_numpy(self.pos).to(self.device)
-        logits, self.cache = model_lib.decode_step(self.cfg, self.params,
-                                                   toks, pos, self.cache)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self.decoder(self.last_token, self.pos)
         done = []
         for s, req in enumerate(self.active):
             if req is None:
@@ -140,6 +286,10 @@ class ServingInstance:
                 done.append(req)
                 self.active[s] = None
         return done
+
+    def close(self):
+        """Frees the instance's captured decode step."""
+        self.decoder.close()
 
 
 def _splice_cache(full, one, slot: int):
@@ -157,13 +307,15 @@ class ServingEngine:
     traffic until a logical cold start re-labels them."""
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
-                 max_len: int = 512, device=None, use_kernel: bool = True):
+                 max_len: int = 512, device=None, use_kernel: bool = True,
+                 graph: bool = True):
         self.device = _check_device(params, device)
         self.cfg = cfg
         self.params = params
         self.slots = slots
         self.max_len = max_len
         self.use_kernel = use_kernel
+        self.graph = graph
         self.instances: Dict[int, ServingInstance] = {}
         self.cached: set = set()          # iids drained by "release"
         self.queue: List[Request] = []
@@ -176,7 +328,7 @@ class ServingEngine:
         for _ in range(k):
             inst = ServingInstance(self.cfg, self.params, self.slots,
                                    self.max_len, self.device,
-                                   self.use_kernel)
+                                   self.use_kernel, self.graph)
             self.instances[inst.iid] = inst
             out.append(inst.iid)
         return out
@@ -199,7 +351,9 @@ class ServingEngine:
         victims = list(self.cached)[:k]
         for i in victims:
             self.cached.discard(i)
-            self.instances.pop(i, None)
+            inst = self.instances.pop(i, None)
+            if inst is not None:
+                inst.close()
         return len(victims)
 
     def n_saturated(self) -> int:

@@ -401,3 +401,62 @@ def test_ssd_state_carries_across_a_split_prompt(mamba):
     _close(torch.cat([first, second], dim=1), whole)
     _close(torch.cat([first, second], dim=1),
            jssd.ssd_forward(jparams, jnp.asarray(x), jcfg.ssd))
+
+
+#: the smoke architectures whose decode caches hold every layer kind's
+#: leaves: attention k / v (local, and global with gemma2-2b), RG-LRU h
+#: and conv, SSD h and conv, MLA c_kv and k_rope
+IN_PLACE_ARCHS = {"recurrentgemma-2b": {"k", "v", "h", "conv"},
+                  "gemma2-2b": {"k", "v"},
+                  "mamba2-2.7b": {"h", "conv"},
+                  "deepseek-v2-236b": {"c_kv", "k_rope"}}
+
+
+def _out_of_place(state, key, value, slot=None):
+    """``layers.write_state`` as decode wrote its cache before the step
+    was captured: a new tensor for the entry (a slot write into a copy)."""
+    if slot is None:
+        state[key] = value.to(state[key].dtype).contiguous()
+    else:
+        buf = state[key].clone()
+        buf[torch.arange(buf.shape[0]), slot] = value[:, 0]
+        state[key] = buf
+    return state[key]
+
+
+@pytest.mark.parametrize("arch", sorted(IN_PLACE_ARCHS))
+def test_decode_writes_every_cache_leaf_in_place(arch, monkeypatch):
+    """Three decode steps after a prefill (two rows, caches of 40, the
+    local ring wrapped past the smoke window of 16 on the third step) keep
+    every cache leaf of every layer at its ``data_ptr()``, with values
+    and logits bitwise those of the same steps writing new tensors."""
+    from repro_torch.models import attention, layers, rglru, ssd
+    cfg = tbase.get_smoke_config(arch)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    S0, B = 14, 2
+    toks = torch.from_numpy(_tokens(cfg, B, S0 + 3, 4)).long()
+    _, cache = tmodel.prefill(cfg, params, {"tokens": toks[:, :S0]}, 40)
+    assert {k for layer in cache for k in layer} == IN_PLACE_ARCHS[arch]
+    fresh = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+    ptrs = [{k: t.data_ptr() for k, t in layer.items()} for layer in cache]
+    got = []
+    for i in range(3):
+        lg, out = tmodel.decode_step(cfg, params, toks[:, S0 + i],
+                                     torch.full((B,), S0 + i), cache)
+        assert out is cache
+        got.append(lg)
+    assert [{k: t.data_ptr() for k, t in layer.items()}
+            for layer in cache] == ptrs
+    for module in (attention, layers, rglru, ssd):
+        if hasattr(module, "write_state"):
+            monkeypatch.setattr(module, "write_state", _out_of_place)
+    want = fresh
+    for i in range(3):
+        lg, want = tmodel.decode_step(cfg, params, toks[:, S0 + i],
+                                      torch.full((B,), S0 + i), want)
+        assert torch.equal(lg, got[i])
+    for layer, old, ptr in zip(cache, want, ptrs):
+        for key in layer:
+            assert old[key].data_ptr() != ptr[key]
+            assert torch.equal(layer[key], old[key]), key

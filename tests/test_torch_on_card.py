@@ -1879,3 +1879,208 @@ def test_new_arch_smoke_model_on_card_kernels_match_plain(arch, monkeypatch):
         a, b = a.float(), b.float()
         assert bool(a.any()) or not bool(b.any()), p
         assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-30, p
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's decode step captured in a CUDA graph
+# (``serving.engine.DecodeStep``) against the same step run eagerly
+# ---------------------------------------------------------------------------
+
+def _decode_archs():
+    from repro_torch.configs import get_smoke_config, list_archs
+    return [a for a in list_archs() if not get_smoke_config(a).encoder_only]
+
+
+def _bf16_smoke(arch, dev):
+    """`arch`'s smoke config computing in bf16, as the served models do,
+    and its parameters from a generator seeded 0 on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    cfg = get_smoke_config(arch).replace(dtype="bfloat16")
+    return cfg, model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def _prompt(cfg, n, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n).astype(np.int32)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("arch", _decode_archs())
+def test_graphed_decode_equals_eager_decode(arch):
+    """Every smoke architecture that decodes, bf16: from one prefill of
+    two rows (internvl2-2b's after its patch embeddings) and a bitwise
+    copy of its cache, 8 greedy steps through the captured step and 8
+    through the eager one: the tokens equal at every step, the logits
+    before and after the final softcap and every cache leaf bitwise; 8
+    replays of one graph."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import DecodeStep
+    dev = _card()
+    cfg, params = _bf16_smoke(arch, dev)
+    batch = {k: v for k, v in _smoke_batch(cfg, 21, 7, dev).items()
+             if k != "targets"}
+    n = 21 + cfg.n_frontend_tokens
+    L = n + 9
+    logits, cache = model_lib.prefill(cfg, params, batch, L)
+    copy = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+    graphed = DecodeStep(cfg, params, cache, 2, L, dev, graph=True)
+    eager = DecodeStep(cfg, params, copy, 2, L, dev, graph=False)
+    tok = logits.argmax(-1).cpu().numpy()
+    for i in range(8):
+        pos = np.full(2, n + i, np.int64)
+        got = graphed(tok, pos)
+        want = eager(tok.copy(), pos)
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(graphed.logits, eager.logits), i
+        assert torch.equal(graphed.pre, eager.pre), i
+        tok = got
+    assert graphed.replays == 8 and graphed.capture_ms > 0
+    assert eager.graph is None and eager.replays == 0
+    for a, b in zip(cache, copy):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+
+
+def _drive(inst, steps_before_admit, late):
+    """Steps `inst` until its first request is done, admits `late` into
+    the freed slot, steps until none is active; each step's logits."""
+    logs = []
+    while inst.active[0] is not None:
+        inst.step()
+        logs.append(inst.decoder.logits.clone())
+    assert len(logs) == steps_before_admit
+    graph = inst.decoder.graph
+    assert inst.admit(late) and inst.active[0] is late
+    while inst.n_active():
+        inst.step()
+        logs.append(inst.decoder.logits.clone())
+    assert inst.decoder.graph is graph
+    return logs
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-2.7b",
+                                  "deepseek-v2-236b"])
+def test_admitting_into_a_freed_slot_after_capture_equals_eager(arch):
+    """A request admitted into a slot freed after the capture (its
+    prefill spliced into the captured cache in place) decodes through the
+    same graph: every request's tokens and every step's logits bitwise
+    the eager instance's, one replay a step, no second capture."""
+    from repro_torch.serving.engine import Request, ServingInstance
+    dev = _card()
+    cfg, params = _bf16_smoke(arch, dev)
+    runs = []
+    for graph in (True, False):
+        inst = ServingInstance(cfg, params, slots=2, max_len=64, device=dev,
+                               graph=graph)
+        reqs = [Request(0, _prompt(cfg, 11, 1), 3),
+                Request(1, _prompt(cfg, 23, 2), 9),
+                Request(2, _prompt(cfg, 17, 3), 6)]
+        assert inst.admit(reqs[0]) and inst.admit(reqs[1])
+        logs = _drive(inst, 2, reqs[2])
+        assert inst.decoder.replays == (len(logs) if graph else 0)
+        runs.append(([r.tokens for r in reqs], logs))
+    assert runs[0][0] == runs[1][0]
+    assert len(runs[0][1]) == len(runs[1][1])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+def test_two_instances_share_the_pool_and_replay_alternately():
+    """Two instances of one engine, their steps replayed in turn (each
+    one's outputs read before the other replays): each equal to its own
+    eager run in tokens and bitwise in every step's logits, both graphs
+    in the function's one memory pool."""
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import Request, ServingEngine
+    dev = _card()
+    cfg, params = _bf16_smoke("recurrentgemma-2b", dev)
+    runs = []
+    for graph in (True, False):
+        eng = ServingEngine(cfg, params, slots=2, max_len=64, device=dev,
+                            graph=graph)
+        insts = [eng.instances[i] for i in eng.scale_up(2)]
+        reqs = [Request(j, _prompt(cfg, 9 + 5 * j, 10 + j), 4 + j)
+                for j in range(4)]
+        for j, r in enumerate(reqs):
+            assert insts[j % 2].admit(r)
+        logs = []
+        while any(i.n_active() for i in insts):
+            for inst in insts:
+                if inst.n_active():
+                    inst.step()
+                    logs.append(inst.decoder.logits.clone())
+        runs.append(([r.tokens for r in reqs], logs))
+        if graph:
+            pool = engine_mod._shared_step(cfg, 2, 64, insts[0].device).pool
+            assert [i.decoder.graph.pool() for i in insts] == [pool, pool]
+            assert all(i.decoder.replays > 0 for i in insts)
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+def test_evicting_a_graphed_instance_frees_its_graph():
+    """An instance that captured its step, released and evicted: the
+    memory allocated returns to its level before the instance (a first
+    instance, evicted the same way, warms the libraries and the
+    function's stream up before the level is read)."""
+    import gc
+    from repro_torch.serving.engine import Request, ServingEngine
+    dev = _card()
+    cfg, params = _bf16_smoke("recurrentgemma-2b", dev)
+    eng = ServingEngine(cfg, params, slots=2, max_len=64, device=dev)
+    levels = []
+    for rid in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        iid = eng.scale_up(1)[0]
+        eng.submit(Request(rid, _prompt(cfg, 13, rid), 5))
+        eng.drain()
+        decoder = eng.instances[iid].decoder
+        assert decoder.graph is not None and decoder.replays == 4
+        assert torch.cuda.memory_allocated() > before
+        assert eng.release(1) == [iid] and eng.evict_cached(1) == 1
+        assert decoder.graph is None
+        del decoder
+        gc.collect()
+        torch.cuda.synchronize()
+        levels.append((before, torch.cuda.memory_allocated()))
+    before, after = levels[1]
+    assert after == before, levels
+
+
+@pytest.mark.cuda_only
+def test_a_step_that_waits_on_the_host_raises_at_capture(monkeypatch):
+    """A host sync injected into the decode step (a norm that reads a
+    value back): the graphed instance's first step raises before its
+    capture, captures nothing and raises again on the next step instead
+    of falling back to eager; the eager instance takes the same step."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingInstance
+    dev = _card()
+    cfg, params = _bf16_smoke("recurrentgemma-2b", dev)
+    insts = {graph: ServingInstance(cfg, params, slots=2, max_len=64,
+                                    device=dev, graph=graph)
+             for graph in (True, False)}
+    for inst in insts.values():
+        assert inst.admit(Request(0, _prompt(cfg, 12, 0), 4))
+    orig = model_lib.rmsnorm
+
+    def syncing(params, x, *args, **kw):
+        float(x.float().abs().max())
+        return orig(params, x, *args, **kw)
+    monkeypatch.setattr(model_lib, "rmsnorm", syncing)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            insts[True].step()
+        assert insts[True].decoder.graph is None
+        assert insts[True].decoder.replays == 0
+        assert torch.cuda.get_sync_debug_mode() == 0
+    assert insts[False].step() == []
+    assert len(insts[False].active[0].tokens) == 2

@@ -1,10 +1,14 @@
 """The port's serving engine on the recurrentgemma smoke config, on the
 CPU: the five cases of ``tests/test_serving.py`` (continuous batching,
 cache splicing, dual-staged data-plane semantics), the same greedy
-tokens as the JAX package's engine on the same weights (recurrentgemma
-and mamba2), the SSM state spliced into a slot, and no quiet fallback to
+tokens as the JAX package's engine on the same weights (every smoke
+architecture that decodes; internvl2-2b, whose prefill takes patch
+embeddings the reference's engine cannot pass, by ``decode_step``
+against the reference's), the SSM state spliced into a slot, the
+graphed decode step running eagerly on the CPU, and no quiet fallback to
 the CPU when the card is asked for and missing."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -13,9 +17,9 @@ from repro.configs.base import get_smoke_config as jax_smoke_config
 from repro.models import model as jmodel
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
-from repro_torch.configs import get_smoke_config
-from repro_torch.models import (init_cache, init_params, params_from_numpy,
-                                prefill)
+from repro_torch.configs import get_smoke_config, list_archs
+from repro_torch.models import (decode_step, init_cache, init_params,
+                                params_from_numpy, prefill)
 from repro_torch.serving.engine import (Request, ServingEngine,
                                         ServingInstance)
 
@@ -131,6 +135,65 @@ def _greedy_tokens_of_both_engines(arch, lengths):
             {r.rid: r.tokens for r in teng.drain()})
 
 
+#: every smoke architecture with a decode step (hubert-xlarge is an
+#: encoder); internvl2-2b's prefill takes patch embeddings
+DECODING = [a for a in list_archs()
+            if not get_smoke_config(a).encoder_only]
+
+
+def _greedy_tokens_by_decode_step(arch, lengths, n_new=6):
+    """The frontend architectures: the reference's engine passes a
+    request's tokens alone, so the same prompts (each after its own
+    patch embeddings from the seed) go through ``model.prefill`` and
+    greedy ``model.decode_step`` calls of both packages, one request a
+    batch row; the greedy tokens of each row, (JAX, port)."""
+    jcfg = jax_smoke_config(arch)
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config(arch)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    n_front, S = cfg.n_frontend_tokens, min(lengths)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (len(lengths), S)
+                                    ).astype(np.int32),
+             "patch_embeds": rng.standard_normal(
+                 (len(lengths), n_front, cfg.frontend_dim)
+             ).astype(np.float32)}
+    L = n_front + S + n_new
+    jl, jc = jmodel.prefill(jcfg, jp, {k: jnp.asarray(v)
+                                       for k, v in batch.items()}, L)
+    tl, tc = prefill(cfg, params, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()}, L)
+    jdecode = jax.jit(lambda p, t, pos, c: jmodel.decode_step(jcfg, p, t,
+                                                              pos, c))
+    want = [np.asarray(jnp.argmax(jl, -1))]
+    got = [tl.argmax(-1).numpy()]
+    for i in range(n_new - 1):
+        pos = n_front + S + i
+        jl, jc = jdecode(jp, jnp.asarray(want[-1], jnp.int32),
+                         jnp.full((len(lengths),), pos, jnp.int32), jc)
+        tl, tc = decode_step(cfg, params, torch.from_numpy(got[-1]).long(),
+                             torch.full((len(lengths),), pos), tc)
+        want.append(np.asarray(jnp.argmax(jl, -1)))
+        got.append(tl.argmax(-1).numpy())
+    return ({i: [int(t[i]) for t in want] for i in range(len(lengths))},
+            {i: [int(t[i]) for t in got] for i in range(len(lengths))})
+
+
+@pytest.mark.parametrize("arch", DECODING)
+def test_every_decoding_arch_greedy_tokens_match_reference(arch):
+    """Every smoke architecture that decodes, prompts shorter and longer
+    than the smoke window of 16: the same greedy tokens as the JAX
+    package's engine for every request, through the port's engine (its
+    decode step the graphed one, run eagerly on the CPU); internvl2-2b
+    by ``decode_step`` against the reference's."""
+    if get_smoke_config(arch).frontend is not None:
+        want, got = _greedy_tokens_by_decode_step(arch, (9, 30, 17))
+    else:
+        want, got = _greedy_tokens_of_both_engines(arch, (9, 30, 17))
+    assert got == want
+
+
 def test_greedy_tokens_match_reference_engine():
     """recurrentgemma, prompts longer and shorter than the smoke window of
     16: the same greedy tokens for every request."""
@@ -188,3 +251,51 @@ def test_serving_entry_points_need_the_card_unless_asked(no_card, setup):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(cfg, {})
     assert ServingEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_graphed_step_runs_eagerly_on_the_cpu(setup):
+    """``graph=True`` (the default) on the CPU: the step runs eagerly, no
+    graph is captured or replayed, and the tokens and the step's logits
+    are bitwise those of ``graph=False``; evicting an instance closes
+    its step."""
+    cfg, params = setup
+    runs = []
+    for graph in (True, False):
+        inst = ServingInstance(cfg, params, slots=2, max_len=64,
+                               device="cpu", graph=graph)
+        assert not inst.decoder.graphed
+        reqs = [_req(0, cfg, n=10, max_new=5), _req(1, cfg, n=21, max_new=5)]
+        for r in reqs:
+            assert inst.admit(r)
+        logits = []
+        while inst.n_active():
+            inst.step()
+            logits.append(inst.decoder.logits.clone())
+        assert inst.decoder.graph is None and inst.decoder.replays == 0
+        assert inst.decoder.capture_ms is None
+        runs.append(([r.tokens for r in reqs], logits))
+    assert runs[0][0] == runs[1][0]
+    assert len(runs[0][1]) == len(runs[1][1]) == 4
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    eng = _engine(cfg, params, slots=1, max_len=32)
+    iid = eng.scale_up(1)[0]
+    inst = eng.instances[iid]
+    eng.submit(_req(0, cfg, max_new=2))
+    eng.drain()
+    assert inst.decoder.logits is not None
+    eng.release(1)
+    assert eng.evict_cached(1) == 1
+    assert inst.decoder.logits is None and inst.decoder.graph is None
+
+
+def test_graphed_instance_needs_the_card_unless_asked(no_card, setup):
+    """A graphed instance or engine asked for the card without one raises
+    as every entry point does; asked for the CPU, it runs eagerly."""
+    cfg, params = setup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingInstance(cfg, params, graph=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params, graph=True)
+    inst = ServingInstance(cfg, params, device="cpu", graph=True)
+    assert inst.device.type == "cpu" and not inst.decoder.graphed
