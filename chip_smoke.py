@@ -10,7 +10,8 @@ Phases (each one failing makes the script exit non-zero):
 
   0. the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once)
-     and print the build time and what ptxas reports;
+     and print the build time and what ptxas reports, a line an entry
+     function: its name and template arguments, registers and spills;
   1. the device time of an empty kernel launched through the forest
      library's ctypes path (the floor of every call); each forest kernel
      against its plain PyTorch version on the card: ``rfr_forest_apply``
@@ -317,7 +318,10 @@ Phases (each one failing makes the script exit non-zero):
      weights, bf16 compute, S 1,024: every gradient leaf through the
      kernels against the plain versions as phase 8 (c) holds them, the
      forward and backward launches exact by path (the backward on wgmma
-     at D 80, 128 and 256); (h) the flash kernel at the new shapes
+     at D 80, 128 and 256); qwen1.5-110b's, the nearest the limit, also
+     against an f32 witness (f32 compute through the plain versions),
+     each bf16 run's distance from it printed by leaf; (h) the flash
+     kernel at the new shapes
      (qwen's D 128 group 8 causal at S 3,000, llama4's chunked 8,192 at S
      10,000, gemma3's local 1,024 at D 256 group 2 at S 3,000, hubert's D
      80 non-causal at S 3,000), forward and backward, each held against
@@ -354,7 +358,13 @@ Phases (each one failing makes the script exit non-zero):
      against the plain versions, the backward bitwise over two calls,
      each direction timed beside the plain version, the CUDA-core kernel,
      the bound and the library (sdpa, or with gemma2-2b's softcap one
-     compiled flex_attention call, its backward included);
+     compiled flex_attention call, its backward included), gemma2-2b's
+     softcapped forward's device time below flex_attention's at both
+     masks, its share of the bound printed; then gemma2-2b's attention
+     split apart (``flash_split``): at its local 4,096 mask, S 3,000, the
+     kernels as called, the same inputs without the softcap, and the
+     softcap at 16 heads over 8, each direction's device time against its
+     bound;
      phase 12's time, beside the card's name and power limit;
   13. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
@@ -888,10 +898,46 @@ def phase0_build():
     print(f"phase0 build: {time.perf_counter() - t0:.2f} s "
           f"(compiled: {built or 'none, cached'})")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"phase0 ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(_build.build_log(name)):
+            print(f"phase0 ptxas {name} {line}")
         _build.load(name)
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name (``flash_wgmma_kernel<256,256,32,0>``), past an anonymous
+    namespace's."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), None
+    while name is None:
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            return mangled
+        j = i + m.end()
+        ident, i = mangled[j:j + int(m.group())], j + int(m.group())
+        if not ident.startswith("_GLOBAL__N"):
+            name = ident
+    rest = mangled[i:]
+    args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 1]) \
+        if rest.startswith("I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_lines(log: str) -> list:
+    """nvcc -Xptxas -v's report as one line an entry function: its name
+    (``_kernel_name``), registers, and spill stores and loads."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = _kernel_name(m.group(1)), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} "
+                         f"registers; {spill}")
+            name = None
+    return lines
 
 
 def _random_forest(rng, t, depth, f):
@@ -1555,13 +1601,8 @@ def hold_flash(q, k, v, kw, with_library: bool):
     pairs = int(mask.sum())
     out = {"max_abs_err": err, "worst": worst, "pairs": pairs,
            "path": ran[0]}
-    if ran[0] == "tf32":
-        from repro_torch.kernels import _build
-        from repro_torch.kernels.flash_attention import KINDS
-        out["kv_shares"] = _build.load(
-            "flash_attention_tf32").flash_attention_tf32_splits(
-                bh, s, d, dv, int(kw.get("causal", True)),
-                KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
+    if ran[0] in ("tf32", "wgmma"):
+        out["kv_shares"] = kv_shares(ran[0], bh, s, d, dv, kw)
     if with_library:
         def kernel():
             return flash_attention(q, k, v, **kw)
@@ -1605,6 +1646,17 @@ def hold_flash(q, k, v, kw, with_library: bool):
             out["cuda_core_bound_ms"], _ = flash_bound(
                 bh, k.shape[0], s, d, q.dtype, pairs, F32_OPS_PER_S, dv=dv)
     return out
+
+
+def kv_shares(kernel: str, bh: int, s: int, d: int, dv: int, kw) -> int:
+    """The kv shares the tensor-core forward `kernel` ("wgmma" or "tf32")
+    cuts each q tile's kv range into at this shape (1: no split)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KINDS
+    name = f"flash_attention_{kernel}"
+    return getattr(_build.load(name), name + "_splits")(
+        bh, s, d, dv, int(kw.get("causal", True)),
+        KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
 
 
 def f64_shares(q, k, v, kw) -> str:
@@ -3981,7 +4033,8 @@ def first_layers(cfg, n: int):
     return cut
 
 
-def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
+def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
+                        witness: bool = False):
     """(c) one period of `arch` at its published width (recurrentgemma:
     rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
     `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
@@ -4003,7 +4056,11 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
     two runs (as phase 6 (b) finds), and a token routed otherwise has
     another gradient: the plain run routes every token as the kernels'
     run did (RoutingReplay), so every leaf is held, and the routing its
-    own gates would have chosen is printed against the kernels'."""
+    own gates would have chosen is printed against the kernels'.  With
+    `witness`, the same gradients in f32 compute through the plain
+    versions as well, and each bf16 run's error against that witness:
+    what of the kernels' distance from the plain run is bf16 rounding,
+    which the plain run shares."""
     import gc
     import torch
     from repro_torch.configs import InputShape
@@ -4107,8 +4164,12 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
               f"experts differ {[x[0] for x in diffs]}, assignments whose "
               f"keep flag differs {[x[1] for x in diffs]}; the plain run "
               f"routed as the kernels' run did")
+    if witness:
+        loss, _ = steps_lib.loss_fn(cfg.replace(dtype="float32"), params,
+                                    batch, remat=True, use_kernel=False)
+        grads.append(torch.autograd.grad(loss, leaves))
     errs, lost = [], []
-    for (path, _), gk, gp in zip(named, *grads):
+    for (path, _), gk, gp in zip(named, grads[0], grads[1]):
         name = "/".join(p.strip("[]'") for p in path)
         e = float((gk.float() - gp.float()).norm()
                   / gp.float().norm().clamp_min(1e-30))
@@ -4123,6 +4184,22 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False):
           f"{losses[0]:.7f}, plain {losses[1]:.7f}; each leaf's relative "
           f"error in norm (limit {tol}): "
           + "; ".join(f"{n} {e:.2e}" for n, e in errs))
+    if witness:
+        def rel(g, w):
+            return float((g.float() - w.float()).norm()
+                         / w.float().norm().clamp_min(1e-30))
+
+        wit = [(name, rel(gk, gw), rel(gp, gw)) for (name, _), gk, gp, gw
+               in zip(errs, *grads)]
+        at = max(range(len(errs)), key=lambda i: errs[i][1])
+        print(f"phase8 {label} period grads against an f32 witness (f32 "
+              f"compute, plain versions): kernels' worst leaf "
+              f"{max(w[1] for w in wit):.3e}, plain run's "
+              f"{max(w[2] for w in wit):.3e}; the leaf farthest between "
+              f"kernels and plain, {wit[at][0]} ({errs[at][1]:.3e}): "
+              f"kernels {wit[at][1]:.3e}, plain {wit[at][2]:.3e} from the "
+              f"witness; " + "; ".join(f"{n} {k:.2e} / {p:.2e}"
+                                        for n, k, p in wit))
     print(f"phase8 {label} period grads: worst leaf {worst:.3e}; leaves "
           f"zero through the kernels but not through the plain versions: "
           f"{lost or 'none'}")
@@ -5504,7 +5581,9 @@ def phase11_other_archs() -> dict:
         AUDIO_ARCH: phase11f_hubert()}
     t_grads = time.perf_counter()
     _free_models("phase11 (g)")
-    grads = {arch: phase8_period_grads(arch) for arch in GRAD_LAYERS}
+    # qwen1.5-110b's sit nearest the limit: split apart by an f32 witness
+    grads = {arch: phase8_period_grads(arch, witness=arch == "qwen1.5-110b")
+             for arch in GRAD_LAYERS}
     print(f"phase11 (g) gradients of the six: "
           f"{time.perf_counter() - t_grads:.1f} s")
     times, bwd_times = phase11h_flash_shapes(power)
@@ -5628,9 +5707,80 @@ def phase12i_flash_shapes() -> list:
                      **kw, "path": m["path"],
                      "max_abs_err": m["max_abs_err"], "bwd_path": b["path"],
                      "bwd_max_abs_err": b["max_abs_err"],
-                     "bwd_bitwise_twice": b["bitwise_twice"]})
+                     "bwd_bitwise_twice": b["bitwise_twice"],
+                     "kv_shares": m.get("kv_shares"),
+                     **{key: m[key] for key in (
+                         "ms", "device_ms", "library", "library_ms",
+                         "library_device_ms", "bound_ms")},
+                     **{"bwd_" + key: b[key] for key in (
+                         "ms", "device_ms", "library_ms",
+                         "library_device_ms", "bound_ms")}})
+        if cfg.attn_softcap:
+            # the softcapped forward against one flex_attention call
+            check(m["device_ms"] < m["library_device_ms"],
+                  f"phase 12 (i) {arch} {kind} forward: device "
+                  f"{m['device_ms']:.4f} ms, flex_attention's "
+                  f"{m['library_device_ms']:.4f} ms")
+            print(f"phase12 (i) {arch} {kind}: the kernel's forward at "
+                  f"{m['device_ms'] / m['library_device_ms']:.3f}x "
+                  f"flex_attention's device time, "
+                  f"{m['bound_ms'] / m['device_ms']:.1%} of its bound; "
+                  f"backward {b['device_ms'] / b['library_device_ms']:.3f}x "
+                  f"flex_attention's, {b['bound_ms'] / b['device_ms']:.1%} "
+                  "of its bound")
         del q, k, v
     return held
+
+
+#: gemma2-2b's attention time split apart, at the train step's S and its
+#: local layers' mask (causal, window 4,096, bf16, D 256): the kernels as
+#: the model calls them (8 query heads over 4 kv heads, softcap 50), the
+#: same inputs without the softcap, and the softcap at twice the heads
+#: (16 over 8, 752 forward blocks where 376 leave the last wave thin)
+SPLIT_CASES = (("as called", 8, 4, 50.0), ("no softcap", 8, 4, 0.0),
+               ("BH 16 over 8", 16, 8, 50.0))
+
+
+def flash_split(power: str, cases=SPLIT_CASES, s: int = TRAIN_SEQ,
+                d: int = 256, kind: str = "local", window: int = 4096,
+                causal: bool = True) -> list:
+    """The bf16 flash forward and backward at each of `cases` (label, BH,
+    kv heads, softcap) on unscaled random inputs: each direction's
+    device time (``time_ms(queued=True)``) beside its bound, the
+    forward's kv shares (the backward's launches apart: phase 12's
+    profiled step).  Prints a line a case; returns the measurements."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    pairs = int(ref.attention_mask(s, causal, kind, window, dev).sum())
+    out = []
+    for label, bh, bh_kv, cap in cases:
+        q, k, v = (torch.randn((n, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for n in (bh, bh_kv, bh_kv))
+        kw = dict(causal=causal, kind=kind, window=window, softcap=cap)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        do = torch.randn((bh, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        fwd = time_ms(lambda: flash_attention(q, k, v, **kw), queued=True)
+        bwd = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw),
+                      queued=True)
+        fb, _ = flash_bound(bh, bh_kv, s, d, q.dtype, pairs)
+        bb, _ = flash_bwd_bound(bh, bh_kv, s, d, q.dtype, pairs)
+        m = {"case": label, "shape": [bh, bh_kv, s, d], **kw,
+             "device_ms": fwd, "bound_ms": fb, "bwd_device_ms": bwd,
+             "bwd_bound_ms": bb,
+             "kv_shares": kv_shares("wgmma", bh, s, d, d, kw)}
+        print(f"phase12 (i) split {label}: BH={bh} G={bh // bh_kv} S={s} "
+              f"D={d} {kw} bfloat16: forward device {fwd:.4f} ms, "
+              f"{fb / fwd:.1%} of its bound {fb:.5f} ms, kv shares "
+              f"{m['kv_shares']}; backward device {bwd:.4f} ms, "
+              f"{bb / bwd:.1%} of its bound {bb:.5f} ms; {power}")
+        out.append(m)
+        del q, k, v, o, lse, do
+    return out
 
 
 def phase12_training() -> dict:
@@ -5639,7 +5789,9 @@ def phase12_training() -> dict:
     qwen1.5-110b's one more step profiled); (g) hubert-xlarge through
     ``train_loop``; (h) gemma2-2b's period's gradients against the plain
     versions; (i) the flash kernel at the shapes of (a)-(f) that no
-    earlier phase holds.  Returns the launches by run and (i)'s holds."""
+    earlier phase holds, and gemma2-2b's attention time split apart
+    (``flash_split``).  Returns the launches by run, (i)'s holds and the
+    split."""
     t0 = time.perf_counter()
     power = card()
     runs = {arch: train_full_width(arch, f"phase 12 ({letter})",
@@ -5652,11 +5804,12 @@ def phase12_training() -> dict:
     runs[GEMMA_ARCH + " period grads"] = phase8_period_grads(GEMMA_ARCH, 2)
     t_i = time.perf_counter()
     held = phase12i_flash_shapes()
+    split = flash_split(power)
     print(f"phase12 total {time.perf_counter() - t0:.1f} s ((a)-(f) "
           f"{t_g - t0:.1f} s, (g) {t_h - t_g:.1f} s, (h) "
           f"{t_i - t_h:.1f} s, (i) {time.perf_counter() - t_i:.1f} s); "
           f"{power}")
-    return runs, held
+    return runs, held, split
 
 
 def main() -> int:
@@ -5710,7 +5863,7 @@ def main() -> int:
         serve_driver_launches, gemma, cluster = phase9_serving_entry_points()
         mesh = phase10_mesh(dryruns)
         other = phase11_other_archs()
-        trained, held12 = phase12_training()
+        trained, held12, split12 = phase12_training()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -5896,13 +6049,22 @@ def main() -> int:
             "times": other["bwd_times"]}
         # phase 12 (i): the kernel held at the train step's shapes that
         # no earlier phase holds, both directions
+        shared = ("arch", "shape", "causal", "kind", "window", "softcap")
         flash["phase12_held"] = [
             {key: h[key] for key in h if not key.startswith("bwd_")}
             for h in held12]
         flash_bwd["phase12_held"] = [
             {key[4:] if key.startswith("bwd_") else key: h[key]
-             for key in h if key not in ("path", "max_abs_err")}
+             for key in h if key.startswith("bwd_") or key in shared}
             for h in held12]
+        # gemma2-2b's attention split apart (phase 12 (i))
+        flash["phase12_split"] = [
+            {key: m[key] for key in m if not key.startswith("bwd_")}
+            for m in split12]
+        flash_bwd["phase12_split"] = [
+            {key[4:] if key.startswith("bwd_") else key: m[key]
+             for key in m if key.startswith("bwd_") or key in shared
+             or key == "case"} for m in split12]
         # phase 12: each kernel's launches by run, beside phase 8's
         for k in kernels:
             name = k["name"]

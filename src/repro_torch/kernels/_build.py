@@ -74,10 +74,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
                                  _I, _I, _D, _P], _I),
     },
     "flash_attention_wgmma": {
-        # q, k, v, o, lse (or null), bh, s, d, dv, group, causal, kind,
-        # window, softcap, stream
-        "flash_attention_wgmma_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _D, _P], _I),
+        # q, k, v, o, lse (or null), part (scratch or null), bh, s, d, dv,
+        # group, causal, kind, window, softcap, splits, stream
+        "flash_attention_wgmma_fwd": ([_P] * 6 + [_I] * 8 + [_D, _I, _P], _I),
+        # bh, s, d, dv, causal, kind, window -> the kv shares fwd takes
+        "flash_attention_wgmma_splits": ([_I] * 7, _I),
     },
     "flash_attention_tf32": {
         # q, k, v, o, part (scratch or null), lse (or null), bh, s, d, dv,

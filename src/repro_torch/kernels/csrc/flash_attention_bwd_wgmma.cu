@@ -97,8 +97,9 @@
 // 64.  Shared memory: dK/dV about 154 KB (K 24 KB, V 16 KB, two (Q, dO)
 // stages of 40 KB, the exchange 32 KB), dQ about 153 KB (Q, dO, two (K,
 // V) stages, the exchange); one block an SM.  ptxas (CUDA 12 on the
-// H100's machine, printed by chip_smoke.py's phase 0): dK/dV 202
-// registers, dQ 193, no spill (at D 256: 246 and 162).
+// H100's machine, printed by chip_smoke.py's phase 0): dK/dV 235
+// registers, dQ 249, no spill (at D 256: 255 and 206; the softcap's loop
+// beside the plain one took them from 246 and 162).
 //
 // D = DV = 80 (hubert-xlarge) is no multiple of 64: each row is kept as
 // two whole 128-byte column blocks, the tensor maps (80 columns wide)
@@ -116,7 +117,16 @@
 // causal, global, no softcap: hubert-xlarge's attention), the kernels
 // are instantiated with kAll, whose pairs take pair_grad_all, one
 // straight run the compiler schedules with the exponentials in flight.
-// ptxas: dK/dV 234 registers (254 with kAll), dQ 160 (155), no spill.
+// ptxas: dK/dV 255 registers (254 with kAll), dQ 200 (155), no spill.
+//
+// The softcap: t and 1 - t^2 from one fast_tanh (hopper_wgmma.cuh; 1 -
+// t^2 as 4 r (1 - r)), the forward's constant, in pair_grad_cap; a tile's
+// pairs go through it or through pair_grad in two loops, the softcap
+// tested once a tile.  At gemma2-2b's shape the softcap's tanhf and
+// division had taken 0.39 of the backward's 1.05 ms (the same inputs
+// without it: 0.66 ms); with fast_tanh, 0.10 of 0.67.  The dK/dV grid
+// launches each kv row's first key tiles first where the key tiles'
+// work differs (a causal mask gives key tile 0 every query tile).
 //
 // Masks: tiles that the mask hides from every pair are skipped (the key
 // tile's query range, the query tile's key range); tiles that it shows
@@ -143,7 +153,7 @@ enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 
 struct Mask {
   int S, causal, kind, window;
-  float scale, softcap;
+  float scale, softcap, cap_k2;  // cap_k2: fast_tanh's 2 log2(e) scale / softcap
 
   __device__ __forceinline__ bool visible(int qp, int kp) const {
     bool v = qp < S && kp < S;
@@ -209,15 +219,23 @@ struct Mask {
 // q.k and dp is dO.v; on exit s is p and dp is ds (both 0 off the mask)
 __device__ __forceinline__ void pair_grad(float& s, float& dp, float lse, float delta,
                                           bool keep, const Mask& m) {
-  float x = s * m.scale, f = 1.0f;
-  if (m.softcap > 0.0f) {
-    const float t = tanhf(x / m.softcap);
-    x = t * m.softcap;
-    f = 1.0f - t * t;
-  }
+  const float p = keep ? exp2f((s * m.scale - lse) * kLog2e) : 0.0f;
+  s = p;
+  dp = p * (dp - delta);
+}
+
+// pair_grad with the softcap: s = c t, t = tanh(q.k scale / c), and
+// ds = p (dp - D_i) (1 - t^2), t and 1 - t^2 = 4 r (1 - r) from one
+// fast_tanh.  The kernels take a tile's pairs through this or pair_grad
+// in two loops (the softcap tested once a tile), so the loop without a
+// softcap carries none of its steps.
+__device__ __forceinline__ void pair_grad_cap(float& s, float& dp, float lse, float delta,
+                                              bool keep, const Mask& m) {
+  float r;
+  const float x = fast_tanh(s, m.cap_k2, r) * m.softcap;
   const float p = keep ? exp2f((x - lse) * kLog2e) : 0.0f;
   s = p;
-  dp = p * (dp - delta) * f;
+  dp = p * (dp - delta) * (4.0f * r * (1.0f - r));
 }
 
 // pair_grad where the mask keeps every pair below S and there is no
@@ -419,7 +437,7 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ part, int bh_kv,
-                     int group, int shares, Mask mask) {
+                     int group, int shares, int heads_inner, Mask mask) {
   using L = DkdvLayout<D, DV>;
   using P = Split<D, DV>;
   constexpr int kWG = L::kWG;
@@ -434,8 +452,13 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full = kvbar + 8;  // stage st: full + 8 * st
 
   const int S = mask.S;
-  const int share = blockIdx.x, kvh = blockIdx.z;
-  const int k0 = blockIdx.y * kT;
+  // grid (shares, kv rows, key tiles) where the key tiles' work differs
+  // (causal, local, chunked): the first key tiles, which the most query
+  // tiles see under a causal mask, are launched first in every kv row;
+  // else (shares, key tiles, kv rows), a kv row's key tiles side by side
+  const int share = blockIdx.x;
+  const int kvh = heads_inner ? blockIdx.y : blockIdx.z;
+  const int k0 = (heads_inner ? blockIdx.z : blockIdx.y) * kT;
   int qt0, n_qt;
   mask.items(k0, qt0, n_qt);
   const int n_items = group * n_qt;
@@ -528,12 +551,22 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       }
     } else {
       const bool whole = mask.whole(q0, k0);
+      if (mask.softcap > 0.0f) {
 #pragma unroll
-      for (int i = 0; i < kT / 2; ++i) {
-        const int qc = 8 * (i / 4) + cq + (i % 2);
-        const int kr = r0 + 8 * ((i / 2) % 2);
-        pair_grad(s[i], dp[i], lse_s[qc], delta_s[qc],
-                  whole || mask.visible(q0 + qc, k0 + kr), mask);
+        for (int i = 0; i < kT / 2; ++i) {
+          const int qc = 8 * (i / 4) + cq + (i % 2);
+          const int kr = r0 + 8 * ((i / 2) % 2);
+          pair_grad_cap(s[i], dp[i], lse_s[qc], delta_s[qc],
+                        whole || mask.visible(q0 + qc, k0 + kr), mask);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kT / 2; ++i) {
+          const int qc = 8 * (i / 4) + cq + (i % 2);
+          const int kr = r0 + 8 * ((i / 2) % 2);
+          pair_grad(s[i], dp[i], lse_s[qc], delta_s[qc],
+                    whole || mask.visible(q0 + qc, k0 + kr), mask);
+        }
       }
     }
 
@@ -727,12 +760,22 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
     } else {
       const bool whole = mask.whole(q0, k0);
+      if (mask.softcap > 0.0f) {
 #pragma unroll
-      for (int i = 0; i < kT / 2; ++i) {
-        const int kc = 8 * (i / 4) + cq + (i % 2);
-        const bool second = (i / 2) % 2;
-        pair_grad(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
-                  whole || mask.visible(second ? qp1 : qp0, k0 + kc), mask);
+        for (int i = 0; i < kT / 2; ++i) {
+          const int kc = 8 * (i / 4) + cq + (i % 2);
+          const bool second = (i / 2) % 2;
+          pair_grad_cap(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
+                        whole || mask.visible(second ? qp1 : qp0, k0 + kc), mask);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kT / 2; ++i) {
+          const int kc = 8 * (i / 4) + cq + (i % 2);
+          const bool second = (i / 2) % 2;
+          pair_grad(s[i], dp[i], second ? lse1 : lse0, second ? dl1 : dl0,
+                    whole || mask.visible(second ? qp1 : qp0, k0 + kc), mask);
+        }
       }
     }
 
@@ -803,7 +846,9 @@ attn_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ 
 }
 
 Mask make_mask(int s, int d, int causal, int kind, int window, float softcap) {
-  return Mask{s, causal, kind, window, (float)(1.0 / sqrt((double)d)), softcap};
+  const double scale = 1.0 / sqrt((double)d);
+  return Mask{s, causal, kind, window, (float)scale, softcap,
+              softcap > 0.0f ? (float)(2.0 * kLog2e * scale / softcap) : 0.0f};
 }
 
 // Blocks of the dK/dV kernel an SM holds, or 0 when the query fails.
@@ -888,9 +933,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                                     static_cast<const __nv_bfloat16*>(dout), delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int tiles = (s + kT - 1) / kT;
-  attn_bwd_dkdv_kernel<D, DV, kAll><<<dim3(shares, tiles, bh_kv), 128 * LK::kWG, LK::kBytes,
-                                stream>>>(mq, mk, mv, mdo, lse, delta, part, bh_kv, group,
-                                          shares, mask);
+  const int heads_inner = mask.causal || mask.kind != kGlobal;
+  attn_bwd_dkdv_kernel<D, DV, kAll>
+      <<<heads_inner ? dim3(shares, bh_kv, tiles) : dim3(shares, tiles, bh_kv),
+         128 * LK::kWG, LK::kBytes, stream>>>(mq, mk, mv, mdo, lse, delta, part, bh_kv,
+                                              group, shares, heads_inner, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attn_bwd_dq_kernel<D, DV, kAll><<<dim3(bh, tiles), 128 * LQ::kWG, LQ::kBytes, stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), group, mask);

@@ -18,8 +18,10 @@
 // Arithmetic, as the Pallas kernel does it: s = (q.k) * (1/sqrt(D)) with
 // the bf16 products summed in f32 (bf16 x bf16 is exact in f32, so only
 // the order of summation differs); softcap s = tanh(s / c) * c, before the
-// mask; masked scores take the finite value -2.3819763e38 and keys past S
-// take -inf; the running (m, l, acc) are f32, l sums the f32 p, p is
+// mask, its tanh from fast_tanh (hopper_wgmma.cuh: one ex2.approx and one
+// rcp.approx on q.k times a constant the host rounds once, within about
+// 1e-6 of tanh); masked scores take the finite value -2.3819763e38 and
+// keys past S take -inf; the running (m, l, acc) are f32, l sums the f32 p, p is
 // rounded to bf16 before P.V, which accumulates in f32; o = acc / max(l,
 // 1e-30) is written in bf16.  When a gradient will be taken the caller
 // also asks for each row's log-sum-exp, lse = m + log(max(l, 1e-30)) in
@@ -48,7 +50,7 @@
 //     the tile sizes, not by setmaxnreg: a block is one warpgroup and
 //     nothing else, so __launch_bounds__(128, 1) leaves each thread 255
 //     registers for O, S (BK / 2), P (BK / 4) and the softmax state (ptxas
-//     gives 180 at D = 256, so two blocks fit in an SM's 65,536);
+//     gives 179 at D = 256, so two blocks fit in an SM's 65,536);
 //   * Q, K and V arrive by TMA (cp.async.bulk.tensor, 3-d tensor maps
 //     encoded on the host with cuTensorMapEncodeTiled) with the 128-byte
 //     swizzle that the wgmma descriptors name.  A row of D bf16 is cut
@@ -74,10 +76,24 @@
 //   * a ragged last q or kv tile needs no special case: the tensor maps'
 //     out-of-bounds fill reads zeros past S, keys past S take -inf, and
 //     query rows past S are not written;
-//   * q tiles are launched longest first: blockIdx.y counts q tiles from
-//     the last, whose causal or local kv range is the widest, and
-//     blockIdx.x runs over bh, so the blocks sharing one kv head (MQA
-//     10:1 at the serving shape) start together and share K and V in L2.
+//   * q tiles are launched longest first, the last q tile, whose causal
+//     or local kv range is the widest, first, with the heads side by
+//     side, so the blocks sharing one kv head (MQA 10:1 at the serving
+//     shape) start together and share K and V in L2; where the K and V of
+//     all heads overflow the L2 (MLA's 128 heads from S 1,000), in groups
+//     of heads whose K and V fit (order_heads);
+//   * the softcap (gemma2-2b's 50) costs two MUFU steps a score where
+//     tanhf and an IEEE division took some twenty instructions on the
+//     block's one chain: at gemma2-2b's shape (BH 8 over 4 kv heads, S
+//     3,000) the kernel with it ran at 2.3x the time without it; with
+//     fast_tanh, 1.15x.  The softcap and the mask take their loops once a
+//     tile (kFlat's form), so the loop without a softcap carries none of
+//     its steps (phase 12 (i)'s split in chip_smoke.py times all three);
+//   * a grid of fewer blocks than the card holds (plan: recurrentgemma-2b's
+//     prompts of 512 and 1,000 tokens) cuts each q tile's kv range into
+//     shares, one block each, and flash_wgmma_combine joins a q tile's
+//     shares in order; a grid that fills the card is not cut, since
+//     shares there were slower at every count timed.
 //
 // Interface: plain C, bound from Python with ctypes.  The entry point
 // launches on the caller's stream, allocates nothing, does not
@@ -94,6 +110,7 @@ constexpr int kStages = 2;     // K/V ring
 constexpr int kThreads = 128;  // one warpgroup
 constexpr float kNegInf = -2.3819763e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSplits = 8;  // kv shares of one q tile, at most
 
 enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 
@@ -121,13 +138,42 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int kind, in
   return ok;
 }
 
+// The kv tiles of BK keys that any row of the q tile at q0 may see:
+// k_first, the first tile's first key, and n_tiles.
+__host__ __device__ inline void kv_tiles(int q0, int S, int BK, int causal, int kind,
+                                         int window, int& k_first, int& n_tiles) {
+  const int q_last = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
+  int lo = 0, hi = S;
+  if (causal) hi = q_last + 1;
+  if (kind == kLocal) {
+    lo = q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+  } else if (kind == kChunked) {
+    lo = (q0 / window) * window;
+    const int end = (q_last / window + 1) * window;
+    hi = hi < end ? hi : end;
+  }
+  k_first = (lo / BK) * BK;
+  n_tiles = (hi - k_first + BK - 1) / BK;
+}
+
+// grid (bh, n_q * splits), taken in groups of `heads` query heads
+// (order_heads): row splits * i + z of a head is share z of its i-th q
+// tile counted from the last (longest first, a q tile's shares side by
+// side).  With split_tiles > 0, share z takes kv tiles [z split_tiles,
+// (z + 1) split_tiles) of its q tile; a q tile with more than one share
+// writes its unnormalised output, running maximum and sum to `part`,
+// (splits, BH, S, DV) outputs, then (splits, BH, S) maxima, then (splits,
+// BH, S) sums, which flash_wgmma_combine joins; a q tile whose kv tiles
+// fit in one share writes o and lse itself.  cap_k2 is 2 log2(e) scale /
+// softcap (fast_tanh's constant; unused without a softcap).
 template <int DQK, int DV, int BK, bool kFlat = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, int S, int group, float scale, int causal,
-                   int kind, int window, float softcap) {
+                   float* __restrict__ lse, float* __restrict__ part, int S, int group,
+                   float scale, int causal, int kind, int window, float softcap, float cap_k2,
+                   int splits, int split_tiles, int heads) {
   using L = Layout<DQK, DV, BK>;
   constexpr int kQKCols = col_blocks(DQK);  // 128-byte column blocks per row
   constexpr int kVCols = col_blocks(DV);
@@ -141,22 +187,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t qbar = full + 8 * kStages;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
+  // launch order (x fastest): groups of `heads` query heads, each group's
+  // q tiles longest first with its heads side by side; row y of a head is
+  // share y % splits of the (y / splits)-th q tile counted from the last
+  const long long b = blockIdx.x + (long long)gridDim.x * blockIdx.y;
+  const long long per_group = (long long)heads * gridDim.y;
+  const int r = (int)(b % per_group);
+  const int bh = (int)(b / per_group) * heads + r % heads;
   const int kvh = bh / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int q0 = (n_q - 1 - r / heads / splits) * kBQ;
+  const int share = r / heads % splits;
 
-  // the keys any row of this tile may see: [lo, hi)
-  const int q_last = min(q0 + kBQ, S) - 1;
-  int lo = 0, hi = S;
-  if (causal) hi = q_last + 1;
-  if (kind == kLocal) {
-    lo = max(0, q0 - window + 1);
-  } else if (kind == kChunked) {
-    lo = (q0 / window) * window;
-    hi = min(hi, (q_last / window + 1) * window);
+  // the kv tiles this block takes: all of the q tile's, or its share
+  int k_first, n_tiles, n_shares = 1;
+  kv_tiles(q0, S, BK, causal, kind, window, k_first, n_tiles);
+  if (split_tiles > 0) {
+    n_shares = (n_tiles + split_tiles - 1) / split_tiles;
+    if (share >= n_shares) return;  // an empty share: the combine reads none
+    k_first += share * split_tiles * BK;
+    n_tiles = min(split_tiles, n_tiles - share * split_tiles);
   }
-  const int k_first = (lo / BK) * BK;
-  const int n_tiles = (hi - k_first + BK - 1) / BK;
 
   auto load_kv = [&](int st, int k0) {
     const uint32_t bar = full + 8 * st;
@@ -226,11 +277,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     else if (kind == kChunked)
       whole = whole && q0 / window == q_hi / window && k0 / window == q0 / window &&
               (k0 + BK - 1) / window == q0 / window;
-    if constexpr (kFlat) {
-      // the same steps, each test taken once a tile
+    if (kFlat || softcap > 0.0f) {
+      // the same steps, each test taken once a tile; the softcap's tanh
+      // from fast_tanh (two MUFU steps and no division a score)
       if (softcap > 0.0f) {
 #pragma unroll
-        for (int i = 0; i < BK / 2; ++i) s[i] = tanhf(s[i] * scale / softcap) * softcap;
+        for (int i = 0; i < BK / 2; ++i) {
+          float r;
+          s[i] = fast_tanh(s[i], cap_k2, r) * softcap;
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) s[i] *= scale;
@@ -248,7 +303,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         float x = s[i] * scale;
-        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
         if (!whole) {
           const int kp = k0 + 8 * (i / 4) + cq + (i % 2);
           const int qp = (i % 4) < 2 ? qp0 : qp1;
@@ -328,6 +382,32 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && it + kStages < n_tiles) load_kv(st, k0 + kStages * BK);
   }
 
+  if (n_shares > 1) {
+    // this share's unnormalised O, m and l for the combine (a row's four
+    // threads hold the same m and l, the first writes them)
+    const long long rows = (long long)gridDim.x * S;
+    float* po = part + ((long long)share * rows + (long long)bh * S) * DV;
+    float* pm = part + (long long)splits * rows * DV + share * rows + (long long)bh * S;
+    float* pl = pm + (long long)splits * rows;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      if (qp0 < S)
+        *reinterpret_cast<float2*>(po + (long long)qp0 * DV + 8 * j + cq) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (qp1 < S)
+        *reinterpret_cast<float2*>(po + (long long)qp1 * DV + 8 * j + cq) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    if (cq == 0 && qp0 < S) {
+      pm[qp0] = m0;
+      pl[qp0] = l0;
+    }
+    if (cq == 0 && qp1 < S) {
+      pm[qp1] = m1;
+      pl[qp1] = l1;
+    }
+    return;
+  }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   // each row's log-sum-exp for the backward, when asked for: a row's four
   // threads hold the same m and l, the first writes them
@@ -354,12 +434,129 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 
-template <int DQK, int DV, int BK, bool kFlat = false>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                   int s, int group, int causal, int kind, int window, float softcap,
-                   cudaStream_t stream) {
+// A split q tile's rows joined: o = sum_z e^(m_z - m) acc_z / max(sum_z
+// e^(m_z - m) l_z, 1e-30), m the largest m_z, over the q tile's shares in
+// order (no atomics: the same bits every call), written in bf16 with the
+// row's lse.  One warp a row of DV outputs, two columns a lane at a time;
+// rows of q tiles that one share held were written by the main kernel.
+template <int DV, int BK>
+__global__ void __launch_bounds__(256)
+flash_wgmma_combine(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int bh_rows, int S, int splits,
+                    int split_tiles, int causal, int kind, int window) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;  // bh * S + qp
+  const int lane = threadIdx.x % 32;
+  const long long rows = (long long)bh_rows * S;
+  if (row >= rows) return;
+  int k_first, n_tiles;
+  kv_tiles((int)(row % S) / kBQ * kBQ, S, BK, causal, kind, window, k_first, n_tiles);
+  const int n = (n_tiles + split_tiles - 1) / split_tiles;
+  if (n <= 1) return;
+  const float* pm = part + (long long)splits * rows * DV + row;
+  const float* pl = pm + (long long)splits * rows;
+  float m = pm[0];
+  for (int z = 1; z < n; ++z) m = fmaxf(m, pm[z * rows]);
+  float w[kMaxSplits];
+  float l = 0.0f;
+#pragma unroll
+  for (int z = 0; z < kMaxSplits; ++z) {
+    w[z] = z < n ? exp2f((pm[z * rows] - m) * kLog2e) : 0.0f;
+    if (z < n) l += w[z] * pl[z * rows];
+  }
+  const float d = fmaxf(l, 1e-30f);
+  if (lse != nullptr && lane == 0) lse[row] = m + logf(d);
+  for (int c = 2 * lane; c < DV; c += 64) {
+    float x = 0.0f, y = 0.0f;
+#pragma unroll
+    for (int z = 0; z < kMaxSplits; ++z) {
+      if (z < n) {
+        const float2 a = *reinterpret_cast<const float2*>(part + (z * rows + row) * DV + c);
+        x += w[z] * a.x;
+        y += w[z] * a.y;
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(o + row * DV + c) = __floats2bfloat162_rn(x / d, y / d);
+  }
+}
+
+// The kv shares to cut each q tile's kv range into, and `most`, the kv
+// tiles of the longest q tile.  Where the grid's (bh x q tiles) blocks
+// leave some of the card's block slots (SMs times the blocks an SM holds)
+// empty, ceil(slots / blocks) shares, at most kMaxSplits and `most`; else
+// one.  Shares of a grid that fills the card were slower at every count
+// timed on the H100: a q tile's shares write and reread f32 partials, and
+// the longest q tiles, launched first, finish alone on their SMs at full
+// speed.  At recurrentgemma-2b's 10 heads, S 512 and 1,000 (80 and 160
+// blocks for 264 slots), 4 and 2 shares were the fastest counts.  The SM
+// count is the current device's (132 when the query fails).
+template <int DQK, int DV, int BK, bool kFlat>
+int plan(int bh, int s, int causal, int kind, int window, int& most) {
+  most = 1;
+  for (int q0 = 0; q0 < s; q0 += kBQ) {
+    int k_first, n_tiles;
+    kv_tiles(q0, s, BK, causal, kind, window, k_first, n_tiles);
+    most = n_tiles > most ? n_tiles : most;
+  }
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0)
+    sms = 132;
+  // the blocks an SM holds (the kernel's registers and shared memory), asked once
+  static const int per_sm = []() {
+    const int smem = (int)Layout<DQK, DV, BK>::kBytes;
+    int n = 0;
+    if (cudaFuncSetAttribute(flash_wgmma_kernel<DQK, DV, BK, kFlat>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, flash_wgmma_kernel<DQK, DV, BK, kFlat>, kThreads, smem) != cudaSuccess)
+      return 1;
+    return n > 0 ? n : 1;
+  }();
+  const long long blocks = (long long)bh * ((s + kBQ - 1) / kBQ);
+  const long long slots = (long long)sms * per_sm;
+  if (blocks >= slots) return 1;
+  const int splits = (int)((slots + blocks - 1) / blocks);
+  const int cap = most < kMaxSplits ? most : kMaxSplits;
+  return splits < cap ? splits : cap;
+}
+
+// The query heads a group of the launch order takes.  Where every kv
+// head's K and V fit in the L2 cache together, all of them: the q tiles
+// go longest first over every head (the balance the causal grid needs).
+// Else the query heads of the most kv heads (a divisor of bh / group)
+// whose K and V fit in a third of it, at least one kv head's: MLA's 128
+// heads at S 2,048 (1.3 MB of K and V each, 168 MB in all) go 8 kv heads
+// at a time, where all 128 at once had each block read its K and V tiles
+// from device memory (the forward took about as long as those 2.7 GB at
+// 3.35 TB/s: 0.78 ms, against 0.46 grouped, on the H100).  Groups of a
+// third of the L2 were timed against a sixth and two thirds there, and
+// grouping K and V that fit (gemma-7b's 49 MB) was slower.
+int order_heads(int bh, int s, int group, int dqk, int dv) {
+  const int bh_kv = bh / group;
+  const long long per_head = (long long)s * (padded_cols(dqk) + padded_cols(dv)) * 2;
+  int dev = 0, l2 = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev) != cudaSuccess || l2 <= 0)
+    l2 = 50 << 20;
+  if (bh_kv * per_head <= l2) return bh;
+  int best = 1;
+  for (int h = 1; h <= bh_kv; ++h)
+    if (bh_kv % h == 0 && h * per_head <= l2 / 3) best = h;
+  return best * group;
+}
+
+template <int DQK, int DV, int BK, bool kFlat>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   float* part, int bh, int s, int group, int causal, int kind, int window,
+                   float softcap, int splits, cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  int most;
+  if (splits != plan<DQK, DV, BK, kFlat>(bh, s, causal, kind, window, most) ||
+      (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;  // the scratch was sized for another plan
+  const int split_tiles = splits > 1 ? (most + splits - 1) / splits : 0;
   CUtensorMap mq, mk, mv;
   if (!encode_map(enc, &mq, q, bh, s, DQK, kBQ) ||
       !encode_map(enc, &mk, k, bh / group, s, DQK, BK) ||
@@ -369,15 +566,69 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DQK, DV, BK, kFlat>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)DQK));
-  const dim3 grid(bh, (s + kBQ - 1) / kBQ);
+  const double scale = 1.0 / sqrt((double)DQK);
+  const float cap_k2 = softcap > 0.0f ? (float)(2.0 * kLog2e * scale / softcap) : 0.0f;
+  const dim3 grid(bh, ((s + kBQ - 1) / kBQ) * splits);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
   flash_wgmma_kernel<DQK, DV, BK, kFlat><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, group, scale, causal, kind,
-      window, softcap);
+      mq, mk, mv, ob, lse, part, s, group, (float)scale, causal, kind, window, softcap,
+      cap_k2, splits, split_tiles, order_heads(bh, s, group, DQK, DV));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split_tiles == 0) return err;
+  const long long rows = (long long)bh * s;
+  flash_wgmma_combine<DV, BK><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      part, ob, lse, bh, s, splits, split_tiles, causal, kind, window);
   return cudaGetLastError();
 }
 
+// An instantiation of the kernel: head dims, keys per kv tile, kFlat.
+template <int A, int B, int C, bool F>
+struct Inst {
+  static constexpr int DQK = A, DV = B, BK = C;
+  static constexpr bool kFlat = F;
+};
+
+// f(Inst<...>{}) for the instantiation that takes head dims (d, dv), or
+// `refused` for head dims none takes.  Keys per kv tile: 32 at D = 256 and
+// 128 (at D = 256, Q and a two-stage ring of 32-key tiles take 97 KB, so
+// two blocks share an SM, where 64-key tiles would take 161 KB and leave
+// the SM one block), 64 at D = 64.  Both sizes were timed at the serving
+// shape on the H100; these were the faster.  At (192, 128), 64 keys: Q
+// (24 KB) and two stages of K (24 KB) and V (16 KB) take 106 KB, so two
+// blocks still share an SM, and S is an m64n64 accumulator of 32 floats a
+// thread beside O's 64.  At D = 80, 64 keys (32 and 64 were timed at
+// hubert-xlarge's shape on the H100 with kFlat; 64 was the faster): Q and
+// two stages of K and V, each two padded blocks, take 81 KB, two blocks
+// an SM.  Registers and spills: chip_smoke.py's phase 0.
+template <typename F>
+int dispatch(int d, int dv, int refused, F&& f) {
+  if (d == 192 && dv == 128) return f(Inst<192, 128, 64, false>{});
+  if (d != dv) return refused;
+  switch (d) {
+    case 64: return f(Inst<64, 64, 64, false>{});
+    case 80: return f(Inst<80, 80, 64, true>{});
+    case 128: return f(Inst<128, 128, 32, false>{});
+    case 256: return f(Inst<256, 256, 32, false>{});
+    default: return refused;
+  }
+}
+
 }  // namespace
+
+// The number of kv shares flash_attention_wgmma_fwd cuts each q tile's
+// kv range into for this call on the current device (1: no split), or 0
+// for arguments it refuses.
+extern "C" int flash_attention_wgmma_splits(int bh, int s, int d, int dv, int causal,
+                                            int kind, int window) {
+  if (kind != kGlobal && window < 1) return 0;
+  return dispatch(d, dv, 0, [&](auto inst) {
+    using I = decltype(inst);
+    int most;
+    return bh <= 0 || s <= 0
+               ? 1
+               : plan<I::DQK, I::DV, I::BK, I::kFlat>(bh, s, causal, kind, window, most);
+  });
+}
 
 // q: (bh, s, d), k: (bh / group, s, d), v: (bh / group, s, dv), o: (bh,
 // s, dv), bf16, contiguous, 16-byte aligned, on the current device; d = dv
@@ -385,45 +636,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 // local, 2 chunked.  lse: null, or (bh, s) f32 that takes each row's
 // log-sum-exp of its scaled, softcapped, masked scores (natural log:
 // m + log(max(l, 1e-30))), which the backward of
-// flash_attention_bwd_wgmma.cu reads; serving passes null.
-//
-// Keys per kv tile, by head dims: 32 at D = 256 and 128 (at D = 256, Q and
-// a two-stage ring of 32-key tiles take 97 KB, so two blocks share an SM,
-// where 64-key tiles would take 161 KB and leave the SM one block), 64 at
-// D = 64.  Both sizes were timed at the serving shape on the H100; these
-// were the faster.  At (192, 128), 64 keys: Q (24 KB) and two stages of K
-// (24 KB) and V (16 KB) take 106 KB, so two blocks still share an SM, and
-// S is an m64n64 accumulator of 32 floats a thread beside O's 64.  At
-// D = 80, 64 keys (32 and 64 were timed at hubert-xlarge's shape on the
-// H100 with kFlat; 64 was the faster): Q and two stages of K and V, each
-// two padded blocks, take 81 KB, two blocks an SM (ptxas: 138 registers,
-// no spill, printed by chip_smoke.py's phase 0).
+// flash_attention_bwd_wgmma.cu reads; serving passes null.  splits:
+// flash_attention_wgmma_splits' answer; above 1, `part` is scratch of
+// splits * bh * s * (dv + 2) f32 for the shares' partials, joined by a
+// second launch (else unused, and may be null).
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
-                                         void* o, float* lse, int bh, int s, int d, int dv,
-                                         int group, int causal, int kind, int window,
-                                         double softcap, void* stream) {
+                                         void* o, float* lse, float* part, int bh, int s,
+                                         int d, int dv, int group, int causal, int kind,
+                                         int window, double softcap, int splits,
+                                         void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (group <= 0 || bh % group) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float cap = (float)softcap;
-  if (d == 192 && dv == 128)
-    return (int)launch<192, 128, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window,
-                                     cap, st);
-  if (d != dv) return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 64:
-      return (int)launch<64, 64, 64>(q, k, v, o, lse, bh, s, group, causal, kind, window,
-                                     cap, st);
-    case 80:
-      return (int)launch<80, 80, 64, true>(q, k, v, o, lse, bh, s, group, causal, kind,
-                                           window, cap, st);
-    case 128:
-      return (int)launch<128, 128, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window,
-                                       cap, st);
-    case 256:
-      return (int)launch<256, 256, 32>(q, k, v, o, lse, bh, s, group, causal, kind, window,
-                                       cap, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (kind != kGlobal && window < 1) return (int)cudaErrorInvalidValue;
+  return dispatch(d, dv, (int)cudaErrorInvalidValue, [&](auto inst) {
+    using I = decltype(inst);
+    return (int)launch<I::DQK, I::DV, I::BK, I::kFlat>(
+        q, k, v, o, lse, part, bh, s, group, causal, kind, window, (float)softcap, splits,
+        (cudaStream_t)stream);
+  });
 }

@@ -2,8 +2,9 @@
 // (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
 // ssd_scan_wgmma.cu, rglru_scan.cu): mbarriers, TMA loads through 3-d
 // tensor maps, wgmma descriptors for the 128-byte swizzle, the bf16
-// warpgroup MMAs the tensor-core kernels issue, and the split of f32
-// values into bf16 high and low parts.  Each kernel source is its own
+// warpgroup MMAs the tensor-core kernels issue, the split of f32 values
+// into bf16 high and low parts, and the attention softcap's tanh
+// (fast_tanh).  Each kernel source is its own
 // translation unit and library; this header is included by each
 // (everything here has internal linkage).
 #pragma once
@@ -233,6 +234,21 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// tanh of a softcapped score from the MUFU unit's two fast steps: with
+// k2 = 2 log2(e) scale / softcap, y = s scale / softcap and
+// r = 1 / (2^(|s| k2) + 1) (ex2.approx, rcp.approx: about 2^-22 relative
+// each), tanh(y) = sign(s) (1 - 2 r); r is also returned, since the
+// backward's 1 - tanh(y)^2 = 4 r (1 - r) has no cancellation that way.
+// Its absolute error is about 1e-6 at most, for every s (2^(|s| k2)
+// past f32's range gives r = 0 and tanh = +-1): two MUFU steps where
+// tanhf and an IEEE division take some twenty instructions.
+__device__ __forceinline__ float fast_tanh(float s, float k2, float& r) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fabsf(s) * k2));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(e + 1.0f));
+  return copysignf(fmaf(-2.0f, r, 1.0f), s);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -26,7 +26,11 @@ tensors it computes the same function with the plain version
 (``ref.flash_attention_ref``, after repeating k and v) and launches
 nothing.  With ``return_lse`` it also returns each row's log-sum-exp
 (BH, S) f32, which the two tensor-core kernels write beside o (the plain
-``ref.flash_attention_lse_ref`` on the CPU).
+``ref.flash_attention_lse_ref`` on the CPU).  Both tensor-core forwards
+may cut each q tile's kv range into shares, one block each, joined in
+order by a second launch: the count is the kernel's own plan for the
+shape (``flash_attention_<kernel>_splits``, kept per shape), the
+partials go to scratch of ``fwd_scratch_bytes``.
 
 The backward, ``flash_attention_bwd``, has three kernels:
 ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in
@@ -191,11 +195,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = _scratch.current_stream(q.device)
         if kernel == "wgmma":
             lib = _build.load("flash_attention_wgmma")
+            # kv shares of each q tile (the kernel's plan for the grid)
+            # and the split q tiles' partials in f32
+            splits = _fwd_splits(q.device.index, BH, S, D, Dv, int(causal),
+                                 KINDS[kind], int(window))
+            part = (_scratch.scratch(q.device, stream,
+                                     fwd_scratch_bytes(splits, BH, S, Dv))
+                    if splits > 1 else None)
             err = lib.flash_attention_wgmma_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), BH, S, D, Dv,
+                None if lse is None else lse.data_ptr(),
+                None if part is None else part.data_ptr(), BH, S, D, Dv,
                 group, int(causal), KINDS[kind], int(window), float(softcap),
-                stream)
+                splits, stream)
         elif kernel == "tf32":
             lib = _build.load("flash_attention_tf32")
             # kv shares of each q tile (the kernel's choice from the grid)
@@ -203,7 +215,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             splits = lib.flash_attention_tf32_splits(
                 BH, S, D, Dv, int(causal), KINDS[kind], int(window))
             part = (_scratch.scratch(q.device, stream,
-                                     splits * BH * S * (Dv + 2) * 4)
+                                     fwd_scratch_bytes(splits, BH, S, Dv))
                     if splits > 1 else None)
             err = lib.flash_attention_tf32_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -225,6 +237,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
+
+
+def fwd_scratch_bytes(splits: int, bh: int, s: int, dv: int) -> int:
+    """Bytes of the scratch a kv-split forward (wgmma or tf32) takes at
+    `splits` shares of each q tile: every share's unnormalised (BH, S, Dv)
+    output, then its (BH, S) running maxima and sums, f32; 0 unsplit."""
+    return splits * bh * s * (dv + 2) * 4 if splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_splits(device_index: int, *args: int) -> int:
+    """The kv shares the wgmma forward cuts each q tile's kv range into
+    for (bh, s, d, dv, causal, kind, window) on the current device (it
+    reads the SM count), kept per shape."""
+    lib = _build.load("flash_attention_wgmma")
+    splits = lib.flash_attention_wgmma_splits(*args)
+    if splits <= 0:
+        raise RuntimeError(f"flash_attention_wgmma: no split count for {args}")
+    return splits
 
 
 def reset_launches():

@@ -253,6 +253,97 @@ def test_flash_attention_plain_bf16_at_head_dims_64_128_matches_pallas(
     _close(got, jflash(jq, jk, jv, interpret=True, **kw), tol)
 
 
+def _fast_tanh_model(s: torch.Tensor, scale: float, softcap: float):
+    """The wgmma kernels' softcap (``fast_tanh`` in csrc/hopper_wgmma.cuh)
+    in f32 torch steps, on raw scores q.k: k2 = 2 log2(e) scale / softcap
+    rounded to f32 as the host rounds it, r = 1 / (2^(|s| k2) + 1),
+    tanh = sign(s) (1 - 2 r); returns the softcapped scores and the
+    backward's 1 - tanh^2 as 4 r (1 - r).  The card's ex2.approx and
+    rcp.approx add about 2^-22 relative to e and r."""
+    log2e = float(np.float32(1.4426950408889634))
+    k2 = float(np.float32(2.0 * log2e * scale / softcap))
+    r = 1.0 / (torch.exp2(s.abs() * k2) + 1.0)
+    t = torch.copysign(1.0 - 2.0 * r, s)
+    return t * softcap, 4.0 * r * (1.0 - r)
+
+
+@pytest.mark.parametrize("softcap", [50.0, 20.0])
+@pytest.mark.parametrize("scale", [1.0, 4.0], ids=["unscaled", "scores_x16"])
+def test_fast_tanh_softcap_holds_the_reference_and_lse_tolerances(scale,
+                                                                  softcap):
+    """The softcap as the wgmma forward and backward compute it (tanh from
+    one exp2 and one reciprocal, no division a score), modelled in f32 on
+    the CPU at gemma2-2b's head dim 256 on unscaled inputs and on scores
+    scaled by 16: its attention output within the card's f32 attention
+    tolerance (1e-5 absolute plus 1e-5 relative) of the reference's
+    function (``jnp.tanh(s / c) * c``) evaluated in float64 on the same
+    inputs, its row lse within a tenth of the card's lse tolerance (1e-4)
+    of float64's, and 1 - t^2 within 1e-6 of float64's.  (The reference
+    itself, in f32 under XLA, lies up to 3e-5 from float64 on the scaled
+    scores.)"""
+    rng = np.random.default_rng(int(scale * softcap))
+    BH, S, D = 2, 100, 256
+    q, k, v = ((rng.standard_normal((BH, S, D)) * (scale if i < 2 else 1.0))
+               .astype(np.float32) for i in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    raw = tq @ tk.transpose(1, 2)
+    x, f = _fast_tanh_model(raw, 1 / np.sqrt(D), softcap)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    x = torch.where(keep, x, torch.tensor(ref.NEG_INF))
+    got = torch.softmax(x, -1) @ tv
+    y = raw.double() / np.sqrt(D) / softcap
+    x64 = torch.where(keep, torch.tanh(y) * softcap,
+                      torch.tensor(-np.inf, dtype=torch.float64))
+    want = torch.softmax(x64, -1) @ tv.double()
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    # the reference's function, its f32 evaluation in jax on these inputs
+    _close(jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), softcap=softcap),
+           want.float(), 3e-5)
+    lse_err = (torch.logsumexp(x, -1).double()
+               - torch.logsumexp(x64, -1)).abs().max()
+    assert float(lse_err) <= 1e-5
+    assert float((f.double() - (1 - torch.tanh(y) ** 2)).abs().max()) <= 1e-6
+
+
+def test_fwd_scratch_bytes_holds_every_share():
+    """The split forward's scratch (wgmma and tf32): each share's f32
+    (BH, S, Dv) output, maximum and sum; none unsplit."""
+    from repro_torch.kernels.flash_attention import fwd_scratch_bytes
+    assert fwd_scratch_bytes(1, 8, 3000, 256) == 0
+    assert fwd_scratch_bytes(2, 8, 3000, 256) == 2 * 8 * 3000 * 258 * 4
+    assert fwd_scratch_bytes(4, 10, 512, 128) == 4 * 10 * 512 * 130 * 4
+
+
+def test_chip_smoke_names_each_kernel_in_the_ptxas_report():
+    """chip_smoke phase 0's line an entry function: the name and template
+    arguments demangled (past an anonymous namespace's), registers and
+    spills."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ns = "_GLOBAL__N__a6294427_24_flash_attention_wgmma_cu_b1461615"
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        f"'_ZN{len(ns)}{ns}18flash_wgmma_kernelILi256ELi256ELi32ELb0EEEv"
+        "14CUtensorMap_st' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 179 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z9rfr_emptyv' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 4 registers"])
+    assert cs.ptxas_lines(log) == [
+        "flash_wgmma_kernel<256,256,32,0>: 179 registers; 0 bytes stack "
+        "frame, 0 bytes spill stores, 0 bytes spill loads",
+        "rfr_empty: 4 registers; 8 bytes stack frame, 4 bytes spill stores, "
+        "8 bytes spill loads"]
+
+
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(4, 8, 16)
     with pytest.raises(ValueError):

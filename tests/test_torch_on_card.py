@@ -416,19 +416,27 @@ def test_flash_kernel_serving_shape(S, dtype):
             got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
 
 
+#: gemma2-2b's inputs: unscaled, and q, k, v times 4 (scores times 16,
+#: so that the softcap of 50 bites)
+GEMMA2_SCALES = pytest.mark.parametrize("scale", [1.0, 4.0],
+                                        ids=["unscaled", "scores_x16"])
+
+
 @pytest.mark.cuda_only
+@GEMMA2_SCALES
 @pytest.mark.parametrize("kind,window", [("local", 4096), ("global", 0)])
-@pytest.mark.parametrize("S", [333, 3000, 4500])
-def test_flash_kernel_gemma2_shape_with_softcap(S, kind, window):
+@pytest.mark.parametrize("S", [333, 3000, 3001, 4500])
+def test_flash_kernel_gemma2_shape_with_softcap(S, kind, window, scale):
     """gemma2-2b's layers: 8 query heads over 4 kv heads (G 2), head dim
-    256, a tanh softcap of 50 (scores scaled by 16 so that it bites),
-    local attention in a window of 4,096 alternating with global; bf16 on
-    the wgmma kernel against its plain version at phase 4's bf16
-    tolerance.  S = 4,500 is past the window."""
+    256, a tanh softcap of 50 (from fast_tanh's ex2 and rcp steps), local
+    attention in a window of 4,096 alternating with global, on unscaled
+    inputs and on scores scaled by 16; bf16 on the wgmma kernel against
+    its plain version at phase 4's bf16 tolerance.  S = 3,001 ends in a
+    ragged q and kv tile; S = 4,500 is past the window."""
     from repro_torch.kernels.flash_attention import path
     dev = _card()
     q, k, v = _qkv(S + len(kind), 1, S, 8, 4, 256, torch.bfloat16, dev,
-                   scale=4.0)
+                   scale=scale)
     kw = dict(causal=True, kind=kind, window=window, softcap=50.0)
     assert path(torch.bfloat16, 256, 50.0) == "wgmma"
     by_path = dict(flash_attention.launches_by_path)
@@ -1095,6 +1103,88 @@ def test_flash_forward_lse_matches_plain(D, kw):
     want = ref.flash_attention_lse_ref(q, k, **kw)
     assert lse.shape == want.shape and lse.dtype == torch.float32
     assert float((lse - want).abs().max()) <= LSE_TOL
+
+
+def _wgmma_splits(q, v, kw) -> int:
+    """The kv shares the wgmma forward cuts each q tile's kv range into
+    for these inputs on this card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KINDS
+    return _build.load(
+        "flash_attention_wgmma").flash_attention_wgmma_splits(
+            q.shape[0], q.shape[1], q.shape[2], v.shape[2],
+            int(kw.get("causal", True)), KINDS[kw.get("kind", "global")],
+            int(kw.get("window", 0)))
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, kind="local", window=2048),
+    dict(causal=True, kind="local", window=2048, softcap=50.0),
+    dict(causal=True, kind="chunked", window=128),
+    dict(causal=False, kind="global")],
+    ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("BH,G,S,D,Dv", [
+    (10, 10, 512, 256, 256), (10, 10, 1000, 256, 256), (2, 1, 301, 128, 128),
+    (2, 2, 300, 64, 64), (4, 1, 257, 80, 80), (2, 2, 333, 192, 128)])
+def test_flash_kernel_kv_split_joins_shares(BH, G, S, D, Dv, kw):
+    """Grids that leave the card's block slots empty (recurrentgemma-2b's
+    10 heads at S 512 and 1,000, and small ones at every head dim of the
+    wgmma path) split each q tile's kv range into more than one share;
+    the join writes o and the lse: against the plain versions, the same
+    output with and without the lse, two calls bitwise equal, and the
+    backward from the joined lse against its plain version, bitwise over
+    two calls."""
+    dev = _card()
+    rng = np.random.default_rng(S + D + BH)
+    mk = lambda rows, d: torch.from_numpy(
+        rng.standard_normal((rows, S, d)).astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    q, k, v = mk(BH, D), mk(BH // G, D), mk(BH // G, Dv)
+    assert _wgmma_splits(q, v, kw) > 1
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    kr, vr = (a.repeat_interleave(G, 0) for a in (k, v))
+    _assert_bf16_attention_close(
+        out, ref.flash_attention_ref(q, kr, vr, **kw),
+        ref.flash_attention_ref(q, kr, vr.abs(), **kw))
+    assert float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs()
+                 .max()) <= LSE_TOL
+    do = mk(BH, Dv)
+    first = _bwd_launch(q, k, v, out, do, lse, kw)
+    second = _bwd_launch(q, k, v, out, do, lse, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _assert_grads_close(first, ref.flash_attention_bwd_ref(
+        q, k, v, out, do, **kw), torch.bfloat16, f"S={S} D={D} {kw}")
+
+
+@pytest.mark.cuda_only
+@GEMMA2_SCALES
+@pytest.mark.parametrize("kind,window", [("local", 4096), ("global", 0)])
+@pytest.mark.parametrize("S", [3000, 3001])
+def test_flash_gemma2_shape_lse_and_bwd_with_softcap(S, kind, window,
+                                                     scale):
+    """gemma2-2b's shape as it trains (8 query heads over 4 kv heads, head
+    dim 256, softcap 50, S 3,000 and a ragged 3,001, local 4,096 and
+    global, unscaled and scores scaled by 16): the forward's lse against
+    the plain one (its output the same without it), the backward against
+    its plain version at BWD_TOL, bitwise over two calls."""
+    dev = _card()
+    kw = dict(causal=True, kind=kind, window=window, softcap=50.0)
+    q, k, v, o, do, lse = _bwd_case(S + int(scale), 8, 2, S, 256,
+                                    torch.bfloat16, dev, kw, scale)
+    assert torch.equal(o, flash_attention(q, k, v, **kw))
+    assert float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs()
+                 .max()) <= LSE_TOL
+    first = _bwd_launch(q, k, v, o, do, lse, kw)
+    second = _bwd_launch(q, k, v, o, do, lse, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _assert_grads_close(first, ref.flash_attention_bwd_ref(
+        q, k, v, o, do, **kw), torch.bfloat16, f"S={S} {kw} x{scale}")
 
 
 @pytest.mark.cuda_only
