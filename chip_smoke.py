@@ -270,11 +270,24 @@ Phases (each one failing makes the script exit non-zero):
      gradient (256,000 x 2,560 f32), bitwise ``ef_quantize`` /
      ``dequantize`` on the CPU, timed; (e) the dry run
      of qwen1.5-110b x train_4k on the single- and multi-pod meshes, each
-     in a subprocess on the host (both run beside phase 0's build and
-     waited for before phase 1, so that no timed phase shares the host
-     with them; at most 120 s): status
-     ok, the argument GiB a device, the three roofline terms and the
-     bottleneck; every number beside the card's name and power limit;
+     in a subprocess on the host, and of deepseek-v2-236b and
+     llama4-maverick x decode_32k on the single-pod mesh, each under the
+     default hints and under ``moe_dshard`` (expert weights kept sharded
+     on d, the FFN's partial sums all-reduced over "data"), the four in
+     one more subprocess (all run beside phase 0's build and waited for
+     before phase 1, so that no timed phase shares the host with them;
+     at most 120 and 240 s): status ok, the argument GiB a device, the wire
+     bytes by collective kind, the three roofline terms and the
+     bottleneck; under ``moe_dshard`` the same argument bytes and the
+     all-gather and all-reduce bytes apart from the default's by exactly
+     the experts' gathers and partial sums worked out from the config;
+     (f) deepseek-v2-236b at full width cut to 2 layers (1 dense, 1
+     MoE), bf16 weights, through ``make_prefill_step`` /
+     ``make_decode_step`` under the default hints and under
+     ``moe_dshard``, a 512- and a 3,000-token prompt and 8 greedy decode
+     steps each: the tokens and the flash launches (MLA, wgmma) equal to
+     the one-device path's, all three timed; every number beside the
+     card's name and power limit;
   11. the six architectures no earlier phase serves, each at its
      published width with random weights from a seeded generator, bf16
      compute, freed before the next: (a) gemma-7b (28 layers, 16 heads of
@@ -396,6 +409,7 @@ port is not beside this script.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -4832,6 +4846,13 @@ MESH_PROMPTS = (512, 3000)
 MESH_NEW = 16
 MESH_LOSS_RTOL = 1e-5
 DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_LIMIT_S = "qwen1.5-110b", "train_4k", 120
+#: (e): the two MoE models the reference's ``moe_dshard`` decode schedule
+#: is for, each traced at full config on the single-pod mesh with the
+#: default hints and with moe_dshard, in one subprocess; (f): deepseek-v2
+#: served on the 1x1 mesh under both, MESH_PROMPTS then DSHARD_NEW
+#: greedy decode steps
+DSHARD_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+DSHARD_SHAPE, DSHARD_LIMIT_S, DSHARD_NEW = "decode_32k", 240, 8
 
 
 def card() -> str:
@@ -4843,65 +4864,150 @@ def card() -> str:
 
 
 def start_dryruns() -> dict:
-    """(e): one subprocess a mesh kind, both at once, each tracing
-    ``launch.dryrun.run_cell`` of DRYRUN_ARCH x DRYRUN_SHAPE on a fake
-    process group, on the host alone (no card visible to it); its record
-    is the last line of its output.  Started beside phase 0's build and
-    waited for before phase 1 (``finish_dryruns``), so that they share
-    the host with no timed phase."""
-    code = ("import json, logging, sys, warnings; "
+    """(e): one subprocess a job, all at once, on the host alone (no card
+    visible to them), each printing its record as the last line of its
+    output: ``launch.dryrun.run_cell`` of DRYRUN_ARCH x DRYRUN_SHAPE on a
+    fake process group of each mesh kind; and in one more, of each of
+    DSHARD_ARCHS x DSHARD_SHAPE on the single-pod mesh with the default
+    hints and with ``moe_dshard`` (its records by arch and hints).
+    Started beside phase 0's build and waited for before phase 1
+    (``finish_dryruns``), so that they share the host with no timed
+    phase."""
+    head = ("import json, logging, sys, warnings; "
             "warnings.filterwarnings('ignore'); "
             "logging.disable(logging.WARNING); sys.path.insert(0, 'src'); "
-            "from repro_torch.launch.dryrun import run_cell; "
-            f"r = run_cell({DRYRUN_ARCH!r}, {DRYRUN_SHAPE!r}, sys.argv[1]); "
-            "r['collectives'].pop('_top', None); "
+            "from repro_torch.launch.dryrun import run_cell; ")
+    tail = ("[x['collectives'].pop('_top', None) for x in recs]; "
             "print(json.dumps(r, default=str))")
+    cell = (f"r = run_cell({DRYRUN_ARCH!r}, {DRYRUN_SHAPE!r}, sys.argv[1]); "
+            "recs = [r]; ")
+    twins = (f"r = {{a: {{o: run_cell(a, {DSHARD_SHAPE!r}, 'single', "
+             "{o: 1} if o == 'moe_dshard' else {}) for o in ('default', "
+             f"'moe_dshard')}} for a in {DSHARD_ARCHS!r}}}; "
+             "recs = [x for t in r.values() for x in t.values()]; ")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return {kind: (time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-c", code, kind], cwd=ROOT, env=env,
+    jobs = {kind: (cell, DRYRUN_LIMIT_S) for kind in ("single", "multi")}
+    jobs["moe"] = (twins, DSHARD_LIMIT_S)
+    return {job: (time.perf_counter(), limit, subprocess.Popen(
+        [sys.executable, "-c", head + code + tail, job], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for kind in ("single", "multi")}
+        for job, (code, limit) in jobs.items()}
 
 
 def finish_dryruns(procs: dict) -> dict:
-    """(e) each dry-run subprocess's record within DRYRUN_LIMIT_S of its
-    start, with its wall time: status ok, or the run fails."""
+    """(e) each dry-run subprocess's record within its limit of its start,
+    with its wall time, by mesh kind and by MoE arch (that arch's two
+    records by hints): status ok, or the run fails."""
     recs = {}
-    for kind, (t0, proc) in procs.items():
-        left = max(DRYRUN_LIMIT_S - (time.perf_counter() - t0), 1.0)
+    for job, (t0, limit, proc) in procs.items():
+        left = max(limit - (time.perf_counter() - t0), 1.0)
         try:
             out, err = proc.communicate(timeout=left)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-            check(False, f"phase 10 (e): the {kind} dry run took more than "
-                  f"{DRYRUN_LIMIT_S} s")
+            check(False, f"phase 10 (e): the {job} dry run took more than "
+                  f"{limit} s")
         wall = time.perf_counter() - t0
         lines = out.strip().splitlines()
-        check(proc.returncode == 0 and lines, f"phase 10 (e): the {kind} "
+        check(proc.returncode == 0 and lines, f"phase 10 (e): the {job} "
               f"dry run exited {proc.returncode}: {err[-2000:]}")
         rec = json.loads(lines[-1])
-        check(rec.get("status") == "ok", f"phase 10 (e): {kind} dry run "
-              f"{rec.get('status')}: {str(rec)[:2000]}")
-        recs[kind] = (rec, wall)
+        by_job = {job: rec} if "status" in rec else rec
+        for name, r in by_job.items():
+            for one in ([r] if "status" in r else r.values()):
+                check(one.get("status") == "ok", f"phase 10 (e): {name} dry "
+                      f"run {one.get('status')}: {str(one)[:2000]}")
+            recs[name] = (r, wall)
     return recs
 
 
-def phase10e_dryruns(recs: dict, power: str):
-    """(e) each dry run's record (``finish_dryruns``) printed."""
-    for kind, (rec, wall) in recs.items():
-        r = rec["roofline"]
-        gib = rec["memory"]["arg_bytes_analytic_per_device"] / 2**30
-        print(f"phase10 (e) dryrun {DRYRUN_ARCH} x {DRYRUN_SHAPE} x {kind}: "
-              f"status {rec['status']}, {r['n_devices']} devices, "
-              f"{gib:.3f} GiB of arguments a device; compute "
-              f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
-              f"collective {r['collective_s']:.4g} s -> bottleneck "
-              f"{r['bottleneck']}; useful_ratio {r['useful_ratio']:.4g}, "
-              f"roofline_frac {r['roofline_frac']:.4g}; traced in "
-              f"{rec['trace_s']} s, {wall:.1f} s with start-up, beside "
-              f"phase 0's build (host of the {power} machine; H100 SXM5 "
-              "constants)")
+def dshard_wire_delta(cfg, shape, data: int = 16, model: int = 16) -> tuple:
+    """(all-gather, all-reduce) wire bytes that ``moe_dshard`` adds to a
+    decode step of `cfg` at `shape` on a (data, model) mesh, by
+    ``launch.roofline.TraceCounter``'s convention (a gather counts its
+    gathered tensor, an all-reduce twice its tensor), a MoE layer each:
+    the experts' FSDP gathers of w_gate, w_up and w_down (E_l, d, F) in
+    f32 (the dry run's parameters) go; the routed rows (B, d) gathered
+    over "data" and the output's d split laid out as rows again (a gather
+    and a chunk on the dry run's CPU mesh) come; the gate and up
+    products' partial sums (2, E_l, G C, F) in the compute dtype,
+    all-reduced over "data", come.  G is one group a data shard, C the
+    capacity of a group's B / G tokens."""
+    m = cfg.moe
+    B, d, F = shape.global_batch, cfg.d_model, m.d_ff_expert
+    e_l, G = m.n_experts // model, data
+    c = math.ceil(B // G * m.top_k / m.n_experts * m.capacity_factor)
+    C = max(8, -(-c // 8) * 8)
+    cb = 2 if cfg.dtype == "bfloat16" else 4
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    gathers = 3 * e_l * d * F * 4
+    rows = 2 * B * d * cb
+    partial = 2 * (2 * e_l * G * C * F * cb)
+    return n_moe * (rows - gathers), n_moe * partial, {
+        "moe_layers": n_moe, "experts_a_rank": e_l, "G": G, "C": C,
+        "expert_gathers": n_moe * gathers, "rows": n_moe * rows,
+        "partial_sums": n_moe * partial}
+
+
+def _dryrun_line(label: str, rec: dict) -> str:
+    r, c = rec["roofline"], rec["collectives"]
+    gib = rec["memory"]["arg_bytes_analytic_per_device"] / 2**30
+    kinds = ", ".join(f"{k} {c[k]:.6g}" for k in (
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"))
+    return (f"phase10 (e) dryrun {label}: status {rec['status']}, "
+            f"{r['n_devices']} devices, dispatch {rec.get('dispatch')}, "
+            f"{gib:.3f} GiB of arguments a device; wire bytes a device "
+            f"{kinds}; compute {r['compute_s']:.4g} s, memory "
+            f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s "
+            f"-> bottleneck {r['bottleneck']}; useful_ratio "
+            f"{r['useful_ratio']:.4g}, roofline_frac {r['roofline_frac']:.4g};"
+            f" traced in {rec['trace_s']} s")
+
+
+def phase10e_dryruns(recs: dict, power: str) -> dict:
+    """(e) each dry run's record (``finish_dryruns``) printed; for each of
+    DSHARD_ARCHS, ``moe_dshard``'s argument bytes equal to the default
+    hints' (the hint moves no parameter) and its all-gather and
+    all-reduce wire bytes apart from theirs by exactly
+    ``dshard_wire_delta``.  Returns the MoE records' wire bytes by kind
+    and roofline terms."""
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    out = {}
+    for job, (rec, wall) in recs.items():
+        if job in ("single", "multi"):
+            print(_dryrun_line(f"{DRYRUN_ARCH} x {DRYRUN_SHAPE} x {job}",
+                               rec) + f", {wall:.1f} s with start-up, beside "
+                  f"phase 0's build (host of the {power} machine; H100 SXM5 "
+                  "constants)")
+            continue
+        for hint, r in rec.items():
+            print(_dryrun_line(f"{job} x {DSHARD_SHAPE} x single, {hint} "
+                               "hints", r))
+        r0, r1 = rec["default"], rec["moe_dshard"]
+        c0, c1 = r0["collectives"], r1["collectives"]
+        gather, reduce, parts = dshard_wire_delta(
+            get_config(job), SHAPE_BY_NAME[DSHARD_SHAPE])
+        got = (c1["all-gather"] - c0["all-gather"],
+               c1["all-reduce"] - c0["all-reduce"])
+        print(f"phase10 (e) {job} moe_dshard - default: all-gather "
+              f"{got[0]:.6g} (analytic {gather}), all-reduce {got[1]:.6g} "
+              f"(analytic {reduce}); {parts}; the MoE dry runs' process "
+              f"{wall:.1f} s with start-up (host of the {power} machine)")
+        check(r0["memory"] == r1["memory"], f"phase 10 (e): {job}'s "
+              f"argument bytes {r1['memory']} under moe_dshard, "
+              f"{r0['memory']} without")
+        check(got == (gather, reduce), f"phase 10 (e): {job}'s wire bytes "
+              f"moved by {got}, analytic {(gather, reduce)}")
+        out[job] = {hint: {"arg_bytes": r["memory"][
+            "arg_bytes_analytic_per_device"],
+            "wire_bytes": {k: v for k, v in r["collectives"].items()
+                           if not k.startswith("_")},
+            "roofline": {k: r["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s", "bottleneck")}}
+            for hint, r in rec.items()}
+    return out
 
 
 def mesh_1x1():
@@ -5023,6 +5129,70 @@ def phase10b_train(mesh, power: str):
     return counts, g_embed
 
 
+def _serve_one_device(cfg, params, toks, new: int, dispatch=None):
+    """`new` greedy decode steps after a prefill of `toks` (1, S) through
+    ``models.model.prefill`` / ``decode_step`` on the card: (tokens, the
+    prefill's seconds, a decode step's seconds, the LM kernels'
+    launches), host clock around synchronised calls."""
+    import torch
+    from repro_torch.models import model as model_lib
+    S = toks.shape[1]
+    reset_lm_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model_lib.prefill(cfg, params, {"tokens": toks},
+                                      S + new, dispatch=dispatch)
+    out = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in range(new):
+        pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
+        logits, cache = model_lib.decode_step(cfg, params, out[-1], pos,
+                                              cache, dispatch)
+        out.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / new
+    return torch.cat(out).tolist(), t_prefill, t_decode, lm_counts()
+
+
+def _serve_mesh(cfg, mesh, params, toks, new: int, extra_hints=None,
+                dparams=None):
+    """The same through ``make_prefill_step`` / ``make_decode_step`` on
+    `mesh` (`extra_hints` for both): (tokens, the prefill's seconds, a
+    decode step's seconds, the LM kernels' launches, the parameters as
+    distributed, the step's dispatch).  `params` are distributed by the
+    prefill step's shardings unless `dparams` holds them so already."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed import make_decode_step, make_prefill_step
+    from repro_torch.distributed.steps import distribute
+    S = toks.shape[1]
+    L = S + new
+    pb = make_prefill_step(cfg, mesh, InputShape("p10", S, 1, "prefill"),
+                           extra_hints=extra_hints, cache_len=L)
+    db = make_decode_step(cfg, mesh, InputShape("d10", L, 1, "decode"),
+                          extra_hints=extra_hints)
+    if dparams is None:
+        dparams = distribute(params, pb.meta["params_shardings"], mesh)
+    reset_lm_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = pb.fn(dparams, {"tokens": toks})
+    out = [torch.argmax(tok.full_tensor(), dim=-1).to(torch.int32)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in range(new):
+        pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
+        nxt, cache = db.fn(dparams, cache, out[-1], pos)
+        out.append(nxt.full_tensor())
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / new
+    return (torch.cat(out).tolist(), t_prefill, t_decode, lm_counts(),
+            dparams, pb.meta["dispatch"])
+
+
 def phase10c_serve(mesh, power: str) -> dict:
     """(c) gemma2-2b at its published width through ``make_prefill_step``
     / ``make_decode_step`` on the 1x1 mesh: each prompt of MESH_PROMPTS
@@ -5031,9 +5201,7 @@ def phase10c_serve(mesh, power: str) -> dict:
     same weights and prompts, and the flash kernel's launches too."""
     import numpy as np
     import torch
-    from repro_torch.configs import InputShape, get_config
-    from repro_torch.distributed import make_decode_step, make_prefill_step
-    from repro_torch.distributed.steps import distribute
+    from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     _free_models("phase10 (c)")
     cfg = get_config(GEMMA_ARCH)
@@ -5045,47 +5213,10 @@ def phase10c_serve(mesh, power: str) -> dict:
     for S in MESH_PROMPTS:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
                                dtype=torch.int32, device="cuda")
-        L = S + MESH_NEW
-        reset_lm_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = model_lib.prefill(cfg, params, {"tokens": toks}, L)
-        want = [torch.argmax(logits, dim=-1).to(torch.int32)]
-        torch.cuda.synchronize()
-        one_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for t in range(MESH_NEW):
-            pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
-            logits, cache = model_lib.decode_step(cfg, params, want[-1], pos,
-                                                  cache)
-            want.append(torch.argmax(logits, dim=-1).to(torch.int32))
-        torch.cuda.synchronize()
-        one_decode = (time.perf_counter() - t0) / MESH_NEW
-        del cache
-        launches["one-device"][S] = lm_counts()
-        pb = make_prefill_step(cfg, mesh, InputShape("p10", S, 1, "prefill"),
-                               cache_len=L)
-        db = make_decode_step(cfg, mesh, InputShape("d10", L, 1, "decode"))
-        if dparams is None:
-            dparams = distribute(params, pb.meta["params_shardings"], mesh)
-        reset_lm_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tok, cache = pb.fn(dparams, {"tokens": toks})
-        got = [torch.argmax(tok.full_tensor(), dim=-1).to(torch.int32)]
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for t in range(MESH_NEW):
-            pos = torch.full((1,), S + t, dtype=torch.int32, device="cuda")
-            nxt, cache = db.fn(dparams, cache, got[-1], pos)
-            got.append(nxt.full_tensor())
-        torch.cuda.synchronize()
-        t_decode = (time.perf_counter() - t0) / MESH_NEW
-        del cache
-        launches["mesh"][S] = lm_counts()
-        w = torch.cat(want).tolist()
-        g = torch.cat(got).tolist()
+        w, one_prefill, one_decode, launches["one-device"][S] = \
+            _serve_one_device(cfg, params, toks, MESH_NEW)
+        g, t_prefill, t_decode, launches["mesh"][S], dparams, _ = \
+            _serve_mesh(cfg, mesh, params, toks, MESH_NEW, dparams=dparams)
         print(f"phase10 (c) {GEMMA_ARCH} {S}-token prompt: mesh tokens {g}; "
               f"one-device {w}; {'equal' if g == w else 'DIFFER'}; mesh "
               f"prefill {t_prefill * 1e3:.1f} ms, decode step "
@@ -5134,10 +5265,90 @@ def phase10d_compress(g, power: str):
           "ef_quantize / dequantize")
 
 
+def phase10f_moe_dshard(mesh, power: str) -> dict:
+    """(f) deepseek-v2-236b at its published width, depth cut to
+    MOE_TRAIN_LAYERS (the dense first layer and one MoE layer), bf16
+    weights (the router f32) from a seeded generator, through
+    ``make_prefill_step`` / ``make_decode_step`` on the 1x1 mesh under
+    the default hints and under ``moe_dshard`` (the expert weights kept
+    as stored, d split on "data", the gate and up products all-reduced
+    over it: here a group of one): each prompt of MESH_PROMPTS alone,
+    then DSHARD_NEW greedy decode steps; the tokens equal to the
+    one-device path's on the same weights, prompts and dispatch, the
+    flash launches equal to its (one a layer a prefill, all on the
+    wgmma kernel at MLA's q/k 192, v 128); each path run twice, the
+    second timed (host clock).  Returns the launches by hints and prompt
+    length."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.distributed.steps import moe_dshard_hints
+    from repro_torch.models import model as model_lib
+    _free_models("phase10 (f)")
+    cfg, param_dtype, _ = _train_config(MOE_ARCH, MOE_TRAIN_LAYERS)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    check(n_moe == MOE_TRAIN_LAYERS - 1, f"phase 10 (f): {n_moe} MoE layers")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        param_dtype=param_dtype)
+    rng = np.random.default_rng(11)
+    hints = {"default": None, "moe_dshard": moe_dshard_hints(mesh)}
+    launches = {"one-device": {}, **{h: {} for h in hints}}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                           dtype=torch.int32, device="cuda")
+    # the step's dispatch, which the one-device path takes too; the
+    # process group's first collective (moe_dshard's all-reduce)
+    *_, dparams, disp = _serve_mesh(cfg, mesh, params, toks, 1)
+    _serve_mesh(cfg, mesh, params, toks, 1, hints["moe_dshard"], dparams)
+    for S in MESH_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                               dtype=torch.int32, device="cuda")
+        # each path twice, the second timed: the first meets this
+        # prompt length's first allocations and cuBLAS choices
+        firsts = [_serve_one_device(cfg, params, toks, DSHARD_NEW, disp)
+                  for _ in range(2)]
+        w, one_prefill, one_decode, one = firsts[1]
+        check(firsts[0][0] == w, f"phase 10 (f): {S}-token prompt: one "
+              f"device's tokens {firsts[0][0]}, then {w}")
+        launches["one-device"][S] = one
+        runs = {}
+        for h, extra in hints.items():
+            for first in (True, False):
+                g, t_prefill, t_decode, n, _, _ = _serve_mesh(
+                    cfg, mesh, params, toks, DSHARD_NEW, extra, dparams)
+                check(g == w, f"phase 10 (f): {S}-token prompt, {h} hints"
+                      f"{' (first run)' if first else ''}: tokens {g} on "
+                      f"the mesh, {w} on one device")
+            runs[h] = (g, t_prefill, t_decode, n)
+        for h, (g, t_prefill, t_decode, n) in runs.items():
+            launches[h][S] = n
+            print(f"phase10 (f) {MOE_ARCH} ({cfg.n_layers} layers, {n_moe} "
+                  f"MoE, "
+                  f"dispatch {disp}) {S}-token prompt, {h} hints: mesh "
+                  f"tokens {g}; one-device {w}; "
+                  f"{'equal' if g == w else 'DIFFER'}; mesh prefill "
+                  f"{t_prefill * 1e3:.1f} ms, decode step "
+                  f"{t_decode * 1e3:.1f} ms; one-device prefill "
+                  f"{one_prefill * 1e3:.1f} ms, decode step "
+                  f"{one_decode * 1e3:.1f} ms ({power}); flash launches "
+                  f"{n['flash_attention']} (wgmma "
+                  f"{n['flash_attention.wgmma']}), one-device "
+                  f"{one['flash_attention']}")
+            check(n == one, f"phase 10 (f): {h} hints: launches {n} on the "
+                  f"mesh, {one} on one device")
+        check(one["flash_attention"] == one["flash_attention.wgmma"]
+              == cfg.n_layers, f"phase 10 (f): flash launches {one}, "
+              f"{cfg.n_layers} wgmma a prefill wanted")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase10_mesh(dryruns: dict) -> dict:
     """Phase 10's parts in order, (e) printing the dry runs' records
     (run beside phase 0's build); the process group ended at the end.
-    Returns (b)'s and (c)'s launches."""
+    Returns (b)'s, (c)'s and (f)'s launches and (e)'s MoE records."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     power = card()
@@ -5147,12 +5358,16 @@ def phase10_mesh(dryruns: dict) -> dict:
         serve = phase10c_serve(mesh, power)
         phase10d_compress(g, power)
         del g
-        phase10e_dryruns(dryruns, power)
+        dshard = phase10e_dryruns(dryruns, power)
+        t_f = time.perf_counter()
+        moe = phase10f_moe_dshard(mesh, power)
+        t_f = time.perf_counter() - t_f
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    print(f"phase10 total {time.perf_counter() - t0:.1f} s")
-    return {"train": train, "serve": serve}
+    print(f"phase10 total {time.perf_counter() - t0:.1f} s ((f) {t_f:.1f} "
+          "s)")
+    return {"train": train, "serve": serve, "moe": moe, "dshard": dshard}
 
 
 # ---------------------------------------------------------------------------
@@ -5945,13 +6160,21 @@ def main() -> int:
                 for m in gemma["times"]]}
         # phase 10: the launches of the mesh path (a 1x1 NCCL mesh):
         # recurrentgemma-2b's mesh train steps (b), gemma2-2b's mesh
-        # prefill and decode by prompt length (c)
+        # prefill and decode by prompt length (c), deepseek-v2's by hints
+        # (f)
         for k in kernels:
             if k["name"] in mesh["train"] and mesh["train"][k["name"]]:
                 k["mesh_launches"] = {"train": mesh["train"][k["name"]]}
-        next(k for k in kernels if k["name"] == "flash_attention"
-             ).setdefault("mesh_launches", {})["serve"] = {
+        mesh_flash = next(k for k in kernels
+                          if k["name"] == "flash_attention"
+                          ).setdefault("mesh_launches", {})
+        mesh_flash["serve"] = {
             S: c["flash_attention"] for S, c in mesh["serve"]["mesh"].items()}
+        # deepseek-v2's mesh prefill and decode by hints and prompt
+        # length (f), all on the wgmma kernel at MLA's shape
+        mesh_flash["moe_dshard"] = {
+            h: {S: c["flash_attention.wgmma"] for S, c in by_s.items()}
+            for h, by_s in mesh["moe"].items() if h != "one-device"}
         # the f32 attention backward (3xTF32), which no model launches,
         # rides in the attention backward's entry under "f32"
         f32b = train["flash_attention_bwd f32"]
@@ -6105,7 +6328,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        for _, proc in procs.values():
+        for _, _, proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()

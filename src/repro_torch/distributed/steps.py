@@ -192,6 +192,16 @@ def _moe_hints(mesh, G: int):
     return {"moe_expert_in": NamedSharding(mesh, P("model", dpx, None, None))}
 
 
+def moe_dshard_hints(mesh) -> dict:
+    """The dry run's ``moe_dshard`` hint, for ``extra_hints``: the expert
+    buffers (E, G, C, d) with the experts on "model" and d on "data",
+    where the expert weights are stored, so that the experts' products
+    all-reduce partial sums over "data" in place of gathering the weights
+    (models/moe.py, ``_moe_shards``).  It wins over ``_moe_hints``'s."""
+    return {"moe_expert_in": NamedSharding(mesh,
+                                           P("model", None, None, "data"))}
+
+
 def _dispatch_for(cfg: ModelConfig, shape: InputShape, mesh,
                   override: Optional[str]) -> Tuple[Optional[str], dict]:
     if cfg.moe is None:

@@ -82,6 +82,7 @@ def _per_device_arg_bytes(args) -> int:
 def _hint_opts(kw: dict, mesh, shape) -> None:
     """The reference's perf-iteration flags as builder kwargs."""
     from ..distributed.sharding import NamedSharding, P, dp_entry
+    from ..distributed.steps import moe_dshard_hints
     if kw.pop("act_seq_shard", None):
         # Megatron-style sequence parallelism for the residual stream
         dpx = dp_entry(mesh, shape.global_batch)
@@ -90,11 +91,12 @@ def _hint_opts(kw: dict, mesh, shape) -> None:
     if kw.pop("moe_dshard", None):
         # decode: keep expert weights sharded; shard expert-buffer d dim on
         # "data" so the FFN contraction partial-sums + all-reduces
-        # activations instead of all-gathering expert weights.  The port's
-        # MoE does not split d: an MoE cell under this hint raises there
-        # (models.moe._moe_entries) and is recorded as an error
-        kw.setdefault("extra_hints", {})["moe_expert_in"] = NamedSharding(
-            mesh, P("model", None, None, "data"))
+        # activations instead of all-gathering expert weights.  Each rank
+        # routes every group on the whole width, multiplies its d slice of
+        # the buffers by its stored shard of the weights and all-reduces
+        # the gate and up products over "data" (models.moe._moe_shards); a
+        # cell without MoE ignores the hint
+        kw.setdefault("extra_hints", {}).update(moe_dshard_hints(mesh))
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,

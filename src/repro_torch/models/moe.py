@@ -16,10 +16,14 @@ Routing is in f32 (the router weights stay f32 under bf16 parameters).
 Ties between gates take the lower expert index first, as
 ``jax.lax.top_k`` does: ``torch.topk`` leaves the order of equal values
 unspecified, so the router sorts stably instead.  A mesh step's DTensors
-take ``_moe_shards``, each rank its own groups and experts, placed as the
-"moe_expert_in" hint names them (``_moe_entries``): the reference's
-``pctx.constrain`` calls inside the dispatch have no counterpart, since
-no DTensor reaches it.
+take ``_moe_shards``, each rank its own groups, experts and slice of the
+model width d, placed as the "moe_expert_in" hint names them
+(``_moe_entries``): the reference's ``pctx.constrain`` calls inside the
+dispatch have no counterpart, since no DTensor reaches it.  The dry
+run's ``moe_dshard`` hint puts d on "data", where the expert weights are
+stored: each rank then multiplies its d slice of the expert buffers by
+its stored shard of the weights and the partial sums are all-reduced
+over "data" (``_expert_ffn_dsplit``), so no expert weight is gathered.
 """
 from __future__ import annotations
 
@@ -99,6 +103,26 @@ def _expert_ffn(params, buf: torch.Tensor, activation: str) -> torch.Tensor:
     return torch.bmm(h, params["w_down"].to(dtype))
 
 
+def _expert_ffn_dsplit(params, buf: torch.Tensor, activation: str, mesh,
+                       axis: str) -> torch.Tensor:
+    """A mesh rank's share of ``_expert_ffn`` with the model width d
+    split over mesh axis `axis`: buf (E, C, d_l), its d slice of the
+    expert input, against its d rows of ``w_gate`` / ``w_up`` (E, d_l, F)
+    and its d columns of ``w_down`` (E, F, d_l), as they are stored ->
+    (E, C, d_l), its d slice of the experts' outputs.  The gate and up
+    products are partial sums over d, added over `axis` in one
+    all-reduce; the hidden's gradient is partial there (each rank's
+    ``w_down`` columns see only their slice of the output's gradient) and
+    is added over `axis` in the backward (Megatron's pair of reductions,
+    ``pctx.sum_over`` and ``pctx.copy_over``)."""
+    dtype = buf.dtype
+    gu = pctx.sum_over(torch.stack([
+        torch.bmm(buf, params["w_gate"].to(dtype)),
+        torch.bmm(buf, params["w_up"].to(dtype))]), mesh, axis)
+    h = pctx.copy_over(_act(gu[0], activation) * gu[1], mesh, axis)
+    return torch.bmm(h, params["w_down"].to(dtype))
+
+
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return F.one_hot(idx, n).to(dtype)
 
@@ -134,16 +158,19 @@ def _gshard_tables(w_router, x2d, moe, n: int):
     return disp, comb
 
 
-def _sort_scatter(w_router, x2d, moe, n: int):
+def _sort_scatter(w_router, x2d, moe, n: int, xd=None):
     """Each group of n tokens scattered into its own (E, C, d) buffer ->
     (bufs (G, E, C, d), the combine weights (G, n, k), the experts
-    (G, n * k) and rows (G, n * k) of the assignments, C for dropped)."""
-    N, d = x2d.shape
+    (G, n * k) and rows (G, n * k) of the assignments, C for dropped).
+    The tokens route on x2d; the buffers hold `xd` (x2d by default, or a
+    slice of its columns)."""
+    xd = x2d if xd is None else xd
+    N, d = xd.shape
     G = N // n
     E, k = moe.n_experts, moe.top_k
     C = _capacity(n, moe)
     w, idx, _ = _router({"w_router": w_router}, x2d, moe)
-    xg = x2d.reshape(G, n, d)
+    xg = xd.reshape(G, n, d)
     wg, idxg = w.reshape(G, n, k), idx.reshape(G, n, k)
     pos = _group_positions(idxg, E)
     keep = pos < C
@@ -151,7 +178,7 @@ def _sort_scatter(w_router, x2d, moe, n: int):
     pos_c = torch.where(keep, pos, C).reshape(G, n * k)  # overflow row C
     gi = torch.arange(G, device=x2d.device)[:, None].expand(G, n * k)
     ei = idxg.reshape(G, n * k)
-    bufs = x2d.new_zeros((G, E, C + 1, d))
+    bufs = xd.new_zeros((G, E, C + 1, d))
     # several dropped assignments may write the overflow row C; it is
     # sliced away, so which of them lands there does not matter
     bufs[gi, ei, pos_c] = xg.repeat_interleave(k, dim=1)
@@ -170,7 +197,7 @@ def _sort_gather(eo_g, wg, ei, pos_c):
 
 
 def _grouped(params, x2d, moe, activation: str, n: int, sort: bool,
-             e0: int = 0, e_l: Optional[int] = None):
+             e0: int = 0, e_l: Optional[int] = None, xd=None, ffn=None):
     """The grouped dispatch of x2d's tokens in groups of n: "gshard:G"'s
     dense dispatch / combine one-hots, or with `sort` "sortg:G"'s
     per-group scatter into (E, C, d) buffers and gather back.  Routing,
@@ -179,59 +206,84 @@ def _grouped(params, x2d, moe, activation: str, n: int, sort: bool,
     `params`) compute on the expert-major (e_l, G * C, d) view and are
     combined.  One device runs every expert; a mesh rank its own
     (``_moe_shards``), whose partial sums are added over the experts'
-    axis."""
-    N, d = x2d.shape
+    axis.  A rank that holds a slice of the model width passes it as `xd`
+    (N, d_l), which the buffers then hold, and ``ffn(buf)`` for the
+    experts' products on it (``_expert_ffn_dsplit``): the output is its
+    (N, d_l) slice."""
+    N = x2d.shape[0]
     if N % n:
         raise ValueError(f"{N} tokens do not split into groups of {n}")
     e_l = moe.n_experts - e0 if e_l is None else e_l
+    xd = x2d if xd is None else xd
+    d = xd.shape[1]
+    ffn = ffn or (lambda buf: _expert_ffn(params, buf, activation))
     if sort:
-        bufs, wg, ei, pos_c = _sort_scatter(params["w_router"], x2d, moe, n)
+        bufs, wg, ei, pos_c = _sort_scatter(params["w_router"], x2d, moe, n,
+                                            xd)
         G, _, C, _ = bufs.shape
         ein = bufs[:, e0:e0 + e_l].transpose(0, 1)
-        eo = _expert_ffn(params, ein.reshape(e_l, G * C, d), activation)
+        eo = ffn(ein.reshape(e_l, G * C, d))
         eo_g = bufs.new_zeros(bufs.shape)
         eo_g[:, e0:e0 + e_l] = eo.reshape(e_l, G, C, d).transpose(0, 1)
         return _sort_gather(eo_g, wg, ei, pos_c)
     disp, comb = _gshard_tables(params["w_router"], x2d, moe, n)
     G, _, _, C = disp.shape
-    xg = x2d.reshape(G, n, d)
+    xg = xd.reshape(G, n, d)
     ein = torch.einsum("gnec,gnd->egcd", disp[:, :, e0:e0 + e_l], xg)
-    eo = _expert_ffn(params, ein.reshape(e_l, G * C, d), activation)
+    eo = ffn(ein.reshape(e_l, G * C, d))
     out = torch.einsum("gnec,egcd->gnd", comb[:, :, e0:e0 + e_l],
                        eo.reshape(e_l, G, C, d))
     return out.reshape(N, d)
 
 
-def _moe_entries(mesh, G: int, E: int):
-    """(group entry, expert entry): the groups on the DP axes and the
-    experts on "model", as the "moe_expert_in" hint places them, where
-    they divide (the groups on the DP axes when those divide G, else
-    replicated).  Each rank multiplies whole rows: a hint that splits the
-    capacity or the model width (the dry run's ``moe_dshard``, expert
-    weights kept sharded on d) raises."""
-    from ..distributed.sharding import axis_names, axis_size, dp_entry
-    if pctx.hint("moe_expert_in") is not None:
-        es = pctx.spec_of("moe_expert_in", 4)
-        if es[2] is not None or es[3] is not None:
-            raise NotImplementedError(
-                f"moe_expert_in {es}: a split capacity or model width "
-                "(moe_dshard) is not implemented in the port's MoE")
-        return es[1], es[0]
-    em = ("model" if "model" in axis_names(mesh)
-          and E % axis_size(mesh, "model") == 0 else None)
-    return dp_entry(mesh, G), em
+def _moe_entries(mesh, G: int, E: int, d: int):
+    """(group entry, expert entry, d entry): the groups on the DP axes,
+    the experts on "model" and the model width d whole, where they divide
+    (the groups on the DP axes when those divide G, else replicated), or
+    as the "moe_expert_in" hint (E, G, C, d) places them.  The dry run's
+    ``moe_dshard`` hint, P("model", None, None, "data"), puts d on "data"
+    (where the expert weights are stored) and leaves the groups whole: a
+    d entry of one DP axis is taken where it divides d.  A hint that
+    splits the capacity, or d otherwise, raises: no reference path
+    installs one."""
+    from ..distributed.sharding import axis_names, axis_size, dp_axes, \
+        dp_entry
+    if pctx.hint("moe_expert_in") is None:
+        em = ("model" if "model" in axis_names(mesh)
+              and E % axis_size(mesh, "model") == 0 else None)
+        return dp_entry(mesh, G), em, None
+    es = pctx.spec_of("moe_expert_in", 4)
+    dd = es[3]
+    if es[2] is not None or dd is not None and (
+            dd not in dp_axes(mesh)
+            or dd in pctx.axes_of(es[0]) + pctx.axes_of(es[1])):
+        raise NotImplementedError(
+            f"moe_expert_in {es}: the port's MoE splits the groups, the "
+            "experts and the model width on one DP axis; a split capacity "
+            "or a model width split otherwise is not implemented")
+    return es[1], es[0], (dd if dd and d % axis_size(mesh, dd) == 0
+                          else None)
 
 
 def _moe_shards(params, x, moe, activation: str, method: str, G: int):
     """The grouped dispatch ("gshard:G" or "sortg:G") of DTensor `x` (B,
     S, d), each rank on its shards (``pctx.local_call``): its groups'
     tokens (the groups on the DP axes), the routing, capacity and arrival
-    order over every expert, and its own experts (on "model", their
-    weights gathered over their FSDP axis) computed and combined; the
-    combine's partial sums are added over the experts' axis.  With the
-    groups on the DP axes and the experts on "model" no token moves
-    between ranks: each rank already holds its groups' tokens for every
-    expert."""
+    order over every expert, and its own experts (on "model") computed
+    and combined; the combine's partial sums are added over the experts'
+    axis.  With the groups on the DP axes and the experts on "model" no
+    token moves between ranks: each rank already holds its groups' tokens
+    for every expert, and gathers its experts' weights over their FSDP
+    axis.
+
+    With d split (``moe_dshard``) the weights stay as stored, w_gate /
+    w_up with their d rows and w_down with its d columns on "data": each
+    rank routes its groups' tokens on their whole width (every group,
+    under the reference's hint), builds its buffers from its d slice,
+    and runs ``_expert_ffn_dsplit``, whose gate and up products are
+    all-reduced over "data".  Its (N, d_l) combine leaves the local call
+    with d on "data" and partial over the experts' axis, and is laid out
+    as the rows again, as without the split."""
     from ..distributed.sharding import axis_size
     B, S, d = x.shape
     N = B * S
@@ -240,22 +292,36 @@ def _moe_shards(params, x, moe, activation: str, method: str, G: int):
     n = N // G
     E = moe.n_experts
     mesh = x.device_mesh
-    dp, em = _moe_entries(mesh, G, E)
+    dp, em, dd = _moe_entries(mesh, G, E, d)
     e_l = E // axis_size(mesh, em) if em else E
     e0 = mesh.get_local_rank(em) * e_l if em else 0
+    d_l = d // axis_size(mesh, dd)
+    d0 = pctx.axes_rank(mesh, dd) * d_l
     sort = method.startswith("sortg")
 
     def layer(x, w_router, w_gate, w_up, w_down):
         p = {"w_router": w_router, "w_gate": w_gate, "w_up": w_up,
              "w_down": w_down}
-        return _grouped(p, x.reshape(-1, d), moe, activation, n, sort, e0,
-                        e_l).reshape(x.shape)
+        ffn = None if dd is None else (lambda buf: _expert_ffn_dsplit(
+            p, buf, activation, mesh, dd))
+        x2d = x.reshape(-1, d)
+        out = _grouped(p, x2d, moe, activation, n, sort, e0, e_l,
+                       x2d[:, d0:d0 + d_l], ffn)
+        return out.reshape(x.shape[:-1] + (d_l,))
     rows = (dp, None, None)
-    w = (em, None, None)
-    return pctx.local_call(
+    part = (em,) if em else ()
+    out = pctx.local_call(
         layer, (x, params["w_router"], params["w_gate"], params["w_up"],
-                params["w_down"]), (rows, (), w, w, w), rows,
-        partial=(em,) if em else ())
+                params["w_down"]),
+        (rows, (), (em, dd, None), (em, dd, None), (em, None, dd)),
+        (dp, None, dd), partial=part)
+    if dd is None:
+        return out
+    from torch.distributed.tensor import Partial
+    from ..distributed.sharding import placements
+    want = tuple(Partial() if a in part else pl for a, pl in zip(
+        mesh.mesh_dim_names, placements(pctx.activation_rows(), mesh)))
+    return out.redistribute(mesh, want)
 
 
 def moe_forward(params, x: torch.Tensor, moe, activation: str = "swiglu",

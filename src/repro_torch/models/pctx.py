@@ -153,6 +153,14 @@ def axes_rank(mesh, entry) -> int:
     return r
 
 
+def _all_reduce(x, mesh, axis: str, op: str = "sum"):
+    """Local tensor `x` reduced by `op` over the ranks of mesh axis
+    `axis`."""
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(
+        x, op, (mesh, mesh.mesh_dim_names.index(axis))))
+
+
 class _SumOverRanks(torch.autograd.Function):
     """The sum of a local tensor over the ranks of a mesh axis; its
     gradient passes through as it is, since every rank uses the sum alike
@@ -161,9 +169,7 @@ class _SumOverRanks(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        import torch.distributed._functional_collectives as funcol
-        return funcol.wait_tensor(funcol.all_reduce(
-            x, "sum", (mesh, mesh.mesh_dim_names.index(axis))))
+        return _all_reduce(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -176,11 +182,32 @@ def sum_over(x, mesh, axis: str):
     return _SumOverRanks.apply(x, mesh, axis)
 
 
+class _CopyOverRanks(torch.autograd.Function):
+    """The identity on a local tensor alike on the ranks of a mesh axis,
+    which each rank then uses on its own slice of the work; the gradients
+    the ranks take are partial and are summed over the axis (Megatron's
+    copy to the tensor-parallel region, the conjugate of
+    ``_SumOverRanks``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+def copy_over(x, mesh, axis: str):
+    """`x` as it is (inside a ``local_call``), its gradient summed over
+    the ranks of mesh axis `axis`."""
+    return _CopyOverRanks.apply(x, mesh, axis)
+
+
 def max_over(x, mesh, axis: str):
     """`x` (no gradient) maxed over the ranks of mesh axis `axis`."""
-    import torch.distributed._functional_collectives as funcol
-    return funcol.wait_tensor(funcol.all_reduce(
-        x.detach(), "max", (mesh, mesh.mesh_dim_names.index(axis))))
+    return _all_reduce(x.detach(), mesh, axis, "max")
 
 
 def heads_picker(mesh, entry, H: int, G: int, device):

@@ -6,7 +6,10 @@ the port's H100 ones; the traced counters on known work (a matmul's
 FLOPs and bytes, an all-gather and an all-reduce's wire bytes under a
 ``fake`` process group); and ``run_cell`` on a smoke config on a fake
 (2, 2) mesh: status ok, its per-device argument bytes equal to the sum
-of the shard sizes the JAX package's specs give.
+of the shard sizes the JAX package's specs give.  Under ``moe_dshard``
+the MoE decode cells trace the d-split schedule: the same argument
+bytes, and wire bytes that differ from the cell without the hint by
+exactly what ``_dshard_wire_delta`` works out from the config.
 """
 import math
 import types
@@ -21,6 +24,7 @@ from repro.distributed import sharding as jsh
 from repro.distributed import steps as jsteps
 from repro.launch import roofline as jroof
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
 from repro.optim import adamw as jadamw
 from repro_torch.configs import base as tbase
 from repro_torch.launch import dryrun, mesh as tmesh
@@ -170,14 +174,73 @@ def test_run_cell_on_a_fake_2x2_mesh(fake_mesh, arch, shape):
 
 
 def test_moe_dshard_raises_on_an_moe_cell(fake_mesh):
-    """``moe_dshard`` asks for expert weights kept sharded on d, which the
-    port's MoE does not implement: an MoE cell raises rather than trace
-    another schedule; a cell without MoE ignores the hint."""
-    with pytest.raises(NotImplementedError, match="moe_dshard"):
+    """The port's MoE splits the groups, the experts and the model width:
+    a "moe_expert_in" hint that splits the capacity (no reference path
+    installs one) raises on an MoE cell; a cell without MoE ignores
+    ``moe_dshard``."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+    hint = {"moe_expert_in": NamedSharding(fake_mesh,
+                                           P("model", None, "data", None))}
+    with pytest.raises(NotImplementedError, match="split capacity"):
         dryrun.run_cell("deepseek-v2-236b", "decode_32k", "single",
-                        {"moe_dshard": 1}, mesh=fake_mesh,
+                        {"extra_hints": hint}, mesh=fake_mesh,
                         cfg=tbase.get_smoke_config("deepseek-v2-236b"))
     rec = dryrun.run_cell("recurrentgemma-2b", "decode_32k", "single",
                           {"moe_dshard": 1}, mesh=fake_mesh,
                           cfg=tbase.get_smoke_config("recurrentgemma-2b"))
     assert rec["status"] == "ok", rec
+    plain = dryrun.run_cell("recurrentgemma-2b", "decode_32k", "single",
+                            mesh=fake_mesh,
+                            cfg=tbase.get_smoke_config("recurrentgemma-2b"))
+    assert rec["collectives"]["_counts"] == plain["collectives"]["_counts"]
+
+
+def _dshard_wire_delta(arch: str, shape) -> tuple:
+    """(all-gather, all-reduce) wire bytes a decode step of `arch`'s smoke
+    config under ``moe_dshard`` adds on the (2, 2) mesh, by the
+    ``TraceCounter``'s convention (a gather counts its gathered tensor, an
+    all-reduce twice its tensor), a MoE layer each: the experts' FSDP
+    gathers of w_gate, w_up and w_down (E_l, d, F) in f32 go; the routed
+    rows (B, d) gathered over "data" and the output's d split laid out as
+    rows again (on a CPU mesh a gather and a chunk) come; the gate and up
+    products' partial sums (2, E_l, G C, F), all-reduced over "data",
+    come.  G is one group a data shard, C the reference's capacity of a
+    group's B / G tokens."""
+    cfg = jbase.get_smoke_config(arch)
+    m = cfg.moe
+    B, d, F = shape.global_batch, cfg.d_model, m.d_ff_expert
+    e_l, G = m.n_experts // M22.shape["model"], M22.shape["data"]
+    C = jmoe._capacity(B // G, m)
+    cb = np.dtype(cfg.dtype).itemsize           # the compute dtype
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    gathers = 3 * e_l * d * F * 4               # f32 weights
+    rows = 2 * B * d * cb
+    partial = 2 * (2 * e_l * G * C * F * cb)
+    return n_moe * (rows - gathers), n_moe * partial
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_dshard_decode_on_a_fake_2x2_mesh(fake_mesh, arch):
+    """``moe_dshard`` on an MoE decode cell: status ok, the argument
+    bytes the JAX package's specs give (the hint moves no parameter), and
+    the all-gather / all-reduce wire bytes apart from the cell without
+    the hint by exactly ``_dshard_wire_delta``; every other kind alike."""
+    shape = jbase.SHAPE_BY_NAME["decode_32k"]
+    cfg = tbase.get_smoke_config(arch)
+    plain = dryrun.run_cell(arch, "decode_32k", "single", mesh=fake_mesh,
+                            cfg=cfg)
+    rec = dryrun.run_cell(arch, "decode_32k", "single", {"moe_dshard": 1},
+                          mesh=fake_mesh, cfg=cfg)
+    assert rec["status"] == "ok" == plain["status"], rec
+    assert rec["dispatch"] == plain["dispatch"] == "gshard:2"
+    assert rec["memory"]["arg_bytes_analytic_per_device"] == \
+        _jax_arg_bytes(arch, shape) == \
+        plain["memory"]["arg_bytes_analytic_per_device"]
+    gather, reduce = _dshard_wire_delta(arch, shape)
+    c, c0 = rec["collectives"], plain["collectives"]
+    assert gather < 0 < reduce
+    assert c["all-gather"] - c0["all-gather"] == gather
+    assert c["all-reduce"] - c0["all-reduce"] == reduce
+    for kind in ("reduce-scatter", "all-to-all", "collective-permute"):
+        assert c[kind] == c0[kind]
