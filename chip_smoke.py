@@ -63,10 +63,18 @@ Phases (each one failing makes the script exit non-zero):
      CUDA cores' 67 TFLOP/s beside; at small shapes (BH 8, G 2, S 333)
      for the global, chunked, softcap and non-causal masks: D = 64 in
      bf16 and f32, D = 128 in bf16, and D = 32 in bf16 (the CUDA-core
-     kernel, and f32 with a softcap), the f32 cases also printed against
-     a float64 evaluation, with f32 softcap 20 and 50 (q, k scaled by 4
-     and 8) at D = 64, 128, 256: the 3xTF32 kernel, the CUDA-core kernel
-     and the plain version each against float64; ``rglru_scan`` on the
+     kernel), the f32 cases also printed against a float64 evaluation
+     (f32 with a softcap held against it: the plain f32 version's own
+     rounding is of the tolerance's size there), and f32 softcap 20 and
+     50 (q, k scaled by 4 and 8) at D = 64, 96, 128, 256 on the 3xTF32
+     kernel, each held within the f32 tolerance of float64, the
+     CUDA-core kernel's and the plain version's shares and the distance
+     from the plain version printed beside; the ~100M training example's
+     attention (``launch/train_lm.py``: BH 64 over 32 kv rows, S 512, D
+     96, causal, local 512, softcap 50, f32) on the 3xTF32 kernel, held
+     against float64 and timed beside the CUDA-core kernel, one compiled
+     flex_attention call with the tanh softcap, the plain version and
+     the bound; ``rglru_scan`` on the
      TMA path exactly equal at (1, 3000, 2560) with and without h0 and at
      (4, 1000, 2560), as is the first scan kernel (one thread a channel),
      both timed, the TMA kernel's device time no larger than the first's;
@@ -166,7 +174,11 @@ Phases (each one failing makes the script exit non-zero):
      each within BWD_TOL, two calls at S = 3,000 bitwise equal, timed
      beside the plain version and sdpa's backward, with the bound (6 D +
      4 Dv operations a kept pair), and at S = 3,000 the 3xTF32 kernel's
-     device time no more than sdpa's backward's; ``rglru_scan_bwd`` exactly
+     device time no more than sdpa's backward's; ``flash_attention_bwd``
+     at the ~100M training example's shape (phase 4's) on the 3xTF32
+     backward with its softcap of 50, within BWD_TOL and bitwise twice,
+     timed beside the first kernel, the plain version, flex_attention's
+     backward and the bound; ``rglru_scan_bwd`` exactly
      its plain reverse loop at (1,
      3,000, 2,560) with and without h0, (4, 1,000, 2,560) and (2, 1,000,
      2,562) (the one-thread-a-channel path); ``ssd_scan_bwd`` against
@@ -379,7 +391,21 @@ Phases (each one failing makes the script exit non-zero):
      softcap at 16 heads over 8, each direction's device time against its
      bound;
      phase 12's time, beside the card's name and power limit;
-  13. the f32 flash path's times and the f32 attention backward's on
+  13. the twin of the ~100M training example (``launch/train_lm.py``,
+     ``examples/train_lm.py``'s: gemma2-2b cut to 10 layers of d 768, 8
+     query heads over 4 kv heads of 96, softcap 50, byte vocabulary,
+     window 512, f32 weights and compute, B 8, S 512, AdamW at lr 6e-4)
+     at its default size through ``train_lm.run``: 24 steps with a
+     checkpoint every 12 into a temporary directory, the launches exact
+     (each step 20 attention forwards under remat and 10 backwards, all
+     on the 3xTF32 kernels, none on the CUDA cores); a run resumed from
+     the step-12 checkpoint, its losses within rtol 1e-4 of the straight
+     run's; 3 steps through the plain versions from the same seed, each
+     loss within 1e-4 of the kernels'; step time, tokens/s, peak memory
+     and the losses; one step profiled, beside the attention time of the
+     step's launches at phase 4's and 8's kernel times and at the
+     CUDA-core kernels' (the route the parent took); phase 13's time;
+  14. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -400,8 +426,10 @@ Phases (each one failing makes the script exit non-zero):
      under "mesh_launches"; phase 11's launches by architecture and path
      under "phase11", in the attention's entry with the times of (h) and
      in the attention backward's from (g); phase 12's launches by run in
-     each LM kernel's entry under "phase12_launches"), then the device
-     line.
+     each LM kernel's entry under "phase12_launches"; the 3xTF32
+     kernels with a softcap at the training example's shape, forward and
+     backward, as entries of their own, their launches phase 13's), then
+     the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -454,6 +482,19 @@ TF32_OPS_PER_S = 494.7e12
 #: of |v| about 0.8 to |out| about 0.03, so one kv tile of 32 keys
 #: dropped or added moves outputs by many times that
 ATTN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -8)}
+#: the f32 softcap sweep's head dims, all on the 3xTF32 kernels
+TF32_SOFTCAP_DIMS = (64, 96, 128, 256)
+#: the ~100M training example (examples/train_lm.py, its twin
+#: launch/train_lm.py): gemma2-2b cut to 10 layers of d 768, 8 query heads
+#: over 4 kv heads of 96, window 512, f32, B 8, S 512.  Its attention is
+#: (BH, G, S, D) with gemma2's softcap; phase 13 trains it for TRAIN_LM_STEPS
+#: steps with a checkpoint every TRAIN_LM_STEPS / 2 and holds
+#: TRAIN_LM_PLAIN_STEPS of them against the plain versions
+TRAIN_LM_ATTN = (64, 2, 512, 96)
+TRAIN_LM_KW = dict(causal=True, kind="local", window=512, softcap=50.0)
+TRAIN_LM_STEPS = 24
+TRAIN_LM_PLAIN_STEPS = 3
+TRAIN_LM_TOL = 1e-4
 #: deepseek-v2-236b's MLA prefill: 128 heads, q and k of head dim 128 +
 #: 64 (nope + rope), v of head dim 128, causal global attention
 MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 128, 192, 128
@@ -1442,9 +1483,8 @@ def flash_bound(bh: int, bh_kv: int, s: int, d: int, dtype, pairs: int,
 
 def tf32_flash(q, k, v, kw):
     """The 3xTF32 kernel of csrc/flash_attention_tf32.cu called directly
-    (f32, D = Dv in 64, 128, 256 or MLA's (192, 128)), also where the
-    wrapper keeps the case on the CUDA-core kernel (a softcap); not
-    counted in the wrapper's launches."""
+    (f32, D = Dv in 64, 96, 128, 256 or MLA's (192, 128)); not counted in
+    the wrapper's launches."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import KINDS
@@ -1569,7 +1609,13 @@ def hold_flash(q, k, v, kw, with_library: bool):
     (``flex_library``), held against the plain version as the kernel is.
     The wrapper must launch the kernel that ``path`` names; where that is
     a tensor-core kernel, the CUDA-core kernel is held and timed beside
-    it.  Returns a dict of the measurements."""
+    it.  f32 with a softcap on the 3xTF32 kernel is held against the
+    function evaluated in float64 (``f64_flash``), within the same f32
+    tolerance: at softcapped scores the plain f32 version's own rounding
+    is of the tolerance's size (up to 0.86 of it from float64), and the
+    kernel forms its scores in double; the distance from the plain f32
+    version is returned beside ("plain_err", "plain_worst").  Returns a
+    dict of the measurements."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1586,8 +1632,9 @@ def hold_flash(q, k, v, kw, with_library: bool):
                                        **kw)
 
     def held(got, want, what):
-        want = want.float()
-        diff = (got.float() - want).abs()
+        wide = torch.float64 if want.dtype == torch.float64 else torch.float32
+        want = want.to(wide)
+        diff = (got.to(wide) - want).abs()
         err = float(diff.max())
         if dt == "bfloat16":
             allowed = first * want.abs() + second * plain(v.abs()).float()
@@ -1608,13 +1655,21 @@ def hold_flash(q, k, v, kw, with_library: bool):
     want_path = path(q.dtype, d, kw.get("softcap", 0.0), dv)
     check(ran == [want_path], f"flash_attention S={s} D={d} Dv={dv} {dt}: "
           f"ran {ran}, path says {want_path}")
+    out = {}
+    if dt == "float32" and kw.get("softcap") and ran[0] == "tf32":
+        # the distance from the plain f32 version, printed beside
+        out["witness"] = "float64"
+        out["plain_err"] = float((got - want).abs().max())
+        out["plain_worst"] = float(((got - want).abs()
+                                    / (first + second * want.abs())).max())
+        want = f64_flash(q, k, v, kw)
     err, worst = held(got, want, ran[0])
     mask = ref.attention_mask(s, kw.get("causal", True),
                               kw.get("kind", "global"), kw.get("window", 0),
                               q.device)
     pairs = int(mask.sum())
-    out = {"max_abs_err": err, "worst": worst, "pairs": pairs,
-           "path": ran[0]}
+    out.update({"max_abs_err": err, "worst": worst, "pairs": pairs,
+                "path": ran[0]})
     if ran[0] in ("tf32", "wgmma"):
         out["kv_shares"] = kv_shares(ran[0], bh, s, d, dv, kw)
     if with_library:
@@ -1673,14 +1728,12 @@ def kv_shares(kernel: str, bh: int, s: int, d: int, dv: int, kw) -> int:
         KINDS[kw.get("kind", "global")], int(kw.get("window", 0)))
 
 
-def f64_shares(q, k, v, kw) -> str:
-    """f32 attention's worst element against the same function in
-    float64, as a share of the f32 tolerance (1e-5 absolute plus 1e-5
-    relative), for the 3xTF32 kernel (called directly where the wrapper
-    would not take it), the CUDA-core kernel and the plain version."""
+def f64_flash(q, k, v, kw):
+    """flash_attention's function evaluated in float64 on the same q, k,
+    v (k and v repeated to q's rows): the witness of f32 attention with a
+    softcap, whose plain f32 version rounds at the tolerance's size."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     group = q.shape[0] // k.shape[0]
     kr, vr = (a.double().repeat_interleave(group, 0) for a in (k, v))
     s = torch.einsum("bqd,bkd->bqk", q.double(), kr) / q.shape[-1] ** 0.5
@@ -1690,7 +1743,17 @@ def f64_shares(q, k, v, kw) -> str:
                               kw.get("kind", "global"), kw.get("window", 0),
                               q.device)
     s = torch.where(mask[None], s, torch.full_like(s, ref.NEG_INF))
-    want = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), vr)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), vr)
+
+
+def f64_shares(q, k, v, kw) -> str:
+    """f32 attention's worst element against the same function in
+    float64, as a share of the f32 tolerance (1e-5 absolute plus 1e-5
+    relative), for the 3xTF32 kernel (called directly where the wrapper
+    would not take it), the CUDA-core kernel and the plain version."""
+    from repro_torch.kernels import ref
+    group = q.shape[0] // k.shape[0]
+    want = f64_flash(q, k, v, kw)
 
     def share(got):
         return float(((got.double() - want).abs()
@@ -1955,22 +2018,32 @@ def phase4_lm_kernels():
         m = hold_flash(q, k, v, kw, with_library=False)
         exact = (", from float64: " + f64_shares(q, k, v, kw)
                  if dtype == torch.float32 else "")
+        witness = (f", held against float64 (from the plain f32 version "
+                   f"{m['plain_err']:.3g})" if "witness" in m else "")
         print(f"phase4 flash_attention BH=8 G=2 S=333 D={d} {kw} "
               f"{str(dtype).split('.')[-1]} path={m['path']}: max_abs_err "
               f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the allowance)"
-              f"{exact}")
-    # f32 with a softcap (scores of magnitude 16 and 64): the plain
-    # version's own rounding is of the tolerance's size or above, which is
-    # why path() keeps these on the CUDA-core kernel; the 3xTF32 kernel's
-    # error beside it (printed, not held)
-    for d in (64, 128, 256):
+              f"{witness}{exact}")
+    # f32 with a softcap (scores of magnitude 16 and 64) on the 3xTF32
+    # kernel, held against float64 within the f32 tolerance (the plain
+    # version's own rounding is of the tolerance's size); the CUDA-core
+    # kernel's and the plain version's shares and the distance from the
+    # plain version printed beside
+    for d in TF32_SOFTCAP_DIMS:
         for cap, scale in ((20.0, 4.0), (50.0, 8.0)):
             kw = dict(causal=True, kind="global", softcap=cap)
             q, k = randn(8, 333, d) * scale, randn(4, 333, d) * scale
             v = randn(4, 333, d)
+            m = hold_flash(q, k, v, kw, with_library=False)
+            check(m["path"] == "tf32", f"flash_attention D={d} {kw} "
+                  f"float32: path {m['path']}")
             print(f"phase4 flash_attention BH=8 G=2 S=333 D={d} {kw} "
-                  f"float32 x{scale:g}, from float64: "
-                  f"{f64_shares(q, k, v, kw)}")
+                  f"float32 x{scale:g} path={m['path']}: held against "
+                  f"float64, max_abs_err {m['max_abs_err']:.3g} "
+                  f"({m['worst']:.3g} of the allowance); from the plain f32 "
+                  f"version {m['plain_err']:.3g} ({m['plain_worst']:.3g}); "
+                  f"from float64: {f64_shares(q, k, v, kw)}")
+    serve.update(phase4_train_lm(randn))
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False)):
@@ -2037,6 +2110,34 @@ def phase4_lm_kernels():
                     ssd_layout_cost(*args[:5], A)
     serve.update(phase4_mla(randn))
     return serve
+
+
+def phase4_train_lm(randn) -> dict:
+    """flash_attention at the ~100M training example's shape
+    (``launch/train_lm.py``: BH 64 over 32 kv rows, S 512, D 96, causal,
+    local 512, softcap 50, f32) on the 3xTF32 kernel: held against float64
+    and timed as ``hold_flash`` times, beside the CUDA-core kernel, one
+    compiled flex_attention call with the tanh softcap (f32), the plain
+    version and the bound."""
+    bh, g, s, d = TRAIN_LM_ATTN
+    q, k, v = randn(bh, s, d), randn(bh // g, s, d), randn(bh // g, s, d)
+    m = hold_flash(q, k, v, TRAIN_LM_KW, with_library=True)
+    check(m["path"] == "tf32", f"flash_attention at the training example's "
+          f"shape: path {m['path']}")
+    print(f"phase4 flash_attention train_lm BH={bh} G={g} S={s} D={d} "
+          f"{TRAIN_LM_KW} float32 path={m['path']} ({m['kv_shares']} kv "
+          f"shares): held against float64, max_abs_err "
+          f"{m['max_abs_err']:.3g} ({m['worst']:.3g} of the allowance; "
+          f"from the plain f32 version {m['plain_err']:.3g}), kernel "
+          f"{m['ms']:.4f} ms (device {m['device_ms']:.4f} ms), CUDA-core "
+          f"kernel {m['simt_ms']:.4f} ms (device {m['simt_device_ms']:.4f} "
+          f"ms), flex_attention {m['library_ms']:.4f} ms (device "
+          f"{m['library_device_ms']:.4f} ms, compiled in "
+          f"{m['library_setup_s']:.1f} s), plain {m['plain_ms']:.4f} ms, "
+          f"bound {m['bound_ms']:.5f} ms ({m['bound_by']}; at the CUDA "
+          f"cores' 67 TFLOP/s {m['cuda_core_bound_ms']:.5f} ms), pairs "
+          f"{m['pairs']} a head")
+    return {"flash_attention train_lm": dict(m, shape=[bh, s, d])}
 
 
 def phase4_mla(randn) -> dict:
@@ -3627,6 +3728,7 @@ def phase8_bwd_kernels():
                    else "flash_attention_bwd f32")
             serve[key] = dict(m, shape=[10, s, 256])
     serve.update(phase8_mla_bwd(randn))
+    serve.update(phase8_train_lm_bwd(randn))
     for (bsz, s, w), with_h0 in (((1, 3000, 2560), False),
                                  ((1, 3000, 2560), True),
                                  ((4, 1000, 2560), False),
@@ -3692,6 +3794,22 @@ def phase8_bwd_kernels():
                                            True, False):
             serve["ssd_scan_bwd"] = dict(m, shape=[bsz, heads, s, p, n])
     return serve
+
+
+def phase8_train_lm_bwd(randn) -> dict:
+    """(a) flash_attention_bwd at the ~100M training example's shape (BH
+    64 over 32 kv rows, S 512, D 96, causal, local 512, softcap 50, f32)
+    on the 3xTF32 backward: within BWD_TOL of the plain backward, two
+    calls bitwise equal, timed beside the first kernel, the plain version,
+    one compiled flex_attention call's backward and the bound."""
+    bh, g, s, d = TRAIN_LM_ATTN
+    q, k, v = randn(bh, s, d), randn(bh // g, s, d), randn(bh // g, s, d)
+    m = hold_flash_bwd(q, k, v, TRAIN_LM_KW, timed=True, twice=True)
+    check(m["path"] == "tf32", f"flash_attention_bwd at the training "
+          f"example's shape: path {m['path']}")
+    print(flash_bwd_line(f"train_lm BH={bh} G={g} S={s} D={d} local 512 "
+                         "softcap 50 float32", m))
+    return {"flash_attention_bwd train_lm": dict(m, shape=[bh, s, d])}
 
 
 def phase8_mla_bwd(randn) -> dict:
@@ -4863,6 +4981,22 @@ def card() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+def warm_flex():
+    """While phase 10 (e)'s dry runs finish on the host, compile the
+    flex_attention yardstick of phases 4 and 8 at the ~100M training
+    example's attention shape, forward and backward (set-up, untimed:
+    the first compile in a process takes some 30 s), so that their timed
+    phases find it compiled."""
+    import torch
+    bh, g, s, d = TRAIN_LM_ATTN
+    q, k, v = (torch.randn((rows, s, d), device="cuda")
+               for rows in (bh, bh // g, bh // g))
+    t0 = time.perf_counter()
+    flex_library_bwd(q, k, v, torch.randn_like(q), TRAIN_LM_KW)
+    print(f"phase0 flex_attention compiled at the training example's "
+          f"shape, forward and backward, in {time.perf_counter() - t0:.1f} s")
+
+
 def start_dryruns() -> dict:
     """(e): one subprocess a job, all at once, on the host alone (no card
     visible to them), each printing its record as the last line of its
@@ -6027,6 +6161,156 @@ def phase12_training() -> dict:
     return runs, held, split
 
 
+def train_lm_counts() -> dict:
+    """The LM kernels' launch counts (``lm_counts``) and the attention
+    backward's, in all and by path."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    counts = dict(lm_counts(),
+                  flash_attention_bwd=flash_attention_bwd.launches)
+    for p, n in flash_attention_bwd.launches_by_path.items():
+        counts[f"flash_attention_bwd.{p}"] = n
+    return counts
+
+
+def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
+    """The twin of the ~100M training example (``launch/train_lm.py``) on
+    the card at its default size, through ``train_lm.run`` as its command
+    line runs it: TRAIN_LM_STEPS steps with a checkpoint every half into
+    a temporary directory, the kernels' launches exact (each step 20
+    attention forwards under remat and 10 backwards, all on the 3xTF32
+    kernels, none on the CUDA cores); a second run resumed from the
+    half-way checkpoint, its losses within rtol TRAIN_LM_TOL of the
+    straight run's; TRAIN_LM_PLAIN_STEPS steps from the same seed through
+    the plain versions, each loss within TRAIN_LM_TOL of the kernels'
+    run's; step time (median of steps 2 on), tokens/s, peak memory and
+    the losses; one more step profiled, beside what the CUDA-core kernels
+    would take at this shape for the step's launches (`fwd` and `bwd`:
+    phase 4's and phase 8's measurements at the example's attention
+    shape).  Returns the straight run's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data.pipeline import ByteCorpus
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.train import build_state, put_batch
+    t0 = time.perf_counter()
+    power = card()
+    _free_models("phase13")
+    cfg = train_lm.config()
+    bh, g, s, d = TRAIN_LM_ATTN
+    shape = train_lm.shape_of(False)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.window, cfg.dtype,
+           cfg.attn_softcap, shape.global_batch, shape.seq_len)
+          == (10, 768, bh // shape.global_batch, bh // g // shape.global_batch,
+              d, 3072, 256, TRAIN_LM_KW["window"], "float32",
+              TRAIN_LM_KW["softcap"], 8, s),
+          f"phase 13: the twin's config {cfg} at {shape} is not the "
+          "example's")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 13: f32 matrix products would run in TF32")
+    n, fwd_layers, _ = _layer_counts(cfg)
+    T, half = TRAIN_LM_STEPS, TRAIN_LM_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, resumed = (os.path.join(tmp, x) for x in ("a", "b"))
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_lm_counts()
+        t_run = time.perf_counter()
+        state, losses = train_lm.run(
+            train_lm.parse(["--steps", str(T), "--ckpt-dir", straight]),
+            save_every=half, times=times)
+        wall = time.perf_counter() - t_run
+        counts = train_lm_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {key: 0 for key in counts}
+        want.update({"flash_attention": fwd_layers["attention"] * T,
+                     "flash_attention.tf32": fwd_layers["attention"] * T,
+                     "flash_attention_bwd": n["attention"] * T,
+                     "flash_attention_bwd.tf32": n["attention"] * T})
+        step_ms = statistics.median(times[1:]) * 1e3
+        print(f"phase13 train_lm: {cfg.n_layers} layers of d {cfg.d_model}, "
+              f"{cfg.param_count():,} parameters, f32, B "
+              f"{shape.global_batch}, S {shape.seq_len}, {T} steps with a "
+              f"checkpoint every {half} in {wall:.1f} s: step "
+              f"{step_ms:.1f} ms (median of steps 2-{T}; first "
+              f"{times[0] * 1e3:.1f} ms) = "
+              f"{shape.global_batch * shape.seq_len / step_ms * 1e3:.1f} "
+              f"tokens/s, peak memory {peak:.3f} GiB; losses "
+              f"{[round(x, 4) for x in losses]}; launches {counts}")
+        check(counts == want, f"phase 13: launches {counts}, expected "
+              f"{want}")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"phase 13: losses {losses}")
+        # the resumed run: the straight run's half-way checkpoint alone
+        name = f"step_{half:09d}"
+        shutil.copytree(os.path.join(straight, name),
+                        os.path.join(resumed, name))
+        _state, again = train_lm.run(
+            train_lm.parse(["--steps", str(T), "--ckpt-dir", resumed]),
+            save_every=half)
+        del _state
+        worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[half:]))
+        print(f"phase13 resumed from step {half}: losses "
+              f"{[round(x, 4) for x in again]}, worst relative difference "
+              f"from the straight run {worst:.3g} (limit {TRAIN_LM_TOL})")
+        check(len(again) == T - half and worst <= TRAIN_LM_TOL,
+              f"phase 13: resumed losses {again} against {losses[half:]}")
+    # the first steps again through the plain versions, from the same seed
+    # and batches
+    opt_cfg = train_lm.opt_config(T)
+    corpus = ByteCorpus()
+    plain_state = build_state(cfg, opt_cfg, 0, "cuda")
+    plain = make_train_step(cfg, None, shape, opt_cfg=opt_cfg, remat=True,
+                            device="cuda", use_kernel=False)
+    n0 = train_lm_counts()
+    plain_losses = []
+    for i in range(TRAIN_LM_PLAIN_STEPS):
+        batch = put_batch(corpus.batch(i, shape.global_batch, shape.seq_len),
+                          "cuda")
+        plain_state, m = plain.fn(plain_state, batch)
+        plain_losses.append(float(m["loss"]))
+    del plain_state
+    check(train_lm_counts() == n0, "phase 13: the plain steps launched a "
+          "kernel")
+    diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    print(f"phase13 kernels against plain, steps 1-{TRAIN_LM_PLAIN_STEPS}: "
+          f"losses {losses[:TRAIN_LM_PLAIN_STEPS]} and {plain_losses}, "
+          f"largest difference {diff:.3g} (limit {TRAIN_LM_TOL})")
+    check(diff <= TRAIN_LM_TOL, f"phase 13: kernels' losses "
+          f"{losses[:TRAIN_LM_PLAIN_STEPS]}, plain {plain_losses}")
+    # one more step profiled, and the CUDA-core kernels at this shape for
+    # the step's launches (the route f32 with a softcap took before)
+    bundle = make_train_step(cfg, None, shape, opt_cfg=opt_cfg, remat=True,
+                             device="cuda")
+    batch = put_batch(corpus.batch(T, shape.global_batch, shape.seq_len),
+                      "cuda")
+    profile_train_step(bundle, state, batch, phase="phase13")
+    del state
+    # one f32 product at the MLP's shape (B S x d by d x d_ff), timed on
+    # the device: the rate the step's matrix products can run at
+    x = torch.randn((shape.global_batch * shape.seq_len, cfg.d_model),
+                    device="cuda")
+    w = torch.randn((cfg.d_model, cfg.d_ff), device="cuda")
+    mm_ms = time_ms(lambda: x @ w, queued=True)
+    print(f"phase13 one f32 matmul ({x.shape[0]}, {cfg.d_model}) x "
+          f"({cfg.d_model}, {cfg.d_ff}): {mm_ms:.4f} ms on the device, "
+          f"{2 * x.numel() * cfg.d_ff / mm_ms / 1e9:.1f} TFLOP/s")
+    kernels_ms = (fwd["device_ms"] * fwd_layers["attention"]
+                  + bwd["device_ms"] * n["attention"])
+    simt_ms = (fwd["simt_device_ms"] * fwd_layers["attention"]
+               + bwd["simt_device_ms"] * n["attention"])
+    print(f"phase13 attention a step at the kernels' phase 4 and 8 device "
+          f"times: {kernels_ms:.2f} ms ({fwd_layers['attention']} forwards "
+          f"x {fwd['device_ms']:.4f} + {n['attention']} backwards x "
+          f"{bwd['device_ms']:.4f}); on the CUDA-core kernels, the parent's "
+          f"route: {simt_ms:.2f} ms ({fwd['simt_device_ms']:.4f} and "
+          f"{bwd['simt_device_ms']:.4f} ms a launch)")
+    print(f"phase13 total {time.perf_counter() - t0:.1f} s; {power}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -6056,9 +6340,11 @@ def main() -> int:
         procs = start_dryruns()
         phase0_build()
         t_wait = time.perf_counter()
+        warm_flex()
         dryruns = finish_dryruns(procs)
         print(f"phase0 waited {time.perf_counter() - t_wait:.2f} s after "
-              "the build for phase 10 (e)'s dry runs")
+              "the build for phase 10 (e)'s dry runs (flex_attention's "
+              "compiles at the training example's shape included)")
         scn = core.make_scenario("burst-storm", **SCENARIO)
         world = core.scenario_world(scn, engine="numpy")
         phase1_kernels(world)
@@ -6079,6 +6365,8 @@ def main() -> int:
         mesh = phase10_mesh(dryruns)
         other = phase11_other_archs()
         trained, held12, split12 = phase12_training()
+        lm_launches = phase13_train_lm(lm["flash_attention train_lm"],
+                                       train["flash_attention_bwd train_lm"])
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -6129,6 +6417,35 @@ def main() -> int:
                 kernels[-1]["simt_source"] = CSRC + (
                     "ssd_scan_bwd.cu" if name == "ssd_scan_bwd"
                     else "flash_attention_bwd.cu")
+        # the 3xTF32 kernels' softcapped instantiations at the ~100M
+        # training example's shape (phases 4 and 8 (a)), their launches
+        # phase 13's straight run's
+        for name, m, source, counted in (
+                ("flash_attention f32 softcap", lm["flash_attention train_lm"],
+                 "flash_attention_tf32.cu", "flash_attention.tf32"),
+                ("flash_attention_bwd f32 softcap",
+                 train["flash_attention_bwd train_lm"],
+                 "flash_attention_bwd_tf32.cu", "flash_attention_bwd.tf32")):
+            kernels.append({
+                "name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": REPLACES["flash_attention"],
+                "launches": lm_launches[counted],
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"],
+                "library_device_ms": m["library_device_ms"],
+                "library": m["library"], "shape": m["shape"],
+                "path": m["path"], "simt_ms": m["simt_ms"],
+                "simt_device_ms": m["simt_device_ms"],
+                "simt_source": CSRC + ("flash_attention_bwd.cu"
+                                       if "bwd" in name
+                                       else "flash_attention.cu"),
+                "main_path": "launch/train_lm.py (phase 13)"})
+            if "bwd" in name:
+                kernels[-1]["differentiates"] = (
+                    "src/repro/models/attention.py:118 blockwise_attention "
+                    "(XLA autodiff)")
         # launches of each forest kernel in phase 7's runs (b2 and c
         # launch the forest kernel, b3 the sweep)
         for k in kernels[:2]:
@@ -6299,12 +6616,12 @@ def main() -> int:
         # the (D, Dv) instantiations of each tensor-core path, forward and
         # backward alike (bf16 also at hubert-xlarge's 80, padded)
         from repro_torch.kernels.flash_attention import (
-            WGMMA_BF16_HEAD_DIMS, WGMMA_HEAD_DIMS, WGMMA_QK_V_DIMS)
+            TF32_HEAD_DIMS, WGMMA_BF16_HEAD_DIMS, WGMMA_QK_V_DIMS)
         for k in (flash, flash_bwd):
             k["head_dims"] = {
                 "wgmma": [[d, d] for d in WGMMA_BF16_HEAD_DIMS]
                 + [list(p) for p in WGMMA_QK_V_DIMS],
-                "tf32": [[d, d] for d in WGMMA_HEAD_DIMS]
+                "tf32": [[d, d] for d in TF32_HEAD_DIMS]
                 + [list(p) for p in WGMMA_QK_V_DIMS]}
         f32 = lm["flash_attention f32"]
         flash["f32"] = {

@@ -301,7 +301,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                     param_dtype=torch.float32,
                     cast_params: bool = False,
                     extra_hints: Optional[dict] = None,
-                    device=None) -> StepBundle:
+                    device=None, use_kernel: bool = True) -> StepBundle:
     """The train step of `cfg` at `shape`, through the hand-written
     kernels and their backward kernels: ``fn(state, batch) -> (state,
     metrics)`` with the state ``{"params", "opt"}`` updated in place and
@@ -315,7 +315,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     ``meta["state_shardings"]`` / ``meta["batch_shardings"]`` (plain
     tensors are distributed on entry).  ``cast_params=True`` casts f32
     matrices to the compute dtype once at step entry, so weight gathers
-    move the compute dtype."""
+    move the compute dtype.  ``use_kernel=False`` runs the plain
+    versions instead of the kernels (the yardstick of a kernels' run)."""
     if shape is None:
         raise TypeError("make_train_step needs an InputShape")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -340,7 +341,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                            if p.dtype == torch.float32 and p.dim() > 1
                            else p, params, params)
         return steps_lib.loss_fn(cfg, params, b, remat=remat,
-                                 dispatch=disp)
+                                 use_kernel=use_kernel, dispatch=disp)
 
     def grads_of(leaves, params, b):
         with torch.enable_grad():

@@ -103,8 +103,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "flash_attention_bwd_wgmma": ([_P] * 11 + [_I] * 9 + [_D, _P], _I),
     },
     "flash_attention_bwd_tf32": {
-        # the wgmma backward's entry points, for f32
-        "flash_attention_bwd_tf32_shares": ([_I] * 8, _I),
+        # the wgmma backward's entry points, for f32; the share count
+        # also takes whether the scores are softcapped (its own
+        # instantiation's occupancy)
+        "flash_attention_bwd_tf32_shares": ([_I] * 9, _I),
         "flash_attention_bwd_tf32": ([_P] * 11 + [_I] * 9 + [_D, _P], _I),
     },
     "rglru_scan": {

@@ -1,27 +1,35 @@
 // Attention backward on Hopper's tensor cores at f32 accuracy (sm_90a):
-// the f32 path without a softcap for q/k and v head dims (D, Dv) = (64,
-// 64), (128, 128), (256, 256) and MLA's (192, 128), the gradient of
-// flash_attention_tf32.cu.
+// the f32 path for q/k and v head dims (D, Dv) = (64, 64), (96, 96),
+// (128, 128), (256, 256) and MLA's (192, 128), with or without a softcap,
+// the gradient of flash_attention_tf32.cu.
 //
 // The Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:77) has no backward: the reference trains through
 // `blockwise_attention` (src/repro/models/attention.py:118), which XLA
 // differentiates.  This kernel computes what flash_attention_bwd.cu (the
-// first design, f32 on the CUDA cores, which keeps f32 with a softcap and
-// other head dims) computes:
+// first design, f32 on the CUDA cores, which keeps the other head dims)
+// computes:
 //   q (BH, S, D), o and dO (BH, S, Dv), k (BH / G, S, D) and v (BH / G,
 //   S, Dv) f32, lse (BH, S) f32
 //   -> dq (BH, S, D), dk (BH / G, S, D) and dv (BH / G, S, Dv) f32,
-// with the forward's masks (causal, `local` within `window`, `chunked`);
-// query row bh reads kv row bh / G.  lse is each row's log-sum-exp in
-// natural-log units, written by the 3xTF32 forward when a gradient will
-// be taken, so no launch recomputes it.
+// with the forward's masks (causal, `local` within `window`, `chunked`)
+// and its optional tanh softcap c; query row bh reads kv row bh / G.  lse
+// is each row's log-sum-exp in natural-log units, written by the 3xTF32
+// forward when a gradient will be taken, so no launch recomputes it.
 //
 // Arithmetic (FA2's backward): with s the scaled scores, p = exp(s - lse)
 // on the pairs the mask keeps and 0 elsewhere, and D_i = rowsum(dO * O),
 //   dv_j = sum_i p_ij dO_i          dp_ij = dO_i . v_j
 //   ds_ij = p_ij (dp_ij - D_i)
 //   dq_i = sum_j ds_ij k_j / sqrt(D)   dk_j = sum_i ds_ij q_i / sqrt(D)
+// With a softcap (the CAP instantiations) each pair's raw score x = q.k is
+// recomputed, t = tanh(x / (sqrt(D) c)) by tanhf, the capped score is c t,
+// p = exp(c t - lse) and ds_ij = p_ij (dp_ij - D_i) (1 - t^2): the cap's
+// derivative, as the bf16 wgmma backward has it, but with tanhf (2 ulps)
+// where that kernel's fast_tanh takes ex2.approx and rcp.approx.  The
+// forward forms its scores in double (its header says why); here a score
+// moves p by at most some 1e-5 of itself, inside the gradients' tolerance
+// (1e-5 of an element plus 1e-4 of the largest), so the f32 tanh serves.
 // Every product runs on the tensor cores in TF32 with three terms
 // (3xTF32), as in the forward: each f32 operand x is split into hi =
 // tf32(x) and lo = tf32(x - hi), and a product is lo_a hi_b + hi_a lo_b +
@@ -73,7 +81,8 @@
 // four, two compute the score tile (16 x 32, over D) and two the dP tile
 // (over Dv), two n-blocks of 8 columns each; they meet through shared
 // memory (a named barrier of the group's 128 threads), where the dP
-// warps turn p and dp into ds.  Then each warp takes the product of p or
+// warps turn p and dp into ds (with a softcap the P warps hand them p (1
+// - t^2): on the dK/dV side in ds's slot, beside p, on the dQ side in p's).  Then each warp takes the product of p or
 // ds with its share of the columns: on the dK/dV side the P warps own dV
 // (half of Dv each) and the dS warps dK (half of D each); on the dQ side
 // all four own a quarter of dq.  At D = 256 a thread holds 64 f32 of dK
@@ -95,6 +104,13 @@
 // warp is later work.  ptxas (CUDA 12 on the H100's machine, printed by
 // chip_smoke.py's phase 0): the main kernel 197 registers at (192, 128),
 // 228 at (256, 256), 147 at (128, 128), 110 at (64, 64), no spill.
+//
+// (96, 96), the ~100M training example's head dim: rows staged at 100
+// floats (no product on padding, fragment loads on distinct banks), the
+// score and dP warps both 12 k8 steps, the dK and dV halves 6 n-blocks
+// each, dq's quarters 3; the tiles, ring and exchange take 85,504 bytes
+// and ptxas gives the main kernel 128 registers (softcap or not), so two
+// blocks share an SM (the share count reads the occupancy).
 //
 // Masks: tiles that the mask hides from every pair are skipped (the key
 // tile's query range, the query tile's key range); tiles that it shows
@@ -122,6 +138,7 @@ enum Kind { kGlobal = 0, kLocal = 1, kChunked = 2 };
 struct Mask {
   int S, causal, kind, window;
   float scale;
+  float softcap, cap_scale;  // c and 1 / (sqrt(D) c); 0 without a softcap
 
   __device__ __forceinline__ bool visible(int qp, int kp) const {
     bool v = qp < S && kp < S;
@@ -399,7 +416,7 @@ attn_bwd_tf32_delta_kernel(const float* __restrict__ o, const float* __restrict_
 // 2. dK and dV partials: one block per (share, key tile, kv row)
 // ---------------------------------------------------------------------------
 
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
                                            const float* __restrict__ k,
                                            const float* __restrict__ v,
@@ -494,8 +511,16 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int qc = 8 * n + 2 * t + (e & 1), kr = 16 * r + g + 8 * (e >> 1);
           const bool keep = whole || mask.visible(q0 + qc, k0 + kr);
-          xp[(n * 4 + e) * 32 + lane] =
-              keep ? expf(x[nb][e] * mask.scale - lse_s[qc]) : 0.0f;
+          const int i = (n * 4 + e) * 32 + lane;
+          if constexpr (CAP) {
+            // p, and p (1 - t^2) for the dS warps in ds's slot
+            const float tc = tanhf(x[nb][e] * mask.cap_scale);
+            const float p = keep ? expf(mask.softcap * tc - lse_s[qc]) : 0.0f;
+            xp[i] = p;
+            xs[i] = p * (1.0f - tc * tc);
+          } else {
+            xp[i] = keep ? expf(x[nb][e] * mask.scale - lse_s[qc]) : 0.0f;
+          }
         }
       }
     }
@@ -507,8 +532,8 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = 8 * n + 2 * t + (e & 1);
-          const float p = xp[(n * 4 + e) * 32 + lane];
-          xs[(n * 4 + e) * 32 + lane] = p * (x[nb][e] - delta_s[qc]);
+          const int i = (n * 4 + e) * 32 + lane;
+          xs[i] = (CAP ? xs[i] : xp[i]) * (x[nb][e] - delta_s[qc]);
         }
       }
     }
@@ -553,7 +578,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
 // 3. dQ: one block per (bh, query tile)
 // ---------------------------------------------------------------------------
 
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 __device__ __forceinline__ void dq_block(const float* __restrict__ q,
                                          const float* __restrict__ k,
                                          const float* __restrict__ v,
@@ -637,8 +662,16 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
           const int kc = 8 * n + 2 * t + (e & 1);
           const int qp = e < 2 ? qr0 : qr1;
           const bool keep = whole || mask.visible(qp, k0 + kc);
-          xp[(n * 4 + e) * 32 + lane] =
-              keep ? expf(x[nb][e] * mask.scale - (e < 2 ? lse0 : lse1)) : 0.0f;
+          const float lse_r = e < 2 ? lse0 : lse1;
+          float p;
+          if constexpr (CAP) {
+            // dq reads p only through ds: the dS warps get p (1 - t^2)
+            const float tc = tanhf(x[nb][e] * mask.cap_scale);
+            p = keep ? expf(mask.softcap * tc - lse_r) * (1.0f - tc * tc) : 0.0f;
+          } else {
+            p = keep ? expf(x[nb][e] * mask.scale - lse_r) : 0.0f;
+          }
+          xp[(n * 4 + e) * 32 + lane] = p;
         }
       }
     }
@@ -684,7 +717,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
 // grid, so the SMs the dK/dV blocks free take dQ blocks at once
 // ---------------------------------------------------------------------------
 
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_tf32_main_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
@@ -696,12 +729,12 @@ attn_bwd_tf32_main_kernel(const float* __restrict__ q, const float* __restrict__
   if (b < n_dkdv) {
     const int share = (int)(b % shares);
     b /= shares;
-    dkdv_block<D, DV>(q, k, v, dout, lse, delta, part, bh_kv, group, shares, per, mask,
+    dkdv_block<D, DV, CAP>(q, k, v, dout, lse, delta, part, bh_kv, group, shares, per, mask,
                       share, (int)(b % tiles), (int)(b / tiles));
   } else {
     b -= n_dkdv;
     const int bh_rows = bh_kv * group;
-    dq_block<D, DV>(q, k, v, dout, lse, delta, dq, group, mask, (int)(b % bh_rows),
+    dq_block<D, DV, CAP>(q, k, v, dout, lse, delta, dq, group, mask, (int)(b % bh_rows),
                     tiles - 1 - (int)(b / bh_rows));
   }
 }
@@ -742,8 +775,9 @@ attn_bwd_tf32_sum_kernel(const float* __restrict__ part, float* __restrict__ dk,
   }
 }
 
-Mask make_mask(int s, int d, int causal, int kind, int window) {
-  return Mask{s, causal, kind, window, (float)(1.0 / sqrt((double)d))};
+Mask make_mask(int s, int d, int causal, int kind, int window, double softcap) {
+  return Mask{s, causal, kind, window, (float)(1.0 / sqrt((double)d)), (float)softcap,
+              softcap > 0.0 ? (float)(1.0 / (sqrt((double)d) * softcap)) : 0.0f};
 }
 
 // The longest work list of any key tile, in items.
@@ -759,13 +793,13 @@ int most_items(int s, int group, const Mask& m) {
 
 // The largest dynamic shared memory a block may take is set once per
 // device and head dims, not at every call.
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 cudaError_t allow_smem() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(attn_bwd_tf32_main_kernel<D, DV>,
+  err = cudaFuncSetAttribute(attn_bwd_tf32_main_kernel<D, DV, CAP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)Layout<D, DV>::kBytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
@@ -773,11 +807,11 @@ cudaError_t allow_smem() {
 }
 
 // Blocks of the main kernel an SM holds, or 0 when the query fails.
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 int main_occupancy() {
-  if (allow_smem<D, DV>() != cudaSuccess) return 0;
+  if (allow_smem<D, DV, CAP>() != cudaSuccess) return 0;
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_tf32_main_kernel<D, DV>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, attn_bwd_tf32_main_kernel<D, DV, CAP>,
                                                     kThreads, (int)Layout<D, DV>::kBytes) !=
       cudaSuccess)
     return 0;
@@ -849,13 +883,13 @@ int choose_shares(int bh_kv, int s, int group, const Mask& m, const Work& w, int
   return best;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, float* dq, float* dk, float* dv,
                    float* delta, float* part, int bh, int s, int group, int shares,
                    const Mask& mask, cudaStream_t stream) {
   const int bh_kv = bh / group;
-  cudaError_t err = allow_smem<D, DV>();
+  cudaError_t err = allow_smem<D, DV, CAP>();
   if (err != cudaSuccess) return err;
   const int per = items_per_share(most_items(s, group, mask), shares);
 
@@ -865,7 +899,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int tiles = (s + kT - 1) / kT;
   const long long blocks = (long long)(shares + group) * tiles * bh_kv;
-  attn_bwd_tf32_main_kernel<D, DV>
+  attn_bwd_tf32_main_kernel<D, DV, CAP>
       <<<(unsigned)blocks, kThreads, Layout<D, DV>::kBytes, stream>>>(
           q, k, v, dout, lse, delta, part, dq, bh_kv, group, shares, per, tiles, mask);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -877,31 +911,63 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   return cudaGetLastError();
 }
 
+// The head dims' blocks an SM holds, with or without the softcap, or 0.
+template <bool CAP>
+int occupancy(int d) {
+  switch (d) {
+    case 64: return main_occupancy<64, 64, CAP>();
+    case 96: return main_occupancy<96, 96, CAP>();
+    case 128: return main_occupancy<128, 128, CAP>();
+    case 192: return main_occupancy<192, 128, CAP>();
+    case 256: return main_occupancy<256, 256, CAP>();
+  }
+  return 0;
+}
+
+// The head dims' launch, with or without the softcap.
+template <bool CAP>
+cudaError_t dispatch(const float* q, const float* k, const float* v, const float* o,
+                     const float* dout, const float* lse, float* dq, float* dk, float* dv,
+                     float* delta, float* part, int bh, int s, int d, int group, int shares,
+                     const Mask& m, cudaStream_t st) {
+  switch (d) {
+    case 64:
+      return launch<64, 64, CAP>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
+                                 shares, m, st);
+    case 96:
+      return launch<96, 96, CAP>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
+                                 shares, m, st);
+    case 128:
+      return launch<128, 128, CAP>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
+                                   shares, m, st);
+    case 192:
+      return launch<192, 128, CAP>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
+                                   shares, m, st);
+    default:
+      return launch<256, 256, CAP>(q, k, v, o, dout, lse, dq, dk, dv, delta, part, bh, s, group,
+                                   shares, m, st);
+  }
+}
+
 }  // namespace
 
-// The (D, Dv) pairs the kernel takes: D = Dv in {64, 128, 256}, and MLA's
-// (192, 128).
+// The (D, Dv) pairs the kernel takes: D = Dv in {64, 96, 128, 256}, and
+// MLA's (192, 128).
 static bool takes(int d, int dv) {
-  return (d == dv && (d == 64 || d == 128 || d == 256)) || (d == 192 && dv == 128);
+  return (d == dv && (d == 64 || d == 96 || d == 128 || d == 256)) || (d == 192 && dv == 128);
 }
 
 // The number of shares the dK/dV launch cuts each key tile's work into
-// (the partials' scratch is shares * (bh / group) * s * (d + dv) f32), or
-// 0 when the arguments are refused or the device query fails.
+// (the partials' scratch is shares * (bh / group) * s * (d + dv) f32) for
+// the softcapped kernel when `capped` is not 0, or 0 when the arguments
+// are refused or the device query fails.
 extern "C" int flash_attention_bwd_tf32_shares(int bh, int s, int d, int dv, int group,
-                                               int causal, int kind, int window) {
+                                               int causal, int kind, int window, int capped) {
   if (bh <= 0 || s <= 0 || group <= 0 || bh % group || !takes(d, dv)) return 0;
   if (kind != kGlobal && window < 1) return 0;
-  const Mask m = make_mask(s, d, causal, kind, window);
-  const Work w = work_of(d, dv);
-  int per_sm = 0;
-  switch (d) {
-    case 64: per_sm = main_occupancy<64, 64>(); break;
-    case 128: per_sm = main_occupancy<128, 128>(); break;
-    case 192: per_sm = main_occupancy<192, 128>(); break;
-    case 256: per_sm = main_occupancy<256, 256>(); break;
-  }
-  return choose_shares(bh / group, s, group, m, w, per_sm);
+  const Mask m = make_mask(s, d, causal, kind, window, 0.0);
+  const int per_sm = capped ? occupancy<true>(d) : occupancy<false>(d);
+  return choose_shares(bh / group, s, group, m, work_of(d, dv), per_sm);
 }
 
 // q, dq: (bh, s, d) f32; o, dout: (bh, s, dv) f32; k, dk: (bh / group, s,
@@ -909,8 +975,9 @@ extern "C" int flash_attention_bwd_tf32_shares(int bh, int s, int d, int dv, int
 // forward; delta: (bh, s) f32 scratch; part: shares * (bh / group) * s *
 // (d + dv) f32 scratch (every share's dK partials, then every share's
 // dV).  All contiguous, 16-byte aligned, on the current device; (d, dv)
-// in {(64, 64), (128, 128), (256, 256), (192, 128)}; no softcap (the first
-// kernel keeps it).  kind: 0 global, 1 local, 2 chunked.
+// in {(64, 64), (96, 96), (128, 128), (256, 256), (192, 128)}; softcap > 0
+// caps the scores (the CAP instantiations), 0 does not.  kind: 0 global,
+// 1 local, 2 chunked.
 extern "C" int flash_attention_bwd_tf32(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const float* lse,
                                         void* dq, void* dk, void* dv_out, float* delta,
@@ -918,10 +985,10 @@ extern "C" int flash_attention_bwd_tf32(const void* q, const void* k, const void
                                         int shares, int causal, int kind, int window,
                                         double softcap, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (group <= 0 || bh % group || shares <= 0 || softcap != 0.0 || !takes(d, dv))
+  if (group <= 0 || bh % group || shares <= 0 || softcap < 0.0 || !takes(d, dv))
     return (int)cudaErrorInvalidValue;
   if (kind != kGlobal && window < 1) return (int)cudaErrorInvalidValue;
-  const Mask m = make_mask(s, d, causal, kind, window);
+  const Mask m = make_mask(s, d, causal, kind, window, softcap);
   const cudaStream_t st = (cudaStream_t)stream;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -931,18 +998,8 @@ extern "C" int flash_attention_bwd_tf32(const void* q, const void* k, const void
   float* dqf = static_cast<float*>(dq);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv_out);
-  switch (d) {
-    case 64:
-      return (int)launch<64, 64>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
-                                 group, shares, m, st);
-    case 128:
-      return (int)launch<128, 128>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
-                                   group, shares, m, st);
-    case 192:
-      return (int)launch<192, 128>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
-                                   group, shares, m, st);
-    default:
-      return (int)launch<256, 256>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta, part, bh, s,
-                                   group, shares, m, st);
-  }
+  return (int)(softcap > 0.0 ? dispatch<true>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta,
+                                              part, bh, s, d, group, shares, m, st)
+                             : dispatch<false>(qf, kf, vf, of, df, lse, dqf, dkf, dvf, delta,
+                                               part, bh, s, d, group, shares, m, st));
 }

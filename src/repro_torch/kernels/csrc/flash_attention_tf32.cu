@@ -1,6 +1,7 @@
 // Forward attention with an online softmax on Hopper's tensor cores at f32
 // accuracy (sm_90a): the f32 path for q/k and v head dims (D, Dv) = (64,
-// 64), (128, 128), (256, 256) and MLA's (192, 128).
+// 64), (96, 96), (128, 128), (256, 256) and MLA's (192, 128), with or
+// without a softcap.
 //
 // Replaces, for f32 inputs at those head dims, the Pallas TPU kernel
 // `flash_attention` (`_kernel`) of src/repro/kernels/flash_attention.py:
@@ -10,16 +11,11 @@
 // `window` keys) masks and an optional tanh softcap on the scores.  Query
 // row bh reads kv row bh / G, so MQA and GQA need no repeat of k and v.
 // bf16 inputs take flash_attention_wgmma.cu, other head dims the CUDA-core
-// kernel of flash_attention.cu; the wrapper picks the path from dtype, D,
-// Dv and the softcap: f32 with a softcap also stays on the CUDA-core kernel,
-// whose q.k sums round as the plain version's do (at softcapped scores the
-// f32 rounding of a score moves the output by about the f32 tolerance, so
-// this kernel, summing in another order, can differ from the plain
-// version by more while being about as close to the exact function).  The
-// softcap is implemented here all the same.
+// kernel of flash_attention.cu; the wrapper picks the path from dtype, D
+// and Dv.
 //
 // Arithmetic: both products run on the tensor cores in TF32 with three
-// terms (3xTF32).  Each f32 operand x is split into hi = tf32(x) (round to
+// terms (3xTF32; with a softcap q.k runs in f64, below).  Each f32 operand x is split into hi = tf32(x) (round to
 // nearest, the low 13 bits zero) and lo = tf32(x - hi), and a product is
 // lo_a hi_b + hi_a lo_b + hi_a hi_b summed in f32: the dropped lo_a lo_b
 // and the rounding of lo leave some 2^-23 of the product, where plain TF32
@@ -30,9 +26,32 @@
 // c) * c, before the mask; masked scores take the finite value
 // -2.3819763e38 and keys past S take -inf; the running (m, l, acc) are
 // f32; p stays f32 (split like any operand) for P.V; o = acc / max(l,
-// 1e-30).  When the caller asks (a gradient will be taken), each row's
-// log-sum-exp m + log(max(l, 1e-30)) is written beside o for the backward
-// of flash_attention_bwd_tf32.cu.
+// 1e-30).
+//
+// The softcap in f64.  At softcapped scores (tens in magnitude) one f32
+// rounding of a score moves p by some 1e-7 of itself times |s|, and the
+// output by about the f32 tolerance (1e-5 absolute plus 1e-5 relative):
+// the plain f32 version itself lands at up to 0.86 of it from the function
+// evaluated in float64, and this kernel, with tanhf (2 ulps, 6e-6 of a
+// score at c = 50) and four f32 roundings between q.k and p, at 1.05.
+// With the score formed in double from the 3xTF32 sums the worst element
+// still grew with D: the tensor cores' rounding of each four-product sum
+// of hi parts adds up over D / 4 sums instead of averaging out.  So with
+// a softcap (the CAP instantiations) q.k runs on the FP64 tensor cores
+// (mma m8n8k4 .f64: f32 products are exact in double, the sums round at
+// 2^-53), then is scaled by 1/(sqrt(D) c), capped by the double tanh and
+// multiplied by c; the score is kept as an f32 pair hi + lo, the row
+// maximum is taken over hi, and p = exp((hi - m) + lo), so the only f32
+// roundings left are the exp's and P V's (3xTF32 as without a softcap).
+// chip_smoke.py's phase 4 holds every route's worst element against
+// float64.  The cost: the FP64 tensor cores run at 67 TFLOP/s against
+// TF32's 495 and each operand is converted to double on its way in,
+// where 3xTF32 runs three products; and the double tanh takes some 40
+// FP64 operations a score.  Without a softcap nothing of this is compiled.
+//
+// When the caller asks (a gradient will be taken), each row's log-sum-exp
+// m + log(max(l, 1e-30)) is written beside o for the backward of
+// flash_attention_bwd_tf32.cu.
 //
 // What bounds it on this card.  At the serving shapes (D = 256, a local
 // window of 2,048, S up to 3,000) the work is 2*(D + Dv) operations per
@@ -73,7 +92,7 @@
 //     which issues at a quarter of their rate and held a first version
 //     far below the tensor cores' TF32 rate;
 //   * q, then K and V tiles of BK keys (32 at D = 256, 192 and 128, 64 at
-//     D = 64), arrive by cp.async into a two-stage ring: the next kv tile
+//     D = 64 and 96), arrive by cp.async into a two-stage ring: the next kv tile
 //     is in flight while this one's products run.  q and K rows are
 //     padded to D + 4 floats, V rows to Dv + 4, so every fragment load of
 //     a warp falls on distinct banks; keys and queries past S are
@@ -99,8 +118,23 @@
 // the MLA shape takes the D = 128 and 256 tile.  S = Q K^T runs 24 k8
 // steps over D, P V 16 n-blocks over Dv; the scale is 1/sqrt(D).  ptxas
 // (CUDA 12 on the H100's machine, printed by chip_smoke.py's phase 0):
-// 216 registers at (192, 128), 255 at (256, 256), 201 at (128, 128), 173
-// at (64, 64), no spill.
+// 218 registers at (192, 128), 255 at (256, 256), 203 at (128, 128), 208
+// at (96, 96), 171 at (64, 64), no spill; the softcapped instantiations
+// the same but for (256, 256), which spills 8 bytes.
+//
+// (96, 96), the ~100M training example's head dim (gemma2's softcap of
+// 50, BH 64 over 32 kv rows, S 512): BK 64 as at D = 64, at its true
+// width: S = Q K^T runs 12 k8 steps, P V 12 n-blocks, and rows padded to
+// 100 floats keep every fragment load on distinct banks (100 = 4 mod
+// 32), so no product is spent on padding.  q and a two-stage ring of 64
+// keys take 128,000 bytes, one block an SM, as the registers (a thread's
+// 48 f32 of output, 16 scores) allow at most two.  Its grid, 64 x 8 q
+// tiles, fills 132 SMs nearly four times over, so the plan splits no kv
+// range there.  What bounds it is bytes (q, k, v and o once: 37.7 MB,
+// 0.0113 ms at 3.35 TB/s; its 3.2e9 operations take 0.0065 ms at the TF32
+// rate), but the kernel runs q.k on the FP64 tensor cores, a double tanh
+// for every score and P V three times over: the tensor cores' and the
+// FP64 pipe's time, not the bytes, set its pace.
 //
 // Interface: plain C, bound from Python with ctypes.  The entry point
 // launches on the caller's stream, allocates nothing, does not
@@ -184,6 +218,16 @@ __device__ __forceinline__ void mma_tf32_k4(float (&d)[4], uint32_t a0, uint32_t
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
+// (d0, d1) += a b in f64 on the FP64 tensor cores: an 8 x 8 x 4 product,
+// A row g = lane / 4 at column t = lane % 4, B row t at column g, D row g
+// at columns 2t and 2t + 1
+__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
 // d += a b in 3xTF32, the small terms first
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
                                            const uint32_t (&alo)[4], float b0, float b1) {
@@ -224,12 +268,15 @@ __host__ __device__ inline void kv_tiles(int q0, int S, int BK, int causal, int 
 // tiles [z split_tiles, (z + 1) split_tiles) and writes its unnormalised
 // output, running maximum and sum to `part` instead of o: (splits, BH, S,
 // Dv) outputs, then (splits, BH, S) maxima, then (splits, BH, S) sums.
-template <int D, int DV, int BK>
+// CAP: with a softcap, formed in double (see the header); cap_scale is
+// 1 / (sqrt(D) softcap) and softcap c.
+template <int D, int DV, int BK, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int group,
-                  float scale, int causal, int kind, int window, float softcap,
-                  int split_tiles, float* __restrict__ part, float* __restrict__ lse) {
+                  float scale, int causal, int kind, int window, double softcap,
+                  double cap_scale, int split_tiles, float* __restrict__ part,
+                  float* __restrict__ lse) {
   using L = Layout<D, DV, BK>;
   constexpr int R = L::kRow, RV = L::kRowV;
   constexpr int KH = BK / 2;  // keys of a tile per warp
@@ -299,53 +346,87 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* vs = sv + st * L::kTileV + kh * KH * RV;
 
     // S = Q K^T over this warp's keys: A = q rows (row, d), B = K rows
-    // (key, d).  The large terms hi_q hi_k are summed from zero on the
-    // tensor cores four products at a time (m16n8k4: the k8 fragments'
-    // two halves) and added to s in f32 with Kahan's compensation, so
-    // neither the tensor core's rounding of its sums nor s's own grows
-    // with D; the small terms, 2^-11 of those, and the compensation
-    // accumulate on the tensor cores.
+    // (key, d).
     float s[KH / 8][4], small[KH / 8][4];
+    if constexpr (CAP) {
+      // With a softcap, in f64 on the FP64 tensor cores (m8n8k4: rows g
+      // of the top and the bottom 8, keys 2t and 2t + 1 of each n-block,
+      // the m16n8 accumulator's layout): f32 products are exact in double
+      // and the sums round at 2^-53, then the score is formed in double
+      // (see the header) and kept as hi (s) + lo (small).
+      double sd[KH / 8][4];
 #pragma unroll
-    for (int n = 0; n < KH / 8; ++n)
+      for (int n = 0; n < KH / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) sd[n][e] = 0.0;
 #pragma unroll 4
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const float* qa = sq + rq * R + 8 * kk + t;
-      uint32_t ahi[4], alo[4];
-      split_tf32(qa[0], ahi[0], alo[0]);
-      split_tf32(qa[8 * R], ahi[1], alo[1]);
-      split_tf32(qa[4], ahi[2], alo[2]);
-      split_tf32(qa[8 * R + 4], ahi[3], alo[3]);
+      for (int kk = 0; kk < D / 4; ++kk) {
+        const float* qa = sq + rq * R + 4 * kk + t;
+        const double a0 = qa[0], a1 = qa[8 * R];
 #pragma unroll
-      for (int n = 0; n < KH / 8; ++n) {
-        const float* kr = ks + (8 * n + g) * R + 8 * kk + t;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(kr[0], bh0, bl0);
-        split_tf32(kr[4], bh1, bl1);
-        float big0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, big1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32_k4(big0, ahi[0], ahi[1], bh0);
-        mma_tf32_k4(big1, ahi[2], ahi[3], bh1);
-        mma_tf32(small[n], alo, bh0, bh1);
-        mma_tf32(small[n], ahi, bl0, bl1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // Kahan: the add's rounding error joins the small terms
-          const float y = big0[e] + big1[e];
-          const float sum = s[n][e] + y;
-          small[n][e] += (s[n][e] - sum) + y;
-          s[n][e] = sum;
+        for (int n = 0; n < KH / 8; ++n) {
+          const double b = ks[(8 * n + g) * R + 4 * kk + t];
+          mma_f64(sd[n][0], sd[n][1], a0, b);
+          mma_f64(sd[n][2], sd[n][3], a1, b);
         }
       }
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const double c = softcap * tanh(sd[n][e] * cap_scale);
+          s[n][e] = (float)c;
+          small[n][e] = (float)(c - (double)s[n][e]);
+        }
+    } else {
+      // The large terms hi_q hi_k are summed from zero on the tensor
+      // cores four products at a time (m16n8k4: the k8 fragments' two
+      // halves) and added to s in f32 with Kahan's compensation, so
+      // neither the tensor core's rounding of its sums nor s's own grows
+      // with D; the small terms, 2^-11 of those, and the compensation
+      // accumulate on the tensor cores.
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] = 0.0f;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float* qa = sq + rq * R + 8 * kk + t;
+        uint32_t ahi[4], alo[4];
+        split_tf32(qa[0], ahi[0], alo[0]);
+        split_tf32(qa[8 * R], ahi[1], alo[1]);
+        split_tf32(qa[4], ahi[2], alo[2]);
+        split_tf32(qa[8 * R + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) {
+          const float* kr = ks + (8 * n + g) * R + 8 * kk + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+          float big0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, big1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32_k4(big0, ahi[0], ahi[1], bh0);
+          mma_tf32_k4(big1, ahi[2], ahi[3], bh1);
+          mma_tf32(small[n], alo, bh0, bh1);
+          mma_tf32(small[n], ahi, bl0, bl1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // Kahan: the add's rounding error joins the small terms
+            const float y = big0[e] + big1[e];
+            const float sum = s[n][e] + y;
+            small[n][e] += (s[n][e] - sum) + y;
+            s[n][e] = sum;
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += small[n][e];
     }
-#pragma unroll
-    for (int n = 0; n < KH / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += small[n][e];
 
     // scale, softcap, then the mask (whole tiles the mask shows to every
-    // row skip it; keys past S always take -inf)
+    // row skip it; keys past S always take -inf).  With CAP the score is
+    // hi + lo: s[n][e] takes hi, small[n][e] lo
     const int q_hi = q0 + kBQ - 1;
     bool whole = k0 + BK <= S;
     if (causal) whole = whole && k0 + BK - 1 <= q0;
@@ -357,15 +438,15 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+        float x = CAP ? s[n][e] : s[n][e] * scale, x_lo = CAP ? small[n][e] : 0.0f;
         if (!whole) {
           const int kp = k0 + kh * KH + 8 * n + 2 * t + (e & 1);
           const int qp = e < 2 ? qp0 : qp1;
-          if (!visible(qp, kp, causal, kind, window)) x = kNegInf;
-          if (kp >= S) x = -INFINITY;
+          if (!visible(qp, kp, causal, kind, window)) x = kNegInf, x_lo = 0.0f;
+          if (kp >= S) x = -INFINITY, x_lo = 0.0f;
         }
         s[n][e] = x;
+        if constexpr (CAP) small[n][e] = x_lo;
       }
     }
 
@@ -394,13 +475,16 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // expf, not exp2f of a product with log2(e): that product's rounding
     // would move p by some 2^-24 of |s - m|, up to 6e-6 at softcap 50
     const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    // (with CAP the exponent is (hi - m) + lo: hi - m is exact where p
+    // matters, hi and m being within a factor of two)
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
     for (int n = 0; n < KH / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = s[n][e] - (e < 2 ? mn0 : mn1);
+        s[n][e] = expf(CAP ? d + small[n][e] : d);
+      }
       sum0 += s[n][0] + s[n][1];
       sum1 += s[n][2] + s[n][3];
     }
@@ -559,22 +643,23 @@ void plan(int bh, int s, int causal, int kind, int window, int& most, int& split
   splits = min(kMaxSplits, max(1, (int)ceil(most / share)));
 }
 
-template <int D, int DV, int BK>
+template <int D, int DV, int BK, bool CAP>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* part,
                    float* lse, int bh, int s, int group, int causal, int kind, int window,
-                   float softcap, int splits, cudaStream_t stream) {
+                   double softcap, int splits, cudaStream_t stream) {
   const int smem = (int)Layout<D, DV, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tf32_kernel<D, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tf32_kernel<D, DV, BK, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
+  const double cap_scale = CAP ? 1.0 / (sqrt((double)D) * softcap) : 0.0;
   const int n_q = (s + kBQ - 1) / kBQ;
   int most, planned;
   plan<BK>(bh, s, causal, kind, window, most, planned);
   if (splits != planned) return cudaErrorInvalidValue;  // the scratch was sized for it
   const int split_tiles = splits > 1 ? (most + splits - 1) / splits : 0;
-  flash_tf32_kernel<D, DV, BK><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
-      q, k, v, o, s, group, scale, causal, kind, window, softcap, split_tiles,
+  flash_tf32_kernel<D, DV, BK, CAP><<<dim3(bh, n_q, splits), kThreads, smem, stream>>>(
+      q, k, v, o, s, group, scale, causal, kind, window, softcap, cap_scale, split_tiles,
       split_tiles > 0 ? part : nullptr, split_tiles > 0 ? nullptr : lse);
   err = cudaGetLastError();
   if (err != cudaSuccess || split_tiles == 0) return err;
@@ -584,16 +669,42 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   return cudaGetLastError();
 }
 
+// The head dims' kernel at kv tiles of BK keys, with or without the
+// softcap.
+template <bool CAP>
+cudaError_t dispatch(const float* q, const float* k, const float* v, float* o, float* part,
+                     float* lse, int bh, int s, int d, int group, int causal, int kind,
+                     int window, double softcap, int splits, cudaStream_t st) {
+  switch (d) {
+    case 64:
+      return launch<64, 64, 64, CAP>(q, k, v, o, part, lse, bh, s, group, causal, kind, window,
+                                     softcap, splits, st);
+    case 96:
+      return launch<96, 96, 64, CAP>(q, k, v, o, part, lse, bh, s, group, causal, kind, window,
+                                     softcap, splits, st);
+    case 128:
+      return launch<128, 128, 32, CAP>(q, k, v, o, part, lse, bh, s, group, causal, kind,
+                                       window, softcap, splits, st);
+    case 192:
+      return launch<192, 128, 32, CAP>(q, k, v, o, part, lse, bh, s, group, causal, kind,
+                                       window, softcap, splits, st);
+    default:
+      return launch<256, 256, 32, CAP>(q, k, v, o, part, lse, bh, s, group, causal, kind,
+                                       window, softcap, splits, st);
+  }
+}
+
 }  // namespace
 
 // Keys per kv tile, by head dims: 32 at (256, 256), (192, 128) and (128,
 // 128) (q and a two-stage ring take 195 KB at D = 256, 131 KB at MLA's
-// (192, 128): one block an SM; 99 KB at D = 128: two), 64 at D = 64.
+// (192, 128): one block an SM; 99 KB at D = 128: two), 64 at D = 64 and
+// D = 96 (128 KB).
 
-// The (D, Dv) pairs the kernel takes: D = Dv in {64, 128, 256}, and MLA's
-// (192, 128).
+// The (D, Dv) pairs the kernel takes: D = Dv in {64, 96, 128, 256}, and
+// MLA's (192, 128).
 static bool takes(int d, int dv) {
-  return (d == dv && (d == 64 || d == 128 || d == 256)) || (d == 192 && dv == 128);
+  return (d == dv && (d == 64 || d == 96 || d == 128 || d == 256)) || (d == 192 && dv == 128);
 }
 
 // The number of kv shares flash_attention_tf32_fwd takes for this call
@@ -603,7 +714,7 @@ extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int dv, int cau
   if (!takes(d, dv)) return 0;
   if (bh <= 0 || s <= 0) return 1;
   int most, splits;
-  if (d == 64)
+  if (d == 64 || d == 96)
     plan<64>(bh, s, causal, kind, window, most, splits);
   else
     plan<32>(bh, s, causal, kind, window, most, splits);
@@ -612,8 +723,9 @@ extern "C" int flash_attention_tf32_splits(int bh, int s, int d, int dv, int cau
 
 // q: (bh, s, d) f32; k: (bh / group, s, d) f32; v: (bh / group, s, dv)
 // f32; o: (bh, s, dv) f32; contiguous, 16-byte aligned, on the current
-// device; (d, dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}.
-// kind: 0 global, 1 local, 2 chunked.  splits is
+// device; (d, dv) in {(64, 64), (96, 96), (128, 128), (256, 256), (192,
+// 128)}.  kind: 0 global, 1 local, 2 chunked; softcap > 0 caps the scores
+// (in double, the CAP instantiations), 0 does not.  splits is
 // flash_attention_tf32_splits' answer; above 1 each q tile's kv tiles
 // are cut into that many shares, one block each, joined by a second
 // launch, and `part` is scratch of splits * bh * s * (dv + 2) floats
@@ -627,25 +739,15 @@ extern "C" int flash_attention_tf32_fwd(const void* q, const void* k, const void
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (group <= 0 || bh % group || !takes(d, dv)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const float cap = (float)softcap;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
   float* pf = static_cast<float*>(part);
   float* lf = static_cast<float*>(lse);
-  switch (d) {
-    case 64:
-      return (int)launch<64, 64, 64>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind, window,
-                                     cap, splits, st);
-    case 128:
-      return (int)launch<128, 128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
-                                       window, cap, splits, st);
-    case 192:
-      return (int)launch<192, 128, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
-                                       window, cap, splits, st);
-    default:
-      return (int)launch<256, 256, 32>(qf, kf, vf, of, pf, lf, bh, s, group, causal, kind,
-                                       window, cap, splits, st);
-  }
+  return (int)(softcap > 0.0
+                   ? dispatch<true>(qf, kf, vf, of, pf, lf, bh, s, d, group, causal, kind,
+                                    window, softcap, splits, st)
+                   : dispatch<false>(qf, kf, vf, of, pf, lf, bh, s, d, group, causal, kind,
+                                     window, softcap, splits, st));
 }

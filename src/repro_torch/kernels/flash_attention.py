@@ -1,20 +1,20 @@
 """Flash attention forward: the wrapper around the three Hopper kernels,
 ``csrc/flash_attention_wgmma.cu`` (bf16 with head dim 64, 80, 128 or
 256, or MLA's q/k 192 and v 128, on the tensor cores),
-``csrc/flash_attention_tf32.cu`` (f32 at those head dims without a
-softcap, on the tensor cores in 3xTF32) and ``csrc/flash_attention.cu``
-(every other case, on the CUDA cores in f32).
-``path(dtype, D, softcap, v_dim)`` names the one that runs; the choice
-depends on the dtype, the head dims of q and k (D) and of v (Dv) and
-whether there is a softcap alone.
+``csrc/flash_attention_tf32.cu`` (f32 with head dim 64, 96, 128 or 256,
+or MLA's, softcap or not, on the tensor cores in 3xTF32) and
+``csrc/flash_attention.cu`` (every other case, on the CUDA cores in
+f32).  ``path(dtype, D, softcap, v_dim)`` names the one that runs; the
+choice depends on the dtype and the head dims of q and k (D) and of v
+(Dv) alone.
 
 Layout: q and k (BH, S, D) and (BH / G, S, D); v (BH / G, S, Dv) —
 batch and heads merged with heads inner, so query row ``bh`` attends with
 kv row ``bh // G`` (MQA and GQA without a repeat of k and v).  f32 or
 bf16, D and Dv up to 256; the output (BH, S, Dv) is in q's dtype, the
 scale 1/sqrt(D).  Dv differs from D in MLA (deepseek-v2: D 192, Dv 128),
-which both tensor-core kernels take at that pair (the f32 one without a
-softcap) and the CUDA-core kernel at any.  Masks: causal, ``local``
+which both tensor-core kernels take at that pair and the CUDA-core
+kernel at any.  Masks: causal, ``local``
 (keys within ``window`` of the query) and ``chunked`` (aligned chunks of
 ``window``), with an optional tanh softcap on the scores.
 
@@ -36,10 +36,10 @@ The backward, ``flash_attention_bwd``, has three kernels:
 ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at D = Dv in
 WGMMA_BF16_HEAD_DIMS and at (D, Dv) in WGMMA_QK_V_DIMS, on the tensor
 cores),
-``csrc/flash_attention_bwd_tf32.cu`` (f32 at the same head dims without
-a softcap, on the tensor cores in 3xTF32), both reading the forward's
-lse, and ``csrc/flash_attention_bwd.cu`` (every other case,
-any Dv, on the CUDA cores in f32, recomputing the lse);
+``csrc/flash_attention_bwd_tf32.cu`` (f32 at TF32_HEAD_DIMS and
+WGMMA_QK_V_DIMS, softcap or not, on the tensor cores in 3xTF32), both
+reading the forward's lse, and ``csrc/flash_attention_bwd.cu`` (every
+other case, any Dv, on the CUDA cores in f32, recomputing the lse);
 ``bwd_path(dtype, D, softcap, v_dim)`` names the one that runs, and
 ``flash_attention_bwd.launches_by_path`` counts each.
 ``FlashAttentionFn`` asks the forward for the lse when a gradient will
@@ -56,13 +56,17 @@ from . import _build, _scratch, ref
 
 KINDS = {"global": 0, "local": 1, "chunked": 2}
 MAX_HEAD_DIM = 256
-#: head dims of both tensor-core paths: whole 64-column (128-byte) blocks
-#: up to the 256 columns one wgmma accumulator holds
-WGMMA_HEAD_DIMS = (64, 128, 256)
-#: head dims of the bf16 (wgmma) path: those, and hubert-xlarge's 80,
-#: stored as two whole blocks that the tensor maps' out-of-bounds fill
-#: pads with zeros (the 3xTF32 kernels take no such width)
+#: head dims of the bf16 (wgmma) path: whole 64-column (128-byte) blocks
+#: up to the 256 columns one wgmma accumulator holds, and hubert-xlarge's
+#: 80, stored as two whole blocks that the tensor maps' out-of-bounds
+#: fill pads with zeros
 WGMMA_BF16_HEAD_DIMS = (64, 80, 128, 256)
+#: head dims of the f32 (3xTF32 mma.sync) path: 64, 128, 256 and the
+#: ~100M training example's 96 (12 k8 steps at its true width); the
+#: mma.sync fragments take any multiple of 8, but 80 and the smoke
+#: configs' 16 and 32 stay on the CUDA-core kernels until a model needs
+#: them
+TF32_HEAD_DIMS = (64, 96, 128, 256)
 #: (D, Dv) pairs with v narrower than q and k that both tensor-core
 #: kernels also take: MLA's 128 + 64 query / key columns and 128 value
 #: columns
@@ -74,28 +78,27 @@ def path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
     """The kernel that computes attention of `dtype` with q and k of head
     dim `head_dim` and v of head dim `v_dim` (`head_dim` when None) on
     the card: "wgmma" for bf16 at D = Dv in WGMMA_BF16_HEAD_DIMS or (D,
-    Dv) in WGMMA_QK_V_DIMS; "tf32" for f32 without a softcap at D = Dv in
-    WGMMA_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS; "simt" otherwise (any
-    other head dims, f32 at D 80, and f32 with a softcap).
+    Dv) in WGMMA_QK_V_DIMS; "tf32" for f32 at D = Dv in TF32_HEAD_DIMS or
+    (D, Dv) in WGMMA_QK_V_DIMS; "simt" otherwise (any other head dims).
+    No path depends on the softcap; every caller names it all the same,
+    as the whole case the kernel computes.
 
-    f32 with a softcap stays on the CUDA-core kernel, which sums q.k in
-    the plain version's order: at softcapped scores (tens in magnitude)
-    the f32 rounding of a score moves the output by about the f32
-    tolerance, so the 3xTF32 kernel, which sums in another order, differs
-    from the plain version by up to several times the tolerance while
-    being as close to the function evaluated in float64 (chip_smoke
-    phase 4 prints all three against float64)."""
+    With a softcap the 3xTF32 kernel runs q.k on the FP64 tensor cores
+    and forms each score in double (its source says why): at softcapped
+    scores (tens in magnitude) one f32
+    rounding of a score moves the output by about the f32 tolerance, so
+    that kernel is held against the function evaluated in float64, within
+    the f32 tolerance, where the plain f32 version itself lands at up to
+    0.86 of it (chip_smoke phase 4)."""
     if v_dim is None or v_dim == head_dim:
         tensor_cores = head_dim in (WGMMA_BF16_HEAD_DIMS
                                     if dtype == torch.bfloat16
-                                    else WGMMA_HEAD_DIMS)
+                                    else TF32_HEAD_DIMS)
     else:
         tensor_cores = (head_dim, v_dim) in WGMMA_QK_V_DIMS
     if not tensor_cores:
         return "simt"
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    return "simt" if softcap else "tf32"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32"
 
 
 def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
@@ -103,10 +106,10 @@ def bwd_path(dtype: torch.dtype, head_dim: int, softcap: float = 0.0,
     """The kernel that computes the attention backward of `dtype` with q
     and k of head dim `head_dim` and v of head dim `v_dim` (`head_dim`
     when None) on the card: "wgmma" (bf16 at D = Dv in
-    WGMMA_BF16_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS, with or without a
-    softcap) or "tf32" (f32 at D = Dv in WGMMA_HEAD_DIMS or those (D, Dv),
-    no softcap), both reading the forward's lse; "simt" in every other
-    case (f32 on the CUDA cores, its own lse).  It is the
+    WGMMA_BF16_HEAD_DIMS or (D, Dv) in WGMMA_QK_V_DIMS) or "tf32" (f32 at
+    D = Dv in TF32_HEAD_DIMS or those (D, Dv)), both reading the
+    forward's lse, with or without a softcap; "simt" in every other case
+    (f32 on the CUDA cores, its own lse).  It is the
     forward's ``path`` in every case: what the forward's kernel
     computes, this one differentiates, and the tensor-core forwards write
     the lse the tensor-core backwards read."""
@@ -178,9 +181,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if return_lse and kernel == "simt":
         raise ValueError("the simt forward writes no lse: only the wgmma "
                          "and tf32 paths (bf16 at D = Dv in "
-                         "WGMMA_BF16_HEAD_DIMS, f32 without a softcap at "
-                         "D = Dv in WGMMA_HEAD_DIMS, or (D, Dv) in "
-                         "WGMMA_QK_V_DIMS) do")
+                         "WGMMA_BF16_HEAD_DIMS, f32 at D = Dv in "
+                         "TF32_HEAD_DIMS, or (D, Dv) in WGMMA_QK_V_DIMS) "
+                         "do")
     out = q.new_empty((BH, S, Dv))
     lse = (torch.empty((BH, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -328,8 +331,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # f32 dK and dV partials (each at its own width) a last
             # launch sums in order; the scratch holds them, then D_i
             # (BH, S) f32
+            # (the tf32 count reads its softcapped kernel's occupancy
+            # where the scores are capped)
+            capped = (int(softcap > 0),) if kernel == "tf32" else ()
             shares = _bwd_shares(name, q.device.index, BH, S, D, Dv, group,
-                                 int(causal), KINDS[kind], int(window))
+                                 int(causal), KINDS[kind], int(window),
+                                 *capped)
             n_part = shares * (k.numel() + v.numel())
             buf = _scratch.scratch(q.device, stream, (n_part + BH * S) * 4)
             part = buf.data_ptr()
@@ -362,9 +369,9 @@ flash_attention_bwd.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 @functools.lru_cache(maxsize=256)
 def _bwd_shares(name: str, device_index: int, *args: int) -> int:
     """The dK/dV share count of backward library `name` (the wgmma or
-    tf32 one) for (bh, s, d, dv, group, causal, kind, window) on the
-    current device (it reads the SM count and the kernel's occupancy),
-    kept per shape."""
+    tf32 one) for (bh, s, d, dv, group, causal, kind, window), and for
+    tf32 whether the scores are softcapped, on the current device (it
+    reads the SM count and the kernel's occupancy), kept per shape."""
     shares = getattr(_build.load(name), name + "_shares")(*args)
     if shares <= 0:
         raise RuntimeError(f"{name}: no share count for {args}")

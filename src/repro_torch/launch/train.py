@@ -66,10 +66,12 @@ def train_loop(cfg, shape, mesh=None, steps: int = 100, ckpt_dir=None,
                resume=False, save_every: int = 0, log_every: int = 10,
                fail_at: int = -1, microbatch: int = 1, remat: bool = True,
                seed: int = 0, data: str = "synthetic", opt_cfg=None,
-               quiet=False, device=None):
+               quiet=False, device=None, times=None):
     """The reference's loop: a checkpoint every `save_every` steps,
     ``inj.maybe_fail(i)`` after saving, a final save; `resume` restores
-    the latest checkpoint.  Returns (state, the steps' losses).
+    the latest checkpoint.  Returns (state, the steps' losses).  A list
+    `times` takes each step's seconds on the host clock (the batch's copy
+    in, the step, and the loss read back, which waits for the device).
 
     `mesh=None`: one device, `device`.  With a mesh the state is built
     whole on each rank from the same seed and distributed into the
@@ -134,6 +136,8 @@ def train_loop(cfg, shape, mesh=None, steps: int = 100, ckpt_dir=None,
         wd.beat(i)
         sd.record(0, dt)
         history.append(loss)
+        if times is not None:
+            times.append(dt)
         if not quiet and writer and (i % log_every == 0 or i == steps - 1):
             print(f"[train] step {i} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} {dt:.2f}s",

@@ -24,7 +24,9 @@ from repro.kernels.rglru_scan import rglru_scan as jscan
 from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro.models.ssd import ssd_chunked
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import bwd_path, flash_attention
+from repro_torch.kernels.flash_attention import (TF32_HEAD_DIMS,
+                                                 WGMMA_BF16_HEAD_DIMS,
+                                                 bwd_path, flash_attention)
 from repro_torch.kernels.flash_attention import path as flash_path
 from repro_torch.kernels.rglru_scan import path as scan_path
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -112,41 +114,39 @@ def test_flash_path_depends_on_dtype_and_head_dim_alone(dtype, D):
     """Head dims 64, 128 and 256 take a tensor-core kernel: bf16 the
     wgmma one, f32 the 3xTF32 one; bf16 at hubert-xlarge's 80 the wgmma
     one too (padded to two column blocks), f32 there the CUDA-core one;
-    any other head dim (the zoo's smoke configs use 16 and 24) takes the
-    CUDA-core kernel.  (f16 is refused by the wrapper before a path is
-    chosen.)"""
-    if D in (64, 128, 256):
-        want = "wgmma" if dtype == torch.bfloat16 else "tf32"
-    elif D == 80 and dtype == torch.bfloat16:
-        want = "wgmma"
+    f32 at the ~100M training example's 96 the 3xTF32 one, bf16 there the
+    CUDA-core one; any other head dim (the zoo's smoke configs use 16 and
+    24) takes the CUDA-core kernel.  (f16 is refused by the wrapper
+    before a path is chosen.)"""
+    if dtype == torch.bfloat16:
+        want = "wgmma" if D in (64, 80, 128, 256) else "simt"
     else:
-        want = "simt"
+        want = "tf32" if D in (64, 96, 128, 256) else "simt"
     assert flash_path(dtype, D) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
-def test_flash_path_keeps_f32_with_a_softcap_on_cuda_cores(dtype, D):
-    """A softcap moves f32 at the tensor-core head dims to the CUDA-core
-    kernel (its q.k sums round as the plain version's do) and leaves bf16
-    and every other head dim where they were."""
-    want = flash_path(dtype, D)
-    if dtype == torch.float32 and D in (64, 128, 256):
-        want = "simt"
-    assert flash_path(dtype, D, 30.0) == want
+def test_flash_path_takes_a_softcap_where_it_takes_no_softcap(dtype, D):
+    """A softcap moves no case: f32 stays on the 3xTF32 kernel at
+    TF32_HEAD_DIMS (the example's 96 too; the kernel forms softcapped
+    scores in double) and on the CUDA-core one elsewhere, bf16 on wgmma
+    at its head dims."""
+    for d in (D, 96):
+        want = "tf32" if d in TF32_HEAD_DIMS else "simt"
+        if dtype == torch.bfloat16:
+            want = "wgmma" if d in WGMMA_BF16_HEAD_DIMS else "simt"
+        assert flash_path(dtype, d, 30.0) == want == flash_path(dtype, d)
+        assert bwd_path(dtype, d, 30.0) == want
 
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_paths_at_mla_head_dims(dtype, softcap):
     """MLA's q/k 192, v 128 takes the tensor-core kernels forward and
-    backward: bf16 the wgmma ones, softcap or not; f32 the 3xTF32 ones
-    without a softcap and the CUDA-core ones with it.  Other v widths at
-    q/k 192 stay on the CUDA cores."""
-    if dtype == torch.bfloat16:
-        want = "wgmma"
-    else:
-        want = "simt" if softcap else "tf32"
+    backward, softcap or not: bf16 the wgmma ones, f32 the 3xTF32 ones.
+    Other v widths at q/k 192 stay on the CUDA cores."""
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert flash_path(dtype, 192, softcap, 128) == want
     assert bwd_path(dtype, 192, softcap, 128) == want
     for dv in (64, 96, 192):

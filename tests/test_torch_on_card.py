@@ -360,9 +360,12 @@ def test_lm_wrappers_on_cpu_launch_nothing():
 def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
                                     dtype):
     """D = 64, 128 and 256 run a tensor-core kernel (bf16 the wgmma one,
-    f32 without a softcap the 3xTF32 one, its kv range split here: the
-    grids are small), D = 32 and f32 with a softcap the CUDA-core kernel;
-    the launch counts show which ran."""
+    f32 the 3xTF32 one, its kv range split here: the grids are small), D =
+    32 the CUDA-core kernel; the launch counts show which ran.  f32 with a
+    softcap on the 3xTF32 kernel is held against the function evaluated in
+    float64 (``_attention_f64``) at the same tolerance: at softcapped
+    scores the plain f32 version's own rounding is of the tolerance's
+    size, and that kernel forms its scores in double."""
     dev = _card()
     q, k, v = _qkv(S, 2, S, 4, 2, D, dtype, dev,
                    scale=4.0 if softcap else 1.0)
@@ -373,16 +376,16 @@ def test_flash_kernel_matches_plain(D, S, kind, window, causal, softcap,
     plain = ops.attention_op(q, k, v, use_kernel=False, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
-    if D in (64, 128, 256) and dtype == torch.bfloat16:
-        ran = "wgmma"
-    elif D in (64, 128, 256) and not softcap:
-        ran = "tf32"
+    if D in (64, 128, 256):
+        ran = "wgmma" if dtype == torch.bfloat16 else "tf32"
     else:
         ran = "simt"
     by_path[ran] += 1
     assert flash_attention.launches_by_path == by_path
     assert got.dtype == dtype and got.shape == q.shape
     tol = ATTN_TOL[dtype]
+    if ran == "tf32" and softcap:
+        plain = _attention_f64(q, k, v, kw)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                plain.float().cpu().numpy(), atol=tol,
                                rtol=tol)
@@ -414,6 +417,24 @@ def test_flash_kernel_serving_shape(S, dtype):
     if dtype == torch.bfloat16:
         _assert_bf16_attention_close(
             got, plain, ops.attention_op(q, k, v.abs(), use_kernel=False, **kw))
+
+
+def _attention_f64(q, k, v, kw):
+    """Attention of (B, S, H, D) q and k, v in float64 (k and v repeated
+    to q's heads): the witness of f32 with a softcap."""
+    B, S, Hq, D = q.shape
+    g = Hq // k.shape[2]
+    qd, kd, vd = (a.double().transpose(1, 2) for a in (q, k, v))
+    kd, vd = (a.repeat_interleave(g, 1) for a in (kd, vd))
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) / D ** 0.5
+    if kw.get("softcap"):
+        s = torch.tanh(s / kw["softcap"]) * kw["softcap"]
+    keep = ref.attention_mask(S, kw.get("causal", True),
+                              kw.get("kind", "global"), kw.get("window", 0),
+                              q.device)
+    s = torch.where(keep, s, torch.full_like(s, ref.NEG_INF))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                        vd).transpose(1, 2)
 
 
 #: gemma2-2b's inputs: unscaled, and q, k, v times 4 (scores times 16,
@@ -839,9 +860,9 @@ def test_learned_scorer_on_card_matches_numpy():
 # may round to neighbouring bf16 values) plus 1e-4 of the largest, so a
 # key tile dropped or added fails.  bf16 at head dims 64, 128, 256 and
 # MLA's (192, 128) runs on the tensor-core kernel (``bwd_path``
-# "wgmma"), f32 there without a softcap on the 3xTF32 one ("tf32"), both
-# reading the forward kernel's lse; other head dims and f32 with a
-# softcap on the first kernel ("simt").  The forward's lse against the
+# "wgmma"), f32 there and at 96 on the 3xTF32 one ("tf32"), softcap or
+# not, both reading the forward kernel's lse; other head dims on the
+# first kernel ("simt").  The forward's lse against the
 # plain one within LSE_TOL.  The
 # RG-LRU scan's backward is exactly its serial reverse loop.
 # ---------------------------------------------------------------------------
@@ -921,9 +942,9 @@ def test_flash_bwd_kernel_matches_plain(D, S, kw, dtype, BH, G):
     """Ragged S (query rows and keys past S in the last tile), GQA 2:1
     and MQA 10:1 (dK and dV summed over the group's query heads; on the
     tensor-core paths split into shares), every mask; one launch a call,
-    on its path: D = 16 and f32 with a softcap on the first kernel, bf16
-    at D = 64, 128, 256 on the wgmma one and f32 there on the 3xTF32 one,
-    both reading the forward's lse."""
+    on its path: D = 16 on the first kernel, bf16 at D = 64, 128, 256 on
+    the wgmma one and f32 there on the 3xTF32 one (softcap or not), both
+    reading the forward's lse."""
     dev = _card()
     scale = 4.0 if kw.get("softcap") else 1.0
     q, k, v, o, do, lse = _bwd_case(D + S + G - 2, BH, G, S, D, dtype, dev,
@@ -954,15 +975,12 @@ def _mla_bwd_case(seed, BH, G, S, dtype, dev, kw):
 def test_flash_bwd_kernel_at_mla_head_dims(S, BH, G, kw, dtype):
     """MLA's shape, q and k of head dim 192 and v of 128, ragged S, GQA
     2:1 and MHA, every mask: bf16 on the wgmma backward, f32 on the 3xTF32
-    one (both reading the forward's lse) and f32 with a softcap on the
-    CUDA-core one, each within BWD_TOL of the plain version; dq (BH, S,
-    192), dk (BH / G, S, 192), dv (BH / G, S, 128); the tensor-core
-    backwards bitwise the same over two calls."""
+    one, softcap or not (both reading the forward's lse), each within
+    BWD_TOL of the plain version; dq (BH, S, 192), dk (BH / G, S, 192),
+    dv (BH / G, S, 128); the tensor-core backwards bitwise the same over
+    two calls."""
     dev = _card()
-    if dtype == torch.bfloat16:
-        want_path = "wgmma"
-    else:
-        want_path = "simt" if kw.get("softcap") else "tf32"
+    want_path = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert bwd_path(dtype, 192, kw.get("softcap", 0.0), 128) == want_path
     q, k, v, o, do, lse = _mla_bwd_case(S + BH + G, BH, G, S, dtype, dev,
                                         kw)
@@ -1061,8 +1079,8 @@ def _simt_direct(q, k, v, do, kw):
     f"{k}{v}" for k, v in kw.items()))
 @pytest.mark.parametrize("S,BH,G", [(37, 4, 1), (333, 8, 2)])
 def test_cuda_core_kernels_held_at_f32_mla_head_dims(S, BH, G, kw):
-    """The CUDA-core forward and backward, which the wrapper now keeps at
-    f32 (192, 128) only with a softcap, called directly at every mask:
+    """The CUDA-core forward and backward, which the wrapper no longer
+    takes at f32 (192, 128), called directly at every mask:
     the output within ATTN_TOL and each gradient within BWD_TOL of the
     plain versions, and no wrapper launch counted."""
     dev = _card()
@@ -1215,11 +1233,88 @@ def test_flash_tf32_forward_lse_matches_plain(D, kw, BH, S):
     assert float((lse - want).abs().max()) <= LSE_TOL
 
 
+#: f32 with a softcap on the 3xTF32 kernels: the ~100M training example's
+#: mask (launch/train_lm.py: causal, local 512, softcap 50) and others
+TF32_CAP_MASKS = [dict(causal=True, kind="local", window=512, softcap=50.0),
+                  dict(causal=True, kind="global", softcap=20.0),
+                  dict(causal=False, kind="local", window=48, softcap=50.0),
+                  dict(causal=True, kind="chunked", window=64, softcap=30.0)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("scale", [1.0, 8.0], ids=["unscaled", "qk_x8"])
+@pytest.mark.parametrize("kw", TF32_CAP_MASKS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("BH,S", [(8, 333), (64, 512)])
+@pytest.mark.parametrize("D", [96, 128])
+def test_flash_tf32_kernels_with_a_softcap(D, BH, S, kw, scale):
+    """f32 with a softcap at the example's head dim 96 and at 128, GQA
+    2:1, ragged S 333 and the example's BH 64, S 512, q and k unscaled
+    and times 8 (scores of tens, where the cap bites): the wrapper
+    launches "tf32" forward and backward; the forward within ATTN_TOL of
+    the function evaluated in float64, the same output with and without
+    its lse, the lse within LSE_TOL of the plain one; the backward from
+    that lse within BWD_TOL of the plain backward and bitwise the same
+    over two calls."""
+    from repro_torch.kernels.flash_attention import path
+    dev = _card()
+    assert path(torch.float32, D, kw["softcap"]) == "tf32" == bwd_path(
+        torch.float32, D, kw["softcap"])
+    by_path = dict(flash_attention.launches_by_path)
+    q, k, v, o, do, lse = _bwd_case(D + S + int(scale), BH, 2, S, D,
+                                    torch.float32, dev, kw, scale)
+    by_path["tf32"] += 1
+    assert flash_attention.launches_by_path == by_path
+    assert torch.equal(o, flash_attention(q, k, v, **kw))
+    to4 = lambda t, rows: t.reshape(1, rows, S, D).transpose(1, 2)
+    want = _attention_f64(to4(q, BH), to4(k, BH // 2), to4(v, BH // 2), kw)
+    tol = ATTN_TOL[torch.float32]
+    np.testing.assert_allclose(o.double().cpu().numpy(),
+                               want.transpose(1, 2).reshape(BH, S, D)
+                               .cpu().numpy(), atol=tol, rtol=tol)
+    assert float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs()
+                 .max()) <= LSE_TOL
+    by_bwd = dict(flash_attention_bwd.launches_by_path)
+    first = _bwd_launch(q, k, v, o, do, lse, kw)
+    second = _bwd_launch(q, k, v, o, do, lse, kw)
+    by_bwd["tf32"] += 2
+    assert flash_attention_bwd.launches_by_path == by_bwd
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_grads_close(first, ref.flash_attention_bwd_ref(
+        q, k, v, o, do, **kw), torch.float32, f"D={D} S={S} {kw} x{scale}")
+
+
+@pytest.mark.cuda_only
+def test_flash_tf32_softcap_gradient_through_function():
+    """A gradient through ``FlashAttentionFn`` at the example's head dim
+    96 with its softcap of 50, f32: the forward launches "tf32" and saves
+    its lse, the backward launches "tf32" once, its gradients the backward
+    wrapper's on the saved lse."""
+    dev = _card()
+    kw = dict(causal=True, kind="local", window=512, softcap=50.0)
+    q, k, v, _o, do, _lse = _bwd_case(96, 16, 2, 300, 96, torch.float32,
+                                      dev, kw)
+    qg, kg, vg = (a.clone().requires_grad_(True) for a in (q, k, v))
+    fwd0 = dict(flash_attention.launches_by_path)
+    bwd0 = dict(flash_attention_bwd.launches_by_path)
+    o = flash_attention_fn(qg, kg, vg, **kw)
+    assert flash_attention.launches_by_path == {
+        p: n + (p == "tf32") for p, n in fwd0.items()}
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5
+    got = torch.autograd.grad(o, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches_by_path == {
+        p: n + (p == "tf32") for p, n in bwd0.items()}
+    want = flash_attention_bwd(q, k, v, o.detach(), do, saved[4], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda_only
 def test_flash_lse_refused_off_the_wgmma_path_and_required_on_it():
     """The wgmma and tf32 backwards without the forward's lse raise
-    (nothing falls back); the CUDA-core forward (head dim 16, or f32
-    with a softcap), which writes no lse, refuses to return one; the
+    (nothing falls back); the CUDA-core forward (head dim 16, with or
+    without a softcap), which writes no lse, refuses to return one; the
     simt backward takes no lse."""
     dev = _card()
     kw = dict(causal=True, kind="local", window=32)
@@ -1232,13 +1327,13 @@ def test_flash_lse_refused_off_the_wgmma_path_and_required_on_it():
             flash_attention_bwd(q, k, v, o, do, lse[:, :50].contiguous(),
                                 **kw)
         assert flash_attention_bwd.launches == n0
-    with pytest.raises(ValueError, match="lse"):
-        flash_attention(q, k, v, return_lse=True, softcap=5.0, **kw)
     q, k, v, o, do, lse = _bwd_case(1, 4, 2, 100, 16, torch.float32, dev,
                                     kw)
     assert lse is None
     with pytest.raises(ValueError, match="lse"):
         flash_attention(q, k, v, return_lse=True, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention(q, k, v, return_lse=True, softcap=5.0, **kw)
     _bwd_launch(q, k, v, o, do, None, kw)
 
 

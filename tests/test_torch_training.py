@@ -901,28 +901,24 @@ def test_autograd_functions_on_cpu_take_the_plain_backward():
 def test_flash_bwd_path_depends_on_dtype_head_dim_and_softcap_alone(
         dtype, D, softcap):
     """bf16 at head dims 64, 80, 128 and 256 takes the wgmma backward,
-    softcap or not; f32 at 64, 128 and 256 without a softcap the 3xTF32
-    one (the cases the forward's ``path`` sends to its 3xTF32 kernel); f32
-    with a softcap, f32 at 80 and every other head dim the CUDA-core one.  With v's head dim given
+    f32 at 64, 96, 128 and 256 the 3xTF32 one (the cases the forward's
+    ``path`` sends to its 3xTF32 kernel), softcap or not; f32 at 80 and
+    every other head dim the CUDA-core one.  With v's head dim given
     (``v_dim``): equal to D it changes nothing; MLA's (192, 128) takes the
-    wgmma backward in bf16, the 3xTF32 one in f32 without a softcap and
-    the CUDA-core one with it, and every other v narrower or wider than q
-    and k the CUDA-core one, as the forward's
-    ``path`` says in every case (each tensor-core backward reads the lse
-    its forward writes)."""
+    wgmma backward in bf16 and the 3xTF32 one in f32, softcap or not, and
+    every other v narrower or wider than q and k the CUDA-core one, as the
+    forward's ``path`` says in every case (each tensor-core backward reads
+    the lse its forward writes)."""
     if D in (64, 80, 128, 256) and dtype == torch.bfloat16:
         want = "wgmma"
-    elif D in (64, 128, 256) and not softcap:
+    elif D in (64, 96, 128, 256) and dtype == torch.float32:
         want = "tf32"
     else:
         want = "simt"
     assert bwd_path(dtype, D, softcap) == want
     assert bwd_path(dtype, D, softcap, D) == want
     assert (want == "tf32") == (tflash.path(dtype, D, softcap) == "tf32")
-    if dtype == torch.bfloat16:
-        mla = "wgmma"
-    else:
-        mla = "simt" if softcap else "tf32"
+    mla = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert bwd_path(dtype, 192, softcap, 128) == mla
     for dv in (D // 2, 2 * D):
         assert bwd_path(dtype, D, softcap, dv) == "simt"
@@ -971,14 +967,15 @@ def test_plain_lse_matches_float64(kw, group):
 
 @pytest.mark.parametrize("dtype,D,softcap,lse_saved", [
     (torch.bfloat16, 64, 5.0, True), (torch.bfloat16, 16, 5.0, False),
-    (torch.float32, 64, 5.0, False), (torch.float32, 64, 0.0, True),
-    (torch.float32, 16, 0.0, False)])
+    (torch.float32, 80, 5.0, False), (torch.float32, 64, 0.0, True),
+    (torch.float32, 16, 0.0, False), (torch.float32, 96, 5.0, True)])
 def test_flash_attention_fn_saves_lse_only_when_a_gradient_is_needed(
         monkeypatch, dtype, D, softcap, lse_saved):
     """The forward asks for the lse only when a gradient will be taken on
     a backward path that reads it (bf16 at the tensor-core head dims on
-    wgmma; f32 there without a softcap on tf32), so serving's calls write
-    none; on CPU tensors it is the plain lse and nothing launches."""
+    wgmma; f32 at TF32_HEAD_DIMS on tf32, softcap or not), so serving's
+    calls write none; on CPU tensors it is the plain lse and nothing
+    launches."""
     q, k, v, do = _attn_inputs(12, D=D)
     kw = dict(causal=True, kind="local", window=8, softcap=softcap)
     asked = []
@@ -1023,13 +1020,17 @@ def _mask_id(kw):
     *(pytest.param(kw, 4, 64, id=_mask_id(kw))
       for kw in (MASKS[0], MASKS[5], MASKS[7])),
     # hubert-xlarge's head dim, its heads each their own kv head, no mask
-    pytest.param(MASKS[3], 1, 80, id="hubert-d80-" + _mask_id(MASKS[3]))])
+    pytest.param(MASKS[3], 1, 80, id="hubert-d80-" + _mask_id(MASKS[3])),
+    # the ~100M training example's: head dim 96, GQA 2:1, softcap 50
+    pytest.param(dict(causal=True, kind="local", window=8, softcap=50.0), 2,
+                 96, id="train_lm-d96-causal-local8-softcap50")])
 def test_flash_attention_fn_grads_match_jax(kw, G, D):
     """Autograd through ``flash_attention_fn`` (the kernels' dispatch, on
     the CPU their plain versions) at a tensor-core head dim (64, MQA 4:1,
-    and hubert-xlarge's 80, MHA, non-causal), against ``jax.grad`` of the
-    reference's oracle with k and v repeated, within 1e-4 of each
-    gradient's largest element."""
+    hubert-xlarge's 80, MHA, non-causal, and the training example's 96,
+    GQA 2:1, softcap 50), against ``jax.grad`` of the reference's oracle
+    with k and v repeated, within 1e-4 of each gradient's largest
+    element."""
     q, k, v, do = _attn_inputs(13, G=G, D=D)
     qt, kt, vt = (_t(a).requires_grad_(True) for a in (q, k, v))
     got = torch.autograd.grad(flash_attention_fn(qt, kt, vt, **kw),
