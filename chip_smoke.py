@@ -193,7 +193,13 @@ Phases (each one failing makes the script exit non-zero):
      inputs beside the tensor-core kernel; two calls at S = 3,001 bitwise
      equal), timed beside its plain version, the first design timed
      beside the tensor-core kernel at the served shape and slower than it
-     on the device;
+     on the device; the AdamW update and gradient norm kernels
+     (``csrc/adamw.cu``) at ADAMW_LEAVES, recurrentgemma-2b's embedding
+     table in f32 state and deepseek-v2-236b's expert leaf in bf16: the
+     update bitwise its plain version and twice, the norm within NORM_TOL
+     of float64 and bitwise twice, each timed beside its plain version,
+     its bound and one library call (``torch._fused_adamw_`` on the
+     pre-scaled gradient; ``torch.linalg.vector_norm``);
      (b) recurrentgemma-2b, then mamba2-2.7b, at its published width and
      depth, f32 master weights and moments computed in bf16, then
      deepseek-v2-236b at its published width, depth cut from 60 to 2
@@ -208,9 +214,11 @@ Phases (each one failing makes the script exit non-zero):
      64 SSD backward launches a step and 128 SSD forwards, all on the
      wgmma paths, remat recomputing each forward; deepseek: 3 flash
      forwards a step, the dense head layer's once and the MoE layer's
-     twice, and 2 backwards, all on the wgmma paths at q/k 192, v 128);
+     twice, and 2 backwards, all on the wgmma paths at q/k 192, v 128;
+     the AdamW update once a leaf a step, the norm once a step);
      step time, tokens/s, peak memory and one profiled step, with the
-     backward kernels' device time by launch; (c) one period of each at
+     backward kernels' device time by launch and the AdamW kernels'
+     beside the elementwise ops that remain; (c) one period of each at
      the same width (rec, rec, local; one SSM layer), then deepseek's
      dense layer alone and with its MoE layer (bf16 weights; the plain
      run routes every token as the kernels' run did, and the routing its
@@ -229,7 +237,9 @@ Phases (each one failing makes the script exit non-zero):
      TrainConfig(hidden=16, epochs=30, seed=0) on the card and on the
      CPU, both timed: each step's loss within 1e-4, every train and
      holdout decision the same, save at most one a split that is a tie
-     on the CPU fit (TIE_TOL), the raw agreements printed;
+     on the CPU fit (TIE_TOL), the raw agreements printed, the card's fit
+     through the AdamW kernels (once a leaf and the norm once a step),
+     the CPU's through neither;
   9. the serving entry points (the earlier phases' models freed first):
      (a) ``repro_torch.launch.serve`` at its defaults (jiagu,
      dual-staged, 600 s, seed 0) with the predictor on the forest kernel,
@@ -272,7 +282,8 @@ Phases (each one failing makes the script exit non-zero):
      directory: (b) recurrentgemma-2b's mesh train step at full width and
      depth with its hints installed, phase 8 (b)'s seed, batches and
      AdamW settings, 3 steps: the losses within rtol 1e-5 of phase 8
-     (b)'s first three and the kernels' launches a step equal to its,
+     (b)'s first three and the kernels' launches a step equal to its
+     (the AdamW kernels' among them, the norm over the DTensor leaves),
      and a fourth step profiled as phase 8 profiles the one-device step;
      (c) gemma2-2b at full width through ``make_prefill_step`` /
      ``make_decode_step``, a 512- and a 3,000-token prompt in turn and 16
@@ -369,7 +380,8 @@ Phases (each one failing makes the script exit non-zero):
      learning rate of 3e-5, where 3e-4 overshoots, the others at AdamW's
      default 3e-4: every loss
      finite, the last below the first, the peak within 72 GiB, the launches
-     exact and every attention kernel on the wgmma path, no scan launched;
+     exact and every attention kernel on the wgmma path, no scan launched,
+     the AdamW update once a leaf and the norm once a step;
      each step's loss, grad norm, lr and time, the state's GB and the peak
      printed, and one more step of gemma2-2b and of qwen1.5-110b profiled;
      (g) hubert-xlarge through ``train_loop`` for 3 steps with (f)'s AdamW
@@ -398,7 +410,8 @@ Phases (each one failing makes the script exit non-zero):
      at its default size through ``train_lm.run``: 24 steps with a
      checkpoint every 12 into a temporary directory, the launches exact
      (each step 20 attention forwards under remat and 10 backwards, all
-     on the 3xTF32 kernels, none on the CUDA cores); a run resumed from
+     on the 3xTF32 kernels, none on the CUDA cores; the AdamW update once
+     a leaf, the norm once); a run resumed from
      the step-12 checkpoint, its losses within rtol 1e-4 of the straight
      run's; 3 steps through the plain versions from the same seed, each
      loss within 1e-4 of the kernels'; step time, tokens/s, peak memory
@@ -428,8 +441,12 @@ Phases (each one failing makes the script exit non-zero):
      in the attention backward's from (g); phase 12's launches by run in
      each LM kernel's entry under "phase12_launches"; the 3xTF32
      kernels with a softcap at the training example's shape, forward and
-     backward, as entries of their own, their launches phase 13's), then
-     the device line.
+     backward, as entries of their own, their launches phase 13's; the
+     AdamW update and gradient norm as entries of their own, timed at
+     recurrentgemma-2b's embedding table (deepseek-v2-236b's expert leaf
+     under "bf16"), their launches phase 8 (b)'s recurrentgemma-2b run's,
+     by phase under "launches_by_phase" (8 b, 8 e, 13), "mesh_launches"
+     and "phase12_launches"), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -2220,10 +2237,11 @@ def lm_counts() -> dict:
 
 
 def reset_lm_counts():
+    import repro_torch.kernels.adamw as adamw_module
     import repro_torch.kernels.flash_attention as flash_module
     import repro_torch.kernels.rglru_scan as scan_module
     import repro_torch.kernels.ssd_scan as ssd_module
-    for module in (flash_module, scan_module, ssd_module):
+    for module in (flash_module, scan_module, ssd_module, adamw_module):
         module.reset_launches()
 
 
@@ -3852,10 +3870,168 @@ def phase8_mla_bwd(randn) -> dict:
     return out
 
 
+#: phase 8 (a): the AdamW kernels held at full-width leaves, as (label,
+#: shape, weight and gradient dtype, moment dtype): recurrentgemma-2b's
+#: embedding table in f32 state, and deepseek-v2-236b's stacked experts'
+#: gate projection (one MoE layer's 160 experts, 1.26e9 elements) in bf16
+#: weights, gradients and moments, both decayed, as the train step
+#: updates them
+ADAMW_LEAVES = (("recurrentgemma-2b embed/table", (256_000, 2_560),
+                 "float32", "float32"),
+                ("deepseek-v2-236b moe/w_gate", (160, 5_120, 1_536),
+                 "bfloat16", "bfloat16"))
+#: the gradient norm kernel against a float64 norm, relative: f32 partial
+#: sums of 8,192 squares, added in f64
+NORM_TOL = 1e-6
+#: timed calls of each update (a plain one at deepseek-v2-236b's expert
+#: leaf takes some 93 ms)
+ADAMW_REPS = 10
+
+
+def adamw_bound(n: int, p_size: int, g_size: int, m_size: int):
+    """The update's bound: p, m and v read and written, g read once;
+    17 f32 operations an element (with the decay)."""
+    return bound(n * (2 * p_size + g_size + 4 * m_size), 17 * n)
+
+
+def phase8_adamw_kernels() -> dict:
+    """(a) the AdamW update and gradient norm kernels at ADAMW_LEAVES, a
+    clipped third step (scale 0.37, lr 3e-4, the bias corrections of step
+    3) from random weights, gradients and moments: the update bitwise its
+    plain version (``plain_update``, sliced as the plain step slices it)
+    in p, m and v, two calls bitwise equal; the norm within NORM_TOL of
+    the float64 norm and two calls bitwise equal.  Each timed (``ms``
+    and ``device_ms``) beside its plain version, its bound and one
+    library call computing the same function up to rounding:
+    ``torch._fused_adamw_`` on the same leaf with the gradient
+    pre-scaled (it decays p by (1 - lr wd) first and adds eps to
+    sqrt(v) / sqrt(b2c), so it is a yardstick, never on the path), and
+    ``torch.linalg.vector_norm``.  Returns the measurements by kernel
+    and leaf."""
+    import gc
+    import torch
+    from repro_torch.kernels import _scratch
+    from repro_torch.kernels.adamw import adamw_update, grad_norm
+    from repro_torch.optim.adamw import AdamWConfig, plain_update
+    power = card()
+    _scratch.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = AdamWConfig()
+    step = 3
+    sc = [torch.tensor(x, dtype=torch.float32, device="cuda")
+          for x in (0.37, 3e-4, 1 - cfg.b1 ** step, 1 - cfg.b2 ** step)]
+    out = {}
+    for label, shape, wdt, mdt in ADAMW_LEAVES:
+        wdt, mdt = getattr(torch, wdt), getattr(torch, mdt)
+        gen = torch.Generator(device="cuda").manual_seed(35)
+        rand = lambda scale, dt: (torch.randn(shape, generator=gen,
+                                              device="cuda") * scale).to(dt)
+        p, g = rand(0.02, wdt), rand(1.0, wdt)
+        m = rand(0.01, mdt)
+        v = torch.square(rand(0.01, torch.float32)).to(mdt)
+        n = p.numel()
+        # the plain version, then the kernel twice, from the same state
+        plain = [t.clone() for t in (p, m, v)]
+        plain_update(plain[0], g, plain[1], plain[2], cfg, *sc, True)
+        runs = []
+        for _ in range(2):
+            k = [t.clone() for t in (p, m, v)]
+            path = adamw_update(k[0], g, k[1], k[2], cfg, *sc, True)
+            runs.append(k)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(runs[0], plain))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(runs[0], plain))
+        twice = all(torch.equal(a, b) for a, b in zip(*runs))
+        del plain, runs, k
+        norms = [grad_norm([g]), grad_norm([g])]
+        want = float(torch.linalg.vector_norm(g.double()))
+        norm_err = abs(float(norms[0]) - want) / want
+        norm_twice = torch.equal(*norms)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def kernel():
+            adamw_update(p, g, m, v, cfg, *sc, True)
+
+        def plain_call():
+            plain_update(p, g, m, v, cfg, *sc, True)
+
+        gs = (g.float() * sc[0]).to(wdt)
+        steps = [torch.tensor(float(step), device="cuda")]
+
+        def library():
+            torch._fused_adamw_([p], [gs], [m], [v], [], steps, lr=3e-4,
+                                beta1=cfg.b1, beta2=cfg.b2,
+                                weight_decay=cfg.weight_decay, eps=cfg.eps,
+                                amsgrad=False, maximize=False)
+
+        ms, plain_ms = time_pair_ms(kernel, plain_call, ADAMW_REPS)
+        device_ms, plain_device_ms = time_pair_ms(kernel, plain_call,
+                                                  ADAMW_REPS, queued=True)
+        lib_ms = time_ms(library, ADAMW_REPS)
+        lib_device_ms = time_ms(library, ADAMW_REPS, queued=True)
+        del gs
+        b_ms, b_by = adamw_bound(n, p.element_size(), g.element_size(),
+                                 m.element_size())
+        upd = {"path": path, "shape": list(shape), "weights": str(wdt)[6:],
+               "moments": str(mdt)[6:], "max_abs_err": err, "ms": ms,
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "plain_device_ms": plain_device_ms, "library": "_fused_adamw_",
+               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"phase8 adamw_update {label} {tuple(shape)} {str(wdt)[6:]} "
+              f"weights and gradients, {str(mdt)[6:]} moments, path "
+              f"{path}: bitwise the plain version {bitwise} (max abs err "
+              f"{err:.3g}), two calls bitwise {twice}; kernel {ms:.4f} ms "
+              f"(device {device_ms:.4f} ms), plain {plain_ms:.4f} ms "
+              f"(device {plain_device_ms:.4f} ms), _fused_adamw_ "
+              f"{lib_ms:.4f} ms (device {lib_device_ms:.4f} ms), bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / device_ms:.3f} of it; "
+              f"{power}")
+        check(bitwise and twice, f"phase 8 (a) adamw_update {label}: "
+              f"bitwise {bitwise}, twice {twice}, max abs err {err}")
+
+        def norm_plain():
+            from repro_torch.optim.adamw import global_norm
+            global_norm([g])
+
+        nm, nm_plain = time_pair_ms(lambda: grad_norm([g]), norm_plain)
+        nd, nd_plain = time_pair_ms(lambda: grad_norm([g]), norm_plain,
+                                    queued=True)
+        vec = lambda: torch.linalg.vector_norm(g, dtype=torch.float32)
+        nl, nl_d = time_ms(vec), time_ms(vec, queued=True)
+        nb_ms, nb_by = bound(n * g.element_size(), 2 * n)
+        out[label] = upd, {
+            "shape": list(shape), "dtype": str(wdt)[6:],
+            "max_abs_err": norm_err * want, "max_rel_err": norm_err,
+            "ms": nm, "device_ms": nd,
+            "plain_ms": nm_plain, "plain_device_ms": nd_plain,
+            "library": "torch.linalg.vector_norm", "library_ms": nl,
+            "library_device_ms": nl_d, "bound_ms": nb_ms, "bound_by": nb_by}
+        print(f"phase8 grad_norm {label} {tuple(shape)} {str(wdt)[6:]}: "
+              f"{float(norms[0])!r} against float64 {want!r}, relative "
+              f"error {norm_err:.3g} (limit {NORM_TOL}), two calls bitwise "
+              f"{norm_twice}; kernels {nm:.4f} ms (device {nd:.4f} ms), "
+              f"plain {nm_plain:.4f} ms (device {nd_plain:.4f} ms), "
+              f"vector_norm {nl:.4f} ms (device {nl_d:.4f} ms), bound "
+              f"{nb_ms:.4f} ms ({nb_by}), {nb_ms / nd:.3f} of it")
+        check(norm_err <= NORM_TOL and norm_twice,
+              f"phase 8 (a) grad_norm {label}: relative error {norm_err}, "
+              f"twice {norm_twice}")
+        del p, g, m, v, norms
+        _scratch.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_counts() -> dict:
     """The forward and backward launch counts of the train steps'
     kernels, the SSD scan's forward and backward also on the wgmma
-    path."""
+    path, and the AdamW update's and gradient norm's."""
+    from repro_torch.kernels.adamw import adamw_update, grad_norm
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
@@ -3868,15 +4044,34 @@ def train_counts() -> dict:
             "rglru_scan_bwd": rglru_scan_bwd.launches,
             "ssd_scan": lm["ssd_scan"], "ssd_scan.wgmma": lm["ssd_scan.wgmma"],
             "ssd_scan_bwd": ssd_scan_bwd.launches,
-            "ssd_scan_bwd.wgmma": ssd_scan_bwd.launches_by_path["wgmma"]}
+            "ssd_scan_bwd.wgmma": ssd_scan_bwd.launches_by_path["wgmma"],
+            "adamw_update": adamw_update.launches,
+            "grad_norm": grad_norm.launches}
+
+
+def update_launches(params, steps: int) -> dict:
+    """The AdamW kernels' launches in `steps` train steps of `params`:
+    the update once a leaf that holds an element, the norm once."""
+    n = sum(1 for t in _leaves(params) if t.numel())
+    return {"adamw_update": n * steps, "grad_norm": steps}
+
+
+#: the elementwise host ops whose device time a profiled train step
+#: prints beside the AdamW kernels': what the eager update launched, and
+#: what stays outside the kernels
+ELEMENTWISE_OPS = ("aten::copy_", "aten::mul", "aten::mul_", "aten::add",
+                   "aten::add_", "aten::div", "aten::div_", "aten::sub",
+                   "aten::sub_", "aten::sqrt", "aten::square", "aten::pow",
+                   "aten::clamp", "aten::fill_", "aten::sum")
 
 
 def profile_train_step(bundle, state, batch, phase: str = "phase8"):
     """One train step under torch.profiler: wall time, device busy and
     idle share, the largest device entries, the largest host entries by
-    their own host time, and the backward kernels' device time, each by
-    launch.  Returns the state; prints "not measured" without device
-    time."""
+    their own host time, the AdamW kernels' device time beside the
+    elementwise ops' that remain (ELEMENTWISE_OPS), and the backward
+    kernels' device time, each by launch.  Returns the state; prints "not
+    measured" without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3921,6 +4116,24 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
                 f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
                 f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 "ms")
+    # the AdamW kernels' device time, and the elementwise work that stays
+    # outside them (the weights' casts to the compute dtype, the loss),
+    # by the host op that launched it
+    upd = [e for e in dev if "adamw_kernel" in e.key]
+    nrm = [e for e in dev if "sumsq_" in e.key]
+    rest = sorted((e for e in host if e.key in ELEMENTWISE_OPS
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    print(f"{phase} profile   AdamW update kernel x"
+          f"{sum(e.count for e in upd)} "
+          f"{sum(e.self_device_time_total for e in upd) / 1e3:.2f} ms, "
+          f"gradient norm kernels x{sum(e.count for e in nrm)} "
+          f"{sum(e.self_device_time_total for e in nrm) / 1e3:.2f} ms; "
+          f"elementwise remainder "
+          f"{sum(e.self_device_time_total for e in rest) / 1e3:.2f} ms: "
+          + "; ".join(f"{e.key} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.2f} ms"
+                      for e in rest))
     # the backward kernels' device time by launch: the attention
     # backward's four (D_i, dK/dV, dQ, the shares' sum) and the SSD
     # backward's three on the wgmma path (the chunk walks, the chunks'
@@ -4078,13 +4291,15 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
             "rglru_scan": fwd["recurrent"] * T,
             "rglru_scan_bwd": n["recurrent"] * T,
             "ssd_scan": fwd["ssm"] * T, "ssd_scan.wgmma": fwd["ssm"] * T,
-            "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T}
+            "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T,
+            **update_launches(state["params"], T)}
     steady = statistics.median(times[1:])
     want_path = {"wgmma": n["attention"] * T, "tf32": 0, "simt": 0}
     print(f"{phase} {arch} train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
-          f"recomputed periods); attention backward by path {by_path}, "
-          f"expected {want_path}")
+          f"recomputed periods; the AdamW update once a leaf a step, the "
+          f"norm once); attention backward by path {by_path}, expected "
+          f"{want_path}")
     print(f"{phase} {arch} train: losses {[round(x, 4) for x in losses]}; "
           f"step time first {times[0] * 1e3:.1f} ms, median of the rest "
           f"{steady * 1e3:.1f} ms = "
@@ -4412,10 +4627,13 @@ def phase8_policy_fit():
     hold one such pair, 2.4e-7 apart, which the CPU fit breaks one way
     and any change of summation order (the card's, or the init moved by
     1e-7) the other, 1/13 of the agreement.  The raw agreements are
-    printed beside."""
+    printed beside.  The card's fit updates through the AdamW kernels,
+    once a leaf a step, the norm once a step; the CPU's launches
+    neither.  Returns the card fit's launches."""
     import numpy as np
     import torch
     import repro_torch.policy.train as train_mod
+    from repro_torch.kernels.adamw import adamw_update, grad_norm
     from repro_torch.policy import (TrainConfig, load_traces, matrices,
                                     np_scores, split, train_policy)
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -4424,7 +4642,7 @@ def phase8_policy_fit():
     cfg = TrainConfig(hidden=16, epochs=30, seed=0)
     C = max(tr.max_candidates, ho.max_candidates, 1)
     orig_step = train_mod._step
-    out = {}
+    out, launches = {}, {}
     for device in ("cuda", "cpu"):
         losses = []
 
@@ -4434,13 +4652,23 @@ def phase8_policy_fit():
             return res
 
         train_mod._step = recording
+        n0 = adamw_update.launches, grad_norm.launches
         try:
             t0 = time.perf_counter()
             policy, m = train_policy(tr, ho, cfg, device=device)
             out[device] = (policy, m, time.perf_counter() - t0, losses)
         finally:
             train_mod._step = orig_step
+        launches[device] = {"adamw_update": adamw_update.launches - n0[0],
+                            "grad_norm": grad_norm.launches - n0[1]}
     (pc, mc, tc, lc), (ph, mh, th, lh) = out["cuda"], out["cpu"]
+    want = {"adamw_update": len(lc) * len(train_mod.TRAINABLE_KEYS),
+            "grad_norm": len(lc)}
+    print(f"phase8 policy fit AdamW kernel launches: card {launches['cuda']}"
+          f", expected {want}; CPU {launches['cpu']}")
+    check(launches == {"cuda": want, "cpu": {k: 0 for k in want}},
+          f"phase 8 (e): AdamW kernel launches {launches}, expected {want} "
+          "on the card and none on the CPU")
     worst = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
     print(f"phase8 policy fit ({len(tr)} train, {len(ho)} holdout "
           f"decisions, {cfg}): card {tc:.3f} s, CPU {th:.3f} s, "
@@ -4470,6 +4698,7 @@ def phase8_policy_fit():
               f"phase 8 (e): {name} decisions {rows[differ].tolist()} "
               f"differ between the card and the CPU, relative gaps "
               f"{gap[differ].tolist()} on the CPU fit")
+    return launches["cuda"]
 
 
 #: the losses and launch counts of each architecture's run in phase 8 (b)
@@ -4479,11 +4708,16 @@ TRAIN_RUNS: dict = {}
 
 
 def phase8_training():
-    """Phase 8's parts in order; returns (a)'s measurements and each
-    architecture's launches in (b), the attention backward's by path
-    among them, and (c3)'s launches under "c3"."""
+    """Phase 8's parts in order; returns (a)'s measurements (the AdamW
+    kernels' under "adamw") and each architecture's launches in (b), the
+    attention backward's by path among them, (c3)'s launches under "c3"
+    and (e)'s AdamW launches under "policy_fit"."""
     t0 = time.perf_counter()
     serve = phase8_bwd_kernels()
+    t_a = time.perf_counter()
+    serve["adamw"] = phase8_adamw_kernels()
+    print(f"phase8 (a) AdamW kernels held and timed in "
+          f"{time.perf_counter() - t_a:.1f} s")
     counts = {arch: train_full_width(arch)
               for arch in TRAIN_ARCHS + (MOE_ARCH,)}
     for arch in TRAIN_ARCHS:
@@ -4494,7 +4728,7 @@ def phase8_training():
     # kernels; its launches count for the f32 MLA kernels' entries
     counts["c3"] = phase8_period_grads(MOE_ARCH, 1, f32=True)
     phase8_drill()
-    phase8_policy_fit()
+    counts["policy_fit"] = phase8_policy_fit()
     print(f"phase8 total {time.perf_counter() - t0:.1f} s")
     return serve, counts
 
@@ -5984,10 +6218,13 @@ def phase12g_train_loop() -> dict:
         f"flash_attention_bwd.{p}": c
         for p, c in flash_attention_bwd.launches_by_path.items()})
     want = {k: 0 for k in counts}
+    per_run = TRAIN_RUNS[AUDIO_ARCH]["counts"]
     want.update({"flash_attention": fwd["attention"] * T,
                  "flash_attention.wgmma": fwd["attention"] * T,
                  "flash_attention_bwd": n["attention"] * T,
-                 "flash_attention_bwd.wgmma": n["attention"] * T})
+                 "flash_attention_bwd.wgmma": n["attention"] * T,
+                 "adamw_update": per_run["adamw_update"] // PHASE12_STEPS * T,
+                 "grad_norm": T})
     ref = TRAIN_RUNS[AUDIO_ARCH]["losses"][:T]
     print(f"phase12 (g) {AUDIO_ARCH} train_loop: losses {losses} against "
           f"(f)'s {ref}; launches {counts}, expected {want}; {wall:.2f} s, "
@@ -6162,11 +6399,14 @@ def phase12_training() -> dict:
 
 
 def train_lm_counts() -> dict:
-    """The LM kernels' launch counts (``lm_counts``) and the attention
-    backward's, in all and by path."""
+    """The LM kernels' launch counts (``lm_counts``), the attention
+    backward's, in all and by path, and the AdamW kernels'."""
+    from repro_torch.kernels.adamw import adamw_update, grad_norm
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     counts = dict(lm_counts(),
-                  flash_attention_bwd=flash_attention_bwd.launches)
+                  flash_attention_bwd=flash_attention_bwd.launches,
+                  adamw_update=adamw_update.launches,
+                  grad_norm=grad_norm.launches)
     for p, n in flash_attention_bwd.launches_by_path.items():
         counts[f"flash_attention_bwd.{p}"] = n
     return counts
@@ -6228,7 +6468,8 @@ def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
         want.update({"flash_attention": fwd_layers["attention"] * T,
                      "flash_attention.tf32": fwd_layers["attention"] * T,
                      "flash_attention_bwd": n["attention"] * T,
-                     "flash_attention_bwd.tf32": n["attention"] * T})
+                     "flash_attention_bwd.tf32": n["attention"] * T,
+                     **update_launches(state["params"], T)})
         step_ms = statistics.median(times[1:]) * 1e3
         print(f"phase13 train_lm: {cfg.n_layers} layers of d {cfg.d_model}, "
               f"{cfg.param_count():,} parameters, f32, B "
@@ -6417,6 +6658,33 @@ def main() -> int:
                 kernels[-1]["simt_source"] = CSRC + (
                     "ssd_scan_bwd.cu" if name == "ssd_scan_bwd"
                     else "flash_attention_bwd.cu")
+        # the AdamW update and the gradient norm (phase 8 (a)): no TPU
+        # kernel, XLA fuses the reference's update and norm inside its
+        # jitted step; times at recurrentgemma-2b's embedding table (f32
+        # state), deepseek-v2-236b's expert leaf (bf16) under "bf16";
+        # launches phase 8 (b)'s recurrentgemma-2b run's, by phase beside
+        # (phase 10 (b)'s and 12's added below with the other kernels')
+        f32_leaf, bf16_leaf = (train["adamw"][leaf[0]]
+                               for leaf in ADAMW_LEAVES)
+        for i, (name, fused) in enumerate((
+                ("adamw_update", "src/repro/optim/adamw.py:71 update"),
+                ("grad_norm", "src/repro/optim/adamw.py:58 global_norm"))):
+            m = f32_leaf[i]
+            kernels.append({
+                "name": name, "route": "cuda", "source": CSRC + "adamw.cu",
+                "replaces": f"none: XLA fuses {fused} inside the jitted "
+                            "step (src/repro/distributed/steps.py:254)",
+                "launches": train_launches[TRAIN_ARCH][name],
+                "launches_by_phase": {
+                    "8b": {arch: train_launches[arch][name]
+                           for arch in TRAIN_ARCHS + (MOE_ARCH,)},
+                    "8e": train_launches["policy_fit"][name],
+                    "13": lm_launches[name]},
+                **{key: m[key] for key in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "plain_device_ms", "bound_ms", "bound_by", "library",
+                    "library_ms", "library_device_ms", "shape")},
+                "bf16": bf16_leaf[i]})
         # the 3xTF32 kernels' softcapped instantiations at the ~100M
         # training example's shape (phases 4 and 8 (a)), their launches
         # phase 13's straight run's

@@ -316,7 +316,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     tensors are distributed on entry).  ``cast_params=True`` casts f32
     matrices to the compute dtype once at step entry, so weight gathers
     move the compute dtype.  ``use_kernel=False`` runs the plain
-    versions instead of the kernels (the yardstick of a kernels' run)."""
+    versions instead of the kernels (the yardstick of a kernels' run),
+    the AdamW update and its gradient norm among them."""
     if shape is None:
         raise TypeError("make_train_step needs an InputShape")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -374,7 +375,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
         grads = _like(params, iter(grads))
         _, new_opt, opt_metrics = adamw.update(params, grads, state["opt"],
-                                               opt_cfg)
+                                               opt_cfg, use_kernel)
         del grads
         metrics = {k: _full(v) for k, v in
                    {**metrics, **opt_metrics, "loss": loss}.items()}

@@ -39,7 +39,8 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "ssd_scan": "ssd_scan.cu",
                            "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
                            "ssd_scan_bwd": "ssd_scan_bwd.cu",
-                           "ssd_scan_bwd_wgmma": "ssd_scan_bwd_wgmma.cu"}
+                           "ssd_scan_bwd_wgmma": "ssd_scan_bwd_wgmma.cu",
+                           "adamw": "adamw.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -145,6 +146,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # x, dA, dt, Bm, Cm, h0 (or null), dy, dh (or null), dx, ddA, ddt,
         # dB, dC, dh0 (or null), scratch, batch, heads, groups, s, stream
         "ssd_scan_bwd_wgmma": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    },
+    "adamw": {
+        # p, g, m, v, p_bf16, g_bf16, m_bf16, n, head, nvec, scale, lr,
+        # b1c, b2c, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay,
+        # stream
+        "adamw_update": ([_P] * 4 + [_I] * 3 + [_L] * 3 + [_P] * 4
+                         + [_D] * 6 + [_I, _P], _I),
+        # nvec -> the partials grad_sumsq_partials writes for a leaf
+        "grad_sumsq_blocks": ([_L], _L),
+        # x, is_bf16, n, head, nvec, partials, stream
+        "grad_sumsq_partials": ([_P, _I, _L, _L, _L, _P, _P], _I),
+        # partials, count, sumsq (f64, or null), norm (f32, or null),
+        # stream
+        "grad_sumsq_finish": ([_P, _L, _P, _P, _P], _I),
     },
 }
 

@@ -17,6 +17,14 @@ parameters' device as 0-d tensors: a step never waits for the card.
 DTensor leaves (a mesh step's) are updated on each rank's own shards,
 the global norm taken over their global values.
 
+On the card (``use_kernel=True``, the default) the norm and each leaf's
+update are hand-written kernels (``kernels.adamw``), the counterpart of
+the fusion XLA gives the reference's jitted step: one launch a leaf,
+bitwise ``_update_leaf``, with no temporaries and no slicing; the norm's
+partial sums are added in f64, so it differs from ``global_norm`` in
+rounding only.  ``_update_leaf`` and ``global_norm`` are the plain
+versions, which CPU leaves and ``use_kernel=False`` take.
+
 Weight decay skips norms, biases and scalars by name, as the reference
 does: its rule reads ``str(path[-1])`` of a JAX key path, ``"['bias1']"``
 for a dict key and ``"[0]"`` for a list index, and this port builds the
@@ -29,6 +37,7 @@ from typing import Any, List, NamedTuple, Tuple
 
 import torch
 
+from ..kernels import adamw as adamw_kernels
 from ..models.pctx import is_dtensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -108,7 +117,8 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """The global L2 norm of the tree's leaves; of DTensor leaves, the
-    norm of their global values, as a plain tensor."""
+    norm of their global values, as a plain tensor.  The plain version of
+    the ``grad_norm`` kernels."""
     leaves = [t for _, t in leaves_with_path(tree)]
     norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in leaves))
@@ -137,11 +147,27 @@ def _decayable(path) -> bool:
 
 
 @torch.no_grad()
-def update(params, grads, state: OptState, cfg: AdamWConfig):
+def update(params, grads, state: OptState, cfg: AdamWConfig,
+           use_kernel: bool = True):
     """-> (params, new_state, metrics), everything fp32 math.  The
     parameters and moments are updated in place (the returned trees are
-    the ones passed in); the state's step is a new tensor."""
-    gnorm = global_norm(grads)
+    the ones passed in); the state's step is a new tensor.  With
+    `use_kernel`, CUDA leaves go through the hand-written kernels
+    (``kernels.adamw``: the norm, and one launch a leaf), CPU leaves
+    through the plain versions below; without, every leaf through the
+    plain versions."""
+    g_leaves = [t for _, t in leaves_with_path(grads)]
+    on_card = bool(g_leaves) and g_leaves[0].device.type == "cuda"
+    gnorm = (_kernel_norm(g_leaves) if use_kernel and on_card
+             else global_norm(grads))
+    return update_with_norm(params, grads, state, cfg, gnorm, use_kernel)
+
+
+@torch.no_grad()
+def update_with_norm(params, grads, state: OptState, cfg: AdamWConfig,
+                     gnorm: torch.Tensor, use_kernel: bool = True):
+    """``update`` given the global norm of `grads`, `gnorm` (a 0-d f32
+    tensor on their device)."""
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -162,23 +188,70 @@ def update(params, grads, state: OptState, cfg: AdamWConfig):
     for (path, p), g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
         p, g, m, v = _local(p, g, m, v)
         decay = _decayable(path)
-        n = p.shape[0] if p.dim() else 0
-        rows = max(1, SLICE_ELEMENTS * n // max(p.numel(), 1))
-        if rows >= n:
-            _update_leaf(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
-            continue
-        for i in range(0, n, rows):
-            s = slice(i, i + rows)
-            _update_leaf(p[s], g[s], m[s], v[s], cfg, scale, lr, b1c, b2c,
-                         decay)
+        if use_kernel and p.device.type == "cuda":
+            adamw_kernels.adamw_update(p, g, m, v, cfg, scale, lr, b1c,
+                                       b2c, decay)
+        else:
+            plain_update(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm,
                                                       "lr": lr}
+
+
+def _kernel_norm(leaves) -> torch.Tensor:
+    """The global norm of CUDA gradient leaves through the kernels.  Plain
+    tensors: one ``grad_norm`` call.  DTensor leaves (sharded or
+    replicated, as a mesh step places gradients): one ``grad_sumsq`` call
+    sums each group of leaves sharded over the same mesh dimensions on
+    each rank's own shards; each group's sum, marked partial on those
+    dimensions, is reduced across ranks; the groups' sums are added in
+    f64 and rooted."""
+    if not any(is_dtensor(t) for t in leaves):
+        return adamw_kernels.grad_norm(leaves)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    groups = {}
+    for t in leaves:
+        key = None
+        if is_dtensor(t):
+            if any(p.is_partial() for p in t.placements):
+                raise ValueError("a gradient with partial placements: "
+                                 "place it as its parameter first")
+            key = (t.device_mesh, tuple(p.is_shard() for p in t.placements))
+        groups.setdefault(key, []).append(t)
+    sums = adamw_kernels.grad_sumsq(
+        [[t.to_local() if is_dtensor(t) else t for t in ts]
+         for ts in groups.values()])
+    total = None
+    for key, ss in zip(groups, sums):
+        if key is not None:
+            mesh, sharded = key
+            ss = DTensor.from_local(
+                ss, mesh, [Partial() if s else Replicate() for s in sharded],
+                run_check=False).full_tensor()
+        total = ss if total is None else total + ss
+    return torch.sqrt(total).float()
+
+
+def plain_update(p, g, m, v, cfg: AdamWConfig, scale, lr, b1c, b2c,
+                 decay: bool):
+    """One leaf's update through the plain version: ``_update_leaf`` on
+    the whole leaf, or on slices of its first axis where it holds more
+    than SLICE_ELEMENTS elements."""
+    n = p.shape[0] if p.dim() else 0
+    rows = max(1, SLICE_ELEMENTS * n // max(p.numel(), 1))
+    if rows >= n:
+        _update_leaf(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
+        return
+    for i in range(0, n, rows):
+        s = slice(i, i + rows)
+        _update_leaf(p[s], g[s], m[s], v[s], cfg, scale, lr, b1c, b2c,
+                     decay)
 
 
 def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, b1c, b2c,
                  decay: bool):
     """One leaf's (or slice's) update in f32, written back in place into
-    p, m and v in their own dtypes."""
+    p, m and v in their own dtypes: the plain version of the
+    ``adamw_update`` kernel, which is bitwise this."""
     g = g.float() * scale
     m32 = m if m.dtype == torch.float32 else m.float()
     m32.mul_(cfg.b1).add_(g * (1 - cfg.b1))

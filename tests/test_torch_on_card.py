@@ -8,6 +8,8 @@ The ``cuda_only`` tests skip themselves without a card.  Tolerances:
 200 leaves; both sum in numpy's pairwise order, so the difference is 0
 unless the compiler reorders), exact against the numpy oracle and on
 capacities."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -2269,3 +2271,200 @@ def test_a_step_that_waits_on_the_host_raises_at_capture(monkeypatch):
         assert torch.cuda.get_sync_debug_mode() == 0
     assert insts[False].step() == []
     assert len(insts[False].active[0].tokens) == 2
+
+
+# ---------------------------------------------------------------------------
+# The train step's AdamW update and gradient norm kernels against their
+# plain versions (``optim.adamw._update_leaf`` and ``global_norm``).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+
+#: p, g and moment dtypes: f32 state, bf16 moments, bf16 state, and bf16
+#: weights with f32 gradients (a microbatched step's summed gradients)
+ADAMW_DTYPES = [(torch.float32, torch.float32, torch.float32),
+                (torch.float32, torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32, torch.bfloat16)]
+ADAMW_LENGTHS = [1, 7, 4097, (1 << 26) + 3]
+
+
+def _adamw_leaf(seed, n, dtypes, dev, offsets=(0, 0, 0, 0)):
+    """p, g, m, v of `n` elements in `dtypes` on `dev`, each a view at its
+    offset into a longer array; v non-negative, as a second moment is."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p_dt, g_dt, m_dt = dtypes
+    out = []
+    for dt, off, pos in zip((p_dt, g_dt, m_dt, m_dt), offsets,
+                            (False, False, False, True)):
+        x = torch.randn(n + off, generator=gen, device=dev)
+        x = x.abs() * 1e-2 if pos else x
+        out.append(x.to(dt)[off:])
+    return out
+
+
+def _adamw_scalars(dev, scale):
+    return [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (scale, 3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("scale", [1.0, 0.37], ids=["noclip", "clip"])
+@pytest.mark.parametrize("decay", [True, False])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES,
+                         ids=lambda d: "/".join(str(t)[6:] for t in d))
+@pytest.mark.parametrize("n,offsets", [(n, (0, 0, 0, 0))
+                                       for n in ADAMW_LENGTHS]
+                         + [(4097, (1, 1, 1, 1)), (4097, (1, 2, 1, 1))],
+                         ids=lambda x: str(x))
+def test_adamw_kernel_is_bitwise_its_plain_version(n, offsets, dtypes, decay,
+                                                   scale):
+    """One leaf's update through the kernel bitwise ``_update_leaf`` on
+    the same inputs, in every dtype pairing, decayed or not, scaled or
+    not, at lengths 1, 7, 4,097 and 2^26+3 and on slice views at storage
+    offset 1 (the "vector" path: a common aligned element) and at
+    offsets that share none (the "scalar" path); two calls bitwise
+    equal."""
+    dev = _card()
+    cfg = tadamw.AdamWConfig(weight_decay=0.1)
+    leaf = _adamw_leaf(n, n, dtypes, dev, offsets)
+    sc = _adamw_scalars(dev, scale)
+    want = [t.clone() for t in leaf]
+    tadamw._update_leaf(*want, cfg, *sc, decay)
+    got = []
+    for _ in range(2):
+        p, g, m, v = (t.clone() for t in leaf)
+        if offsets != (0, 0, 0, 0):
+            # clones are aligned: views at the offsets again
+            p, g, m, v = (torch.cat([t.new_zeros(o), t])[o:]
+                          for t, o in zip((p, g, m, v), offsets))
+        n0 = kadamw.adamw_update.launches
+        path = kadamw.adamw_update(p, g, m, v, cfg, *sc, decay)
+        torch.cuda.synchronize()
+        assert kadamw.adamw_update.launches == n0 + 1
+        assert path == ("vector" if n >= 8 and len(set(offsets)) == 1
+                        else "scalar")
+        got.append((p, m, v))
+    for a, b in zip(got[0], (want[0], want[2], want[3])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_norm_kernel_within_1e6_of_float64_and_bitwise_twice(dtype):
+    """The norm of leaves of 1, 7, 4,097 and 2^26+3 elements, a slice
+    at storage offset 1 and a permuted view, mixed f32 and `dtype`:
+    within 1e-6 relative of the float64 norm, two calls bitwise equal,
+    each counted once with one partials launch a leaf; ``grad_sumsq`` of
+    two groups, one call counted, their f64 sums within 1e-6 of the
+    squared norm."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    leaves = [torch.randn(n, generator=gen, device=dev).to(dtype)
+              for n in ADAMW_LENGTHS]
+    leaves.append(torch.randn(4098, generator=gen, device=dev)[1:])
+    # a permuted leaf, as autograd gives attention's output projection
+    leaves.append(torch.randn(16, 80, 33, generator=gen,
+                              device=dev).permute(1, 0, 2))
+    want = math.sqrt(sum(float(torch.sum(torch.square(x.double())))
+                         for x in leaves))
+    n0 = kadamw.grad_norm.launches, dict(kadamw.grad_norm.launches_by_path)
+    a, b = kadamw.grad_norm(leaves), kadamw.grad_norm(leaves)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.float32 and a.dim() == 0
+    assert torch.equal(a, b)
+    assert abs(float(a) - want) <= 1e-6 * want
+    assert kadamw.grad_norm.launches == n0[0] + 2
+    assert (kadamw.grad_norm.launches_by_path["partials"]
+            == n0[1]["partials"] + 2 * len(leaves))
+    n0 = kadamw.grad_norm.launches, dict(kadamw.grad_norm.launches_by_path)
+    ss = kadamw.grad_sumsq([leaves[:2], leaves[2:]])
+    assert ss.dtype == torch.float64 and ss.shape == (2,)
+    assert abs(float(ss.sum()) - want * want) <= 1e-6 * want * want
+    assert kadamw.grad_norm.launches == n0[0] + 1
+    assert kadamw.grad_norm.launches_by_path["sum"] == n0[1]["sum"] + 2
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+def test_update_on_the_smoke_tree_is_bitwise_the_plain_update(state):
+    """Three AdamW steps on the recurrentgemma smoke model's tree (f32
+    state, or bf16 weights, gradients and moments) with random gradients:
+    ``update_with_norm`` through the kernels bitwise the plain update
+    given the plain norm, one launch a leaf and none of the norm's; the
+    whole ``update`` launching the norm once a step, its norm within 1e-6
+    of the plain one; ``use_kernel=False`` launching neither."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    dev = _card()
+    dt = getattr(torch, state)
+    cfg = get_smoke_config("recurrentgemma-2b")
+    ocfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4,
+                              moment_dtype=state)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, param_dtype=dt)
+    n_leaves = len(tadamw.leaves_with_path(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grads = [tadamw._map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev).to(p.dtype),
+                         params) for _ in range(3)]
+    copy = lambda tree: tadamw._map(torch.clone, tree)
+    pk, pp = copy(params), copy(params)
+    sk, sp = tadamw.init(pk, ocfg), tadamw.init(pp, ocfg)
+    for g in grads:
+        gnorm = tadamw.global_norm(g)
+        n0 = kadamw.adamw_update.launches, kadamw.grad_norm.launches
+        pk, sk, _ = tadamw.update_with_norm(pk, g, sk, ocfg, gnorm, True)
+        assert (kadamw.adamw_update.launches - n0[0],
+                kadamw.grad_norm.launches - n0[1]) == (n_leaves, 0)
+        n0 = kadamw.adamw_update.launches, kadamw.grad_norm.launches
+        pp, sp, _ = tadamw.update_with_norm(pp, g, sp, ocfg, gnorm, False)
+        assert (kadamw.adamw_update.launches,
+                kadamw.grad_norm.launches) == n0
+    torch.cuda.synchronize()
+    for (path, a), (_, b) in zip(
+            tadamw.leaves_with_path((pk, sk.m, sk.v)),
+            tadamw.leaves_with_path((pp, sp.m, sp.v))):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    n0 = kadamw.adamw_update.launches, kadamw.grad_norm.launches
+    _, _, met = tadamw.update(pk, grads[0], sk, ocfg)
+    plain = tadamw.global_norm(grads[0])
+    assert (kadamw.adamw_update.launches - n0[0],
+            kadamw.grad_norm.launches - n0[1]) == (n_leaves, 1)
+    assert abs(float(met["grad_norm"]) - float(plain)) <= 1e-6 * float(plain)
+
+
+@pytest.mark.cuda_only
+def test_train_step_launches_the_update_kernels_and_plain_none():
+    """The smoke model's train step through ``make_train_step`` on the
+    card launches the norm once and the update once a leaf a step; with
+    ``use_kernel=False`` neither, its losses within 1e-4 of the
+    kernels'."""
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.steps import make_train_batch
+    dev = _card()
+    cfg = get_smoke_config("recurrentgemma-2b")
+    shape = InputShape("t", 64, 2, "train")
+    opt = tadamw.AdamWConfig(total_steps=4, warmup_steps=1)
+    losses = {}
+    for use_kernel in (True, False):
+        bundle = make_train_step(cfg, None, shape, opt, device=dev,
+                                 use_kernel=use_kernel)
+        state = build_state(cfg, opt, 0, dev)
+        n_leaves = len(tadamw.leaves_with_path(state["params"]))
+        n0 = kadamw.adamw_update.launches, kadamw.grad_norm.launches
+        losses[use_kernel] = []
+        for i in range(2):
+            batch = make_train_batch(cfg, shape, np.random.default_rng(i),
+                                     dev)
+            state, met = bundle.fn(state, batch)
+            losses[use_kernel].append(float(met["loss"]))
+        want = (2 * n_leaves, 2) if use_kernel else (0, 0)
+        assert (kadamw.adamw_update.launches - n0[0],
+                kadamw.grad_norm.launches - n0[1]) == want
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
