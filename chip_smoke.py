@@ -81,11 +81,13 @@ Phases (each one failing makes the script exit non-zero):
      each timed beside its plain version, and attention beside ``scaled_dot_product_attention`` with
      the same boolean mask; ``ssd_scan`` at mamba2-2.7b's serving shapes
      (B = 1, 80 heads of 64, d_state 128, one B/C group, S = 512, 1,000,
-     2,048, 3,001, bf16 on the wgmma kernel and f32 on the CUDA-core
+     2,048, 3,001, bf16 on the wgmma kernel and f32 on the 3xTF32
      kernel, with and without h0) against its plain version at the
      kernels' chunk of 64 (f32: 1e-4 of the largest |y| and of the
      state's norm; bf16: 2e-2), the CUDA-core kernel held and timed
-     beside the wgmma one, which must be no slower, and at S = 3,001
+     beside each tensor-core one, which must be no slower on the device,
+     each one's device time printed as a share of its bound, and at S =
+     3,001
      ``ops.ssd_op`` in the model's layout timed beside the kernel alone
      (the transposes around the call); ``flash_attention`` at
      deepseek-v2-236b's MLA prefill shape (BH 128, group 1, q and k of
@@ -187,13 +189,15 @@ Phases (each one failing makes the script exit non-zero):
      and f32, without and with h0 and a gradient by the final state, then
      grouped B/C (G 2 and G 3 with 2 heads a group) and a shape off the
      served one (each gradient within SSD_TOL of its largest |value|; the
-     path each ran must be the one ``bwd_path`` names: bf16 at P 64, N
-     128 the tensor-core kernel of ``ssd_scan_bwd_wgmma.cu``, the rest
-     the first design of ``ssd_scan_bwd.cu``, which is held on the same
-     inputs beside the tensor-core kernel; two calls at S = 3,001 bitwise
-     equal), timed beside its plain version, the first design timed
-     beside the tensor-core kernel at the served shape and slower than it
-     on the device; the AdamW update and gradient norm kernels
+     path each ran must be the one ``bwd_path`` names: at P 64, N 128
+     bf16 the wgmma kernel of ``ssd_scan_bwd_wgmma.cu`` and f32 the
+     3xTF32 kernel of ``ssd_scan_bwd_tf32.cu``, the rest the first design
+     of ``ssd_scan_bwd.cu``, which is held on the same inputs beside each
+     tensor-core kernel; two calls at S = 3,001 bitwise equal), timed
+     beside its plain version, the first design timed beside each
+     tensor-core kernel at the served shape and slower than it on the
+     device, each one's device time printed as a share of its bound; the
+     AdamW update and gradient norm kernels
      (``csrc/adamw.cu``) at ADAMW_LEAVES, recurrentgemma-2b's embedding
      table in f32 state and deepseek-v2-236b's expert leaf in bf16: the
      update bitwise its plain version and twice, the norm within NORM_TOL
@@ -418,7 +422,29 @@ Phases (each one failing makes the script exit non-zero):
      and the losses; one step profiled, beside the attention time of the
      step's launches at phase 4's and 8's kernel times and at the
      CUDA-core kernels' (the route the parent took); phase 13's time;
-  14. the f32 flash path's times and the f32 attention backward's on
+  14. mamba2-2.7b computed in f32 at its published width and depth (64
+     layers, d 2,560, 80 heads of 64, d_state 128, one group, vocab
+     50,280; ``dtype="float32"``, as ``examples/train_lm.py`` sets its
+     config), every SSD scan and backward on the 3xTF32 kernels: (a) one
+     forward and backward at B 1, S 3,000, remat, through the kernels
+     and through the plain versions on the same seeded weights and
+     batch, the loss within 1e-5 relative and every gradient leaf within
+     1e-3 in norm (the worst printed as a share of it), none zero
+     through the kernels where the plain one is not, the launches exact
+     (128 forwards, 64 backwards, all "tf32"); (b) one SSM layer at S
+     1,024 the same way within F32_GRAD_TOL (1e-4), A_log and dt_bias
+     non-zero; (c) 4 train steps on f32 weights and moments (phase 8
+     (b)'s route), the launches exact (128 forwards and 64 backwards a
+     step on "tf32", none on "simt" or "wgmma"), step time, tokens/s,
+     peak memory, one step profiled with the SSD kernels' device time
+     beside the rest; (d) two prompts each of 512 and 3,001 tokens served
+     by one instance, 16 greedy tokens decoded through its captured
+     step: the last-position logits within 1e-3 of the largest |logit|
+     and every layer's final state within 1e-3 in norm of the plain
+     run's (where not, both against a float64 plain run, the kernels' no
+     farther than 1.25 times the plain f32 run's), a captured decode
+     step bitwise the eager one over 16 steps; phase 14's time;
+  15. the f32 flash path's times and the f32 attention backward's on
      lines of their own; one JSON line describing the five kernels and
      the three backward kernels (flash attention's entry is the bf16
      serving path's kernel, with the f32 path's under "f32" and the MLA
@@ -446,7 +472,10 @@ Phases (each one failing makes the script exit non-zero):
      recurrentgemma-2b's embedding table (deepseek-v2-236b's expert leaf
      under "bf16"), their launches phase 8 (b)'s recurrentgemma-2b run's,
      by phase under "launches_by_phase" (8 b, 8 e, 13), "mesh_launches"
-     and "phase12_launches"), then the device line.
+     and "phase12_launches"; the f32 SSD scan and backward on the 3xTF32
+     kernels under the SSD entries' "f32", their times and the first
+     designs' at S 3,001 (phases 4 and 8 (a)), their launches phase 14's
+     by part), then the device line.
 
 Exits non-zero and prints no result when there is no CUDA card or the
 port is not beside this script.
@@ -2110,7 +2139,9 @@ def phase4_lm_kernels():
                                  f"{m['simt_device_ms'] / m['device_ms']:.2f}"
                                  "x the new)")
                     line += (f", plain {m['plain_ms']:.4f} ms, bound "
-                             f"{m['bound_ms']:.5f} ms ({m['bound_by']}")
+                             f"{m['bound_ms']:.5f} ms ({m['bound_by']}, "
+                             f"{m['bound_ms'] / m['device_ms']:.3f} of the "
+                             "kernel's device time")
                     if "cuda_core_bound_ms" in m:
                         line += (f"; at the CUDA cores' 67 TFLOP/s "
                                  f"{m['cuda_core_bound_ms']:.5f} ms")
@@ -2121,9 +2152,10 @@ def phase4_lm_kernels():
                           f"ssd_scan S={s} {dt_name}: the tensor-core "
                           f"kernel {m['device_ms']:.4f} ms, slower than the "
                           f"CUDA-core kernel {m['simt_device_ms']:.4f} ms")
-                if (s, dtype, with_h0) == (max(SSM_PROMPTS), torch.bfloat16,
-                                           False):
-                    serve["ssd_scan"] = dict(m, shape=[1, heads, s, p, n])
+                if (s, with_h0) == (max(SSM_PROMPTS), False):
+                    key = ("ssd_scan" if dtype == torch.bfloat16
+                           else "ssd_scan f32")
+                    serve[key] = dict(m, shape=[1, heads, s, p, n])
                     ssd_layout_cost(*args[:5], A)
     serve.update(phase4_mla(randn))
     return serve
@@ -2550,12 +2582,14 @@ def hold_graph(label: str, cfg, params, graphed, tokens, pos,
     return out
 
 
-def hold_served_graph(phase: str, cfg, params, prompts, max_len: int):
+def hold_served_graph(phase: str, cfg, params, prompts, max_len: int,
+                      steps: int = HOLD_STEPS):
     """``hold_graph`` at a phase's serving configuration: a fresh graphed
     instance (SERVE_SLOTS slots, caches of `max_len`) admits one prompt
     of each length, then the rest in turn, until its slots are full, and
     its own decode step is held against an eager one on a copy of its
-    cache.  Prints the peak memory of the hold (two caches)."""
+    cache for `steps` steps.  Prints the peak memory of the hold (two
+    caches)."""
     import torch
     from repro_torch.serving.engine import Request, ServingInstance
     inst = ServingInstance(cfg, params, slots=SERVE_SLOTS, max_len=max_len)
@@ -2566,7 +2600,7 @@ def hold_served_graph(phase: str, cfg, params, prompts, max_len: int):
               f"{phase}: the hold's instance is full")
     lengths = [len(r.prompt) for r in inst.active]
     out = hold_graph(f"{phase} prompts {lengths}", cfg, params,
-                     inst.decoder, inst.last_token, inst.pos)
+                     inst.decoder, inst.last_token, inst.pos, steps)
     print(f"{phase} graph hold peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     inst.close()
@@ -2885,7 +2919,7 @@ def phase5_serving(flash_first_ms: float, scan_first_ms: float):
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
          "rglru_scan": n_rec, "rglru_scan.tma": n_rec,
          "rglru_scan.simt": 0, "ssd_scan": 0, "ssd_scan.wgmma": 0,
-         "ssd_scan.simt": 0},
+         "ssd_scan.tf32": 0, "ssd_scan.simt": 0},
         f"{n_local} local + {n_rec} recurrent",
         {"flash": n_local * flash_first_ms, "scan": n_rec * scan_first_ms})
     print(f"phase5 total {time.perf_counter() - t0:.1f} s")
@@ -2909,7 +2943,8 @@ def phase6_ssm_serving():
         {"flash_attention": 0, "flash_attention.wgmma": 0,
          "flash_attention.tf32": 0, "flash_attention.simt": 0,
          "rglru_scan": 0, "rglru_scan.tma": 0, "rglru_scan.simt": 0,
-         "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.simt": 0},
+         "ssd_scan": n_ssm, "ssd_scan.wgmma": n_ssm, "ssd_scan.tf32": 0,
+         "ssd_scan.simt": 0},
         f"{n_ssm} SSM, {cfg.ssd.n_heads(cfg.d_model)} heads of "
         f"{cfg.ssd.head_dim}, d_state {cfg.ssd.d_state}")
     print(f"phase6 total {time.perf_counter() - t0:.1f} s")
@@ -3806,11 +3841,14 @@ def phase8_bwd_kernels():
                          f"{m['simt_device_ms']:.4f} ms: "
                          f"{m['simt_device_ms'] / m['device_ms']:.2f}x]")
             line += (f", plain {m['plain_ms']:.4f} ms, bound "
-                     f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
+                     f"{m['bound_ms']:.5f} ms ({m['bound_by']}, "
+                     f"{m['bound_ms'] / m['device_ms']:.3f} of the kernel's "
+                     "device time)")
         print(line)
-        if (dtype, s, served, with_h0) == (torch.bfloat16, max(SSM_PROMPTS),
-                                           True, False):
-            serve["ssd_scan_bwd"] = dict(m, shape=[bsz, heads, s, p, n])
+        if (s, served, with_h0) == (max(SSM_PROMPTS), True, False):
+            key = ("ssd_scan_bwd" if dtype == torch.bfloat16
+                   else "ssd_scan_bwd f32")
+            serve[key] = dict(m, shape=[bsz, heads, s, p, n])
     return serve
 
 
@@ -4029,24 +4067,38 @@ def phase8_adamw_kernels() -> dict:
 
 def train_counts() -> dict:
     """The forward and backward launch counts of the train steps'
-    kernels, the SSD scan's forward and backward also on the wgmma
-    path, and the AdamW update's and gradient norm's."""
+    kernels, the SSD scan's forward and backward also by path, and the
+    AdamW update's and gradient norm's."""
     from repro_torch.kernels.adamw import adamw_update, grad_norm
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     lm = lm_counts()
-    return {"flash_attention": flash_attention.launches,
-            "flash_attention.wgmma": lm["flash_attention.wgmma"],
-            "flash_attention_bwd": flash_attention_bwd.launches,
-            "rglru_scan": rglru_scan.launches,
-            "rglru_scan_bwd": rglru_scan_bwd.launches,
-            "ssd_scan": lm["ssd_scan"], "ssd_scan.wgmma": lm["ssd_scan.wgmma"],
-            "ssd_scan_bwd": ssd_scan_bwd.launches,
-            "ssd_scan_bwd.wgmma": ssd_scan_bwd.launches_by_path["wgmma"],
-            "adamw_update": adamw_update.launches,
-            "grad_norm": grad_norm.launches}
+    counts = {"flash_attention": flash_attention.launches,
+              "flash_attention.wgmma": lm["flash_attention.wgmma"],
+              "flash_attention_bwd": flash_attention_bwd.launches,
+              "rglru_scan": rglru_scan.launches,
+              "rglru_scan_bwd": rglru_scan_bwd.launches}
+    for fn in (ssd_scan, ssd_scan_bwd):
+        counts[fn.__name__] = fn.launches
+        counts.update({f"{fn.__name__}.{p}": c
+                       for p, c in fn.launches_by_path.items()})
+    counts.update(adamw_update=adamw_update.launches,
+                  grad_norm=grad_norm.launches)
+    return counts
+
+
+def ssd_kernel(cfg) -> str:
+    """The SSD scan's path for `cfg`'s compute dtype and SSD shape (the
+    path its SSM layers' scans and their backwards take): "wgmma" where
+    the model has no SSM layer."""
+    import torch
+    from repro_torch.kernels.ssd_scan import path
+    if "ssm" not in cfg.layer_kinds():
+        return "wgmma"
+    return path(getattr(torch, cfg.dtype), cfg.ssd.head_dim,
+                cfg.ssd.d_state)
 
 
 def update_launches(params, steps: int) -> dict:
@@ -4109,7 +4161,7 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
         f"{e.key[:28]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
         for e in ops))
     for key in ("attn_bwd", "rglru_bwd", "flash", "rglru_tma", "ssd_state",
-                "ssd_out", "ssd_bwd", "gemm"):
+                "ssd_walk", "ssd_out", "ssd_bwd", "gemm"):
         mine = [e for e in dev if key in e.key.lower()]
         if mine:
             print(f"{phase} profile   {key}: " + "; ".join(
@@ -4138,8 +4190,15 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
     # backward's four (D_i, dK/dV, dQ, the shares' sum) and the SSD
     # backward's three on the wgmma path (the chunk walks, the chunks'
     # gradients by head tile, the tiles' sum)
+    ssd = [e for e in dev if re.search(r"\bssd_[a-z0-9_]+_kernel", e.key)]
+    if ssd:
+        ssd_ms = sum(e.self_device_time_total for e in ssd) / 1e3
+        print(f"{phase} profile   SSD kernels, forward and backward: "
+              f"{ssd_ms:.2f} ms of {busy * 1e3:.2f} ms device busy "
+              f"({ssd_ms / (busy * 1e3):.4f}), the rest "
+              f"{busy * 1e3 - ssd_ms:.2f} ms")
     for label, pattern in (("attention backward", r"attn_bwd_[a-z0-9_]+"),
-                           ("ssd backward", r"ssd_bwd_[a-z_]+")):
+                           ("ssd backward", r"ssd_bwd_[a-z0-9_]+")):
         bwd = sorted((e for e in dev if re.search(pattern, e.key)),
                      key=lambda e: -e.self_device_time_total)
         if bwd:
@@ -4195,15 +4254,17 @@ def _train_config(arch: str, n_layers: int = 0):
     return cfg, getattr(torch, dtype), dtype
 
 
-def _train_setup(arch: str, steps: int):
+def _train_setup(arch: str, steps: int, f32: bool = False):
     """(config, parameter dtype, input shape, AdamWConfig) of `arch`
     trained for `steps` steps at B TRAIN_BATCH, S TRAIN_SEQ: the AdamW
     settings the reference's ``train_loop`` builds for that many steps
     (warmup 1) at TRAIN_TABLE's learning rate, the moments in the state's
-    dtype."""
+    dtype; with `f32`, computed in f32."""
     from repro_torch.configs import InputShape
     from repro_torch.optim import AdamWConfig
     cfg, param_dtype, moment_dtype = _train_config(arch)
+    if f32:
+        cfg = cfg.replace(dtype="float32")
     shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     return cfg, param_dtype, shape, AdamWConfig(
         lr=TRAIN_TABLE.get(arch, Trained()).lr, total_steps=steps,
@@ -4211,7 +4272,8 @@ def _train_setup(arch: str, steps: int):
 
 
 def train_full_width(arch: str, label: str = "phase 8 (b)",
-                     steps: int = TRAIN_STEPS, profile: bool = True):
+                     steps: int = TRAIN_STEPS, profile: bool = True,
+                     f32: bool = False):
     """Phase 8 (b) and phase 12 (a)-(f): `arch` at its published width as
     TRAIN_TABLE trains it (recurrentgemma-2b and mamba2-2.7b at their
     depth with f32 master weights and moments, deepseek-v2-236b cut to
@@ -4224,9 +4286,10 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     launches exact: each forward once a layer and again in each
     recomputed period, each backward once a layer, the attention forward
     and backward (deepseek: at MLA's q/k 192, v 128) and the SSD forward
-    on their wgmma paths.  With `profile`, one more step under the
-    profiler.  Returns the launches in the run, the attention backward's
-    by path among them as "flash_attention_bwd.<path>"."""
+    on their tensor-core paths.  With `f32` (phase 14), computed in f32.
+    With `profile`, one more step under the profiler.  Returns the
+    launches in the run, the attention backward's by path among them as
+    "flash_attention_bwd.<path>"."""
     import gc
     import torch
     from repro_torch.data import TokenPipeline
@@ -4242,7 +4305,7 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
-    cfg, param_dtype, shape, opt_cfg = _train_setup(arch, steps)
+    cfg, param_dtype, shape, opt_cfg = _train_setup(arch, steps, f32)
     n, fwd, n_periods = _layer_counts(cfg)
     t0 = time.perf_counter()
     state = build_state(cfg, opt_cfg, seed=0, device="cuda",
@@ -4285,14 +4348,17 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     # freed its cache (each a device-wide sync)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     T = steps
-    want = {"flash_attention": fwd["attention"] * T,
-            "flash_attention.wgmma": fwd["attention"] * T,
-            "flash_attention_bwd": n["attention"] * T,
-            "rglru_scan": fwd["recurrent"] * T,
-            "rglru_scan_bwd": n["recurrent"] * T,
-            "ssd_scan": fwd["ssm"] * T, "ssd_scan.wgmma": fwd["ssm"] * T,
-            "ssd_scan_bwd": n["ssm"] * T, "ssd_scan_bwd.wgmma": n["ssm"] * T,
-            **update_launches(state["params"], T)}
+    ssd = ssd_kernel(cfg)
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention": fwd["attention"] * T,
+                 "flash_attention.wgmma": fwd["attention"] * T,
+                 "flash_attention_bwd": n["attention"] * T,
+                 "rglru_scan": fwd["recurrent"] * T,
+                 "rglru_scan_bwd": n["recurrent"] * T,
+                 "ssd_scan": fwd["ssm"] * T, f"ssd_scan.{ssd}": fwd["ssm"] * T,
+                 "ssd_scan_bwd": n["ssm"] * T,
+                 f"ssd_scan_bwd.{ssd}": n["ssm"] * T,
+                 **update_launches(state["params"], T)})
     steady = statistics.median(times[1:])
     want_path = {"wgmma": n["attention"] * T, "tf32": 0, "simt": 0}
     print(f"{phase} {arch} train launches: {counts}; expected {want} (the "
@@ -4319,7 +4385,8 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
         state = profile_train_step(
             bundle, state, put_batch(pipe.batch(steps), "cuda"), phase)
     del state, bundle
-    TRAIN_RUNS[arch] = {"losses": losses, "counts": counts}
+    TRAIN_RUNS[arch + (" f32" if f32 else "")] = {"losses": losses,
+                                                 "counts": counts}
     return dict(counts, **{f"flash_attention_bwd.{p}": c
                            for p, c in by_path.items()})
 
@@ -4381,7 +4448,7 @@ def first_layers(cfg, n: int):
 
 
 def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
-                        witness: bool = False):
+                        witness: bool = False, phase: str = "phase8"):
     """(c) one period of `arch` at its published width (recurrentgemma:
     rec, rec, local; mamba2: one SSM layer), or deepseek-v2-236b's first
     `n_layers` layers (c1: the dense layer alone; c2: with one MoE layer;
@@ -4469,9 +4536,9 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
                         "rglru_scan": fwd["recurrent"],
                         "rglru_scan_bwd": n["recurrent"],
                         "ssd_scan": fwd["ssm"],
-                        "ssd_scan.wgmma": fwd["ssm"],
+                        f"ssd_scan.{ssd_kernel(cfg)}": fwd["ssm"],
                         "ssd_scan_bwd": n["ssm"],
-                        "ssd_scan_bwd.wgmma": n["ssm"]})
+                        f"ssd_scan_bwd.{ssd_kernel(cfg)}": n["ssm"]})
     routing = RoutingReplay() if n_moe else None
     kernel_launches = {}
     try:
@@ -4486,10 +4553,10 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
             d = {k: v - n0[k] for k, v in counts().items()}
             if use_kernel:
                 kernel_launches = d
-            print(f"phase8 {label} period grads use_kernel={use_kernel}: "
+            print(f"{phase} {label} period grads use_kernel={use_kernel}: "
                   f"launches {d}")
             want = want_kernel if use_kernel else {k: 0 for k in d}
-            check(d == want, f"phase 8 (c) {label} use_kernel={use_kernel}:"
+            check(d == want, f"{phase} {label} use_kernel={use_kernel}:"
                   f" launches {d}, expected {want}")
     finally:
         if routing is not None:
@@ -4500,11 +4567,11 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
         _, period, n_periods, _ = model_lib.block_structure(cfg)
         calls = 2 * (n_moe + n_periods * sum(s.is_moe for s in period))
         check(len(routing.first) == len(routing.own) == calls,
-              f"phase 8 (c) {label}: router calls {len(routing.first)}, "
+              f"{phase} {label}: router calls {len(routing.first)}, "
               f"{len(routing.own)}, expected {calls} each")
         diffs = [_routing_diff(a, b) for a, b in zip(routing.first,
                                                      routing.own)]
-        print(f"phase8 {label} routing: the plain run's own gates against "
+        print(f"{phase} {label} routing: the plain run's own gates against "
               f"the kernels' routing, by router call (MoE forward, aux "
               f"loss, then both recomputed; {PERIOD_SEQ} tokens, top-"
               f"{cfg.moe.top_k} of {cfg.moe.n_experts}): tokens whose "
@@ -4525,7 +4592,7 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
             lost.append(name)
     worst = max(e for _, e in errs)
     n_params = sum(p.numel() for p in leaves)
-    print(f"phase8 {label} period grads ({cfg.n_layers} layers of width "
+    print(f"{phase} {label} period grads ({cfg.n_layers} layers of width "
           f"{cfg.d_model}, {n_params:,} parameters, {str(param_dtype)[6:]} "
           f"weights, S {PERIOD_SEQ}, {cfg.dtype} compute): loss kernels "
           f"{losses[0]:.7f}, plain {losses[1]:.7f}; each leaf's relative "
@@ -4539,7 +4606,7 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
         wit = [(name, rel(gk, gw), rel(gp, gw)) for (name, _), gk, gp, gw
                in zip(errs, *grads)]
         at = max(range(len(errs)), key=lambda i: errs[i][1])
-        print(f"phase8 {label} period grads against an f32 witness (f32 "
+        print(f"{phase} {label} period grads against an f32 witness (f32 "
               f"compute, plain versions): kernels' worst leaf "
               f"{max(w[1] for w in wit):.3e}, plain run's "
               f"{max(w[2] for w in wit):.3e}; the leaf farthest between "
@@ -4547,21 +4614,21 @@ def phase8_period_grads(arch: str, n_layers: int = 0, f32: bool = False,
               f"kernels {wit[at][1]:.3e}, plain {wit[at][2]:.3e} from the "
               f"witness; " + "; ".join(f"{n} {k:.2e} / {p:.2e}"
                                         for n, k, p in wit))
-    print(f"phase8 {label} period grads: worst leaf {worst:.3e}; leaves "
+    print(f"{phase} {label} period grads: worst leaf {worst:.3e}; leaves "
           f"zero through the kernels but not through the plain versions: "
           f"{lost or 'none'}")
-    check(not lost, f"phase 8 (c) {label}: gradients lost through the "
+    check(not lost, f"{phase} {label}: gradients lost through the "
           f"kernels: {lost}")
-    check(worst <= tol, f"phase 8 (c) {label}: a gradient leaf "
+    check(worst <= tol, f"{phase} {label}: a gradient leaf "
           f"differs by {worst} in norm")
     check(abs(losses[0] - losses[1]) <= tol * abs(losses[1]),
-          f"phase 8 (c) {label}: losses {losses}")
+          f"{phase} {label}: losses {losses}")
     if arch == SSM_ARCH:
         scan_only = [(n, gk) for (n, _), gk in zip(errs, grads[0])
                      if n.endswith("A_log") or n.endswith("dt_bias")]
         check(len(scan_only) == 2 * cfg.n_layers
               and all(bool(g.any()) for _, g in scan_only),
-              f"phase 8 (c): A_log and dt_bias gradients "
+              f"{phase}: A_log and dt_bias gradients "
               f"{[(n, float(g.abs().max())) for n, g in scan_only]}")
     return kernel_launches
 
@@ -5089,8 +5156,7 @@ def phase9c_cluster() -> dict:
             total = sum(per_prefill[a][name] * len(served[a])
                         for a in cfgs)
             want[name] = want[f"{name}.wgmma"] = total
-            want[f"{name}.simt"] = 0
-        want["flash_attention.tf32"] = 0
+            want[f"{name}.tf32"] = want[f"{name}.simt"] = 0
         got = {k: launches[k] for k in want}
         print(f"phase9 (c) {scenario}: {wall:.2f} s for {CLUSTER_TICKS} "
               f"ticks and the drain, served "
@@ -6552,6 +6618,255 @@ def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: mamba2-2.7b in f32 at its published width and depth
+# ---------------------------------------------------------------------------
+
+#: phase 14 (a): the full model's loss and gradient leaves through the
+#: kernels against the plain versions, f32 compute: the loss relative,
+#: each leaf relative in norm
+SSM_F32_LOSS_RTOL = 1e-5
+SSM_F32_LEAF_TOL = 1e-3
+#: phase 14 (c): train steps of the f32 model
+SSM_F32_STEPS = 4
+#: phase 14 (d): prompts served; last-position logits within this of the
+#: largest |logit| and each layer's final state within it in norm of the
+#: plain run's
+SSM_F32_PROMPTS = (512, 3001)
+SSM_F32_SERVE_TOL = 1e-3
+
+
+def ssm_f32_config():
+    """mamba2-2.7b at its published width and depth, computed in f32, as
+    ``examples/train_lm.py`` builds its f32 config (``dtype="float32"``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH).replace(dtype="float32")
+    n_heads = cfg.ssd.n_heads(cfg.d_model)
+    check((cfg.n_layers, cfg.d_model, n_heads, cfg.ssd.head_dim,
+           cfg.ssd.d_state, cfg.ssd.n_groups, cfg.vocab_size, cfg.dtype)
+          == (64, 2560, 80, 64, 128, 1, 50280, "float32"),
+          f"phase 14: {SSM_ARCH} in f32 is not at its published width")
+    return cfg
+
+
+def phase14a_model_grads(cfg) -> dict:
+    """(a) one forward and backward of the whole f32 model (B TRAIN_BATCH,
+    S TRAIN_SEQ, remat, TokenPipeline seed 0, f32 weights from seed 1)
+    through the kernels and through the plain versions: the loss within
+    SSM_F32_LOSS_RTOL relative, every gradient leaf within
+    SSM_F32_LEAF_TOL in norm (the worst printed as a share of it), none
+    zero through the kernels where the plain one is not, and the
+    kernels' launches exact, all on the 3xTF32 path.  Returns the
+    kernels' launches."""
+    import gc
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import put_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.optim.adamw import leaves_with_path
+    _free_models("phase14 (a)")
+    n, fwd, _ = _layer_counts(cfg)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    named = leaves_with_path(params)
+    leaves = [p.requires_grad_(True) for _, p in named]
+    shape = InputShape("phase14", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = put_batch(TokenPipeline(cfg, shape, seed=0).batch(0), "cuda")
+    want = {k: 0 for k in train_counts()}
+    want.update({"ssd_scan": fwd["ssm"], "ssd_scan.tf32": fwd["ssm"],
+                 "ssd_scan_bwd": n["ssm"], "ssd_scan_bwd.tf32": n["ssm"]})
+    grads, losses, launches = [], [], {}
+    for use_kernel in (True, False):
+        n0 = train_counts()
+        t0 = time.perf_counter()
+        loss, _ = steps_lib.loss_fn(cfg, params, batch, remat=True,
+                                    use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        d = {k: c - n0[k] for k, c in train_counts().items()}
+        print(f"phase14 (a) use_kernel={use_kernel}: loss {losses[-1]:.7f},"
+              f" forward and backward {time.perf_counter() - t0:.2f} s, "
+              f"launches {d}")
+        check(d == (want if use_kernel else {k: 0 for k in d}),
+              f"phase 14 (a) use_kernel={use_kernel}: launches {d}")
+        if use_kernel:
+            launches = d
+    errs, lost = [], []
+    for (path, _), gk, gp in zip(named, *grads):
+        name = "/".join(p.strip("[]'") for p in path)
+        errs.append((name, float((gk - gp).norm()
+                                 / gp.norm().clamp_min(1e-30))))
+        if not bool(gk.any()) and bool(gp.any()):
+            lost.append(name)
+    worst_name, worst = max(errs, key=lambda e: e[1])
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"phase14 (a) {SSM_ARCH} f32, {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in leaves):,} parameters, B {TRAIN_BATCH} "
+          f"S {TRAIN_SEQ}: loss kernels {losses[0]:.7f}, plain "
+          f"{losses[1]:.7f} (relative {rel:.3e}, limit {SSM_F32_LOSS_RTOL}); "
+          f"worst leaf {worst_name} {worst:.3e} in norm, "
+          f"{worst / SSM_F32_LEAF_TOL:.4f} of the {SSM_F32_LEAF_TOL} limit; "
+          f"by leaf kind, the worst over layers: " + "; ".join(
+              f"{kind} {max(e for nm, e in errs if nm.endswith(kind)):.2e}"
+              for kind in sorted({nm.split('/')[-1] for nm, _ in errs})))
+    print(f"phase14 (a) leaves zero through the kernels but not through the "
+          f"plain versions: {lost or 'none'}")
+    check(not lost, f"phase 14 (a): gradients lost through the kernels: "
+          f"{lost}")
+    check(rel <= SSM_F32_LOSS_RTOL, f"phase 14 (a): losses {losses}")
+    check(worst <= SSM_F32_LEAF_TOL, f"phase 14 (a): {worst_name} differs "
+          f"by {worst} in norm")
+    del params, named, leaves, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _f64_prefill(cfg, params, prompt, max_len: int):
+    """The last-position logits and the SSM layers' final states of a
+    prefill of `prompt` through the plain versions in float64 (the
+    witness where the f32 runs differ by more than SSM_F32_SERVE_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import _map
+    p64 = _map(lambda t: t.double(), params)
+    toks = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
+    logits, cache = model_lib.prefill(cfg.replace(dtype="float64"), p64,
+                                      {"tokens": toks}, max_len,
+                                      use_kernel=False)
+    del p64
+    return logits[0].cpu(), [c["h"][0].cpu() for c in cache if "h" in c]
+
+
+def phase14d_serve(cfg) -> dict:
+    """(d) the f32 model served: one ServingEngine instance (SERVE_SLOTS
+    slots, caches of SERVE_MAX_LEN) prefills two prompts of each of
+    SSM_F32_PROMPTS and decodes SERVE_MAX_NEW greedy tokens through its
+    captured step, with the kernels (64 3xTF32 SSD launches a prefill)
+    and through the plain versions (eagerly).  The last-position logits
+    within SSM_F32_SERVE_TOL of the largest |logit| of the plain run's,
+    and each layer's final state within it in norm; where that fails, both
+    runs against a float64 plain run, the kernels' no farther from it than
+    WITNESS_RATIO times the plain f32 run's.  A captured decode step held
+    against the eager one for SERVE_MAX_NEW greedy steps, the logits
+    bitwise equal.  Returns the kernels' run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+    _free_models("phase14 (d)")
+    n_ssm = cfg.n_layers
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SSM_F32_PROMPTS for _ in range(2)]
+    warm = ServingEngine(cfg, params, slots=1, max_len=SERVE_MAX_LEN)
+    warm.scale_up(1)
+    warm.submit(Request(-1, prompts[0][:256].copy(), 2))
+    warm.drain()
+    del warm
+    done, rec_k, launches, wall, peak, dec = _serve(cfg, params, prompts,
+                                                    True)
+    want = {k: 0 for k in launches}
+    want.update({"ssd_scan": n_ssm * len(prompts),
+                 "ssd_scan.tf32": n_ssm * len(prompts)})
+    n_steps = sum(rec_k.decode_steps.values())
+    prefill_ms = [1e3 * (r.t_first_token - r.t_admit) for r in done]
+    print(f"phase14 (d) kernels' drain {wall:.3f} s: prefills "
+          + ", ".join(f"{len(r.prompt)} tokens {ms:.1f} ms"
+                      for r, ms in zip(done, prefill_ms))
+          + f"; {dec.replays} replays for {n_steps} decode steps; peak "
+          f"memory {peak / 2**30:.3f} GiB; launches {launches}")
+    check(launches == want, f"phase 14 (d): launches {launches}, expected "
+          f"{want}")
+    check(dec.graph is not None and dec.replays == n_steps,
+          f"phase 14 (d): {dec.replays} replays for {n_steps} decode steps")
+    check(all(len(r.tokens) == SERVE_MAX_NEW for r in done),
+          "phase 14 (d): not every request finished")
+    dec.close()
+    del dec
+    hold = hold_served_graph("phase14 (d)", cfg, params, prompts,
+                             SERVE_MAX_LEN, SERVE_MAX_NEW)
+    check(hold["max_logit_diff"] == 0, f"phase 14 (d): the captured decode "
+          f"step's logits differ from the eager step's by "
+          f"{hold['max_logit_diff']}")
+    _, rec_p, launches_p, wall_p, _, dec_p = _serve(cfg, params, prompts,
+                                                    False)
+    del dec_p
+    check(not any(launches_p.values()), f"phase 14 (d): the plain run "
+          f"launched {launches_p}")
+    worst = {"logits": 0.0, "states": 0.0}
+    for i, prompt in enumerate(prompts):
+        lk, lp = rec_k.logits[i], rec_p.logits[i]
+        err = float((lk - lp).abs().max()) / float(lp.abs().max())
+        h_err = max(float((hk - hp).norm() / hp.norm())
+                    for hk, hp in zip(rec_k.states[i], rec_p.states[i]))
+        worst["logits"] = max(worst["logits"], err)
+        worst["states"] = max(worst["states"], h_err)
+        same = int(lk.argmax()) == int(lp.argmax())
+        print(f"phase14 (d) prefill {len(prompt)}: logits max_abs_err "
+              f"{err:.3e} of max |logit| (limit {SSM_F32_SERVE_TOL}), "
+              f"states {h_err:.3e} in norm at worst over {n_ssm} layers; "
+              f"first token same={same}")
+        check(bool(torch.isfinite(lk).all()), f"phase 14 (d) prefill "
+              f"{len(prompt)}: logits not finite")
+        if err <= SSM_F32_SERVE_TOL and h_err <= SSM_F32_SERVE_TOL:
+            continue
+        l64, h64 = _f64_prefill(cfg, params, prompt, SERVE_MAX_LEN)
+        dist = lambda a, b: float((a.double() - b).norm() / b.norm())
+        kl, pl = dist(lk, l64), dist(lp, l64)
+        kh = max(dist(a, b) for a, b in zip(rec_k.states[i], h64))
+        ph = max(dist(a, b) for a, b in zip(rec_p.states[i], h64))
+        print(f"phase14 (d) prefill {len(prompt)} against float64: logits "
+              f"kernels {kl:.3e}, plain {pl:.3e}; states kernels {kh:.3e}, "
+              f"plain {ph:.3e} (limit {WITNESS_RATIO} times the plain run's)")
+        check(kl <= WITNESS_RATIO * pl and kh <= WITNESS_RATIO * ph,
+              f"phase 14 (d) prefill {len(prompt)}: the kernels' run is "
+              f"farther from float64 than the plain run")
+    print(f"phase14 (d) plain drain {wall_p:.3f} s; worst logits "
+          f"{worst['logits']:.3e}, worst state {worst['states']:.3e}")
+    del params
+    return launches
+
+
+def phase14_mamba_f32() -> dict:
+    """Phase 14: mamba2-2.7b at its published width and depth computed in
+    f32, every SSD scan and backward on the 3xTF32 kernels: (a) the whole
+    model's gradients through the kernels against the plain versions;
+    (b) one SSM layer's at S PERIOD_SEQ (``phase8_period_grads``, f32,
+    F32_GRAD_TOL); (c) SSM_F32_STEPS train steps on f32 weights and
+    moments (``train_full_width``: launches exact, 128 forwards and 64
+    backwards a step on "tf32", step time, tokens/s, peak memory, one
+    step profiled with the SSD kernels' device time beside the rest); (d)
+    the model served (``phase14d_serve``).  Returns the launches by
+    part."""
+    import torch
+    t0 = time.perf_counter()
+    power = card()
+    cfg = ssm_f32_config()
+    # the f32 model's matrix products in full f32, as the reference's
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 14: f32 matrix products would run in TF32")
+    out = {"a": phase14a_model_grads(cfg)}
+    t_b = time.perf_counter()
+    _free_models("phase14 (b)")
+    out["b"] = phase8_period_grads(SSM_ARCH, f32=True, phase="phase14 (b)")
+    t_c = time.perf_counter()
+    out["c"] = train_full_width(SSM_ARCH, "phase 14 (c)", SSM_F32_STEPS,
+                                f32=True)
+    t_d = time.perf_counter()
+    out["d"] = phase14d_serve(cfg)
+    print(f"phase14 total {time.perf_counter() - t0:.1f} s ((a) "
+          f"{t_b - t0:.1f} s, (b) {t_c - t_b:.1f} s, (c) {t_d - t_c:.1f} s, "
+          f"(d) {time.perf_counter() - t_d:.1f} s); {power}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6608,6 +6923,7 @@ def main() -> int:
         trained, held12, split12 = phase12_training()
         lm_launches = phase13_train_lm(lm["flash_attention train_lm"],
                                        train["flash_attention_bwd train_lm"])
+        ssm_f32 = phase14_mamba_f32()
         for name in ("flash_attention", "rglru_scan", "ssd_scan"):
             m = lm[name]
             launches = (ssm_launches if name == "ssd_scan"
@@ -6658,6 +6974,34 @@ def main() -> int:
                 kernels[-1]["simt_source"] = CSRC + (
                     "ssd_scan_bwd.cu" if name == "ssd_scan_bwd"
                     else "flash_attention_bwd.cu")
+        # the f32 SSD scan and its backward at mamba2-2.7b's shape (phases
+        # 4 and 8 (a)): the 3xTF32 kernels, the first designs (the CUDA
+        # cores) timed beside them, their launches phase 14's by part
+        for name, m, source in (
+                ("ssd_scan", lm["ssd_scan f32"], "ssd_scan_tf32.cu"),
+                ("ssd_scan_bwd", train["ssd_scan_bwd f32"],
+                 "ssd_scan_bwd_tf32.cu")):
+            by_part = {part: c.get(f"{name}.tf32", 0)
+                       for part, c in ssm_f32.items()}
+            next(k for k in kernels if k["name"] == name)["f32"] = {
+                "source": CSRC + source,
+                "simt_source": CSRC + source.replace("_tf32", ""),
+                "launches": sum(by_part.values()),
+                "launches_by_part": by_part,
+                **{key: m[key] for key in (
+                    "path", "shape", "max_abs_err", "ms", "device_ms",
+                    "simt_ms", "simt_device_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")},
+                "main_path": "mamba2-2.7b in f32 (phase 14)"}
+            print(f"{name} f32 path={m['path']} ({CSRC}{source}) at "
+                  f"{m['shape']}: kernel {m['ms']:.4f} ms (device "
+                  f"{m['device_ms']:.4f} ms, {m['bound_ms'] / m['device_ms']:.3f}"
+                  f" of the bound), first design {m['simt_ms']:.4f} ms "
+                  f"(device {m['simt_device_ms']:.4f} ms, "
+                  f"{m['simt_device_ms'] / m['device_ms']:.2f}x the new), "
+                  f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.5f} "
+                  f"ms ({m['bound_by']}), max_abs_err {m['max_abs_err']:.3g}"
+                  f"; phase 14 launches {by_part}")
         # the AdamW update and the gradient norm (phase 8 (a)): no TPU
         # kernel, XLA fuses the reference's update and norm inside its
         # jitted step; times at recurrentgemma-2b's embedding table (f32

@@ -40,6 +40,8 @@ SOURCES: Dict[str, str] = {"rfr_inference": "rfr_inference.cu",
                            "ssd_scan_wgmma": "ssd_scan_wgmma.cu",
                            "ssd_scan_bwd": "ssd_scan_bwd.cu",
                            "ssd_scan_bwd_wgmma": "ssd_scan_bwd_wgmma.cu",
+                           "ssd_scan_tf32": "ssd_scan_tf32.cu",
+                           "ssd_scan_bwd_tf32": "ssd_scan_bwd_tf32.cu",
                            "adamw": "adamw.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -147,15 +149,26 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # dB, dC, dh0 (or null), scratch, batch, heads, groups, s, stream
         "ssd_scan_bwd_wgmma": ([_P] * 15 + [_I] * 4 + [_P], _I),
     },
+    "ssd_scan_tf32": {
+        # the wgmma forward's arguments, for f32: hin scratch of
+        # (batch, heads, ceil(s / 64), 64, 128) f32
+        "ssd_scan_tf32_fwd": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    },
+    "ssd_scan_bwd_tf32": {
+        # the wgmma backward's entry points, for f32
+        "ssd_scan_bwd_tf32_scratch_bytes": ([_I, _I, _I, _I], _L),
+        "ssd_scan_bwd_tf32": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    },
     "adamw": {
-        # p, g, m, v, p_bf16, g_bf16, m_bf16, n, head, nvec, scale, lr,
+        # p, g, m, v, their dtype codes (p, g, m: 0 f32, 1 bf16, 2 f16),
+        # n, head, nvec, scale, lr,
         # b1c, b2c, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay,
         # stream
         "adamw_update": ([_P] * 4 + [_I] * 3 + [_L] * 3 + [_P] * 4
                          + [_D] * 6 + [_I, _P], _I),
         # nvec -> the partials grad_sumsq_partials writes for a leaf
         "grad_sumsq_blocks": ([_L], _L),
-        # x, is_bf16, n, head, nvec, partials, stream
+        # x, dtype code, n, head, nvec, partials, stream
         "grad_sumsq_partials": ([_P, _I, _L, _L, _L, _P, _P], _I),
         # partials, count, sumsq (f64, or null), norm (f32, or null),
         # stream

@@ -35,7 +35,10 @@ import torch
 from . import _build
 from ._scratch import current_stream, scratch
 
-_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels' dtype codes: weights and gradients f32 or bf16 in the
+#: update, moments also f16; gradients of any of the three in the norm
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PG_DTYPES = (torch.float32, torch.bfloat16)
 #: elements a thread takes at a time, as 16-byte vectors
 VEC = 8
 
@@ -74,8 +77,10 @@ def _split(n: int, head: Optional[int]):
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor):
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    dtypes = _PG_DTYPES if name in ("p", "g") else tuple(_CODES)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if t.shape != like.shape:
         raise ValueError(f"{name} is {tuple(t.shape)}, p "
                          f"{tuple(like.shape)}")
@@ -93,7 +98,7 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, cfg, scale: torch.Tensor, lr: torch.Tensor,
                  b1c: torch.Tensor, b2c: torch.Tensor, decay: bool) -> str:
     """One leaf's AdamW update in place: p and g f32 or bf16, m and v of
-    one dtype (f32 or bf16), all of p's shape; `cfg` an ``AdamWConfig``
+    one dtype (f32, bf16 or f16), all of p's shape; `cfg` an ``AdamWConfig``
     (b1, b2, eps, weight_decay); scale, lr, b1c, b2c 0-d f32 tensors on
     p's device.  Returns the path that ran ("vector", "scalar"; "plain"
     on the CPU, "empty" for a leaf of no elements)."""
@@ -126,9 +131,9 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     with torch.cuda.device(p.device):
         err = lib.adamw_update(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            int(p.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
-            int(m.dtype == torch.bfloat16), n, head, nvec, scale.data_ptr(),
-            lr.data_ptr(), b1c.data_ptr(), b2c.data_ptr(), cfg.b1,
+            _CODES[p.dtype], _CODES[g.dtype], _CODES[m.dtype], n, head,
+            nvec, scale.data_ptr(), lr.data_ptr(), b1c.data_ptr(),
+            b2c.data_ptr(), cfg.b1,
             1 - cfg.b1, cfg.b2, 1 - cfg.b2, cfg.eps, cfg.weight_decay,
             int(decay), current_stream(p.device))
     _build.check_launch(err, f"adamw_update ({kernel})")
@@ -156,9 +161,9 @@ def _sumsq(groups: Sequence[Sequence[torch.Tensor]],
         for x in group:
             if x.device != dev:
                 raise ValueError(f"a leaf is on {x.device}, another on {dev}")
-            if x.dtype not in _DTYPES:
-                raise TypeError(f"leaves must be float32 or bfloat16, got "
-                                f"{x.dtype}")
+            if x.dtype not in _CODES:
+                raise TypeError(f"leaves must be float32, bfloat16 or "
+                                f"float16, got {x.dtype}")
             x = dense_span(x)
             n = x.numel()
             if n == 0:
@@ -175,7 +180,7 @@ def _sumsq(groups: Sequence[Sequence[torch.Tensor]],
         base = partials.data_ptr()
         for x, n, head, nvec, off in plan:
             err = lib.grad_sumsq_partials(
-                x.data_ptr(), int(x.dtype == torch.bfloat16), n, head, nvec,
+                x.data_ptr(), _CODES[x.dtype], n, head, nvec,
                 base + 4 * off, stream)
             _build.check_launch(err, "grad_norm (partials)")
             grad_norm.launches_by_path["partials"] += 1
@@ -191,7 +196,7 @@ def _sumsq(groups: Sequence[Sequence[torch.Tensor]],
 
 
 def grad_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm of `leaves` (f32 or bf16 tensors on one device) as a
+    """The L2 norm of `leaves` (f32, bf16 or f16 tensors on one device) as a
     0-d f32 tensor."""
     leaves = list(leaves)
     if not leaves or leaves[0].device.type == "cpu":

@@ -10,7 +10,8 @@
 // in f32 state; these kernels are the port's counterpart of that fusion.
 //
 // adamw_update: one leaf's update in place.
-//   p (n) f32 or bf16, g (n) f32 or bf16, m, v (n) f32 or bf16 (one dtype)
+//   p (n) f32 or bf16, g (n) f32 or bf16, m, v (n) f32, bf16 or f16 (one
+//   dtype)
 //   gs = g * scale
 //   m  = m * b1 + gs * (1 - b1)
 //   v  = v * b2 + (gs * (1 - b2)) * gs
@@ -19,14 +20,15 @@
 // in f32, every operation rounded on its own in the order the eager
 // chain takes them (the __f*_rn intrinsics: nvcc would otherwise contract
 // a product and a sum into one fused multiply-add), and stored with
-// round-to-nearest-even where p, m or v is bf16, as `copy_` stores: the
-// result is bitwise the plain version's.  scale, lr, b1c and b2c are
+// round-to-nearest-even where p, m or v is bf16 or f16, as `copy_`
+// stores: the result is bitwise the plain version's.  f16 reaches f32
+// exactly, so its moments read back as the eager chain reads them.  scale, lr, b1c and b2c are
 // read from 0-d f32 tensors on the card, so a step never waits for the
 // host; (1 - b1), (1 - b2), eps and wd are the caller's doubles rounded
 // to f32, as PyTorch rounds a Python scalar.
 //
 // grad_norm: the global L2 norm of a list of leaves, each read once in
-// its own dtype.  grad_sumsq_partials writes one f32 partial sum of
+// its own dtype (f32, bf16 or f16).  grad_sumsq_partials writes one f32 partial sum of
 // squares a block of a leaf (a block covers kChunk elements); after all
 // leaves, grad_sumsq_finish sums every partial in f64, in a fixed order,
 // in one block, and writes the sum (f64) and its square root (f32).  No
@@ -51,6 +53,7 @@
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +66,9 @@ constexpr long long kChunk = (long long)kChunkVecs * kVec;
 constexpr int kFinishThreads = 1024;
 constexpr long long kMaxBlocks = 1 << 20;
 
+// dtype codes of the arrays: 0 f32, 1 bf16, 2 f16
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
 struct Consts {
   float b1, omb1, b2, omb2, eps, wd;
 };
@@ -71,9 +77,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // 8 consecutive elements from / to a 16-byte aligned address
@@ -93,6 +103,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
     x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void load8(const __half* p, float (&x)[kVec]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void store8(float* p, const float (&x)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
@@ -107,6 +127,13 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
   u.y = bf16_bits(x[2]) | (bf16_bits(x[3]) << 16);
   u.z = bf16_bits(x[4]) | (bf16_bits(x[5]) << 16);
   u.w = bf16_bits(x[6]) | (bf16_bits(x[7]) << 16);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(__half* p, const float (&x)[kVec]) {
+  uint4 u;
+  __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(x[2 * i], x[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
 
@@ -253,16 +280,21 @@ long long grad_sumsq_blocks(long long nvec) {
   return b < 1 ? 1 : b;
 }
 
-// p, g, m, v: the leaf's arrays; *_bf16: 1 where that array is bf16 (m
-// and v share one dtype); n elements; the body starts at element `head`
-// and holds `nvec` vectors of 8 (head = n, nvec = 0: element by element);
-// scale, lr, b1c, b2c: 0-d f32 tensors on the card
-int adamw_update(void* p, const void* g, void* m, void* v, int p_bf16,
-                 int g_bf16, int m_bf16, long long n, long long head,
+// p, g, m, v: the leaf's arrays; p_dtype, g_dtype: kF32 or kBF16, m_dtype
+// (m and v share one dtype): kF32, kBF16 or kF16; n elements; the body
+// starts at element `head` and holds `nvec` vectors of 8 (head = n, nvec =
+// 0: element by element); scale, lr, b1c, b2c: 0-d f32 tensors on the
+// card.  Another pairing returns cudaErrorInvalidValue and launches
+// nothing.
+int adamw_update(void* p, const void* g, void* m, void* v, int p_dtype,
+                 int g_dtype, int m_dtype, long long n, long long head,
                  long long nvec, const void* scale, const void* lr,
                  const void* b1c, const void* b2c, double b1, double omb1,
                  double b2, double omb2, double eps, double wd, int decay,
                  void* stream) {
+  if (p_dtype < kF32 || p_dtype > kBF16 || g_dtype < kF32 || g_dtype > kBF16 ||
+      m_dtype < kF32 || m_dtype > kF16)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   const Consts c{(float)b1, (float)omb1, (float)b2, (float)omb2, (float)eps,
                  (float)wd};
@@ -273,31 +305,40 @@ int adamw_update(void* p, const void* g, void* m, void* v, int p_bf16,
   auto st = static_cast<cudaStream_t>(stream);
   using F = float;
   using B = __nv_bfloat16;
-  const int key = (p_bf16 ? 4 : 0) | (g_bf16 ? 2 : 0) | (m_bf16 ? 1 : 0);
-  switch (key) {
+  using H = __half;
+  switch (3 * (2 * p_dtype + g_dtype) + m_dtype) {
     case 0: launch_update<F, F, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
     case 1: launch_update<F, F, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 2: launch_update<F, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 3: launch_update<F, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 4: launch_update<B, F, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 5: launch_update<B, F, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 6: launch_update<B, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    default: launch_update<B, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 2: launch_update<F, F, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 3: launch_update<F, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 4: launch_update<F, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 5: launch_update<F, B, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 6: launch_update<B, F, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 7: launch_update<B, F, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 8: launch_update<B, F, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 9: launch_update<B, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 10: launch_update<B, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    default: launch_update<B, B, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
   }
   return (int)cudaGetLastError();
 }
 
-// x: a leaf of n elements (bf16 where is_bf16), its body from element
-// `head`, `nvec` vectors of 8; writes grad_sumsq_blocks(nvec) partials
-int grad_sumsq_partials(const void* x, int is_bf16, long long n,
+// x: a leaf of n elements of dtype code `dtype` (kF32, kBF16 or kF16),
+// its body from element `head`, `nvec` vectors of 8; writes
+// grad_sumsq_blocks(nvec) partials
+int grad_sumsq_partials(const void* x, int dtype, long long n,
                         long long head, long long nvec, void* partials,
                         void* stream) {
+  if (dtype < kF32 || dtype > kF16) return (int)cudaErrorInvalidValue;
   const long long blocks = grad_sumsq_blocks(nvec);
   auto st = static_cast<cudaStream_t>(stream);
   auto* out = static_cast<float*>(partials);
-  if (is_bf16)
+  if (dtype == kBF16)
     sumsq_partials_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), n, head, nvec, out);
+  else if (dtype == kF16)
+    sumsq_partials_kernel<__half><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const __half*>(x), n, head, nvec, out);
   else
     sumsq_partials_kernel<float><<<(unsigned)blocks, kThreads, 0, st>>>(
         static_cast<const float*>(x), n, head, nvec, out);

@@ -126,6 +126,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kT = 32;            // query rows and keys per tile
@@ -255,37 +257,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
     cp_async16(dst + r * Staged<W>::kRow + 4 * c,
                src + (long long)(in ? row0 + r : 0) * W + 4 * c, in);
   }
-}
-
-// f32 rounded to TF32 (the low 13 bits zero) to nearest, ties away from
-// zero, in two integer operations (as the forward)
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, alo, bh0, bh1);
-  mma_tf32(d, ahi, bl0, bl1);
-  mma_tf32(d, ahi, bh0, bh1);
 }
 
 // acc[nb] (16 rows x 8 columns) = A B^T over all W columns: A is the 16

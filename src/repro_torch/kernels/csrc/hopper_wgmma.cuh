@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the port's TMA-fed kernels
 // (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
-// ssd_scan_wgmma.cu, rglru_scan.cu): mbarriers, TMA loads through 3-d
-// tensor maps, wgmma descriptors for the 128-byte swizzle, the bf16
-// warpgroup MMAs the tensor-core kernels issue, the split of f32 values
-// into bf16 high and low parts, and the attention softcap's tanh
-// (fast_tanh).  Each kernel source is its own
+// ssd_scan_wgmma.cu, ssd_scan_bwd_wgmma.cu, rglru_scan.cu) and the SSD
+// scan's 3xTF32 kernels (ssd_scan_tf32.cu, ssd_scan_bwd_tf32.cu):
+// mbarriers, TMA loads and stores through 3-d tensor maps, wgmma
+// descriptors for the 128-byte swizzle and element access to such tiles,
+// the bf16 warpgroup MMAs the tensor-core kernels issue, the split of f32
+// values into bf16 high and low parts, the SSD chunk's warp scan of dA,
+// and the attention softcap's tanh (fast_tanh).  Each kernel source is its own
 // translation unit and library; this header is included by each
 // (everything here has internal linkage).
 #pragma once
@@ -12,6 +14,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -234,6 +237,121 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], const uint32_t
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory -> global through a 3-d tensor map (bulk async group).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N bulk stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Make this thread's shared-memory writes visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of element (row r, column c) of a bf16 tile of 128-byte rows
+// in the 128-byte swizzle.
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// Element (row r, column c) of a bf16 tile of 128-byte rows stored in the
+// 128-byte swizzle: the 16-byte unit c / 8 of row r sits at unit
+// (c / 8) ^ (r % 8).
+__device__ __forceinline__ float sw_at(const uint8_t* tile, int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(r, c)));
+}
+
+// Inclusive warp scan of the chunk's 64 dA values, two a lane (rows lane
+// and 32 + lane); returns the chunk's total in every lane.
+__device__ __forceinline__ float warp_cumsum(float& v0, float& v1, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, v0, d);
+    const float u1 = __shfl_up_sync(0xffffffffu, v1, d);
+    if (lane >= d) {
+      v0 += u0;
+      v1 += u1;
+    }
+  }
+  v1 += __shfl_sync(0xffffffffu, v0, 31);
+  return __shfl_sync(0xffffffffu, v1, 31);
+}
+
+// Sum over the four lanes that share a row of an accumulator (a fixed
+// xor tree).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The SSD backward's per-row vectors of one head's chunk (the tensor-core
+// backwards of ssd_scan_bwd_wgmma.cu and ssd_scan_bwd_tf32.cu), each
+// kSsdChunk floats, and warp 0's step that turns them into ddt and ddA.
+constexpr int kSsdChunk = 64;  // rows per SSD chunk
+
+
+struct Rows {
+  float *cum, *dt, *w, *ecum;  // cum, dt, e^{cum_L - cum} dt, e^{cum}
+  float *rowq;                 // sum_{j<i} Q_ij
+  float *v;                    // C_i . (dy_i h_in)
+  float *s, *diag;             // sum_{i>j} Gm_ij, Gm_jj
+  float *u;                    // B_j . (x_j g)
+  float* gh;                   // <g, h_in>, one partial a warp of the row side
+  __device__ explicit Rows(float* p)
+      : cum(p), dt(p + kSsdChunk), w(p + 2 * kSsdChunk), ecum(p + 3 * kSsdChunk),
+        rowq(p + 4 * kSsdChunk), v(p + 5 * kSsdChunk), s(p + 6 * kSsdChunk),
+        diag(p + 7 * kSsdChunk), u(p + 8 * kSsdChunk), gh(p + 9 * kSsdChunk) {}
+};
+
+// Warp 0: ddt and ddA of a head's chunk from its rows' vectors.  Lane l
+// takes rows l and l + 32; ddA's reverse cumulative sum is a warp scan of
+// fixed order.
+__device__ __forceinline__ void finish_rows(const Rows& rv, float* __restrict__ ddt,
+                                            float* __restrict__ ddA, long long row0, int valid,
+                                            int lane) {
+  float d[2], wu = 0.0f;
+  const float last = rv.cum[kSsdChunk - 1];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = lane + 32 * e;
+    d[e] = rv.rowq[r] - rv.dt[r] * rv.s[r] + rv.ecum[r] * rv.v[r] - rv.w[r] * rv.u[r];
+    if (r < valid) ddt[row0 + r] = (rv.diag[r] + rv.s[r]) + expf(last - rv.cum[r]) * rv.u[r];
+    wu = fmaf(rv.w[r], rv.u[r], wu);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) wu += __shfl_xor_sync(0xffffffffu, wu, off);
+  const float gh = ((rv.gh[0] + rv.gh[1]) + rv.gh[2]) + rv.gh[3];
+  const float extra = wu + expf(last) * gh;  // dcum_L's own terms, at the last valid row
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (lane + 32 * e == valid - 1) d[e] += extra;
+  // suffix sums: rows lane.. of each half, then the upper half's total
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float t0 = __shfl_down_sync(0xffffffffu, d[0], off);
+    const float t1 = __shfl_down_sync(0xffffffffu, d[1], off);
+    if (lane + off < 32) {
+      d[0] += t0;
+      d[1] += t1;
+    }
+  }
+  d[0] += __shfl_sync(0xffffffffu, d[1], 0);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (lane + 32 * e < valid) ddA[row0 + lane + 32 * e] = d[e];
 }
 
 // tanh of a softcapped score from the MUFU unit's two fast steps: with

@@ -144,65 +144,10 @@ __device__ __forceinline__ void wgmma_ss_tb128(float (&d)[64], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Shared memory -> global through a 3-d tensor map (bulk async group).
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Wait until at most N bulk stores still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// Make this thread's shared-memory writes visible to the async proxy (TMA).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Byte offset of element (row r, column c) of a bf16 tile of 128-byte rows
-// in the 128-byte swizzle: the 16-byte unit c / 8 of row r sits at unit
-// (c / 8) ^ (r % 8).
-__device__ __forceinline__ int sw_off(int r, int c) {
-  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-__device__ __forceinline__ float sw_at(const uint8_t* tile, int r, int c) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(r, c)));
-}
-
 // Element (row r, column c < 128) of a 64 x 128 bf16 tile stored as two
 // swizzled column blocks of 64 rows each.
 __device__ __forceinline__ float wide_at(const uint8_t* tile, int r, int c) {
   return sw_at(tile + (c / kColBlock) * kC * 128, r, c % kColBlock);
-}
-
-// Inclusive warp scan of the chunk's 64 dA values, two a lane (rows lane
-// and 32 + lane); returns the chunk's total in every lane.
-__device__ __forceinline__ float warp_cumsum(float& v0, float& v1, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float u0 = __shfl_up_sync(0xffffffffu, v0, d);
-    const float u1 = __shfl_up_sync(0xffffffffu, v1, d);
-    if (lane >= d) {
-      v0 += u0;
-      v1 += u1;
-    }
-  }
-  v1 += __shfl_sync(0xffffffffu, v0, 31);
-  return __shfl_sync(0xffffffffu, v1, 31);
-}
-
-// Sum over the four lanes that share a row of an accumulator (a fixed
-// xor tree).
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // A 64 x 64 f32 accumulator as bf16 high and low parts in the A operand's
@@ -428,57 +373,6 @@ struct TileLayout {
   static constexpr uint32_t kBar = kGh + 16;               // three barriers
   static constexpr uint32_t kBytes = kBar + 24 + 1024;
 };
-
-// The rows' vectors of the current head, each kC floats.
-struct Rows {
-  float *cum, *dt, *w, *ecum;  // cum, dt, e^{cum_L - cum} dt, e^{cum}
-  float *rowq;                 // sum_{j<i} Q_ij
-  float *v;                    // C_i . (dy_i h_in)
-  float *s, *diag;             // sum_{i>j} Gm_ij, Gm_jj
-  float *u;                    // B_j . (x_j g)
-  float* gh;                   // <g, h_in>, one partial a warp of warpgroup 0
-  __device__ explicit Rows(float* p)
-      : cum(p), dt(p + kC), w(p + 2 * kC), ecum(p + 3 * kC), rowq(p + 4 * kC),
-        v(p + 5 * kC), s(p + 6 * kC), diag(p + 7 * kC), u(p + 8 * kC), gh(p + 9 * kC) {}
-};
-
-// Warp 0: ddt and ddA of a head's chunk from its rows' vectors.  Lane l
-// takes rows l and l + 32; ddA's reverse cumulative sum is a warp scan of
-// fixed order.
-__device__ __forceinline__ void finish_rows(const Rows& rv, float* __restrict__ ddt,
-                                            float* __restrict__ ddA, long long row0, int valid,
-                                            int lane) {
-  float d[2], wu = 0.0f;
-  const float last = rv.cum[kC - 1];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = lane + 32 * e;
-    d[e] = rv.rowq[r] - rv.dt[r] * rv.s[r] + rv.ecum[r] * rv.v[r] - rv.w[r] * rv.u[r];
-    if (r < valid) ddt[row0 + r] = (rv.diag[r] + rv.s[r]) + expf(last - rv.cum[r]) * rv.u[r];
-    wu = fmaf(rv.w[r], rv.u[r], wu);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) wu += __shfl_xor_sync(0xffffffffu, wu, off);
-  const float gh = ((rv.gh[0] + rv.gh[1]) + rv.gh[2]) + rv.gh[3];
-  const float extra = wu + expf(last) * gh;  // dcum_L's own terms, at the last valid row
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    if (lane + 32 * e == valid - 1) d[e] += extra;
-  // suffix sums: rows lane.. of each half, then the upper half's total
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t0 = __shfl_down_sync(0xffffffffu, d[0], off);
-    const float t1 = __shfl_down_sync(0xffffffffu, d[1], off);
-    if (lane + off < 32) {
-      d[0] += t0;
-      d[1] += t1;
-    }
-  }
-  d[0] += __shfl_sync(0xffffffffu, d[1], 0);
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    if (lane + 32 * e < valid) ddA[row0 + lane + 32 * e] = d[e];
-}
 
 __global__ void __launch_bounds__(kTileThreads, 1)
 ssd_bwd_tile_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tb,

@@ -111,57 +111,6 @@ struct OutLayout {
   static constexpr uint32_t kBytes = kBar + 24 + 1024;
 };
 
-// Shared memory -> global through a 3-d tensor map (bulk async group).
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Wait until at most N bulk stores still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-// Make this thread's shared-memory writes visible to the async proxy (TMA).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Byte offset of element (row r, column c) of a bf16 tile of 128-byte rows
-// in the 128-byte swizzle.
-__device__ __forceinline__ int sw_off(int r, int c) {
-  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-
-// Element (row r, column c) of a bf16 tile of 128-byte rows stored in the
-// 128-byte swizzle: the 16-byte unit c / 8 of row r sits at unit
-// (c / 8) ^ (r % 8).
-__device__ __forceinline__ float sw_at(const uint8_t* tile, int r, int c) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + sw_off(r, c)));
-}
-
-// Inclusive warp scan of the chunk's 64 dA values, two a lane (rows lane
-// and 32 + lane); returns the chunk's total in every lane.
-__device__ __forceinline__ float warp_cumsum(float& v0, float& v1, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float u0 = __shfl_up_sync(0xffffffffu, v0, d);
-    const float u1 = __shfl_up_sync(0xffffffffu, v1, d);
-    if (lane >= d) {
-      v0 += u0;
-      v1 += u1;
-    }
-  }
-  v1 += __shfl_sync(0xffffffffu, v0, 31);
-  return __shfl_sync(0xffffffffu, v1, 31);
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_state_kernel(const __grid_constant__ CUtensorMap tx,
                  const __grid_constant__ CUtensorMap tb,

@@ -193,7 +193,8 @@ def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
 
 def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor,
-                 h0: Optional[torch.Tensor] = None, chunk: int = 256
+                 h0: Optional[torch.Tensor] = None, chunk: int = 256,
+                 split: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD scan in the state-passing form, in f32.
 
@@ -209,8 +210,12 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         y = ((C B^T) * L * dt) x + exp(cum) * (C h_{c-1}^T)  every chunk
             L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
 
-    Returns (y in x's dtype, final state (B, H, P, N) f32; f64 for f64
-    inputs)."""
+    With ``split="tf32"`` each of the four products is formed as the f32
+    tensor-core kernel (``csrc/ssd_scan_tf32.cu``) forms it, ``tf32_mm``
+    on the operands it feeds the tensor cores (x w, B, C, the f32 states,
+    M, x); the pass and everything else stay f32.  Returns (y in x's
+    dtype, final state (B, H, P, N) f32; f64 for f64 inputs)."""
+    mm = _products(split)
     B, H, S, P = x.shape
     N = Bm.shape[-1]
     rep = H // Bm.shape[1]
@@ -236,7 +241,10 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     cum = torch.cumsum(chunks(dA), dim=-1)                    # (B,H,nc,c)
     last = cum[..., -1:]
     w = torch.exp(last - cum) * dtc
-    dS = xc.transpose(-1, -2) @ (Bc * w[..., None])           # (B,H,nc,P,N)
+    if split is None:
+        dS = xc.transpose(-1, -2) @ (Bc * w[..., None])       # (B,H,nc,P,N)
+    else:   # the kernel's A operand is (x w)^T
+        dS = mm((xc * w[..., None]).transpose(-1, -2), Bc)
     decay = torch.exp(last)[..., None]                        # (B,H,nc,1,1)
     h_in = []
     for c in range(nc):
@@ -248,8 +256,8 @@ def ssd_scan_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                        device=x.device).tril()
     # exp only where i >= j: above the diagonal seg > 0 may overflow
     L = torch.exp(seg.masked_fill(~lower, float("-inf")))
-    M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
-    y = M @ xc + torch.exp(cum)[..., None] * (Cc @ h_in.transpose(-1, -2))
+    M = mm(Cc, Bc.transpose(-1, -2)) * L * dtc[..., None, :]
+    y = mm(M, xc) + torch.exp(cum)[..., None] * mm(Cc, h_in.transpose(-1, -2))
     y = y.reshape(B, H, nc * chunk, P)[:, :, :S]
     return y.to(x.dtype), h
 
@@ -258,7 +266,7 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                      Bm: torch.Tensor, Cm: torch.Tensor,
                      h0: Optional[torch.Tensor], dy: torch.Tensor,
                      dh: Optional[torch.Tensor] = None, chunk: int = 64,
-                     split: bool = False) -> Tuple[torch.Tensor, ...]:
+                     split=False) -> Tuple[torch.Tensor, ...]:
     """Gradients of ``ssd_scan_ref`` written out in its state-passing
     form, in f32, as the backward kernels compute them.  dy (B, H, S, P)
     is the loss's gradient by y, dh (B, H, P, N) f32 by the final state
@@ -282,13 +290,23 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         dcum_L += sum_j w_j u_j + e^{cum_L} <g, h_in>
         ddA_k = sum_{i >= k} dcum_i   within the chunk
 
-    dB and dC are summed over the heads of each group.  With `split`,
-    the values the tensor-core kernel (``csrc/ssd_scan_bwd_wgmma.cu``)
-    feeds its products as bf16 hi + lo (``bf16_split``) are rounded so:
-    x w and dy e^{cum} in the walks' state terms, the stored states h_in
-    and g (also in <g, h_in>), and W and R; the walks' running states and
-    everything else stay f32.  Returns (dx in x's dtype, ddA, ddt f32, dB,
-    dC in Bm's dtype, dh0 f32; f64 for f64 inputs)."""
+    dB and dC are summed over the heads of each group.  With `split`
+    True (or "bf16"), the values the bf16 tensor-core kernel
+    (``csrc/ssd_scan_bwd_wgmma.cu``) feeds its products as bf16 hi + lo
+    (``bf16_split``) are rounded so: x w and dy e^{cum} in the walks'
+    state terms, the stored states h_in and g (also in <g, h_in>), and W
+    and R; the walks' running states and everything else stay f32.  With
+    ``split="tf32"`` every product is formed as the f32 tensor-core kernel
+    (``csrc/ssd_scan_bwd_tf32.cu``) forms it, ``tf32_mm`` on the operands
+    it feeds the tensor cores; the states stay f32, u and v are the row
+    dots of B with x g and of C with dy h_in, and R B and R^T C are one
+    product for each tile of TF32_HEAD_TILE heads of a group, with R
+    summed over the tile's heads, as the kernel takes them.  Returns (dx in x's dtype, ddA, ddt f32, dB, dC in Bm's dtype,
+    dh0 f32; f64 for f64 inputs)."""
+    mode = "bf16" if split is True else (split or None)
+    if mode not in (None, "bf16", "tf32"):
+        raise ValueError(f"split {split!r}: False, True, 'bf16' or 'tf32'")
+    mm = _products("tf32" if mode == "tf32" else None)
     Bsz, H, S, P = x.shape
     G, N = Bm.shape[1], Bm.shape[-1]
     rep = H // G
@@ -310,8 +328,9 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         return a.reshape((Bsz, H, nc, chunk) + a.shape[3:])
 
     def rnd(a: torch.Tensor) -> torch.Tensor:
-        """`a` as the tensor-core kernel's operand: hi + lo with `split`."""
-        if not split:
+        """`a` as the bf16 tensor-core kernel's operand: hi + lo with
+        `split` "bf16"."""
+        if mode != "bf16":
             return a
         hi, lo = bf16_split(a)
         return hi + lo
@@ -323,8 +342,8 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     w = torch.exp(last - cum) * dtc
     ecum = torch.exp(cum)
     decay = torch.exp(last)[..., None]                        # (B,H,nc,1,1)
-    dS = rnd(xc * w[..., None]).transpose(-1, -2) @ Bc       # (B,H,nc,P,N)
-    dG = rnd(dyc * ecum[..., None]).transpose(-1, -2) @ Cc    # (B,H,nc,P,N)
+    dS = mm(rnd(xc * w[..., None]).transpose(-1, -2), Bc)    # (B,H,nc,P,N)
+    dG = mm(rnd(dyc * ecum[..., None]).transpose(-1, -2), Cc)  # (B,H,nc,P,N)
     zeros = torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
     h = zeros if h0 is None else h0.to(ft)
     h_in = []
@@ -343,18 +362,32 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                        device=x.device).tril()
     # exp only where i >= j: above the diagonal seg > 0 may overflow
     Lm = torch.exp(seg.masked_fill(~lower, float("-inf")))
-    CB = Cc @ Bc.transpose(-1, -2)
-    DX = dyc @ xc.transpose(-1, -2)
+    CB = mm(Cc, Bc.transpose(-1, -2))
+    DX = mm(dyc, xc.transpose(-1, -2))
     M = CB * Lm * dtc[..., None, :]
     R = DX * Lm * dtc[..., None, :]
     Gm = CB * DX * Lm
-    gB = Bc @ g_out.transpose(-1, -2)                         # (..., c, P)
-    hTdy = dyc @ h_in                                         # (..., c, N)
-    gTx = xc @ g_out                                          # (..., c, N)
-    dx = rnd(M).transpose(-1, -2) @ dyc + w[..., None] * gB
-    dC = rnd(R) @ Bc + ecum[..., None] * hTdy
-    dB = rnd(R).transpose(-1, -2) @ Cc + w[..., None] * gTx
-    u = (xc * gB).sum(-1)
+    gB = mm(Bc, g_out.transpose(-1, -2))                      # (..., c, P)
+    hTdy = mm(dyc, h_in)                                      # (..., c, N)
+    gTx = mm(xc, g_out)                                       # (..., c, N)
+    dx = mm(rnd(M).transpose(-1, -2), dyc) + w[..., None] * gB
+    if mode == "tf32":
+        # the f32 kernel sums R over each tile of up to TF32_HEAD_TILE of
+        # a group's heads, which share B and C, and takes one product a
+        # tile; the tile's sum lands on its first head
+        RB, RC = torch.zeros_like(hTdy), torch.zeros_like(gTx)
+        for h0_ in range(0, H, rep):
+            for t0 in range(h0_, h0_ + rep, TF32_HEAD_TILE):
+                t1 = min(t0 + TF32_HEAD_TILE, h0_ + rep)
+                Rt = R[:, t0:t1].sum(1)
+                RB[:, t0] = mm(Rt, Bc[:, t0])
+                RC[:, t0] = mm(Rt.transpose(-1, -2), Cc[:, t0])
+        dC = RB + ecum[..., None] * hTdy
+        dB = RC + w[..., None] * gTx
+    else:
+        dC = mm(rnd(R), Bc) + ecum[..., None] * hTdy
+        dB = mm(rnd(R).transpose(-1, -2), Cc) + w[..., None] * gTx
+    u = (Bc * gTx).sum(-1) if mode == "tf32" else (xc * gB).sum(-1)
     v = (Cc * hTdy).sum(-1)
     ddt = Gm.sum(-2) + torch.exp(last - cum) * u
     Q = (Gm * dtc[..., None, :]).tril(-1)
@@ -388,6 +421,29 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sums lo_a hi_b + hi_a lo_b + hi_a hi_b (3xTF32)."""
     hi = tf32_round(x)
     return hi, x.float() - hi
+
+
+#: heads a block of the f32 SSD backward kernel takes, sharing B and C
+TF32_HEAD_TILE = 4
+
+
+def tf32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (f32, batched) as the 3xTF32 kernels form it: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), the product
+    lo_a hi_b + hi_a lo_b + hi_a hi_b summed in f32."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return tf32_round(al) @ bh + ah @ tf32_round(bl) + ah @ bh
+
+
+def _products(split: Optional[str]):
+    """The matrix product of an SSD plain version: ``tf32_mm`` for
+    split "tf32", else the plain one."""
+    if split is None:
+        return torch.matmul
+    if split != "tf32":
+        raise ValueError(f"split {split!r}: None or 'tf32'")
+    return tf32_mm
 
 
 def bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,10 @@
-"""Mamba-2 SSD chunked scan: the wrapper around the two Hopper kernels,
+"""Mamba-2 SSD chunked scan: the wrapper around the three Hopper kernels,
 ``csrc/ssd_scan_wgmma.cu`` (bf16 with head dim 64 and d_state 128, the
-served shape, on the tensor cores) and ``csrc/ssd_scan.cu`` (every other
-case, on the CUDA cores in f32).  ``path(dtype, P, N)`` names the one
-that runs; the choice depends on the dtype and the shape alone.
+served shape, on the tensor cores), ``csrc/ssd_scan_tf32.cu`` (f32 at
+that shape, on the tensor cores in 3xTF32) and ``csrc/ssd_scan.cu``
+(every other case, on the CUDA cores in f32).  ``path(dtype, P, N)``
+names the one that runs; the choice depends on the dtype and the shape
+alone.
 
 Layout, as the Pallas kernel's: x (B, H, S, P); dA and dt (B, H, S) f32;
 Bm and Cm (B, G, S, N) with G dividing H — head h reads group
@@ -11,24 +13,25 @@ the Pallas layout); h0 (B, H, P, N) f32 or None (zeros).  x, Bm and Cm
 are all f32 or all bf16, N is at most 128.  Returns (y (B, H, S, P) in
 x's dtype, final state (B, H, P, N) f32).
 
-Both kernels take chunks of ``CHUNK`` rows whatever the caller's chunk:
+Every kernel takes chunks of ``CHUNK`` rows whatever the caller's chunk:
 the SSD is the same function for any chunking, and 64 rows is one
 warpgroup's M.  Given CUDA tensors the wrapper launches the kernel of its
-path on PyTorch's current stream (the tensor-core path is two launches,
-the pass over the chunks and the output, counted as one call) and adds
-one to ``ssd_scan.launches`` and to ``ssd_scan.launches_by_path[path]``;
-a launch the runtime refuses raises, and nothing falls back to the other
-kernel.  Given CPU tensors it computes the same function with the plain
-version (``ref.ssd_scan_ref`` at the kernels' chunk) and launches
-nothing.
+path on PyTorch's current stream (the tensor-core paths are two
+launches, the pass over the chunks and the output, counted as one call)
+and adds one to ``ssd_scan.launches`` and to
+``ssd_scan.launches_by_path[path]``; a build or launch that fails
+raises, and nothing falls back to another kernel.  Given CPU tensors it
+computes the same function with the plain version (``ref.ssd_scan_ref``
+at the kernels' chunk) and launches nothing.
 
-The gradient: ``ssd_scan_bwd`` wraps two kernels as the forward does,
-and ``bwd_path(dtype, P, N)`` names the one that runs:
-``csrc/ssd_scan_bwd_wgmma.cu`` for bf16 at WGMMA_SHAPE (the tensor
-cores; three launches) and ``csrc/ssd_scan_bwd.cu`` for every other case
-(f32 on the CUDA cores, head dim up to 64, d_state up to 128; four
-launches).  A call counts one in ``ssd_scan_bwd.launches`` and in
-``ssd_scan_bwd.launches_by_path[path]``; nothing falls back to the other
+The gradient: ``ssd_scan_bwd`` wraps three kernels as the forward does,
+and ``bwd_path(dtype, P, N)``, the forward's ``path``, names the one that
+runs: ``csrc/ssd_scan_bwd_wgmma.cu`` for bf16 at WGMMA_SHAPE (three
+launches), ``csrc/ssd_scan_bwd_tf32.cu`` for f32 there (3xTF32, three
+launches) and ``csrc/ssd_scan_bwd.cu`` for every other case (f32 on the
+CUDA cores, head dim up to 64, d_state up to 128; four launches).  A call
+counts one in ``ssd_scan_bwd.launches`` and in
+``ssd_scan_bwd.launches_by_path[path]``; nothing falls back to another
 kernel.  On CPU tensors it is the plain ``ref.ssd_scan_bwd_ref`` at the
 kernels' chunk.  ``SSDScanFn`` is the ``torch.autograd.Function`` that
 pairs the forward kernel with it; ``ssd_scan_fn`` applies it.
@@ -47,24 +50,24 @@ CHUNK = 64
 MAX_STATE = 128
 #: the largest head dim the backward kernel takes
 MAX_BWD_HEAD_DIM = 64
-#: (head dim, d_state) of the tensor-core path: mamba2's served shape
+#: (head dim, d_state) of the tensor-core paths: mamba2's shape
 WGMMA_SHAPE = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def path(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
     """The kernel that computes the scan of `dtype` at this head dim and
-    d_state on the card: "wgmma" (bf16 at WGMMA_SHAPE) or "simt" (f32,
-    and bf16 at any other shape)."""
-    if dtype == torch.bfloat16 and (head_dim, d_state) == WGMMA_SHAPE:
-        return "wgmma"
-    return "simt"
+    d_state on the card: "wgmma" (bf16 at WGMMA_SHAPE), "tf32" (f32 at
+    WGMMA_SHAPE) or "simt" (any other shape)."""
+    if (head_dim, d_state) != WGMMA_SHAPE:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32"
 
 
 def bwd_path(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
     """The kernel that computes the scan's gradient of `dtype` at this
-    head dim and d_state on the card: "wgmma" (bf16 at WGMMA_SHAPE) or
-    "simt" (f32, and bf16 at any other shape)."""
+    head dim and d_state on the card: the forward's path ("wgmma",
+    "tf32" or "simt")."""
     return path(dtype, head_dim, d_state)
 
 
@@ -135,13 +138,14 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     kernel = path(x.dtype, P, N)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "wgmma":
+        if kernel in ("wgmma", "tf32"):
             _check_aligned(x=x, Bm=Bm, Cm=Cm)
-            # the state entering each chunk, bf16 high and low parts:
-            # (B, H, ceil(S / CHUNK), 2, P, N)
+            # the state entering each chunk, (B, H, ceil(S / CHUNK), P, N):
+            # bf16 high and low parts on wgmma, f32 on tf32, 4 bytes each
             hin = _scratch.scratch(dev, stream,
-                                   B * H * -(-S // CHUNK) * 2 * P * N * 2)
-            err = _build.load("ssd_scan_wgmma").ssd_scan_wgmma_fwd(
+                                   B * H * -(-S // CHUNK) * P * N * 4)
+            lib = _build.load(f"ssd_scan_{kernel}")
+            err = getattr(lib, f"ssd_scan_{kernel}_fwd")(
                 x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), h0_ptr, y.data_ptr(), h.data_ptr(),
                 hin.data_ptr(), B, H, G, S, stream)
@@ -157,7 +161,7 @@ def ssd_scan(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
 
 
 ssd_scan.launches = 0
-ssd_scan.launches_by_path = {"wgmma": 0, "simt": 0}
+ssd_scan.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 
 
 def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
@@ -200,16 +204,18 @@ def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
             dC.data_ptr(), None if dh0 is None else dh0.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "wgmma":
+        if kernel in ("wgmma", "tf32"):
             _check_aligned(x=x, dy=dy, Bm=Bm, Cm=Cm)
-            lib = _build.load("ssd_scan_bwd_wgmma")
+            name = f"ssd_scan_bwd_{kernel}"
+            lib = _build.load(name)
             # the states entering the chunks and the gradients by the
-            # states leaving them (bf16 hi + lo), and the head tiles' dB
-            # and dC partials (f32)
+            # states leaving them (bf16 hi + lo on wgmma, f32 on tf32), and
+            # the head tiles' dB and dC partials (f32)
             buf = _scratch.scratch(
-                dev, stream, lib.ssd_scan_bwd_wgmma_scratch_bytes(B, H, G, S))
-            err = lib.ssd_scan_bwd_wgmma(*ptrs, buf.data_ptr(), B, H, G, S,
-                                         stream)
+                dev, stream,
+                getattr(lib, f"{name}_scratch_bytes")(B, H, G, S))
+            err = getattr(lib, name)(*ptrs, buf.data_ptr(), B, H, G, S,
+                                     stream)
         else:
             lib = _build.load("ssd_scan_bwd")
             # the chunks' states and state gradients, their last cum, and
@@ -225,7 +231,7 @@ def ssd_scan_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
 
 
 ssd_scan_bwd.launches = 0
-ssd_scan_bwd.launches_by_path = {"wgmma": 0, "simt": 0}
+ssd_scan_bwd.launches_by_path = {"wgmma": 0, "tf32": 0, "simt": 0}
 
 
 class SSDScanFn(torch.autograd.Function):

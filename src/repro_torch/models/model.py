@@ -51,7 +51,7 @@ from .layers import (dense_init, embed, embedding_init, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 class LayerSpec(NamedTuple):

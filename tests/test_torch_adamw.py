@@ -103,7 +103,7 @@ def test_every_entry_point_has_its_signature():
 
 
 @pytest.mark.parametrize("clip", [0.0, 1.0])
-@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("moments", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_update_on_cpu_is_the_eager_update(dtype, moments, clip):
     """Five steps of ``update`` on CPU tensors, with the kernels asked
@@ -187,7 +187,9 @@ def test_update_with_kernels_asked_for_matches_the_reference():
     (torch.float32, torch.float32, torch.float32),
     (torch.float32, torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.float32, torch.bfloat16)])
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float16),
+    (torch.bfloat16, torch.bfloat16, torch.float16)])
 def test_wrapper_on_cpu_tensors_is_its_plain_version(p_dtype, g_dtype,
                                                      m_dtype, decay):
     """``adamw_update`` on CPU tensors is ``_update_leaf`` (path
@@ -237,6 +239,11 @@ def test_wrapper_checks_its_arguments():
     with pytest.raises(TypeError):
         kadamw.adamw_update(p.double(), p.double(), p.double(), p.double(),
                             cfg, one, one, one, one, True)
+    # float16 moments are taken; float16 weights or gradients are not
+    for pg in ((p.half(), p.clone()), (p, p.half())):
+        with pytest.raises(TypeError):
+            kadamw.adamw_update(*pg, p.half(), p.half(), cfg, one, one, one,
+                                one, True)
     with pytest.raises(ValueError):
         kadamw.adamw_update(p, p.clone(), p.clone(), p.clone(), cfg,
                             torch.ones(1), one, one, one, True)

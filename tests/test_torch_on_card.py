@@ -694,6 +694,14 @@ from repro_torch.kernels.ssd_scan import path as ssd_path  # noqa: E402
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+def _ssd_kernel(dtype, P, N):
+    """The kernel the SSD wrappers must launch: the tensor cores at P =
+    64, N = 128 (bf16 "wgmma", f32 "tf32"), the CUDA cores elsewhere."""
+    if (P, N) != (64, 128):
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32"
+
+
 def _ssd_case(seed, B, H, G, S, P, N, dtype, with_h0, device):
     rng = np.random.default_rng(seed)
     t = lambda a, dt=torch.float32: torch.from_numpy(
@@ -721,8 +729,9 @@ def _ssd_case(seed, B, H, G, S, P, N, dtype, with_h0, device):
     (1, 6, 3, 1, 64, 128),       # one token
 ])
 def test_ssd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0):
-    """bf16 at P = 64, N = 128 runs the tensor-core kernel, everything
-    else the CUDA-core kernel; the launch counts show which ran."""
+    """At P = 64, N = 128 bf16 runs the wgmma kernel and f32 the 3xTF32
+    one, everything else the CUDA-core kernel; the launch counts show
+    which ran."""
     dev = _card()
     x, dA, dt, Bm, Cm, h0 = _ssd_case(S + N, B, H, G, S, P, N, dtype,
                                       with_h0, dev)
@@ -732,8 +741,7 @@ def test_ssd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0):
     yp, hp = ref.ssd_scan_ref(x, dA, dt, Bm, Cm, h0, chunk=CHUNK)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 1
-    ran = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
-           else "simt")
+    ran = _ssd_kernel(dtype, P, N)
     assert ssd_path(dtype, P, N) == ran
     by_path[ran] += 1
     assert ssd_scan.launches_by_path == by_path
@@ -1561,8 +1569,8 @@ def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
                                       with_dh):
     """dx, ddA, ddt, dB and dC (summed over each group's heads) and dh0
     against ``ref.ssd_scan_bwd_ref`` at the kernels' chunk; one launch a
-    call, on the path ``bwd_path`` names: bf16 at P 64, N 128 the
-    tensor-core kernel, the rest the CUDA-core one."""
+    call, on the path ``bwd_path`` names: at P 64, N 128 bf16 the wgmma
+    kernel and f32 the 3xTF32 one, the rest the CUDA-core one."""
     dev = _card()
     args, dy, dh = _ssd_bwd_case(S + N, B, H, G, S, P, N, dtype, with_h0,
                                  with_dh, dev)
@@ -1571,8 +1579,7 @@ def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
     got = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
     torch.cuda.synchronize()
     assert ssd_scan_bwd.launches == n0 + 1
-    ran = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
-           else "simt")
+    ran = _ssd_kernel(dtype, P, N)
     assert ssd_bwd_path(dtype, P, N) == ran
     by_path[ran] += 1
     assert ssd_scan_bwd.launches_by_path == by_path
@@ -1585,14 +1592,14 @@ def test_ssd_bwd_kernel_matches_plain(B, H, G, S, P, N, dtype, with_h0,
 def test_ssd_bwd_kernel_is_deterministic(dtype):
     """No atomics: two calls at mamba2's shape give bitwise the same
     gradients (the group's heads summed in head order), bf16 on the
-    tensor-core kernel, f32 on the CUDA-core one."""
+    wgmma kernel, f32 on the 3xTF32 one."""
     dev = _card()
     args, dy, dh = _ssd_bwd_case(5, 1, 80, 1, 3001, 64, 128, dtype, True,
                                  True, dev)
     by_path = dict(ssd_scan_bwd.launches_by_path)
     first = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
     second = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
-    ran = "wgmma" if dtype == torch.bfloat16 else "simt"
+    ran = _ssd_kernel(dtype, 64, 128)
     by_path[ran] += 2
     assert ssd_scan_bwd.launches_by_path == by_path
     for a, b in zip(first, second):
@@ -1643,6 +1650,43 @@ def test_ssd_bwd_first_design_and_tensor_core_kernel_both_match_plain(
     torch.cuda.synchronize()
     _assert_ssd_grads_close(new, want, torch.bfloat16, "wgmma")
     _assert_ssd_grads_close(first, want, torch.bfloat16, "simt")
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_f32_first_designs_and_tf32_kernels_all_match_plain(with_h0):
+    """At mamba2-2.7b's shape in f32 (1, 80, 1, 3,001, 64, 128) the first
+    designs (the CUDA cores, forward and backward) and the 3xTF32
+    kernels, on the same inputs, are each within SSD_TOL of the plain
+    versions; the wrappers launch the 3xTF32 kernels."""
+    from repro_torch.kernels import _build
+    dev = _card()
+    args, dy, dh = _ssd_bwd_case(13, 1, 80, 1, 3001, 64, 128,
+                                 torch.float32, with_h0, with_h0, dev)
+    x, dA, dt, Bm, Cm, h0 = args
+    yp, hp = ref.ssd_scan_ref(*args, chunk=CHUNK)
+    n0 = ssd_scan.launches_by_path["tf32"]
+    y, h = ssd_scan(*args)
+    assert ssd_scan.launches_by_path["tf32"] == n0 + 1
+    y1, h1 = torch.empty_like(x), torch.empty_like(hp)
+    _build.check_launch(_build.load("ssd_scan").ssd_scan_fwd(
+        x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y1.data_ptr(), h1.data_ptr(), 1, 80, 1, 3001, 64, 128, 0,
+        torch.cuda.current_stream().cuda_stream), "ssd_scan (simt)")
+    torch.cuda.synchronize()
+    tol = SSD_TOL[torch.float32]
+    for yy, hh in ((y, h), (y1, h1)):
+        assert float((yy - yp).abs().max()) <= tol * float(yp.abs().max())
+        assert float((hh - hp).norm()) <= tol * float(hp.norm())
+    want = ref.ssd_scan_bwd_ref(*args, dy, dh, chunk=CHUNK)
+    n0 = ssd_scan_bwd.launches_by_path["tf32"]
+    new = ssd_scan_bwd(*args, dy, dh, with_dh0=True)
+    assert ssd_scan_bwd.launches_by_path["tf32"] == n0 + 1
+    first = _first_ssd_bwd(args, dy, dh)
+    torch.cuda.synchronize()
+    _assert_ssd_grads_close(new, want, torch.float32, "tf32")
+    _assert_ssd_grads_close(first, want, torch.float32, "simt")
 
 
 @pytest.mark.cuda_only
@@ -2281,12 +2325,15 @@ def test_a_step_that_waits_on_the_host_raises_at_capture(monkeypatch):
 from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 
-#: p, g and moment dtypes: f32 state, bf16 moments, bf16 state, and bf16
-#: weights with f32 gradients (a microbatched step's summed gradients)
+#: p, g and moment dtypes: f32 state, bf16 moments, bf16 state, bf16
+#: weights with f32 gradients (a microbatched step's summed gradients),
+#: and f16 moments beside f32 and bf16 weights
 ADAMW_DTYPES = [(torch.float32, torch.float32, torch.float32),
                 (torch.float32, torch.float32, torch.bfloat16),
                 (torch.bfloat16, torch.bfloat16, torch.bfloat16),
-                (torch.bfloat16, torch.float32, torch.bfloat16)]
+                (torch.bfloat16, torch.float32, torch.bfloat16),
+                (torch.float32, torch.float32, torch.float16),
+                (torch.bfloat16, torch.bfloat16, torch.float16)]
 ADAMW_LENGTHS = [1, 7, 4097, (1 << 26) + 3]
 
 
@@ -2353,7 +2400,8 @@ def test_adamw_kernel_is_bitwise_its_plain_version(n, offsets, dtypes, decay,
 
 
 @pytest.mark.cuda_only
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_grad_norm_kernel_within_1e6_of_float64_and_bitwise_twice(dtype):
     """The norm of leaves of 1, 7, 4,097 and 2^26+3 elements, a slice
     at storage offset 1 and a permuted view, mixed f32 and `dtype`:
@@ -2435,6 +2483,42 @@ def test_update_on_the_smoke_tree_is_bitwise_the_plain_update(state):
     assert (kadamw.adamw_update.launches - n0[0],
             kadamw.grad_norm.launches - n0[1]) == (n_leaves, 1)
     assert abs(float(met["grad_norm"]) - float(plain)) <= 1e-6 * float(plain)
+
+
+@pytest.mark.cuda_only
+def test_update_with_float16_moments_is_bitwise_the_plain_update():
+    """``AdamWConfig(moment_dtype="float16")`` on the card: ``init`` makes
+    f16 moments, and three steps of the f32 smoke tree through the kernels
+    are bitwise the plain update (f16 stored round-to-nearest-even, as
+    ``copy_`` stores it), one launch a leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as model_lib
+    dev = _card()
+    cfg = get_smoke_config("recurrentgemma-2b")
+    ocfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4,
+                              moment_dtype="float16")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_leaves = len(tadamw.leaves_with_path(params))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    copy = lambda tree: tadamw._map(torch.clone, tree)
+    pk, pp = copy(params), copy(params)
+    sk, sp = tadamw.init(pk, ocfg), tadamw.init(pp, ocfg)
+    assert all(m.dtype == torch.float16
+               for _, m in tadamw.leaves_with_path((sk.m, sk.v)))
+    for _ in range(3):
+        g = tadamw._map(lambda p: torch.randn(p.shape, generator=gen,
+                                              device=dev), params)
+        gnorm = tadamw.global_norm(g)
+        n0 = kadamw.adamw_update.launches
+        pk, sk, _ = tadamw.update_with_norm(pk, g, sk, ocfg, gnorm, True)
+        assert kadamw.adamw_update.launches - n0 == n_leaves
+        pp, sp, _ = tadamw.update_with_norm(pp, g, sp, ocfg, gnorm, False)
+    torch.cuda.synchronize()
+    for (path, a), (_, b) in zip(
+            tadamw.leaves_with_path((pk, sk.m, sk.v)),
+            tadamw.leaves_with_path((pp, sp.m, sp.v))):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
 
 
 @pytest.mark.cuda_only

@@ -788,11 +788,12 @@ def test_ssd_bwd_ref_matches_autograd_and_jax(G, S, with_h0, with_dh):
                                  (16, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_path_depends_on_dtype_and_shape_alone(dtype, P, N):
-    """bf16 at (P, N) = (64, 128), mamba2-2.7b's shape, takes the
-    tensor-core backward (``csrc/ssd_scan_bwd_wgmma.cu``); f32 and every
-    other shape the CUDA-core one, as the forward's ``path`` splits."""
-    want = ("wgmma" if dtype == torch.bfloat16 and (P, N) == (64, 128)
-            else "simt")
+    """At (P, N) = (64, 128), mamba2-2.7b's shape, bf16 takes the wgmma
+    backward (``csrc/ssd_scan_bwd_wgmma.cu``) and f32 the 3xTF32 one
+    (``csrc/ssd_scan_bwd_tf32.cu``); every other shape the CUDA-core
+    one, as the forward's ``path`` splits."""
+    want = ("simt" if (P, N) != (64, 128)
+            else "wgmma" if dtype == torch.bfloat16 else "tf32")
     assert tssd.bwd_path(dtype, P, N) == want
     assert tssd.path(dtype, P, N) == want
 
