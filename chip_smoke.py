@@ -212,17 +212,24 @@ Phases (each one failing makes the script exit non-zero):
      B 1, S 3,000, TokenPipeline seed 0, 8 steps of ``make_train_step``
      with the AdamWConfig the reference's ``train_loop`` builds for 8
      steps (warmup 1, cosine over 8; deepseek's moments bf16), no
-     checkpoint: every loss finite, the last below the first, the
-     launches exact (recurrentgemma: 8 attention backward launches a
+     checkpoint, the step captured in a CUDA graph (``TrainStep``: a
+     warm-up step and the capture, then 7 replays): every loss finite,
+     the last below the first, the launches exact as the capture counts
+     them (``CaptureCounts``: the warm-up step's and the captured step's
+     each one step's; recurrentgemma: 8 attention backward launches a
      step, all on the wgmma path, and 18 scan backward launches; mamba2:
      64 SSD backward launches a step and 128 SSD forwards, all on the
      wgmma paths, remat recomputing each forward; deepseek: 3 flash
      forwards a step, the dense head layer's once and the MoE layer's
      twice, and 2 backwards, all on the wgmma paths at q/k 192, v 128;
      the AdamW update once a leaf a step, the norm once a step);
-     step time, tokens/s, peak memory and one profiled step, with the
-     backward kernels' device time by launch and the AdamW kernels'
-     beside the elementwise ops that remain; (c) one period of each at
+     step time, tokens/s, peak memory and one profiled (replayed) step,
+     with the backward kernels' device time by launch and the AdamW
+     kernels' beside the elementwise ops that remain; then the same 8
+     steps from the seed through the eager step (``graph=False``): every
+     loss, gradient norm and the final state's per-leaf checksums bitwise
+     the graphed run's; step time graphed and eager, capture ms, pool
+     bytes, peak allocated and reserved; (c) one period of each at
      the same width (rec, rec, local; one SSM layer), then deepseek's
      dense layer alone and with its MoE layer (bf16 weights; the plain
      run routes every token as the kernels' run did, and the routing its
@@ -387,9 +394,12 @@ Phases (each one failing makes the script exit non-zero):
      exact and every attention kernel on the wgmma path, no scan launched,
      the AdamW update once a leaf and the norm once a step;
      each step's loss, grad norm, lr and time, the state's GB and the peak
-     printed, and one more step of gemma2-2b and of qwen1.5-110b profiled;
+     printed, each through the captured step as phase 8 (b), one more
+     step of each profiled, then 2 eager steps on its state for the eager
+     step's time;
      (g) hubert-xlarge through ``train_loop`` for 3 steps with (f)'s AdamW
-     settings: its losses bitwise (f)'s first three, the launches exact;
+     settings (captured): its losses bitwise (f)'s first three, the
+     launches exact;
      (h) gemma2-2b's period (local then global, softcap 50) at S 1,024:
      every gradient leaf through the kernels against the plain versions as
      phase 8 (c) holds them; (i) the flash kernel at the shapes (a)-(f)
@@ -411,15 +421,19 @@ Phases (each one failing makes the script exit non-zero):
      ``examples/train_lm.py``'s: gemma2-2b cut to 10 layers of d 768, 8
      query heads over 4 kv heads of 96, softcap 50, byte vocabulary,
      window 512, f32 weights and compute, B 8, S 512, AdamW at lr 6e-4)
-     at its default size through ``train_lm.run``: 24 steps with a
-     checkpoint every 12 into a temporary directory, the launches exact
+     at its default size through ``train_lm.run``, the step captured in
+     a CUDA graph: 24 steps with a checkpoint every 12 into a temporary
+     directory, the launches exact
      (each step 20 attention forwards under remat and 10 backwards, all
      on the 3xTF32 kernels, none on the CUDA cores; the AdamW update once
      a leaf, the norm once); a run resumed from
      the step-12 checkpoint, its losses within rtol 1e-4 of the straight
+     run's; the 24 steps again from the seed through the eager step, the
+     losses and the final state's per-leaf checksums bitwise the graphed
      run's; 3 steps through the plain versions from the same seed, each
-     loss within 1e-4 of the kernels'; step time, tokens/s, peak memory
-     and the losses; one step profiled, beside the attention time of the
+     loss within 1e-4 of the kernels'; step time graphed and eager,
+     tokens/s, peak memory and the losses; one step profiled, beside the
+     attention time of the
      step's launches at phase 4's and 8's kernel times and at the
      CUDA-core kernels' (the route the parent took); phase 13's time;
   14. mamba2-2.7b computed in f32 at its published width and depth (64
@@ -434,10 +448,11 @@ Phases (each one failing makes the script exit non-zero):
      (128 forwards, 64 backwards, all "tf32"); (b) one SSM layer at S
      1,024 the same way within F32_GRAD_TOL (1e-4), A_log and dt_bias
      non-zero; (c) 4 train steps on f32 weights and moments (phase 8
-     (b)'s route), the launches exact (128 forwards and 64 backwards a
-     step on "tf32", none on "simt" or "wgmma"), step time, tokens/s,
-     peak memory, one step profiled with the SSD kernels' device time
-     beside the rest; (d) two prompts each of 512 and 3,001 tokens served
+     (b)'s route, captured), the launches exact (128 forwards and 64
+     backwards a step on "tf32", none on "simt" or "wgmma"), step time,
+     tokens/s, peak memory, one step profiled with the SSD kernels'
+     device time beside the rest, 2 eager steps for the eager step's
+     time; (d) two prompts each of 512 and 3,001 tokens served
      by one instance, 16 greedy tokens decoded through its captured
      step: the last-position logits within 1e-3 of the largest |logit|
      and every layer's final state within 1e-3 in norm of the plain
@@ -4122,8 +4137,9 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
     idle share, the largest device entries, the largest host entries by
     their own host time, the AdamW kernels' device time beside the
     elementwise ops' that remain (ELEMENTWISE_OPS), and the backward
-    kernels' device time, each by launch.  Returns the state; prints "not
-    measured" without device time."""
+    kernels' device time, each by launch.  Returns (the state, {"wall_ms",
+    "busy_ms", "idle"}); prints "not measured" without device time, and
+    returns None in place of the times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4139,7 +4155,7 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
     busy = sum(e.self_device_time_total for e in dev) / 1e6
     if busy <= 0:
         print(f"{phase} profile train step: device time not measured")
-        return state
+        return state, None
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     host = [e for e in rows if e.device_type == DeviceType.CPU]
     print(f"{phase} profile train step (profiled {wall * 1e3:.1f} ms): "
@@ -4209,7 +4225,8 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
                       f"{e.self_device_time_total / 1e3:.3f} ms "
                       f"({e.self_device_time_total / 1e3 / e.count:.4f} ms "
                       "each)" for e in bwd))
-    return state
+    return state, {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
+                   "idle": 1 - busy / wall}
 
 
 def _layer_counts(cfg) -> tuple:
@@ -4271,30 +4288,121 @@ def _train_setup(arch: str, steps: int, f32: bool = False):
         warmup_steps=1, moment_dtype=moment_dtype)
 
 
+def step_counts() -> dict:
+    """``train_counts`` and the attention backward's launches by path, as
+    "flash_attention_bwd.<path>"."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    return dict(train_counts(), **{
+        f"flash_attention_bwd.{p}": c
+        for p, c in flash_attention_bwd.launches_by_path.items()})
+
+
+class CaptureCounts:
+    """A run's kernel launches through the captured train step
+    (``distributed.steps.TrainStep``).  A captured step's wrappers count
+    their launches once, when the capture records them, and its replays
+    count none.  Around a block of steps this takes ``counts()`` at the
+    start and as each capture (``distributed.steps.capture``) begins and
+    ends: a capture's warm-up step launched what was counted between the
+    capture before it (or the start) and its begin, the captured step
+    what was counted inside it, and each of its replays that again."""
+
+    def __init__(self, counts=step_counts):
+        self.counts, self.marks = counts, []
+
+    def __enter__(self):
+        import repro_torch.distributed.steps as steps_mod
+        self.mod, self.orig = steps_mod, steps_mod.capture
+        self.start = self.counts()
+
+        def capture(*args, **kw):
+            begin = self.counts()
+            out = self.orig(*args, **kw)
+            self.marks.append((begin, self.counts()))
+            return out
+        steps_mod.capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.capture = self.orig
+        self.end = self.counts()
+
+    def per_capture(self) -> list:
+        """[(the warm-up step's launches, the captured step's)], one pair
+        a capture."""
+        out, last = [], self.start
+        for begin, end in self.marks:
+            out.append(({k: begin[k] - last[k] for k in begin},
+                        {k: end[k] - begin[k] for k in end}))
+            last = end
+        return out
+
+    def launched(self, replays) -> dict:
+        """The launches the block ran: each capture's warm-up step's, and
+        its captured step's times its replays (`replays`, a count a
+        capture).  Nothing may be counted after the last capture, where
+        only replays ran."""
+        last = self.marks[-1][1] if self.marks else self.start
+        check(self.end == last, f"launches counted after the last "
+              f"capture (an eager step): {self.end} against {last}")
+        total = {k: 0 for k in self.start}
+        for (warm, captured), r in zip(self.per_capture(), replays):
+            for k in total:
+                total[k] += warm[k] + captured[k] * r
+        return total
+
+
+def state_checksums(state) -> list:
+    """Each leaf of a train state (parameters, moments, the step count)
+    as the int64 sum of its elements' bit patterns: two runs whose lists
+    are equal agree in every leaf's sum, which one element differing by
+    any bit changes."""
+    import torch
+    from repro_torch.optim.adamw import leaves_with_path
+    ints = {4: torch.int32, 2: torch.int16}
+    return torch.stack([
+        t.detach().view(ints[t.element_size()]).sum(dtype=torch.int64)
+        for _, t in leaves_with_path(state)]).tolist()
+
+
+#: eager steps run on a graphed run's state after it for their time, where
+#: no eager run from the seed holds the graphed one (the first warms the
+#: eager step up, the last is timed)
+EAGER_TIMED_STEPS = 2
+
+
 def train_full_width(arch: str, label: str = "phase 8 (b)",
                      steps: int = TRAIN_STEPS, profile: bool = True,
-                     f32: bool = False):
-    """Phase 8 (b) and phase 12 (a)-(f): `arch` at its published width as
-    TRAIN_TABLE trains it (recurrentgemma-2b and mamba2-2.7b at their
-    depth with f32 master weights and moments, deepseek-v2-236b cut to
-    MOE_TRAIN_LAYERS, the dense first layer and one MoE layer, with bf16
-    weights, gradients and moments; phase 12's six likewise); bf16
-    compute, remat on, B 1, S 3,000, TokenPipeline seed 0, `steps` steps
-    through ``launch/train.py``'s ``build_state`` and ``put_batch`` and
-    ``make_train_step``, no checkpoint.  Every loss finite, the last
-    below the first, the peak within TRAIN_PEAK_GIB, the kernels'
-    launches exact: each forward once a layer and again in each
-    recomputed period, each backward once a layer, the attention forward
-    and backward (deepseek: at MLA's q/k 192, v 128) and the SSD forward
-    on their tensor-core paths.  With `f32` (phase 14), computed in f32.
-    With `profile`, one more step under the profiler.  Returns the
-    launches in the run, the attention backward's by path among them as
-    "flash_attention_bwd.<path>"."""
+                     f32: bool = False, hold: bool = False):
+    """Phase 8 (b), phase 12 (a)-(f) and phase 14 (c): `arch` at its
+    published width as TRAIN_TABLE trains it (recurrentgemma-2b and
+    mamba2-2.7b at their depth with f32 master weights and moments,
+    deepseek-v2-236b cut to MOE_TRAIN_LAYERS, the dense first layer and
+    one MoE layer, with bf16 weights, gradients and moments; phase 12's
+    six likewise); bf16 compute, remat on, B 1, S 3,000, TokenPipeline
+    seed 0, `steps` steps through ``launch/train.py``'s ``build_state``
+    and ``put_batch`` and ``make_train_step``'s captured step (a warm-up
+    step and the capture, then `steps` - 1 replays), no checkpoint.
+    Every loss finite, the last below the first, the peak within
+    TRAIN_PEAK_GIB, the kernels' launches exact (``CaptureCounts``: the
+    warm-up step's and the captured step's each one step's, so the run
+    launched a step's `steps` times): each forward once a layer and
+    again in each recomputed period, each backward once a layer, the
+    attention forward and backward (deepseek: at MLA's q/k 192, v 128)
+    and the SSD forward on their tensor-core paths.  With `f32` (phase
+    14), computed in f32.  With `profile`, one more graphed step under
+    the profiler.  With `hold` (phase 8 (b)), the same `steps` steps
+    again from the seed through the eager step (``graph=False``): every
+    loss and gradient norm, and the final state's per-leaf checksums,
+    bitwise the graphed run's; without, EAGER_TIMED_STEPS eager steps on
+    the trained state for their time.  Prints the step time graphed and
+    eager, the capture's ms and pool bytes, the peak allocated and
+    reserved.  Returns the launches in the run, the attention
+    backward's by path among them as "flash_attention_bwd.<path>"."""
     import gc
     import torch
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import build_state, put_batch
     from repro_torch.kernels import _scratch
     phase = label.split(" (")[0].replace(" ", "")
@@ -4325,70 +4433,125 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
           f"({before / 2**30:.3f} before); {opt_cfg}")
     bundle = make_train_step(cfg, None, shape, opt_cfg, remat=True,
                              device="cuda")
+    fn = bundle.fn
     pipe = TokenPipeline(cfg, shape, seed=0)
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_lm_counts()
-    losses, times = [], []
-    for i in range(steps):
-        batch = put_batch(pipe.batch(i), "cuda")
-        t0 = time.perf_counter()
-        state, m = bundle.fn(state, batch)
-        loss = float(m["loss"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss)
-        print(f"{phase} {arch} step {i}: loss {loss:.4f}, grad_norm "
-              f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
-              f"{times[-1] * 1e3:.1f} ms")
-    counts = train_counts()
-    by_path = dict(flash_attention_bwd.launches_by_path)
+
+    def run(fn, state, first: int, count: int, what: str):
+        losses, norms, times = [], [], []
+        for i in range(first, first + count):
+            batch = put_batch(pipe.batch(i), "cuda")
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            norms.append(float(m["grad_norm"]))
+            print(f"{phase} {arch} {what} step {i}: loss {loss:.4f}, "
+                  f"grad_norm {norms[-1]:.4f}, lr {float(m['lr']):.3g}, "
+                  f"{times[-1] * 1e3:.1f} ms")
+        return state, losses, norms, times
+
+    with CaptureCounts() as cc:
+        state, losses, norms, times = run(fn, state, 0, steps, "graphed")
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     # cudaMalloc calls that failed and were retried after the allocator
     # freed its cache (each a device-wide sync)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    check(fn.graphed and fn.captures == 1 and fn.replays == steps - 1,
+          f"{label} {arch}: {fn.captures} captures and {fn.replays} "
+          f"replays in {steps} steps")
+    (warm, captured), = cc.per_capture()
+    counts = cc.launched([fn.replays])
     T = steps
     ssd = ssd_kernel(cfg)
-    want = {k: 0 for k in counts}
-    want.update({"flash_attention": fwd["attention"] * T,
-                 "flash_attention.wgmma": fwd["attention"] * T,
-                 "flash_attention_bwd": n["attention"] * T,
-                 "rglru_scan": fwd["recurrent"] * T,
-                 "rglru_scan_bwd": n["recurrent"] * T,
-                 "ssd_scan": fwd["ssm"] * T, f"ssd_scan.{ssd}": fwd["ssm"] * T,
-                 "ssd_scan_bwd": n["ssm"] * T,
-                 f"ssd_scan_bwd.{ssd}": n["ssm"] * T,
-                 **update_launches(state["params"], T)})
+    one = {k: 0 for k in counts}
+    one.update({"flash_attention": fwd["attention"],
+                "flash_attention.wgmma": fwd["attention"],
+                "flash_attention_bwd": n["attention"],
+                "flash_attention_bwd.wgmma": n["attention"],
+                "rglru_scan": fwd["recurrent"],
+                "rglru_scan_bwd": n["recurrent"],
+                "ssd_scan": fwd["ssm"], f"ssd_scan.{ssd}": fwd["ssm"],
+                "ssd_scan_bwd": n["ssm"], f"ssd_scan_bwd.{ssd}": n["ssm"],
+                **update_launches(state["params"], 1)})
+    want = {k: c * T for k, c in one.items()}
     steady = statistics.median(times[1:])
-    want_path = {"wgmma": n["attention"] * T, "tf32": 0, "simt": 0}
     print(f"{phase} {arch} train launches: {counts}; expected {want} (the "
           f"forwards once a layer and again in each of the {n_periods} "
           f"recomputed periods; the AdamW update once a leaf a step, the "
-          f"norm once); attention backward by path {by_path}, expected "
-          f"{want_path}")
+          f"norm once; the attention backward on wgmma); counted at the "
+          f"warm-up step {warm == one}, at the capture {captured == one}, "
+          f"{fn.replays} replays")
     print(f"{phase} {arch} train: losses {[round(x, 4) for x in losses]}; "
-          f"step time first {times[0] * 1e3:.1f} ms, median of the rest "
-          f"{steady * 1e3:.1f} ms = "
+          f"step time first (warm-up and capture) {times[0] * 1e3:.1f} ms, "
+          f"median of the replays {steady * 1e3:.1f} ms = "
           f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; peak memory "
-          f"{peak / 2**30:.3f} GiB, {retries} allocations retried")
+          f"{peak / 2**30:.3f} GiB allocated, {reserved / 2**30:.3f} GiB "
+          f"reserved, {retries} allocations retried")
     check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
           f"{label} {arch}: a loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"{label} {arch}: the loss did not "
           f"fall: {losses}")
     check(peak <= TRAIN_PEAK_GIB * 2**30, f"{label} {arch}: peak memory "
           f"{peak / 2**30:.3f} GiB, more than {TRAIN_PEAK_GIB}")
+    check(warm == captured == one, f"{label} {arch}: launches counted at "
+          f"the warm-up step {warm} and at the capture {captured}, a "
+          f"step's {one}")
     check(counts == want, f"{label} {arch}: launches {counts}, "
           f"expected {want}")
-    check(by_path == want_path, f"{label} {arch}: attention backward "
-          f"launches by path {by_path}, expected {want_path}")
+    sums = state_checksums(state) if hold else None
+    prof = None
     if profile:
-        state = profile_train_step(
+        state, prof = profile_train_step(
             bundle, state, put_batch(pipe.batch(steps), "cuda"), phase)
-    del state, bundle
-    TRAIN_RUNS[arch + (" f32" if f32 else "")] = {"losses": losses,
-                                                 "counts": counts}
-    return dict(counts, **{f"flash_attention_bwd.{p}": c
-                           for p, c in by_path.items()})
+    capture_ms, pool_bytes = fn.capture_ms, fn.pool_bytes
+    # the graph and its pool go before the eager steps take as much again
+    fn.close()
+    del bundle, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = make_train_step(cfg, None, shape, opt_cfg, remat=True,
+                            device="cuda", graph=False).fn
+    if hold:
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = build_state(cfg, opt_cfg, seed=0, device="cuda",
+                            param_dtype=param_dtype)
+        state, e_losses, e_norms, e_times = run(eager, state, 0, steps,
+                                                "eager")
+        e_sums = state_checksums(state)
+        same = (e_losses == losses, e_norms == norms, e_sums == sums)
+        print(f"{phase} {arch} graphed against eager from the seed, "
+              f"{steps} steps: losses {'bitwise' if same[0] else 'differ'}"
+              f", gradient norms {'bitwise' if same[1] else 'differ'}, "
+              f"{len(sums)} leaves' checksums "
+              f"{'bitwise' if same[2] else 'differ'}")
+        check(all(same), f"{label} {arch}: the graphed run is not the "
+              f"eager one: losses {losses} against {e_losses}, norms "
+              f"{norms} against {e_norms}, checksums differ in leaves "
+              f"{[i for i, (a, b) in enumerate(zip(sums, e_sums)) if a != b]}")
+        eager_ms = statistics.median(e_times[1:])
+    else:
+        state, _l, _n, e_times = run(eager, state, steps + 1,
+                                     EAGER_TIMED_STEPS, "eager")
+        eager_ms = e_times[-1]
+    del state, eager
+    print(f"{phase} {arch} graph: step graphed {steady * 1e3:.1f} ms, "
+          f"eager {eager_ms * 1e3:.1f} ms ({eager_ms / steady:.2f}x), "
+          f"capture {capture_ms:.1f} ms, pool {pool_bytes} bytes, peak "
+          f"{peak / 2**30:.3f} GiB allocated ({reserved / 2**30:.3f} GiB "
+          "reserved)" + (f"; profiled step busy {prof['busy_ms']:.2f} ms, "
+                         f"idle share {prof['idle']:.4f}" if prof else "")
+          + f"; {card()}")
+    TRAIN_RUNS[arch + (" f32" if f32 else "")] = {
+        "losses": losses, "counts": {k: counts[k] for k in train_counts()}}
+    return counts
 
 
 class RoutingReplay:
@@ -4785,7 +4948,7 @@ def phase8_training():
     serve["adamw"] = phase8_adamw_kernels()
     print(f"phase8 (a) AdamW kernels held and timed in "
           f"{time.perf_counter() - t_a:.1f} s")
-    counts = {arch: train_full_width(arch)
+    counts = {arch: train_full_width(arch, hold=True)
               for arch in TRAIN_ARCHS + (MOE_ARCH,)}
     for arch in TRAIN_ARCHS:
         phase8_period_grads(arch)
@@ -5463,17 +5626,19 @@ def mesh_1x1():
 
 
 def _one_device_train(cfg, shape, opt_cfg, param_dtype, steps: int):
-    """Phase 8 (b)'s first `steps` steps of `cfg` on one device: (losses,
-    launch counts); what (b) compares with when phase 8 did not run in
-    this process."""
+    """Phase 8 (b)'s first `steps` steps of `cfg` on one device, eager:
+    (losses, launch counts); what (b) compares with when phase 8 did not
+    run in this process."""
     import torch
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import make_train_step
     from repro_torch.launch.train import build_state, put_batch
     state = build_state(cfg, opt_cfg, seed=0, device="cuda",
                         param_dtype=param_dtype)
+    # eager, so that the wrappers count every step's launches as the mesh
+    # step's do
     bundle = make_train_step(cfg, None, shape, opt_cfg, remat=True,
-                             device="cuda")
+                             device="cuda", graph=False)
     pipe = TokenPipeline(cfg, shape, seed=0)
     reset_lm_counts()
     losses = []
@@ -5551,7 +5716,7 @@ def phase10b_train(mesh, power: str):
           f"{want}")
     # where a mesh step's time goes, beside phase 8's profile of the
     # one-device step
-    state = profile_train_step(
+    state, _ = profile_train_step(
         bundle, state, put_batch(pipe.batch(MESH_STEPS), "cuda", batch_sh,
                                  mesh), "phase10 (b)")
     _, _, (g_embed,) = bundle.meta["grads"](
@@ -6251,8 +6416,9 @@ def phase11_other_archs() -> dict:
 PHASE12_ARCHS = (GEMMA_ARCH, "gemma-7b", "gemma3-12b", "qwen1.5-110b",
                  VLM_ARCH, AUDIO_ARCH)
 PHASE12_STEPS = 4
-#: the runs with one more step under the profiler
-PHASE12_PROFILED = (GEMMA_ARCH, "qwen1.5-110b")
+#: the runs with one more (graphed) step under the profiler: all, for
+#: each model's busy time and idle share beside its step times
+PHASE12_PROFILED = PHASE12_ARCHS
 #: phase 12 (g): the steps of the train loop held bitwise to (f)'s first
 PHASE12_LOOP_STEPS = 3
 
@@ -6261,10 +6427,10 @@ def phase12g_train_loop() -> dict:
     """(g) hubert-xlarge through ``launch/train.py``'s ``train_loop`` on
     the card, (f)'s AdamW settings, PHASE12_LOOP_STEPS steps: its losses
     bitwise (f)'s first ones (the same seed, pipeline and state route;
-    the loop builds f32 state, as (f) trains hubert) and its launches
-    exact.  Returns the launches."""
+    the loop builds f32 state, as (f) trains hubert; both through the
+    captured step) and its launches exact (``CaptureCounts``: one capture,
+    T - 1 replays).  Returns the launches."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.launch.train import train_loop
     _free_models("phase12 (g)")
     cfg, param_dtype, shape, opt_cfg = _train_setup(AUDIO_ARCH,
@@ -6275,14 +6441,14 @@ def phase12g_train_loop() -> dict:
     T = PHASE12_LOOP_STEPS
     reset_lm_counts()
     t0 = time.perf_counter()
-    _state, losses = train_loop(cfg, shape, steps=T, opt_cfg=opt_cfg,
-                                device="cuda", log_every=1)
+    with CaptureCounts() as cc:
+        _state, losses = train_loop(cfg, shape, steps=T, opt_cfg=opt_cfg,
+                                    device="cuda", log_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     del _state
-    counts = dict(train_counts(), **{
-        f"flash_attention_bwd.{p}": c
-        for p, c in flash_attention_bwd.launches_by_path.items()})
+    check(len(cc.marks) == 1, f"phase 12 (g): {len(cc.marks)} captures")
+    counts = cc.launched([T - 1])
     want = {k: 0 for k in counts}
     per_run = TRAIN_RUNS[AUDIO_ARCH]["counts"]
     want.update({"flash_attention": fwd["attention"] * T,
@@ -6481,15 +6647,20 @@ def train_lm_counts() -> dict:
 def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
     """The twin of the ~100M training example (``launch/train_lm.py``) on
     the card at its default size, through ``train_lm.run`` as its command
-    line runs it: TRAIN_LM_STEPS steps with a checkpoint every half into
-    a temporary directory, the kernels' launches exact (each step 20
-    attention forwards under remat and 10 backwards, all on the 3xTF32
-    kernels, none on the CUDA cores); a second run resumed from the
-    half-way checkpoint, its losses within rtol TRAIN_LM_TOL of the
-    straight run's; TRAIN_LM_PLAIN_STEPS steps from the same seed through
-    the plain versions, each loss within TRAIN_LM_TOL of the kernels'
-    run's; step time (median of steps 2 on), tokens/s, peak memory and
-    the losses; one more step profiled, beside what the CUDA-core kernels
+    line runs it, the step captured in a CUDA graph at its first call and
+    replayed after: TRAIN_LM_STEPS steps with a checkpoint every half
+    into a temporary directory, the kernels' launches exact
+    (``CaptureCounts``; each step 20 attention forwards under remat and
+    10 backwards, all on the 3xTF32 kernels, none on the CUDA cores); a
+    second run resumed from the half-way checkpoint (captured anew on the
+    restored state), its losses within rtol TRAIN_LM_TOL of the straight
+    run's; the straight run again from the seed through the eager step,
+    its losses and final state's per-leaf checksums bitwise the graphed
+    run's; TRAIN_LM_PLAIN_STEPS steps from the same seed through the
+    plain versions, each loss within TRAIN_LM_TOL of the kernels' run's;
+    step time graphed and eager (median of steps 2 on), tokens/s, peak
+    memory and the losses; one more step captured and one replayed under
+    the profiler, beside what the CUDA-core kernels
     would take at this shape for the step's launches (`fwd` and `bwd`:
     phase 4's and phase 8's measurements at the example's attention
     shape).  Returns the straight run's launches."""
@@ -6524,18 +6695,27 @@ def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_lm_counts()
         t_run = time.perf_counter()
-        state, losses = train_lm.run(
-            train_lm.parse(["--steps", str(T), "--ckpt-dir", straight]),
-            save_every=half, times=times)
+        with CaptureCounts(train_lm_counts) as cc:
+            state, losses = train_lm.run(
+                train_lm.parse(["--steps", str(T), "--ckpt-dir", straight]),
+                save_every=half, times=times)
         wall = time.perf_counter() - t_run
-        counts = train_lm_counts()
+        check(len(cc.marks) == 1, f"phase 13: {len(cc.marks)} captures")
+        counts = cc.launched([T - 1])
         peak = torch.cuda.max_memory_allocated() / 2**30
-        want = {key: 0 for key in counts}
-        want.update({"flash_attention": fwd_layers["attention"] * T,
-                     "flash_attention.tf32": fwd_layers["attention"] * T,
-                     "flash_attention_bwd": n["attention"] * T,
-                     "flash_attention_bwd.tf32": n["attention"] * T,
-                     **update_launches(state["params"], T)})
+        reserved = torch.cuda.max_memory_reserved() / 2**30
+        one = {key: 0 for key in counts}
+        one.update({"flash_attention": fwd_layers["attention"],
+                    "flash_attention.tf32": fwd_layers["attention"],
+                    "flash_attention_bwd": n["attention"],
+                    "flash_attention_bwd.tf32": n["attention"],
+                    **update_launches(state["params"], 1)})
+        want = {key: c * T for key, c in one.items()}
+        (warm, captured), = cc.per_capture()
+        check(warm == captured == one, f"phase 13: launches counted at the "
+              f"warm-up step {warm} and at the capture {captured}, a "
+              f"step's {one}")
+        sums = state_checksums(state)
         step_ms = statistics.median(times[1:]) * 1e3
         print(f"phase13 train_lm: {cfg.n_layers} layers of d {cfg.d_model}, "
               f"{cfg.param_count():,} parameters, f32, B "
@@ -6544,30 +6724,62 @@ def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
               f"{step_ms:.1f} ms (median of steps 2-{T}; first "
               f"{times[0] * 1e3:.1f} ms) = "
               f"{shape.global_batch * shape.seq_len / step_ms * 1e3:.1f} "
-              f"tokens/s, peak memory {peak:.3f} GiB; losses "
-              f"{[round(x, 4) for x in losses]}; launches {counts}")
+              f"tokens/s, peak memory {peak:.3f} GiB ({reserved:.3f} GiB "
+              f"reserved); losses {[round(x, 4) for x in losses]}; "
+              f"launches {counts} (a warm-up step, a capture and {T - 1} "
+              "replays)")
         check(counts == want, f"phase 13: launches {counts}, expected "
               f"{want}")
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
               f"phase 13: losses {losses}")
-        # the resumed run: the straight run's half-way checkpoint alone
+        # the resumed run: the straight run's half-way checkpoint alone,
+        # the step captured on the restored state
         name = f"step_{half:09d}"
         shutil.copytree(os.path.join(straight, name),
                         os.path.join(resumed, name))
-        _state, again = train_lm.run(
-            train_lm.parse(["--steps", str(T), "--ckpt-dir", resumed]),
-            save_every=half)
+        with CaptureCounts(train_lm_counts) as cc_again:
+            _state, again = train_lm.run(
+                train_lm.parse(["--steps", str(T), "--ckpt-dir", resumed]),
+                save_every=half)
         del _state
+        check(len(cc_again.marks) == 1 and cc_again.launched(
+            [T - half - 1]) == {k: c * (T - half) for k, c in one.items()},
+            f"phase 13: the resumed run's launches {cc_again.per_capture()}")
         worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[half:]))
         print(f"phase13 resumed from step {half}: losses "
               f"{[round(x, 4) for x in again]}, worst relative difference "
               f"from the straight run {worst:.3g} (limit {TRAIN_LM_TOL})")
         check(len(again) == T - half and worst <= TRAIN_LM_TOL,
               f"phase 13: resumed losses {again} against {losses[half:]}")
-    # the first steps again through the plain versions, from the same seed
-    # and batches
+    # the straight run again from the seed through the eager step: its
+    # losses and final state bitwise the captured step's
     opt_cfg = train_lm.opt_config(T)
     corpus = ByteCorpus()
+    eager = make_train_step(cfg, None, shape, opt_cfg=opt_cfg, remat=True,
+                            device="cuda", graph=False)
+    e_state = build_state(cfg, opt_cfg, 0, "cuda")
+    e_losses, e_times = [], []
+    for i in range(T):
+        t_step = time.perf_counter()
+        batch = put_batch(corpus.batch(i, shape.global_batch, shape.seq_len),
+                          "cuda")
+        e_state, m = eager.fn(e_state, batch)
+        e_losses.append(float(m["loss"]))
+        e_times.append(time.perf_counter() - t_step)
+    same = (e_losses == losses, state_checksums(e_state) == sums)
+    del e_state, eager
+    eager_ms = statistics.median(e_times[1:]) * 1e3
+    print(f"phase13 graphed against eager from the seed, {T} steps: losses "
+          f"{'bitwise' if same[0] else 'differ'}, the final state's "
+          f"{len(sums)} leaves' checksums "
+          f"{'bitwise' if same[1] else 'differ'}; step graphed "
+          f"{step_ms:.1f} ms, eager {eager_ms:.1f} ms "
+          f"({eager_ms / step_ms:.2f}x; the step's loop as train_loop "
+          f"times it, batch copy and loss read included)")
+    check(all(same), f"phase 13: graphed losses {losses}, eager "
+          f"{e_losses}; checksums equal {same[1]}")
+    # the first steps again through the plain versions, from the same seed
+    # and batches
     plain_state = build_state(cfg, opt_cfg, 0, "cuda")
     plain = make_train_step(cfg, None, shape, opt_cfg=opt_cfg, remat=True,
                             device="cuda", use_kernel=False)
@@ -6587,14 +6799,24 @@ def phase13_train_lm(fwd: dict, bwd: dict) -> dict:
           f"largest difference {diff:.3g} (limit {TRAIN_LM_TOL})")
     check(diff <= TRAIN_LM_TOL, f"phase 13: kernels' losses "
           f"{losses[:TRAIN_LM_PLAIN_STEPS]}, plain {plain_losses}")
-    # one more step profiled, and the CUDA-core kernels at this shape for
-    # the step's launches (the route f32 with a softcap took before)
+    # one more step captured and one replayed under the profiler, and the
+    # CUDA-core kernels at this shape for the step's launches (the route
+    # f32 with a softcap took before)
     bundle = make_train_step(cfg, None, shape, opt_cfg=opt_cfg, remat=True,
                              device="cuda")
-    batch = put_batch(corpus.batch(T, shape.global_batch, shape.seq_len),
+    state, _m = bundle.fn(state, put_batch(
+        corpus.batch(T, shape.global_batch, shape.seq_len), "cuda"))
+    batch = put_batch(corpus.batch(T + 1, shape.global_batch, shape.seq_len),
                       "cuda")
-    profile_train_step(bundle, state, batch, phase="phase13")
-    del state
+    state, prof = profile_train_step(bundle, state, batch, phase="phase13")
+    print(f"phase13 graph: step graphed {step_ms:.1f} ms, eager "
+          f"{eager_ms:.1f} ms, capture {bundle.fn.capture_ms:.1f} ms, pool "
+          f"{bundle.fn.pool_bytes} bytes, peak {peak:.3f} GiB allocated "
+          f"({reserved:.3f} GiB reserved)" + (
+              f"; profiled step busy {prof['busy_ms']:.2f} ms, idle share "
+              f"{prof['idle']:.4f}" if prof else "") + f"; {power}")
+    bundle.fn.close()
+    del state, bundle
     # one f32 product at the MLP's shape (B S x d by d x d_ff), timed on
     # the device: the rate the step's matrix products can run at
     x = torch.randn((shape.global_batch * shape.seq_len, cfg.d_model),

@@ -5,8 +5,11 @@ Each builder returns a :class:`StepBundle`: the step function, its
 abstract arguments (``args``: fake tensors, or fake DTensors with the
 step's placements, built under ``FakeTensorMode`` and never allocated,
 so a dry run can trace the step on a production mesh), the mesh and the
-shardings.  PyTorch runs eagerly, so there is nothing to jit or lower:
-the step is the function itself.
+shardings.  PyTorch runs eagerly, so there is nothing to lower: the
+step is the function itself.  On one card the train step is
+captured in a CUDA graph instead, once per state, and replayed every step
+(``TrainStep``), the counterpart of the reference's ``jax.jit`` of its
+step (``src/repro/distributed/steps.py:254``).
 
 With ``mesh=None`` a step runs on one device (the card unless the
 caller names another).  With a mesh, parameters, AdamW moments, batches
@@ -26,6 +29,7 @@ shard on (group, expert) — see models/moe.py.
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -38,6 +42,7 @@ from ..models import model as model_lib
 from ..models import pctx
 from ..models import steps as steps_lib
 from ..optim import adamw
+from ..serving.engine import capture, warm_up
 from .sharding import (NamedSharding, P, axis_size, batch_pspecs,
                        cache_shardings, dp_axes, dp_entry, param_shardings,
                        placements)
@@ -293,6 +298,100 @@ def _split_local(x, microbatch: int, i: int):
 # -- train ------------------------------------------------------------------
 
 
+def _tensors(tree) -> list:
+    """`tree`'s tensors in order (dicts, lists, tuples and AdamW's
+    OptState)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+class TrainStep:
+    """The one-device train step, ``fn(state, batch) -> (state,
+    metrics)``, captured on the card in a CUDA graph once and replayed
+    every step: the counterpart of the reference's ``jax.jit`` of its
+    step.  `body` is the eager step; it updates the state in place (the
+    parameters, the AdamW moments and the step count).
+
+    A graph binds the addresses it was captured on, so the step is
+    captured per state, not per function.  The first call on a state runs
+    one real step eagerly on the device's capture stream with the CUDA
+    sync debug mode at "error" (``serving.engine.warm_up``, shared with
+    the decode step), so a step that waits on the host raises there; then
+    it captures the step on that state and on static copies of the batch
+    into a memory pool of its own (``serving.engine.capture``; the pool
+    holds the step's activations and gradients between steps).  Every
+    later call copies its batch into the static copies and replays the
+    graph.  A call on a state whose tensors lie elsewhere (a checkpoint
+    restored into new tensors) captures anew; a batch of other keys,
+    shapes or dtypes raises.  The metrics returned are copies, so a
+    later replay never overwrites what a caller holds.  A step that
+    cannot be captured raises: it never falls back to eager.  The
+    captured state's tensors are kept while the graph lives, so no other
+    tensor can take their addresses.
+
+    ``replays`` and ``captures`` count; ``capture_ms`` is the host time
+    of the last warm-up step and capture, ``pool_bytes`` what that
+    capture added to the memory reserved.  On the CPU, or without
+    `graph`, each call runs `body` eagerly."""
+
+    def __init__(self, body, device: torch.device, graph: bool = True):
+        self.body, self.device = body, device
+        self.graphed = graph and device.type == "cuda"
+        self.graph = None
+        self.batch: Optional[Dict[str, torch.Tensor]] = None
+        self.metrics: Optional[Dict[str, torch.Tensor]] = None
+        self._bound: list = []      # the captured state's tensors
+        self._held: list = []       # the scratch buffers the graph keeps
+        self.replays = self.captures = 0
+        self.capture_ms: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def __call__(self, state, batch):
+        if not self.graphed:
+            return self.body(state, batch)
+        tensors = _tensors(state)
+        if self.graph is None or len(tensors) != len(self._bound) or any(
+                a.data_ptr() != b.data_ptr()
+                for a, b in zip(tensors, self._bound)):
+            return self._capture(state, batch, tensors)
+        if batch.keys() != self.batch.keys() or any(
+                v.shape != self.batch[k].shape
+                or v.dtype != self.batch[k].dtype for k, v in batch.items()):
+            raise ValueError("the batch's keys, shapes or dtypes are not the "
+                             "captured step's")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        self.graph.replay()
+        self.replays += 1
+        return state, {k: v.clone() for k, v in self.metrics.items()}
+
+    def _capture(self, state, batch, tensors):
+        self.close()
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        out = warm_up(self.device, lambda: self.body(state, self.batch))
+        # the warm-up's activations leave the cache before the capture's
+        # pool takes as much again
+        torch.cuda.empty_cache()
+        self.graph, (_, self.metrics), self._held, self.pool_bytes = \
+            capture(self.device, lambda: self.body(state, self.batch))
+        self._bound = tensors
+        self.captures += 1
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def close(self):
+        """Drops the graph, its outputs, its static batch and what it
+        kept (its pool is freed at the allocator's next ``empty_cache``
+        once no tensor of it is left)."""
+        self.graph = self.batch = self.metrics = None
+        self._bound, self._held = [], []
+
+
 def make_train_step(cfg: ModelConfig, mesh=None,
                     shape: Optional[InputShape] = None,
                     opt_cfg: Optional[adamw.AdamWConfig] = None,
@@ -301,7 +400,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                     param_dtype=torch.float32,
                     cast_params: bool = False,
                     extra_hints: Optional[dict] = None,
-                    device=None, use_kernel: bool = True) -> StepBundle:
+                    device=None, use_kernel: bool = True,
+                    graph: bool = True) -> StepBundle:
     """The train step of `cfg` at `shape`, through the hand-written
     kernels and their backward kernels: ``fn(state, batch) -> (state,
     metrics)`` with the state ``{"params", "opt"}`` updated in place and
@@ -317,7 +417,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     matrices to the compute dtype once at step entry, so weight gathers
     move the compute dtype.  ``use_kernel=False`` runs the plain
     versions instead of the kernels (the yardstick of a kernels' run),
-    the AdamW update and its gradient norm among them."""
+    the AdamW update and its gradient norm among them.
+
+    ``fn`` is a ``TrainStep``: on one card it captures the step in a CUDA
+    graph and replays it; ``graph=False`` (the eager yardstick), the CPU
+    and a mesh run the step eagerly.  ``fn.body`` is the eager step."""
     if shape is None:
         raise TypeError("make_train_step needs an InputShape")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -382,7 +486,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return {"params": params, "opt": new_opt}, metrics
 
     if mesh is None:
-        step = body
+        step = TrainStep(body, dev, graph)
     else:
         def step(state, batch):
             with _distributed(hints):

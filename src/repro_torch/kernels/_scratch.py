@@ -2,14 +2,22 @@
 buffer per (device, stream), grown when a call needs more and kept, so
 that a steady caller allocates nothing per call.  Calls on one stream run
 in order, so each may reuse what the one before it used; a call on
-another stream gets a buffer of its own."""
+another stream gets a buffer of its own.
+
+A CUDA graph bakes the addresses of the buffers its kernels were handed
+into its replays, so a capture collects them (``held``) and its graph
+keeps them: growing a buffer later only replaces it here, and memory a
+graph still writes is never freed while the graph lives."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from contextlib import contextmanager
+from typing import Dict, List, Tuple
 
 import torch
 
 _BUFFERS: Dict[Tuple[str, int], torch.Tensor] = {}
+#: for each ``held`` block in progress, the buffers handed out inside it
+_HELD: List[List[torch.Tensor]] = []
 
 
 def current_stream(device: torch.device) -> int:
@@ -29,10 +37,25 @@ def scratch(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     if buf is None or buf.numel() < nbytes:
         buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
         _BUFFERS[key] = buf
+    for bufs in _HELD:
+        if all(b is not buf for b in bufs):
+            bufs.append(buf)
     return buf
+
+
+@contextmanager
+def held():
+    """A list of every buffer ``scratch`` hands out inside the block, for
+    the graph captured there to keep for as long as it lives."""
+    bufs: List[torch.Tensor] = []
+    _HELD.append(bufs)
+    try:
+        yield bufs
+    finally:
+        _HELD[:] = [b for b in _HELD if b is not bufs]
 
 
 def clear() -> None:
     """Drop every buffer, so that the next caller's memory holds only the
-    scratch its own calls ask for."""
+    scratch its own calls ask for (and what live graphs keep)."""
     _BUFFERS.clear()

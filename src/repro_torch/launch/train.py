@@ -73,7 +73,10 @@ def train_loop(cfg, shape, mesh=None, steps: int = 100, ckpt_dir=None,
     `times` takes each step's seconds on the host clock (the batch's copy
     in, the step, and the loss read back, which waits for the device).
 
-    `mesh=None`: one device, `device`.  With a mesh the state is built
+    `mesh=None`: one device, `device`; on the card the step is captured
+    in a CUDA graph at its first call, on the restored state where the
+    loop resumes, and replayed after (``distributed.steps.TrainStep``).
+    With a mesh the state is built
     whole on each rank from the same seed and distributed into the
     bundle's shardings (``distribute_tensor``, each rank keeping its
     shards), batches likewise, and the mesh step runs; checkpoints hold

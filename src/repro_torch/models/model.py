@@ -392,8 +392,12 @@ def _apply_remat(cfg: ModelConfig, params, x, positions, use_kernel: bool,
     x, aux = run(x, 0.0, 0, len(head))
     for j in range(n_periods):
         lo = len(head) + j * len(period)
+        # the blocks draw no random numbers (no dropout), so the RNG state
+        # is not stashed for the recomputation: reading the CUDA
+        # generator's state is refused while a graph is being captured
         x, aux = torch.utils.checkpoint.checkpoint(
-            run, x, aux, lo, lo + len(period), use_reentrant=False)
+            run, x, aux, lo, lo + len(period), use_reentrant=False,
+            preserve_rng_state=False)
     return run(x, aux, len(specs) - len(tail), len(specs))
 
 

@@ -105,8 +105,11 @@ def chunked_xent(cfg: ModelConfig, params, h, targets, mask=None,
     for i in range(0, S, c):
         args = (cfg, params, h[:, i:i + c], targets[:, i:i + c],
                 mask[:, i:i + c])
+        # no RNG state to stash: the loss draws no random numbers (see
+        # ``models.model.apply_blocks``)
         part = (torch.utils.checkpoint.checkpoint(
-            _chunk_xent, *args, use_reentrant=False) if remat
+            _chunk_xent, *args, use_reentrant=False,
+            preserve_rng_state=False) if remat
                 else _chunk_xent(*args))
         loss = loss + part
         weight = weight + torch.sum(mask[:, i:i + c])
@@ -126,7 +129,11 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False,
         h = h[:, h.shape[1] - targets.shape[1]:]
     loss, weight = chunked_xent(cfg, params, h, targets, batch.get("mask"))
     mean = loss / torch.clamp(weight, min=1.0)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    # filled on the device: a model without MoE layers sums a Python 0.0,
+    # whose copy from the host would wait on the device
+    aux = (torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+           if torch.is_tensor(aux) else
+           torch.full((), aux, dtype=torch.float32, device=h.device))
     total = mean + AUX_LOSS_WEIGHT * aux
     return total, {"xent": mean, "aux": aux, "tokens": weight}
 

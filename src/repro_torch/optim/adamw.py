@@ -5,7 +5,9 @@ clipping, warmup+cosine schedule.
 The optimizer state is congruent with the parameter tree (nested dicts
 and lists of tensors).  The reference's ``update`` is functional; this
 one updates the parameters and both moments in place, one leaf at a
-time, and returns the same trees, so a step at recurrentgemma-2b's width
+time, and advances the step count in place (so that a step captured in
+a CUDA graph advances it at each replay), and returns the same trees and
+count, so a step at recurrentgemma-2b's width
 holds the weights, gradients and moments once (some 43 GB in f32) and a
 single leaf's temporaries besides.  A leaf of more than SLICE_ELEMENTS
 elements is updated in slices along its first axis: the update is
@@ -150,8 +152,8 @@ def _decayable(path) -> bool:
 def update(params, grads, state: OptState, cfg: AdamWConfig,
            use_kernel: bool = True):
     """-> (params, new_state, metrics), everything fp32 math.  The
-    parameters and moments are updated in place (the returned trees are
-    the ones passed in); the state's step is a new tensor.  With
+    parameters, the moments and the step count are updated in place (the
+    returned trees and count are the ones passed in).  With
     `use_kernel`, CUDA leaves go through the hand-written kernels
     (``kernels.adamw``: the norm, and one launch a leaf), CPU leaves
     through the plain versions below; without, every leaf through the
@@ -173,7 +175,9 @@ def update_with_norm(params, grads, state: OptState, cfg: AdamWConfig,
                             max=1.0)
     else:
         scale = torch.ones((), device=gnorm.device)
-    step = state.step + 1
+    # in place, as the parameters and moments: a step captured in a CUDA
+    # graph advances the count, and with it the schedule, at each replay
+    step = state.step.add_(1)
     lr = schedule(cfg, step)
     sf = step.to(torch.float32)
     b1c = 1 - torch.pow(cfg.b1, sf)

@@ -46,6 +46,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.predictor import resolve_device
+from ..kernels import _scratch
 from ..models import model as model_lib
 
 
@@ -74,8 +75,9 @@ class _SharedStep:
 #: per function, (cfg, slots, max_len, device) -> what its instances
 #: share of their captured decode steps (``DecodeStep``)
 _STEP_CACHE: Dict[tuple, _SharedStep] = {}
-#: per device, the side stream every step is warmed up and captured on:
-#: one for all functions, so that cuBLAS keeps one workspace for them
+#: per device, the side stream every step is warmed up and captured on
+#: (the decode steps and ``distributed.steps.TrainStep``): one for all
+#: functions, so that cuBLAS keeps one workspace for them
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
@@ -88,9 +90,51 @@ def _shared_step(cfg: ModelConfig, slots: int, max_len: int,
 
 
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    # "cuda" and "cuda:0" name one card, and share its stream
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
     if device not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
     return _CAPTURE_STREAMS[device]
+
+
+def warm_up(device: torch.device, run):
+    """``run()`` on `device`'s capture stream with the CUDA sync debug
+    mode at "error", so that a step that waits on the host raises here,
+    before any capture; returns its result once the device has run it.
+    The warm-up builds the kernels and readies the allocator, cuBLAS and
+    the kernels' scratch on the stream the capture uses."""
+    stream = _capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        with torch.cuda.stream(stream):
+            torch.cuda.set_sync_debug_mode("error")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    return out
+
+
+def capture(device: torch.device, run, pool_for=None):
+    """``run()`` captured in a CUDA graph on `device`'s capture stream ->
+    (the graph, ``run()``'s outputs, the kernels' scratch buffers the
+    graph must keep, the bytes the capture added to the memory reserved).
+    The graph's memory pool is ``pool_for(graph)``, or a pool of its own.
+    Nothing runs until the graph is replayed."""
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    pool = pool_for(graph) if pool_for else torch.cuda.graph_pool_handle()
+    with torch.cuda.stream(_capture_stream(device)), \
+            _scratch.held() as bufs:
+        graph.capture_begin(pool=pool)
+        try:
+            out = run()
+        finally:
+            graph.capture_end()
+    return graph, out, bufs, torch.cuda.memory_reserved(device) - reserved
 
 
 class DecodeStep:
@@ -124,6 +168,7 @@ class DecodeStep:
         self.pos = torch.zeros(slots, dtype=torch.int64, device=device)
         self.logits = self.pre = self.next = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self._held: list = []       # the scratch buffers the graph keeps
         self.replays = 0
         self.capture_ms: Optional[float] = None
         self.pool_bytes: Optional[int] = None
@@ -136,36 +181,18 @@ class DecodeStep:
     def _capture(self):
         shared = _shared_step(self.cfg, self.slots, self.max_len,
                               self.device)
-        stream = _capture_stream(self.device)
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         warm = [{k: t.clone() for k, t in c.items()}
                 if spec.kind in ("recurrent", "ssm") else c
                 for spec, c in zip(model_lib.layer_specs(self.cfg),
                                    self.cache)]
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        mode = torch.cuda.get_sync_debug_mode()
-        try:
-            with torch.cuda.stream(stream):
-                torch.cuda.set_sync_debug_mode("error")
-                self._run(warm)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
+        warm_up(self.device, lambda: self._run(warm))
         del warm
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            graph.capture_begin(pool=shared.pool_for(graph))
-            try:
-                out = self._run(self.cache)
-            finally:
-                graph.capture_end()
+        self.graph, out, self._held, self.pool_bytes = capture(
+            self.device, lambda: self._run(self.cache), shared.pool_for)
         self.logits, self.pre, self.next = out
-        self.graph = graph
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def __call__(self, last_token: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """One step from each slot's last token and position (host int64
@@ -182,9 +209,11 @@ class DecodeStep:
         return self.next.cpu().numpy()
 
     def close(self):
-        """Drops the graph and the outputs it wrote into the pool (the
-        graph is freed with the last reference to it)."""
+        """Drops the graph, the outputs it wrote into the pool and the
+        scratch it kept (the graph is freed with the last reference to
+        it)."""
         self.graph = self.logits = self.pre = self.next = None
+        self._held = []
 
 
 @dataclass

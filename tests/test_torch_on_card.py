@@ -1785,8 +1785,9 @@ def test_mamba_smoke_train_grads_on_card_kernels_match_plain():
 @pytest.mark.cuda_only
 def test_mesh_train_step_on_card_matches_one_device(tmp_path):
     """The recurrentgemma smoke config's mesh train step on a 1x1 NCCL
-    mesh (a FileStore under tmp_path) against the one-device step on the
-    same seed and batches: losses within 1e-5 relative over three steps,
+    mesh (a FileStore under tmp_path) against the one-device step, eager
+    (``graph=False``), on the same seed and batches: losses within 1e-5
+    relative over three steps,
     the parameters after them within 1e-5, and the same kernel launches
     (the attention and RG-LRU scan forwards and backwards)."""
     import torch.distributed as dist
@@ -1810,7 +1811,10 @@ def test_mesh_train_step_on_card_matches_one_device(tmp_path):
         opt = adamw.AdamWConfig(total_steps=4, warmup_steps=1)
         runs = []
         for m in (None, mesh):
-            bundle = make_train_step(cfg, m, shape, opt, device=dev)
+            # the one-device step eager, as the mesh step runs, so that
+            # the wrappers count every step's launches on both
+            bundle = make_train_step(cfg, m, shape, opt, device=dev,
+                                     graph=False)
             state = build_state(cfg, opt, 0, dev)
             counts = [flash_attention.launches, rglru_scan.launches,
                       flash_attention_bwd.launches, rglru_scan_bwd.launches]
@@ -2315,6 +2319,204 @@ def test_a_step_that_waits_on_the_host_raises_at_capture(monkeypatch):
         assert torch.cuda.get_sync_debug_mode() == 0
     assert insts[False].step() == []
     assert len(insts[False].active[0].tokens) == 2
+
+
+# ---------------------------------------------------------------------------
+# The train step captured in a CUDA graph (``distributed.steps.TrainStep``)
+# against the eager step (``graph=False``), bitwise.
+# ---------------------------------------------------------------------------
+
+#: smoke models of an attention, a recurrent, an SSM and a MoE
+#: architecture, and the training example's f32 softcapped model (its
+#: ``--tiny`` config)
+GRAPH_TRAIN_MODELS = ("gemma2-2b", "recurrentgemma-2b", "mamba2-2.7b",
+                      "deepseek-v2-236b", "train_lm")
+GRAPH_SHAPE = (64, 2)       # S, B
+
+
+def _graph_model(name):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train_lm
+    if name == "train_lm":
+        return train_lm.config(tiny=True)
+    cfg = get_smoke_config(name)
+    return cfg.replace(n_layers=2) if name == "mamba2-2.7b" else cfg
+
+
+def _train_launches() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    return {f.__name__: f.launches for f in (
+        flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd,
+        ssd_scan, ssd_scan_bwd, kadamw.adamw_update, kadamw.grad_norm)}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _train_run(cfg, graph: bool, steps: int, microbatch: int = 1,
+               between=None):
+    """`steps` steps of `cfg` from seed 0 through ``make_train_step`` on
+    the card -> (losses, grad norms, the final state, the step, the
+    launches counted after each call); ``between(i, state)`` may return a
+    new state before step i."""
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.steps import make_train_batch
+    dev = _card()
+    S, B = GRAPH_SHAPE
+    shape = InputShape("t", S, B, "train")
+    opt = tadamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps)
+    fn = make_train_step(cfg, None, shape, opt, microbatch=microbatch,
+                         device=dev, graph=graph).fn
+    state = build_state(cfg, opt, 0, dev)
+    losses, norms, counts = [], [], [_train_launches()]
+    for i in range(steps):
+        if between is not None:
+            state = between(i, state)
+        batch = make_train_batch(cfg, shape, np.random.default_rng(30 + i),
+                                 dev)
+        state, m = fn(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        counts.append(_train_launches())
+    torch.cuda.synchronize()
+    return losses, norms, state, fn, counts
+
+
+def _assert_train_runs_equal(got, want):
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b), (a, b)
+    from repro_torch.distributed.steps import _tensors
+    ta, tb = _tensors(got[2]), _tensors(want[2])
+    assert len(ta) == len(tb)
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("microbatch", [1, 2])
+@pytest.mark.parametrize("name", GRAPH_TRAIN_MODELS)
+def test_graphed_train_step_equals_eager_train_step(name, microbatch):
+    """Four steps through the captured step and four through the eager
+    one, each from seed 0 on the same batches: every loss and gradient
+    norm, and every parameter, moment and the step count after them,
+    bitwise; one capture, three replays.  The first call's warm-up step
+    and its capture each count every launch of a step once, and the
+    replays count none: launches run = warm-up + captured x replays =
+    the eager run's."""
+    cfg = _graph_model(name)
+    got = _train_run(cfg, True, 4, microbatch)
+    want = _train_run(cfg, False, 4, microbatch)
+    _assert_train_runs_equal(got, want)
+    fn, counts = got[3], got[4]
+    assert (fn.captures, fn.replays) == (1, 3)
+    assert fn.capture_ms > 0 and fn.pool_bytes >= 0
+    per_step = _delta(want[4][1], want[4][0])
+    assert _delta(want[4][-1], want[4][0]) == {
+        k: 4 * n for k, n in per_step.items()}
+    assert _delta(counts[1], counts[0]) == {
+        k: 2 * n for k, n in per_step.items()}
+    assert counts[-1] == counts[1]
+    assert per_step["adamw_update"] > 0 and per_step["grad_norm"] == 1
+
+
+@pytest.mark.cuda_only
+def test_graphed_train_step_captures_anew_after_a_restore(tmp_path):
+    """Two steps, a checkpoint, the state restored into new tensors (as
+    ``train_loop``'s resume does) and two more steps through the same
+    captured step: it captures anew on the restored state instead of
+    replaying on the old one, and the run is bitwise four eager steps."""
+    from repro_torch import checkpoint as ckpt_lib
+    cfg = _graph_model("recurrentgemma-2b")
+    dev = _card()
+
+    def restore(i, state):
+        if i != 2:
+            return state
+        ckpt_lib.save(str(tmp_path), 2, state)
+        return ckpt_lib.restore(str(tmp_path), state, dev)[0]
+
+    got = _train_run(cfg, True, 4, between=restore)
+    want = _train_run(cfg, False, 4)
+    _assert_train_runs_equal(got, want)
+    assert (got[3].captures, got[3].replays) == (2, 2)
+
+
+@pytest.mark.cuda_only
+def test_graphed_train_step_keeps_its_scratch_when_the_buffer_grows():
+    """After the capture, the capture stream's scratch buffer grows (a
+    larger call on that stream) and a tensor filled with 7s takes memory
+    on that stream: the graph keeps the buffer it was captured with, so
+    its replays write nothing into the new tensor, and the run stays
+    bitwise the eager one."""
+    from repro_torch.kernels import _scratch
+    from repro_torch.serving.engine import _capture_stream
+    cfg = _graph_model("mamba2-2.7b")
+    _card()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _capture_stream(dev)
+    seen = []
+
+    def grow(i, state):
+        if i == 2:
+            old = _scratch.scratch(dev, stream.cuda_stream, 1)
+            with torch.cuda.stream(stream):
+                new = _scratch.scratch(dev, stream.cuda_stream,
+                                       4 * old.numel() + (1 << 20))
+                junk = torch.full((old.numel(),), 7, dtype=torch.uint8,
+                                  device=dev)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            assert new.data_ptr() != old.data_ptr()
+            seen.extend([old, junk])
+        return state
+
+    got = _train_run(cfg, True, 4, between=grow)
+    want = _train_run(cfg, False, 4)
+    _assert_train_runs_equal(got, want)
+    old, junk = seen
+    assert got[3].replays == 3 and any(b is old for b in got[3]._held)
+    assert bool((junk == 7).all())
+
+
+@pytest.mark.cuda_only
+def test_a_train_step_that_waits_on_the_host_raises_at_warm_up(monkeypatch):
+    """A host sync injected into the train step (a norm that reads a value
+    back): the graphed step's first call raises in its warm-up, captures
+    nothing, leaves the sync debug mode as it was and raises again on the
+    next call instead of falling back to eager; the eager step takes the
+    same steps."""
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.steps import make_train_batch
+    dev = _card()
+    cfg = _graph_model("recurrentgemma-2b")
+    shape = InputShape("t", 64, 2, "train")
+    opt = tadamw.AdamWConfig(total_steps=4, warmup_steps=1)
+    orig = model_lib.rmsnorm
+
+    def syncing(params, x, *args, **kw):
+        float(x.float().abs().max())
+        return orig(params, x, *args, **kw)
+    monkeypatch.setattr(model_lib, "rmsnorm", syncing)
+    batch = make_train_batch(cfg, shape, np.random.default_rng(0), dev)
+    graphed = make_train_step(cfg, None, shape, opt, device=dev).fn
+    state = build_state(cfg, opt, 0, dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            graphed(state, batch)
+        assert graphed.graph is None and graphed.captures == 0
+        assert torch.cuda.get_sync_debug_mode() == 0
+    eager = make_train_step(cfg, None, shape, opt, device=dev,
+                            graph=False).fn
+    for _ in range(2):
+        state, m = eager(state, batch)
+        assert math.isfinite(float(m["loss"]))
 
 
 # ---------------------------------------------------------------------------

@@ -449,7 +449,10 @@ def test_three_train_steps_match_reference(smoke):
     state give losses within 1e-4 of the reference's loss_fn + adamw
     step (remat on, the reference's default AdamWConfig but a short
     warmup so that the steps move), for every architecture's smoke model
-    (the frontends' inputs made by ``_grad_batch``)."""
+    (the frontends' inputs made by ``_grad_batch``), through
+    ``make_train_step``'s ``TrainStep`` (on the CPU it runs the step
+    eagerly)."""
+    from repro_torch.distributed.steps import TrainStep
     jcfg, jp, tcfg = smoke
     ocfg = dict(warmup_steps=1, total_steps=10, lr=3e-3)
     jo = jadamw.AdamWConfig(**ocfg)
@@ -469,6 +472,7 @@ def test_three_train_steps_match_reference(smoke):
                              tbase.InputShape("t", 32, 2, "train"),
                              tadamw.AdamWConfig(**ocfg), remat=True,
                              device="cpu")
+    assert isinstance(bundle.fn, TrainStep) and not bundle.fn.graphed
     for b in batches:
         state, jl = jstep(state, jax.tree.map(jnp.asarray, b))
         tstate, tm = bundle.fn(tstate, jax.tree.map(_t, b))
