@@ -222,14 +222,20 @@ Phases (each one failing makes the script exit non-zero):
      wgmma paths, remat recomputing each forward; deepseek: 3 flash
      forwards a step, the dense head layer's once and the MoE layer's
      twice, and 2 backwards, all on the wgmma paths at q/k 192, v 128;
-     the AdamW update once a leaf a step, the norm once a step);
-     step time, tokens/s, peak memory and one profiled (replayed) step,
-     with the backward kernels' device time by launch and the AdamW
-     kernels' beside the elementwise ops that remain; then the same 8
-     steps from the seed through the eager step (``graph=False``): every
-     loss, gradient norm and the final state's per-leaf checksums bitwise
-     the graphed run's; step time graphed and eager, capture ms, pool
-     bytes, peak allocated and reserved; (c) one period of each at
+     the AdamW update once a leaf a step, the norm once a step); at f32
+     state the step reads bf16 held copies of the weights, which the
+     AdamW kernel rewrites (``make_train_step``'s ``held=True``), each
+     bitwise its weight's cast after the steps; step time, tokens/s,
+     peak memory and one profiled (replayed) step, with the backward
+     kernels' device time by launch, the elementwise kernels' and the
+     AdamW kernels'; one eager held step under the profiler, its
+     ``aten::copy_`` split by kind (``copy_split``): no weight cast; then
+     the same 8 steps from the seed through the eager step that casts at
+     use (``graph=False, held=False``): every loss, gradient norm and
+     the final parameters' and moments' per-leaf checksums bitwise the
+     graphed run's, and one more of its steps split; step time graphed
+     and eager, capture ms, pool bytes, peak allocated and reserved; (c)
+     one period of each at
      the same width (rec, rec, local; one SSM layer), then deepseek's
      dense layer alone and with its MoE layer (bf16 weights; the plain
      run routes every token as the kernels' run did, and the routing its
@@ -3941,10 +3947,12 @@ NORM_TOL = 1e-6
 ADAMW_REPS = 10
 
 
-def adamw_bound(n: int, p_size: int, g_size: int, m_size: int):
-    """The update's bound: p, m and v read and written, g read once;
-    17 f32 operations an element (with the decay)."""
-    return bound(n * (2 * p_size + g_size + 4 * m_size), 17 * n)
+def adamw_bound(n: int, p_size: int, g_size: int, m_size: int,
+                h_size: int = 0):
+    """The update's bound: p, m and v read and written, g read once, a
+    held copy of `h_size` bytes an element written; 17 f32 operations an
+    element (with the decay)."""
+    return bound(n * (2 * p_size + g_size + 4 * m_size + h_size), 17 * n)
 
 
 def phase8_adamw_kernels() -> dict:
@@ -3953,7 +3961,11 @@ def phase8_adamw_kernels() -> dict:
     3) from random weights, gradients and moments: the update bitwise its
     plain version (``plain_update``, sliced as the plain step slices it)
     in p, m and v, two calls bitwise equal; the norm within NORM_TOL of
-    the float64 norm and two calls bitwise equal.  Each timed (``ms``
+    the float64 norm and two calls bitwise equal.  An f32 leaf is updated
+    as the train step updates it, with its bf16 held copy written in the
+    same launch (bitwise the new weights' cast and the plain version's);
+    the launch without the copy is timed beside it (``nohold_ms``), the
+    difference the held store's time.  Each timed (``ms``
     and ``device_ms``) beside its plain version, its bound and one
     library call computing the same function up to rounding:
     ``torch._fused_adamw_`` on the same leaf with the gradient
@@ -3984,20 +3996,30 @@ def phase8_adamw_kernels() -> dict:
         m = rand(0.01, mdt)
         v = torch.square(rand(0.01, torch.float32)).to(mdt)
         n = p.numel()
+        # f32 weights carry the train step's bf16 working copy
+        copy = (lambda: torch.empty(shape, dtype=torch.bfloat16,
+                                    device="cuda")) if wdt == torch.float32 \
+            else (lambda: None)
+        held = copy()
         # the plain version, then the kernel twice, from the same state
-        plain = [t.clone() for t in (p, m, v)]
-        plain_update(plain[0], g, plain[1], plain[2], cfg, *sc, True)
+        plain = [t.clone() for t in (p, m, v)] + [copy()]
+        plain_update(plain[0], g, plain[1], plain[2], cfg, *sc, True,
+                     plain[3])
         runs = []
         for _ in range(2):
-            k = [t.clone() for t in (p, m, v)]
-            path = adamw_update(k[0], g, k[1], k[2], cfg, *sc, True)
+            k = [t.clone() for t in (p, m, v)] + [copy()]
+            path = adamw_update(k[0], g, k[1], k[2], cfg, *sc, True, k[3])
             runs.append(k)
         torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, b) for a, b in zip(runs[0], plain))
+        pairs = [(a, b) for a, b in zip(runs[0], plain) if a is not None]
+        if held is not None:
+            pairs.append((runs[0][3], runs[0][0].to(torch.bfloat16)))
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
         err = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(runs[0], plain))
-        twice = all(torch.equal(a, b) for a, b in zip(*runs))
-        del plain, runs, k
+                  for a, b in pairs)
+        twice = all(torch.equal(a, b) for a, b in zip(*runs)
+                    if a is not None)
+        del plain, runs, k, pairs
         norms = [grad_norm([g]), grad_norm([g])]
         want = float(torch.linalg.vector_norm(g.double()))
         norm_err = abs(float(norms[0]) - want) / want
@@ -4006,10 +4028,10 @@ def phase8_adamw_kernels() -> dict:
         torch.cuda.empty_cache()
 
         def kernel():
-            adamw_update(p, g, m, v, cfg, *sc, True)
+            adamw_update(p, g, m, v, cfg, *sc, True, held)
 
         def plain_call():
-            plain_update(p, g, m, v, cfg, *sc, True)
+            plain_update(p, g, m, v, cfg, *sc, True, held)
 
         gs = (g.float() * sc[0]).to(wdt)
         steps = [torch.tensor(float(step), device="cuda")]
@@ -4027,18 +4049,32 @@ def phase8_adamw_kernels() -> dict:
         lib_device_ms = time_ms(library, ADAMW_REPS, queued=True)
         del gs
         b_ms, b_by = adamw_bound(n, p.element_size(), g.element_size(),
-                                 m.element_size())
+                                 m.element_size(), 2 if held is not None
+                                 else 0)
         upd = {"path": path, "shape": list(shape), "weights": str(wdt)[6:],
-               "moments": str(mdt)[6:], "max_abs_err": err, "ms": ms,
+               "moments": str(mdt)[6:], "held": held is not None,
+               "max_abs_err": err, "ms": ms,
                "device_ms": device_ms, "plain_ms": plain_ms,
                "plain_device_ms": plain_device_ms, "library": "_fused_adamw_",
                "library_ms": lib_ms, "library_device_ms": lib_device_ms,
                "bound_ms": b_ms, "bound_by": b_by}
+        store = ""
+        if held is not None:
+            def no_copy():
+                adamw_update(p, g, m, v, cfg, *sc, True)
+            upd["nohold_ms"], upd["nohold_device_ms"] = time_ms(
+                no_copy, ADAMW_REPS), time_ms(no_copy, ADAMW_REPS,
+                                              queued=True)
+            store = (f" with the bf16 held copy written (without it "
+                     f"{upd['nohold_ms']:.4f} ms, device "
+                     f"{upd['nohold_device_ms']:.4f} ms: the held store "
+                     f"{device_ms - upd['nohold_device_ms']:.4f} ms of "
+                     "device time)")
         print(f"phase8 adamw_update {label} {tuple(shape)} {str(wdt)[6:]} "
               f"weights and gradients, {str(mdt)[6:]} moments, path "
               f"{path}: bitwise the plain version {bitwise} (max abs err "
               f"{err:.3g}), two calls bitwise {twice}; kernel {ms:.4f} ms "
-              f"(device {device_ms:.4f} ms), plain {plain_ms:.4f} ms "
+              f"(device {device_ms:.4f} ms){store}, plain {plain_ms:.4f} ms "
               f"(device {plain_device_ms:.4f} ms), _fused_adamw_ "
               f"{lib_ms:.4f} ms (device {lib_device_ms:.4f} ms), bound "
               f"{b_ms:.4f} ms ({b_by}), {b_ms / device_ms:.3f} of it; "
@@ -4073,7 +4109,7 @@ def phase8_adamw_kernels() -> dict:
         check(norm_err <= NORM_TOL and norm_twice,
               f"phase 8 (a) grad_norm {label}: relative error {norm_err}, "
               f"twice {norm_twice}")
-        del p, g, m, v, norms
+        del p, g, m, v, norms, held
         _scratch.clear()
         gc.collect()
         torch.cuda.empty_cache()
@@ -4184,9 +4220,16 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
                 f"{e.key[:40]} x{e.count}" for e in mine) + ", device "
                 f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} "
                 "ms")
+    # a replay launches its kernels with no host op: PyTorch's elementwise
+    # kernels (casts, copies, pointwise math) by their names
+    elem = [e for e in dev if "elementwise_kernel" in e.key]
+    elem_ms = sum(e.self_device_time_total for e in elem) / 1e3
+    print(f"{phase} profile   elementwise kernels x"
+          f"{sum(e.count for e in elem)} {elem_ms:.2f} ms of "
+          f"{busy * 1e3:.2f} ms device busy")
     # the AdamW kernels' device time, and the elementwise work that stays
     # outside them (the weights' casts to the compute dtype, the loss),
-    # by the host op that launched it
+    # by the host op that launched it (an eager step's)
     upd = [e for e in dev if "adamw_kernel" in e.key]
     nrm = [e for e in dev if "sumsq_" in e.key]
     rest = sorted((e for e in host if e.key in ELEMENTWISE_OPS
@@ -4226,7 +4269,147 @@ def profile_train_step(bundle, state, batch, phase: str = "phase8"):
                       f"({e.self_device_time_total / 1e3 / e.count:.4f} ms "
                       "each)" for e in bwd))
     return state, {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
-                   "idle": 1 - busy / wall}
+                   "idle": 1 - busy / wall, "elementwise_ms": elem_ms}
+
+
+#: the profiler's names of the floating dtypes an ``aten::copy_`` moves
+_PROF_DTYPES = {"float": "f32", "c10::BFloat16": "bf16", "c10::Half": "f16"}
+
+
+def copy_split(fn, state, batch, cfg, phase: str, what: str):
+    """One eager train step, ``fn(state, batch)`` (a ``graph=False``
+    step), under torch.profiler with ``record_shapes``: the device time
+    of every ``aten::copy_`` it launched, split by what it copies (its
+    destination's and source's dtypes and its shape): "weight casts" (f32
+    to bf16 or f16 at the shape of an f32 parameter and of no other),
+    "gradient casts" (the other casts at a parameter's shape: gradients
+    cast back to their parameter's dtype, and at bf16 state the f32 reads
+    of bf16 weights), "logits" (the loss's bf16 logits widened to f32,
+    vocabulary last), "layout" (a copy within one dtype), "other".
+    Prints each share's count and device ms beside the step's busy time
+    and its elementwise ops (ELEMENTWISE_OPS) by launching op.  Returns
+    (the state, {share: (count, device ms)}, busy ms); the times None
+    where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    f32 = {tuple(t.shape) for t in _leaves(state["params"])
+           if t.dtype == torch.float32}
+    other = {tuple(t.shape) for t in _leaves(state["params"])
+             if t.dtype != torch.float32}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        state, _m = fn(state, batch)
+        torch.cuda.synchronize()
+    split = {k: [0, 0.0] for k in ("weight casts", "gradient casts",
+                                   "logits", "layout", "other")}
+    # the inputs' dtypes by op id (a FunctionEvent's id is its kineto
+    # event's correlation id; older releases give FunctionEvent no dtypes)
+    dtypes = {ev.correlation_id(): ev.dtypes()
+              for ev in prof.profiler.kineto_results.events()
+              if ev.name() == "aten::copy_"}
+    for e in prof.events():
+        if e.name != "aten::copy_":
+            continue
+        dt = [_PROF_DTYPES.get(d) for d in dtypes.get(e.id, [])[:2]]
+        shape = tuple((e.input_shapes or [()])[0])
+        if len(dt) < 2 or None in dt:
+            key = "other"
+        elif dt[0] == dt[1]:
+            key = "layout"
+        elif dt[1] == "f32" and shape in f32 - other:
+            key = "weight casts"
+        elif shape in f32 | other:
+            key = "gradient casts"
+        elif dt[0] == "f32" and shape and shape[-1] == cfg.vocab_size:
+            key = "logits"
+        else:
+            key = "other"
+        split[key][0] += 1
+        split[key][1] += e.self_device_time_total / 1e3
+    rows = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
+                  and e.key in ELEMENTWISE_OPS
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(ms for _, ms in split.values())
+    print(f"{phase} copy split, {what}: device busy {busy:.2f} ms; "
+          f"aten::copy_ {total:.2f} ms: " + "; ".join(
+              f"{k} x{c} {ms:.2f} ms" for k, (c, ms) in split.items())
+          + "; elementwise by op: " + "; ".join(
+              f"{e.key} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+              for e in ops) + f"; {card()}")
+    if busy <= 0:
+        print(f"{phase} copy split, {what}: device time not measured")
+        return state, {k: (c, None) for k, (c, _) in split.items()}, None
+    return state, {k: tuple(v) for k, v in split.items()}, busy
+
+
+def cast_traffic(cfg, params) -> dict:
+    """What casting `params`' f32 weights at use costs a train step of
+    `cfg` at TRAIN_SEQ under remat, by the code: the leaves that get a
+    held copy (``models.model.held_copies``' rule), each cast once a use,
+    a layer of the body's periods twice (the forward and the
+    recomputation), the head's and tail's and the frontend's once, the
+    unembedding table twice a loss chunk; 6 bytes an element cast (f32
+    read, bf16 written) and 2 a held element stored.  Shapes only:
+    `params` may be fake tensors."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.steps import _pick_chunk
+    from repro_torch.optim.adamw import leaves_with_path
+    head, period, n_periods, _ = model_lib.block_structure(cfg)
+    body = range(len(head), len(head) + len(period) * n_periods)
+    s = TRAIN_SEQ - (cfg.n_frontend_tokens if cfg.frontend == "vision"
+                     else 0)
+    chunks = s // _pick_chunk(s)
+    held = casts = 0
+    for path, w in leaves_with_path(params):
+        name = path[-1].strip("[]'")
+        if (w.dtype != torch.float32 or name in model_lib.F32_READ
+                or (path == ("['embed']", "['table']")
+                    and "lm_head" in params)):
+            continue
+        if path[0] == "['layers']":
+            uses = 2 if int(path[1].strip("[]")) in body else 1
+        else:
+            uses = 2 * chunks if name == "table" else 1
+        held += w.numel()
+        casts += w.numel() * uses
+    return {"held": held, "casts": casts, "chunks": chunks,
+            "cast_ms": 6 * casts / HBM_BYTES_PER_S * 1e3,
+            "store_ms": 2 * held / HBM_BYTES_PER_S * 1e3}
+
+
+def attribute_copies(archs=(TRAIN_ARCH, "gemma2-2b", SSM_ARCH)):
+    """The ``aten::copy_`` split (``copy_split``) of one eager step of
+    each of `archs` at phase 8 (b)'s shape and state, after one warm-up
+    step, through ``make_train_step(..., graph=False)`` with its
+    defaults.  Run alone after ``phase0_build``."""
+    import gc
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import build_state, put_batch
+    out = {}
+    for arch in archs:
+        cfg, param_dtype, shape, opt_cfg = _train_setup(arch, TRAIN_STEPS)
+        state = build_state(cfg, opt_cfg, seed=0, device="cuda",
+                            param_dtype=param_dtype)
+        fn = make_train_step(cfg, None, shape, opt_cfg, remat=True,
+                             device="cuda", graph=False).fn
+        pipe = TokenPipeline(cfg, shape, seed=0)
+        state, _m = fn(state, put_batch(pipe.batch(0), "cuda"))
+        state, out[arch], _busy = copy_split(
+            fn, state, put_batch(pipe.batch(1), "cuda"), cfg, "phase8",
+            f"{arch} eager step")
+        del state, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _layer_counts(cfg) -> tuple:
@@ -4353,16 +4536,30 @@ class CaptureCounts:
 
 
 def state_checksums(state) -> list:
-    """Each leaf of a train state (parameters, moments, the step count)
-    as the int64 sum of its elements' bit patterns: two runs whose lists
-    are equal agree in every leaf's sum, which one element differing by
-    any bit changes."""
+    """Each leaf of a train state's parameters and moments and its step
+    count as the int64 sum of its elements' bit patterns: two runs whose
+    lists are equal agree in every leaf's sum, which one element
+    differing by any bit changes.  The held bf16 copies are left out
+    (``held_fresh`` holds them to their parameters)."""
     import torch
     from repro_torch.optim.adamw import leaves_with_path
     ints = {4: torch.int32, 2: torch.int16}
     return torch.stack([
         t.detach().view(ints[t.element_size()]).sum(dtype=torch.int64)
-        for _, t in leaves_with_path(state)]).tolist()
+        for _, t in leaves_with_path([state["params"], state["opt"]])
+    ]).tolist()
+
+
+def held_fresh(state) -> tuple:
+    """(the count of the state's held bf16 copies, whether each is
+    bitwise its parameter's ``.to(torch.bfloat16)``)."""
+    import torch
+    from repro_torch.optim.adamw import keystr, leaves_with_path
+    held = state.get("held", {})
+    fresh = all(torch.equal(held[keystr(path)], p.detach().to(
+        torch.bfloat16)) for path, p in leaves_with_path(state["params"])
+        if keystr(path) in held)
+    return len(held), fresh
 
 
 #: eager steps run on a graphed run's state after it for their time, where
@@ -4389,16 +4586,25 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     launched a step's `steps` times): each forward once a layer and
     again in each recomputed period, each backward once a layer, the
     attention forward and backward (deepseek: at MLA's q/k 192, v 128)
-    and the SSD forward on their tensor-core paths.  With `f32` (phase
-    14), computed in f32.  With `profile`, one more graphed step under
-    the profiler.  With `hold` (phase 8 (b)), the same `steps` steps
-    again from the seed through the eager step (``graph=False``): every
-    loss and gradient norm, and the final state's per-leaf checksums,
-    bitwise the graphed run's; without, EAGER_TIMED_STEPS eager steps on
-    the trained state for their time.  Prints the step time graphed and
-    eager, the capture's ms and pool bytes, the peak allocated and
-    reserved.  Returns the launches in the run, the attention
-    backward's by path among them as "flash_attention_bwd.<path>"."""
+    and the SSD forward on their tensor-core paths.  The step holds bf16
+    copies of the f32 weights it casts (``make_train_step``'s default
+    ``held=True``; none at bf16 state or f32 compute), each bitwise its
+    weight's cast at the end.  With `f32` (phase 14), computed in f32.
+    With `profile`, one more graphed step under the profiler (the
+    elementwise kernels' device time printed).  With `hold` (phase 8
+    (b)), the same `steps` steps again from the seed through the eager
+    step that casts at use (``graph=False, held=False``, the computation
+    before held copies): every loss and gradient norm, and the final
+    parameters' and moments' per-leaf checksums, bitwise the graphed
+    run's, and one more of its steps split by ``copy_split``; without,
+    EAGER_TIMED_STEPS eager steps of the held step on the trained state
+    for their time.  One eager held step is split by ``copy_split``
+    (the first of those, or one more on the trained state): it casts no
+    weight (no f32 to bf16 copy at a parameter's shape).  Prints the
+    step time graphed and eager, the capture's ms and pool bytes, the
+    peak allocated and reserved.  Returns the launches in the run, the
+    attention backward's by path among them as
+    "flash_attention_bwd.<path>"."""
     import gc
     import torch
     from repro_torch.data import TokenPipeline
@@ -4505,6 +4711,15 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     check(counts == want, f"{label} {arch}: launches {counts}, "
           f"expected {want}")
     sums = state_checksums(state) if hold else None
+    n_held, fresh = held_fresh(state)
+    held_gb = sum(t.numel() * 2 for t in state.get("held", {}).values()) / 1e9
+    t = cast_traffic(cfg, state["params"])
+    print(f"{phase} {arch} held copies: {n_held} leaves, {held_gb:.2f} GB "
+          f"in bf16, each bitwise its weight's cast after {steps} steps "
+          f"{fresh}; casting at use instead: {t['casts']:,} elements a step "
+          f"({t['chunks']} loss chunks), {t['cast_ms']:.2f} ms at the HBM "
+          f"rate, the held store {t['store_ms']:.2f} ms")
+    check(fresh, f"{label} {arch}: a held copy is not its weight's cast")
     prof = None
     if profile:
         state, prof = profile_train_step(
@@ -4516,7 +4731,17 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
     gc.collect()
     torch.cuda.empty_cache()
     eager = make_train_step(cfg, None, shape, opt_cfg, remat=True,
-                            device="cuda", graph=False).fn
+                            device="cuda", graph=False, held=not hold).fn
+    # one eager step of the held step (in phase 12 and 14 the first of the
+    # eager steps, which warms them up) split by what it copies
+    split_step = make_train_step(cfg, None, shape, opt_cfg, remat=True,
+                                 device="cuda", graph=False).fn \
+        if hold else eager
+    state, split, _ = copy_split(
+        split_step, state, put_batch(pipe.batch(steps + 1), "cuda"), cfg,
+        phase, f"{arch} eager step, {n_held} held copies")
+    check(not n_held or split["weight casts"][0] == 0, f"{label} {arch}: "
+          f"the held step cast {split['weight casts'][0]} weights")
     if hold:
         del state
         gc.collect()
@@ -4524,10 +4749,14 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
         state = build_state(cfg, opt_cfg, seed=0, device="cuda",
                             param_dtype=param_dtype)
         state, e_losses, e_norms, e_times = run(eager, state, 0, steps,
-                                                "eager")
+                                                "eager, casts at use")
         e_sums = state_checksums(state)
         same = (e_losses == losses, e_norms == norms, e_sums == sums)
-        print(f"{phase} {arch} graphed against eager from the seed, "
+        state, _split, _ = copy_split(
+            eager, state, put_batch(pipe.batch(steps), "cuda"), cfg, phase,
+            f"{arch} eager step casting at use")
+        print(f"{phase} {arch} graphed held against eager casting at use "
+              f"from the seed, "
               f"{steps} steps: losses {'bitwise' if same[0] else 'differ'}"
               f", gradient norms {'bitwise' if same[1] else 'differ'}, "
               f"{len(sums)} leaves' checksums "
@@ -4538,12 +4767,13 @@ def train_full_width(arch: str, label: str = "phase 8 (b)",
               f"{[i for i, (a, b) in enumerate(zip(sums, e_sums)) if a != b]}")
         eager_ms = statistics.median(e_times[1:])
     else:
-        state, _l, _n, e_times = run(eager, state, steps + 1,
-                                     EAGER_TIMED_STEPS, "eager")
+        state, _l, _n, e_times = run(eager, state, steps + 2,
+                                     EAGER_TIMED_STEPS - 1, "eager")
         eager_ms = e_times[-1]
-    del state, eager
+    del state, eager, split_step
     print(f"{phase} {arch} graph: step graphed {steady * 1e3:.1f} ms, "
-          f"eager {eager_ms * 1e3:.1f} ms ({eager_ms / steady:.2f}x), "
+          f"eager{' casting at use' if hold else ''} "
+          f"{eager_ms * 1e3:.1f} ms ({eager_ms / steady:.2f}x), "
           f"capture {capture_ms:.1f} ms, pool {pool_bytes} bytes, peak "
           f"{peak / 2**30:.3f} GiB allocated ({reserved / 2**30:.3f} GiB "
           "reserved)" + (f"; profiled step busy {prof['busy_ms']:.2f} ms, "
@@ -7089,6 +7319,39 @@ def phase14_mamba_f32() -> dict:
     return out
 
 
+#: one tree's training phases, each timed (``ab_training``); the phase
+#: functions of every tree since the train step was captured
+_TRAINING_PHASES = """
+import os, sys, time
+root = os.getcwd()
+sys.path[:0] = [os.path.join(root, "src"), root]
+import chip_smoke as cs
+print("tree", root, cs.card(), flush=True)
+cs.phase0_build()
+times = {}
+for name, run in (("8", cs.phase8_training), ("12", cs.phase12_training),
+                  ("13", lambda: cs.phase13_train_lm(
+                      *({"device_ms": 0.0, "simt_device_ms": 0.0},) * 2)),
+                  ("14", cs.phase14_mamba_f32)):
+    t = time.perf_counter()
+    run()
+    times[name] = round(time.perf_counter() - t, 1)
+print("AB", root, times, flush=True)
+"""
+
+
+def ab_training(roots) -> None:
+    """A train-step A/B in one call: for each tree in `roots` in turn (a
+    repository root, e.g. the parent unpacked by ``git archive`` under
+    ``build/``), in a process of its own, that tree's ``chip_smoke``
+    builds its kernels and runs its phases 8, 12, 13 and 14, each timed
+    (line "AB <root> {phase: s}").  Phase 13 is handed zero kernel times
+    (its attention rows are phase 4's)."""
+    for root in roots:
+        subprocess.run([sys.executable, "-c", _TRAINING_PHASES],
+                       cwd=os.path.abspath(root), check=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -7250,6 +7513,8 @@ def main() -> int:
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "plain_device_ms", "bound_ms", "bound_by", "library",
                     "library_ms", "library_device_ms", "shape")},
+                **{key: m[key] for key in ("held", "nohold_ms",
+                                           "nohold_device_ms") if key in m},
                 "bf16": bf16_leaf[i]})
         # the 3xTF32 kernels' softcapped instantiations at the ~100M
         # training example's shape (phases 4 and 8 (a)), their launches

@@ -11,7 +11,10 @@ numpy has no bf16, so bf16 leaves are stored as f32 (exactly) and cast
 back on restore.  ``restore`` takes a state of the same structure as its
 template (``like_state``), checks every leaf's shape and dtype against
 it, and puts each leaf on `device`: the card unless the caller names
-another.
+another.  A train state's held bf16 working copies (``state["held"]``,
+``distributed.steps.make_train_step``) are its parameters' casts: they
+are neither saved nor restored, and the step makes them anew from the
+restored parameters.
 """
 from __future__ import annotations
 
@@ -54,6 +57,13 @@ def _unflat(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
     return flat[prefix]
 
 
+def _saved(state):
+    """`state` without its held working copies."""
+    if isinstance(state, dict) and "held" in state:
+        return {k: v for k, v in state.items() if k != "held"}
+    return state
+
+
 def _to_numpy(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         t = t.detach()
@@ -71,7 +81,7 @@ def save(ckpt_dir: str, step: int, state, keep: int = 3,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = {k: _to_numpy(v) for k, v in _flat(state).items()}
+    arrays = {k: _to_numpy(v) for k, v in _flat(_saved(state)).items()}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = {"step": step, "n_arrays": len(arrays), **(extra_meta or {})}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -101,8 +111,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, like_state, device=None,
             step: Optional[int] = None):
     """-> (state, meta): the checkpoint of `step` (the latest when None)
-    in `like_state`'s structure, each leaf of its template's shape and
-    dtype, on `device`."""
+    in `like_state`'s structure (without held working copies), each leaf
+    of its template's shape and dtype, on `device`."""
+    like_state = _saved(like_state)
     dev = resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:

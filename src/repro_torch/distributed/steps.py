@@ -30,7 +30,7 @@ shard on (group, expert) — see models/moe.py.
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -38,6 +38,7 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig
 from ..core.predictor import resolve_device
+from ..models import layers
 from ..models import model as model_lib
 from ..models import pctx
 from ..models import steps as steps_lib
@@ -330,15 +331,18 @@ class TrainStep:
     later replay never overwrites what a caller holds.  A step that
     cannot be captured raises: it never falls back to eager.  The
     captured state's tensors are kept while the graph lives, so no other
-    tensor can take their addresses.
+    tensor can take their addresses.  `prepare(state)`, where given, runs
+    first at every call, eagerly: it may add tensors to the state (the
+    held working copies), which the address check then covers.
 
     ``replays`` and ``captures`` count; ``capture_ms`` is the host time
     of the last warm-up step and capture, ``pool_bytes`` what that
     capture added to the memory reserved.  On the CPU, or without
     `graph`, each call runs `body` eagerly."""
 
-    def __init__(self, body, device: torch.device, graph: bool = True):
-        self.body, self.device = body, device
+    def __init__(self, body, device: torch.device, graph: bool = True,
+                 prepare: Optional[Callable] = None):
+        self.body, self.device, self.prepare = body, device, prepare
         self.graphed = graph and device.type == "cuda"
         self.graph = None
         self.batch: Optional[Dict[str, torch.Tensor]] = None
@@ -350,6 +354,8 @@ class TrainStep:
         self.pool_bytes: Optional[int] = None
 
     def __call__(self, state, batch):
+        if self.prepare is not None:
+            self.prepare(state)
         if not self.graphed:
             return self.body(state, batch)
         tensors = _tensors(state)
@@ -401,7 +407,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                     cast_params: bool = False,
                     extra_hints: Optional[dict] = None,
                     device=None, use_kernel: bool = True,
-                    graph: bool = True) -> StepBundle:
+                    graph: bool = True, held: bool = True) -> StepBundle:
     """The train step of `cfg` at `shape`, through the hand-written
     kernels and their backward kernels: ``fn(state, batch) -> (state,
     metrics)`` with the state ``{"params", "opt"}`` updated in place and
@@ -421,7 +427,19 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 
     ``fn`` is a ``TrainStep``: on one card it captures the step in a CUDA
     graph and replays it; ``graph=False`` (the eager yardstick), the CPU
-    and a mesh run the step eagerly.  ``fn.body`` is the eager step."""
+    and a mesh run the step eagerly.  ``fn.body`` is the eager step.
+
+    Held copies: on one device with f32 master weights and bf16 compute
+    (``held=True``, the default, without ``cast_params``) no weight is
+    cast during the step.  A state without them gets ``state["held"]``
+    at its first step, eagerly (``models.model.held_copies``: a bf16
+    working copy of each f32 leaf the forward casts); the forward and
+    its recomputations read them (``layers.held_casts``), and the AdamW
+    update rewrites each in its leaf's own launch, so each stays bitwise
+    its master's cast and the step bitwise ``held=False``'s, today's
+    casts at use.  Any one-device step refreshes copies the state holds;
+    a mesh step leaves them aside.  Checkpoints keep them out
+    (``checkpoint.save``), and a restored state gets them anew."""
     if shape is None:
         raise TypeError("make_train_step needs an InputShape")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -429,6 +447,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         raise ValueError(f"batch {shape.global_batch} does not split into "
                          f"{microbatch} microbatches")
     cdt = model_lib.compute_dtype(cfg)
+    hold = held and mesh is None and not cast_params
     if mesh is None:
         dev = resolve_device(device)
         disp, hints = dispatch, {}
@@ -448,8 +467,15 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return steps_lib.loss_fn(cfg, params, b, remat=remat,
                                  use_kernel=use_kernel, dispatch=disp)
 
-    def grads_of(leaves, params, b):
-        with torch.enable_grad():
+    def prepare(state):
+        if hold and "held" not in state:
+            copies = model_lib.held_copies(cfg, state["params"])
+            if copies:
+                state["held"] = copies
+
+    def grads_of(leaves, params, b, copies):
+        with torch.enable_grad(), (layers.held_casts(copies) if copies
+                                   else nullcontext()):
             loss, mets = loss_of(params, b)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -457,9 +483,12 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return loss.detach(), {k: v.detach() for k, v in mets.items()}, grads
 
     def body(state, batch):
-        params = state["params"]
-        leaves = [p.requires_grad_(True) for _, p in
-                  adamw.leaves_with_path(params)]
+        prepare(state)
+        params, kept = state["params"], state.get("held")
+        named = adamw.leaves_with_path(params)
+        leaves = [p.requires_grad_(True) for _, p in named]
+        copies = [(p, kept[adamw.keystr(path)]) for path, p in named
+                  if adamw.keystr(path) in kept] if hold and kept else None
         if microbatch > 1:
             g_acc = [torch.zeros_like(p, dtype=torch.float32)
                      for p in leaves]
@@ -467,7 +496,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             for i in range(microbatch):
                 b = {k: _split_local(v, microbatch, i)
                      for k, v in batch.items()}
-                l_i, metrics, g = grads_of(leaves, params, b)
+                l_i, metrics, g = grads_of(leaves, params, b, copies)
                 for acc, gi in zip(g_acc, g):
                     acc.add_(_placed_like(gi, acc))
                 loss = loss + l_i
@@ -475,22 +504,26 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             grads = [acc.div_(microbatch) for acc in g_acc]
             loss = loss / microbatch
         else:
-            loss, metrics, grads = grads_of(leaves, params, batch)
+            loss, metrics, grads = grads_of(leaves, params, batch, copies)
         grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
         grads = _like(params, iter(grads))
         _, new_opt, opt_metrics = adamw.update(params, grads, state["opt"],
-                                               opt_cfg, use_kernel)
+                                               opt_cfg, use_kernel, kept)
         del grads
         metrics = {k: _full(v) for k, v in
                    {**metrics, **opt_metrics, "loss": loss}.items()}
-        return {"params": params, "opt": new_opt}, metrics
+        out = {"params": params, "opt": new_opt}
+        if kept is not None:
+            out["held"] = kept
+        return out, metrics
 
     if mesh is None:
-        step = TrainStep(body, dev, graph)
+        step = TrainStep(body, dev, graph, prepare)
     else:
         def step(state, batch):
             with _distributed(hints):
-                state = distribute(state, state_sh, mesh)
+                state = distribute({k: v for k, v in state.items()
+                                    if k != "held"}, state_sh, mesh)
                 batch = distribute(batch, batch_sh, mesh)
                 return body(state, batch)
 

@@ -160,11 +160,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "ssd_scan_bwd_tf32": ([_P] * 15 + [_I] * 4 + [_P], _I),
     },
     "adamw": {
-        # p, g, m, v, their dtype codes (p, g, m: 0 f32, 1 bf16, 2 f16),
-        # n, head, nvec, scale, lr,
+        # p, g, m, v, held (bf16, or null), their dtype codes (p, g, m: 0
+        # f32, 1 bf16, 2 f16), n, head, nvec, scale, lr,
         # b1c, b2c, b1, 1 - b1, b2, 1 - b2, eps, weight_decay, decay,
         # stream
-        "adamw_update": ([_P] * 4 + [_I] * 3 + [_L] * 3 + [_P] * 4
+        "adamw_update": ([_P] * 5 + [_I] * 3 + [_L] * 3 + [_P] * 4
                          + [_D] * 6 + [_I, _P], _I),
         # nvec -> the partials grad_sumsq_partials writes for a leaf
         "grad_sumsq_blocks": ([_L], _L),

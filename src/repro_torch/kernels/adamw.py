@@ -2,11 +2,14 @@
 the Hopper kernels in ``csrc/adamw.cu``, the counterpart of the fusion
 XLA gives the reference's jitted step.
 
-``adamw_update(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)`` updates one
-leaf in place with one launch: one read of p, g, m and v and one write
-of p, m and v, bitwise ``optim.adamw._update_leaf`` (its plain version).
+``adamw_update(p, g, m, v, cfg, scale, lr, b1c, b2c, decay, held=None)``
+updates one leaf in place with one launch: one read of p, g, m and v
+and one write of p, m and v, bitwise ``optim.adamw._update_leaf`` (its
+plain version); given `held`, the f32 leaf's bf16 working copy, the same
+launch also writes the new p there, bitwise ``p.to(torch.bfloat16)``
+(the plain version: ``_update_leaf`` then ``held.copy_(p)``).
 It adds one to ``adamw_update.launches`` and to
-``adamw_update.launches_by_path[path]``: "vector" where the four arrays
+``adamw_update.launches_by_path[path]``: "vector" where the arrays
 share a 16-byte aligned element (the body in vectors of 8, the head and
 tail element by element), "scalar" where they do not (the whole leaf
 element by element).
@@ -96,17 +99,24 @@ def _scalar(name: str, t: torch.Tensor, device: torch.device):
 
 def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, cfg, scale: torch.Tensor, lr: torch.Tensor,
-                 b1c: torch.Tensor, b2c: torch.Tensor, decay: bool) -> str:
+                 b1c: torch.Tensor, b2c: torch.Tensor, decay: bool,
+                 held: Optional[torch.Tensor] = None) -> str:
     """One leaf's AdamW update in place: p and g f32 or bf16, m and v of
     one dtype (f32, bf16 or f16), all of p's shape; `cfg` an ``AdamWConfig``
     (b1, b2, eps, weight_decay); scale, lr, b1c, b2c 0-d f32 tensors on
-    p's device.  Returns the path that ran ("vector", "scalar"; "plain"
-    on the CPU, "empty" for a leaf of no elements)."""
+    p's device; `held`, where given, a bf16 tensor of p's shape (p f32)
+    that takes the new p.  Returns the path that ran ("vector", "scalar";
+    "plain" on the CPU, "empty" for a leaf of no elements)."""
     if p.device.type not in ("cpu", "cuda"):
         raise ValueError(f"p is on {p.device}: the port runs on the CPU or "
                          "a CUDA device")
     for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
         _check(name, t, p)
+    if held is not None:
+        _check("held", held, p)
+        if held.dtype != torch.bfloat16 or p.dtype != torch.float32:
+            raise TypeError(f"held must be bfloat16 beside float32 p, got "
+                            f"{held.dtype} beside {p.dtype}")
     if m.dtype != v.dtype:
         raise TypeError(f"m is {m.dtype}, v {v.dtype}: the moments share "
                         "one dtype")
@@ -116,8 +126,12 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if p.device.type == "cpu":
         from ..optim.adamw import _update_leaf
         _update_leaf(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
+        if held is not None:
+            held.copy_(p)
         return "plain"
-    for name, t in (("p", p), ("m", m), ("v", v)):
+    written = (("p", p), ("m", m), ("v", v)) + (
+        (("held", held),) if held is not None else ())
+    for name, t in written:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous: it is updated in "
                              "place")
@@ -125,20 +139,21 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     n = p.numel()
     if n == 0:
         return "empty"
-    head, nvec = _split(n, body(p, g, m, v))
+    head, nvec = _split(n, body(*(t for _, t in written), g))
     kernel = "vector" if nvec else "scalar"
     lib = _build.load("adamw")
     with torch.cuda.device(p.device):
         err = lib.adamw_update(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            None if held is None else held.data_ptr(),
             _CODES[p.dtype], _CODES[g.dtype], _CODES[m.dtype], n, head,
             nvec, scale.data_ptr(), lr.data_ptr(), b1c.data_ptr(),
             b2c.data_ptr(), cfg.b1,
             1 - cfg.b1, cfg.b2, 1 - cfg.b2, cfg.eps, cfg.weight_decay,
             int(decay), current_stream(p.device))
     _build.check_launch(err, f"adamw_update ({kernel})")
-    # the update wrote p, m and v behind autograd's back
-    for t in (p, m, v):
+    # the update wrote p, m and v (and held) behind autograd's back
+    for _, t in written:
         torch.autograd.graph.increment_version(t)
     adamw_update.launches += 1
     adamw_update.launches_by_path[kernel] += 1

@@ -17,6 +17,7 @@
 //   v  = v * b2 + (gs * (1 - b2)) * gs
 //   u  = (m / b1c) / (sqrt(v / b2c) + eps)      [+ wd * p where decayed]
 //   p  = p - lr * u
+//   held = bf16(p)                              [where asked: P f32]
 // in f32, every operation rounded on its own in the order the eager
 // chain takes them (the __f*_rn intrinsics: nvcc would otherwise contract
 // a product and a sum into one fused multiply-add), and stored with
@@ -34,10 +35,16 @@
 // in one block, and writes the sum (f64) and its square root (f32).  No
 // atomics: two calls are bitwise equal.
 //
+// held: the f32 weights' bf16 working copy, which the one-card train step
+// reads at every use in place of a cast (models/layers.py `cast`).  Where
+// the caller passes one, the same launch stores round-to-nearest-even of
+// the new weight there, bitwise what `p.to(torch.bfloat16)` gives: one
+// 16-byte store of 8 bf16 a vector, the head and tail element by element.
+//
 // What bounds both on this card: bytes.  The update does 17 operations
 // an element (with the decay) and moves 28 bytes of it in f32 state (p,
-// g, m and v read, p, m and v written), 14 with bf16 weights, gradients
-// and moments; the norm reads each gradient once (4 or 2 bytes).  At
+// g, m and v read, p, m and v written), 30 with a held copy, 14 with bf16
+// weights, gradients and moments; the norm reads each gradient once (4 or 2 bytes).  At
 // recurrentgemma-2b's 2.68e9 f32 parameters the update's bound is 2.68e9
 // x 28 B over 3.35 TB/s = 22.4 ms.  The design streams: each thread
 // takes 8 consecutive elements at a time with 16-byte loads and stores
@@ -152,10 +159,12 @@ __device__ __forceinline__ void adamw_element(
 
 // Elements [head, head + 8 nvec) in vectors of 8, the rest (head and
 // tail, `head + n - (head + 8 nvec)` of them) one at a time.
+// `held` (null: none) takes the new weights in bf16.
 template <typename P, typename G, typename M>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(P* __restrict__ p, const G* __restrict__ g, M* __restrict__ m,
-             M* __restrict__ v, long long n, long long head, long long nvec,
+             M* __restrict__ v, __nv_bfloat16* __restrict__ held, long long n,
+             long long head, long long nvec,
              const float* __restrict__ scale_p, const float* __restrict__ lr_p,
              const float* __restrict__ b1c_p, const float* __restrict__ b2c_p,
              Consts c, int decay) {
@@ -177,6 +186,7 @@ adamw_kernel(P* __restrict__ p, const G* __restrict__ g, M* __restrict__ m,
     store8(p + e, pv);
     store8(m + e, mv);
     store8(v + e, vv);
+    if (held) store8(held + e, pv);
   }
   const long long body_end = head + nvec * kVec;
   const long long rest = head + (n - body_end);
@@ -188,6 +198,7 @@ adamw_kernel(P* __restrict__ p, const G* __restrict__ g, M* __restrict__ m,
     store(p + e, pe);
     store(m + e, me);
     store(v + e, ve);
+    if (held) store(held + e, pe);
   }
 }
 
@@ -255,10 +266,11 @@ sumsq_finish_kernel(const float* __restrict__ partials, long long count,
 }
 
 template <typename P, typename G, typename M>
-void launch_update(void* p, const void* g, void* m, void* v, long long n,
-                   long long head, long long nvec, const float* scale,
-                   const float* lr, const float* b1c, const float* b2c,
-                   const Consts& c, int decay, cudaStream_t stream) {
+void launch_update(void* p, const void* g, void* m, void* v, void* held,
+                   long long n, long long head, long long nvec,
+                   const float* scale, const float* lr, const float* b1c,
+                   const float* b2c, const Consts& c, int decay,
+                   cudaStream_t stream) {
   const long long rest = head + (n - head - nvec * kVec);
   const long long work = nvec > rest ? nvec : rest;
   long long blocks = (work + kThreads - 1) / kThreads;
@@ -266,7 +278,8 @@ void launch_update(void* p, const void* g, void* m, void* v, long long n,
   if (blocks < 1) blocks = 1;
   adamw_kernel<P, G, M><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<P*>(p), static_cast<const G*>(g), static_cast<M*>(m),
-      static_cast<M*>(v), n, head, nvec, scale, lr, b1c, b2c, c, decay);
+      static_cast<M*>(v), static_cast<__nv_bfloat16*>(held), n, head, nvec,
+      scale, lr, b1c, b2c, c, decay);
 }
 
 }  // namespace
@@ -280,20 +293,23 @@ long long grad_sumsq_blocks(long long nvec) {
   return b < 1 ? 1 : b;
 }
 
-// p, g, m, v: the leaf's arrays; p_dtype, g_dtype: kF32 or kBF16, m_dtype
-// (m and v share one dtype): kF32, kBF16 or kF16; n elements; the body
+// p, g, m, v: the leaf's arrays; held: p's bf16 working copy, or null
+// (p must be kF32 where it is given); p_dtype, g_dtype: kF32 or kBF16,
+// m_dtype (m and v share one dtype): kF32, kBF16 or kF16; n elements; the
+// body
 // starts at element `head` and holds `nvec` vectors of 8 (head = n, nvec =
 // 0: element by element); scale, lr, b1c, b2c: 0-d f32 tensors on the
 // card.  Another pairing returns cudaErrorInvalidValue and launches
 // nothing.
-int adamw_update(void* p, const void* g, void* m, void* v, int p_dtype,
+int adamw_update(void* p, const void* g, void* m, void* v, void* held,
+                 int p_dtype,
                  int g_dtype, int m_dtype, long long n, long long head,
                  long long nvec, const void* scale, const void* lr,
                  const void* b1c, const void* b2c, double b1, double omb1,
                  double b2, double omb2, double eps, double wd, int decay,
                  void* stream) {
   if (p_dtype < kF32 || p_dtype > kBF16 || g_dtype < kF32 || g_dtype > kBF16 ||
-      m_dtype < kF32 || m_dtype > kF16)
+      m_dtype < kF32 || m_dtype > kF16 || (held && p_dtype != kF32))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   const Consts c{(float)b1, (float)omb1, (float)b2, (float)omb2, (float)eps,
@@ -307,18 +323,18 @@ int adamw_update(void* p, const void* g, void* m, void* v, int p_dtype,
   using B = __nv_bfloat16;
   using H = __half;
   switch (3 * (2 * p_dtype + g_dtype) + m_dtype) {
-    case 0: launch_update<F, F, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 1: launch_update<F, F, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 2: launch_update<F, F, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 3: launch_update<F, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 4: launch_update<F, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 5: launch_update<F, B, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 6: launch_update<B, F, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 7: launch_update<B, F, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 8: launch_update<B, F, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 9: launch_update<B, B, F>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    case 10: launch_update<B, B, B>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
-    default: launch_update<B, B, H>(p, g, m, v, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 0: launch_update<F, F, F>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 1: launch_update<F, F, B>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 2: launch_update<F, F, H>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 3: launch_update<F, B, F>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 4: launch_update<F, B, B>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 5: launch_update<F, B, H>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 6: launch_update<B, F, F>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 7: launch_update<B, F, B>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 8: launch_update<B, F, H>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 9: launch_update<B, B, F>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    case 10: launch_update<B, B, B>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
+    default: launch_update<B, B, H>(p, g, m, v, held, n, head, nvec, s, l, c1, c2, c, decay, st); break;
   }
   return (int)cudaGetLastError();
 }

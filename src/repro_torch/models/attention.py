@@ -34,8 +34,8 @@ import torch
 
 from ..kernels import ops
 from . import pctx
-from .layers import (apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap,
-                     write_state)
+from .layers import (apply_rope, cast, dense_init, rmsnorm, rmsnorm_init,
+                     softcap, write_state)
 
 _NEG_INF = -2.3819763e38  # bf16-safe large negative
 
@@ -110,13 +110,13 @@ def mla_init(gen: torch.Generator, d_model: int, n_heads: int, mla,
 
 def _qkv(params, x, spec: AttnSpec, positions, eps):
     dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["w_k"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["w_v"].to(dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, cast(params["w_q"], dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, cast(params["w_k"], dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, cast(params["w_v"], dtype))
     if "b_q" in params:
-        q = q + params["b_q"].to(dtype)
-        k = k + params["b_k"].to(dtype)
-        v = v + params["b_v"].to(dtype)
+        q = q + cast(params["b_q"], dtype)
+        k = k + cast(params["b_k"], dtype)
+        v = v + cast(params["b_v"], dtype)
     if spec.qk_norm:
         q = rmsnorm(params["q_norm"], q, eps)
         k = rmsnorm(params["k_norm"], k, eps)
@@ -149,7 +149,7 @@ def attention_forward(params, x, spec: AttnSpec, positions=None,
                                  use_kernel)
     q, k, v = _qkv(params, x, spec, positions, eps)
     out = _attend(q, k, v, spec, use_kernel)
-    return torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(x.dtype))
+    return torch.einsum("bshd,hdm->bsm", out, cast(params["w_o"], x.dtype))
 
 
 def _heads_axes(entry) -> tuple:
@@ -186,7 +186,7 @@ def _attn_local(p, x, positions, spec: AttnSpec, eps, use_kernel: bool,
     q, k, v = _qkv(p, x, spec, positions, eps)
     kr, vr = (pick(k), pick(v)) if pick is not None else (k, v)
     o = _attend(q, kr, vr, spec, use_kernel)
-    out = torch.einsum("bshd,hdm->bsm", o, p["w_o"].to(x.dtype))
+    out = torch.einsum("bshd,hdm->bsm", o, cast(p["w_o"], x.dtype))
     if cache_len is None:
         return out
     return (out,) + _prefill_cache(k, v, spec, cache_len)
@@ -227,7 +227,7 @@ def attention_make_cache(params, x, spec: AttnSpec, cache_len: int,
                                  use_kernel, cache_len)
     q, k, v = _qkv(params, x, spec, positions, eps)
     out = _attend(q, k, v, spec, use_kernel)
-    out = torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(x.dtype))
+    out = torch.einsum("bshd,hdm->bsm", out, cast(params["w_o"], x.dtype))
     ck, cv = _prefill_cache(k, v, spec, cache_len)
     return out, {"k": ck, "v": cv}
 
@@ -324,7 +324,7 @@ def _decode_attend(params, x, q, k, v, spec: AttnSpec, pos):
                                                                   _NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, 1, Hq, -1)
-    return torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(x.dtype))
+    return torch.einsum("bshd,hdm->bsm", o, cast(params["w_o"], x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +334,9 @@ def _decode_attend(params, x, q, k, v, spec: AttnSpec, pos):
 
 def _mla_q(params, x, mla, spec: AttnSpec, positions, eps):
     dtype = x.dtype
-    c_q = x @ params["w_dq"].to(dtype)
+    c_q = x @ cast(params["w_dq"], dtype)
     c_q = rmsnorm(params["q_norm"], c_q, eps)
-    q = torch.einsum("bsl,lhk->bshk", c_q, params["w_uq"].to(dtype))
+    q = torch.einsum("bsl,lhk->bshk", c_q, cast(params["w_uq"], dtype))
     q_nope = q[..., : mla.qk_nope_head_dim]
     q_rope = apply_rope(q[..., mla.qk_nope_head_dim:], positions,
                         spec.rope_theta)
@@ -345,7 +345,7 @@ def _mla_q(params, x, mla, spec: AttnSpec, positions, eps):
 
 def _mla_ckv(params, x, mla, spec: AttnSpec, positions, eps):
     dtype = x.dtype
-    dkv = x @ params["w_dkv"].to(dtype)
+    dkv = x @ cast(params["w_dkv"], dtype)
     c_kv = rmsnorm(params["kv_norm"], dkv[..., : mla.kv_lora_rank], eps)
     k_rope = apply_rope(dkv[..., mla.kv_lora_rank:][:, :, None, :],
                         positions, spec.rope_theta)[:, :, 0]
@@ -360,7 +360,7 @@ def _mla_attend(params, x, mla, spec: AttnSpec, positions, eps,
     dtype = x.dtype
     q_nope, q_rope = _mla_q(params, x, mla, spec, positions, eps)
     c_kv, k_rope = _mla_ckv(params, x, mla, spec, positions, eps)
-    kv = torch.einsum("bsl,lhk->bshk", c_kv, params["w_ukv"].to(dtype))
+    kv = torch.einsum("bsl,lhk->bshk", c_kv, cast(params["w_ukv"], dtype))
     k_nope = kv[..., : mla.qk_nope_head_dim]
     v = kv[..., mla.qk_nope_head_dim:]
     H = k_nope.shape[2]
@@ -368,7 +368,7 @@ def _mla_attend(params, x, mla, spec: AttnSpec, positions, eps,
         B, S, H, mla.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = _attend(q, k, v, spec, use_kernel)
-    out = torch.einsum("bshd,hdm->bsm", out, params["w_o"].to(dtype))
+    out = torch.einsum("bshd,hdm->bsm", out, cast(params["w_o"], dtype))
     return out, c_kv, k_rope
 
 
@@ -472,7 +472,7 @@ def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
     c_kv = write_state(cache, "c_kv", ckv_new, slot)
     k_rope = write_state(cache, "k_rope", krope_new, slot)
 
-    w_ukv = params["w_ukv"].to(dtype)
+    w_ukv = cast(params["w_ukv"], dtype)
     w_uk = w_ukv[..., : mla.qk_nope_head_dim]        # (lora, H, nope)
     w_uv = w_ukv[..., mla.qk_nope_head_dim:]          # (lora, H, v)
     q_abs = torch.einsum("bthn,lhn->bthl", q_nope, w_uk)  # (B, 1, H, lora)
@@ -486,5 +486,5 @@ def mla_decode(params, x, cache, mla, spec: AttnSpec, pos,
     p = torch.softmax(s, dim=-1).to(dtype)
     ctx = torch.einsum("bhts,bsl->bthl", p, c_kv)
     o = torch.einsum("bthl,lhv->bthv", ctx, w_uv)
-    out = torch.einsum("bshd,hdm->bsm", o, params["w_o"].to(dtype))
+    out = torch.einsum("bshd,hdm->bsm", o, cast(params["w_o"], dtype))
     return out, cache

@@ -2,7 +2,9 @@
 
 Plain functions over explicit parameter dicts of tensors.  Compute dtype
 and parameter dtype are decoupled: parameters may be f32 or bf16 and are
-cast at use to the activations' dtype (``cfg.dtype``).  Initialisers
+cast at use to the activations' dtype (``cfg.dtype``), every such use
+through ``cast``, which the one-card train step answers from its held
+bf16 working copies (``held_casts``).  Initialisers
 draw from an explicit ``torch.Generator`` on the parameters' device; they
 cannot reproduce ``jax.random``, so parity with the reference is held by
 converting its parameters (``models.convert``).
@@ -10,12 +12,71 @@ converting its parameters (``models.convert``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import pctx
+
+# ---------------------------------------------------------------------------
+# Casts at use, and the train step's held working copies
+# ---------------------------------------------------------------------------
+
+#: inside ``held_casts``: id(leaf) -> (leaf, its working copy)
+_HELD: Optional[dict] = None
+
+
+class HeldCast(torch.autograd.Function):
+    """``w.to(held.dtype)`` answered by `held`, a working copy of `w` that
+    its writer keeps bitwise equal to that cast: the forward launches
+    nothing and returns an alias of `held`; the backward is
+    ``ToCopyBackward``'s, the gradient cast back to `w`'s dtype.  One node
+    a use, as ``.to()`` makes, so autograd sums a leaf's uses in f32 in
+    the same order."""
+
+    @staticmethod
+    def forward(ctx, w, held):
+        ctx.dtype = w.dtype
+        # a new tensor over held's storage: an output that is an input
+        # would come back as a view of it
+        return held.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+@contextmanager
+def held_casts(pairs: Iterable[Tuple[torch.Tensor, torch.Tensor]]):
+    """Inside, ``cast`` answers each leaf of `pairs` ((leaf, working
+    copy)) by its copy.  Read from any thread (the backward's recomputed
+    forwards run on autograd's); not re-entrant across threads."""
+    global _HELD
+    before = _HELD
+    _HELD = {id(w): (w, h) for w, h in pairs}
+    try:
+        yield
+    finally:
+        _HELD = before
+
+
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Parameter `w` in the compute dtype, the one cast every use of a
+    parameter goes through: ``w.to(dtype)``, or inside ``held_casts`` the
+    working copy of `w` (``HeldCast``).  There an f32 leaf cast without a
+    copy of `dtype` counts one in ``cast.misses``."""
+    if _HELD is None or w.dtype == dtype:
+        return w.to(dtype)
+    hit = _HELD.get(id(w))
+    if hit is None or hit[0] is not w or hit[1].dtype != dtype:
+        cast.misses += 1
+        return w.to(dtype)
+    return HeldCast.apply(w, hit[1])
+
+
+cast.misses = 0
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -120,7 +181,7 @@ def mlp(params, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
     down projection's partial sums are added over the hidden's axis: the
     column- then row-parallel MLP of Megatron."""
     dtype = x.dtype
-    w = [params[k].to(dtype) for k in ("w_gate", "w_up", "w_down")]
+    w = [cast(params[k], dtype) for k in ("w_gate", "w_up", "w_down")]
 
     def ffn(x, w_gate, w_up, w_down):
         gate = x @ w_gate
@@ -234,4 +295,4 @@ def embed(params, tokens: torch.Tensor, scale: bool, d_model: int,
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d_model) -> logits (..., vocab)."""
-    return x @ params["table"].to(x.dtype).T
+    return x @ cast(params["table"], x.dtype).T

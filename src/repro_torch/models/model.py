@@ -47,7 +47,7 @@ from . import moe as moe_mod
 from . import pctx
 from . import rglru as rglru_mod
 from . import ssd as ssd_mod
-from .layers import (dense_init, embed, embedding_init, mlp, mlp_init,
+from .layers import (cast, dense_init, embed, embedding_init, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -191,6 +191,35 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+#: leaves the model reads in f32 whatever the compute dtype (norm scales,
+#: the RG-LRU's a_param, the SSD's A_log and dt_bias, the MoE router)
+F32_READ = ("scale", "a_param", "A_log", "dt_bias", "w_router")
+
+
+def held_copies(cfg: ModelConfig, params) -> dict:
+    """The bf16 working copies of `params`' f32 leaves that the forward
+    casts to a bf16 compute dtype at use (``layers.cast``), each
+    ``p.to(torch.bfloat16)``, keyed by the leaf's ``optim.adamw.keystr``:
+    every f32 leaf but those read in f32 (F32_READ) and the input table
+    where an ``lm_head`` is apart (only its gathered rows are cast, so
+    that repeated tokens' gradients add in f32).  Empty at another
+    compute dtype.  The one-card train step makes them (``distributed.steps
+    .make_train_step``) and the AdamW update rewrites them."""
+    from ..optim.adamw import keystr, leaves_with_path
+    if compute_dtype(cfg) != torch.bfloat16:
+        return {}
+    out = {}
+    for path, w in leaves_with_path(params):
+        if (w.dtype != torch.float32 or pctx.is_dtensor(w)
+                or path[-1].strip("[]'") in F32_READ
+                or (path == ("['embed']", "['table']")
+                    and "lm_head" in params)):
+            continue
+        out[keystr(path)] = w.detach().to(
+            torch.bfloat16, memory_format=torch.contiguous_format)
+    return out
+
+
 def params_device(params) -> torch.device:
     return params["embed"]["table"].device
 
@@ -332,10 +361,10 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     embeddings (batch["patch_embeds"]) followed by the embedded tokens."""
     dtype = compute_dtype(cfg)
     if cfg.frontend == "audio":
-        x = batch["frames"].to(dtype) @ params["frontend_proj"].to(dtype)
+        x = batch["frames"].to(dtype) @ cast(params["frontend_proj"], dtype)
     elif cfg.frontend == "vision":
         img = (batch["patch_embeds"].to(dtype)
-               @ params["frontend_proj"].to(dtype))
+               @ cast(params["frontend_proj"], dtype))
         txt = embed(params["embed"], batch["tokens"], cfg.emb_scale,
                     cfg.d_model, dtype)
         x = torch.cat([img, txt], dim=1)

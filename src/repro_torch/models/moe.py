@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import pctx
-from .layers import _act, dense_init, mlp, mlp_init, softcap
+from .layers import _act, cast, dense_init, mlp, mlp_init, softcap
 
 
 def moe_init(gen: torch.Generator, d_model: int, moe, dtype=torch.float32):
@@ -97,10 +97,10 @@ def _positions_in_expert(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
 def _expert_ffn(params, buf: torch.Tensor, activation: str) -> torch.Tensor:
     """buf: (E, C, d) -> (E, C, d) via per-expert gated MLP."""
     dtype = buf.dtype
-    g = torch.bmm(buf, params["w_gate"].to(dtype))
-    u = torch.bmm(buf, params["w_up"].to(dtype))
+    g = torch.bmm(buf, cast(params["w_gate"], dtype))
+    u = torch.bmm(buf, cast(params["w_up"], dtype))
     h = _act(g, activation) * u
-    return torch.bmm(h, params["w_down"].to(dtype))
+    return torch.bmm(h, cast(params["w_down"], dtype))
 
 
 def _expert_ffn_dsplit(params, buf: torch.Tensor, activation: str, mesh,
@@ -117,10 +117,10 @@ def _expert_ffn_dsplit(params, buf: torch.Tensor, activation: str, mesh,
     ``pctx.sum_over`` and ``pctx.copy_over``)."""
     dtype = buf.dtype
     gu = pctx.sum_over(torch.stack([
-        torch.bmm(buf, params["w_gate"].to(dtype)),
-        torch.bmm(buf, params["w_up"].to(dtype))]), mesh, axis)
+        torch.bmm(buf, cast(params["w_gate"], dtype)),
+        torch.bmm(buf, cast(params["w_up"], dtype))]), mesh, axis)
     h = pctx.copy_over(_act(gu[0], activation) * gu[1], mesh, axis)
-    return torch.bmm(h, params["w_down"].to(dtype))
+    return torch.bmm(h, cast(params["w_down"], dtype))
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import pctx
-from .layers import dense_init, write_state
+from .layers import cast, dense_init, write_state
 
 _C = 8.0
 
@@ -60,10 +60,10 @@ def _block_diag(x, w, b, nb):
 
 def _gates(params, u, nb):
     dtype = u.dtype
-    r = torch.sigmoid(_block_diag(u, params["w_r"].to(dtype),
-                                  params["b_r"].to(dtype), nb).float())
-    i = torch.sigmoid(_block_diag(u, params["w_i"].to(dtype),
-                                  params["b_i"].to(dtype), nb).float())
+    r = torch.sigmoid(_block_diag(u, cast(params["w_r"], dtype),
+                                  cast(params["b_r"], dtype), nb).float())
+    i = torch.sigmoid(_block_diag(u, cast(params["w_i"], dtype),
+                                  cast(params["b_i"], dtype), nb).float())
     log_a = -_C * r * F.softplus(params["a_param"].float())
     a = torch.exp(log_a)
     # sqrt(1 - a^2) in f32, clipped for stability near a=1
@@ -95,9 +95,10 @@ def rglru_forward(params, x, n_heads: int, rglru, state=None,
         return _forward_shards(params, x, n_heads, rglru, use_kernel,
                                state, return_state)
     dtype = x.dtype
-    gate = _gelu(x @ params["w_gate_branch"].to(dtype))
-    u_raw = x @ params["w_x"].to(dtype)
-    conv_w, conv_b = params["conv_w"].to(dtype), params["conv_b"].to(dtype)
+    gate = _gelu(x @ cast(params["w_gate_branch"], dtype))
+    u_raw = x @ cast(params["w_x"], dtype)
+    conv_w = cast(params["conv_w"], dtype)
+    conv_b = cast(params["conv_b"], dtype)
     if state is not None:
         # continue the conv across the prefill boundary
         n_prev = state["conv"].shape[1]
@@ -109,7 +110,7 @@ def rglru_forward(params, x, n_heads: int, rglru, state=None,
     h0 = None if state is None else state["h"].float().contiguous()
     h = ops.rglru_op(a.contiguous(), b.contiguous(), h0,
                      use_kernel=use_kernel).to(dtype)
-    out = (h * gate) @ params["w_out"].to(dtype)
+    out = (h * gate) @ cast(params["w_out"], dtype)
     if return_state:
         W = rglru.conv_width - 1
         S = u_raw.shape[1]
@@ -193,14 +194,14 @@ def rglru_decode(params, x, state, n_heads: int, rglru):
     if pctx.is_dtensor(x):
         return _decode_shards(params, x, state, n_heads, rglru)
     dtype = x.dtype
-    gate = _gelu(x @ params["w_gate_branch"].to(dtype))
-    u_new = (x @ params["w_x"].to(dtype))[:, 0]
+    gate = _gelu(x @ cast(params["w_gate_branch"], dtype))
+    u_new = (x @ cast(params["w_x"], dtype))[:, 0]
     buf = torch.cat([state["conv"].to(dtype), u_new[:, None]], dim=1)
-    u = (torch.einsum("bwc,wc->bc", buf, params["conv_w"].to(dtype))
-         + params["conv_b"].to(dtype))
+    u = (torch.einsum("bwc,wc->bc", buf, cast(params["conv_w"], dtype))
+         + cast(params["conv_b"], dtype))
     a, b = _gates(params, u[:, None], n_heads)
     h = a[:, 0] * state["h"] + b[:, 0]
-    out = (h[:, None].to(dtype) * gate) @ params["w_out"].to(dtype)
+    out = (h[:, None].to(dtype) * gate) @ cast(params["w_out"], dtype)
     write_state(state, "h", h)
     write_state(state, "conv", buf[:, 1:])
     return out, state

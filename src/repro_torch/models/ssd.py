@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import pctx
-from .layers import dense_init, rmsnorm, rmsnorm_init, write_state
+from .layers import cast, dense_init, rmsnorm, rmsnorm_init, write_state
 
 
 def ssd_init(gen: torch.Generator, d_model: int, ssd, dtype=torch.float32):
@@ -123,12 +123,13 @@ def ssd_forward(params, x, ssd, eps: float = 1e-6, state=None,
     nh = ssd.n_heads(d)
     g, n = ssd.n_groups, ssd.d_state
 
-    zxbcdt = x @ params["w_in"].to(dtype)
+    zxbcdt = x @ cast(params["w_in"], dtype)
     z = zxbcdt[..., :di]
     xBC_raw = zxbcdt[..., di: di + di + 2 * g * n]
     dt_raw = zxbcdt[..., -nh:]
 
-    conv_w, conv_b = params["conv_w"].to(dtype), params["conv_b"].to(dtype)
+    conv_w = cast(params["conv_w"], dtype)
+    conv_b = cast(params["conv_b"], dtype)
     if state is not None:
         # continue the conv across the boundary
         n_prev = state["conv"].shape[1]
@@ -144,10 +145,10 @@ def ssd_forward(params, x, ssd, eps: float = 1e-6, state=None,
     h0 = None if state is None else state["h"].float().contiguous()
     y, h_final = ops.ssd_op(xs, dt, A, Bg, Cg, h0, chunk=ssd.chunk,
                             use_kernel=use_kernel)
-    y = y + xs * params["D"].to(dtype)[None, None, :, None]
+    y = y + xs * cast(params["D"], dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, di)
     y = rmsnorm(params["gate_norm"], y * F.silu(z), eps)
-    out = y @ params["w_out"].to(dtype)
+    out = y @ cast(params["w_out"], dtype)
     if return_state:
         return out, {"h": h_final.to(dtype),
                      "conv": xBC_raw_tail(xBC_raw, ssd.conv_width)}
@@ -190,15 +191,15 @@ def ssd_decode(params, x, state, ssd, eps: float = 1e-6):
     nh = ssd.n_heads(d)
     g, n = ssd.n_groups, ssd.d_state
 
-    zxbcdt = x @ params["w_in"].to(dtype)
+    zxbcdt = x @ cast(params["w_in"], dtype)
     z = zxbcdt[..., :di]
     xBC_new = zxbcdt[:, 0, di: di + di + 2 * g * n]
     dt_raw = zxbcdt[..., -nh:]
 
     conv_buf = torch.cat([state["conv"], xBC_new[:, None]], dim=1)
-    w = params["conv_w"].to(dtype)
+    w = cast(params["conv_w"], dtype)
     xBC = (torch.einsum("bwc,wc->bc", conv_buf, w)
-           + params["conv_b"].to(dtype))
+           + cast(params["conv_b"], dtype))
     xBC = F.silu(xBC)
 
     xs, Bg, Cg = _heads(xBC, di, g, n, nh, ssd.head_dim)
@@ -212,10 +213,10 @@ def ssd_decode(params, x, state, ssd, eps: float = 1e-6):
     h = (state["h"].float() * dA[..., None, None]
          + torch.einsum("bh,bhp,bhn->bhpn", dt, xs.float(), Bh.float()))
     y = torch.einsum("bhn,bhpn->bhp", Ch.float(), h)
-    y = y.to(dtype) + xs * params["D"].to(dtype)[None, :, None]
+    y = y.to(dtype) + xs * cast(params["D"], dtype)[None, :, None]
     y = y.reshape(Bsz, 1, di)
     y = rmsnorm(params["gate_norm"], y * F.silu(z), eps)
-    out = y @ params["w_out"].to(dtype)
+    out = y @ cast(params["w_out"], dtype)
     write_state(state, "h", h)
     write_state(state, "conv", conv_buf[:, 1:])
     return out, state

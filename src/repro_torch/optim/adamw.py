@@ -148,26 +148,37 @@ def _decayable(path) -> bool:
                                        "A_log", "dt_bias", "D"))
 
 
+def keystr(path) -> str:
+    """A ``leaves_with_path`` path as one string, JAX's ``keystr`` of
+    its key path (``"['layers'][0]['attn']['w_q']"``): the key of a
+    leaf's held working copy."""
+    return "".join(path)
+
+
 @torch.no_grad()
 def update(params, grads, state: OptState, cfg: AdamWConfig,
-           use_kernel: bool = True):
+           use_kernel: bool = True, held=None):
     """-> (params, new_state, metrics), everything fp32 math.  The
     parameters, the moments and the step count are updated in place (the
     returned trees and count are the ones passed in).  With
     `use_kernel`, CUDA leaves go through the hand-written kernels
     (``kernels.adamw``: the norm, and one launch a leaf), CPU leaves
     through the plain versions below; without, every leaf through the
-    plain versions."""
+    plain versions.  `held` maps a leaf's ``keystr`` to its bf16 working
+    copy (``models.model.held_copies``), which the leaf's update rewrites
+    with the new weights (in the kernel's own launch on the card)."""
     g_leaves = [t for _, t in leaves_with_path(grads)]
     on_card = bool(g_leaves) and g_leaves[0].device.type == "cuda"
     gnorm = (_kernel_norm(g_leaves) if use_kernel and on_card
              else global_norm(grads))
-    return update_with_norm(params, grads, state, cfg, gnorm, use_kernel)
+    return update_with_norm(params, grads, state, cfg, gnorm, use_kernel,
+                            held)
 
 
 @torch.no_grad()
 def update_with_norm(params, grads, state: OptState, cfg: AdamWConfig,
-                     gnorm: torch.Tensor, use_kernel: bool = True):
+                     gnorm: torch.Tensor, use_kernel: bool = True,
+                     held=None):
     """``update`` given the global norm of `grads`, `gnorm` (a 0-d f32
     tensor on their device)."""
     if cfg.clip_norm > 0:
@@ -189,14 +200,19 @@ def update_with_norm(params, grads, state: OptState, cfg: AdamWConfig,
     if not (len(p_leaves) == len(g_leaves) == len(m_leaves)
             == len(v_leaves)):
         raise ValueError("params, grads and moments are not congruent")
+    held = held or {}
     for (path, p), g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+        h = held.get(keystr(path))
+        if h is not None and is_dtensor(p):
+            raise ValueError("a held copy of a DTensor leaf: a mesh step "
+                             "casts at use")
         p, g, m, v = _local(p, g, m, v)
         decay = _decayable(path)
         if use_kernel and p.device.type == "cuda":
             adamw_kernels.adamw_update(p, g, m, v, cfg, scale, lr, b1c,
-                                       b2c, decay)
+                                       b2c, decay, h)
         else:
-            plain_update(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
+            plain_update(p, g, m, v, cfg, scale, lr, b1c, b2c, decay, h)
     return params, OptState(state.m, state.v, step), {"grad_norm": gnorm,
                                                       "lr": lr}
 
@@ -236,19 +252,24 @@ def _kernel_norm(leaves) -> torch.Tensor:
 
 
 def plain_update(p, g, m, v, cfg: AdamWConfig, scale, lr, b1c, b2c,
-                 decay: bool):
+                 decay: bool, held=None):
     """One leaf's update through the plain version: ``_update_leaf`` on
     the whole leaf, or on slices of its first axis where it holds more
-    than SLICE_ELEMENTS elements."""
+    than SLICE_ELEMENTS elements; each slice's new weights then copied
+    into `held` (p's bf16 working copy) where given."""
     n = p.shape[0] if p.dim() else 0
     rows = max(1, SLICE_ELEMENTS * n // max(p.numel(), 1))
     if rows >= n:
         _update_leaf(p, g, m, v, cfg, scale, lr, b1c, b2c, decay)
+        if held is not None:
+            held.copy_(p)
         return
     for i in range(0, n, rows):
         s = slice(i, i + rows)
         _update_leaf(p[s], g[s], m[s], v[s], cfg, scale, lr, b1c, b2c,
                      decay)
+        if held is not None:
+            held[s].copy_(p[s])
 
 
 def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, b1c, b2c,

@@ -2357,7 +2357,7 @@ def _delta(after: dict, before: dict) -> dict:
 
 
 def _train_run(cfg, graph: bool, steps: int, microbatch: int = 1,
-               between=None):
+               between=None, held: bool = True):
     """`steps` steps of `cfg` from seed 0 through ``make_train_step`` on
     the card -> (losses, grad norms, the final state, the step, the
     launches counted after each call); ``between(i, state)`` may return a
@@ -2371,7 +2371,7 @@ def _train_run(cfg, graph: bool, steps: int, microbatch: int = 1,
     shape = InputShape("t", S, B, "train")
     opt = tadamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps)
     fn = make_train_step(cfg, None, shape, opt, microbatch=microbatch,
-                         device=dev, graph=graph).fn
+                         device=dev, graph=graph, held=held).fn
     state = build_state(cfg, opt, 0, dev)
     losses, norms, counts = [], [], [_train_launches()]
     for i in range(steps):
@@ -2422,6 +2422,38 @@ def test_graphed_train_step_equals_eager_train_step(name, microbatch):
         k: 2 * n for k, n in per_step.items()}
     assert counts[-1] == counts[1]
     assert per_step["adamw_update"] > 0 and per_step["grad_norm"] == 1
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("microbatch", [1, 2])
+@pytest.mark.parametrize("name", GRAPH_TRAIN_MODELS)
+def test_graphed_held_train_step_equals_eager_casts_at_use(name, microbatch):
+    """With f32 weights and bf16 compute (the training example in its own
+    f32, where nothing is cast): four steps through the captured step
+    reading the held bf16 copies, which the AdamW kernel rewrites, and
+    four through the eager step that casts at use (``held=False``), from
+    seed 0 on the same batches: every loss and gradient norm, every
+    parameter, moment and the step count bitwise (the copies left out of
+    the comparison); each copy bitwise its master's cast at the end; the
+    same launches a step."""
+    cfg = _graph_model(name)
+    if name != "train_lm":
+        cfg = cfg.replace(dtype="bfloat16")
+    got = _train_run(cfg, True, 4, microbatch)
+    want = _train_run(cfg, False, 4, microbatch, held=False)
+    assert ("held" in got[2]) == (name != "train_lm")
+    assert "held" not in want[2]
+    strip = lambda st: {"params": st["params"], "opt": st["opt"]}
+    _assert_train_runs_equal(got[:2] + (strip(got[2]),),
+                             want[:2] + (strip(want[2]),))
+    for path, p in tadamw.leaves_with_path(got[2]["params"]):
+        h = got[2].get("held", {}).get(tadamw.keystr(path))
+        if h is not None:
+            assert torch.equal(h, p.to(torch.bfloat16)), path
+    assert (got[3].captures, got[3].replays) == (1, 3)
+    per_step = _delta(want[4][1], want[4][0])
+    assert _delta(got[4][1], got[4][0]) == {
+        k: 2 * n for k, n in per_step.items()}
 
 
 @pytest.mark.cuda_only
@@ -2599,6 +2631,40 @@ def test_adamw_kernel_is_bitwise_its_plain_version(n, offsets, dtypes, decay,
         assert a.dtype == b.dtype and torch.equal(a, b)
     for a, b in zip(*got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda_only
+@pytest.mark.parametrize("m_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(7, 0), (4097, 1), ((1 << 26) + 3, 1)],
+                         ids=lambda x: str(x))
+def test_adamw_kernel_writes_the_held_copy_in_its_launch(n, offset, g_dtype,
+                                                          m_dtype):
+    """f32 weights with a bf16 held copy, f32 or bf16 gradients, f32,
+    bf16 or f16 moments, at lengths with a head and a tail (views at
+    storage offset 1: the body from element 7): one launch writes the
+    copy bitwise the new weights' ``.to(torch.bfloat16)`` and updates p,
+    m and v bitwise as the plain update; the vector path where n >= 8."""
+    dev = _card()
+    cfg = tadamw.AdamWConfig(weight_decay=0.1)
+    dtypes = (torch.float32, g_dtype, m_dtype)
+    leaf = _adamw_leaf(n, n, dtypes, dev, (offset,) * 4)
+    sc = _adamw_scalars(dev, 0.37)
+    want = [t.clone() for t in leaf]
+    tadamw._update_leaf(*want, cfg, *sc, True)
+    p, g, m, v = (torch.cat([t.new_zeros(offset), t])[offset:]
+                  for t in leaf)
+    held = torch.zeros(n + offset, dtype=torch.bfloat16,
+                       device=dev)[offset:]
+    n0 = kadamw.adamw_update.launches
+    path = kadamw.adamw_update(p, g, m, v, cfg, *sc, True, held)
+    torch.cuda.synchronize()
+    assert kadamw.adamw_update.launches == n0 + 1
+    assert path == ("vector" if n >= 8 else "scalar")
+    for a, b in zip((p, m, v), (want[0], want[2], want[3])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(held, want[0].to(torch.bfloat16))
 
 
 @pytest.mark.cuda_only
